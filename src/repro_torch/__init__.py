@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the API-BCD reproduction, for one NVIDIA H100.
+
+A package of its own beside `repro` (the JAX reference). It imports
+`torch` and `numpy` only, never `jax` and nothing from `repro`; modules
+it shares with the reference are kept as copies here. Module names follow
+the reference, so each file has a clear counterpart.
+
+Ported so far: the gAPI-BCD language-model trainer for the dense
+`qwen2-0.5b` family (`repro_torch.launch.train`), with the closed-form
+prox update as a hand-written CUDA kernel (`repro_torch.kernels`).
+"""

@@ -1,0 +1,34 @@
+"""Config registry of the port: one module per ported architecture.
+
+`get_config(name)` -> full ArchConfig; `get_smoke(name)` -> the reduced
+variant for CPU tests. Architectures the reference has but the port
+does not yet run raise.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig, MLAConfig, MoEConfig, TrainConfig,
+)
+
+# user-facing ids -> module names, for the architectures ported so far
+ARCH_IDS = {
+    "qwen2-0.5b": "qwen2_0p5b",
+}
+
+
+def _module(name: str):
+    mod_name = ARCH_IDS.get(name, name)
+    if mod_name not in ARCH_IDS.values():
+        raise ValueError(f"architecture {name!r} is not ported to "
+                         f"repro_torch yet; ported: {sorted(ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _module(name).smoke()

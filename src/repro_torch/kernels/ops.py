@@ -1,0 +1,33 @@
+"""Dispatch between the Hopper kernels and their plain versions.
+
+A CUDA tensor goes to the kernel, which launches or raises; a CPU tensor
+goes to the plain version in `ref`. Nothing else is accepted, and no
+failure on the card falls back to the plain version.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.prox_update import prox_update_cuda
+
+
+def prox_update(x, g, zsum, *, tau, rho, num_walks, num_agents):
+    """Fused gAPI-BCD update on one tensor of any shape.
+
+    Returns (x_new in x.dtype, delta in f32) — see kernels/prox_update.py.
+    """
+    kw = dict(tau=tau, rho=rho, num_walks=num_walks, num_agents=num_agents)
+    if x.device.type == "cuda":
+        return prox_update_cuda(x, g, zsum, **kw)
+    if x.device.type == "cpu":
+        return ref.prox_update(x, g, zsum, **kw)
+    raise ValueError(f"prox_update: no kernel for device {x.device}")
+
+
+def prox_update_tree(xs, gs, zsums, *, tau, rho, num_walks, num_agents):
+    """Dict version: returns (new_params, deltas), keyed like `xs`."""
+    new, delta = {}, {}
+    for k in xs:
+        new[k], delta[k] = prox_update(xs[k], gs[k], zsums[k], tau=tau,
+                                       rho=rho, num_walks=num_walks,
+                                       num_agents=num_agents)
+    return new, delta

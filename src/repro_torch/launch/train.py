@@ -1,0 +1,119 @@
+"""End-to-end API-BCD decentralized LM training on one GPU.
+
+Runs on CUDA unless --device cpu is given; with no GPU it raises rather
+than run on the CPU unasked. Example (full qwen2-0.5b width on an H100):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen2-0.5b --agents 4 --walks 2 --steps 3 \
+        --batch-per-agent 2 --seq 256
+
+and at smoke size on the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --smoke --agents 4 --walks 2 --steps 10 --batch-per-agent 2 \
+        --seq 64 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-feasible)")
+    ap.add_argument("--agents", type=int, default=4)
+    ap.add_argument("--walks", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch-per-agent", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--tau", type=float, default=0.05)
+    ap.add_argument("--rho", type=float, default=20.0)
+    ap.add_argument("--paper-faithful", action="store_true",
+                    help="disable gradient accumulation between visits "
+                         "(idle agents, as in the paper)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--log-dir", default=None,
+                    help="write JSONL metrics here")
+    ap.add_argument("--log-every", type=int, default=5)
+    return ap.parse_args(argv)
+
+
+def resolve_device(name):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to train on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return device
+
+
+def train(args):
+    """Run args.steps supersteps. Returns {"losses", "step_ms",
+    "peak_bytes", "device"}; peak_bytes is None on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import agent_batches
+    from repro_torch.dist.trainer import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.utils.logging import MetricLogger
+
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    if cuda:
+        # f32 products in full f32, as the reference computes them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats(device)
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    a = args.agents
+    print(f"agents={a} walks={args.walks} arch={cfg.name} device={device}")
+    tcfg = TrainConfig(num_agents=a, num_walks=args.walks, tau=args.tau,
+                       rho=args.rho,
+                       accumulate_between_visits=not args.paper_faithful)
+    batches = agent_batches(cfg.vocab_size, a, args.batch_per_agent,
+                            args.seq, seed=0)
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=device).manual_seed(0))
+    train_step = make_train_step(model, tcfg)
+
+    logger = MetricLogger(args.log_dir, echo_every=args.log_every)
+    losses, step_ms = [], []
+    for step in range(args.steps):
+        toks, targs = next(batches)
+        batch = {"tokens": torch.from_numpy(toks).to(device),
+                 "targets": torch.from_numpy(targs).to(device)}
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, step)
+        if cuda:
+            torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        logger.log(step, loss=loss, nll=float(metrics["nll"]),
+                   step_ms=step_ms[-1])
+    logger.close()
+    if not np.all(np.isfinite(losses)):
+        raise FloatingPointError(f"non-finite loss: {losses}")
+    return {"losses": losses, "step_ms": step_ms, "device": str(device),
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if cuda else None)}
+
+
+def main(argv=None):
+    return train(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,2 @@
+"""Model code of the port (dense GQA transformer, train path)."""
+from repro_torch.models.model import Model, build_model  # noqa: F401

@@ -1,0 +1,97 @@
+"""Shared building blocks: norms, RoPE, MLPs, embeddings.
+
+Plain functions over dicts of tensors, as in `repro/models/layers.py`, so
+that one agent's parameters are just a dict the trainer can slice from
+its stacked state. Init functions take a `torch.Generator` and create on
+its device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _he(generator, shape, dtype, fan_in):
+    return (torch.randn(shape, generator=generator, device=generator.device)
+            / math.sqrt(fan_in)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(shape, dtype, device):
+    return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (split halves, f32 angles)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim, theta, device):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta=1e4):
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)              # [hd/2]
+    angles = positions[..., None].float() * freqs              # [..., s, hd/2]
+    cos = torch.cos(angles)[..., :, None, :]                   # [..., s, 1, hd/2]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (swiglu)
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(generator, lead, d_model, d_ff, dtype):
+    """Swiglu weights with leading dims `lead` (the stacked layer axis)."""
+    return {
+        "w_gate": _he(generator, lead + (d_model, d_ff), dtype, d_model),
+        "w_up": _he(generator, lead + (d_model, d_ff), dtype, d_model),
+        "w_down": _he(generator, lead + (d_ff, d_model), dtype, d_ff),
+    }
+
+
+def mlp_apply(params, x, mlp_type):
+    if mlp_type != "swiglu":
+        raise ValueError(f"mlp_type {mlp_type!r} is not ported")
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+def embedding_init(generator, vocab, d_model, dtype):
+    return {"table": (torch.randn((vocab, d_model), generator=generator,
+                                  device=generator.device) * 0.02).to(dtype)}
+
+
+def embed(params, tokens):
+    return F.embedding(tokens, params["table"])
+
+
+def unembed(params, x):
+    return x @ params["table"].T

@@ -16,3 +16,8 @@ import jax
 jax.config.update("jax_enable_x64", True)
 
 sys.path.insert(0, os.path.dirname(__file__))  # for proptest helper
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")

@@ -1,0 +1,118 @@
+"""Rules of the PyTorch port: what it may import, and that no path hides
+the device or the kernel."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# smoke-size tensors gain nothing from threads; one thread keeps the
+# parallel test workers from oversubscribing the CPU
+torch.set_num_threads(1)
+
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module):
+    return (module == "jax" or module.startswith("jax.")
+            or module == "repro" or module.startswith("repro."))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import repro_torch.launch.train\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print('LOADED', len([m for m in sys.modules\n"
+        "                     if m.startswith('repro_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED" in res.stdout
+
+
+def test_train_without_cpu_request_raises_when_no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--smoke", "--steps", "1", "--seq", "8",
+                    "--batch-per-agent", "1"])
+
+
+def test_train_on_cpu_when_asked():
+    out = train.main(["--smoke", "--steps", "2", "--seq", "8",
+                      "--batch-per-agent", "1", "--device", "cpu",
+                      "--log-every", "0"])
+    assert out["device"] == "cpu" and len(out["losses"]) == 2
+    assert out["peak_bytes"] is None
+
+
+def test_ops_rejects_devices_without_a_kernel():
+    x = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.prox_update(x, x, x, tau=0.1, rho=20.0, num_walks=2,
+                        num_agents=4)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="no such target"):
+        build.load("prox_update")
+    assert not list((tmp_path / "build").glob("*"))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_kernel_rejects_unsupported_dtype(cuda, dtype):
+    x = torch.zeros(16, dtype=dtype, device=cuda)
+    g = torch.zeros(16, device=cuda)
+    with pytest.raises(TypeError):
+        ops.prox_update(x, g, g, tau=0.1, rho=20.0, num_walks=2,
+                        num_agents=4)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_cpu_and_noncontiguous_operands(cuda):
+    x = torch.zeros(16, 4, device=cuda)
+    with pytest.raises(ValueError):
+        ops.prox_update(x, torch.zeros(16, 4), x, tau=0.1, rho=20.0,
+                        num_walks=2, num_agents=4)
+    with pytest.raises(ValueError):
+        ops.prox_update(x.T, x.T, x.T, tau=0.1, rho=20.0, num_walks=2,
+                        num_agents=4)
