@@ -7,17 +7,35 @@ Phases, in order; none catches its own failure, so any failure exits
 non-zero before the last line:
 
   1. card: the `nvidia-smi` name and power limit;
-  2. build: every CUDA kernel of the main path, compiled from the sources
-     in this checkout (the old library is removed first);
-  3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, with timings and the card's lower bound;
-  4. main path: `repro_torch.launch.train` at full qwen2-0.5b width,
-     A=4 agents, M=2 walks, 3 supersteps, with the kernel launch counts
-     reset just before and read just after;
-  5. reference: the smoke config in f32 for 2 supersteps on the card and
-     on the CPU (plain versions) from one state, which must agree;
-  6. profile: 2 more supersteps under torch.profiler, device time by
-     kernel and the device's busy share.
+  2. build: every CUDA kernel (prox_update, flash_attention,
+     decode_attention), compiled from the sources in this checkout, all
+     at once (the old libraries are removed first), with ptxas's
+     registers and spills;
+  3. kernels: each kernel against its plain PyTorch version at its main
+     path's shapes and one larger case, with timings (device time from
+     torch.profiler, and CUDA events around back-to-back calls, which
+     add the host's gaps), the card's lower bound and, for attention,
+     PyTorch's scaled_dot_product_attention as the yardstick;
+  4. training main path: `repro_torch.launch.train` at full qwen2-0.5b
+     width, A=4 agents, M=2 walks, 3 supersteps, with every kernel launch
+     count reset just before and read just after;
+  5. training reference: the smoke config in f32 for 2 supersteps on the
+     card and on the CPU (plain versions) from one state, which must
+     agree;
+  6. training profile: 2 more supersteps under torch.profiler, device
+     time by kernel and the device's busy share;
+  7. serving main path: `repro_torch.launch.serve` at full qwen2-0.5b
+     width (16 requests, max_batch 8, prompts of 200, budgets 16/64),
+     counts reset just before and read just after (24 flash launches per
+     admission, 24 decode launches per decode step), every request served
+     to its budget, and two requests re-served alone giving the same
+     tokens;
+  8. serving reference: the smoke config in f32, prefill_into_slot and 8
+     decode_rows steps on the card and on the CPU from one set of
+     parameters, which must agree;
+  9. serving profile: 8 steady decode steps at full width under
+     torch.profiler: device time by kernel, launches per step, busy share
+     (and its estimate without the profiler, from 8 unprofiled steps).
 
 Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -44,17 +62,39 @@ from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.trainer import init_train_state, make_train_step  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_cuda)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import Engine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+KERNELS = ("prox_update", "flash_attention", "decode_attention")
+COUNTERS = (prox_update_cuda, flash_attention_cuda, decode_attention_cuda)
 KW = dict(tau=0.05, rho=20.0, num_walks=2, num_agents=4)   # the CLI's
 STEPS = 3
 # qwen2-0.5b leaves: embed.table, final_norm.scale and 12 stacked-layer
 # leaves (ln1, wq, wk, wv, wo, bq, bk, bv, ln2, w_gate, w_up, w_down)
 LEAVES = 14
+
+
+SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "16", "--max-batch", "8",
+              "--prompt-len", "200", "--new-tokens", "64", "--mixed"]
+
+
+def reset_counts():
+    for fn in COUNTERS:
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in zip(KERNELS, COUNTERS)}
 
 
 def main_args(steps, log_every):
@@ -71,7 +111,9 @@ def phase(name):
 
 
 def event_ms(fn, iters):
-    """Mean device ms of fn() over iters launches, after one warm-up."""
+    """Mean ms per call of fn() between CUDA events around iters back-to-
+    back calls, after one warm-up: device time plus any gap the host
+    leaves between launches (the wrapper's checks and allocation)."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -81,6 +123,38 @@ def event_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Mean device ms per call of fn(): the summed time of every kernel
+    and copy it launched, from torch.profiler's device events (no host
+    gaps), after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+    if not total_us:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def timings(fn, plain, library, iters):
+    """Device ms (profiler) and event ms of fn, of its plain version and of
+    the library call (None where there is none)."""
+    t = {"kernel_ms": device_ms(fn, iters), "event_ms": event_ms(fn, iters),
+         "plain_ms": device_ms(plain, 3), "plain_event_ms": event_ms(plain, 3),
+         "library_ms": None, "library_event_ms": None}
+    if library is not None:
+        t["library_ms"] = device_ms(library, iters)
+        t["library_event_ms"] = event_ms(library, iters)
+    return t
 
 
 def bf16_ulp(v):
@@ -108,18 +182,18 @@ def check_prox_case(label, shape, dtype, gen):
         rule = "|x_new - plain| <= 1 bf16 ulp; delta <= 1e-6 * max|delta|"
     max_err = max(float(err_x.max()), err_d)
     del xn, d, rxn, rd, err_x
-    kernel_ms = event_ms(lambda: ops.prox_update(x, g, z, **KW), 10)
-    plain_ms = event_ms(lambda: ref.prox_update(x, g, z, **KW), 3)
+    t = timings(lambda: ops.prox_update(x, g, z, **KW),
+                lambda: ref.prox_update(x, g, z, **KW), None, 10)
     numel = x.numel()
     nbytes = numel * (2 * x.element_size() + 3 * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 7 * numel / F32_FLOPS_PER_S * 1e3
     case = {"case": label, "shape": list(shape), "dtype": str(dtype),
-            "max_abs_err": max_err, "tolerance": rule,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": max_err, "tolerance": rule, **t,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "achieved_GBps": nbytes / kernel_ms / 1e6}
+            "bytes": nbytes,
+            "achieved_GBps": nbytes / t["kernel_ms"] / 1e6}
     print(json.dumps(case), flush=True)
     if not ok:
         raise AssertionError(f"prox_update kernel disagrees with its plain "
@@ -198,6 +272,256 @@ def profile_supersteps():
                 for ms, n, name in rows[:15]]}}), flush=True)
 
 
+def bf16_close(got, want):
+    """|kernel - plain| <= 1 bf16 ulp of plain + 1e-5: both accumulate in
+    f32 and round once to bf16, so they land at most one ulp apart, and
+    their f32 sums (in another order) differ by ~1e-6 of the O(1) terms,
+    which can exceed the ulp of an output near zero."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= bf16_ulp(want) + 1e-5).all()), float(err.max())
+
+
+ATTN_RULE = "|kernel - plain| <= 1 bf16 ulp of plain + 1e-5 (f32 sums in both)"
+
+
+def attention_case(name, label, fn, plain, library, nbytes, flops, iters):
+    """Check fn() against plain() and time fn, plain and the library call."""
+    got = fn()
+    torch.cuda.synchronize()
+    ok, max_err = bf16_close(got, plain())
+    del got
+    t = timings(fn, plain, library, iters)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    case = {"case": label, "dtype": "torch.bfloat16", "max_abs_err": max_err,
+            "tolerance": ATTN_RULE, **t,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "achieved_GBps": nbytes / t["kernel_ms"] / 1e6,
+            "achieved_TFLOPs": flops / t["kernel_ms"] / 1e9}
+    print(json.dumps(case), flush=True)
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees with its plain version "
+                             f"on {label}: {case}")
+    return case
+
+
+def check_flash_case(label, s, gen):
+    """Causal prefill of one prompt of s tokens, 14 heads over 2 kv heads
+    of 64 (qwen2-0.5b), bf16, in the model's [1, S, heads, 64] layout."""
+    h, kv, hd = 14, 2, 64
+    bf = torch.bfloat16
+    q = torch.randn((1, s, h, hd), generator=gen, device=DEV).to(bf)
+    k = torch.randn((1, s, kv, hd), generator=gen, device=DEV).to(bf)
+    v = torch.randn((1, s, kv, hd), generator=gen, device=DEV).to(bf)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * hd * h * s * (s + 1) // 2          # causal pairs only
+    case = attention_case(
+        "flash_attention", label,
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: ref.attention(q, k, v, causal=True),
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+        nbytes, flops, iters=20)
+    return dict(case, shape=[list(q.shape), list(k.shape)])
+
+
+def check_decode_case(label, b, t, gen):
+    """One decode step of b rows over [b, t, 2, 64] caches (slices of an
+    arena), lengths spread over 1..t, 14 query heads, bf16."""
+    h, kv, hd = 14, 2, 64
+    bf = torch.bfloat16
+    q = torch.randn((b, h, hd), generator=gen, device=DEV).to(bf)
+    arena = torch.randn((2, 2, b, t, kv, hd), generator=gen,
+                        device=DEV).to(bf)
+    k, v = arena[1, 0], arena[1, 1]
+    lengths = torch.linspace(1, t, b, device=DEV).round().to(torch.int32)
+    lengths[0] = t
+    valid = torch.arange(t, device=DEV)[None] < lengths[:, None]
+    qt = q[:, :, None]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = valid[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    used = int(lengths.sum())
+    nbytes = 2 * (2 * q.numel() + 2 * used * kv * hd) + 4 * b
+    flops = 4 * hd * h * used
+    case = attention_case(
+        "decode_attention", label,
+        lambda: ops.decode_attention(q, k, v, lengths=lengths),
+        lambda: ref.decode_attention(q, k, v, lengths=lengths),
+        lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        nbytes, flops, iters=50)
+    return dict(case, shape=[list(q.shape), list(k.shape)],
+                lengths=[int(lengths.min()), int(lengths.max())])
+
+
+def serve_main_path():
+    """The serving main path at full width; returns (result, launches)."""
+    args = serve_cli.parse_args(SERVE_ARGS)
+    print(" ".join(SERVE_ARGS))
+    reset_counts()
+    out = serve_cli.serve(args)
+    launches = counts()
+    st = out["stats"]
+    decode = out["decode_ms"]
+    summary = {
+        "tokens_per_s": out["tokens_per_s"], "p50_s": out["p50_s"],
+        "p99_s": out["p99_s"], "requests": len(out["outputs"]),
+        "tokens": sum(len(o) for o in out["outputs"]),
+        "max_len": out["max_len"], "admissions": st["admissions"],
+        "decode_steps": st["decode_steps"],
+        "first_decode_ms": decode[0],
+        "decode_ms_per_step_after_first": float(np.mean(decode[1:])),
+        "decode_ms_median_after_first": float(np.median(decode[1:])),
+        "prefill_ms_per_admission": sum(out["admit_ms"]) / st["admissions"],
+        "admit_rounds_ms": out["admit_ms"],
+        "peak_GB": out["peak_bytes"] / 1e9, "launches": launches,
+        "stats": st}
+    print(json.dumps({"serving_main_path": summary}), flush=True)
+    n_layers = 24
+    if launches["flash_attention"] != n_layers * st["admissions"]:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times for "
+                             f"{st['admissions']} admissions")
+    if launches["decode_attention"] != n_layers * st["decode_steps"]:
+        raise AssertionError(f"decode_attention launched "
+                             f"{launches['decode_attention']} times for "
+                             f"{st['decode_steps']} decode steps")
+    if [len(o) for o in out["outputs"]] != out["budgets"]:
+        raise AssertionError("a request did not get its budget's tokens: "
+                             f"{[len(o) for o in out['outputs']]}")
+
+    # two requests (a short and a long budget) re-served alone
+    _, cfg, model, params = serve_cli.build(args)
+    prompts, budgets = serve_cli.workload(args, cfg.vocab_size)
+    eng = Engine(model, params, max_batch=args.max_batch,
+                 max_len=out["max_len"])
+    del params
+    for uid in (0, 1):
+        eng.submit(prompts[uid], max_new_tokens=budgets[uid])
+        (alone,) = eng.run()[-1:]
+        if alone.output.tolist() != out["outputs"][uid]:
+            raise AssertionError(f"request {uid} served alone gave "
+                                 f"{alone.output.tolist()}, batched "
+                                 f"{out['outputs'][uid]}")
+    print(json.dumps({"solo_reserves_equal": [0, 1]}), flush=True)
+    return summary, launches
+
+
+def serving_reference_check():
+    """Smoke config in f32: prefill_into_slot + 8 decode_rows steps on the
+    card and on the CPU from one set of parameters."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), compute_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    slots, cap = 2, 32
+    # (device, params, arena): the CPU run first, the card's second
+    runs = [(dev, {k: v.to(dev) for k, v in cpu.items()},
+             model.init_arena(slots, cap, dtype=torch.float32, device=dev))
+            for dev in (torch.device("cpu"), DEV)]
+    worst, tie_free, equal = 0.0, 0, 0
+    lengths = np.zeros(slots, np.int32)
+    for slot, plen in ((1, 11), (0, 5)):
+        toks = np.zeros((1, 16 if plen > 8 else 8), np.int32)
+        toks[0, :plen] = rng.integers(0, cfg.vocab_size, plen)
+        want, got = (model.prefill_into_slot(
+            p, torch.from_numpy(toks).to(dev), plen, slot, arena)[0].cpu()
+            for dev, p, arena in runs)
+        worst = max(worst, float((got - want).abs().max()))
+        lengths[slot] = plen
+    cur = rng.integers(0, cfg.vocab_size, slots).astype(np.int32)
+    for _ in range(8):
+        want, got = (model.decode_rows(
+            p, torch.from_numpy(cur)[:, None].to(dev), arena,
+            torch.from_numpy(lengths).to(dev))[0][:, -1].cpu()
+            for dev, p, arena in runs)
+        worst = max(worst, float((got - want).abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+        same = got.argmax(-1) == want.argmax(-1)
+        if not bool(same[sure].all()):
+            raise AssertionError("card and CPU pick different greedy tokens "
+                                 "where the top-2 margin exceeds 1e-3")
+        tie_free += int(sure.sum())
+        equal += int(same.sum())
+        # both devices continue from the CPU's tokens
+        cur = want.argmax(-1).numpy().astype(np.int32)
+        lengths += 1
+    print(json.dumps({"serving_reference_max_abs_err": worst,
+                      "tolerance": 1e-4, "greedy_tokens_checked": tie_free,
+                      "greedy_tokens_equal": equal}), flush=True)
+    # f32 sums run in another order on the card than on the CPU
+    if worst > 1e-4:
+        raise AssertionError(f"card and CPU serving logits differ by {worst}")
+
+
+def profile_decode_steps(steps=8):
+    """Device time by kernel over `steps` steady decode steps at full
+    width (8 live rows of 200-token prompts), launches per step and the
+    device's busy share of the steps' wall time under the profiler. The
+    `steps` steps before them run unprofiled: their wall time over the
+    profiled device time estimates the busy share without the profiler's
+    host overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = serve_cli.parse_args(SERVE_ARGS)
+    _, cfg, model, params = serve_cli.build(args)
+    prompts, _ = serve_cli.workload(args, cfg.vocab_size)
+    eng = Engine(model, params, max_batch=8, max_len=512)
+    del params
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=2 * steps + 4)
+    eng.step()              # admission round + the first decode step
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()          # each step ends in its [B] token fetch
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key[:90])
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    device_ms = sum(ms for ms, _, _ in rows)
+    if not device_ms:
+        print("serving profile: no device time recorded (not measured)")
+        return
+    print(json.dumps({f"profile_{steps}_decode_steps": {
+        "steps_wall_ms": wall_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "unprofiled_steps_wall_ms": plain_wall_ms,
+        "device_busy_share_unprofiled_estimate": device_ms / plain_wall_ms,
+        "device_launches_per_step": sum(n for _, n, _ in rows) / steps,
+        "decode_attention_device_ms": sum(
+            ms for ms, _, name in rows if "decode_fwd" in name),
+        "top": [{"ms": ms, "count": n, "name": name}
+                for ms, n, name in rows[:15]]}}), flush=True)
+
+
+def kernel_entry(name, source, replaces, launches, cases, rep):
+    """One kernel's record in the `kernels` line: the main-path case `rep`
+    for shape and times, the worst case for the error, every case."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "shape": rep["shape"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
+            "event_ms": rep["event_ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"], "cases": cases}
+
+
 def main():
     phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,13 +533,16 @@ def main():
                       "cuda": torch.version.cuda}), flush=True)
 
     phase("2 build")
-    build.library_path("prox_update").unlink(missing_ok=True)
+    for name in KERNELS:
+        build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    logs = build.build("prox_update")
+    logs = build.build(*KERNELS)
     print(f"build_s {time.perf_counter() - t0:.3f}")
-    for line in logs["prox_update"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip())
+    for name in KERNELS:
+        print(f"  [{name}]")
+        for line in logs[name].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  " + line.strip())
 
     phase("3 kernels against their plain versions")
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -224,14 +551,19 @@ def main():
                  ("mlp.w_gate", (4, 24, 896, 4864), torch.float32),
                  ("mlp.w_gate bf16 x", (4, 24, 896, 4864), torch.bfloat16))]
     torch.cuda.empty_cache()
+    flash_cases = [check_flash_case("serving prefill Sp=256", 256, gen),
+                   check_flash_case("long prompt S=2048", 2048, gen)]
+    decode_cases = [check_decode_case("serving decode B=8 T=512", 8, 512, gen),
+                    check_decode_case("B=64 T=4096", 64, 4096, gen)]
+    torch.cuda.empty_cache()
 
     phase("4 main path: repro_torch.launch.train, full qwen2-0.5b")
     argv = main_args(STEPS, log_every=1)
     print(" ".join(argv))
-    prox_update_cuda.launches = 0
+    reset_counts()
     out = train_cli.train(train_cli.parse_args(argv))
     launches = prox_update_cuda.launches
-    print(json.dumps({"main_path": {**out, "prox_update_launches": launches,
+    print(json.dumps({"main_path": {**out, "launches": counts(),
                                     "peak_GB": out["peak_bytes"] / 1e9}}),
           flush=True)
     if not np.all(np.isfinite(out["losses"])):
@@ -246,20 +578,35 @@ def main():
 
     phase("6 profile")
     profile_supersteps()
+    torch.cuda.empty_cache()
 
-    # top level: the largest leaf's f32 case (mlp.w_gate) for the times,
-    # the worst case for the error; every case under "cases"
-    rep = cases[1]
-    print(json.dumps({"kernels": [{
-        "name": "prox_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/prox_update.cu",
-        "replaces": "src/repro/kernels/prox_update.py:35",
-        "launches": launches, "shape": rep["shape"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
-        "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-        "bound_by": rep["bound_by"], "library_ms": None,
-        "cases": cases}]}))
+    phase("7 serving main path: repro_torch.launch.serve, full qwen2-0.5b")
+    _, serve_launches = serve_main_path()
+    torch.cuda.empty_cache()
+
+    phase("8 serving reference: card against CPU at smoke size")
+    serving_reference_check()
+
+    phase("9 serving profile")
+    profile_decode_steps()
+
+    # top level: each kernel's main-path case for the times (the largest
+    # leaf's f32 case for prox_update), the worst case for the error
+    print(json.dumps({"kernels": [
+        kernel_entry("prox_update",
+                     "src/repro_torch/kernels/csrc/prox_update.cu",
+                     "src/repro/kernels/prox_update.py:35", launches, cases,
+                     cases[1]),
+        kernel_entry("flash_attention",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:78",
+                     serve_launches["flash_attention"], flash_cases,
+                     flash_cases[0]),
+        kernel_entry("decode_attention",
+                     "src/repro_torch/kernels/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:89",
+                     serve_launches["decode_attention"], decode_cases,
+                     decode_cases[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,10 @@ A package of its own beside `repro` (the JAX reference). It imports
 it shares with the reference are kept as copies here. Module names follow
 the reference, so each file has a clear counterpart.
 
-Ported so far: the gAPI-BCD language-model trainer for the dense
-`qwen2-0.5b` family (`repro_torch.launch.train`), with the closed-form
-prox update as a hand-written CUDA kernel (`repro_torch.kernels`).
+Ported so far, for the dense `qwen2-0.5b` family: the gAPI-BCD
+language-model trainer (`repro_torch.launch.train`), with the closed-form
+prox update as a hand-written CUDA kernel, and greedy continuous-batching
+serving over a slot arena (`repro_torch.launch.serve`,
+`repro_torch.serve`), with prefill and decode attention as hand-written
+CUDA kernels (`repro_torch.kernels`).
 """

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` into `build/repro_torch/
 lib<name>.so` at the repo root, a plain C library that the wrappers load
-with `ctypes`. A library newer than its source is reused; every stale one
+with `ctypes`. A library newer than its source and the shared headers
+(`csrc/*.cuh`) is reused; every stale one
 is rebuilt, one `nvcc` per source, all started together. A missing
 compiler or a failed compile raises: there is no fallback.
 """
@@ -39,11 +40,14 @@ def library_path(name: str) -> pathlib.Path:
 
 
 def _stale(name: str) -> bool:
+    """True if the library is missing or older than its source or any
+    shared header in csrc/."""
     so = library_path(name)
     src = CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(src)
-    return not so.is_file() or so.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return not so.is_file() or so.stat().st_mtime < newest
 
 
 def build(*names: str) -> dict:

@@ -7,6 +7,8 @@ failure on the card falls back to the plain version.
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prox_update import prox_update_cuda
 
 
@@ -31,3 +33,24 @@ def prox_update_tree(xs, gs, zsums, *, tau, rho, num_walks, num_agents):
                                        rho=rho, num_walks=num_walks,
                                        num_agents=num_agents)
     return new, delta
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """q: [B,S,H,hd]; k, v: [B,T,KV,hd]. Returns [B,S,H,hd] in q's dtype
+    (forward only: the TPU kernel has no backward either)."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, **kw)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def decode_attention(q, k, v, *, lengths, scale=None):
+    """q: [B,H,hd]; k, v: [B,T,KV,hd]; lengths: int32 [B] valid cache rows
+    per batch row. Returns [B,H,hd] in q's dtype."""
+    if q.device.type == "cuda":
+        return decode_attention_cuda(q, k, v, lengths=lengths, scale=scale)
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, lengths=lengths, scale=scale)
+    raise ValueError(f"decode_attention: no kernel for device {q.device}")

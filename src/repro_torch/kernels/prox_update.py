@@ -14,6 +14,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,7 +25,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_double,
               ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(dtype):
+    """The typed ctypes function for dtype, set up once per dtype."""
     fn = getattr(build.load("prox_update"), _ENTRY[dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int

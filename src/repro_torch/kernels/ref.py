@@ -5,6 +5,8 @@ against them on the same inputs.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -25,3 +27,80 @@ def prox_update(x, g, zsum, *, tau, rho, num_walks, num_agents):
     x_new = (rho * xf - g.float() + tau * zsum.float()) / denom
     delta = (x_new - xf) / n
     return x_new.to(x.dtype), delta
+
+
+_NEG_INF = -1e30
+
+
+def _masked_softmax_attend(logits, mask, v):
+    """The kernels' arithmetic in f32: masked logits at -1e30, then
+    out = (p @ v) / max(l, 1e-30) with p = exp(logits - row max).
+
+    logits [B, KV, G, S, T]; mask broadcastable to it; v [B, KV, T, hd]
+    (one kv head for its G query heads, so K and V are never repeated).
+    The row max only shifts the exponent: it is detached, as its gradient
+    is zero, so autograd runs through this for the training path.
+    Returns [B, KV, G, S, hd] in f32.
+    """
+    logits = torch.where(mask, logits, _NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
+    b, kv, g, s, t = p.shape
+    acc = (p.reshape(b, kv, g * s, t) @ v).reshape(b, kv, g, s, -1)
+    return acc / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+
+
+def _logits(q, k, scale):
+    """q [B, KV, G, S, hd] and k [B, T, KV, hd] -> f32 logits
+    [B, KV, G, S, T]."""
+    b, kv, g, s, hd = q.shape
+    kt = k.float().permute(0, 2, 3, 1)                       # [b,kv,hd,t]
+    return (q.float().reshape(b, kv, g * s, hd) @ kt).reshape(
+        b, kv, g, s, -1) * scale
+
+
+def attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Online-softmax GQA attention (the TPU kernel `flash_attention_bhsd`)
+    as one masked softmax; also the training path's attention
+    (`models.attention.chunked_attention`), which autograd runs through.
+
+    q: [B, S, H, hd]; k, v: [B, T, KV, hd] with H = KV * G (query head h
+    reads kv head h // G). Masks: causal kv <= q, window kv > q - window
+    (window > 0). Logits and sums in f32; returns [B, S, H, hd] in q's
+    dtype.
+    """
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else float(1.0 / math.sqrt(hd))
+    qh = q.reshape(b, s, kv, h // kv, hd).permute(0, 2, 3, 1, 4)
+    q_idx = torch.arange(s, device=q.device)[:, None]
+    kv_idx = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_idx <= q_idx
+    if window > 0:
+        mask &= kv_idx > q_idx - window
+    out = _masked_softmax_attend(_logits(qh, k, scale), mask,
+                                 v.float().permute(0, 2, 1, 3))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def decode_attention(q, k, v, *, lengths, scale=None):
+    """One-token GQA decode over a linear cache (the TPU kernel
+    `decode_attention_grouped`).
+
+    q: [B, H, hd]; k, v: [B, T, KV, hd]; lengths: int [B], the valid
+    cache rows of each batch row (positions >= lengths[b] are masked and
+    their V rows zeroed). Returns [B, H, hd] in q's dtype.
+    """
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else float(1.0 / math.sqrt(hd))
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths.to(q.device).reshape(b, 1))          # [b, t]
+    # invalid V rows are zeroed, as the kernel does (0 * garbage is NaN)
+    vh = torch.where(valid[:, None, :, None], v.float().permute(0, 2, 1, 3),
+                     0.0)                                    # [b,kv,t,hd]
+    out = _masked_softmax_attend(
+        _logits(q.reshape(b, kv, h // kv, 1, hd), k, scale),
+        valid[:, None, None, None, :], vh)
+    return out.reshape(b, h, hd).to(q.dtype)

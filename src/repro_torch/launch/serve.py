@@ -1,0 +1,140 @@
+"""Greedy continuous-batching serving on one GPU (the port's serving driver).
+
+Runs the slot-arena engine (`repro_torch.serve.Engine`, serialized
+scheduler) on CUDA unless --device cpu is given; with no GPU it raises
+rather than run on the CPU unasked. Weights are random, from seed 0;
+prompts are random token ids from seed 0. Example (full qwen2-0.5b width
+on an H100):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --requests 16 --max-batch 8 --prompt-len 200 --new-tokens 64 --mixed
+
+and at smoke size on the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --smoke --requests 4 --max-batch 2 --prompt-len 8 --new-tokens 4 \
+        --device cpu
+
+--mixed interleaves short (new_tokens // 4) and long budgets. The
+reference's --wave, --paged, --block-size and --preemption are not
+ported. Prints tokens/s and p50/p99 request latency.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.launch.train import resolve_device
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-feasible)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--mixed", action="store_true",
+                    help="interleave short (new_tokens//4) and long budgets")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def workload(args, vocab_size):
+    """(prompts, budgets) of the run, from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    short = max(1, args.new_tokens // 4)
+    budgets = [short if (args.mixed and i % 2 == 0) else args.new_tokens
+               for i in range(args.requests)]
+    prompts = [rng.integers(0, vocab_size, (args.prompt_len,))
+               for _ in range(args.requests)]
+    return prompts, budgets
+
+
+def build(args):
+    """(device, cfg, model, params) for args: random weights from seed 0,
+    made on the device."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import build_model
+
+    device = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    return device, cfg, model, params
+
+
+def serve(args):
+    """Serve the workload. Returns {"outputs" (token lists by uid),
+    "budgets", "step_ms" (host time of every engine step, ending in its
+    token fetch), "decode_ms" (the decode part of each step that ran
+    one: launch + [B]-token fetch), "admit_ms" (the admission part of
+    each step that admitted: prefill launches + first-token fetch),
+    "latency_s" (by uid), "tokens_per_s", "p50_s", "p99_s", "stats"
+    (Engine.stats), "max_len", "peak_bytes" (None on the CPU),
+    "device"}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, bucket_length
+
+    device, cfg, model, params = build(args)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    prompts, budgets = workload(args, cfg.vocab_size)
+    max_len = bucket_length(args.prompt_len + max(budgets))
+    eng = Engine(model, params, max_batch=args.max_batch, max_len=max_len)
+    del params      # the engine holds its compute-dtype copy
+
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    latency, step_ms, decode_ms, admit_ms = {}, [], [], []
+    while eng.pending or eng.num_active:
+        ts = time.perf_counter()
+        before = eng.stats
+        done = eng.step()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        for r in done:
+            latency[r.uid] = time.perf_counter() - t0
+        after = eng.stats
+        if after["decode_steps"] > before["decode_steps"]:
+            decode_ms.append((after["decode_s"] - before["decode_s"]) * 1e3)
+        if after["admissions"] > before["admissions"]:
+            admit_ms.append(sum(after[k] - before[k] for k in
+                                ("admit_host_s", "prefill_wait_s")) * 1e3)
+    total = time.perf_counter() - t0
+    done = {r.uid: r for r in eng.run()}
+
+    toks = sum(len(done[u].output) for u in uids)
+    lats = [latency[u] for u in uids]
+    p50, p99 = (float(np.percentile(lats, q)) for q in (50, 99))
+    print(f"[{cfg.name}] continuous (arena, serialized) on {device}: "
+          f"{args.requests} reqs (budgets {sorted(set(budgets))}), "
+          f"max_batch {args.max_batch}, capacity {eng.capacity}")
+    print(f"  {toks} tokens in {total:.3f}s ({toks / total:.1f} tok/s); "
+          f"latency p50 {p50:.3f}s p99 {p99:.3f}s")
+    for u in uids[:min(4, len(uids))]:
+        print("  ", done[u].output.tolist())
+    return {"outputs": [done[u].output.tolist() for u in uids],
+            "budgets": budgets, "step_ms": step_ms, "decode_ms": decode_ms,
+            "admit_ms": admit_ms, "latency_s": lats,
+            "tokens_per_s": toks / total, "p50_s": p50, "p99_s": p99, "stats": eng.stats,
+            "max_len": max_len, "device": str(device),
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if cuda else None)}
+
+
+def main(argv=None):
+    return serve(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

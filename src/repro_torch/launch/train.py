@@ -48,7 +48,7 @@ def resolve_device(name):
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to train on the CPU")
+                           "to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return device

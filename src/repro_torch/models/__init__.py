@@ -1,2 +1,2 @@
-"""Model code of the port (dense GQA transformer, train path)."""
+"""Model code of the port (dense GQA transformer: training and serving)."""
 from repro_torch.models.model import Model, build_model  # noqa: F401

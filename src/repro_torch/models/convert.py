@@ -1,4 +1,5 @@
-"""Convert the reference's parameter and train-state pytrees to the port's.
+"""Convert the reference's parameter, train-state and cache pytrees to the
+port's.
 
 The reference nests dicts and lists ({"segments": [{"attn": {"wq": ...}}]});
 the port keys one flat dict by the dotted path of each leaf
@@ -36,3 +37,29 @@ def state_from_jax(state):
     "gacc"}, agent axis leading) -> the port's state of flat dicts."""
     return {name: params_from_jax(state[name])
             for name in ("params", "token", "zhat", "gacc")}
+
+
+def arena_from_jax(caches):
+    """The reference's slot arena (a one-segment list [{"k", "v": [L, B, T,
+    KV, hd], "ptr": int32 [L, B]}], numpy leaves) -> the port's arena dict
+    of CPU tensors with the same shapes and dtypes. Also takes a cache
+    from `init_cache` (ptr [L])."""
+    if isinstance(caches, (list, tuple)):
+        if len(caches) != 1:
+            raise ValueError(f"the port runs one homogeneous segment; the "
+                             f"cache has {len(caches)}")
+        caches = caches[0]
+    if set(caches) != {"k", "v", "ptr"}:
+        raise ValueError(f"not a GQA cache: leaves {sorted(caches)}")
+    out = {k: _tensor(v) for k, v in caches.items()}
+    out["ptr"] = out["ptr"].to(torch.int32)
+    return out
+
+
+def _tensor(a):
+    """A CPU tensor copy of an array; bf16 (numpy's ml_dtypes) goes
+    through f32, which holds every bf16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))

@@ -1,6 +1,8 @@
-"""Model dispatch: build (init, train_loss) per config.
+"""Model dispatch: build (init, train_loss, and the serving entry points)
+per config, as `repro/models/model.py` does.
 
-Only the dense decoder-only family is ported; the others raise.
+Only the dense decoder-only family is ported; the others raise. The paged
+and mixed-step entry points of the reference come with slice 3.
 """
 from __future__ import annotations
 
@@ -16,6 +18,19 @@ class Model:
     cfg: ArchConfig
     init: Callable           # (generator) -> params dict
     train_loss: Callable     # (params, batch) -> (loss, metrics)
+    prefill: Callable        # (params, batch, **kw) -> (logits, caches)
+    decode_step: Callable    # (params, token, caches, position) -> (logits, caches)
+    init_cache: Callable     # (batch, seq_len, **kw) -> caches
+    # the config's sliding window (0 = full causal)
+    window: int = 0
+    # slot-arena continuous-batching entry points (repro_torch.serve)
+    init_arena: Callable = None         # (slots, capacity, **kw) -> arena
+    prefill_into_slot: Callable = None  # (params, tokens, length, slot, arena)
+    decode_rows: Callable = None        # (params, token, arena, positions)
+    # token-returning serving steps: greedy argmax on the device, so the
+    # host fetches int32 ids instead of full-vocab logits
+    prefill_into_slot_token: Callable = None    # -> (tok [], arena)
+    decode_rows_tokens: Callable = None         # -> (toks [B], arena, pos+1)
 
 
 def _check_ported(cfg: ArchConfig):
@@ -39,6 +54,20 @@ def build_model(cfg: ArchConfig) -> Model:
     _check_ported(cfg)
     return Model(
         cfg=cfg,
+        window=cfg.attn_window,
         init=lambda generator: TF.transformer_init(cfg, generator),
         train_loss=lambda p, b: TF.train_loss(cfg, p, b),
+        prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, **kw),
+        decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos),
+        init_cache=lambda batch, seq, **kw: TF.init_cache(cfg, batch, seq,
+                                                          **kw),
+        init_arena=lambda slots, capacity, **kw: TF.init_arena(
+            cfg, slots, capacity, **kw),
+        prefill_into_slot=lambda p, tokens, length, slot, caches:
+            TF.prefill_into_slot(cfg, p, tokens, length, slot, caches),
+        decode_rows=lambda p, t, c, pos: TF.decode_rows(cfg, p, t, c, pos),
+        prefill_into_slot_token=lambda p, tokens, length, slot, caches:
+            TF.prefill_into_slot_token(cfg, p, tokens, length, slot, caches),
+        decode_rows_tokens=lambda p, t, c, pos: TF.decode_rows_tokens(
+            cfg, p, t, c, pos),
     )

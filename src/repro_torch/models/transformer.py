@@ -1,10 +1,18 @@
-"""Decoder-only dense GQA transformer: init, train forward and loss.
+"""Decoder-only dense GQA transformer: init, train forward and loss, and the
+serving entry points (prefill, decode, and the slot arena).
 
 Parameters are one flat dict keyed by the reference pytree's paths
 ("embed.table", "segments.0.attn.wq", "final_norm.scale", ...). Layers
 are stacked on a leading [L] axis under one segment, as the reference
 stacks a homogeneous run of layers; the forward pass loops over them in
 Python where the reference scans.
+
+A KV cache is one dict {"k", "v": [L, B, T, KV, hd], "ptr"}: the
+reference's one-segment cache list, with the same leaves. `ptr` counts
+the tokens written: int32 [L] for a cache from `init_cache` (every row at
+one depth) and [L, B] for the slot arena (`init_arena`, every row at its
+own depth). The port updates caches in place where the reference returns
+new (donated) buffers.
 """
 from __future__ import annotations
 
@@ -67,11 +75,28 @@ def transformer_init(cfg, generator, dtype=None):
     return params
 
 
-def forward(cfg, params, x, *, positions):
-    """Run the stack on embeddings x [B,S,D] (train mode: no cache)."""
-    for lp in _layers(params, cfg.num_layers):
+def forward(cfg, params, x, *, positions, mode="train", caches=None):
+    """Run the stack on embeddings x [B,S,D]. Returns the final-normed x.
+
+    mode "train": no cache. "prefill": fills `caches` (from `init_cache`,
+    batch B, capacity T) with the prompt's K/V, ring-ordered, and sets
+    each layer's ptr to S. "decode": x is one token per row; inserts its
+    K/V into `caches` at ptr, attends, and advances ptr. Caches are
+    updated in place."""
+    for i, lp in enumerate(_layers(params, cfg.num_layers)):
         h = rmsnorm(lp["ln1"], x)
-        x = x + A.gqa_prefill(lp["attn"], cfg, h, positions)
+        if mode == "decode":
+            layer = {name: caches[name][i] for name in ("k", "v", "ptr")}
+            attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions)
+        else:
+            attn_out, (k, v) = A.gqa_prefill(lp["attn"], cfg, h, positions,
+                                             kernel=mode == "prefill")
+            if mode == "prefill":
+                s, t = x.shape[1], caches["k"].shape[2]
+                caches["k"][i].copy_(A.prefill_cache_entries(k, t, s))
+                caches["v"][i].copy_(A.prefill_cache_entries(v, t, s))
+                caches["ptr"][i].fill_(s)
+        x = x + attn_out
         h2 = rmsnorm(lp["ln2"], x)
         x = x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
     return rmsnorm(subtree(params, "final_norm"), x)
@@ -115,3 +140,142 @@ def train_loss(cfg, params, batch):
         loss = torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"nll": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving entry points
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
+    """Zero caches for decode; the config's sliding window, if any, caps
+    the ring's capacity."""
+    win = cfg.attn_window
+    cap = max(min(seq_len, win) if win else seq_len, 1)
+    shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "ptr": torch.zeros((cfg.num_layers,), dtype=torch.int32,
+                               device=device)}
+
+
+def _embed_tokens(cfg, params, tokens):
+    return embed(subtree(params, "embed"), tokens).to(
+        getattr(torch, cfg.compute_dtype))
+
+
+def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None):
+    """Build caches from a full prompt batch {"tokens": [B,S]}. Returns
+    (logits of the last position [B,1,V] in f32, caches).
+
+    cache_len: total cache capacity (>= prompt length) to leave room for
+    later decode steps; defaults to the prompt length."""
+    params = _cast(cfg, params)
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    caches = init_cache(cfg, b, max(cache_len or s, s), dtype=cache_dtype,
+                        device=x.device)
+    x = forward(cfg, params, x, positions=positions, mode="prefill",
+                caches=caches)
+    return logits_fn(cfg, params, x[:, -1:]).float(), caches
+
+
+def decode_step(cfg, params, token, caches, position):
+    """token: [B,1] int; position: the absolute position of every row
+    (int or 0-dim tensor). Returns (logits [B,1,V] in f32, caches)."""
+    params = _cast(cfg, params)
+    x = _embed_tokens(cfg, params, token)
+    b = x.shape[0]
+    positions = torch.as_tensor(position, dtype=torch.int32,
+                                device=x.device).reshape(1, 1).expand(b, 1)
+    x = forward(cfg, params, x, positions=positions, mode="decode",
+                caches=caches)
+    return logits_fn(cfg, params, x).float(), caches
+
+
+# The slot arena (continuous batching, `repro_torch.serve`): the caches of
+# `slots` independent in-flight requests, with ptr per row ([L, slots]) so
+# every slot decodes at its own depth. Admission prefills ONE request
+# (batch-1 forward) straight into its slot's rows between decode steps;
+# the decode step runs all slots with per-row positions.
+
+
+def init_arena(cfg, slots, capacity, dtype=torch.bfloat16, device=None):
+    """Slot-arena caches: `init_cache` with per-row ptr [layers, slots]."""
+    arena = init_cache(cfg, slots, capacity, dtype=dtype, device=device)
+    arena["ptr"] = torch.zeros((cfg.num_layers, slots), dtype=torch.int32,
+                               device=device)
+    return arena
+
+
+def prefill_into_slot(cfg, params, tokens, length, slot, caches):
+    """Admit one request into arena slot `slot` between decode steps.
+
+    tokens: [1, Sp] int, right-padded to a bucketed length Sp (causal
+    attention keeps positions < length from seeing the pads, and the
+    slot's validity length is `length`); length: the true prompt length;
+    slot: the arena row to overwrite; caches: the arena from `init_arena`.
+    The prefill writes the slot's whole cache row (zeros past the prompt)
+    through views of the arena, and sets its ptr to `length` (the tokens
+    actually in the cache). Returns (logits [1,1,V] in f32 at position
+    length - 1, the arena, updated in place)."""
+    params = _cast(cfg, params)
+    x = _embed_tokens(cfg, params, tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None]
+    slot, length = int(slot), int(length)
+    row = {"k": caches["k"][:, slot:slot + 1],
+           "v": caches["v"][:, slot:slot + 1],
+           "ptr": caches["ptr"][:, slot]}
+    x = forward(cfg, params, x, positions=positions, mode="prefill",
+                caches=row)
+    row["ptr"].fill_(length)
+    logits = logits_fn(cfg, params, x[:, length - 1:length]).float()
+    return logits, caches
+
+
+def decode_rows(cfg, params, token, caches, positions):
+    """One decode step over all arena slots.
+
+    token: [B,1] int (one current token per slot); positions: int [B],
+    the absolute positions (== tokens already in each slot's cache). Dead
+    slots compute garbage that the engine ignores; their cache rows are
+    overwritten whole at the next admission. Returns (logits [B,1,V] in
+    f32, the arena, updated in place)."""
+    params = _cast(cfg, params)
+    x = _embed_tokens(cfg, params, token)
+    b = x.shape[0]
+    positions = torch.as_tensor(positions, dtype=torch.int32,
+                                device=x.device).reshape(b, 1)
+    x = forward(cfg, params, x, positions=positions, mode="decode",
+                caches=caches)
+    return logits_fn(cfg, params, x).float(), caches
+
+
+# Token-returning serving steps: the engine is greedy-only, so the argmax
+# runs on the device and the host fetches int32 ids ([] for admission,
+# [B] per decode step), never full-vocab logits. The decode variant also
+# returns the advanced positions, which feed the next step directly.
+
+
+def prefill_into_slot_token(cfg, params, tokens, length, slot, caches):
+    """`prefill_into_slot` returning (0-dim int32 greedy token, arena)."""
+    logits, caches = prefill_into_slot(cfg, params, tokens, length, slot,
+                                       caches)
+    return torch.argmax(logits[0, -1], -1).to(torch.int32), caches
+
+
+def decode_rows_tokens(cfg, params, tokens, caches, positions):
+    """`decode_rows` returning (next [B] int32, arena, positions + 1).
+
+    tokens: [B] int (each slot's incoming token, i.e. the previous step's
+    output); positions: int32 [B]. Dead rows advance too; the engine
+    re-uploads exact host values whenever admission or finish touches a
+    row."""
+    positions = torch.as_tensor(positions, dtype=torch.int32,
+                                device=tokens.device)
+    logits, caches = decode_rows(cfg, params, tokens[:, None], caches,
+                                 positions)
+    nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    return nxt, caches, positions + 1

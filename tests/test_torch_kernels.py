@@ -1,11 +1,14 @@
-"""The port's prox update against the JAX reference, and the Hopper kernel
-against its plain version.
+"""The port's kernels' plain versions against the JAX reference, and the
+Hopper kernels against their plain versions.
 
 On the CPU the port's plain `ref.prox_update` is held against the JAX
 kernel (Pallas, interpret mode) and the JAX oracle: rtol 1e-6 / atol
-1e-7 in f32, and at most one bf16 ulp on a bf16 x_new. The CUDA cases
-need the card (marker `cuda`); they import no JAX, so they also run where
-JAX is absent:
+1e-7 in f32, and at most one bf16 ulp on a bf16 x_new. The plain
+attention versions (`ref.attention`, `ref.decode_attention`) are held
+against the JAX Pallas kernels in interpret mode and the JAX oracles at
+the reference's own tolerances (1e-5 in f32, 3e-2 in bf16), and against
+the model's jnp `chunked_attention` at 2e-4. The CUDA cases need the card
+(marker `cuda`); they import no JAX, so they also run where JAX is absent:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_kernels.py tests/test_torch_port_rules.py
@@ -19,6 +22,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_cuda)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
 
 KW = dict(tau=0.1, rho=20.0, num_walks=2, num_agents=4)
@@ -116,6 +123,113 @@ def test_ops_sends_cpu_tensors_to_ref_without_launching():
     assert prox_update_cuda.launches == before
 
 
+# ---- attention: plain versions against the JAX kernels and oracles ----
+
+ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _attn_inputs(seed, shapes, dtype):
+    """numpy f32 arrays (bf16-rounded for bf16) and their torch tensors."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return [t.float().numpy() for t in ts], ts
+
+
+@pytest.mark.parametrize("s,t,h,kv,hd,window", [
+    (256, 256, 4, 2, 64, 0),       # GQA
+    (256, 256, 4, 1, 32, 64),      # MQA sliding window
+    (96, 96, 2, 2, 64, 0),         # not a multiple of the block
+])
+def test_flash_plain_matches_jax_kernel_and_oracle(jx, s, t, h, kv, hd,
+                                                   window):
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    b = 2
+    (q, k, v), (tq, tk, tv) = _attn_inputs(
+        1, [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)], "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, hd)
+    jq, jk, jv = (jnp.asarray(a, jnp.float32) for a in (q, k, v))
+    kern = jax_ops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                   block_q=64, block_k=64, interpret=True)
+    oracle = jax_ref.attention(jq.transpose(0, 2, 1, 3),
+                               jk.transpose(0, 2, 1, 3),
+                               jv.transpose(0, 2, 1, 3), causal=True,
+                               window=window).transpose(0, 2, 1, 3)
+    for want in (kern, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_plain_matches_model_chunked_attention(window):
+    """The reference's model path (jnp chunked_attention, several chunks)
+    and the port's prefill kernel's plain version compute one function."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.models.attention import chunked_attention
+    b, s, kv, g, hd = 2, 128, 2, 3, 32
+    (q, k, v), (tq, tk, tv) = _attn_inputs(
+        2, [(b, s, kv, g, hd), (b, s, kv, hd), (b, s, kv, hd)], "float32")
+    want = chunked_attention(*(jnp.asarray(a, jnp.float32) for a in (q, k, v)),
+                             causal=True, window=window, q_chunk=64,
+                             kv_chunk=64)
+    got = ops.flash_attention(tq.reshape(b, s, kv * g, hd), tk, tv,
+                              causal=True, window=window)
+    np.testing.assert_allclose(got.reshape(b, s, kv, g, hd).numpy(),
+                               np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_jax_kernel_and_oracle(jx, dtype):
+    """Per-row lengths: slot-arena decode, every row at its own depth."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    b, t, h, kv, hd = 3, 384, 4, 2, 64
+    (q, k, v), (tq, tk, tv) = _attn_inputs(
+        8, [(b, h, hd), (b, t, kv, hd), (b, t, kv, hd)], dtype)
+    lengths = np.array([1, 200, 384], np.int32)
+    got = ops.decode_attention(tq, tk, tv, lengths=torch.from_numpy(lengths))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, hd)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    kern = jax_ops.decode_attention(jq, jk, jv, lengths=jnp.asarray(lengths),
+                                    block_k=128, interpret=True)
+    oracle = jax_ref.decode_attention(jq, jk.transpose(0, 2, 1, 3),
+                                      jv.transpose(0, 2, 1, 3),
+                                      valid_len=jnp.asarray(lengths))
+    for want in (kern, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=ATOL[dtype], atol=ATOL[dtype])
+
+
+def test_decode_plain_ignores_rows_past_the_length():
+    """Garbage (even NaN) past a row's length does not reach the output,
+    as in the kernel, which zeroes those V rows."""
+    (q, k, v), (tq, tk, tv) = _attn_inputs(
+        9, [(2, 4, 32), (2, 16, 2, 32), (2, 16, 2, 32)], "float32")
+    lengths = torch.tensor([5, 16], dtype=torch.int32)
+    want = ops.decode_attention(tq, tk, tv, lengths=lengths)
+    tk[0, 5:], tv[0, 5:] = float("nan"), float("inf")
+    got = ops.decode_attention(tq, tk, tv, lengths=lengths)
+    assert torch.equal(got, want)
+
+
+def test_ops_sends_cpu_attention_to_ref_without_launching():
+    (_, _, _), (tq, tk, tv) = _attn_inputs(
+        3, [(1, 16, 4, 32), (1, 16, 2, 32), (1, 16, 2, 32)], "float32")
+    lengths = torch.tensor([7], dtype=torch.int32)
+    before = (flash_attention_cuda.launches, decode_attention_cuda.launches)
+    assert torch.equal(ops.flash_attention(tq, tk, tv),
+                       ref.attention(tq, tk, tv))
+    assert torch.equal(ops.decode_attention(tq[:, 0], tk, tv, lengths=lengths),
+                       ref.decode_attention(tq[:, 0], tk, tv, lengths=lengths))
+    assert (flash_attention_cuda.launches,
+            decode_attention_cuda.launches) == before
+
+
 # ---- on the card ----
 
 
@@ -145,3 +259,66 @@ def test_kernel_matches_plain_version_on_card(cuda, dtype, numel):
     xn2, d2 = ops.prox_update(x[1:], g[1:], z[1:], **KW)
     rxn2, rd2 = ref.prox_update(x[1:], g[1:], z[1:], **KW)
     assert torch.equal(xn2, rxn2) and torch.equal(d2, rd2)
+
+
+def _bf16_close(got, want):
+    """f32 accumulation in both: at most ~1 bf16 ulp of the output apart
+    (2 ulp allowed: the two round their f32 sums in another order)."""
+    want = want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return bool(((got.float() - want).abs() <= 2 * ulp + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kv,hd,window", [
+    (256, 14, 2, 64, 0),      # the serving prefill's shape
+    (96, 4, 2, 32, 0),        # ragged tile, smoke head_dim
+    (200, 4, 1, 128, 64),     # MQA sliding window
+])
+def test_flash_kernel_matches_plain_version_on_card(cuda, dtype, s, h, kv,
+                                                    hd, window):
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    q = torch.randn((1, s, h, hd), generator=gen, device=cuda).to(dtype)
+    # k and v as views of a fused [1, s, 2, kv, hd] buffer: strided input
+    kvbuf = torch.randn((1, s, 2, kv, hd), generator=gen, device=cuda).to(dtype)
+    k, v = kvbuf[:, :, 0], kvbuf[:, :, 1]
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = ref.attention(q, k, v, causal=True, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kv,hd", [
+    (8, 512, 14, 2, 64),      # the serving decode's shape
+    (3, 100, 4, 2, 32),       # smoke head_dim, ragged tile
+    (2, 300, 16, 2, 128),     # 8 heads of 128 per kv head
+])
+def test_decode_kernel_matches_plain_version_on_card(cuda, dtype, b, t, h,
+                                                     kv, hd):
+    gen = torch.Generator(device=cuda).manual_seed(b * t)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    # k and v as one layer of an [L, B, T, KV, hd] arena
+    arena = torch.randn((3, 2, b, t, kv, hd), generator=gen,
+                        device=cuda).to(dtype)
+    k, v = arena[1, 0], arena[1, 1]
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    lengths[0] = t
+    before = decode_attention_cuda.launches
+    got = ops.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    want = ref.decode_attention(q, k, v, lengths=lengths)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_close(got, want)

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -44,7 +44,7 @@ def test_importing_every_port_module_loads_no_jax():
         "import importlib, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print('LOADED', len([m for m in sys.modules\n"
@@ -77,6 +77,47 @@ def test_ops_rejects_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         ops.prox_update(x, x, x, tau=0.1, rho=20.0, num_walks=2,
                         num_agents=4)
+
+
+def test_serve_without_cpu_request_raises_when_no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--smoke", "--requests", "1", "--prompt-len", "4",
+                    "--new-tokens", "2"])
+
+
+def test_serve_on_cpu_when_asked():
+    out = serve.main(["--smoke", "--requests", "4", "--max-batch", "2",
+                      "--prompt-len", "8", "--new-tokens", "4", "--mixed",
+                      "--device", "cpu"])
+    assert out["device"] == "cpu" and out["peak_bytes"] is None
+    assert [len(o) for o in out["outputs"]] == out["budgets"] == [1, 4, 1, 4]
+    assert out["stats"]["admissions"] == 4
+    assert out["stats"]["decode_fetch_dtype"] == "int32"
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_attention_ops_reject_devices_without_a_kernel(name):
+    q = torch.empty(1, 4, 2, 32, device="meta")
+    k = torch.empty(1, 4, 1, 32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        if name == "flash_attention":
+            ops.flash_attention(q, k, k)
+        else:
+            ops.decode_attention(q[:, 0], k, k, lengths=torch.ones(
+                1, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_failed_attention_build_raises(monkeypatch, tmp_path, name):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="no such target"):
+        build.load(name)
+    assert not list((tmp_path / "build").glob("*"))
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -116,3 +157,40 @@ def test_kernel_rejects_cpu_and_noncontiguous_operands(cuda):
     with pytest.raises(ValueError):
         ops.prox_update(x.T, x.T, x.T, tau=0.1, rho=20.0, num_walks=2,
                         num_agents=4)
+
+
+def _attention_operands(cuda, dtype=torch.bfloat16):
+    q = torch.zeros(1, 16, 4, 64, dtype=dtype, device=cuda)
+    k = torch.zeros(1, 16, 2, 64, dtype=dtype, device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    return q, k, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_attention_kernels_reject_unsupported_dtype(cuda, dtype):
+    q, k, lengths = _attention_operands(cuda, dtype)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q[:, 0], k, k, lengths=lengths)
+    qb, kb, _ = _attention_operands(cuda)
+    with pytest.raises(TypeError):      # mixed dtypes
+        ops.flash_attention(qb, kb.float(), kb.float())
+
+
+@pytest.mark.cuda
+def test_attention_kernels_reject_cpu_operands_and_bad_shapes(cuda):
+    q, k, lengths = _attention_operands(cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, 0], k, k, lengths=lengths.cpu())
+    with pytest.raises(ValueError):     # kv heads do not divide q heads
+        ops.flash_attention(q[:, :, :3], k, k)
+    with pytest.raises(ValueError):     # head_dim mismatch
+        ops.decode_attention(q[:, 0, :, :32], k, k, lengths=lengths)
+    with pytest.raises(ValueError):     # k and v differ
+        ops.flash_attention(q, k, k[:, :8])
+    with pytest.raises(TypeError):      # lengths not int32 [B]
+        ops.decode_attention(q[:, 0], k, k, lengths=lengths.long())
