@@ -8,9 +8,9 @@ non-zero before the last line:
 
   1. card: the `nvidia-smi` name and power limit;
   2. build: every CUDA kernel (prox_update, flash_attention,
-     decode_attention), compiled from the sources in this checkout, all
-     at once (the old libraries are removed first), with ptxas's
-     registers and spills;
+     decode_attention, decode_attention_paged), compiled from the sources
+     in this checkout, all at once (the old libraries are removed
+     first), with ptxas's registers and spills;
   3. kernels: each kernel against its plain PyTorch version at its main
      path's shapes and one larger case, with timings (device time from
      torch.profiler, and CUDA events around back-to-back calls, which
@@ -34,8 +34,30 @@ non-zero before the last line:
      decode_rows steps on the card and on the CPU from one set of
      parameters, which must agree;
   9. serving profile: 8 steady decode steps at full width under
-     torch.profiler: device time by kernel, launches per step, busy share
-     (and its estimate without the profiler, from 8 unprofiled steps).
+     torch.profiler, on the arena and on the paged pool: device time by
+     kernel, launches per step, busy share (and its estimate without the
+     profiler, from 8 unprofiled steps);
+ 10. paged kernels: the paged and ring decode kernels against their
+     plain versions in f32 and bf16 at the paged serving shape and a
+     large one, timed as in phase 3 (gather + SDPA beside them, as no
+     single PyTorch call computes paged attention), with a ring at
+     window 256 (rows unwrapped, part-filled and wrapped) that must be
+     bitwise invariant under a joint rotation of table and starts, and
+     an identity table that must reproduce the linear decode kernel;
+ 11. paged serving main path: `repro_torch.launch.serve --paged` at full
+     width on phase 7's workload (block size 16, chunks of 32), counts
+     reset just before and read just after (24 paged launches per decode
+     step, no linear decode launch), every block returned; then the same
+     requests in a block-scarce pool under "recompute" (preempting
+     exactly as often as the same run at smoke size on the CPU, with the
+     unpreempted run's tokens) and under "reserve" (never preempting);
+ 12. ring-paged serving: a full-width model with a 256-token window
+     through `Engine(paged=True)`, 8 prompts of 200 and budgets of 320,
+     so every ring wraps (24 ring launches per step, no block allocated
+     once the rings are full, every block returned);
+ 13. paged reference: the smoke config in f32 on the card and on the CPU,
+     paged, paged with preemption and ring-paged: logits within 1e-4,
+     equal tokens, equal preemption counts.
 
 Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -57,13 +79,15 @@ import torch  # noqa: E402
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
 
-from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.trainer import init_train_state, make_train_step  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda)
+from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
+    decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
@@ -75,13 +99,17 @@ from repro_torch.serve import Engine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-KERNELS = ("prox_update", "flash_attention", "decode_attention")
-COUNTERS = (prox_update_cuda, flash_attention_cuda, decode_attention_cuda)
+COUNTERS = {"prox_update": prox_update_cuda,
+            "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda,
+            "decode_attention_paged": decode_attention_paged_cuda,
+            "decode_attention_ring": decode_attention_ring_cuda}
 KW = dict(tau=0.05, rho=20.0, num_walks=2, num_agents=4)   # the CLI's
 STEPS = 3
 # qwen2-0.5b leaves: embed.table, final_norm.scale and 12 stacked-layer
 # leaves (ln1, wq, wk, wv, wo, bq, bk, bv, ln2, w_gate, w_up, w_down)
 LEAVES = 14
+N_LAYERS = 24           # qwen2-0.5b: one attention kernel launch per layer
 
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "16", "--max-batch", "8",
@@ -89,12 +117,12 @@ SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "16", "--max-batch", "8",
 
 
 def reset_counts():
-    for fn in COUNTERS:
+    for fn in COUNTERS.values():
         fn.launches = 0
 
 
 def counts():
-    return {name: fn.launches for name, fn in zip(KERNELS, COUNTERS)}
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def main_args(steps, log_every):
@@ -284,7 +312,8 @@ def bf16_close(got, want):
 ATTN_RULE = "|kernel - plain| <= 1 bf16 ulp of plain + 1e-5 (f32 sums in both)"
 
 
-def attention_case(name, label, fn, plain, library, nbytes, flops, iters):
+def attention_case(name, label, fn, plain, library, nbytes, flops, iters,
+                   dtype=torch.bfloat16):
     """Check fn() against plain() and time fn, plain and the library call."""
     got = fn()
     torch.cuda.synchronize()
@@ -292,8 +321,9 @@ def attention_case(name, label, fn, plain, library, nbytes, flops, iters):
     del got
     t = timings(fn, plain, library, iters)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    case = {"case": label, "dtype": "torch.bfloat16", "max_abs_err": max_err,
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
+    case = {"case": label, "dtype": str(dtype), "max_abs_err": max_err,
             "tolerance": ATTN_RULE, **t,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -357,16 +387,11 @@ def check_decode_case(label, b, t, gen):
                 lengths=[int(lengths.min()), int(lengths.max())])
 
 
-def serve_main_path():
-    """The serving main path at full width; returns (result, launches)."""
-    args = serve_cli.parse_args(SERVE_ARGS)
-    print(" ".join(SERVE_ARGS))
-    reset_counts()
-    out = serve_cli.serve(args)
-    launches = counts()
+def serving_summary(out, launches):
+    """The numbers of one `serve_cli.serve` run."""
     st = out["stats"]
     decode = out["decode_ms"]
-    summary = {
+    return {
         "tokens_per_s": out["tokens_per_s"], "p50_s": out["p50_s"],
         "p99_s": out["p99_s"], "requests": len(out["outputs"]),
         "tokens": sum(len(o) for o in out["outputs"]),
@@ -377,8 +402,22 @@ def serve_main_path():
         "decode_ms_median_after_first": float(np.median(decode[1:])),
         "prefill_ms_per_admission": sum(out["admit_ms"]) / st["admissions"],
         "admit_rounds_ms": out["admit_ms"],
-        "peak_GB": out["peak_bytes"] / 1e9, "launches": launches,
+        "peak_GB": out["peak_bytes"] / 1e9, "paged": out["paged"],
+        "num_blocks": out["num_blocks"], "free_blocks": out["free_blocks"],
+        "num_preemptions": out["num_preemptions"], "launches": launches,
         "stats": st}
+
+
+def serve_main_path():
+    """The serving main path at full width; returns (result, launches,
+    outputs)."""
+    args = serve_cli.parse_args(SERVE_ARGS)
+    print(" ".join(SERVE_ARGS))
+    reset_counts()
+    out = serve_cli.serve(args)
+    launches = counts()
+    st = out["stats"]
+    summary = serving_summary(out, launches)
     print(json.dumps({"serving_main_path": summary}), flush=True)
     n_layers = 24
     if launches["flash_attention"] != n_layers * st["admissions"]:
@@ -407,7 +446,7 @@ def serve_main_path():
                                  f"{alone.output.tolist()}, batched "
                                  f"{out['outputs'][uid]}")
     print(json.dumps({"solo_reserves_equal": [0, 1]}), flush=True)
-    return summary, launches
+    return summary, launches, out["outputs"]
 
 
 def serving_reference_check():
@@ -460,20 +499,20 @@ def serving_reference_check():
         raise AssertionError(f"card and CPU serving logits differ by {worst}")
 
 
-def profile_decode_steps(steps=8):
+def profile_decode_steps(steps=8, paged=False):
     """Device time by kernel over `steps` steady decode steps at full
-    width (8 live rows of 200-token prompts), launches per step and the
-    device's busy share of the steps' wall time under the profiler. The
-    `steps` steps before them run unprofiled: their wall time over the
-    profiled device time estimates the busy share without the profiler's
-    host overhead."""
+    width (8 live rows of 200-token prompts; arena or paged pool),
+    launches per step and the device's busy share of the steps' wall time
+    under the profiler. The `steps` steps before them run unprofiled:
+    their wall time over the profiled device time estimates the busy
+    share without the profiler's host overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = serve_cli.parse_args(SERVE_ARGS)
     _, cfg, model, params = serve_cli.build(args)
     prompts, _ = serve_cli.workload(args, cfg.vocab_size)
-    eng = Engine(model, params, max_batch=8, max_len=512)
+    eng = Engine(model, params, max_batch=8, max_len=512, paged=paged)
     del params
     for p in prompts[:8]:
         eng.submit(p, max_new_tokens=2 * steps + 4)
@@ -498,16 +537,369 @@ def profile_decode_steps(steps=8):
     if not device_ms:
         print("serving profile: no device time recorded (not measured)")
         return
-    print(json.dumps({f"profile_{steps}_decode_steps": {
+    backend = "paged" if paged else "arena"
+    print(json.dumps({f"profile_{steps}_{backend}_decode_steps": {
         "steps_wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "unprofiled_steps_wall_ms": plain_wall_ms,
         "device_busy_share_unprofiled_estimate": device_ms / plain_wall_ms,
         "device_launches_per_step": sum(n for _, n, _ in rows) / steps,
         "decode_attention_device_ms": sum(
-            ms for ms, _, name in rows if "decode_fwd" in name),
+            ms for ms, _, name in rows
+            if "decode_fwd" in name or "paged_fwd" in name),
         "top": [{"ms": ms, "count": n, "name": name}
                 for ms, n, name in rows[:15]]}}), flush=True)
+
+
+PAGED_SERVE_ARGS = SERVE_ARGS + ["--paged", "--block-size", "16"]
+SCARCE_BLOCKS = 112     # 8 prompts of 13 blocks + watermark fill it
+RING_WINDOW = 256
+
+
+def _pool_operands(b, max_len, bs, dtype, gen):
+    """q [b,14,64] and a k/v pool [2, 1 + b*W, bs, 2, 64] (block 0 the
+    null block) with random disjoint tables [b, W], W = max_len / bs."""
+    h, kv, hd = 14, 2, 64
+    w = max_len // bs
+    nb = 1 + b * w
+    q = torch.randn((b, h, hd), generator=gen, device=DEV).to(dtype)
+    pool = torch.randn((2, nb, bs, kv, hd), generator=gen,
+                       device=DEV).to(dtype)
+    perm = torch.randperm(nb - 1, generator=gen, device=DEV) + 1
+    tables = perm[:b * w].reshape(b, w).to(torch.int32)
+    return q, pool[0], pool[1], tables
+
+
+def _gather_sdpa(q, kp, vp, tables, valid):
+    """Gather the pages into a linear cache, then SDPA with a length mask:
+    the informative point of comparison (no single PyTorch call computes
+    paged attention)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, w = tables.shape
+
+    def run():
+        kf, vf = (p[tables.long()].reshape(b, w * p.shape[1], p.shape[2],
+                                           p.shape[3]).transpose(1, 2)
+                  for p in (kp, vp))
+        return sdpa(q[:, :, None], kf, vf, attn_mask=valid[:, None, None],
+                    enable_gqa=True)
+    return run
+
+
+def _paged_bytes(q, used, used_blocks, esize):
+    """q read and out written once, each valid K/V row once, the table
+    entries and lengths the rows use."""
+    return (esize * (2 * q.numel() + 2 * used * 2 * 64)
+            + 4 * (q.shape[0] + used_blocks))
+
+
+def check_paged_case(label, b, max_len, bs, dtype, gen):
+    """One paged decode step of b rows whose lengths spread over
+    1..max_len; table entries past a row's blocks point at block 0."""
+    q, kp, vp, tables = _pool_operands(b, max_len, bs, dtype, gen)
+    w = tables.shape[1]
+    lengths = torch.linspace(1, max_len, b, device=DEV).round().to(
+        torch.int32)
+    lengths[0] = max_len
+    nblk = (lengths + bs - 1) // bs
+    tables[torch.arange(w, device=DEV)[None] >= nblk[:, None]] = 0
+    valid = torch.arange(w * bs, device=DEV)[None] < lengths[:, None]
+    used = int(lengths.sum())
+    case = attention_case(
+        "decode_attention_paged", label,
+        lambda: ops.decode_attention_paged(q, kp, vp, tables,
+                                           lengths=lengths),
+        lambda: ref.decode_attention_paged(q, kp, vp, tables,
+                                           lengths=lengths),
+        None, _paged_bytes(q, used, int(nblk.sum()), q.element_size()),
+        4 * 64 * 14 * used, iters=50, dtype=dtype)
+    lib = _gather_sdpa(q, kp, vp, tables, valid)
+    case.update(gather_sdpa_ms=device_ms(lib, 50),
+                gather_sdpa_event_ms=event_ms(lib, 50),
+                shape=[list(q.shape), list(kp.shape), list(tables.shape)],
+                lengths=[int(lengths.min()), int(lengths.max())])
+    print(json.dumps({"gather_sdpa": {k: case[k] for k in (
+        "case", "dtype", "gather_sdpa_ms", "gather_sdpa_event_ms")}}),
+        flush=True)
+    return case
+
+
+def check_ring_case(label, b, window, bs, dtype, gen):
+    """One ring decode step of b rows over rings of window / bs blocks,
+    rows unwrapped, part-filled and wrapped (lengths 1..3*window), random
+    ring starts; rotating table and starts together must leave the
+    output bitwise unchanged."""
+    q, kp, vp, tables = _pool_operands(b, window, bs, dtype, gen)
+    w = tables.shape[1]
+    lengths = torch.linspace(1, 3 * window, b, device=DEV).round().to(
+        torch.int32)
+    starts = torch.randint(0, w, (b,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    live = torch.clamp(lengths, max=window)
+    order = (starts.long()[:, None] + torch.arange(w, device=DEV)[None]) % w
+    ring_tables = torch.gather(tables, 1, order).contiguous()
+    valid = torch.arange(w * bs, device=DEV)[None] < live[:, None]
+    used = int(live.sum())
+    kw = dict(ring_starts=starts, lengths=lengths, window=window)
+    case = attention_case(
+        "decode_attention_ring", label,
+        lambda: ops.decode_attention_ring(q, kp, vp, tables, **kw),
+        lambda: ref.decode_attention_ring(q, kp, vp, tables, **kw),
+        None, _paged_bytes(q, used, int(((live + bs - 1) // bs).sum()),
+                           q.element_size()),
+        4 * 64 * 14 * used, iters=50, dtype=dtype)
+    base = ops.decode_attention_ring(q, kp, vp, tables, **kw)
+    for shift in (1, w // 2, w - 1):
+        rot = torch.roll(tables, shift, dims=1).contiguous()
+        out = ops.decode_attention_ring(
+            q, kp, vp, rot, ring_starts=(starts + shift) % w,
+            lengths=lengths, window=window)
+        if not torch.equal(out, base):
+            raise AssertionError(f"ring kernel changes under a rotation by "
+                                 f"{shift} ({label})")
+    lib = _gather_sdpa(q, kp, vp, ring_tables, valid)
+    case.update(gather_sdpa_ms=device_ms(lib, 50),
+                gather_sdpa_event_ms=event_ms(lib, 50),
+                rotation_invariant="bitwise",
+                shape=[list(q.shape), list(kp.shape), list(tables.shape)],
+                lengths=[int(lengths.min()), int(lengths.max())])
+    print(json.dumps({"ring_rotation_bitwise": label}), flush=True)
+    return case
+
+
+def check_identity_table(gen):
+    """The arena's [8,512,2,64] cache cut into blocks of 16 under an
+    identity table: the paged kernel against the linear decode kernel."""
+    b, t, h, kv, hd, bs = 8, 512, 14, 2, 64, 16
+    bf = torch.bfloat16
+    q = torch.randn((b, h, hd), generator=gen, device=DEV).to(bf)
+    k, v = (torch.randn((b, t, kv, hd), generator=gen, device=DEV).to(bf)
+            for _ in range(2))
+    lengths = torch.linspace(1, t, b, device=DEV).round().to(torch.int32)
+    w = t // bs
+    null = torch.zeros((1, bs, kv, hd), dtype=bf, device=DEV)
+    pk, pv = (torch.cat([null, x.reshape(b * w, bs, kv, hd)]) for x in (k, v))
+    tables = (1 + torch.arange(b * w, device=DEV)).reshape(b, w).to(
+        torch.int32)
+    paged = ops.decode_attention_paged(q, pk, pv, tables, lengths=lengths)
+    linear = ops.decode_attention(q, k, v, lengths=lengths)
+    ok, err = bf16_close(paged, linear)
+    print(json.dumps({"identity_table_vs_linear_kernel": {
+        "max_abs_err": err, "bitwise": bool(torch.equal(paged, linear)),
+        "tolerance": "<= 1 bf16 ulp + 1e-5"}}), flush=True)
+    if not ok:
+        raise AssertionError(f"paged kernel with an identity table differs "
+                             f"from the linear kernel by {err}")
+
+
+def paged_serve_main_path(arena_outputs):
+    """Phase 11: the paged serving main path, then a block-scarce pool
+    under "recompute" and "reserve". Returns (summary, launches)."""
+    n_layers = N_LAYERS
+    args = serve_cli.parse_args(PAGED_SERVE_ARGS)
+    print(" ".join(PAGED_SERVE_ARGS))
+    reset_counts()
+    out = serve_cli.serve(args)
+    launches = counts()
+    summary = serving_summary(out, launches)
+    summary["requests_equal_to_arena"] = sum(
+        a == b for a, b in zip(out["outputs"], arena_outputs))
+    print(json.dumps({"paged_serving_main_path": summary}), flush=True)
+    steps = out["stats"]["decode_steps"]
+    if launches["decode_attention_paged"] != n_layers * steps:
+        raise AssertionError(f"decode_attention_paged launched "
+                             f"{launches['decode_attention_paged']} times "
+                             f"for {steps} decode steps")
+    if launches["decode_attention"] or launches["decode_attention_ring"]:
+        raise AssertionError(f"the paged path launched another decode "
+                             f"kernel: {launches}")
+    if [len(o) for o in out["outputs"]] != out["budgets"]:
+        raise AssertionError("a request did not get its budget's tokens")
+    if out["free_blocks"] != out["num_blocks"]:
+        raise AssertionError(f"{out['num_blocks'] - out['free_blocks']} "
+                             "blocks were not returned")
+    torch.cuda.empty_cache()
+
+    # block accounting depends on lengths only: the smoke config on the
+    # CPU preempts exactly as often as full width on the card
+    scarce_argv = PAGED_SERVE_ARGS + ["--num-blocks", str(SCARCE_BLOCKS)]
+    cpu = serve_cli.serve(serve_cli.parse_args(
+        scarce_argv + ["--smoke", "--device", "cpu"]))
+    predicted = cpu["num_preemptions"]
+    if predicted < 1:
+        raise AssertionError("the scarce pool does not preempt at smoke "
+                             "size; shrink it")
+    runs = {}
+    for policy in ("recompute", "reserve"):
+        argv = scarce_argv + ["--preemption", policy]
+        print(" ".join(argv))
+        reset_counts()
+        run = serve_cli.serve(serve_cli.parse_args(argv))
+        run_launches = counts()
+        runs[policy] = serving_summary(run, run_launches)
+        runs[policy]["outputs_equal_to_unpreempted"] = (
+            run["outputs"] == out["outputs"])
+        want = predicted if policy == "recompute" else 0
+        if run["num_preemptions"] != want:
+            raise AssertionError(f"{policy}: {run['num_preemptions']} "
+                                 f"preemptions, expected {want}")
+        if run["outputs"] != out["outputs"]:
+            raise AssertionError(f"{policy}: the scarce pool changed the "
+                                 "tokens")
+        if run["free_blocks"] != run["num_blocks"]:
+            raise AssertionError(f"{policy}: blocks were not returned")
+        if (run_launches["decode_attention_paged"]
+                != n_layers * run["stats"]["decode_steps"]):
+            raise AssertionError(f"{policy}: paged launches "
+                                 f"{run_launches}")
+        torch.cuda.empty_cache()
+    print(json.dumps({"paged_scarce_pool": {
+        "num_blocks": SCARCE_BLOCKS, "predicted_preemptions_cpu": predicted,
+        **runs}}), flush=True)
+    return summary, launches
+
+
+def ring_serving():
+    """Phase 12: a full-width windowed model served from the ring-paged
+    pool; returns (summary, launches)."""
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg, window=RING_WINDOW)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (200,)) for _ in range(8)]
+    budget = 320
+    eng = Engine(model, params, max_batch=8, max_len=512, paged=True,
+                 block_size=16, prefill_chunk=32)
+    del params
+    ring_blocks = RING_WINDOW // 16
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_new_tokens=budget) for p in prompts]
+    in_use, full_at = [], None
+    while eng.pending or eng.num_active:
+        eng.step()
+        in_use.append(eng._allocator.in_use)
+        live = [int(eng._lengths[s]) for s in range(eng.max_batch)
+                if eng._slot_req[s] is not None]
+        if full_at is None and live and min(live) >= RING_WINDOW:
+            full_at = len(in_use)
+    total = time.perf_counter() - t0
+    launches = counts()
+    done = {r.uid: r for r in eng.run()}
+    st = eng.stats
+    steps = st["decode_steps"]
+    summary = {
+        "window": RING_WINDOW, "requests": len(uids), "budget": budget,
+        "tokens_per_s": len(uids) * budget / total, "decode_steps": steps,
+        "decode_ms_per_step": st["decode_s"] / steps * 1e3,
+        "prefill_ms_per_admission": (st["admit_host_s"]
+                                     + st["prefill_wait_s"])
+        / st["admissions"] * 1e3,
+        "peak_blocks_in_use": eng._allocator.peak_in_use,
+        "blocks_in_use_once_full": in_use[full_at - 1] if full_at else None,
+        "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "stats": st}
+    print(json.dumps({"ring_paged_serving": summary}), flush=True)
+    if launches["decode_attention_ring"] != N_LAYERS * steps:
+        raise AssertionError(f"decode_attention_ring launched "
+                             f"{launches['decode_attention_ring']} times "
+                             f"for {steps} decode steps")
+    if launches["decode_attention_paged"] or launches["decode_attention"]:
+        raise AssertionError(f"the ring path launched another decode "
+                             f"kernel: {launches}")
+    if any(len(done[u].output) != budget for u in uids):
+        raise AssertionError("a ring request did not get its budget")
+    if full_at is None or any(n > in_use[full_at - 1]
+                              for n in in_use[full_at:]):
+        raise AssertionError(f"blocks were allocated after the rings were "
+                             f"full: {in_use}")
+    if eng._allocator.peak_in_use != 8 * ring_blocks:
+        raise AssertionError(f"peak {eng._allocator.peak_in_use} blocks, "
+                             f"rings hold {8 * ring_blocks}")
+    if eng.free_blocks != eng.num_blocks:
+        raise AssertionError("ring blocks were not returned")
+    return summary, launches
+
+
+def paged_reference_check():
+    """Phase 13: the smoke config in f32 on the card and on the CPU from
+    one set of parameters: the paged entry points' logits (live rows,
+    1e-4), then three engines (paged, paged in a scarce pool, ring-paged)
+    whose tokens and preemption counts must be equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), compute_dtype="float32")
+    cpu_dev = torch.device("cpu")
+    rng = np.random.default_rng(7)
+    workload = [(5, 6), (11, 14), (3, 9), (8, 1), (14, 5), (2, 20), (9, 4)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n, _ in workload]
+    budgets = [b for _, b in workload]
+    long_prompt = rng.integers(0, cfg.vocab_size, (19,))     # two chunks
+    worst, report = 0.0, {}
+    for window in (0, 16):
+        model = build_model(cfg, window=window)
+        cpu = model.init(torch.Generator().manual_seed(0))
+        runs = [(dev, {k: v.to(dev) for k, v in cpu.items()},
+                 model.init_pool(12, 8, dtype=torch.float32, device=dev))
+                for dev in (cpu_dev, DEV)]
+        tables = np.zeros((3, 8), np.int32)
+        tables[0, :3] = [4, 9, 2]
+        toks = np.zeros((1, 16), np.int32)
+        for start in (0, 16):
+            part = long_prompt[start:start + 16]
+            toks[:] = 0
+            toks[0, :len(part)] = part
+            want, got = (model.prefill_chunk_into_blocks(
+                p, torch.from_numpy(toks).to(dev), len(part), start,
+                torch.from_numpy(tables[0]).to(dev), pool)[0].cpu()
+                for dev, p, pool in runs)
+            worst = max(worst, float((got - want).abs().max()))
+        # a live row, a dead row, and a dead row drifted past the table
+        lengths = np.array([len(long_prompt), 0, 8 * 8 + 5], np.int32)
+        cur = np.array([3, 5, 7], np.int32)
+        free = iter([1, 3, 5, 6, 7, 8, 10, 11])
+        for _ in range(20):
+            pos = int(lengths[0]) % (window or 1 << 30)
+            if tables[0, pos // 8] == 0:
+                tables[0, pos // 8] = next(free)
+            want, got = (model.decode_rows_paged(
+                p, torch.from_numpy(cur)[:, None].to(dev), pool,
+                torch.from_numpy(tables).to(dev),
+                torch.from_numpy(lengths).to(dev))[0].cpu()
+                for dev, p, pool in runs)
+            # dead rows read the null block, whose contents differ by
+            # device (winners of duplicate writes): the live row counts
+            worst = max(worst, float((got[0] - want[0]).abs().max()))
+            cur = want[:, -1].argmax(-1).numpy().astype(np.int32)
+            lengths = lengths + 1
+        engines = ({"ring": dict(block_size=8, num_blocks=24)} if window
+                   else {"paged": dict(block_size=4, num_blocks=24),
+                         "paged_scarce": dict(block_size=4, num_blocks=9)})
+        for name, geom in engines.items():
+            got = []
+            for dev, p, _ in runs:
+                eng = Engine(model, p, max_batch=3, max_len=32,
+                             cache_dtype=torch.float32, paged=True,
+                             prefill_chunk=4, **geom)
+                for prompt, budget in zip(prompts, budgets):
+                    eng.submit(prompt, max_new_tokens=budget)
+                done = sorted(eng.run(), key=lambda r: r.uid)
+                got.append(([r.output.tolist() for r in done],
+                            eng.num_preemptions, eng.free_blocks))
+            report[name] = {"preemptions": got[1][1],
+                            "tokens_equal": got[0][0] == got[1][0]}
+            if got[0] != got[1]:
+                raise AssertionError(f"{name}: card and CPU engines differ "
+                                     f"(preemptions {got[0][1]} / "
+                                     f"{got[1][1]})")
+    if report["paged_scarce"]["preemptions"] < 1:
+        raise AssertionError("the scarce smoke pool did not preempt")
+    print(json.dumps({"paged_reference_max_abs_err": worst,
+                      "tolerance": 1e-4, "engines": report}), flush=True)
+    # f32 sums run in another order on the card than on the CPU
+    if worst > 1e-4:
+        raise AssertionError(f"card and CPU paged logits differ by {worst}")
 
 
 def kernel_entry(name, source, replaces, launches, cases, rep):
@@ -533,12 +925,12 @@ def main():
                       "cuda": torch.version.cuda}), flush=True)
 
     phase("2 build")
-    for name in KERNELS:
+    for name in build.KERNELS:
         build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    logs = build.build(*KERNELS)
+    logs = build.build(*build.KERNELS)
     print(f"build_s {time.perf_counter() - t0:.3f}")
-    for name in KERNELS:
+    for name in build.KERNELS:
         print(f"  [{name}]")
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -581,7 +973,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase("7 serving main path: repro_torch.launch.serve, full qwen2-0.5b")
-    _, serve_launches = serve_main_path()
+    _, serve_launches, arena_outputs = serve_main_path()
     torch.cuda.empty_cache()
 
     phase("8 serving reference: card against CPU at smoke size")
@@ -589,6 +981,37 @@ def main():
 
     phase("9 serving profile")
     profile_decode_steps()
+    torch.cuda.empty_cache()
+    profile_decode_steps(paged=True)
+    torch.cuda.empty_cache()
+
+    phase("10 paged kernels against their plain versions")
+    paged_cases = [
+        check_paged_case("paged serving decode B=8 <=512 tokens bs=16",
+                         8, 512, 16, dtype, gen)
+        for dtype in (torch.bfloat16, torch.float32)]
+    paged_cases += [
+        check_paged_case("paged B=64 <=4096 tokens bs=16", 64, 4096, 16,
+                         dtype, gen)
+        for dtype in (torch.bfloat16, torch.float32)]
+    ring_cases = [
+        check_ring_case(f"ring window {RING_WINDOW} B=8 bs=16 (lengths "
+                        f"1..{3 * RING_WINDOW})", 8, RING_WINDOW, 16, dtype,
+                        gen)
+        for dtype in (torch.bfloat16, torch.float32)]
+    check_identity_table(gen)
+    torch.cuda.empty_cache()
+
+    phase("11 paged serving main path: repro_torch.launch.serve --paged")
+    _, paged_launches = paged_serve_main_path(arena_outputs)
+    torch.cuda.empty_cache()
+
+    phase("12 ring-paged serving: window 256, full qwen2-0.5b")
+    _, ring_launches = ring_serving()
+    torch.cuda.empty_cache()
+
+    phase("13 paged reference: card against CPU at smoke size")
+    paged_reference_check()
 
     # top level: each kernel's main-path case for the times (the largest
     # leaf's f32 case for prox_update), the worst case for the error
@@ -606,7 +1029,17 @@ def main():
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:89",
                      serve_launches["decode_attention"], decode_cases,
-                     decode_cases[0])]}))
+                     decode_cases[0]),
+        kernel_entry("decode_attention_paged",
+                     "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
+                     "src/repro/kernels/decode_attention.py:188",
+                     paged_launches["decode_attention_paged"], paged_cases,
+                     paged_cases[0]),
+        kernel_entry("decode_attention_ring",
+                     "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
+                     "src/repro/kernels/decode_attention.py:298",
+                     ring_launches["decode_attention_ring"], ring_cases,
+                     ring_cases[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

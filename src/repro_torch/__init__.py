@@ -8,7 +8,8 @@ the reference, so each file has a clear counterpart.
 Ported so far, for the dense `qwen2-0.5b` family: the gAPI-BCD
 language-model trainer (`repro_torch.launch.train`), with the closed-form
 prox update as a hand-written CUDA kernel, and greedy continuous-batching
-serving over a slot arena (`repro_torch.launch.serve`,
-`repro_torch.serve`), with prefill and decode attention as hand-written
-CUDA kernels (`repro_torch.kernels`).
+serving over a slot arena or a paged pool of KV blocks (a ring of blocks
+for a sliding window) (`repro_torch.launch.serve`, `repro_torch.serve`),
+with prefill, decode, paged decode and ring decode attention as
+hand-written CUDA kernels (`repro_torch.kernels`).
 """

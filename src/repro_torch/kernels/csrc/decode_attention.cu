@@ -27,7 +27,9 @@
 // thread owns NO of the G * hd outputs in registers across tiles. The
 // cache is read where it lies: k and v come as [B, T, KV, hd] slices of
 // the arena with their strides, and lengths are read on the device, so
-// the step needs neither a transpose nor a host sync. Splitting long
+// the step needs neither a transpose nor a host sync. The block's body is
+// attn::grouped_decode (attention_common.cuh), which the paged and ring
+// kernels (decode_attention_paged.cu) share. Splitting long
 // caches across blocks (flash-decoding) is left for a later version. The
 // kernel launches on the caller's stream, allocates nothing, and each
 // entry point returns cudaGetLastError().
@@ -36,11 +38,7 @@
 
 namespace {
 
-using attn::kNegInf;
-using attn::kTileRows;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = attn::kDecodeThreads;
 
 struct Strides {
     int64_t b, t, h;   // elements between batch rows, positions, heads
@@ -52,121 +50,15 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int* __restrict__ lengths,
            T* __restrict__ out, int Tk, int H, int group, int64_t qsb,
            int64_t qsh, Strides ks, Strides vs, float scale) {
-    constexpr int kPitch = attn::pitch<T, HD>();
     extern __shared__ __align__(16) unsigned char smem[];
-    T* k_tile = reinterpret_cast<T*>(smem);
-    T* v_tile = k_tile + kTileRows * kPitch;
-    float* q_s = reinterpret_cast<float*>(v_tile + kTileRows * kPitch);
-    float* p_s = q_s + group * HD;            // [G, 64] logits, then probs
-    float* m_s = p_s + group * kTileRows;     // [G] running max
-    float* l_s = m_s + group;                 // [G] running sum
-    float* c_s = l_s + group;                 // [G] this tile's correction
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
     const int kvh = blockIdx.x;
     const int b = blockIdx.y;
     const int len = min(max(lengths[b], 0), Tk);
-    const int nout = group * HD;
-
-    for (int i = tid; i < nout; i += kThreads) {
-        q_s[i] = attn::to_f32(q[b * qsb + (kvh * group + i / HD) * qsh + i % HD]);
-    }
-    for (int g = tid; g < group; g += kThreads) {
-        m_s[g] = kNegInf;
-        l_s[g] = 0.f;
-    }
-    const T* k_head = k + b * ks.b + kvh * ks.h;
-    const T* v_head = v + b * vs.b + kvh * vs.h;
-
-    float acc[NO];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-
-    for (int k0 = 0; k0 < len; k0 += kTileRows) {
-        __syncthreads();   // q_s ready / the previous tile is consumed
-        attn::load_tile<T, HD>(k_tile, k_head, ks.t, k0, len, tid, kThreads);
-        attn::load_tile<T, HD>(v_tile, v_head, vs.t, k0, len, tid, kThreads);
-        __syncthreads();
-
-        // logits: one (head, cache row) pair per thread and step
-        for (int i = tid; i < group * kTileRows; i += kThreads) {
-            const int g = i / kTileRows;
-            const int t = i % kTileRows;
-            const float* qg = q_s + g * HD;
-            const T* kt = k_tile + t * kPitch;
-            float s = 0.f;
-#pragma unroll
-            for (int d = 0; d < HD; d += 8) {
-                float kv[8];
-                attn::load8(kt + d, kv);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) s = fmaf(qg[d + e], kv[e], s);
-            }
-            p_s[i] = k0 + t < len ? s * scale : kNegInf;
-        }
-        __syncthreads();
-
-        // running max and sum: one warp per head, two logits per lane
-        for (int g = warp; g < group; g += kWarps) {
-            float* pg = p_s + g * kTileRows;
-            const float a = pg[lane];
-            const float c = pg[lane + 32];
-            float tmax = fmaxf(a, c);
-#pragma unroll
-            for (int o = 16; o > 0; o /= 2) {
-                tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-            }
-            const float m_old = m_s[g];
-            const float m_new = fmaxf(m_old, tmax);
-            const float pa = expf(a - m_new);
-            const float pc = expf(c - m_new);
-            pg[lane] = pa;
-            pg[lane + 32] = pc;
-            float sum = pa + pc;
-#pragma unroll
-            for (int o = 16; o > 0; o /= 2) {
-                sum += __shfl_xor_sync(0xffffffffu, sum, o);
-            }
-            if (lane == 0) {
-                const float corr = expf(m_old - m_new);
-                l_s[g] = l_s[g] * corr + sum;
-                m_s[g] = m_new;
-                c_s[g] = corr;
-            }
-        }
-        __syncthreads();
-
-        // acc = acc * corr + p @ v for the outputs this thread owns
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-            const int o = tid + i * kThreads;
-            if (o < nout) {
-                const int g = o / HD;
-                const int d = o % HD;
-                const float* pg = p_s + g * kTileRows;
-                float a = acc[i] * c_s[g];
-#pragma unroll 8
-                for (int t = 0; t < kTileRows; ++t) {
-                    a = fmaf(pg[t], attn::to_f32(v_tile[t * kPitch + d]), a);
-                }
-                acc[i] = a;
-            }
-        }
-    }
-    __syncthreads();   // l_s is final (also when the row holds no token)
-
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-        const int o = tid + i * kThreads;
-        if (o < nout) {
-            const int g = o / HD;
-            T* dst = out + (static_cast<int64_t>(b) * H + kvh * group + g) * HD +
-                     o % HD;
-            attn::store(dst, acc[i] / fmaxf(l_s[g], 1e-30f));
-        }
-    }
+    const attn::LinearRows<T> rows{k + b * ks.b + kvh * ks.h,
+                                   v + b * vs.b + kvh * vs.h, ks.t, vs.t};
+    attn::grouped_decode<T, HD, NO>(
+        q + b * qsb + kvh * group * qsh, qsh, group, len, rows, scale,
+        out + (static_cast<int64_t>(b) * H + kvh * group) * HD, smem);
 }
 
 template <typename T, int HD, int NO>
@@ -174,10 +66,8 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, int B, int Tk, int H, int KV, int64_t qsb, int64_t qsh,
            const Strides& ks, const Strides& vs, float scale,
            cudaStream_t stream) {
-    constexpr int kPitch = attn::pitch<T, HD>();
     const int group = H / KV;
-    const size_t smem = sizeof(T) * kPitch * 2 * kTileRows +
-                        sizeof(float) * (group * HD + group * kTileRows + 3 * group);
+    const size_t smem = attn::decode_smem_bytes<T, HD>(group);
     cudaError_t err = attn::allow_smem(decode_fwd<T, HD, NO>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(KV, B);

@@ -22,7 +22,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, check_operand
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_int_vector,
+                                                 check_operand)
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
@@ -60,14 +61,7 @@ def check_inputs(q, k, v, lengths):
                          f"{h // kv} heads per kv head is not supported "
                          f"(head_dim in {HEAD_DIMS}, G * head_dim <= "
                          f"{MAX_GROUP_WIDTH})")
-    if lengths.device != q.device:
-        raise ValueError(f"decode_attention kernel: lengths is on "
-                         f"{lengths.device}, expected {q.device}")
-    if lengths.dtype != torch.int32 or lengths.shape != (b,):
-        raise TypeError(f"decode_attention kernel: lengths must be int32 "
-                        f"[{b}], got {lengths.dtype} {tuple(lengths.shape)}")
-    if not lengths.is_contiguous():
-        raise ValueError("decode_attention kernel: lengths is not contiguous")
+    check_int_vector("decode_attention", "lengths", lengths, (b,), q.device)
 
 
 def decode_attention_cuda(q, k, v, *, lengths, scale=None):

@@ -62,6 +62,19 @@ def check_operand(kernel, name, t, ndim, device, dtype):
                          f"strides {t.stride()}")
 
 
+def check_int_vector(kernel, name, t, shape, device):
+    """Raise unless `t` is a contiguous int32 tensor of `shape` on
+    `device` (lengths, ring starts, block tables)."""
+    if t.device != device:
+        raise ValueError(f"{kernel} kernel: {name} is on {t.device}, "
+                         f"expected {device}")
+    if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+        raise TypeError(f"{kernel} kernel: {name} must be int32 "
+                        f"{list(shape)}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel} kernel: {name} is not contiguous")
+
+
 def check_inputs(q, k, v):
     """Raise unless q [B,S,H,hd], k and v [B,T,KV,hd] fit the kernel."""
     for name, t, nd in (("q", q, 4), ("k", k, 4), ("v", v, 4)):

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention_paged import (
+    decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prox_update import prox_update_cuda
 
@@ -54,3 +56,36 @@ def decode_attention(q, k, v, *, lengths, scale=None):
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, lengths=lengths, scale=scale)
     raise ValueError(f"decode_attention: no kernel for device {q.device}")
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, *, lengths,
+                           scale=None):
+    """q: [B,H,hd]; k_pool, v_pool: [NB,bs,KV,hd] (block 0 the null
+    block); block_tables: int32 [B,W]; lengths: int32 [B] valid logical
+    positions per row. Returns [B,H,hd] in q's dtype."""
+    if q.device.type == "cuda":
+        return decode_attention_paged_cuda(q, k_pool, v_pool, block_tables,
+                                           lengths=lengths, scale=scale)
+    if q.device.type == "cpu":
+        return ref.decode_attention_paged(q, k_pool, v_pool, block_tables,
+                                          lengths=lengths, scale=scale)
+    raise ValueError(f"decode_attention_paged: no kernel for device "
+                     f"{q.device}")
+
+
+def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
+                          lengths, window, scale=None):
+    """The sliding-window ring: ring block bi of row b is table entry
+    (ring_starts[b] + bi) % W, and ring slots below min(lengths[b],
+    window, W * bs) are valid. Shapes as `decode_attention_paged`;
+    ring_starts int32 [B]."""
+    kw = dict(ring_starts=ring_starts, lengths=lengths, window=window,
+              scale=scale)
+    if q.device.type == "cuda":
+        return decode_attention_ring_cuda(q, k_pool, v_pool, block_tables,
+                                          **kw)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ring(q, k_pool, v_pool, block_tables,
+                                         **kw)
+    raise ValueError(f"decode_attention_ring: no kernel for device "
+                     f"{q.device}")

@@ -104,3 +104,50 @@ def decode_attention(q, k, v, *, lengths, scale=None):
         _logits(q.reshape(b, kv, h // kv, 1, hd), k, scale),
         valid[:, None, None, None, :], vh)
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def gather_pages(pool, tables):
+    """pool [NB, bs, ...] through int tables [B, W] -> linear [B, W * bs,
+    ...]: logical position p of row b is row p % bs of pool block
+    tables[b, p // bs] (a copy: the plain paged paths and the paged
+    prefill gather, the kernels read the pool where it lies)."""
+    b, w = tables.shape
+    return pool[tables.long()].reshape((b, w * pool.shape[1]) + pool.shape[2:])
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, *, lengths,
+                           scale=None):
+    """One-token GQA decode against a shared block pool (the TPU kernel
+    `decode_attention_paged_grouped`): gather each row's blocks into a
+    linear cache, then `decode_attention` with per-row lengths.
+
+    q: [B, H, hd]; k_pool, v_pool: [NB, bs, KV, hd] (block 0 is the null
+    block); block_tables: int [B, W]; lengths: int [B], the valid logical
+    positions of each row (positions past W * bs do not exist). Returns
+    [B, H, hd] in q's dtype.
+    """
+    return decode_attention(q, gather_pages(k_pool, block_tables),
+                            gather_pages(v_pool, block_tables),
+                            lengths=lengths, scale=scale)
+
+
+def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
+                          lengths, window, scale=None):
+    """One-token GQA decode over a sliding-window ring of blocks (the TPU
+    kernel `decode_attention_ring_grouped`): undo each row's table
+    rotation (ring block bi sits at table entry (starts[b] + bi) % W),
+    then the ring is a paged layout over ring slots, of which exactly
+    min(lengths[b], window) are valid, of the W * bs the table covers (the
+    serving engine's table is narrower than the ring until a row holds
+    more than W * bs tokens).
+
+    q: [B, H, hd]; pools [NB, bs, KV, hd]; block_tables: int [B, W];
+    ring_starts, lengths: int [B]. Returns [B, H, hd] in q's dtype.
+    """
+    b, w = block_tables.shape
+    order = (ring_starts.long().reshape(b, 1)
+             + torch.arange(w, device=block_tables.device)[None]) % w
+    ring = torch.gather(block_tables.long(), 1, order)
+    return decode_attention_paged(q, k_pool, v_pool, ring,
+                                  lengths=torch.clamp(lengths, max=window),
+                                  scale=scale)

@@ -15,9 +15,13 @@ and at smoke size on the CPU:
         --smoke --requests 4 --max-batch 2 --prompt-len 8 --new-tokens 4 \
         --device cpu
 
---mixed interleaves short (new_tokens // 4) and long budgets. The
-reference's --wave, --paged, --block-size and --preemption are not
-ported. Prints tokens/s and p50/p99 request latency.
+--mixed interleaves short (new_tokens // 4) and long budgets. --paged
+serves from a shared pool of KV blocks (--block-size tokens each,
+--num-blocks of them; default: the arena's footprint) with chunked
+prefill, admitting under --preemption recompute (optimistic, preempting
+the newest request when the pool runs dry) or reserve (worst-case
+reservation). The reference's --wave is not ported. Prints tokens/s,
+p50/p99 request latency and, for the pool, preemptions and free blocks.
 """
 from __future__ import annotations
 
@@ -38,6 +42,16 @@ def parse_args(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--mixed", action="store_true",
                     help="interleave short (new_tokens//4) and long budgets")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV: shared block pool, block tables, "
+                         "chunked prefill")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged KV block size in tokens")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="paged pool size in blocks (default: "
+                         "max_batch * capacity / block_size)")
+    ap.add_argument("--preemption", choices=("recompute", "reserve"),
+                    default="recompute", help="paged admission policy")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -78,8 +92,9 @@ def serve(args):
     one: launch + [B]-token fetch), "admit_ms" (the admission part of
     each step that admitted: prefill launches + first-token fetch),
     "latency_s" (by uid), "tokens_per_s", "p50_s", "p99_s", "stats"
-    (Engine.stats), "max_len", "peak_bytes" (None on the CPU),
-    "device"}."""
+    (Engine.stats), "max_len", "paged", "num_preemptions", "free_blocks"
+    and "num_blocks" (None for the arena), "peak_bytes" (None on the
+    CPU), "device"}."""
     import numpy as np
     import torch
 
@@ -91,7 +106,9 @@ def serve(args):
         torch.cuda.reset_peak_memory_stats(device)
     prompts, budgets = workload(args, cfg.vocab_size)
     max_len = bucket_length(args.prompt_len + max(budgets))
-    eng = Engine(model, params, max_batch=args.max_batch, max_len=max_len)
+    eng = Engine(model, params, max_batch=args.max_batch, max_len=max_len,
+                 paged=args.paged, block_size=args.block_size,
+                 num_blocks=args.num_blocks, preemption=args.preemption)
     del params      # the engine holds its compute-dtype copy
 
     t0 = time.perf_counter()
@@ -116,18 +133,26 @@ def serve(args):
     toks = sum(len(done[u].output) for u in uids)
     lats = [latency[u] for u in uids]
     p50, p99 = (float(np.percentile(lats, q)) for q in (50, 99))
-    print(f"[{cfg.name}] continuous (arena, serialized) on {device}: "
+    backend = (f"paged, {eng.num_blocks} blocks of {eng.block_size}, "
+               f"{eng.preemption}" if eng.paged else "arena")
+    print(f"[{cfg.name}] continuous ({backend}, serialized) on {device}: "
           f"{args.requests} reqs (budgets {sorted(set(budgets))}), "
           f"max_batch {args.max_batch}, capacity {eng.capacity}")
     print(f"  {toks} tokens in {total:.3f}s ({toks / total:.1f} tok/s); "
           f"latency p50 {p50:.3f}s p99 {p99:.3f}s")
+    print(f"  paged {eng.paged}; num_preemptions {eng.num_preemptions}; "
+          f"free_blocks {eng.free_blocks}")
     for u in uids[:min(4, len(uids))]:
         print("  ", done[u].output.tolist())
     return {"outputs": [done[u].output.tolist() for u in uids],
             "budgets": budgets, "step_ms": step_ms, "decode_ms": decode_ms,
             "admit_ms": admit_ms, "latency_s": lats,
             "tokens_per_s": toks / total, "p50_s": p50, "p99_s": p99, "stats": eng.stats,
-            "max_len": max_len, "device": str(device),
+            "max_len": max_len, "paged": eng.paged,
+            "num_preemptions": eng.num_preemptions,
+            "free_blocks": eng.free_blocks,
+            "num_blocks": eng.num_blocks if eng.paged else None,
+            "device": str(device),
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if cuda else None)}
 

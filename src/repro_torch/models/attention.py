@@ -18,9 +18,14 @@ and on the CPU their plain versions. The reference computes both with
 jnp here (its `use_pallas` switch does not exist), so the port's serving
 path is held against those jnp paths. The KV cache is a ring of capacity
 T per row; the port writes it in place where the reference returns new
-buffers.
+buffers. The paged pool's decode goes through `decode_attention_paged`
+(`decode_attention_ring` for a window), the paged and ring kernels on
+the card; its chunk prefill attends with plain PyTorch, as the
+reference does with jnp.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -154,5 +159,169 @@ def gqa_decode(params, cfg, x, cache, position):
     out = ops.decode_attention(q[:, 0].reshape(b, h, hd).to(cache["k"].dtype),
                                cache["k"], cache["v"], lengths=lengths)
     cache["ptr"].add_(1)
+    out = out.reshape(b, 1, h * hd).to(x.dtype)
+    return out @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# paged KV (a shared block pool, per-row block tables)
+#
+# A layer's pool is {k, v: [NB, bs, KV, hd]}; block 0 is the null block
+# that unallocated table entries point at and masked writes land in, and
+# no live row ever attends to it. Logical position p of a row lies at row
+# p % bs of block table[p // bs]. With window > 0 the table is a RING over
+# ring slots: position p lies at ring slot p % window, so eviction is an
+# overwrite and a slot never holds more than ceil(window / bs) blocks. The
+# port writes the pool in place where the reference returns new buffers;
+# duplicate scatter targets (dead rows, masked chunk positions) all lie in
+# the null block, so their undefined winner is never read.
+# ---------------------------------------------------------------------------
+
+
+gather_pages = ref.gather_pages    # pool [NB, bs, ...] -> [B, W * bs, ...]
+
+
+def scatter_chunk_pages(pool, entries, table, start, window=0, valid=None):
+    """Write a prefill chunk's entries [C, ...] into one slot's blocks, in
+    place. table int [W]; start: the absolute position of entries[0].
+
+    Positions past the table's range go to the null block (only the
+    padded chunk tail can land there; pads written into real blocks lie
+    past the slot's length and are overwritten by decode before they are
+    valid). window > 0: position p writes ring slot p % window, and the
+    entries at or past `valid` (the chunk's true length) go to the null
+    block, since a pad's ring slot can hold live wrapped context."""
+    bs, w = pool.shape[1], table.shape[0]
+    c = entries.shape[0]
+    idx = torch.arange(c, device=pool.device)
+    p = start + idx
+    if window:
+        p = p % window
+    bi = p // bs
+    in_range = bi < w
+    if window:
+        in_range &= idx < valid
+    blk = torch.where(in_range, table.long()[torch.clamp(bi, max=w - 1)], 0)
+    pool[blk, p % bs] = entries.to(pool.dtype)
+    return pool
+
+
+def scatter_token_pages(pool, entries, tables, positions, window=0):
+    """Write one entry per row, entries [B, ...] at positions[b], in place.
+    tables int [B, W].
+
+    Dead rows (zeroed table) write the null block. A dead row's position
+    drifts up by one per decode step, past the table's width: the block
+    index is clamped to W - 1, which for a dead row is the null block
+    too. window > 0: position p writes ring slot p % window, overwriting
+    the evicted token."""
+    bs, w = pool.shape[1], tables.shape[1]
+    positions = positions.long()
+    if window:
+        positions = positions % window
+    bi = torch.clamp(positions // bs, max=w - 1)
+    blk = torch.gather(tables.long(), 1, bi[:, None])[:, 0]
+    pool[blk, positions % bs] = entries.to(pool.dtype)
+    return pool
+
+
+def _paged_context_attention(q, k_ctx, v_ctx, k_new, v_new, ctx_len, scale,
+                             window=0):
+    """Chunk queries against (gathered context ++ the chunk's own K/V), as
+    one masked softmax in f32.
+
+    q [B,C,KV,G,hd]; k_ctx, v_ctx [B,T,KV,hd]; k_new, v_new [B,C,KV,hd];
+    ctx_len: tokens already in the slot (an int). Context keys are valid
+    below ctx_len; chunk keys are causal within the chunk (padded tail
+    keys sit above every valid query). Returns [B,C,KV,G,hd] in f32.
+
+    window > 0: the context is a ring; ring slot j holds the latest
+    context position congruent to j, p_j = ctx_len-1 - ((ctx_len-1-j) %
+    window), and chunk query i (position ctx_len + i) sees it when j <
+    min(ctx_len, window) and p_j > ctx_len + i - window; it sees chunk key
+    jj when jj <= i < jj + window: together the arena's sliding-window
+    causal mask."""
+    t, c = k_ctx.shape[1], q.shape[1]
+    dev = q.device
+    qf = q.float()
+    ctx_logits = torch.einsum("bskgh,btkh->bskgt", qf, k_ctx.float()) * scale
+    j = torch.arange(t, device=dev)
+    if window:
+        p_j = ctx_len - 1 - (ctx_len - 1 - j) % window            # [T]
+        q_pos = ctx_len + torch.arange(c, device=dev)              # [C]
+        ctx_valid = ((j < min(ctx_len, window))[None, :]
+                     & (p_j[None, :] > q_pos[:, None] - window))   # [C, T]
+    else:
+        ctx_valid = (j < ctx_len)[None, :].expand(c, t)
+    ctx_logits = torch.where(ctx_valid[None, :, None, None, :], ctx_logits,
+                             ref._NEG_INF)
+    self_logits = torch.einsum("bskgh,btkh->bskgt", qf, k_new.float()) * scale
+    i = torch.arange(c, device=dev)
+    causal = i[:, None] >= i[None, :]                              # [C, C]
+    if window:
+        causal &= (i[:, None] - i[None, :]) < window
+    self_logits = torch.where(causal[None, :, None, None, :], self_logits,
+                              ref._NEG_INF)
+    p = torch.softmax(torch.cat([ctx_logits, self_logits], dim=-1), dim=-1)
+    v_all = torch.cat([v_ctx, v_new], dim=1).float()
+    return torch.einsum("bskgt,btkh->bskgh", p, v_all)
+
+
+def gqa_prefill_paged(params, cfg, x, cache, table, ctx_len, window=0,
+                      valid=None):
+    """One prefill chunk against a layer's paged pool (batch-1 admission).
+
+    x [1,C,D]; cache {k, v: [NB, bs, KV, hd]}; table int [W]; ctx_len:
+    tokens already in the slot's blocks (an int). Attends the chunk's
+    queries to the gathered context (read before the chunk is written)
+    plus the chunk itself, then scatters the chunk's K/V into the slot's
+    blocks in place. `valid` (the chunk's true length) routes a ring's pad
+    entries to the null block. Returns ([1,C,D], cache)."""
+    b, c, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    positions = ctx_len + torch.arange(c, device=x.device)[None].expand(b, c)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    k_ctx = gather_pages(cache["k"], table[None])
+    v_ctx = gather_pages(cache["v"], table[None])
+    out = _paged_context_attention(q, k_ctx, v_ctx, k_new, v_new, ctx_len,
+                                   float(1.0 / math.sqrt(hd)), window=window)
+    out = out.reshape(b, c, h * hd).to(x.dtype)
+    scatter_chunk_pages(cache["k"], k_new[0], table, ctx_len, window=window,
+                        valid=valid)
+    scatter_chunk_pages(cache["v"], v_new[0], table, ctx_len, window=window,
+                        valid=valid)
+    return out @ params["wo"], cache
+
+
+def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0):
+    """One decode token per row against a layer's paged pool.
+
+    x [B,1,D]; cache {k, v: [NB, bs, KV, hd]} (the layer's slice of the
+    pool, written in place); tables int32 [B, W]; lengths int32 [B]:
+    tokens already cached per row (the incoming token's position).
+    Inserts the new token's K/V at position lengths[b], then attends over
+    lengths[b] + 1 positions through `ops.decode_attention_paged` (the
+    insert-then-attend of the arena's `gqa_decode`), which on the card is
+    the CUDA kernel reading the pool where it lies: no gather. window > 0:
+    the token writes ring slot lengths[b] % window and the row attends
+    over min(lengths[b] + 1, window) ring slots through
+    `ops.decode_attention_ring` (ring starts 0: the engine keeps each
+    table in ring order). Returns ([B,1,D], cache)."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q, k_new, v_new = _project_qkv(params, cfg, x, lengths.reshape(b, 1))
+    scatter_token_pages(cache["k"], k_new[:, 0], tables, lengths,
+                        window=window)
+    scatter_token_pages(cache["v"], v_new[:, 0], tables, lengths,
+                        window=window)
+    q = q[:, 0].reshape(b, h, hd).to(cache["k"].dtype)
+    if window:
+        out = ops.decode_attention_ring(
+            q, cache["k"], cache["v"], tables,
+            ring_starts=torch.zeros_like(lengths), lengths=lengths + 1,
+            window=window)
+    else:
+        out = ops.decode_attention_paged(q, cache["k"], cache["v"], tables,
+                                         lengths=lengths + 1)
     out = out.reshape(b, 1, h * hd).to(x.dtype)
     return out @ params["wo"], cache

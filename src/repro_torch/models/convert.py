@@ -1,5 +1,5 @@
-"""Convert the reference's parameter, train-state and cache pytrees to the
-port's.
+"""Convert the reference's parameter, train-state, cache and paged-pool
+pytrees to the port's.
 
 The reference nests dicts and lists ({"segments": [{"attn": {"wq": ...}}]});
 the port keys one flat dict by the dotted path of each leaf
@@ -54,6 +54,20 @@ def arena_from_jax(caches):
     out = {k: _tensor(v) for k, v in caches.items()}
     out["ptr"] = out["ptr"].to(torch.int32)
     return out
+
+
+def pool_from_jax(pools):
+    """The reference's paged pool (a one-segment list [{"k", "v": [L, NB +
+    1, bs, KV, hd]}], numpy leaves) -> the port's pool dict of CPU tensors
+    with the same shapes and dtypes (block 0 is the null block in both)."""
+    if isinstance(pools, (list, tuple)):
+        if len(pools) != 1:
+            raise ValueError(f"the port runs one homogeneous segment; the "
+                             f"pool has {len(pools)}")
+        pools = pools[0]
+    if set(pools) != {"k", "v"}:
+        raise ValueError(f"not a GQA pool: leaves {sorted(pools)}")
+    return {k: _tensor(v) for k, v in pools.items()}
 
 
 def _tensor(a):

@@ -1,8 +1,13 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Only the dense decoder-only family is ported; the others raise. The paged
-and mixed-step entry points of the reference come with slice 3.
+Only the dense decoder-only family is ported; the others raise. The
+serving entry points cover the slot arena and the paged pool; the
+reference's mixed-step entry points (overlapped admission) are not
+ported. A sliding window (`cfg.attn_window` or the `window` override)
+runs on the paged pool only, as a block ring: the windowed arena and
+windowed training are not ported, and their entry points raise rather
+than ignore the window.
 """
 from __future__ import annotations
 
@@ -31,6 +36,14 @@ class Model:
     # host fetches int32 ids instead of full-vocab logits
     prefill_into_slot_token: Callable = None    # -> (tok [], arena)
     decode_rows_tokens: Callable = None         # -> (toks [B], arena, pos+1)
+    # paged-KV (block-pool) entry points (repro_torch.serve, paged=True)
+    init_pool: Callable = None          # (num_blocks, block_size, **kw)
+    prefill_chunk_into_blocks: Callable = None  # (params, tokens, length,
+                                                #  ctx_len, table, pool)
+    decode_rows_paged: Callable = None  # (params, token, pool, tables,
+                                        #  lengths)
+    prefill_chunk_into_blocks_token: Callable = None  # -> (tok [], pool)
+    decode_rows_paged_tokens: Callable = None   # -> (toks [B], pool, len+1)
 
 
 def _check_ported(cfg: ArchConfig):
@@ -50,11 +63,22 @@ def _check_ported(cfg: ArchConfig):
                                   f"yet: {', '.join(unported)}")
 
 
-def build_model(cfg: ArchConfig) -> Model:
+def _windowed(name, window):
+    """An entry point that the windowed model does not have yet."""
+    def unported(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} with a sliding window ({window}) is not ported yet: "
+            "the windowed arena and windowed training are later work; a "
+            "windowed model serves through the paged pool "
+            "(Engine(paged=True))")
+    return unported
+
+
+def build_model(cfg: ArchConfig, window: int = 0) -> Model:
+    """window: sliding-window override (0 = the config's own)."""
     _check_ported(cfg)
-    return Model(
-        cfg=cfg,
-        window=cfg.attn_window,
+    window = cfg.attn_window or window
+    entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),
         train_loss=lambda p, b: TF.train_loss(cfg, p, b),
         prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, **kw),
@@ -70,4 +94,26 @@ def build_model(cfg: ArchConfig) -> Model:
             TF.prefill_into_slot_token(cfg, p, tokens, length, slot, caches),
         decode_rows_tokens=lambda p, t, c, pos: TF.decode_rows_tokens(
             cfg, p, t, c, pos),
+    )
+    if window:
+        entries = {name: fn if name == "init" else _windowed(name, window)
+                   for name, fn in entries.items()}
+    return Model(
+        cfg=cfg,
+        window=window,
+        **entries,
+        init_pool=lambda num_blocks, block_size, **kw: TF.init_pool(
+            cfg, num_blocks, block_size, **kw),
+        prefill_chunk_into_blocks=lambda p, tokens, length, ctx, table, pool:
+            TF.prefill_chunk_into_blocks(cfg, p, tokens, length, ctx, table,
+                                         pool, window=window),
+        decode_rows_paged=lambda p, t, pool, tables, lengths:
+            TF.decode_rows_paged(cfg, p, t, pool, tables, lengths,
+                                 window=window),
+        prefill_chunk_into_blocks_token=lambda p, tokens, length, ctx, table,
+            pool: TF.prefill_chunk_into_blocks_token(
+                cfg, p, tokens, length, ctx, table, pool, window=window),
+        decode_rows_paged_tokens=lambda p, t, pool, tables, lengths:
+            TF.decode_rows_paged_tokens(cfg, p, t, pool, tables, lengths,
+                                        window=window),
     )

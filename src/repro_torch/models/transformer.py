@@ -11,8 +11,10 @@ A KV cache is one dict {"k", "v": [L, B, T, KV, hd], "ptr"}: the
 reference's one-segment cache list, with the same leaves. `ptr` counts
 the tokens written: int32 [L] for a cache from `init_cache` (every row at
 one depth) and [L, B] for the slot arena (`init_arena`, every row at its
-own depth). The port updates caches in place where the reference returns
-new (donated) buffers.
+own depth). A paged pool (`init_pool`) is one dict {"k", "v": [L, NB + 1,
+bs, KV, hd]} shared by every row, with block 0 the null block; block
+tables say which blocks a row owns. The port updates caches and pools in
+place where the reference returns new (donated) buffers.
 """
 from __future__ import annotations
 
@@ -75,17 +77,35 @@ def transformer_init(cfg, generator, dtype=None):
     return params
 
 
-def forward(cfg, params, x, *, positions, mode="train", caches=None):
+def forward(cfg, params, x, *, positions, mode="train", caches=None,
+            paged=None, window=0):
     """Run the stack on embeddings x [B,S,D]. Returns the final-normed x.
 
     mode "train": no cache. "prefill": fills `caches` (from `init_cache`,
     batch B, capacity T) with the prompt's K/V, ring-ordered, and sets
     each layer's ptr to S. "decode": x is one token per row; inserts its
     K/V into `caches` at ptr, attends, and advances ptr. Caches are
-    updated in place."""
+    updated in place.
+
+    paged (with `caches` a pool from `init_pool`, as in the reference's
+    `block_apply`): for "prefill" {"table": int [W], "ctx_len": int,
+    "valid": int}, one chunk of one slot through `gqa_prefill_paged`; for
+    "decode" {"tables": int32 [B, W], "lengths": int32 [B]}, through
+    `gqa_decode_paged`. `window` (> 0: a ring-paged sliding window)
+    applies to the paged paths only."""
     for i, lp in enumerate(_layers(params, cfg.num_layers)):
         h = rmsnorm(lp["ln1"], x)
-        if mode == "decode":
+        if paged is not None:
+            layer = {"k": caches["k"][i], "v": caches["v"][i]}
+            if mode == "prefill":
+                attn_out, _ = A.gqa_prefill_paged(
+                    lp["attn"], cfg, h, layer, paged["table"],
+                    paged["ctx_len"], window=window, valid=paged["valid"])
+            else:
+                attn_out, _ = A.gqa_decode_paged(
+                    lp["attn"], cfg, h, layer, paged["tables"],
+                    paged["lengths"], window=window)
+        elif mode == "decode":
             layer = {name: caches[name][i] for name in ("k", "v", "ptr")}
             attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions)
         else:
@@ -279,3 +299,87 @@ def decode_rows_tokens(cfg, params, tokens, caches, positions):
                                  positions)
     nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
     return nxt, caches, positions + 1
+
+
+# The paged pool (`repro_torch.serve`, paged=True): every slot's KV lives
+# in fixed-size blocks of one shared pool, addressed through per-slot block
+# tables the engine keeps on the host. Admission streams a prompt in
+# through fixed-size chunks (batch-1); the decode step runs all slots with
+# per-row tables and lengths. window > 0 makes every table a ring.
+
+
+def init_pool(cfg, num_blocks, block_size, dtype=torch.bfloat16,
+              device=None):
+    """Zero paged pool {"k", "v": [L, num_blocks + 1, block_size, KV,
+    hd]}; block 0 is the null block, so allocatable ids are
+    1..num_blocks."""
+    shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_chunk_into_blocks(cfg, params, tokens, length, ctx_len,
+                              block_table, pool, window=0):
+    """Stream one prompt chunk into a slot's blocks (batch-1 admission).
+
+    tokens: [1, C] int, the chunk right-padded to the fixed chunk size C;
+    length: valid tokens in it (an int); ctx_len: tokens already streamed
+    into the slot (an int); block_table: int [W], the slot's blocks; pool:
+    from `init_pool`, written in place. Returns (logits [1,1,V] in f32 at
+    chunk position length - 1, meaningful for the prompt's last chunk
+    only, and the pool)."""
+    params = _cast(cfg, params)
+    x = _embed_tokens(cfg, params, tokens)
+    c = x.shape[1]
+    length, ctx_len = int(length), int(ctx_len)
+    positions = ctx_len + torch.arange(c, device=x.device)[None]
+    x = forward(cfg, params, x, positions=positions, mode="prefill",
+                caches=pool, window=window,
+                paged={"table": block_table, "ctx_len": ctx_len,
+                       "valid": length})
+    logits = logits_fn(cfg, params, x[:, length - 1:length]).float()
+    return logits, pool
+
+
+def decode_rows_paged(cfg, params, token, pool, block_tables, lengths,
+                      window=0):
+    """One decode step over all slots against the shared pool.
+
+    token: [B,1] int; block_tables: int32 [B, W]; lengths: int32 [B],
+    tokens already cached per row (the incoming token's position). Dead
+    rows carry a zeroed table: they write and read only the null block,
+    and the engine ignores their tokens. Returns (logits [B,1,V] in f32,
+    the pool, written in place)."""
+    params = _cast(cfg, params)
+    x = _embed_tokens(cfg, params, token)
+    b = x.shape[0]
+    x = forward(cfg, params, x, positions=lengths.reshape(b, 1),
+                mode="decode", caches=pool, window=window,
+                paged={"tables": block_tables, "lengths": lengths})
+    return logits_fn(cfg, params, x).float(), pool
+
+
+def prefill_chunk_into_blocks_token(cfg, params, tokens, length, ctx_len,
+                                    block_table, pool, window=0):
+    """`prefill_chunk_into_blocks` returning (0-dim int32 greedy token,
+    pool); the token is meaningful for the prompt's last chunk only."""
+    logits, pool = prefill_chunk_into_blocks(cfg, params, tokens, length,
+                                             ctx_len, block_table, pool,
+                                             window=window)
+    return torch.argmax(logits[0, -1], -1).to(torch.int32), pool
+
+
+def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
+                             lengths, window=0):
+    """`decode_rows_paged` returning (next [B] int32, pool, lengths + 1).
+
+    Dead rows' lengths drift upward on the device, which is inert: their
+    zeroed tables route every write to the null block (block indices
+    past the table clamp to its last entry), the kernels stop at the
+    table's width, and the engine re-uploads exact host values whenever
+    admission, finish or preemption touches a row."""
+    logits, pool = decode_rows_paged(cfg, params, tokens[:, None], pool,
+                                     block_tables, lengths, window=window)
+    nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    return nxt, pool, lengths + 1

@@ -1,29 +1,55 @@
-"""Slot-based continuous-batching greedy serving engine, arena backend.
+"""Slot-based continuous-batching greedy serving engine (arena or paged KV).
 
-A port of `repro/serve/engine.py` in arena mode with its serialized
-scheduler (the reference's `overlap=False`):
+A port of `repro/serve/engine.py` with its serialized scheduler (the
+reference's `overlap=False`):
 
-  * a fixed batch of `max_batch` decode rows over one slot arena of KV
-    caches (`Model.init_arena`): each row owns a full capacity-T cache row
-    (T = the power-of-two bucket of `max_len`), so a request is bounded
-    by `plen + max_new_tokens <= capacity`; dead rows decode garbage that
-    the host ignores, and are recycled;
+  * a fixed batch of `max_batch` decode rows and ONE decode step over all
+    of them; dead rows decode garbage that the host ignores, and are
+    recycled;
   * an admission scheduler that prefills queued requests into free rows
-    between decode steps (FIFO; prompts right-padded to a power-of-two
-    bucket of at least 8): a round launches every admissible prefill,
-    then resolves their first tokens in one batched fetch;
+    between decode steps (FIFO): a round launches every admissible
+    prefill, then resolves their first tokens in one batched fetch;
+  * two KV storage modes behind the same submit/step/run API:
+
+    **arena** (default): each row owns a full capacity-T cache row
+    (`Model.init_arena`, T = the power-of-two bucket of `max_len`), so a
+    request is bounded by `plen + max_new_tokens <= capacity`; prompts
+    are right-padded to a power-of-two bucket of at least 8.
+
+    **paged** (`paged=True`): all rows share one pool of fixed-size KV
+    blocks (`Model.init_pool`) through host-side block tables
+    (`serve.paging`). Blocks are allocated as decode crosses block
+    boundaries and freed when a request finishes, so memory follows live
+    tokens and a request is bounded by the pool, not a slot. Prompts
+    stream in through fixed-size chunks (`prefill_chunk`). A
+    sliding-window model pages as a block RING (position p at ring slot
+    p % window): a slot holds at most ceil(window / block_size) blocks,
+    and a full ring allocates no further block however long it runs.
+
+    Paged admission has two policies (`preemption=`). "recompute"
+    (default) admits a request when the blocks free right now cover its
+    prompt plus a one-block watermark; when a decode step needs a block
+    and the pool is empty, it preempts the newest admission (LIFO), frees
+    its blocks and re-queues it in uid position. On re-admission its
+    prompt streams in through the same chunks at the same offsets, and
+    its generated tokens replay through the decode step, one per step,
+    so every position is rebuilt by the step that wrote it and the final
+    output equals an unpreempted run's. "reserve" admits only against
+    the worst case (`available >= worst_case_blocks`) and never preempts;
+
   * token-returning steps: the greedy argmax runs on the device and the
     host fetches int32 ids, [B] per decode step, never logits; the decode
-    step's next tokens and advanced positions stay on the device and feed
+    step's next tokens and advanced lengths stay on the device and feed
     the next step, so steady-state decoding uploads nothing (the host
-    mirrors re-upload only when admission or a finish changes them).
+    mirrors, block tables included, re-upload only when admission, a
+    finish, a preemption, a block top-up or a replay changes them).
 
 Greedy decode is row-independent, so a request's output does not depend
-on what else is in the batch. The engine casts the parameters to the
-compute dtype once at construction (the reference casts inside every
-jitted call; in eager PyTorch that would be a full-model cast per step).
-The paged backend and overlapped admission (the fused mixed step) come
-with slice 3 of the port and raise here.
+on what else is in the batch, on preemption, or on the storage mode. The
+engine casts the parameters to the compute dtype once at construction
+(the reference casts inside every jitted call; in eager PyTorch that
+would be a full-model cast per step). Overlapped admission (the fused
+mixed step) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -35,10 +61,13 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serve.bucketing import bucket_length
+from repro_torch.serve.bucketing import (bucket_length, chunks_needed,
+                                         table_width)
+from repro_torch.serve.paging import BlockAllocator, blocks_needed
 from repro_torch.utils.hotpath import hot_loop
 
 _PREFILL_FLOOR = 8      # smallest prompt bucket
+_ADMIT_WATERMARK = 1    # spare blocks optimistic admission leaves free
 
 
 @dataclasses.dataclass
@@ -48,6 +77,11 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int] = None
     output: Optional[np.ndarray] = None
+    # preempt-and-recompute bookkeeping: tokens generated before the
+    # request was last evicted; they replay through the decode step on
+    # re-admission and lead the final output
+    gen_prefix: List[int] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
 
 
 class Engine:
@@ -56,20 +90,26 @@ class Engine:
     API: submit(prompt, max_new_tokens, eos_id) -> uid; step() ->
     requests finished by this step; run() -> drain the queue. The engine
     runs where the parameters lie (CUDA or CPU).
+
+    paged=True selects the block-pool backend; block_size, num_blocks
+    (default: the arena's footprint, max_batch * capacity tokens) and
+    prefill_chunk size it, and preemption picks its admission policy
+    ("recompute" or "reserve"; see the module docstring).
     """
 
     def __init__(self, model, params, *, max_batch: int = 8,
                  max_len: int = 256, cache_dtype=torch.bfloat16,
-                 paged: bool = False, overlap: bool = False):
-        if paged:
-            raise NotImplementedError(
-                "paged KV serving is not ported yet: the paged and "
-                "ring-paged backends come with slice 3 of the port")
+                 paged: bool = False, block_size: int = 16,
+                 num_blocks: Optional[int] = None, prefill_chunk: int = 32,
+                 preemption: str = "recompute", overlap: bool = False):
+        if preemption not in ("recompute", "reserve"):
+            raise ValueError(f"preemption must be 'recompute' or 'reserve', "
+                             f"got {preemption!r}")
         if overlap:
             raise NotImplementedError(
                 "overlapped admission (the fused mixed prefill+decode step) "
-                "is not ported yet: it comes with slice 3 of the port; "
-                "use overlap=False (the serialized scheduler)")
+                "is not ported yet; use overlap=False (the serialized "
+                "scheduler)")
         if model.prefill_into_slot_token is None:
             raise NotImplementedError(
                 f"family {model.cfg.family!r} has no slot-arena entry points")
@@ -80,27 +120,64 @@ class Engine:
         self.device = next(iter(self.params.values())).device
         self.max_batch = int(max_batch)
         self.capacity = bucket_length(max_len)
-        self.prefill_shapes: set = set()    # admitted Sp values
-        self._prefill = model.prefill_into_slot_token
-        self._decode = model.decode_rows_tokens
-        self._caches = model.init_arena(self.max_batch, self.capacity,
-                                        dtype=cache_dtype, device=self.device)
+        self.paged = bool(paged)
+        self.preemption = preemption
+        self.num_preemptions = 0    # total evictions
+        # the model's sliding window (0 = full causal): a ring on the pool
+        self.window = int(model.window or 0)
+        self.prefill_shapes: set = set()    # admitted Sp / chunk sizes
+        if self.paged:
+            self.block_size = int(block_size)
+            self.num_blocks = int(
+                num_blocks if num_blocks is not None
+                else max(1, self.max_batch * self.capacity // self.block_size))
+            self.prefill_chunk = int(prefill_chunk)
+            if self.window:
+                # a chunk wider than the ring would write two of its
+                # positions into one ring slot in one scatter (undefined
+                # winner): only chunk <= window keeps the later one
+                self.prefill_chunk = min(self.prefill_chunk, self.window)
+            self._allocator = BlockAllocator(self.num_blocks)
+            # one table row per decode slot, as wide as the pool; the
+            # decode step sees a power-of-two slice wide enough for the
+            # live maximum (_table_width)
+            self._tables = np.zeros((self.max_batch, self.num_blocks),
+                                    np.int32)
+            self._slot_reserved = [0] * self.max_batch
+            self._prefill = model.prefill_chunk_into_blocks_token
+            self._decode = model.decode_rows_paged_tokens
+            self._caches = model.init_pool(self.num_blocks, self.block_size,
+                                           dtype=cache_dtype,
+                                           device=self.device)
+        else:
+            self._prefill = model.prefill_into_slot_token
+            self._decode = model.decode_rows_tokens
+            self._caches = model.init_arena(self.max_batch, self.capacity,
+                                            dtype=cache_dtype,
+                                            device=self.device)
 
         self._queue: Deque[Request] = deque()
         self._done: List[Request] = []
         self._next_uid = 0
         self._slot_req: List[Optional[Request]] = [None] * self.max_batch
         self._gen: List[List[int]] = [[] for _ in range(self.max_batch)]
+        # tokens a recomputed slot still replays through the decode step
+        # before it is live again (paged "recompute" only)
+        self._replay: List[Deque[int]] = [deque()
+                                          for _ in range(self.max_batch)]
         self._lengths = np.zeros(self.max_batch, np.int32)  # tokens in cache
         self._cur = np.zeros(self.max_batch, np.int32)      # current token
         # device mirrors of the decode step's small operands: the step
-        # returns next tokens and advanced positions, which feed straight
-        # back in; they re-upload only when admission or a finish makes
-        # the host values differ
+        # returns next tokens and advanced lengths, which feed straight
+        # back in; they re-upload only when a host event makes the host
+        # values differ
         self._cur_dev = None
         self._lengths_dev = None
+        self._tables_dev = None
+        self._tables_dev_w = -1      # width of the uploaded table slice
         self._cur_dirty = True
         self._lengths_dirty = True
+        self._tables_dirty = True
         self._stats = {
             "admissions": 0,         # requests prefilled into a slot
             "admit_host_s": 0.0,     # host time launching admissions
@@ -109,6 +186,8 @@ class Engine:
             "decode_s": 0.0,         # decode launch + [B]-token fetch
             "decode_dispatch_s": 0.0,   # ... its mirror-sync + launch half
             "decode_fetch_s": 0.0,      # ... its blocked-on-tokens half
+            "topup_host_s": 0.0,     # paged block top-up / eviction work
+            "replayed_tokens": 0,    # recompute replays (paged)
             "h2d_uploads": 0,        # mirror re-syncs (stale -> upload)
             "decode_fetch_elems": 0,    # size of the per-step fetch ...
             "decode_fetch_dtype": "",   # ... proof it is [B] int32 ids
@@ -117,10 +196,12 @@ class Engine:
     @property
     def stats(self) -> dict:
         """Per-step telemetry, with the reference's keys where they apply:
-        admission host time vs prefill wait vs decode step time, mirror
-        uploads, and the per-step fetch's size and dtype. The arena never
-        preempts and the scheduler is serialized ("" overlap mode)."""
-        return dict(self._stats, preemptions=0, overlap_mode="")
+        admission host time vs prefill wait vs decode step time, block
+        top-up time, replayed tokens, mirror uploads, the per-step fetch's
+        size and dtype, and preemptions. The scheduler is serialized (""
+        overlap mode)."""
+        return dict(self._stats, preemptions=self.num_preemptions,
+                    overlap_mode="")
 
     def _put(self, x):
         """Upload host state to a device mirror (a copy: the host array
@@ -132,17 +213,48 @@ class Engine:
     # request intake
     # ------------------------------------------------------------------
 
+    def _worst_case_blocks(self, plen: int, max_new: int) -> int:
+        """Blocks a request can ever occupy: the cache peaks at plen +
+        max_new - 1 tokens (the final token is never inserted), capped at
+        the ring for a sliding window. Invariant under preemption."""
+        tokens = plen + max_new - 1
+        if self.window:
+            tokens = min(tokens, self.window)
+        return blocks_needed(tokens, self.block_size)
+
+    def _prompt_blocks(self, plen: int) -> int:
+        """Blocks a prompt's prefill occupies (ring-capped: a longer than
+        window prompt wraps in place)."""
+        if self.window:
+            plen = min(plen, self.window)
+        return blocks_needed(plen, self.block_size)
+
+    def _table_width(self, num_tokens: int) -> int:
+        """Pow2-bucketed table columns covering `num_tokens` positions
+        (saturating at the ring for a sliding window)."""
+        return table_width(num_tokens, self.block_size, self.num_blocks,
+                           window=self.window)
+
     def submit(self, prompt, max_new_tokens: int,
                eos_id: Optional[int] = None) -> int:
-        """Queue a token-id prompt; returns the request uid. A request is
-        bounded by its slot: plen + max_new_tokens <= capacity."""
+        """Queue a token-id prompt; returns the request uid. The arena
+        bounds a request by its slot (plen + max_new_tokens <= capacity);
+        the paged pool by the pool (its worst case <= num_blocks)."""
         prompt = np.asarray(prompt, np.int32)
         assert prompt.ndim == 1 and prompt.size > 0, prompt.shape
         assert max_new_tokens >= 1, max_new_tokens
-        if len(prompt) + max_new_tokens > self.capacity:
+        if self.paged:
+            need = self._worst_case_blocks(len(prompt), max_new_tokens)
+            if need > self.num_blocks:
+                raise ValueError(
+                    f"prompt ({len(prompt)}) + max_new_tokens "
+                    f"({max_new_tokens}) needs {need} KV blocks; the pool "
+                    f"has {self.num_blocks} (raise num_blocks)")
+        elif len(prompt) + max_new_tokens > self.capacity:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
-                f" exceeds slot capacity {self.capacity}")
+                f" exceeds slot capacity {self.capacity}; use "
+                "Engine(paged=True) for longer-than-slot generations")
         uid = self._next_uid
         self._next_uid += 1
         self._queue.append(Request(uid, prompt, int(max_new_tokens),
@@ -159,13 +271,18 @@ class Engine:
         """Requests currently decoding in the batch."""
         return sum(r is not None for r in self._slot_req)
 
+    @property
+    def free_blocks(self) -> Optional[int]:
+        """Unallocated, unreserved pool blocks; None for the arena."""
+        return self._allocator.available if self.paged else None
+
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
 
     def _admit(self, req: Request, slot: int):
-        """Launch the prefill of `req` into `slot` (no host sync) and mark
-        the slot live. Returns (req, slot, device token) for
+        """Launch the prefill of `req` into arena `slot` (no host sync)
+        and mark the slot live. Returns (req, slot, device token) for
         `_resolve_admission`: the first token is not fetched here, so the
         round's other prefills launch without waiting on this one."""
         plen = len(req.prompt)
@@ -182,6 +299,51 @@ class Engine:
         self._lengths_dirty = True
         return req, slot, tok_dev
 
+    def _admit_paged(self, req: Request, slot: int):
+        """Chunked prefill of `req` into pool blocks of `slot`'s table
+        (launches only, as `_admit`). Allocates the prompt's blocks now
+        and, under "reserve", reserves the rest of the worst case. A
+        recompute re-admission runs the prefill of its first admission
+        (same chunks, offsets and table width), queues its generated
+        tokens for replay and returns None: its next token is known."""
+        plen = len(req.prompt)
+        n_prompt = self._prompt_blocks(plen)
+        blocks = self._allocator.alloc(n_prompt)
+        if self.preemption == "reserve":
+            need = self._worst_case_blocks(plen, req.max_new_tokens)
+            self._allocator.reserve(need - n_prompt)
+            self._slot_reserved[slot] = need - n_prompt
+        self._tables[slot, :n_prompt] = blocks
+        self._tables_dirty = True
+        # the prompt's bucketed width: chunk pads past it go to the null
+        # block
+        table = torch.from_numpy(
+            self._tables[slot, :self._table_width(plen)].copy()).to(
+                self.device)
+        c = self.prefill_chunk
+        self.prefill_shapes.add(c)
+        tok_dev = None
+        for i in range(chunks_needed(plen, c)):
+            chunk = req.prompt[i * c:(i + 1) * c]
+            toks = np.zeros((1, c), np.int32)
+            toks[0, :len(chunk)] = chunk
+            tok_dev, self._caches = self._prefill(
+                self.params, torch.from_numpy(toks).to(self.device),
+                len(chunk), i * c, table, self._caches)
+        self._slot_req[slot] = req
+        self._gen[slot] = []
+        self._lengths[slot] = plen
+        self._lengths_dirty = True
+        if req.gen_prefix:
+            # resume: the prompt's KV is rebuilt (its token would only
+            # re-derive gen_prefix[0]); the generated tokens replay
+            # through the decode step, each rewriting its KV entry
+            self._cur[slot] = req.gen_prefix[0]
+            self._cur_dirty = True
+            self._replay[slot] = deque(req.gen_prefix[1:])
+            return None
+        return req, slot, tok_dev
+
     def _resolve_admission(self, req: Request, slot: int,
                            tok: int) -> Optional[Request]:
         """Record a resolved first token; returns the request if it
@@ -189,56 +351,131 @@ class Engine:
         self._gen[slot] = [tok]
         self._cur[slot] = tok
         self._cur_dirty = True
-        if (req.max_new_tokens == 1
+        if (req.max_new_tokens - len(req.gen_prefix) == 1
                 or (req.eos_id is not None and tok == req.eos_id)):
             return self._finish(slot)
         return None
 
     def _finish(self, slot: int) -> Request:
         req = self._slot_req[slot]
-        req.output = np.asarray(self._gen[slot], np.int32)
+        req.output = np.asarray(req.gen_prefix + self._gen[slot], np.int32)
         self._slot_req[slot] = None
         self._gen[slot] = []
+        if self.paged:
+            # free the slot's blocks and any unused reservation; the zeroed
+            # table and length make the dead row touch the null block only
+            self._allocator.free_partial(self._tables[slot])
+            self._allocator.unreserve(self._slot_reserved[slot])
+            self._slot_reserved[slot] = 0
+            self._tables[slot] = 0
+            self._lengths[slot] = 0
+            self._tables_dirty = True
+            self._lengths_dirty = True
         self._done.append(req)
         return req
+
+    def _preempt(self, slot: int) -> None:
+        """Evict the request in `slot`: fold its generated tokens into its
+        recompute prefix, free its blocks and re-queue it in uid
+        position. Running uids are lower than every never-admitted queued
+        uid (admission is FIFO), so the queue stays uid-sorted and no
+        request overtakes an older one."""
+        req = self._slot_req[slot]
+        req.gen_prefix.extend(self._gen[slot])
+        req.preemptions += 1
+        self.num_preemptions += 1
+        self._slot_req[slot] = None
+        self._gen[slot] = []
+        self._replay[slot] = deque()  # rebuilt from gen_prefix on re-admission
+        self._allocator.free_partial(self._tables[slot])
+        self._tables[slot] = 0
+        self._lengths[slot] = 0
+        self._cur[slot] = 0
+        self._tables_dirty = True
+        self._lengths_dirty = True
+        self._cur_dirty = True
+        i = 0
+        while i < len(self._queue) and self._queue[i].uid < req.uid:
+            i += 1
+        self._queue.insert(i, req)
+
+    def _can_admit(self, req: Request) -> bool:
+        if not self.paged:
+            return True
+        worst = self._worst_case_blocks(len(req.prompt), req.max_new_tokens)
+        if self.preemption == "reserve":
+            return self._allocator.available >= worst
+        # optimistic: the prompt's blocks plus a watermark, free right now;
+        # the watermark is waived where it would exceed the worst case,
+        # else a pool-filling prompt with a tiny budget never gets in
+        need_now = self._prompt_blocks(len(req.prompt))
+        if need_now + _ADMIT_WATERMARK <= worst:
+            return self._allocator.can_allocate(need_now,
+                                                watermark=_ADMIT_WATERMARK)
+        return self._allocator.can_allocate(worst)
 
     @hot_loop
     def _admit_round(self, finished: List[Request]) -> bool:
         """One admission round: launch a prefill into every free slot
-        (back to back, no host sync between launches), then resolve the
-        launched first tokens in one batched fetch. Returns True when
-        anything was admitted: an instant finish (budget 1 / EOS on the
-        prefill token) frees its slot, so the caller loops for another
-        round."""
+        while the queue head is admissible (back to back, no host sync
+        between launches), then resolve the launched first tokens in one
+        batched fetch. Returns True when anything was admitted: an
+        instant finish frees its slot (and blocks), so the caller loops
+        for another round."""
         t0 = time.perf_counter()
         pending: List[Tuple[Request, int, torch.Tensor]] = []
+        admitted = False
         for slot in range(self.max_batch):
             if not self._queue:
                 break
             if self._slot_req[slot] is not None:
                 continue
-            pending.append(self._admit(self._queue.popleft(), slot))
+            if not self._can_admit(self._queue[0]):
+                break       # FIFO: nothing may jump the head
+            admit = self._admit_paged if self.paged else self._admit
+            pend = admit(self._queue.popleft(), slot)
+            admitted = True
             self._stats["admissions"] += 1
+            if pend is not None:
+                pending.append(pend)
         self._stats["admit_host_s"] += time.perf_counter() - t0
-        if not pending:
-            return False
-        t1 = time.perf_counter()
-        # repro-lint: disable=host-sync-in-hot-loop -- batched first-token
-        # resolution: ONE wait per admission round after every prefill is
-        # in flight
-        toks = np.asarray(torch.stack([t for _, _, t in pending]).cpu())
-        self._stats["prefill_wait_s"] += time.perf_counter() - t1
-        for (req, slot, _), tok in zip(pending, toks.tolist()):
-            f = self._resolve_admission(req, slot, tok)
-            if f is not None:
-                finished.append(f)
-        return True
+        if pending:
+            t1 = time.perf_counter()
+            # repro-lint: disable=host-sync-in-hot-loop -- batched
+            # first-token resolution: ONE wait per admission round after
+            # every prefill is in flight
+            toks = np.asarray(torch.stack([t for _, _, t in pending]).cpu())
+            self._stats["prefill_wait_s"] += time.perf_counter() - t1
+            for (req, slot, _), tok in zip(pending, toks.tolist()):
+                f = self._resolve_admission(req, slot, tok)
+                if f is not None:
+                    finished.append(f)
+        return admitted
 
     @hot_loop
     def step(self) -> List[Request]:
         """Admit queued requests into free slots, then run ONE decode step
         over the batch; returns the requests finished by this step."""
         return self._step_serialized()
+
+    def _sync_mirrors(self, active: List[int]) -> None:
+        """Re-upload the stale device mirrors of the decode operands; the
+        paged tables go up as the pow2 slice covering the live maximum
+        (+1: the step inserts each live row's incoming token first)."""
+        if self.paged:
+            w = self._table_width(max(int(self._lengths[s]) + 1
+                                      for s in active))
+            if self._tables_dirty or self._tables_dev_w != w:
+                self._tables_dev = self._put(
+                    np.ascontiguousarray(self._tables[:, :w]))
+                self._tables_dev_w = w
+                self._tables_dirty = False
+        if self._lengths_dirty or self._lengths_dev is None:
+            self._lengths_dev = self._put(self._lengths)
+            self._lengths_dirty = False
+        if self._cur_dirty or self._cur_dev is None:
+            self._cur_dev = self._put(self._cur)
+            self._cur_dirty = False
 
     @hot_loop
     def _step_serialized(self) -> List[Request]:
@@ -250,20 +487,23 @@ class Engine:
 
         active = [s for s in range(self.max_batch)
                   if self._slot_req[s] is not None]
+        if self.paged and active:
+            self._topup_blocks(active)
+            active = [s for s in active if self._slot_req[s] is not None]
         if not active:
             return finished
 
         t0 = time.perf_counter()
-        if self._lengths_dirty or self._lengths_dev is None:
-            self._lengths_dev = self._put(self._lengths)
-            self._lengths_dirty = False
-        if self._cur_dirty or self._cur_dev is None:
-            self._cur_dev = self._put(self._cur)
-            self._cur_dirty = False
-        toks_dev, self._caches, self._lengths_dev = self._decode(
-            self.params, self._cur_dev, self._caches, self._lengths_dev)
+        self._sync_mirrors(active)
+        if self.paged:
+            toks_dev, self._caches, self._lengths_dev = self._decode(
+                self.params, self._cur_dev, self._caches, self._tables_dev,
+                self._lengths_dev)
+        else:
+            toks_dev, self._caches, self._lengths_dev = self._decode(
+                self.params, self._cur_dev, self._caches, self._lengths_dev)
         # the step's outputs are the next step's inputs: tokens and
-        # advanced positions stay on the device
+        # advanced lengths stay on the device
         self._cur_dev = toks_dev
         t1 = time.perf_counter()
         self._stats["decode_dispatch_s"] += t1 - t0
@@ -278,14 +518,61 @@ class Engine:
         self._stats["decode_fetch_dtype"] = str(nxt.dtype)
         for s in active:
             self._lengths[s] += 1
+            if self._replay[s]:
+                # recompute replay: the step re-inserted one evicted
+                # token's KV; its successor is already known, so feed it
+                # and skip emission, EOS and budget (checked before)
+                self._cur[s] = self._replay[s].popleft()
+                self._cur_dirty = True
+                self._stats["replayed_tokens"] += 1
+                continue
             tok = int(nxt[s])
             self._gen[s].append(tok)
             self._cur[s] = tok
             req = self._slot_req[s]
-            if (len(self._gen[s]) >= req.max_new_tokens
+            if (len(req.gen_prefix) + len(self._gen[s]) >= req.max_new_tokens
                     or (req.eos_id is not None and tok == req.eos_id)):
                 finished.append(self._finish(s))
         return finished
+
+    def _topup_blocks(self, active: List[int]) -> None:
+        """Give each decoding row the block its write position needs
+        (billed to topup_host_s). "reserve" draws on the admission
+        earmark and cannot fail; "recompute" allocates oldest first and,
+        when the pool is dry, preempts the newest admission (LIFO) until
+        a block frees up: an eviction returns >= 1 block, and the oldest
+        running request is never the victim while a younger one holds
+        blocks, so every request completes."""
+        t0 = time.perf_counter()
+        for s in sorted(active, key=lambda t: self._slot_req[t].uid):
+            if self._slot_req[s] is None:
+                continue        # preempted by an earlier top-up
+            pos = int(self._lengths[s])
+            if self.window:
+                # the write lands at ring slot pos % window: once the
+                # ring's blocks exist, no further block is allocated
+                pos %= self.window
+            bi = pos // self.block_size
+            if self._tables[s, bi] != 0:
+                continue
+            if self.preemption == "reserve":
+                (blk,) = self._allocator.alloc(1, reserved=True)
+                self._slot_reserved[s] -= 1
+            else:
+                while not self._allocator.can_allocate(1):
+                    victim = max(
+                        (t for t in range(self.max_batch)
+                         if self._slot_req[t] is not None),
+                        key=lambda t: self._slot_req[t].uid)
+                    self._preempt(victim)
+                    if victim == s:
+                        break
+                if self._slot_req[s] is None:
+                    continue    # s itself was the newest admission
+                (blk,) = self._allocator.alloc(1)
+            self._tables[s, bi] = blk
+            self._tables_dirty = True
+        self._stats["topup_host_s"] += time.perf_counter() - t0
 
     def run(self) -> List[Request]:
         """Drain queue + batch; returns every request completed so far

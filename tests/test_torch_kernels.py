@@ -7,8 +7,12 @@ kernel (Pallas, interpret mode) and the JAX oracle: rtol 1e-6 / atol
 attention versions (`ref.attention`, `ref.decode_attention`) are held
 against the JAX Pallas kernels in interpret mode and the JAX oracles at
 the reference's own tolerances (1e-5 in f32, 3e-2 in bf16), and against
-the model's jnp `chunked_attention` at 2e-4. The CUDA cases need the card
-(marker `cuda`); they import no JAX, so they also run where JAX is absent:
+the model's jnp `chunked_attention` at 2e-4. The plain paged and ring decode
+versions (`ref.decode_attention_paged`, `ref.decode_attention_ring`) are
+held against the JAX Pallas kernels in interpret mode and the JAX oracles
+at 1e-6 in f32 (within one bf16 ulp in bf16). The CUDA cases need the
+card (marker `cuda`); they import no JAX, so they also run where JAX is
+absent:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_kernels.py tests/test_torch_port_rules.py
@@ -24,6 +28,8 @@ torch.set_num_threads(1)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda)
+from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
+    decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
@@ -230,6 +236,177 @@ def test_ops_sends_cpu_attention_to_ref_without_launching():
             decode_attention_cuda.launches) == before
 
 
+# ---- paged and ring decode: plain versions against the JAX kernels ----
+
+
+def _paged_inputs(seed, b, h, kv, hd, bs, nb, dtype):
+    (q, kp, vp), (tq, tkp, tvp) = _attn_inputs(
+        seed, [(b, h, hd), (nb, bs, kv, hd), (nb, bs, kv, hd)], dtype)
+    return (q, kp, vp), (tq, tkp, tvp)
+
+
+def _close_to_jax(got, wants, dtype):
+    """1e-6 in f32; in bf16 within one bf16 ulp (+1e-6) of each JAX
+    output, since both round one f32 result to bf16."""
+    got = got.float().numpy()
+    for want in wants:
+        want = np.asarray(want, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        else:
+            assert (np.abs(got - want) <= _bf16_ulp(want) + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_matches_jax_kernel_and_oracle(jx, dtype):
+    """Rows own disjoint random blocks; the trailing entries of short rows
+    point at the null block (the shapes of the reference's own test)."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    b, h, kv, hd, bs, w = 3, 4, 2, 64, 8, 6
+    nb = 1 + b * w
+    (q, kp, vp), (tq, tkp, tvp) = _paged_inputs(9, b, h, kv, hd, bs, nb,
+                                                dtype)
+    rng = np.random.default_rng(9)
+    tables = (rng.permutation(nb - 1) + 1)[:b * w].reshape(b, w)
+    lengths = np.asarray([1, 19, w * bs], np.int32)
+    for i, n in enumerate(lengths):
+        tables[i, (int(n) + bs - 1) // bs:] = 0
+    tables = tables.astype(np.int32)
+    got = ops.decode_attention_paged(tq, tkp, tvp, torch.from_numpy(tables),
+                                     lengths=torch.from_numpy(lengths))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, hd)
+    jdt = getattr(jnp, dtype)
+    jq, jkp, jvp = (jnp.asarray(a, jdt) for a in (q, kp, vp))
+    jt, jl = jnp.asarray(tables), jnp.asarray(lengths)
+    _close_to_jax(got, [
+        jax_ops.decode_attention_paged(jq, jkp, jvp, jt, jl, interpret=True),
+        jax_ref.decode_attention_paged(jq, jkp, jvp, jt, jl)], dtype)
+
+
+def test_paged_plain_with_identity_table_is_the_linear_plain():
+    """An identity block table over the same caches cut into blocks: the
+    paged plain version computes exactly the linear one."""
+    b, t, h, kv, hd, bs = 2, 256, 4, 2, 64, 64
+    _, (tq, tk, tv) = _attn_inputs(
+        10, [(b, h, hd), (b, t, kv, hd), (b, t, kv, hd)], "float32")
+    lengths = torch.tensor([100, 256], dtype=torch.int32)
+    w = t // bs
+    null = torch.zeros(1, bs, kv, hd)
+    pk = torch.cat([null, tk.reshape(b * w, bs, kv, hd)])
+    pv = torch.cat([null, tv.reshape(b * w, bs, kv, hd)])
+    tables = 1 + torch.arange(b * w, dtype=torch.int32).reshape(b, w)
+    assert torch.equal(
+        ops.decode_attention_paged(tq, pk, pv, tables, lengths=lengths),
+        ops.decode_attention(tq, tk, tv, lengths=lengths))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_plain_matches_jax_kernel_and_oracle(jx, dtype):
+    """Unwrapped, part-filled and fully wrapped rows with per-row table
+    rotations (the shapes of the reference's own test)."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    b, h, kv, hd, bs, window = 3, 4, 2, 64, 8, 40
+    w = (window + bs - 1) // bs
+    nb = 1 + b * w
+    (q, kp, vp), (tq, tkp, tvp) = _paged_inputs(11, b, h, kv, hd, bs, nb,
+                                                dtype)
+    rng = np.random.default_rng(11)
+    tables = (rng.permutation(nb - 1) + 1)[:b * w].reshape(b, w).astype(
+        np.int32)
+    lengths = np.asarray([1, 25, 100], np.int32)
+    starts = np.asarray([0, 2, 4], np.int32)
+    got = ops.decode_attention_ring(
+        tq, tkp, tvp, torch.from_numpy(tables),
+        ring_starts=torch.from_numpy(starts),
+        lengths=torch.from_numpy(lengths), window=window)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, hd)
+    jdt = getattr(jnp, dtype)
+    jq, jkp, jvp = (jnp.asarray(a, jdt) for a in (q, kp, vp))
+    args = (jnp.asarray(tables), jnp.asarray(starts), jnp.asarray(lengths))
+    _close_to_jax(got, [
+        jax_ops.decode_attention_ring(jq, jkp, jvp, *args, window=window,
+                                      interpret=True),
+        jax_ref.decode_attention_ring(jq, jkp, jvp, *args, window=window)],
+        dtype)
+
+
+def test_ring_plain_rotation_invariant_and_degenerate_paged():
+    """Rotating (table, start) together leaves the plain ring bitwise
+    unchanged, and while no row has wrapped the ring is the paged plain
+    version with the same table."""
+    b, h, kv, hd, bs, window = 2, 4, 2, 64, 8, 32
+    w = window // bs
+    nb = 1 + b * w
+    _, (tq, tkp, tvp) = _paged_inputs(12, b, h, kv, hd, bs, nb, "float32")
+    rng = np.random.default_rng(12)
+    ring = (rng.permutation(nb - 1) + 1)[:b * w].reshape(b, w)
+    lengths = torch.tensor([17, 77], dtype=torch.int32)
+    zeros = torch.zeros(b, dtype=torch.int32)
+    base = ops.decode_attention_ring(
+        tq, tkp, tvp, torch.from_numpy(ring.astype(np.int32)),
+        ring_starts=zeros, lengths=lengths, window=window)
+    for s in range(1, w):
+        rot = torch.from_numpy(np.roll(ring, s, axis=1).astype(np.int32))
+        out = ops.decode_attention_ring(
+            tq, tkp, tvp, rot, ring_starts=torch.full((b,), s,
+                                                      dtype=torch.int32),
+            lengths=lengths, window=window)
+        assert torch.equal(out, base)
+    short = torch.tensor([9, 32], dtype=torch.int32)
+    tables = torch.from_numpy(ring.astype(np.int32))
+    assert torch.equal(
+        ops.decode_attention_ring(tq, tkp, tvp, tables, ring_starts=zeros,
+                                  lengths=short, window=window),
+        ops.decode_attention_paged(tq, tkp, tvp, tables, lengths=short))
+
+
+def test_ring_plain_with_a_table_narrower_than_the_ring(jx):
+    """The engine slices a ring's table to the pow2 width of its live
+    rows, narrower than the ring while no row holds more than W * bs
+    tokens: the rows then attend to their W * bs slots at most, as in the
+    JAX oracle (whose TPU kernel asserts W * bs >= window)."""
+    _, jax_ref = jx
+    import jax.numpy as jnp
+    b, h, kv, hd, bs, window = 3, 4, 2, 64, 8, 32
+    (q, kp, vp), (tq, tkp, tvp) = _paged_inputs(14, b, h, kv, hd, bs, 7,
+                                                "float32")
+    tables = np.array([[3, 5], [6, 0], [0, 0]], np.int32)    # W * bs = 16
+    lengths = np.array([16, 7, 40], np.int32)    # row 2: dead, drifted
+    zeros = np.zeros(b, np.int32)
+    got = ops.decode_attention_ring(
+        tq, tkp, tvp, torch.from_numpy(tables),
+        ring_starts=torch.from_numpy(zeros),
+        lengths=torch.from_numpy(lengths), window=window)
+    want = jax_ref.decode_attention_ring(
+        *(jnp.asarray(a, jnp.float32) for a in (q, kp, vp)),
+        jnp.asarray(tables), jnp.asarray(zeros), jnp.asarray(lengths),
+        window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(got, ops.decode_attention_paged(
+        tq, tkp, tvp, torch.from_numpy(tables),
+        lengths=torch.from_numpy(np.minimum(lengths, window))))
+
+
+def test_ops_sends_cpu_paged_attention_to_ref_without_launching():
+    _, (tq, tkp, tvp) = _paged_inputs(13, 2, 4, 2, 32, 4, 5, "float32")
+    tables = torch.tensor([[1, 3], [4, 0]], dtype=torch.int32)
+    lengths = torch.tensor([7, 3], dtype=torch.int32)
+    starts = torch.tensor([1, 0], dtype=torch.int32)
+    before = (decode_attention_paged_cuda.launches,
+              decode_attention_ring_cuda.launches)
+    assert torch.equal(
+        ops.decode_attention_paged(tq, tkp, tvp, tables, lengths=lengths),
+        ref.decode_attention_paged(tq, tkp, tvp, tables, lengths=lengths))
+    kw = dict(ring_starts=starts, lengths=lengths, window=8)
+    assert torch.equal(ops.decode_attention_ring(tq, tkp, tvp, tables, **kw),
+                       ref.decode_attention_ring(tq, tkp, tvp, tables, **kw))
+    assert (decode_attention_paged_cuda.launches,
+            decode_attention_ring_cuda.launches) == before
+
+
 # ---- on the card ----
 
 
@@ -322,3 +499,131 @@ def test_decode_kernel_matches_plain_version_on_card(cuda, dtype, b, t, h,
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert _bf16_close(got, want)
+
+
+def _bf16_within_one_ulp(got, want):
+    """|kernel - plain| <= 1 bf16 ulp of plain + 1e-5: both accumulate in
+    f32 (in another order) and round once."""
+    want = want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return bool(((got.float() - want).abs() <= ulp + 1e-5).all())
+
+
+def _assert_kernel_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_within_one_ulp(got, want)
+
+
+def _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype):
+    """q, and k/v pools as layer 1 of a [2, NB, bs, KV, hd] stack, with
+    disjoint random tables of width w (NB = 1 + b * w + 3)."""
+    nb = 1 + b * w + 3
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    stack = torch.randn((2, 2, nb, bs, kv, hd), generator=gen,
+                        device=cuda).to(dtype)
+    perm = torch.randperm(nb - 1, generator=gen, device=cuda) + 1
+    tables = perm[:b * w].reshape(b, w).to(torch.int32).contiguous()
+    return q, stack[0, 1], stack[1, 1], tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,hd,bs,w", [
+    (8, 14, 2, 64, 16, 32),   # the serving decode's shape (<= 512 tokens)
+    (3, 4, 2, 32, 8, 6),      # smoke head_dim, ragged tile
+    (2, 16, 2, 128, 4, 40),   # 8 heads of 128 per kv head, tiny blocks
+])
+def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, b, h, kv,
+                                                    hd, bs, w):
+    """Lengths from 0 to past the table (a dead row drifted beyond W * bs
+    attends to the whole table, as in the plain version)."""
+    gen = torch.Generator(device=cuda).manual_seed(b * w + hd)
+    q, kp, vp, tables = _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype)
+    lengths = torch.randint(0, w * bs + 1, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    lengths[0] = w * bs
+    lengths[-1] = w * bs + 37
+    before = (decode_attention_paged_cuda.launches,
+              decode_attention_cuda.launches)
+    got = ops.decode_attention_paged(q, kp, vp, tables, lengths=lengths)
+    torch.cuda.synchronize()
+    assert decode_attention_paged_cuda.launches == before[0] + 1
+    assert decode_attention_cuda.launches == before[1]
+    want = ref.decode_attention_paged(q, kp, vp, tables, lengths=lengths)
+    _assert_kernel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,window", [(16, 256), (8, 40)])
+def test_ring_kernel_matches_plain_and_is_rotation_invariant_on_card(
+        cuda, dtype, bs, window):
+    """Unwrapped, part-filled and wrapped rows; rotating (table, start)
+    together leaves the kernel's output bitwise unchanged."""
+    b, h, kv, hd = 4, 14, 2, 64
+    w = -(-window // bs)
+    gen = torch.Generator(device=cuda).manual_seed(window)
+    q, kp, vp, tables = _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype)
+    lengths = torch.tensor([1, window // 2 + 3, window, 3 * window + 5],
+                           dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(b, dtype=torch.int32, device=cuda)
+    before = decode_attention_ring_cuda.launches
+    base = ops.decode_attention_ring(q, kp, vp, tables, ring_starts=zeros,
+                                     lengths=lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention_ring_cuda.launches == before + 1
+    want = ref.decode_attention_ring(q, kp, vp, tables, ring_starts=zeros,
+                                     lengths=lengths, window=window)
+    _assert_kernel_close(base, want, dtype)
+    for s in (1, w // 2, w - 1):
+        rot = torch.roll(tables, s, dims=1).contiguous()
+        starts = torch.full((b,), s, dtype=torch.int32, device=cuda)
+        out = ops.decode_attention_ring(q, kp, vp, rot, ring_starts=starts,
+                                        lengths=lengths, window=window)
+        assert torch.equal(out, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_with_identity_table_equals_linear_kernel(cuda, dtype):
+    """The arena cut into blocks of 16 under an identity table: the paged
+    kernel and the linear decode kernel agree within one bf16 ulp (they
+    share one body and one tile order)."""
+    b, t, h, kv, hd, bs = 8, 512, 14, 2, 64, 16
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, t, kv, hd), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    w = t // bs
+    null = torch.zeros((1, bs, kv, hd), dtype=dtype, device=cuda)
+    pk, pv = (torch.cat([null, x.reshape(b * w, bs, kv, hd)]) for x in (k, v))
+    tables = (1 + torch.arange(b * w, device=cuda)).reshape(b, w).to(
+        torch.int32)
+    paged = ops.decode_attention_paged(q, pk, pv, tables, lengths=lengths)
+    linear = ops.decode_attention(q, k, v, lengths=lengths)
+    assert _bf16_within_one_ulp(paged, linear)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernel_with_a_table_narrower_than_the_ring_on_card(cuda,
+                                                                 dtype):
+    """W * bs < window (the engine's table before any row outgrows it):
+    rows attend to min(length, window, W * bs) slots, as the plain
+    version; a dead row's drifted length stops at the table."""
+    b, h, kv, hd, bs, window = 3, 14, 2, 64, 8, 256
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, kp, vp, tables = _card_pool(cuda, gen, b, h, kv, hd, bs, 2, dtype)
+    tables[2] = 0
+    lengths = torch.tensor([16, 9, 300], dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(b, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention_ring(q, kp, vp, tables, ring_starts=zeros,
+                                    lengths=lengths, window=window)
+    want = ref.decode_attention_ring(q, kp, vp, tables, ring_starts=zeros,
+                                     lengths=lengths, window=window)
+    _assert_kernel_close(got, want, dtype)

@@ -96,19 +96,47 @@ def test_serve_on_cpu_when_asked():
     assert out["stats"]["decode_fetch_dtype"] == "int32"
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "decode_attention_paged",
+                                  "decode_attention_ring"])
 def test_attention_ops_reject_devices_without_a_kernel(name):
     q = torch.empty(1, 4, 2, 32, device="meta")
     k = torch.empty(1, 4, 1, 32, device="meta")
+    ones = torch.ones(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         if name == "flash_attention":
             ops.flash_attention(q, k, k)
+        elif name == "decode_attention":
+            ops.decode_attention(q[:, 0], k, k, lengths=ones)
+        elif name == "decode_attention_paged":
+            ops.decode_attention_paged(q[:, 0], k, k, ones[:, None],
+                                       lengths=ones)
         else:
-            ops.decode_attention(q[:, 0], k, k, lengths=torch.ones(
-                1, dtype=torch.int32, device="meta"))
+            ops.decode_attention_ring(q[:, 0], k, k, ones[:, None],
+                                      ring_starts=ones, lengths=ones,
+                                      window=4)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+KERNEL_MODULES = sorted((ROOT / "src" / "repro_torch" / "kernels").glob(
+    "*.py"))
+
+
+@pytest.mark.parametrize("path", KERNEL_MODULES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernel_wrappers_have_no_fallback(path):
+    """No wrapper or dispatch catches an error to take another route: a
+    CUDA tensor goes to the kernel, which launches or raises."""
+    tree = ast.parse(path.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path
+
+
+def test_every_kernel_source_is_built():
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.KERNELS) == sources
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "decode_attention_paged"])
 def test_failed_attention_build_raises(monkeypatch, tmp_path, name):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 1\n")
@@ -194,3 +222,48 @@ def test_attention_kernels_reject_cpu_operands_and_bad_shapes(cuda):
         ops.flash_attention(q, k, k[:, :8])
     with pytest.raises(TypeError):      # lengths not int32 [B]
         ops.decode_attention(q[:, 0], k, k, lengths=lengths.long())
+
+
+def _paged_operands(cuda, dtype=torch.bfloat16):
+    q = torch.zeros(2, 4, 64, dtype=dtype, device=cuda)
+    pool = torch.zeros(5, 8, 2, 64, dtype=dtype, device=cuda)
+    tables = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    return q, pool, tables, lengths
+
+
+@pytest.mark.cuda
+def test_paged_kernels_reject_bad_inputs(cuda):
+    q, pool, tables, lengths = _paged_operands(cuda)
+    starts = torch.zeros_like(lengths)
+    paged = ops.decode_attention_paged
+    with pytest.raises(TypeError):      # unsupported dtype
+        paged(q.half(), pool.half(), pool.half(), tables, lengths=lengths)
+    with pytest.raises(TypeError):      # q and pool differ
+        paged(q, pool.float(), pool.float(), tables, lengths=lengths)
+    with pytest.raises(TypeError):      # tables not int32
+        paged(q, pool, pool, tables.long(), lengths=lengths)
+    with pytest.raises(TypeError):      # lengths not int32 [B]
+        paged(q, pool, pool, tables, lengths=lengths[:1])
+    with pytest.raises(ValueError):     # tables on the CPU
+        paged(q, pool, pool, tables.cpu(), lengths=lengths)
+    with pytest.raises(ValueError):     # tables not contiguous
+        paged(q, pool, pool, tables.repeat(1, 2)[:, ::2], lengths=lengths)
+    with pytest.raises(ValueError):     # tables rows != batch
+        paged(q, pool, pool, tables[:1], lengths=lengths)
+    with pytest.raises(ValueError):     # head_dim mismatch
+        paged(q[..., :32], pool, pool, tables, lengths=lengths)
+    with pytest.raises(ValueError):     # kv heads do not divide q heads
+        paged(q[:, :3], pool, pool, tables, lengths=lengths)
+    with pytest.raises(ValueError):     # the two pools differ
+        paged(q, pool, pool[:4], tables, lengths=lengths)
+    ring = ops.decode_attention_ring
+    with pytest.raises(ValueError):     # no ring
+        ring(q, pool, pool, tables, ring_starts=starts, lengths=lengths,
+             window=0)
+    with pytest.raises(TypeError):      # ring starts not int32 [B]
+        ring(q, pool, pool, tables, ring_starts=starts.long(),
+             lengths=lengths, window=16)
+    out = ring(q, pool, pool, tables, ring_starts=starts, lengths=lengths,
+               window=16)
+    assert out.shape == q.shape and out.dtype == q.dtype
