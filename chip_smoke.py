@@ -57,7 +57,25 @@ non-zero before the last line:
      once the rings are full, every block returned);
  13. paged reference: the smoke config in f32 on the card and on the CPU,
      paged, paged with preemption and ring-paged: logits within 1e-4,
-     equal tokens, equal preemption counts.
+     equal tokens, equal preemption counts;
+ 14. WKV kernel: the rwkv6_scan library built (phase 2), then the kernel
+     against its plain version in bf16 and f32 at rwkv6-1.6b's shapes
+     (32 heads of 64, in the model's [B, S, H, hd] layout): a 200-token
+     prefill, a decode step of 8 rows from a random state, and a
+     4096-token prompt, also run in 8 pieces with the state carried,
+     which must equal one pass bitwise; timed as in phase 3;
+ 15. RWKV6 serving main path: `repro_torch.launch.serve --arch
+     rwkv6-1.6b` at full width on phase 7's workload, counts reset just
+     before and read just after (24 rwkv6_scan launches per admission and
+     per decode step, no attention kernel), every prompt prefilled at its
+     exact length, every request served to its budget, and two requests
+     re-served alone giving the same tokens;
+ 16. RWKV6 reference: the smoke config in f32 on the card and on the CPU
+     from one set of parameters: prefill_into_slot, a readmission over a
+     used slot and 8 decode_rows steps (logits within 1e-4, states within
+     1e-4 + 1e-5 of their size), and an engine whose tokens must be equal;
+ 17. RWKV6 serving profile: 8 steady decode steps at full width under
+     torch.profiler: device time by kernel, launches per step, busy share.
 
 Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -91,6 +109,7 @@ from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -103,7 +122,8 @@ COUNTERS = {"prox_update": prox_update_cuda,
             "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda,
             "decode_attention_paged": decode_attention_paged_cuda,
-            "decode_attention_ring": decode_attention_ring_cuda}
+            "decode_attention_ring": decode_attention_ring_cuda,
+            "rwkv6_scan": rwkv6_scan_cuda}
 KW = dict(tau=0.05, rho=20.0, num_walks=2, num_agents=4)   # the CLI's
 STEPS = 3
 # qwen2-0.5b leaves: embed.table, final_norm.scale and 12 stacked-layer
@@ -153,30 +173,42 @@ def event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, one_kernel=False, attempts=3):
     """Mean device ms per call of fn(): the summed time of every kernel
     and copy it launched, from torch.profiler's device events (no host
-    gaps), after one warm-up."""
+    gaps), after one warm-up. For a fn that launches one kernel
+    (`one_kernel`, a kernel's wrapper) it is that kernel's mean time per
+    recorded launch: late in a long run the profiler has dropped device
+    events (once all of a profile's, for 50 calls of a 4 us kernel; once
+    about two thirds of 20 calls of a 1.3 ms kernel, against CUDA
+    events), which would bias a sum over the calls. A profile that
+    recorded no device event is taken again, up to `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA)
-    if not total_us:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        total_us = sum(ev.self_device_time_total for ev in events)
+        if total_us:
+            calls = sum(ev.count for ev in events) if one_kernel else iters
+            return total_us / 1e3 / calls
+        print("device_ms: the profile recorded no device time; again",
+              flush=True)
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def timings(fn, plain, library, iters):
     """Device ms (profiler) and event ms of fn, of its plain version and of
     the library call (None where there is none)."""
-    t = {"kernel_ms": device_ms(fn, iters), "event_ms": event_ms(fn, iters),
+    t = {"kernel_ms": device_ms(fn, iters, one_kernel=True),
+         "event_ms": event_ms(fn, iters),
          "plain_ms": device_ms(plain, 3), "plain_event_ms": event_ms(plain, 3),
          "library_ms": None, "library_event_ms": None}
     if library is not None:
@@ -499,9 +531,10 @@ def serving_reference_check():
         raise AssertionError(f"card and CPU serving logits differ by {worst}")
 
 
-def profile_decode_steps(steps=8, paged=False):
+def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
     """Device time by kernel over `steps` steady decode steps at full
-    width (8 live rows of 200-token prompts; arena or paged pool),
+    width (8 live rows of 200-token prompts of `argv`'s model; arena or
+    paged pool),
     launches per step and the device's busy share of the steps' wall time
     under the profiler. The `steps` steps before them run unprofiled:
     their wall time over the profiled device time estimates the busy
@@ -509,7 +542,7 @@ def profile_decode_steps(steps=8, paged=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    args = serve_cli.parse_args(SERVE_ARGS)
+    args = serve_cli.parse_args(argv)
     _, cfg, model, params = serve_cli.build(args)
     prompts, _ = serve_cli.workload(args, cfg.vocab_size)
     eng = Engine(model, params, max_batch=8, max_len=512, paged=paged)
@@ -538,6 +571,8 @@ def profile_decode_steps(steps=8, paged=False):
         print("serving profile: no device time recorded (not measured)")
         return
     backend = "paged" if paged else "arena"
+    if cfg.name != "qwen2-0.5b":
+        backend = f"{cfg.name}_{backend}"
     print(json.dumps({f"profile_{steps}_{backend}_decode_steps": {
         "steps_wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
@@ -547,6 +582,8 @@ def profile_decode_steps(steps=8, paged=False):
         "decode_attention_device_ms": sum(
             ms for ms, _, name in rows
             if "decode_fwd" in name or "paged_fwd" in name),
+        "rwkv6_scan_device_ms": sum(ms for ms, _, name in rows
+                                    if "wkv_fwd" in name),
         "top": [{"ms": ms, "count": n, "name": name}
                 for ms, n, name in rows[:15]]}}), flush=True)
 
@@ -902,6 +939,200 @@ def paged_reference_check():
         raise AssertionError(f"card and CPU paged logits differ by {worst}")
 
 
+RWKV_SERVE_ARGS = ["--arch", "rwkv6-1.6b"] + SERVE_ARGS[2:]
+RWKV_RULE = ("|kernel - plain| <= 1e-5 * rms(plain) + 1e-4 * |plain|, out "
+             "and final state (f32 sums in another order; the state carries "
+             "each step's rounding, and an output near zero is a cancelling "
+             "sum of 64 terms of the outputs' size)")
+
+
+def rwkv_close(got, want):
+    """(ok, max |got - want|) under RWKV_RULE."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    tol = 1e-5 * want.pow(2).mean().sqrt() + 1e-4 * want.abs()
+    return bool((err <= tol).all()), float(err.max())
+
+
+def check_rwkv_case(label, b, s, dtype, gen, pieces=1):
+    """The WKV recurrence of rwkv6-1.6b (32 heads of 64) for b rows of s
+    steps from a random state, r/k/v in dtype and the model's [B,S,H,hd]
+    layout viewed as [B,H,S,hd], decays near the model's exp(-exp(-2)).
+    With pieces > 1 the kernel also runs the steps in that many pieces,
+    the state carried in place, and must equal its one pass bitwise."""
+    h, hd = 32, 64
+    r, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEV)
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+        (b, s, h, hd), generator=gen, device=DEV))).transpose(1, 2)
+    u = (0.1 * torch.randn((h, hd), generator=gen, device=DEV)).to(dtype)
+    state = torch.randn((b, h, hd, hd), generator=gen, device=DEV)
+    got_state = state.clone()
+    out, _ = ops.rwkv6_scan(r, k, v, w, u, got_state)
+    torch.cuda.synchronize()
+    want, want_state = ref.rwkv6(r, k, v, w, u, state)
+    ok_out, err_out = rwkv_close(out, want)
+    ok_state, err_state = rwkv_close(got_state, want_state)
+    del want, want_state
+    pieces_bitwise = None
+    if pieces > 1:
+        carried = state.clone()
+        cut = s // pieces
+        parts = [ops.rwkv6_scan(r[:, :, a:a + cut], k[:, :, a:a + cut],
+                                v[:, :, a:a + cut], w[:, :, a:a + cut], u,
+                                carried)[0]
+                 for a in range(0, s, cut)]
+        pieces_bitwise = bool(torch.equal(torch.cat(parts, dim=2), out)
+                              and torch.equal(carried, got_state))
+        del parts, carried
+    del out
+    scratch = state.clone()
+    t = timings(lambda: ops.rwkv6_scan(r, k, v, w, u, scratch),
+                lambda: ref.rwkv6(r, k, v, w, u, state), None,
+                iters=20 if s > 1000 else 50)
+    esize = r.element_size()
+    n = b * h * s * hd
+    nbytes = 3 * n * esize + 4 * n + 4 * n + 2 * 4 * b * h * hd * hd \
+        + h * hd * esize
+    flops = (5 * hd * hd + 4 * hd) * b * h * s
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    case = {"case": label, "dtype": str(dtype),
+            "shape": [list(r.shape), list(state.shape)],
+            "max_abs_err": max(err_out, err_state), "max_abs_err_out": err_out,
+            "max_abs_err_state": err_state, "tolerance": RWKV_RULE,
+            "pieces": pieces, "pieces_equal_one_pass_bitwise": pieces_bitwise,
+            **t, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "achieved_GBps": nbytes / t["kernel_ms"] / 1e6}
+    print(json.dumps(case), flush=True)
+    if not (ok_out and ok_state) or pieces_bitwise is False:
+        raise AssertionError(f"rwkv6_scan kernel disagrees with its plain "
+                             f"version on {label}: {case}")
+    return case
+
+
+def rwkv_serve_main_path():
+    """Phase 15: the RWKV6 serving main path at full width; returns
+    (summary, launches)."""
+    args = serve_cli.parse_args(RWKV_SERVE_ARGS)
+    print(" ".join(RWKV_SERVE_ARGS))
+    reset_counts()
+    out = serve_cli.serve(args)
+    launches = counts()
+    st = out["stats"]
+    summary = serving_summary(out, launches)
+    summary["prefill_shapes"] = out["prefill_shapes"]
+    print(json.dumps({"rwkv_serving_main_path": summary}), flush=True)
+    want = N_LAYERS * (st["admissions"] + st["decode_steps"])
+    if launches["rwkv6_scan"] != want:
+        raise AssertionError(f"rwkv6_scan launched {launches['rwkv6_scan']} "
+                             f"times for {st['admissions']} admissions and "
+                             f"{st['decode_steps']} decode steps")
+    if any(n for name, n in launches.items() if name != "rwkv6_scan"):
+        raise AssertionError(f"the RWKV6 path launched another kernel: "
+                             f"{launches}")
+    if out["prefill_shapes"] != [args.prompt_len]:
+        raise AssertionError(f"prompts were not prefilled at their exact "
+                             f"length: {out['prefill_shapes']}")
+    if [len(o) for o in out["outputs"]] != out["budgets"]:
+        raise AssertionError("a request did not get its budget's tokens: "
+                             f"{[len(o) for o in out['outputs']]}")
+    _, cfg, model, params = serve_cli.build(args)
+    prompts, budgets = serve_cli.workload(args, cfg.vocab_size)
+    eng = Engine(model, params, max_batch=args.max_batch,
+                 max_len=out["max_len"])
+    del params
+    for uid in (0, 1):
+        eng.submit(prompts[uid], max_new_tokens=budgets[uid])
+        (alone,) = eng.run()[-1:]
+        if alone.output.tolist() != out["outputs"][uid]:
+            raise AssertionError(f"rwkv request {uid} served alone gave "
+                                 f"{alone.output.tolist()}, batched "
+                                 f"{out['outputs'][uid]}")
+    print(json.dumps({"rwkv_solo_reserves_equal": [0, 1]}), flush=True)
+    return summary, launches
+
+
+def rwkv_reference_check():
+    """Phase 16: the RWKV6 smoke config in f32 on the card and on the CPU
+    from one set of parameters: prefill_into_slot into two slots, 8
+    decode_rows steps, a readmission over slot 0's state and 4 more steps
+    (logits within 1e-4, states within 1e-4 + 1e-5 of their size at the
+    end), then an engine on each device whose tokens must be equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("rwkv6-1.6b"),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    slots = 2
+    runs = [(dev, {k: v.to(dev) for k, v in cpu.items()},
+             model.init_arena(slots, 32, device=dev))
+            for dev in (torch.device("cpu"), DEV)]
+    worst = 0.0
+    lengths = np.zeros(slots, np.int32)
+    cur = np.zeros(slots, np.int32)
+
+    def admit(slot, plen):
+        nonlocal worst
+        toks = rng.integers(0, cfg.vocab_size, (1, plen)).astype(np.int32)
+        want, got = (model.prefill_into_slot(
+            p, torch.from_numpy(toks).to(dev), plen, slot, arena)[0].cpu()
+            for dev, p, arena in runs)
+        worst = max(worst, float((got - want).abs().max()))
+        lengths[slot] = plen
+        cur[slot] = int(want[0, -1].argmax())
+
+    def decode(steps):
+        nonlocal worst, cur, lengths
+        for _ in range(steps):
+            want, got = (model.decode_rows(
+                p, torch.from_numpy(cur)[:, None].to(dev), arena,
+                torch.from_numpy(lengths).to(dev))[0][:, -1].cpu()
+                for dev, p, arena in runs)
+            worst = max(worst, float((got - want).abs().max()))
+            cur = want.argmax(-1).numpy().astype(np.int32)
+            lengths = lengths + 1
+
+    admit(1, 11)
+    admit(0, 5)
+    decode(8)
+    admit(0, 9)         # over the state its previous occupant left
+    decode(4)
+    state_ok = True
+    state_err = {}
+    for name, leaf in runs[0][2].items():
+        got = runs[1][2][name].cpu()
+        state_err[name] = float((got - leaf).abs().max())
+        state_ok &= bool(((got - leaf).abs()
+                          <= 1e-4 + 1e-5 * leaf.abs()).all())
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in
+               (5, 11, 3, 8, 14, 2, 9)]
+    budgets = [6, 3, 9, 1, 5, 7, 4]
+    tokens = []
+    for _, p, _ in runs:
+        eng = Engine(model, p, max_batch=3, max_len=32,
+                     cache_dtype=torch.float32)
+        for prompt, budget in zip(prompts, budgets):
+            eng.submit(prompt, max_new_tokens=budget)
+        tokens.append([r.output.tolist()
+                       for r in sorted(eng.run(), key=lambda r: r.uid)])
+    print(json.dumps({"rwkv_reference_max_abs_err": worst,
+                      "state_max_abs_err": state_err, "tolerance": 1e-4,
+                      "engine_tokens_equal": tokens[0] == tokens[1]}),
+          flush=True)
+    # f32 sums run in another order on the card than on the CPU
+    if worst > 1e-4 or not state_ok:
+        raise AssertionError(f"card and CPU RWKV6 serving differ: logits "
+                             f"{worst}, states {state_err}")
+    if tokens[0] != tokens[1]:
+        raise AssertionError("card and CPU RWKV6 engines give different "
+                             "tokens")
+
+
 def kernel_entry(name, source, replaces, launches, cases, rep):
     """One kernel's record in the `kernels` line: the main-path case `rep`
     for shape and times, the worst case for the error, every case."""
@@ -1013,6 +1244,30 @@ def main():
     phase("13 paged reference: card against CPU at smoke size")
     paged_reference_check()
 
+    phase("14 WKV kernel against its plain version")
+    if not build.library_path("rwkv6_scan").is_file():
+        raise AssertionError("phase 2 did not build rwkv6_scan")
+    rwkv_cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rwkv_cases += [
+            check_rwkv_case("rwkv prefill B=1 S=200", 1, 200, dtype, gen),
+            check_rwkv_case("rwkv decode B=8 S=1", 8, 1, dtype, gen),
+            check_rwkv_case("rwkv long prompt B=1 S=4096, 8 pieces", 1,
+                            4096, dtype, gen, pieces=8)]
+        torch.cuda.empty_cache()
+
+    phase("15 RWKV6 serving main path: repro_torch.launch.serve, full "
+          "rwkv6-1.6b")
+    _, rwkv_launches = rwkv_serve_main_path()
+    torch.cuda.empty_cache()
+
+    phase("16 RWKV6 reference: card against CPU at smoke size")
+    rwkv_reference_check()
+
+    phase("17 RWKV6 serving profile")
+    profile_decode_steps(argv=RWKV_SERVE_ARGS)
+    torch.cuda.empty_cache()
+
     # top level: each kernel's main-path case for the times (the largest
     # leaf's f32 case for prox_update), the worst case for the error
     print(json.dumps({"kernels": [
@@ -1039,7 +1294,12 @@ def main():
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
                      "src/repro/kernels/decode_attention.py:298",
                      ring_launches["decode_attention_ring"], ring_cases,
-                     ring_cases[0])]}))
+                     ring_cases[0]),
+        kernel_entry("rwkv6_scan",
+                     "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                     "src/repro/kernels/rwkv6_scan.py:45",
+                     rwkv_launches["rwkv6_scan"], rwkv_cases,
+                     rwkv_cases[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,5 +11,7 @@ prox update as a hand-written CUDA kernel, and greedy continuous-batching
 serving over a slot arena or a paged pool of KV blocks (a ring of blocks
 for a sliding window) (`repro_torch.launch.serve`, `repro_torch.serve`),
 with prefill, decode, paged decode and ring decode attention as
-hand-written CUDA kernels (`repro_torch.kernels`).
+hand-written CUDA kernels (`repro_torch.kernels`). For the recurrent
+`rwkv6-1.6b`: greedy serving from the slot arena, with the WKV
+recurrence as a hand-written CUDA kernel.
 """

@@ -15,6 +15,7 @@ from repro_torch.configs.base import (  # noqa: F401
 # user-facing ids -> module names, for the architectures ported so far
 ARCH_IDS = {
     "qwen2-0.5b": "qwen2_0p5b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
 }
 
 

@@ -12,6 +12,7 @@ from repro_torch.kernels.decode_attention_paged import (
     decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prox_update import prox_update_cuda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 
 
 def prox_update(x, g, zsum, *, tau, rho, num_walks, num_agents):
@@ -89,3 +90,19 @@ def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
                                          **kw)
     raise ValueError(f"decode_attention_ring: no kernel for device "
                      f"{q.device}")
+
+
+def rwkv6_scan(r, k, v, w, u, state):
+    """RWKV6 WKV recurrence. r, k, v: [B,H,S,hd] (f32 or bf16; any strides
+    with a contiguous last dim); w: f32 decays of the same shape; u:
+    [H,hd]; state: the incoming f32 [B,H,hd,hd].
+
+    Returns (out [B,H,S,hd] in f32, state). `state` is overwritten with
+    the final state, on both routes, so a layer's state advances where it
+    lies in the cache."""
+    if r.device.type == "cuda":
+        return rwkv6_scan_cuda(r, k, v, w, u, state)
+    if r.device.type == "cpu":
+        out, final = ref.rwkv6(r, k, v, w, u, state)
+        return out, state.copy_(final)
+    raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")

@@ -151,3 +151,31 @@ def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
     return decode_attention_paged(q, k_pool, v_pool, ring,
                                   lengths=torch.clamp(lengths, max=window),
                                   scale=scale)
+
+
+def rwkv6(r, k, v, w, u, state=None):
+    """RWKV6 WKV recurrence (the TPU kernel `rwkv6_scan_bh`, with state in
+    and out), a sequential loop over time in f32:
+
+        out_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+        S_t   = diag(w_t) S_{t-1} + k_t^T v_t
+
+    r, k, v, w: [B, H, S, hd]; u: [H, hd]; state: f32 [B, H, hd, hd]
+    (None: zeros), not modified. Returns (out [B, H, S, hd] in f32, the
+    final state in f32). The output stays in f32, as the model's
+    sequential path keeps it (the reference's oracle casts it to r's
+    dtype).
+    """
+    b, h, s, hd = r.shape
+    if state is None:
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    st = state.float()
+    uf = u.float()[None, :, :, None]
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    outs = []
+    for t in range(s):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], st + uf * kv))
+        st = wf[:, :, t, :, None] * st + kv
+    return torch.stack(outs, dim=2), st

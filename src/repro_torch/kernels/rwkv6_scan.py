@@ -1,0 +1,106 @@
+"""RWKV6 WKV recurrence with state in and out: the Hopper kernel's wrapper.
+
+The kernel (`csrc/rwkv6_scan.cu`, CUDA C++ for sm_90a, bound with ctypes)
+replaces the TPU kernel `repro/kernels/rwkv6_scan.py:rwkv6_scan_bh`:
+
+    out_t = r_t S + (r_t . (u * k_t)) v_t,   S <- diag(w_t) S + k_t^T v_t
+
+per batch row and head, with an f32 [hd, hd] state. The TPU kernel
+starts from zero and returns no state; this one starts from `state` and
+writes the final state back into it, so decode steps continue the
+prompt's recurrence. It reads r, k, v [B, H, S, hd] (f32 or bf16) and w
+(f32) through their strides, so the model's [B, S, H, hd] projections go
+in as transposed views, and writes out (f32) into a [B, S, H, hd] buffer
+that it returns as a [B, H, S, hd] view. The wrapper checks its inputs,
+allocates the output with `torch.empty`, launches on the current stream
+and raises if the launch reports an error. `rwkv6_scan_cuda.launches`
+counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+_ENTRY = {torch.float32: "rwkv6_scan_f32", torch.bfloat16: "rwkv6_scan_bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+             + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+HEAD_DIMS = (32, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype):
+    """The typed ctypes function for dtype, set up once per dtype."""
+    fn = getattr(build.load("rwkv6_scan"), _ENTRY[dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, device, dtype, shape, contiguous=False):
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"rwkv6_scan kernel: {name} is on {t.device}, "
+                         f"expected the CUDA device {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"rwkv6_scan kernel: {name} is {t.dtype}, expected "
+                        f"{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"rwkv6_scan kernel: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if not (t.is_contiguous() if contiguous else t.stride(-1) == 1):
+        need = "to be contiguous" if contiguous else "a contiguous last dim"
+        raise ValueError(f"rwkv6_scan kernel: {name} needs {need}, got "
+                         f"strides {t.stride()}")
+
+
+def check_inputs(r, k, v, w, u, state):
+    """Raise unless r, k, v [B,H,S,hd] (f32 or bf16, one dtype), w (f32,
+    same shape), u [H,hd] (r's dtype) and state (contiguous f32
+    [B,H,hd,hd]) fit the kernel."""
+    if r.dtype not in _ENTRY:
+        raise TypeError(f"rwkv6_scan kernel: r is {r.dtype}; it takes "
+                        "float32 or bfloat16")
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan kernel: r has shape {tuple(r.shape)}, "
+                         "expected [B, H, S, hd]")
+    b, h, _, hd = r.shape
+    for name, t in (("r", r), ("k", k), ("v", v)):
+        _check(name, t, r.device, r.dtype, r.shape)
+    _check("w", w, r.device, torch.float32, r.shape)
+    _check("u", u, r.device, r.dtype, (h, hd), contiguous=True)
+    _check("state", state, r.device, torch.float32, (b, h, hd, hd),
+           contiguous=True)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan kernel: head_dim {hd} is not one of "
+                         f"{HEAD_DIMS}")
+
+
+def rwkv6_scan_cuda(r, k, v, w, u, state):
+    """Launch the kernel on CUDA tensors. Returns (out [B,H,S,hd] f32, a
+    view of a [B,S,H,hd] buffer; `state`, overwritten with the final
+    state)."""
+    check_inputs(r, k, v, w, u, state)
+    b, h, s, hd = r.shape
+    out = torch.empty((b, s, h, hd), dtype=torch.float32,
+                      device=r.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out, state
+    strides = (ctypes.c_int64 * 15)(*[st for t in (r, k, v, w, out)
+                                      for st in t.stride()[:3]])
+    fn = _entry(r.dtype)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), out.data_ptr(), state.data_ptr(), b, h, s, hd,
+                 strides, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    rwkv6_scan_cuda.launches += 1
+    return out, state
+
+
+rwkv6_scan_cuda.launches = 0

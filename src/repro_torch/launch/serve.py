@@ -15,12 +15,16 @@ and at smoke size on the CPU:
         --smoke --requests 4 --max-batch 2 --prompt-len 8 --new-tokens 4 \
         --device cpu
 
+--arch rwkv6-1.6b serves the RWKV6 recurrent stack from the arena, each
+prompt prefilled at its exact length.
+
 --mixed interleaves short (new_tokens // 4) and long budgets. --paged
 serves from a shared pool of KV blocks (--block-size tokens each,
 --num-blocks of them; default: the arena's footprint) with chunked
 prefill, admitting under --preemption recompute (optimistic, preempting
 the newest request when the pool runs dry) or reserve (worst-case
-reservation). The reference's --wave is not ported. Prints tokens/s,
+reservation); a model that cannot page (rwkv6) serves from the arena
+and says so. The reference's --wave is not ported. Prints tokens/s,
 p50/p99 request latency and, for the pool, preemptions and free blocks.
 """
 from __future__ import annotations
@@ -87,7 +91,8 @@ def build(args):
 
 def serve(args):
     """Serve the workload. Returns {"outputs" (token lists by uid),
-    "budgets", "step_ms" (host time of every engine step, ending in its
+    "budgets", "prefill_shapes" (the admitted prompt or chunk lengths),
+    "step_ms" (host time of every engine step, ending in its
     token fetch), "decode_ms" (the decode part of each step that ran
     one: launch + [B]-token fetch), "admit_ms" (the admission part of
     each step that admitted: prefill launches + first-token fetch),
@@ -140,12 +145,16 @@ def serve(args):
           f"max_batch {args.max_batch}, capacity {eng.capacity}")
     print(f"  {toks} tokens in {total:.3f}s ({toks / total:.1f} tok/s); "
           f"latency p50 {p50:.3f}s p99 {p99:.3f}s")
+    if args.paged and not eng.paged:
+        print(f"  --paged: {cfg.name} cannot page (recurrent state), so it "
+              "was served from the arena")
     print(f"  paged {eng.paged}; num_preemptions {eng.num_preemptions}; "
           f"free_blocks {eng.free_blocks}")
     for u in uids[:min(4, len(uids))]:
         print("  ", done[u].output.tolist())
     return {"outputs": [done[u].output.tolist() for u in uids],
-            "budgets": budgets, "step_ms": step_ms, "decode_ms": decode_ms,
+            "budgets": budgets, "prefill_shapes": sorted(eng.prefill_shapes),
+            "step_ms": step_ms, "decode_ms": decode_ms,
             "admit_ms": admit_ms, "latency_s": lats,
             "tokens_per_s": toks / total, "p50_s": p50, "p99_s": p99, "stats": eng.stats,
             "max_len": max_len, "paged": eng.paged,

@@ -65,6 +65,7 @@ def train(args):
     from repro_torch.data.tokens import agent_batches
     from repro_torch.dist.trainer import init_train_state, make_train_step
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import check_trainable
     from repro_torch.utils.logging import MetricLogger
 
     device = resolve_device(args.device)
@@ -76,6 +77,7 @@ def train(args):
         torch.cuda.reset_peak_memory_stats(device)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    check_trainable(cfg)
     model = build_model(cfg)
     a = args.agents
     print(f"agents={a} walks={args.walks} arch={cfg.name} device={device}")

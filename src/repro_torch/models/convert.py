@@ -43,14 +43,21 @@ def arena_from_jax(caches):
     """The reference's slot arena (a one-segment list [{"k", "v": [L, B, T,
     KV, hd], "ptr": int32 [L, B]}], numpy leaves) -> the port's arena dict
     of CPU tensors with the same shapes and dtypes. Also takes a cache
-    from `init_cache` (ptr [L])."""
+    from `init_cache` (ptr [L]), and an RWKV6 stack's recurrent state
+    ({"shift", "cm_shift": [L, B, D], "wkv": [L, B, H, hd, hd]}), which
+    comes back in f32: the reference's shifts turn bf16 after a bf16
+    decode step (the scan emits x's last position in the compute dtype),
+    with values that f32 holds exactly, and the port keeps f32."""
     if isinstance(caches, (list, tuple)):
         if len(caches) != 1:
             raise ValueError(f"the port runs one homogeneous segment; the "
                              f"cache has {len(caches)}")
         caches = caches[0]
+    if set(caches) == {"shift", "wkv", "cm_shift"}:
+        return {k: _tensor(v).float() for k, v in caches.items()}
     if set(caches) != {"k", "v", "ptr"}:
-        raise ValueError(f"not a GQA cache: leaves {sorted(caches)}")
+        raise ValueError(f"not a GQA cache or an RWKV6 state: leaves "
+                         f"{sorted(caches)}")
     out = {k: _tensor(v) for k, v in caches.items()}
     out["ptr"] = out["ptr"].to(torch.int32)
     return out

@@ -1,13 +1,16 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Only the dense decoder-only family is ported; the others raise. The
-serving entry points cover the slot arena and the paged pool; the
-reference's mixed-step entry points (overlapped admission) are not
-ported. A sliding window (`cfg.attn_window` or the `window` override)
-runs on the paged pool only, as a block ring: the windowed arena and
-windowed training are not ported, and their entry points raise rather
-than ignore the window.
+Two families are ported: the dense decoder-only GQA stack and the RWKV6
+recurrent stack (family "ssm", every layer "rwkv"); the others raise.
+The dense serving entry points cover the slot arena and the paged pool;
+an RWKV6 model has the arena's only (its state has no pages, as the
+reference's `FamilyCaps` says), and its `train_loss` raises (training it
+is a later slice). The reference's mixed-step entry points (overlapped
+admission) are not ported. A sliding window (`cfg.attn_window` or the
+`window` override) runs on the paged pool only, as a block ring: the
+windowed arena and windowed training are not ported, and their entry
+points raise rather than ignore the window.
 """
 from __future__ import annotations
 
@@ -46,17 +49,21 @@ class Model:
     decode_rows_paged_tokens: Callable = None   # -> (toks [B], pool, len+1)
 
 
+# ported family -> the layer types it may have
+PORTED_FAMILIES = {"dense": {"attn"}, "ssm": {"rwkv"}}
+
+
 def _check_ported(cfg: ArchConfig):
     unported = []
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         unported.append(f"family {cfg.family!r}")
-    if set(cfg.layer_types) != {"attn"}:
+    elif set(cfg.layer_types) != PORTED_FAMILIES[cfg.family]:
         unported.append(f"layer types {sorted(set(cfg.layer_types))}")
     if cfg.qk_norm:
         unported.append("qk_norm")
     if cfg.norm_type != "rmsnorm":
         unported.append(f"norm {cfg.norm_type!r}")
-    if cfg.mlp_type != "swiglu":
+    if cfg.family == "dense" and cfg.mlp_type != "swiglu":
         unported.append(f"mlp {cfg.mlp_type!r}")
     if unported:
         raise NotImplementedError(f"{cfg.name}: not ported to repro_torch "
@@ -95,6 +102,11 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
         decode_rows_tokens=lambda p, t, c, pos: TF.decode_rows_tokens(
             cfg, p, t, c, pos),
     )
+    if TF.layer_kind(cfg) == "rwkv":
+        if window:
+            raise ValueError(f"{cfg.name}: a sliding window applies to "
+                             "attention layers; this stack has none")
+        return Model(cfg=cfg, **entries)    # no pages
     if window:
         entries = {name: fn if name == "init" else _windowed(name, window)
                    for name, fn in entries.items()}

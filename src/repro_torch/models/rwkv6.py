@@ -1,0 +1,136 @@
+"""RWKV6 "Finch" block: time-mix with data-dependent decay + channel-mix.
+
+A port of `repro/models/rwkv6.py` (arXiv:2404.05892 at block level):
+
+  * token-shift interpolation (static mix ratios mu_*),
+  * data-dependent per-channel decay w_t = exp(-exp(w0 + LoRA(x_t))),
+  * per-head WKV state recurrence with bonus term u:
+        out_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+        S_t   = diag(w_t) S_{t-1} + k_t^T v_t
+  * grouped (per-head) normalization, silu(g) output gate,
+  * channel-mix: sigma(r') * (relu(k')^2 W_v).
+
+The reference runs the recurrence as a `lax.scan` over time, or through
+its chunked closed form `wkv_chunked` when S % 64 == 0 and S > 64; the
+port has one recurrence for every S, `kernels.ops.rwkv6_scan` (the CUDA
+kernel on the card), and where the reference would take the chunked form
+it rounds the WKV output to the compute dtype as that form does. The
+mixing parameters are one flat dict: "mu.r", ..., "cm_mu.k" for the
+reference's nested mix ratios.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _he
+
+DECAY_LORA = 64
+# the reference's wkv_chunked chunk: S % CHUNK == 0 and S > CHUNK take it
+CHUNK = 64
+MIX = ("r", "k", "v", "g", "w")
+CM_MIX = ("r", "k")
+
+
+def rwkv_init(generator, lead, cfg, dtype):
+    """Mixing parameters with leading dims `lead` (the stacked layer axis),
+    with the reference's shapes and scales."""
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    h = d // hd
+    dev = generator.device
+
+    def full(shape, value):
+        return torch.full(lead + shape, value, dtype=dtype, device=dev)
+
+    def normal(shape, scale):
+        return (torch.randn(lead + shape, generator=generator, device=dev)
+                * scale).to(dtype)
+
+    params = {f"mu.{n}": full((d,), 0.5) for n in MIX}
+    params.update({
+        "wr": _he(generator, lead + (d, d), dtype, d),
+        "wk": _he(generator, lead + (d, d), dtype, d),
+        "wv": _he(generator, lead + (d, d), dtype, d),
+        "wg": _he(generator, lead + (d, d), dtype, d),
+        "w0": full((d,), -2.0),           # base decay ~exp(-exp(-2))
+        "w_lora_a": _he(generator, lead + (d, DECAY_LORA), dtype, d),
+        "w_lora_b": normal((DECAY_LORA, d), 0.01),
+        "u": normal((h, hd), 0.1),
+        "ln_out_scale": full((d,), 1.0),
+        "wo": _he(generator, lead + (d, d), dtype, d),
+    })
+    params.update({f"cm_mu.{n}": full((d,), 0.5) for n in CM_MIX})
+    params.update({
+        "cm_wr": _he(generator, lead + (d, d), dtype, d),
+        "cm_wk": _he(generator, lead + (d, cfg.d_ff), dtype, d),
+        "cm_wv": _he(generator, lead + (cfg.d_ff, d), dtype, cfg.d_ff),
+    })
+    return params
+
+
+def init_state(cfg, batch, lead=(), device=None):
+    """Zero recurrent state in f32: {"shift", "cm_shift": [*lead, B, D],
+    "wkv": [*lead, B, H, hd, hd]}."""
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    f32 = torch.float32
+    return {"shift": torch.zeros(lead + (batch, d), dtype=f32, device=device),
+            "wkv": torch.zeros(lead + (batch, d // hd, hd, hd), dtype=f32,
+                               device=device),
+            "cm_shift": torch.zeros(lead + (batch, d), dtype=f32,
+                                    device=device)}
+
+
+def _token_shift(x, prev, mu):
+    """lerp between shifted and current: x + (shifted - x) * mu (the
+    difference, the same for every mix, is taken once)."""
+    shifted = torch.cat([prev.to(x.dtype)[:, None, :], x[:, :-1, :]], dim=1)
+    diff = shifted - x
+    return {n: x + diff * m for n, m in mu.items()}
+
+
+def time_mix(params, cfg, x, state):
+    """x: [B,S,D]; state: {"shift", "wkv", ...} of `init_state`'s leaves
+    at batch B -> (out [B,S,D], new state). The WKV state advances in
+    place (`state["wkv"]` is overwritten and returned); the new "shift"
+    is x's last position."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+
+    xs = _token_shift(x, state["shift"], {n: params[f"mu.{n}"] for n in MIX})
+    r = (xs["r"] @ params["wr"]).reshape(b, s, h, hd)
+    k = (xs["k"] @ params["wk"]).reshape(b, s, h, hd)
+    v = (xs["v"] @ params["wv"]).reshape(b, s, h, hd)
+    g = F.silu(xs["g"] @ params["wg"])
+
+    # data-dependent decay (the Finch mechanism)
+    w = params["w0"] + torch.tanh(
+        xs["w"] @ params["w_lora_a"]) @ params["w_lora_b"]
+    w = torch.exp(-torch.exp(w.float())).reshape(b, s, h, hd)   # in (0,1)
+
+    out, wkv = ops.rwkv6_scan(r.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), w.transpose(1, 2),
+                              params["u"], state["wkv"])
+    if s % CHUNK == 0 and s > CHUNK:
+        # the reference's chunked form returns its output in r's dtype
+        out = out.to(r.dtype).float()
+    out = out.transpose(1, 2)                                 # [B,S,H,hd]
+
+    # per-head group norm (population variance, as jnp.var)
+    mu_o = out.mean(-1, keepdim=True)
+    var_o = out.var(-1, keepdim=True, unbiased=False)
+    out = (out - mu_o) * torch.rsqrt(var_o + 1e-5)
+    out = out.reshape(b, s, d) * params["ln_out_scale"].float()
+
+    out = (out.to(x.dtype) * g) @ params["wo"]
+    return out, dict(state, shift=x[:, -1, :], wkv=wkv)
+
+
+def channel_mix(params, cfg, x, state):
+    xs = _token_shift(x, state["cm_shift"],
+                      {n: params[f"cm_mu.{n}"] for n in CM_MIX})
+    r = torch.sigmoid(xs["r"] @ params["cm_wr"])
+    k = torch.square(torch.relu(xs["k"] @ params["cm_wk"]))
+    out = r * (k @ params["cm_wv"])
+    return out, dict(state, cm_shift=x[:, -1, :])

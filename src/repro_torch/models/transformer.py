@@ -1,11 +1,13 @@
-"""Decoder-only dense GQA transformer: init, train forward and loss, and the
-serving entry points (prefill, decode, and the slot arena).
+"""Decoder-only transformer (dense GQA or RWKV6 layers): init, train
+forward and loss, and the serving entry points (prefill, decode, and the
+slot arena).
 
 Parameters are one flat dict keyed by the reference pytree's paths
-("embed.table", "segments.0.attn.wq", "final_norm.scale", ...). Layers
-are stacked on a leading [L] axis under one segment, as the reference
-stacks a homogeneous run of layers; the forward pass loops over them in
-Python where the reference scans.
+("embed.table", "segments.0.attn.wq", "segments.0.mix.mu.r",
+"final_norm.scale", ...). Layers are stacked on a leading [L] axis under
+one segment, as the reference stacks a homogeneous run of layers of one
+kind ("attn" or "rwkv"); the forward pass loops over them in Python where
+the reference scans.
 
 A KV cache is one dict {"k", "v": [L, B, T, KV, hd], "ptr"}: the
 reference's one-segment cache list, with the same leaves. `ptr` counts
@@ -13,20 +15,46 @@ the tokens written: int32 [L] for a cache from `init_cache` (every row at
 one depth) and [L, B] for the slot arena (`init_arena`, every row at its
 own depth). A paged pool (`init_pool`) is one dict {"k", "v": [L, NB + 1,
 bs, KV, hd]} shared by every row, with block 0 the null block; block
-tables say which blocks a row owns. The port updates caches and pools in
-place where the reference returns new (donated) buffers.
+tables say which blocks a row owns. An RWKV6 stack's cache is its
+recurrent state {"shift", "cm_shift": [L, B, D], "wkv": [L, B, H, hd,
+hd]}, all f32, with no ptr (the arena is the same dict at batch `slots`).
+The port updates caches and pools in place where the reference returns
+new (donated) buffers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as A
+from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (
     _he, embed, embedding_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
     unembed,
 )
 
 SEGMENT = "segments.0."
+# the layer kinds the port runs; a stack is a single run of one of them
+KINDS = ("attn", "rwkv")
+RWKV_LEAVES = ("shift", "wkv", "cm_shift")
+
+
+def layer_kind(cfg):
+    """The kind of every layer of the stack (one homogeneous segment)."""
+    kinds = set(cfg.layer_types)
+    if len(kinds) != 1 or not kinds <= set(KINDS):
+        raise NotImplementedError(f"{cfg.name}: layer types {sorted(kinds)}"
+                                  f" are not one of {KINDS}")
+    return cfg.layer_types[0]
+
+
+def check_trainable(cfg):
+    """Raise for a stack the port cannot train yet: RWKV6 training (the
+    backward through the WKV kernel) is a later slice."""
+    if layer_kind(cfg) == "rwkv":
+        raise NotImplementedError(
+            f"{cfg.name}: training RWKV6 layers is not ported yet (a later "
+            "slice: the backward of the rwkv6_scan kernel as a "
+            "torch.autograd.Function); the port serves them")
 
 
 def subtree(params, prefix):
@@ -36,7 +64,8 @@ def subtree(params, prefix):
 
 
 def _layers(params, num_layers):
-    """Per-layer parameters [{"ln1": {...}, "attn": {...}, ...}, ...].
+    """Per-layer parameters [{"ln1": {...}, "attn": {...}, ...}, ...]; a
+    leaf's key below its group keeps its dots ("mix" -> "mu.r").
 
     Each stacked leaf is unbound once: indexing it once per layer would
     make the backward pass build a zero [L, ...] gradient for every layer
@@ -45,7 +74,7 @@ def _layers(params, num_layers):
     layers = [{} for _ in range(num_layers)]
     for key, v in params.items():
         if key.startswith(SEGMENT):
-            group, leaf = key[len(SEGMENT):].split(".")
+            group, leaf = key[len(SEGMENT):].split(".", 1)
             for lp, v_i in zip(layers, v.unbind(0)):
                 lp.setdefault(group, {})[leaf] = v_i
     return layers
@@ -65,12 +94,18 @@ def transformer_init(cfg, generator, dtype=None):
     d = cfg.d_model
     params = _flat("embed", embedding_init(generator, cfg.vocab_size, d,
                                            dtype))
+    rwkv = layer_kind(cfg) == "rwkv"
     params.update(_flat(SEGMENT + "ln1", rmsnorm_init(lead + (d,), dtype, dev)))
-    params.update(_flat(SEGMENT + "attn", A.gqa_init(generator, lead, cfg,
-                                                     dtype)))
+    if rwkv:
+        params.update(_flat(SEGMENT + "mix", RW.rwkv_init(generator, lead,
+                                                          cfg, dtype)))
+    else:
+        params.update(_flat(SEGMENT + "attn", A.gqa_init(generator, lead, cfg,
+                                                         dtype)))
     params.update(_flat(SEGMENT + "ln2", rmsnorm_init(lead + (d,), dtype, dev)))
-    params.update(_flat(SEGMENT + "mlp", mlp_init(generator, lead, d,
-                                                  cfg.d_ff, dtype)))
+    if not rwkv:
+        params.update(_flat(SEGMENT + "mlp", mlp_init(generator, lead, d,
+                                                      cfg.d_ff, dtype)))
     params.update(_flat("final_norm", rmsnorm_init((d,), dtype, dev)))
     if not cfg.tie_embeddings:
         params["head"] = _he(generator, (d, cfg.vocab_size), dtype, d)
@@ -92,7 +127,14 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     "valid": int}, one chunk of one slot through `gqa_prefill_paged`; for
     "decode" {"tables": int32 [B, W], "lengths": int32 [B]}, through
     `gqa_decode_paged`. `window` (> 0: a ring-paged sliding window)
-    applies to the paged paths only."""
+    applies to the paged paths only.
+
+    An RWKV6 stack takes "prefill" and "decode" alike: each layer runs
+    from its state in `caches` (from `init_cache`/`init_arena`, or views
+    of one slot) and leaves its new state there; positions are unused.
+    """
+    if layer_kind(cfg) == "rwkv":
+        return _forward_rwkv(cfg, params, x, mode, caches)
     for i, lp in enumerate(_layers(params, cfg.num_layers)):
         h = rmsnorm(lp["ln1"], x)
         if paged is not None:
@@ -122,6 +164,26 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     return rmsnorm(subtree(params, "final_norm"), x)
 
 
+def _forward_rwkv(cfg, params, x, mode, caches):
+    """The RWKV6 stack: rmsnorm -> time_mix -> rmsnorm -> channel_mix per
+    layer, as the reference's `block_apply` kind "rwkv". The WKV state
+    advances in place in the cache; the shifts are copied in."""
+    if mode not in ("prefill", "decode") or caches is None:
+        raise NotImplementedError(f"RWKV6 layers run with a cache, in "
+                                  f"'prefill' or 'decode' mode, not {mode!r}")
+    for i, lp in enumerate(_layers(params, cfg.num_layers)):
+        state = {name: caches[name][i] for name in RWKV_LEAVES}
+        h = rmsnorm(lp["ln1"], x)
+        tm_out, state = RW.time_mix(lp["mix"], cfg, h, state)
+        x = x + tm_out
+        h2 = rmsnorm(lp["ln2"], x)
+        cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state)
+        x = x + cm_out
+        for name in ("shift", "cm_shift"):
+            caches[name][i].copy_(state[name])
+    return rmsnorm(subtree(params, "final_norm"), x)
+
+
 def logits_fn(cfg, params, x):
     if cfg.tie_embeddings:
         return unembed(subtree(params, "embed"), x)
@@ -141,6 +203,7 @@ def train_loss(cfg, params, batch):
     included, is cast to the compute dtype first; the logits come from a
     compute-dtype product and are cast to f32 for the cross-entropy.
     """
+    check_trainable(cfg)
     params = _cast(cfg, params)
     tokens = batch["tokens"]
     x = embed(subtree(params, "embed"), tokens)
@@ -169,7 +232,11 @@ def train_loss(cfg, params, batch):
 
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
     """Zero caches for decode; the config's sliding window, if any, caps
-    the ring's capacity."""
+    the ring's capacity. An RWKV6 stack's cache is its f32 recurrent
+    state, whatever `seq_len` and `dtype` (as in the reference)."""
+    if layer_kind(cfg) == "rwkv":
+        return RW.init_state(cfg, batch, lead=(cfg.num_layers,),
+                             device=device)
     win = cfg.attn_window
     cap = max(min(seq_len, win) if win else seq_len, 1)
     shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.head_dim)
@@ -222,8 +289,11 @@ def decode_step(cfg, params, token, caches, position):
 
 
 def init_arena(cfg, slots, capacity, dtype=torch.bfloat16, device=None):
-    """Slot-arena caches: `init_cache` with per-row ptr [layers, slots]."""
+    """Slot-arena caches: `init_cache` with per-row ptr [layers, slots]
+    (a recurrent state has no ptr)."""
     arena = init_cache(cfg, slots, capacity, dtype=dtype, device=device)
+    if layer_kind(cfg) == "rwkv":
+        return arena
     arena["ptr"] = torch.zeros((cfg.num_layers, slots), dtype=torch.int32,
                                device=device)
     return arena
@@ -234,23 +304,32 @@ def prefill_into_slot(cfg, params, tokens, length, slot, caches):
 
     tokens: [1, Sp] int, right-padded to a bucketed length Sp (causal
     attention keeps positions < length from seeing the pads, and the
-    slot's validity length is `length`); length: the true prompt length;
-    slot: the arena row to overwrite; caches: the arena from `init_arena`.
-    The prefill writes the slot's whole cache row (zeros past the prompt)
-    through views of the arena, and sets its ptr to `length` (the tokens
-    actually in the cache). Returns (logits [1,1,V] in f32 at position
-    length - 1, the arena, updated in place)."""
+    slot's validity length is `length`; a recurrent stack folds every
+    token into its state, so its prompts come at their exact length);
+    length: the true prompt length; slot: the arena row to overwrite;
+    caches: the arena from `init_arena`. The prefill writes the slot's
+    whole cache row (zeros past the prompt) through views of the arena,
+    and sets its ptr to `length` (the tokens actually in the cache); a
+    recurrent slot's state is zeroed first, so the request does not start
+    from its slot's previous occupant. Returns (logits [1,1,V] in f32 at
+    position length - 1, the arena, updated in place)."""
     params = _cast(cfg, params)
     x = _embed_tokens(cfg, params, tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None]
     slot, length = int(slot), int(length)
-    row = {"k": caches["k"][:, slot:slot + 1],
-           "v": caches["v"][:, slot:slot + 1],
-           "ptr": caches["ptr"][:, slot]}
+    if layer_kind(cfg) == "rwkv":
+        row = {name: caches[name][:, slot:slot + 1] for name in RWKV_LEAVES}
+        for leaf in row.values():
+            leaf.zero_()
+    else:
+        row = {"k": caches["k"][:, slot:slot + 1],
+               "v": caches["v"][:, slot:slot + 1],
+               "ptr": caches["ptr"][:, slot]}
     x = forward(cfg, params, x, positions=positions, mode="prefill",
                 caches=row)
-    row["ptr"].fill_(length)
+    if "ptr" in row:
+        row["ptr"].fill_(length)
     logits = logits_fn(cfg, params, x[:, length - 1:length]).float()
     return logits, caches
 

@@ -14,7 +14,11 @@ reference's `overlap=False`):
     **arena** (default): each row owns a full capacity-T cache row
     (`Model.init_arena`, T = the power-of-two bucket of `max_len`), so a
     request is bounded by `plen + max_new_tokens <= capacity`; prompts
-    are right-padded to a power-of-two bucket of at least 8.
+    are right-padded to a power-of-two bucket of at least 8 where that
+    is inert (`FamilyCaps.pad_prompts`: a full-causal attention stack)
+    and prefill at their exact length otherwise (an RWKV6 stack, whose
+    state would fold the pads in). A recurrent row holds its state, not
+    a KV cache.
 
     **paged** (`paged=True`): all rows share one pool of fixed-size KV
     blocks (`Model.init_pool`) through host-side block tables
@@ -24,7 +28,10 @@ reference's `overlap=False`):
     stream in through fixed-size chunks (`prefill_chunk`). A
     sliding-window model pages as a block RING (position p at ring slot
     p % window): a slot holds at most ceil(window / block_size) blocks,
-    and a full ring allocates no further block however long it runs.
+    and a full ring allocates no further block however long it runs. A
+    family that cannot page (`FamilyCaps.supports_paging`: recurrent
+    state has no pages) serves from the arena, as the reference does;
+    `engine.paged` says which backend is in use.
 
     Paged admission has two policies (`preemption=`). "recompute"
     (default) admits a request when the blocks free right now cover its
@@ -70,6 +77,32 @@ _PREFILL_FLOOR = 8      # smallest prompt bucket
 _ADMIT_WATERMARK = 1    # spare blocks optimistic admission leaves free
 
 
+@dataclasses.dataclass(frozen=True)
+class FamilyCaps:
+    """What the serving engine may do with a model (the reference's flags
+    that the port uses):
+
+      pad_prompts: padding prompts to pow2 buckets is inert (an attention
+        stack whose rings hold the whole capacity). Recurrent layers fold
+        the pads into their state, and a sliding-window ring would let
+        pads evict real context: those prefill at exact lengths.
+      supports_paging: the block-pool backend works (an attention stack
+        with `init_pool`; recurrent state has no pages to page).
+    """
+    pad_prompts: bool
+    supports_paging: bool
+
+
+def probe_family_caps(model, *, capacity: int) -> FamilyCaps:
+    """The serving capabilities of `model` at slot capacity `capacity`
+    (a sliding window below it disables padding)."""
+    all_attn = all(t == "attn" for t in model.cfg.layer_types)
+    window = int(model.window or 0)
+    return FamilyCaps(
+        pad_prompts=all_attn and (not window or window >= capacity),
+        supports_paging=all_attn and model.init_pool is not None)
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -91,10 +124,11 @@ class Engine:
     requests finished by this step; run() -> drain the queue. The engine
     runs where the parameters lie (CUDA or CPU).
 
-    paged=True selects the block-pool backend; block_size, num_blocks
-    (default: the arena's footprint, max_batch * capacity tokens) and
-    prefill_chunk size it, and preemption picks its admission policy
-    ("recompute" or "reserve"; see the module docstring).
+    paged=True asks for the block-pool backend (a family that cannot
+    page serves from the arena; `engine.paged` tells); block_size,
+    num_blocks (default: the arena's footprint, max_batch * capacity
+    tokens) and prefill_chunk size it, and preemption picks its admission
+    policy ("recompute" or "reserve"; see the module docstring).
     """
 
     def __init__(self, model, params, *, max_batch: int = 8,
@@ -120,7 +154,8 @@ class Engine:
         self.device = next(iter(self.params.values())).device
         self.max_batch = int(max_batch)
         self.capacity = bucket_length(max_len)
-        self.paged = bool(paged)
+        self.caps = probe_family_caps(model, capacity=self.capacity)
+        self.paged = bool(paged and self.caps.supports_paging)
         self.preemption = preemption
         self.num_preemptions = 0    # total evictions
         # the model's sliding window (0 = full causal): a ring on the pool
@@ -286,7 +321,10 @@ class Engine:
         `_resolve_admission`: the first token is not fetched here, so the
         round's other prefills launch without waiting on this one."""
         plen = len(req.prompt)
-        sp = min(bucket_length(plen, _PREFILL_FLOOR), self.capacity)
+        if self.caps.pad_prompts:
+            sp = min(bucket_length(plen, _PREFILL_FLOOR), self.capacity)
+        else:
+            sp = plen
         self.prefill_shapes.add(sp)
         toks = np.zeros((1, sp), np.int32)
         toks[0, :plen] = req.prompt

@@ -10,9 +10,11 @@ the reference's own tolerances (1e-5 in f32, 3e-2 in bf16), and against
 the model's jnp `chunked_attention` at 2e-4. The plain paged and ring decode
 versions (`ref.decode_attention_paged`, `ref.decode_attention_ring`) are
 held against the JAX Pallas kernels in interpret mode and the JAX oracles
-at 1e-6 in f32 (within one bf16 ulp in bf16). The CUDA cases need the
-card (marker `cuda`); they import no JAX, so they also run where JAX is
-absent:
+at 1e-6 in f32 (within one bf16 ulp in bf16). The plain WKV recurrence
+(`ref.rwkv6`) is held against the JAX oracle and TPU kernel in
+`tests/test_torch_rwkv.py`; here its CUDA kernel is held against it. The
+CUDA cases need the card (marker `cuda`); they import no JAX, so they
+also run where JAX is absent:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_kernels.py tests/test_torch_port_rules.py
@@ -33,6 +35,7 @@ from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 
 KW = dict(tau=0.1, rho=20.0, num_walks=2, num_agents=4)
 # sizes on both sides of the reference's 1024-lane tiling, and ragged ones
@@ -627,3 +630,80 @@ def test_ring_kernel_with_a_table_narrower_than_the_ring_on_card(cuda,
     want = ref.decode_attention_ring(q, kp, vp, tables, ring_starts=zeros,
                                      lengths=lengths, window=window)
     _assert_kernel_close(got, want, dtype)
+
+
+def _rwkv_close(got, want):
+    """|kernel - plain| <= 1e-5 * rms(plain) + 1e-4 * |plain|, in f32 on
+    both sides (bf16 inputs convert exactly): the sums run in another
+    order, the state carries each step's rounding into the next, and an
+    output near zero is a cancelling sum of 64 terms of the outputs'
+    size, so the absolute term scales with the outputs' RMS."""
+    want = want.float()
+    tol = 1e-5 * want.pow(2).mean().sqrt() + 1e-4 * want.abs()
+    return bool(((got.float() - want).abs() <= tol).all())
+
+
+def _rwkv_operands(cuda, gen, b, h, s, hd, dtype, strided):
+    """r, k, v [B,H,S,hd] in dtype (strided: transposed views of one
+    [B,S,3,H,hd] buffer, the model's layout), f32 decays near the model's
+    exp(-exp(-2)), u at 0.1 and a unit-normal incoming state."""
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    if strided:
+        qkv = draw((b, s, 3, h, hd)).to(dtype)
+        r, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        w = draw((b, s, h, hd)).transpose(1, 2)
+    else:
+        r, k, v = (draw((b, h, s, hd)).to(dtype) for _ in range(3))
+        w = draw((b, h, s, hd))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * w))
+    u = (0.1 * draw((h, hd))).to(dtype)
+    return r, k, v, w, u, draw((b, h, hd, hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("b,s", [(5, 1), (2, 77)], ids=["decode", "prefill"])
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "model-layout"])
+def test_rwkv6_kernel_matches_plain_version_on_card(cuda, dtype, hd, b, s,
+                                                    strided):
+    """Output and final state, from a nonzero state, against the plain
+    version; the state is overwritten in place and returned."""
+    gen = torch.Generator(device=cuda).manual_seed(hd * s + b)
+    r, k, v, w, u, state = _rwkv_operands(cuda, gen, b, 3, s, hd, dtype,
+                                          strided)
+    got_state = state.clone()
+    before = rwkv6_scan_cuda.launches
+    out, returned = ops.rwkv6_scan(r, k, v, w, u, got_state)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before + 1
+    assert returned is got_state
+    assert out.dtype == torch.float32 and out.shape == (b, 3, s, hd)
+    want, want_state = ref.rwkv6(r, k, v, w, u, state)
+    assert _rwkv_close(out, want)
+    assert _rwkv_close(got_state, want_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_kernel_in_pieces_equals_one_pass_on_card(cuda, dtype):
+    """A prompt cut in pieces (at 1, 40 and 95 of 130 steps; the kernel
+    stages 32 steps at a time), the state carried in place between them,
+    is bitwise one pass; from a zero state it is the plain version from
+    none."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    r, k, v, w, u, state = _rwkv_operands(cuda, gen, 2, 4, 130, 64, dtype,
+                                          True)
+    whole_state = state.clone()
+    whole, _ = ops.rwkv6_scan(r, k, v, w, u, whole_state)
+    cuts = (0, 1, 40, 95, 130)
+    pieces = [ops.rwkv6_scan(r[:, :, a:z], k[:, :, a:z], v[:, :, a:z],
+                             w[:, :, a:z], u, state)[0]
+              for a, z in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(pieces, dim=2), whole)
+    assert torch.equal(state, whole_state)
+    out0, final0 = ops.rwkv6_scan(r, k, v, w, u, torch.zeros_like(state))
+    want0, wfinal0 = ref.rwkv6(r, k, v, w, u)
+    assert _rwkv_close(out0, want0) and _rwkv_close(final0, wfinal0)

@@ -98,7 +98,7 @@ def test_serve_on_cpu_when_asked():
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "decode_attention_paged",
-                                  "decode_attention_ring"])
+                                  "decode_attention_ring", "rwkv6_scan"])
 def test_attention_ops_reject_devices_without_a_kernel(name):
     q = torch.empty(1, 4, 2, 32, device="meta")
     k = torch.empty(1, 4, 1, 32, device="meta")
@@ -111,6 +111,8 @@ def test_attention_ops_reject_devices_without_a_kernel(name):
         elif name == "decode_attention_paged":
             ops.decode_attention_paged(q[:, 0], k, k, ones[:, None],
                                        lengths=ones)
+        elif name == "rwkv6_scan":
+            ops.rwkv6_scan(q, q, q, q, q[0, 0], k)
         else:
             ops.decode_attention_ring(q[:, 0], k, k, ones[:, None],
                                       ring_starts=ones, lengths=ones,
@@ -136,7 +138,7 @@ def test_every_kernel_source_is_built():
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "decode_attention_paged"])
+                                  "decode_attention_paged", "rwkv6_scan"])
 def test_failed_attention_build_raises(monkeypatch, tmp_path, name):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 1\n")
@@ -267,3 +269,37 @@ def test_paged_kernels_reject_bad_inputs(cuda):
     out = ring(q, pool, pool, tables, ring_starts=starts, lengths=lengths,
                window=16)
     assert out.shape == q.shape and out.dtype == q.dtype
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_rejects_bad_inputs(cuda):
+    b, h, s, hd = 2, 3, 5, 64
+    r = torch.zeros(b, h, s, hd, device=cuda)
+    w = torch.full((b, h, s, hd), 0.5, device=cuda)
+    u = torch.zeros(h, hd, device=cuda)
+    state = torch.zeros(b, h, hd, hd, device=cuda)
+    scan = ops.rwkv6_scan
+    with pytest.raises(TypeError):      # unsupported dtype
+        scan(r.half(), r.half(), r.half(), w, u.half(), state)
+    with pytest.raises(TypeError):      # r, k, v of two dtypes
+        scan(r, r.bfloat16(), r, w, u, state)
+    with pytest.raises(TypeError):      # decays not f32
+        scan(r, r, r, w.bfloat16(), u, state)
+    with pytest.raises(TypeError):      # u not in r's dtype
+        scan(r, r, r, w, u.bfloat16(), state)
+    with pytest.raises(TypeError):      # state not f32
+        scan(r, r, r, w, u, state.bfloat16())
+    with pytest.raises(ValueError):     # state on the CPU
+        scan(r, r, r, w, u, state.cpu())
+    with pytest.raises(ValueError):     # state not contiguous
+        scan(r, r, r, w, u, state.transpose(2, 3))
+    with pytest.raises(ValueError):     # state of another batch
+        scan(r, r, r, w, u, state[:1])
+    with pytest.raises(ValueError):     # last dim not contiguous
+        scan(r.transpose(2, 3), r, r, w, u, state)
+    with pytest.raises(ValueError):     # k of another length
+        scan(r, r[:, :, :4], r, w, u, state)
+    r128 = torch.zeros(b, h, s, 128, device=cuda)
+    with pytest.raises(ValueError):     # head_dim 128
+        scan(r128, r128, r128, r128, torch.zeros(h, 128, device=cuda),
+             torch.zeros(b, h, 128, 128, device=cuda))
