@@ -7,8 +7,9 @@ Phases, in order; none catches its own failure, so any failure exits
 non-zero before the last line:
 
   1. card: the `nvidia-smi` name and power limit;
-  2. build: every CUDA kernel (prox_update, flash_attention,
-     decode_attention, decode_attention_paged), compiled from the sources
+  2. build: every CUDA kernel (`build.KERNELS`: prox_update,
+     flash_attention, decode_attention, decode_attention_paged, rwkv6_scan,
+     rglru_scan), compiled from the sources
      in this checkout, all at once (the old libraries are removed
      first), with ptxas's registers and spills;
   3. kernels: each kernel against its plain PyTorch version at its main
@@ -75,7 +76,35 @@ non-zero before the last line:
      used slot and 8 decode_rows steps (logits within 1e-4, states within
      1e-4 + 1e-5 of their size), and an engine whose tokens must be equal;
  17. RWKV6 serving profile: 8 steady decode steps at full width under
-     torch.profiler: device time by kernel, launches per step, busy share.
+     torch.profiler: device time by kernel, launches per step, busy share;
+ 18. RG-LRU kernel and attention at head_dim 256: the rglru_scan kernel
+     against its plain version (bitwise, f32 and bf16 out) at
+     recurrentgemma-2b's width (2560): a 200-token prefill, a decode step
+     of 8 rows from a random state, and a 4096-step prompt, also in 8
+     pieces with the state carried, which must equal one pass bitwise;
+     flash prefill with 10 query heads of 256 over 1 kv head (200 tokens,
+     and 3,000 under the 2048-token window, which binds) and grouped
+     decode at G * hd = 2560 (a 512-slot ring, lengths spread, and a full
+     2048 ring) against their plain versions, beside SDPA; timed as in
+     phase 3;
+ 19. hybrid serving main path: `repro_torch.launch.serve --arch
+     recurrentgemma-2b` at full width and depth on phase 7's workload,
+     counts reset just before and read just after (18 rglru_scan launches
+     per admission and per decode step, 8 flash launches per admission, 8
+     decode launches per decode step, no other kernel), every prompt
+     prefilled at its exact length, every request served to its budget,
+     two requests re-served alone giving the same tokens; then a long
+     prompt (3,000 tokens and 32 new ones at capacity 4096), so the
+     2048-token ring wraps and the window binds in the prefill kernel;
+ 20. hybrid reference: the smoke config in f32 (window 32) on the card
+     and on the CPU from one set of parameters: prompts past the window,
+     a readmission over a used slot and decode steps (logits within 1e-4,
+     states within 1e-4 + 1e-5 of their size), engines whose tokens must
+     be equal; then recurrentgemma-2b's widths (d_model 2560, 10:1 heads
+     of 256, RG-LRU 2560, d_ff 7680) cut to 3 layers and vocab 512;
+ 21. hybrid serving profile: 8 steady decode steps at full width under
+     torch.profiler: launches per step, device ms, busy share and the
+     RG-LRU kernel's time per launch in the model.
 
 Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -109,6 +138,7 @@ from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -123,7 +153,8 @@ COUNTERS = {"prox_update": prox_update_cuda,
             "decode_attention": decode_attention_cuda,
             "decode_attention_paged": decode_attention_paged_cuda,
             "decode_attention_ring": decode_attention_ring_cuda,
-            "rwkv6_scan": rwkv6_scan_cuda}
+            "rwkv6_scan": rwkv6_scan_cuda,
+            "rglru_scan": rglru_scan_cuda}
 KW = dict(tau=0.05, rho=20.0, num_walks=2, num_agents=4)   # the CLI's
 STEPS = 3
 # qwen2-0.5b leaves: embed.table, final_norm.scale and 12 stacked-layer
@@ -369,10 +400,10 @@ def attention_case(name, label, fn, plain, library, nbytes, flops, iters,
     return case
 
 
-def check_flash_case(label, s, gen):
-    """Causal prefill of one prompt of s tokens, 14 heads over 2 kv heads
-    of 64 (qwen2-0.5b), bf16, in the model's [1, S, heads, 64] layout."""
-    h, kv, hd = 14, 2, 64
+def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0):
+    """Causal prefill of one prompt of s tokens, h heads over kv heads of
+    hd (qwen2-0.5b's 14 over 2 of 64 by default), bf16, in the model's
+    [1, S, heads, hd] layout, under a sliding window if given."""
     bf = torch.bfloat16
     q = torch.randn((1, s, h, hd), generator=gen, device=DEV).to(bf)
     k = torch.randn((1, s, kv, hd), generator=gen, device=DEV).to(bf)
@@ -380,20 +411,29 @@ def check_flash_case(label, s, gen):
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * hd * h * s * (s + 1) // 2          # causal pairs only
+    pairs = s * (s + 1) // 2                        # causal pairs only
+    if window and window < s:
+        pairs -= (s - window) * (s - window + 1) // 2
+        i = torch.arange(s, device=DEV)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        def library():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
     case = attention_case(
         "flash_attention", label,
-        lambda: ops.flash_attention(q, k, v, causal=True),
-        lambda: ref.attention(q, k, v, causal=True),
-        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-        nbytes, flops, iters=20)
-    return dict(case, shape=[list(q.shape), list(k.shape)])
+        lambda: ops.flash_attention(q, k, v, causal=True, window=window),
+        lambda: ref.attention(q, k, v, causal=True, window=window),
+        library, nbytes, 4 * hd * h * pairs, iters=20)
+    return dict(case, shape=[list(q.shape), list(k.shape)], window=window)
 
 
-def check_decode_case(label, b, t, gen):
-    """One decode step of b rows over [b, t, 2, 64] caches (slices of an
-    arena), lengths spread over 1..t, 14 query heads, bf16."""
-    h, kv, hd = 14, 2, 64
+def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False):
+    """One decode step of b rows over [b, t, kv, hd] caches (slices of an
+    arena), h query heads (qwen2-0.5b's 14 over 2 of 64 by default), bf16,
+    lengths spread over 1..t (all t if `full`)."""
     bf = torch.bfloat16
     q = torch.randn((b, h, hd), generator=gen, device=DEV).to(bf)
     arena = torch.randn((2, 2, b, t, kv, hd), generator=gen,
@@ -401,6 +441,8 @@ def check_decode_case(label, b, t, gen):
     k, v = arena[1, 0], arena[1, 1]
     lengths = torch.linspace(1, t, b, device=DEV).round().to(torch.int32)
     lengths[0] = t
+    if full:
+        lengths.fill_(t)
     valid = torch.arange(t, device=DEV)[None] < lengths[:, None]
     qt = q[:, :, None]
     kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
@@ -584,6 +626,11 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
             if "decode_fwd" in name or "paged_fwd" in name),
         "rwkv6_scan_device_ms": sum(ms for ms, _, name in rows
                                     if "wkv_fwd" in name),
+        "rglru_scan_device_ms": sum(ms for ms, _, name in rows
+                                    if "rglru_fwd" in name),
+        "rglru_scan_us_per_launch": 1e3 * sum(
+            ms for ms, _, name in rows if "rglru_fwd" in name) / max(1, sum(
+                n for _, n, name in rows if "rglru_fwd" in name)),
         "top": [{"ms": ms, "count": n, "name": name}
                 for ms, n, name in rows[:15]]}}), flush=True)
 
@@ -1104,8 +1151,8 @@ def rwkv_reference_check():
     decode(4)
     state_ok = True
     state_err = {}
-    for name, leaf in runs[0][2].items():
-        got = runs[1][2][name].cpu()
+    for name, leaf in runs[0][2][0].items():
+        got = runs[1][2][0][name].cpu()
         state_err[name] = float((got - leaf).abs().max())
         state_ok &= bool(((got - leaf).abs()
                           <= 1e-4 + 1e-5 * leaf.abs()).all())
@@ -1133,11 +1180,260 @@ def rwkv_reference_check():
                              "tokens")
 
 
+RG_SERVE_ARGS = ["--arch", "recurrentgemma-2b"] + SERVE_ARGS[2:]
+RG_LAYERS, RG_ATTN_LAYERS = 18, 8   # recurrentgemma-2b: RG-LRU, attention
+RG_WIDTH = 2560
+LONG_PROMPT, LONG_NEW, LONG_CAPACITY = 3000, 32, 4096
+RG_WINDOW = 2048
+
+
+def check_rglru_case(label, b, s, out_dtype, gen, pieces=1):
+    """The RG-LRU recurrence at recurrentgemma-2b's width for b rows of s
+    steps from a random state, a and u in f32 as the model makes them (a =
+    exp(-8 softplus(1) r), r in (0, 1)), out in out_dtype. Bitwise against
+    the plain version, out and final state; with pieces > 1 the kernel
+    also runs the steps in that many pieces, the state carried in place,
+    and must equal its one pass bitwise."""
+    w = RG_WIDTH
+    a = torch.exp(-8.0 * 1.3133 * torch.sigmoid(
+        torch.randn((b, s, w), generator=gen, device=DEV)))
+    u = torch.randn((b, s, w), generator=gen, device=DEV)
+    state = torch.randn((b, w), generator=gen, device=DEV)
+    got_state = state.clone()
+    out, _ = ops.rglru_scan(a, u, got_state, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want, want_state = ref.rglru(a, u, state)
+    want = want.to(out_dtype)
+    bitwise = bool(torch.equal(out, want) and torch.equal(got_state,
+                                                          want_state))
+    max_err = max(float((out.float() - want.float()).abs().max()),
+                  float((got_state - want_state).abs().max()))
+    del want, want_state
+    pieces_bitwise = None
+    if pieces > 1:
+        carried = state.clone()
+        cut = s // pieces
+        parts = [ops.rglru_scan(a[:, x:x + cut], u[:, x:x + cut], carried,
+                                out_dtype=out_dtype)[0]
+                 for x in range(0, s, cut)]
+        pieces_bitwise = bool(torch.equal(torch.cat(parts, dim=1), out)
+                              and torch.equal(carried, got_state))
+        del parts, carried
+    del out
+    scratch = state.clone()
+    t = timings(lambda: ops.rglru_scan(a, u, scratch, out_dtype=out_dtype),
+                lambda: ref.rglru(a, u, state), None,
+                iters=20 if s > 1000 else 50)
+    n = b * s * w
+    esize = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = 8 * n + esize * n + 2 * 4 * b * w
+    flops = 2 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    case = {"case": label, "out_dtype": str(out_dtype),
+            "shape": [list(a.shape), list(state.shape)],
+            "max_abs_err": max_err, "bitwise": bitwise,
+            "tolerance": "bitwise (out and final state)",
+            "pieces": pieces, "pieces_equal_one_pass_bitwise": pieces_bitwise,
+            **t, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "achieved_GBps": nbytes / t["kernel_ms"] / 1e6}
+    print(json.dumps(case), flush=True)
+    if not bitwise or pieces_bitwise is False:
+        raise AssertionError(f"rglru_scan kernel disagrees with its plain "
+                             f"version on {label}: {case}")
+    return case
+
+
+def _assert_hybrid_launches(what, launches, admissions, steps):
+    """18 RG-LRU launches per admission and decode step, 8 flash launches
+    per admission, 8 decode launches per step, and no other kernel."""
+    want = {"rglru_scan": RG_LAYERS * (admissions + steps),
+            "flash_attention": RG_ATTN_LAYERS * admissions,
+            "decode_attention": RG_ATTN_LAYERS * steps}
+    want.update({name: 0 for name in launches if name not in want})
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want} "
+                             f"for {admissions} admissions and {steps} "
+                             "decode steps")
+
+
+def hybrid_serve_main_path():
+    """Phase 19: the recurrentgemma-2b serving main path at full width and
+    depth, solo re-serves, and the long-prompt arm; returns (summary,
+    launches)."""
+    args = serve_cli.parse_args(RG_SERVE_ARGS)
+    print(" ".join(RG_SERVE_ARGS))
+    reset_counts()
+    out = serve_cli.serve(args)
+    launches = counts()
+    st = out["stats"]
+    summary = serving_summary(out, launches)
+    summary["prefill_shapes"] = out["prefill_shapes"]
+    print(json.dumps({"hybrid_serving_main_path": summary}), flush=True)
+    _assert_hybrid_launches("the hybrid serving main path", launches,
+                            st["admissions"], st["decode_steps"])
+    if out["prefill_shapes"] != [args.prompt_len]:
+        raise AssertionError(f"prompts were not prefilled at their exact "
+                             f"length: {out['prefill_shapes']}")
+    if [len(o) for o in out["outputs"]] != out["budgets"]:
+        raise AssertionError("a request did not get its budget's tokens: "
+                             f"{[len(o) for o in out['outputs']]}")
+    torch.cuda.empty_cache()
+    _, cfg, model, params = serve_cli.build(args)
+    prompts, budgets = serve_cli.workload(args, cfg.vocab_size)
+    eng = Engine(model, params, max_batch=args.max_batch,
+                 max_len=out["max_len"])
+    for uid in (0, 1):
+        eng.submit(prompts[uid], max_new_tokens=budgets[uid])
+        (alone,) = eng.run()[-1:]
+        if alone.output.tolist() != out["outputs"][uid]:
+            raise AssertionError(f"hybrid request {uid} served alone gave "
+                                 f"{alone.output.tolist()}, batched "
+                                 f"{out['outputs'][uid]}")
+    print(json.dumps({"hybrid_solo_reserves_equal": [0, 1]}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the long prompt: the 2048-token ring wraps and the window binds
+    eng = Engine(model, params, max_batch=args.max_batch,
+                 max_len=LONG_CAPACITY)
+    del params
+    ring = eng._caches[1]["k"].shape[2]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (LONG_PROMPT,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.submit(prompt, max_new_tokens=LONG_NEW)
+    (done,) = eng.run()
+    total = time.perf_counter() - t0
+    long_launches = counts()
+    lst = eng.stats
+    long_arm = {
+        "prompt": LONG_PROMPT, "new_tokens": LONG_NEW,
+        "capacity": eng.capacity, "ring": ring, "window": RG_WINDOW,
+        "seconds": total, "tokens": len(done.output),
+        "prefill_ms": (lst["admit_host_s"] + lst["prefill_wait_s"]) * 1e3,
+        "decode_ms_per_step": lst["decode_s"] / lst["decode_steps"] * 1e3,
+        "decode_steps": lst["decode_steps"],
+        "prefill_shapes": sorted(eng.prefill_shapes),
+        "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": long_launches}
+    print(json.dumps({"hybrid_long_prompt": long_arm}), flush=True)
+    if ring != RG_WINDOW or eng.capacity != LONG_CAPACITY:
+        raise AssertionError(f"the ring holds {ring} rows at capacity "
+                             f"{eng.capacity}, expected {RG_WINDOW} at "
+                             f"{LONG_CAPACITY}")
+    if len(done.output) != LONG_NEW or sorted(eng.prefill_shapes) != [
+            LONG_PROMPT]:
+        raise AssertionError(f"the long prompt was not served whole: "
+                             f"{long_arm}")
+    _assert_hybrid_launches("the long prompt", long_launches,
+                            lst["admissions"], lst["decode_steps"])
+    del eng
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def _close(got, want, atol):
+    """(ok, max |got - want|): every element within atol + 1e-5 |want|."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= atol + 1e-5 * want.float().abs()).all()), float(
+        err.max())
+
+
+def hybrid_reference_check():
+    """Phase 20: card against CPU from one set of parameters, f32: the
+    smoke config (window 32) with prompts past the window, a readmission
+    over a used slot and decode steps, and engines whose tokens must be
+    equal; then recurrentgemma-2b's widths cut to 3 layers and vocab 512,
+    so that hd 256 and G = 10 go through the model on both devices."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_dev = torch.device("cpu")
+    smoke = dataclasses.replace(get_smoke("recurrentgemma-2b"),
+                                compute_dtype="float32")
+    wide = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=3,
+                               layer_types=("rglru", "rglru", "attn"),
+                               vocab_size=512, compute_dtype="float32")
+    report = {}
+    for name, cfg, plan in (
+            ("smoke", smoke, ((1, 40), (0, 11), 8, (0, 23), 4)),
+            ("full_width_3_layers", wide, ((1, 40), (0, 11), 4, (0, 23),
+                                           2))):
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(0))
+        runs = [(dev, {k: v.to(dev) for k, v in cpu.items()},
+                 model.init_arena(2, 64, dtype=torch.float32, device=dev))
+                for dev in (cpu_dev, DEV)]
+        rng = np.random.default_rng(8)
+        lengths = np.zeros(2, np.int32)
+        cur = np.zeros(2, np.int32)
+        worst = 0.0
+        for item in plan:
+            if isinstance(item, tuple):
+                slot, plen = item
+                toks = rng.integers(0, cfg.vocab_size, (1, plen)).astype(
+                    np.int32)
+                want, got = (model.prefill_into_slot(
+                    p, torch.from_numpy(toks).to(dev), plen, slot,
+                    arena)[0].cpu() for dev, p, arena in runs)
+                worst = max(worst, float((got - want).abs().max()))
+                lengths[slot], cur[slot] = plen, int(want[0, -1].argmax())
+                continue
+            for _ in range(item):
+                want, got = (model.decode_rows(
+                    p, torch.from_numpy(cur)[:, None].to(dev), arena,
+                    torch.from_numpy(lengths).to(dev))[0][:, -1].cpu()
+                    for dev, p, arena in runs)
+                worst = max(worst, float((got - want).abs().max()))
+                cur = want.argmax(-1).numpy().astype(np.int32)
+                lengths = lengths + 1
+        state_ok, state_err = True, {}
+        for si, (cseg, gseg) in enumerate(zip(runs[0][2], runs[1][2])):
+            for leaf, c in cseg.items():
+                ok, err = _close(gseg[leaf].cpu(), c, 1e-4)
+                state_ok &= ok
+                state_err[f"{si}.{leaf}"] = err
+        report[name] = {"logits_max_abs_err": worst,
+                        "state_max_abs_err": max(state_err.values())}
+        if name == "smoke":
+            prompts = [rng.integers(0, cfg.vocab_size, (n,))
+                       for n in (40, 9, 33, 5, 50, 3)]
+            budgets = [12, 12, 6, 20, 8, 9]
+            tokens = []
+            for _, p, _ in runs:
+                eng = Engine(model, p, max_batch=3, max_len=64,
+                             cache_dtype=torch.float32)
+                for prompt, budget in zip(prompts, budgets):
+                    eng.submit(prompt, max_new_tokens=budget)
+                tokens.append([r.output.tolist() for r in
+                               sorted(eng.run(), key=lambda r: r.uid)])
+            report[name]["engine_tokens_equal"] = tokens[0] == tokens[1]
+            if tokens[0] != tokens[1]:
+                raise AssertionError("card and CPU hybrid engines give "
+                                     "different tokens")
+        # f32 sums run in another order on the card than on the CPU
+        if worst > 1e-4 or not state_ok:
+            raise AssertionError(f"card and CPU hybrid serving differ "
+                                 f"({name}): logits {worst}, states "
+                                 f"{state_err}")
+        del runs, cpu
+    print(json.dumps({"hybrid_reference": report, "tolerance":
+                      "logits 1e-4; states 1e-4 + 1e-5 |x|"}), flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, cases, rep):
-    """One kernel's record in the `kernels` line: the main-path case `rep`
-    for shape and times, the worst case for the error, every case."""
+    """One kernel's record in the `kernels` line: its launches summed over
+    the main paths that run it (`launches`: {path: count}, each counted
+    from zero), the main-path case `rep` for shape and times, the worst
+    case for the error, every case."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "shape": rep["shape"],
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches, "shape": rep["shape"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rep["kernel_ms"], "kernel_ms": rep["kernel_ms"],
             "event_ms": rep["event_ms"], "plain_ms": rep["plain_ms"],
@@ -1268,38 +1564,89 @@ def main():
     profile_decode_steps(argv=RWKV_SERVE_ARGS)
     torch.cuda.empty_cache()
 
+    phase("18 RG-LRU kernel and attention at head_dim 256 against their "
+          "plain versions")
+    rglru_cases = []
+    for out_dtype in (torch.float32, torch.bfloat16):
+        rglru_cases += [
+            check_rglru_case("rglru prefill B=1 S=200 W=2560", 1, 200,
+                             out_dtype, gen),
+            check_rglru_case("rglru decode B=8 S=1 W=2560", 8, 1, out_dtype,
+                             gen),
+            check_rglru_case("rglru long prompt B=1 S=4096 W=2560, 8 pieces",
+                             1, 4096, out_dtype, gen, pieces=8)]
+        torch.cuda.empty_cache()
+    rg_attn = dict(h=10, kv=1, hd=256)
+    flash_cases += [
+        check_flash_case("hybrid prefill S=200, 10:1 heads of 256, window "
+                         f"{RG_WINDOW}", 200, gen, window=RG_WINDOW,
+                         **rg_attn),
+        check_flash_case(f"hybrid long prompt S={LONG_PROMPT}, window "
+                         f"{RG_WINDOW} (binds)", LONG_PROMPT, gen,
+                         window=RG_WINDOW, **rg_attn)]
+    torch.cuda.empty_cache()
+    decode_cases += [
+        check_decode_case("hybrid decode B=8 ring 512, 10:1 heads of 256",
+                          8, 512, gen, **rg_attn),
+        check_decode_case(f"hybrid decode B=8 full ring {RG_WINDOW}", 8,
+                          RG_WINDOW, gen, full=True, **rg_attn)]
+    torch.cuda.empty_cache()
+
+    phase("19 hybrid serving main path: repro_torch.launch.serve, full "
+          "recurrentgemma-2b")
+    _, rg_launches = hybrid_serve_main_path()
+    torch.cuda.empty_cache()
+
+    phase("20 hybrid reference: card against CPU")
+    hybrid_reference_check()
+    torch.cuda.empty_cache()
+
+    phase("21 hybrid serving profile")
+    profile_decode_steps(argv=RG_SERVE_ARGS)
+    torch.cuda.empty_cache()
+
     # top level: each kernel's main-path case for the times (the largest
     # leaf's f32 case for prox_update), the worst case for the error
     print(json.dumps({"kernels": [
         kernel_entry("prox_update",
                      "src/repro_torch/kernels/csrc/prox_update.cu",
-                     "src/repro/kernels/prox_update.py:35", launches, cases,
-                     cases[1]),
+                     "src/repro/kernels/prox_update.py:35",
+                     {"qwen2 training": launches}, cases, cases[1]),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:78",
-                     serve_launches["flash_attention"], flash_cases,
-                     flash_cases[0]),
+                     {"qwen2 arena": serve_launches["flash_attention"],
+                      "recurrentgemma arena":
+                          rg_launches["flash_attention"]},
+                     flash_cases, flash_cases[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:89",
-                     serve_launches["decode_attention"], decode_cases,
-                     decode_cases[0]),
+                     {"qwen2 arena": serve_launches["decode_attention"],
+                      "recurrentgemma arena":
+                          rg_launches["decode_attention"]},
+                     decode_cases, decode_cases[0]),
         kernel_entry("decode_attention_paged",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
                      "src/repro/kernels/decode_attention.py:188",
-                     paged_launches["decode_attention_paged"], paged_cases,
-                     paged_cases[0]),
+                     {"qwen2 paged":
+                          paged_launches["decode_attention_paged"]},
+                     paged_cases, paged_cases[0]),
         kernel_entry("decode_attention_ring",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
                      "src/repro/kernels/decode_attention.py:298",
-                     ring_launches["decode_attention_ring"], ring_cases,
-                     ring_cases[0]),
+                     {"qwen2 ring": ring_launches["decode_attention_ring"]},
+                     ring_cases, ring_cases[0]),
         kernel_entry("rwkv6_scan",
                      "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                      "src/repro/kernels/rwkv6_scan.py:45",
-                     rwkv_launches["rwkv6_scan"], rwkv_cases,
-                     rwkv_cases[0])]}))
+                     {"rwkv6 arena": rwkv_launches["rwkv6_scan"]},
+                     rwkv_cases, rwkv_cases[0]),
+        kernel_entry("rglru_scan",
+                     "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                     "src/repro/kernels/rglru_scan.py:37",
+                     {"recurrentgemma arena": rg_launches["rglru_scan"]},
+                     rglru_cases, rglru_cases[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

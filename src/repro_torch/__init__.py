@@ -13,5 +13,8 @@ for a sliding window) (`repro_torch.launch.serve`, `repro_torch.serve`),
 with prefill, decode, paged decode and ring decode attention as
 hand-written CUDA kernels (`repro_torch.kernels`). For the recurrent
 `rwkv6-1.6b`: greedy serving from the slot arena, with the WKV
-recurrence as a hand-written CUDA kernel.
+recurrence as a hand-written CUDA kernel. For the hybrid
+`recurrentgemma-2b` (RG-LRU and local attention): greedy serving from the
+slot arena, with the RG-LRU recurrence as a hand-written CUDA kernel
+beside the attention kernels at head_dim 256.
 """

@@ -16,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
 ARCH_IDS = {
     "qwen2-0.5b": "qwen2_0p5b",
     "rwkv6-1.6b": "rwkv6_1p6b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

@@ -104,6 +104,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // ---------------------------------------------------------------------------
 
 constexpr int kDecodeThreads = 256;
+// most outputs a thread owns: G * HD <= 2560 (10 query heads of 256)
+constexpr int kMaxDecodeOutputs = 10;
 
 // Dynamic shared memory of grouped_decode: the K and V tiles, q, the
 // [G, 64] logits and the running max, sum and correction per head.

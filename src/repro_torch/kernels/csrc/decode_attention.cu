@@ -12,10 +12,12 @@
 //
 // Bound: memory. Each valid cache row is read once for all G heads
 // (2 * hd values of K and V) and takes 4 * G * hd FLOPs: for qwen2-0.5b
-// (G = 7, hd = 64, bf16) that is 7 FLOP per byte, far below the card's
-// ~295 FLOP/B balance point. At the serving path's shape (8 rows, 2 kv
-// heads, at most 512 cached tokens) one call moves at most 2 MB, under a
-// microsecond at 3.35 TB/s, so launch and latency dominate in practice.
+// (G = 7, hd = 64, bf16) that is 7 FLOP per byte, and for recurrentgemma-2b
+// (G = 10, hd = 256) 10, far below the card's ~295 FLOP/B balance point.
+// At the serving paths' shapes (8 rows; 2 kv heads and at most 512 cached
+// tokens, or 1 kv head of 256 and a ring of at most 2048) one call moves at
+// most 2 MB (17 MB), under a microsecond (5 us) at 3.35 TB/s, so launch and
+// latency dominate in practice.
 //
 // Design: one block of 256 threads per (kv head, batch row), which keeps
 // the G query heads of a kv head together, as the TPU kernel's [G, hd]
@@ -24,7 +26,8 @@
 // staged in shared memory with 16-byte loads (rows past the length are
 // zero-filled, never read); it scores the G x 64 logits into shared
 // memory, one warp per head updates the running max and sum, and each
-// thread owns NO of the G * hd outputs in registers across tiles. The
+// thread owns NO of the G * hd outputs in registers across tiles (NO = 10
+// at G * hd = 2560; any G, a power of two or not). The
 // cache is read where it lies: k and v come as [B, T, KV, hd] slices of
 // the arena with their strides, and lengths are read on the device, so
 // the step needs neither a transpose nor a host sync. The block's body is
@@ -93,6 +96,10 @@ int by_outputs(const void* q, const void* k, const void* v,
     if (per_thread <= 4)
         return launch<T, HD, 4>(q, k, v, lengths, out, B, Tk, H, KV, qsb, qsh,
                                 ks, vs, scale, stream);
+    if (per_thread <= attn::kMaxDecodeOutputs)
+        return launch<T, HD, attn::kMaxDecodeOutputs>(
+            q, k, v, lengths, out, B, Tk, H, KV, qsb, qsh, ks, vs, scale,
+            stream);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -114,6 +121,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
         case 128:
             return by_outputs<T, 128>(q, k, v, lens, out, B, Tk, H, KV, qsb,
                                       qsh, ks, vs, scale, s);
+        case 256:
+            return by_outputs<T, 256>(q, k, v, lens, out, B, Tk, H, KV, qsb,
+                                      qsh, ks, vs, scale, s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -126,8 +136,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
 // strides of their first three dims (the last dim of every operand is
 // contiguous); lengths: int32 [B] on the device; out: a contiguous
 // [B, H, hd] buffer of q's type. K/V pointers and strides in bytes are
-// multiples of 16; hd is 32, 64 or 128; H is a multiple of KV with
-// (H / KV) * hd <= 1024. stream is a cudaStream_t. Each returns
+// multiples of 16; hd is 32, 64, 128 or 256; H is a multiple of KV with
+// (H / KV) * hd <= 2560. stream is a cudaStream_t. Each returns
 // cudaGetLastError() after its launch.
 extern "C" {
 

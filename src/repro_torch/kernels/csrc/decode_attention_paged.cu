@@ -111,6 +111,8 @@ int by_outputs(const Args& a) {
     if (per_thread <= 1) return launch<T, HD, 1>(a);
     if (per_thread <= 2) return launch<T, HD, 2>(a);
     if (per_thread <= 4) return launch<T, HD, 4>(a);
+    if (per_thread <= attn::kMaxDecodeOutputs)
+        return launch<T, HD, attn::kMaxDecodeOutputs>(a);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -134,6 +136,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
         case 32: return by_outputs<T, 32>(a);
         case 64: return by_outputs<T, 64>(a);
         case 128: return by_outputs<T, 128>(a);
+        case 256: return by_outputs<T, 256>(a);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -146,8 +149,8 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
 // operand is contiguous; pointers and strides in bytes are multiples of
 // 16); tables: contiguous int32 [B, W]; starts: int32 [B] (read only when
 // window > 0, the ring); lengths: int32 [B]; out:
-// a contiguous [B, H, hd] buffer of q's type. hd is 32, 64 or 128; H is a
-// multiple of KV with (H / KV) * hd <= 1024. stream is a cudaStream_t.
+// a contiguous [B, H, hd] buffer of q's type. hd is 32, 64, 128 or 256; H
+// is a multiple of KV with (H / KV) * hd <= 2560. stream is a cudaStream_t.
 // Each returns cudaGetLastError() after its launch.
 extern "C" {
 

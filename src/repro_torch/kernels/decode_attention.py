@@ -29,7 +29,7 @@ _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 8
              + [ctypes.c_float, ctypes.c_void_p])
-MAX_GROUP_WIDTH = 1024      # (H / KV) * hd: at most 4 outputs per thread
+MAX_GROUP_WIDTH = 2560      # (H / KV) * hd: at most 10 outputs per thread
 
 
 @functools.lru_cache(maxsize=None)

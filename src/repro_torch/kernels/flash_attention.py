@@ -25,7 +25,7 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,7 +49,8 @@ def check_operand(kernel, name, t, ndim, device, dtype):
         raise TypeError(f"{kernel} kernel: {name} is {t.dtype}; it takes "
                         "float32 or bfloat16")
     if t.dtype != dtype:
-        raise TypeError(f"{kernel} kernel: {name} is {t.dtype}, q is {dtype}")
+        raise TypeError(f"{kernel} kernel: {name} is {t.dtype}, expected "
+                        f"{dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{kernel} kernel: {name} has shape "
                          f"{tuple(t.shape)}, expected {ndim} dims")

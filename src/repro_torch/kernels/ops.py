@@ -6,12 +6,15 @@ failure on the card falls back to the plain version.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.decode_attention_paged import (
     decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prox_update import prox_update_cuda
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 
 
@@ -106,3 +109,18 @@ def rwkv6_scan(r, k, v, w, u, state):
         out, final = ref.rwkv6(r, k, v, w, u, state)
         return out, state.copy_(final)
     raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
+
+
+def rglru_scan(a, u, state, out_dtype=torch.float32):
+    """RG-LRU recurrence h_t = a_t * h_{t-1} + u_t. a, u: f32 [B,S,W] (a
+    contiguous last dim); state: the incoming f32 [B,W].
+
+    Returns (out [B,S,W] in out_dtype, float32 or bfloat16 rounded from
+    the f32 value; state). `state` is overwritten with the final h, on
+    both routes, so a slot's state advances where it lies in the arena."""
+    if a.device.type == "cuda":
+        return rglru_scan_cuda(a, u, state, out_dtype)
+    if a.device.type == "cpu":
+        out, final = ref.rglru(a, u, state)
+        return out.to(out_dtype), state.copy_(final)
+    raise ValueError(f"rglru_scan: no kernel for device {a.device}")

@@ -179,3 +179,24 @@ def rwkv6(r, k, v, w, u, state=None):
         outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], st + uf * kv))
         st = wf[:, :, t, :, None] * st + kv
     return torch.stack(outs, dim=2), st
+
+
+def rglru(a, u, h0=None):
+    """RG-LRU gated linear recurrence (the TPU kernel `rglru_scan_bsw`, with
+    state in and out), a sequential loop over time in f32:
+
+        h_t = a_t * h_{t-1} + u_t
+
+    rounding the product and the sum each (two ops a step, as the kernel).
+    a, u: [B, S, W]; h0: f32 [B, W] (None: zeros), not modified. Returns
+    (h [B, S, W] in f32, the final h [B, W] in f32).
+    """
+    b, s, w = a.shape
+    h = (torch.zeros((b, w), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, uf = a.float(), u.float()
+    outs = []
+    for t in range(s):
+        h = af[:, t] * h + uf[:, t]
+        outs.append(h)
+    return torch.stack(outs, dim=1), h

@@ -15,16 +15,18 @@ and at smoke size on the CPU:
         --smoke --requests 4 --max-batch 2 --prompt-len 8 --new-tokens 4 \
         --device cpu
 
---arch rwkv6-1.6b serves the RWKV6 recurrent stack from the arena, each
-prompt prefilled at its exact length.
+--arch rwkv6-1.6b serves the RWKV6 recurrent stack, and --arch
+recurrentgemma-2b the RG-LRU and local-attention hybrid (its 2048-token
+window a ring in each slot), from the arena, each prompt prefilled at its
+exact length.
 
 --mixed interleaves short (new_tokens // 4) and long budgets. --paged
 serves from a shared pool of KV blocks (--block-size tokens each,
 --num-blocks of them; default: the arena's footprint) with chunked
 prefill, admitting under --preemption recompute (optimistic, preempting
 the newest request when the pool runs dry) or reserve (worst-case
-reservation); a model that cannot page (rwkv6) serves from the arena
-and says so. The reference's --wave is not ported. Prints tokens/s,
+reservation); a model that cannot page (rwkv6, recurrentgemma) serves
+from the arena and says so. The reference's --wave is not ported. Prints tokens/s,
 p50/p99 request latency and, for the pool, preemptions and free blocks.
 """
 from __future__ import annotations

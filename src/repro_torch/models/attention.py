@@ -81,21 +81,23 @@ def chunked_attention(q, k, v, *, causal=True, window=0):
     return out.reshape(q.shape).to(v.dtype)
 
 
-def gqa_prefill(params, cfg, x, positions, *, kernel=False):
+def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0):
     """Full prefill/training attention. Returns ([B,S,D], (k, v)), k and v
-    [B,S,KV,hd] for the cache.
+    [B,S,KV,hd] for the cache. window: the sliding window (0: the
+    config's own, as in the reference).
 
     kernel=False (training) computes the autograd-able `chunked_attention`;
     kernel=True (serving prefill) goes through `ops.flash_attention`,
     which has no backward, as the TPU kernel has none."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
+    win = window or cfg.attn_window
     q, k, v = _project_qkv(params, cfg, x, positions)
     if kernel:
         out = ops.flash_attention(q.reshape(b, s, h, hd), k, v, causal=True,
-                                  window=cfg.attn_window)
+                                  window=win)
     else:
-        out = chunked_attention(q, k, v, causal=True, window=cfg.attn_window)
+        out = chunked_attention(q, k, v, causal=True, window=win)
     out = out.reshape(b, s, h * hd)
     return out @ params["wo"], (k, v)
 

@@ -40,41 +40,45 @@ def state_from_jax(state):
 
 
 def arena_from_jax(caches):
-    """The reference's slot arena (a one-segment list [{"k", "v": [L, B, T,
-    KV, hd], "ptr": int32 [L, B]}], numpy leaves) -> the port's arena dict
-    of CPU tensors with the same shapes and dtypes. Also takes a cache
-    from `init_cache` (ptr [L]), and an RWKV6 stack's recurrent state
-    ({"shift", "cm_shift": [L, B, D], "wkv": [L, B, H, hd, hd]}), which
-    comes back in f32: the reference's shifts turn bf16 after a bf16
-    decode step (the scan emits x's last position in the compute dtype),
-    with values that f32 holds exactly, and the port keeps f32."""
-    if isinstance(caches, (list, tuple)):
-        if len(caches) != 1:
-            raise ValueError(f"the port runs one homogeneous segment; the "
-                             f"cache has {len(caches)}")
-        caches = caches[0]
-    if set(caches) == {"shift", "wkv", "cm_shift"}:
-        return {k: _tensor(v).float() for k, v in caches.items()}
-    if set(caches) != {"k", "v", "ptr"}:
-        raise ValueError(f"not a GQA cache or an RWKV6 state: leaves "
-                         f"{sorted(caches)}")
-    out = {k: _tensor(v) for k, v in caches.items()}
-    out["ptr"] = out["ptr"].to(torch.int32)
+    """The reference's per-segment caches (a list, numpy leaves) -> the
+    port's list of per-segment dicts of CPU tensors, with the same shapes:
+
+      * attention: {"k", "v": [count, B, T, KV, hd], "ptr": int32 [count,
+        B] (the slot arena) or [count] (`init_cache`)}, in their dtype;
+      * RWKV6: {"shift", "cm_shift": [count, B, D], "wkv": [count, B, H,
+        hd, hd]};
+      * RG-LRU: {"conv": [count, B, cw - 1, W], "h": [count, B, W]}.
+
+    Recurrent leaves come back in f32, the dtype the port keeps them in:
+    the reference's RWKV6 shifts and RG-LRU conv inputs turn bf16 after a
+    bf16 step (each is x's last positions, in the compute dtype), with
+    values that f32 holds exactly."""
+    out = []
+    for seg in caches:
+        names = set(seg)
+        if names in ({"shift", "wkv", "cm_shift"}, {"conv", "h"}):
+            out.append({k: _tensor(v).float() for k, v in seg.items()})
+        elif names == {"k", "v", "ptr"}:
+            tensors = {k: _tensor(v) for k, v in seg.items()}
+            tensors["ptr"] = tensors["ptr"].to(torch.int32)
+            out.append(tensors)
+        else:
+            raise ValueError(f"not a GQA cache, an RWKV6 state or an RG-LRU "
+                             f"state: leaves {sorted(names)}")
     return out
 
 
 def pool_from_jax(pools):
-    """The reference's paged pool (a one-segment list [{"k", "v": [L, NB +
-    1, bs, KV, hd]}], numpy leaves) -> the port's pool dict of CPU tensors
-    with the same shapes and dtypes (block 0 is the null block in both)."""
-    if isinstance(pools, (list, tuple)):
-        if len(pools) != 1:
-            raise ValueError(f"the port runs one homogeneous segment; the "
-                             f"pool has {len(pools)}")
-        pools = pools[0]
-    if set(pools) != {"k", "v"}:
-        raise ValueError(f"not a GQA pool: leaves {sorted(pools)}")
-    return {k: _tensor(v) for k, v in pools.items()}
+    """The reference's paged pool (a list of per-segment {"k", "v": [count,
+    NB + 1, bs, KV, hd]}, numpy leaves) -> the port's list of dicts of CPU
+    tensors with the same shapes and dtypes (block 0 is the null block in
+    both)."""
+    out = []
+    for seg in pools:
+        if set(seg) != {"k", "v"}:
+            raise ValueError(f"not a GQA pool: leaves {sorted(seg)}")
+        out.append({k: _tensor(v) for k, v in seg.items()})
+    return out
 
 
 def _tensor(a):

@@ -59,23 +59,31 @@ def apply_rope(x, positions, theta=1e4):
 
 
 # ---------------------------------------------------------------------------
-# MLP (swiglu)
+# MLPs (swiglu; gelu: one up projection)
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(generator, lead, d_model, d_ff, dtype):
-    """Swiglu weights with leading dims `lead` (the stacked layer axis)."""
-    return {
-        "w_gate": _he(generator, lead + (d_model, d_ff), dtype, d_model),
-        "w_up": _he(generator, lead + (d_model, d_ff), dtype, d_model),
-        "w_down": _he(generator, lead + (d_ff, d_model), dtype, d_ff),
-    }
+def mlp_init(generator, lead, d_model, d_ff, dtype, mlp_type="swiglu"):
+    """MLP weights with leading dims `lead` (the stacked layer axis):
+    swiglu's w_gate, w_up, w_down, or gelu's w_up, w_down."""
+    if mlp_type not in ("swiglu", "gelu"):
+        raise ValueError(f"mlp_type {mlp_type!r} is not ported")
+    p = {}
+    if mlp_type == "swiglu":
+        p["w_gate"] = _he(generator, lead + (d_model, d_ff), dtype, d_model)
+    p["w_up"] = _he(generator, lead + (d_model, d_ff), dtype, d_model)
+    p["w_down"] = _he(generator, lead + (d_ff, d_model), dtype, d_ff)
+    return p
 
 
 def mlp_apply(params, x, mlp_type):
-    if mlp_type != "swiglu":
+    """swiglu, or gelu in its tanh form (`jax.nn.gelu`'s default)."""
+    if mlp_type == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif mlp_type == "gelu":
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    else:
         raise ValueError(f"mlp_type {mlp_type!r} is not ported")
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
 
 

@@ -1,16 +1,18 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Two families are ported: the dense decoder-only GQA stack and the RWKV6
-recurrent stack (family "ssm", every layer "rwkv"); the others raise.
-The dense serving entry points cover the slot arena and the paged pool;
-an RWKV6 model has the arena's only (its state has no pages, as the
-reference's `FamilyCaps` says), and its `train_loss` raises (training it
-is a later slice). The reference's mixed-step entry points (overlapped
-admission) are not ported. A sliding window (`cfg.attn_window` or the
-`window` override) runs on the paged pool only, as a block ring: the
-windowed arena and windowed training are not ported, and their entry
-points raise rather than ignore the window.
+Three families are ported: the dense decoder-only GQA stack, the RWKV6
+recurrent stack (family "ssm", every layer "rwkv") and the RG-LRU hybrid
+(family "hybrid", layers "rglru" and "attn" with a gelu MLP, as
+recurrentgemma-2b); the others raise. The dense serving entry points
+cover the slot arena and the paged pool; a model with recurrent layers
+has the arena's only (its state has no pages, as the reference's
+`FamilyCaps` says), and its `train_loss` raises (training it is a later
+slice). The reference's mixed-step entry points (overlapped admission)
+are not ported. A sliding window (`cfg.attn_window` or the `window`
+override) serves from the arena, as a ring of the window's capacity, and
+from the paged pool, as a block ring; windowed training is not ported,
+and `train_loss` raises rather than ignore the window.
 """
 from __future__ import annotations
 
@@ -49,35 +51,37 @@ class Model:
     decode_rows_paged_tokens: Callable = None   # -> (toks [B], pool, len+1)
 
 
-# ported family -> the layer types it may have
-PORTED_FAMILIES = {"dense": {"attn"}, "ssm": {"rwkv"}}
+# ported family -> the layer types it has, and its MLP (None: no MLP)
+PORTED_FAMILIES = {"dense": ({"attn"}, "swiglu"), "ssm": ({"rwkv"}, None),
+                   "hybrid": ({"rglru", "attn"}, "gelu")}
 
 
 def _check_ported(cfg: ArchConfig):
     unported = []
     if cfg.family not in PORTED_FAMILIES:
         unported.append(f"family {cfg.family!r}")
-    elif set(cfg.layer_types) != PORTED_FAMILIES[cfg.family]:
-        unported.append(f"layer types {sorted(set(cfg.layer_types))}")
+    else:
+        types, mlp = PORTED_FAMILIES[cfg.family]
+        if set(cfg.layer_types) != types:
+            unported.append(f"layer types {sorted(set(cfg.layer_types))}")
+        if mlp is not None and cfg.mlp_type != mlp:
+            unported.append(f"mlp {cfg.mlp_type!r}")
     if cfg.qk_norm:
         unported.append("qk_norm")
     if cfg.norm_type != "rmsnorm":
         unported.append(f"norm {cfg.norm_type!r}")
-    if cfg.family == "dense" and cfg.mlp_type != "swiglu":
-        unported.append(f"mlp {cfg.mlp_type!r}")
     if unported:
         raise NotImplementedError(f"{cfg.name}: not ported to repro_torch "
                                   f"yet: {', '.join(unported)}")
 
 
-def _windowed(name, window):
-    """An entry point that the windowed model does not have yet."""
+def _windowed_training(window):
+    """`train_loss` of a windowed model, which the port does not train."""
     def unported(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} with a sliding window ({window}) is not ported yet: "
-            "the windowed arena and windowed training are later work; a "
-            "windowed model serves through the paged pool "
-            "(Engine(paged=True))")
+            f"train_loss with a sliding window ({window}) is not ported yet "
+            "(windowed training is later work); a windowed model serves "
+            "from the arena or the paged pool")
     return unported
 
 
@@ -88,28 +92,32 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
     entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),
         train_loss=lambda p, b: TF.train_loss(cfg, p, b),
-        prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, **kw),
-        decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos),
-        init_cache=lambda batch, seq, **kw: TF.init_cache(cfg, batch, seq,
-                                                          **kw),
+        prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, window=window,
+                                               **kw),
+        decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos,
+                                                        window=window),
+        init_cache=lambda batch, seq, **kw: TF.init_cache(
+            cfg, batch, seq, window=window, **kw),
         init_arena=lambda slots, capacity, **kw: TF.init_arena(
-            cfg, slots, capacity, **kw),
+            cfg, slots, capacity, window=window, **kw),
         prefill_into_slot=lambda p, tokens, length, slot, caches:
-            TF.prefill_into_slot(cfg, p, tokens, length, slot, caches),
-        decode_rows=lambda p, t, c, pos: TF.decode_rows(cfg, p, t, c, pos),
+            TF.prefill_into_slot(cfg, p, tokens, length, slot, caches,
+                                 window=window),
+        decode_rows=lambda p, t, c, pos: TF.decode_rows(cfg, p, t, c, pos,
+                                                        window=window),
         prefill_into_slot_token=lambda p, tokens, length, slot, caches:
-            TF.prefill_into_slot_token(cfg, p, tokens, length, slot, caches),
+            TF.prefill_into_slot_token(cfg, p, tokens, length, slot, caches,
+                                       window=window),
         decode_rows_tokens=lambda p, t, c, pos: TF.decode_rows_tokens(
-            cfg, p, t, c, pos),
+            cfg, p, t, c, pos, window=window),
     )
-    if TF.layer_kind(cfg) == "rwkv":
-        if window:
+    if set(cfg.layer_types) == {"attn"} and window:
+        entries["train_loss"] = _windowed_training(window)
+    if set(cfg.layer_types) != {"attn"}:
+        if window and "attn" not in cfg.layer_types:
             raise ValueError(f"{cfg.name}: a sliding window applies to "
                              "attention layers; this stack has none")
-        return Model(cfg=cfg, **entries)    # no pages
-    if window:
-        entries = {name: fn if name == "init" else _windowed(name, window)
-                   for name, fn in entries.items()}
+        return Model(cfg=cfg, window=window, **entries)    # no pages
     return Model(
         cfg=cfg,
         window=window,

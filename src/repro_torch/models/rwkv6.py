@@ -30,6 +30,7 @@ DECAY_LORA = 64
 # the reference's wkv_chunked chunk: S % CHUNK == 0 and S > CHUNK take it
 CHUNK = 64
 MIX = ("r", "k", "v", "g", "w")
+LEAVES = ("shift", "wkv", "cm_shift")     # the recurrent state
 CM_MIX = ("r", "k")
 
 

@@ -1,59 +1,81 @@
-"""Decoder-only transformer (dense GQA or RWKV6 layers): init, train
-forward and loss, and the serving entry points (prefill, decode, and the
-slot arena).
+"""Decoder-only transformer (dense GQA, RWKV6 and RG-LRU hybrid stacks):
+init, train forward and loss, and the serving entry points (prefill,
+decode, the slot arena and the paged pool).
+
+The stack is a program of segments, as the reference builds it
+(`build_segments`): each run of consecutive layers of one kind ("attn",
+"rwkv" or "rglru") is one segment whose layers are stacked on a leading
+[count] axis; the forward pass loops over segments and layers in Python
+where the reference scans. recurrentgemma-2b's (rglru, rglru, attn)
+pattern over 26 layers makes 17 segments; qwen2 and rwkv6 make one.
 
 Parameters are one flat dict keyed by the reference pytree's paths
-("embed.table", "segments.0.attn.wq", "segments.0.mix.mu.r",
-"final_norm.scale", ...). Layers are stacked on a leading [L] axis under
-one segment, as the reference stacks a homogeneous run of layers of one
-kind ("attn" or "rwkv"); the forward pass loops over them in Python where
-the reference scans.
+("embed.table", "segments.0.attn.wq", "segments.3.rnn.w_x",
+"final_norm.scale", ...), with each segment's leaves stacked [count, ...].
 
-A KV cache is one dict {"k", "v": [L, B, T, KV, hd], "ptr"}: the
-reference's one-segment cache list, with the same leaves. `ptr` counts
-the tokens written: int32 [L] for a cache from `init_cache` (every row at
-one depth) and [L, B] for the slot arena (`init_arena`, every row at its
-own depth). A paged pool (`init_pool`) is one dict {"k", "v": [L, NB + 1,
-bs, KV, hd]} shared by every row, with block 0 the null block; block
-tables say which blocks a row owns. An RWKV6 stack's cache is its
-recurrent state {"shift", "cm_shift": [L, B, D], "wkv": [L, B, H, hd,
-hd]}, all f32, with no ptr (the arena is the same dict at batch `slots`).
-The port updates caches and pools in place where the reference returns
-new (donated) buffers.
+Caches are a list of per-segment dicts, as the reference's list is, with
+the same leaves: an attention segment's {"k", "v": [count, B, T, KV, hd],
+"ptr"} (a ring of capacity T = min(seq_len, window) with a sliding
+window), an RWKV6 segment's {"shift", "cm_shift": [count, B, D], "wkv":
+[count, B, H, hd, hd]} and an RG-LRU segment's {"conv": [count, B, cw - 1,
+W], "h": [count, B, W]} (recurrent state in f32). `ptr` counts the tokens
+written: int32 [count] for a cache from `init_cache` (every row at one
+depth) and [count, B] for the slot arena (`init_arena`, every row at its
+own depth). A paged pool (`init_pool`, attention stacks only) is a list of
+{"k", "v": [count, NB + 1, bs, KV, hd]} shared by every row, with block 0
+the null block; block tables say which blocks a row owns. The port
+updates caches and pools in place where the reference returns new
+(donated) buffers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as A
+from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (
     _he, embed, embedding_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
     unembed,
 )
 
-SEGMENT = "segments.0."
-# the layer kinds the port runs; a stack is a single run of one of them
-KINDS = ("attn", "rwkv")
-RWKV_LEAVES = ("shift", "wkv", "cm_shift")
+# the layer kinds the port runs
+KINDS = ("attn", "rwkv", "rglru")
+# the recurrent kinds: their name, and the kernel whose backward training
+# them needs
+RECURRENT = {"rwkv": ("RWKV6", "rwkv6_scan"), "rglru": ("RG-LRU", "rglru_scan")}
 
 
-def layer_kind(cfg):
-    """The kind of every layer of the stack (one homogeneous segment)."""
-    kinds = set(cfg.layer_types)
-    if len(kinds) != 1 or not kinds <= set(KINDS):
-        raise NotImplementedError(f"{cfg.name}: layer types {sorted(kinds)}"
-                                  f" are not one of {KINDS}")
-    return cfg.layer_types[0]
+def build_segments(layer_types):
+    """[(kind, count), ...] for the runs of consecutive equal layer types."""
+    segs = []
+    for t in layer_types:
+        if segs and segs[-1][0] == t:
+            segs[-1][1] += 1
+        else:
+            segs.append([t, 1])
+    return [(k, c) for k, c in segs]
+
+
+def segments(cfg):
+    """The stack's segments; raises for a layer kind the port does not
+    run."""
+    segs = build_segments(cfg.layer_types)
+    unknown = sorted({k for k, _ in segs} - set(KINDS))
+    if unknown:
+        raise NotImplementedError(f"{cfg.name}: layer types {unknown} are "
+                                  f"not among the port's {KINDS}")
+    return segs
 
 
 def check_trainable(cfg):
-    """Raise for a stack the port cannot train yet: RWKV6 training (the
-    backward through the WKV kernel) is a later slice."""
-    if layer_kind(cfg) == "rwkv":
+    """Raise for a stack the port cannot train yet: training a recurrent
+    layer (the backward through its scan kernel) is a later slice."""
+    for kind in sorted({k for k, _ in segments(cfg)} & set(RECURRENT)):
+        name, kernel = RECURRENT[kind]
         raise NotImplementedError(
-            f"{cfg.name}: training RWKV6 layers is not ported yet (a later "
-            "slice: the backward of the rwkv6_scan kernel as a "
+            f"{cfg.name}: training {name} layers is not ported yet (a later "
+            f"slice: the backward of the {kernel} kernel as a "
             "torch.autograd.Function); the port serves them")
 
 
@@ -63,18 +85,20 @@ def subtree(params, prefix):
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
-def _layers(params, num_layers):
-    """Per-layer parameters [{"ln1": {...}, "attn": {...}, ...}, ...]; a
-    leaf's key below its group keeps its dots ("mix" -> "mu.r").
+def _layers(params, si, count):
+    """Per-layer parameters of segment `si` [{"ln1": {...}, "attn": {...},
+    ...}, ...]; a leaf's key below its group keeps its dots ("mix" ->
+    "mu.r").
 
     Each stacked leaf is unbound once: indexing it once per layer would
-    make the backward pass build a zero [L, ...] gradient for every layer
-    (O(L^2) memory traffic), where unbind's backward is one stack.
+    make the backward pass build a zero [count, ...] gradient for every
+    layer (O(L^2) memory traffic), where unbind's backward is one stack.
     """
-    layers = [{} for _ in range(num_layers)]
+    prefix = f"segments.{si}."
+    layers = [{} for _ in range(count)]
     for key, v in params.items():
-        if key.startswith(SEGMENT):
-            group, leaf = key[len(SEGMENT):].split(".", 1)
+        if key.startswith(prefix):
+            group, leaf = key[len(prefix):].split(".", 1)
             for lp, v_i in zip(layers, v.unbind(0)):
                 lp.setdefault(group, {})[leaf] = v_i
     return layers
@@ -84,28 +108,38 @@ def _flat(prefix, tree):
     return {f"{prefix}.{k}": v for k, v in tree.items()}
 
 
+def block_init(generator, lead, cfg, kind, dtype):
+    """One segment's parameters, keyed "ln1.scale", "attn.wq", ... with
+    leading dims `lead`, as the reference's `block_init` for `kind`."""
+    d = cfg.d_model
+    dev = generator.device
+    p = _flat("ln1", rmsnorm_init(lead + (d,), dtype, dev))
+    if kind == "attn":
+        p.update(_flat("attn", A.gqa_init(generator, lead, cfg, dtype)))
+    elif kind == "rwkv":
+        p.update(_flat("mix", RW.rwkv_init(generator, lead, cfg, dtype)))
+    else:
+        p.update(_flat("rnn", RG.rglru_init(generator, lead, cfg, dtype)))
+    p.update(_flat("ln2", rmsnorm_init(lead + (d,), dtype, dev)))
+    if kind != "rwkv":
+        p.update(_flat("mlp", mlp_init(generator, lead, d, cfg.d_ff, dtype,
+                                       cfg.mlp_type)))
+    return p
+
+
 def transformer_init(cfg, generator, dtype=None):
     """Random parameters on the generator's device, with the reference's
     shapes and scales (embedding x0.02, He-scaled projections, zero biases,
     unit norm scales)."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
     dev = generator.device
-    lead = (cfg.num_layers,)
     d = cfg.d_model
     params = _flat("embed", embedding_init(generator, cfg.vocab_size, d,
                                            dtype))
-    rwkv = layer_kind(cfg) == "rwkv"
-    params.update(_flat(SEGMENT + "ln1", rmsnorm_init(lead + (d,), dtype, dev)))
-    if rwkv:
-        params.update(_flat(SEGMENT + "mix", RW.rwkv_init(generator, lead,
-                                                          cfg, dtype)))
-    else:
-        params.update(_flat(SEGMENT + "attn", A.gqa_init(generator, lead, cfg,
-                                                         dtype)))
-    params.update(_flat(SEGMENT + "ln2", rmsnorm_init(lead + (d,), dtype, dev)))
-    if not rwkv:
-        params.update(_flat(SEGMENT + "mlp", mlp_init(generator, lead, d,
-                                                      cfg.d_ff, dtype)))
+    for si, (kind, count) in enumerate(segments(cfg)):
+        params.update(_flat(f"segments.{si}",
+                            block_init(generator, (count,), cfg, kind,
+                                       dtype)))
     params.update(_flat("final_norm", rmsnorm_init((d,), dtype, dev)))
     if not cfg.tie_embeddings:
         params["head"] = _he(generator, (d, cfg.vocab_size), dtype, d)
@@ -117,71 +151,94 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     """Run the stack on embeddings x [B,S,D]. Returns the final-normed x.
 
     mode "train": no cache. "prefill": fills `caches` (from `init_cache`,
-    batch B, capacity T) with the prompt's K/V, ring-ordered, and sets
-    each layer's ptr to S. "decode": x is one token per row; inserts its
-    K/V into `caches` at ptr, attends, and advances ptr. Caches are
-    updated in place.
+    batch B) with the prompt's K/V, ring-ordered, and sets each attention
+    layer's ptr to S; recurrent layers run from their state in `caches`
+    and leave their new state there. "decode": x is one token per row;
+    inserts its K/V into `caches` at ptr, attends, and advances ptr.
+    Caches are updated in place. `window` (> 0) is the sliding window of
+    the prefill attention and of the paged ring; decode attends to the
+    whole ring, whose capacity the window caps.
 
     paged (with `caches` a pool from `init_pool`, as in the reference's
     `block_apply`): for "prefill" {"table": int [W], "ctx_len": int,
     "valid": int}, one chunk of one slot through `gqa_prefill_paged`; for
     "decode" {"tables": int32 [B, W], "lengths": int32 [B]}, through
-    `gqa_decode_paged`. `window` (> 0: a ring-paged sliding window)
-    applies to the paged paths only.
-
-    An RWKV6 stack takes "prefill" and "decode" alike: each layer runs
-    from its state in `caches` (from `init_cache`/`init_arena`, or views
-    of one slot) and leaves its new state there; positions are unused.
+    `gqa_decode_paged`.
     """
-    if layer_kind(cfg) == "rwkv":
-        return _forward_rwkv(cfg, params, x, mode, caches)
-    for i, lp in enumerate(_layers(params, cfg.num_layers)):
-        h = rmsnorm(lp["ln1"], x)
-        if paged is not None:
-            layer = {"k": caches["k"][i], "v": caches["v"][i]}
-            if mode == "prefill":
-                attn_out, _ = A.gqa_prefill_paged(
-                    lp["attn"], cfg, h, layer, paged["table"],
-                    paged["ctx_len"], window=window, valid=paged["valid"])
+    for si, (kind, count) in enumerate(segments(cfg)):
+        seg = None if caches is None else caches[si]
+        if kind != "attn" and (mode not in ("prefill", "decode")
+                               or seg is None):
+            raise NotImplementedError(
+                f"{kind} layers run with a cache, in 'prefill' or 'decode' "
+                f"mode, not {mode!r}")
+        for i, lp in enumerate(_layers(params, si, count)):
+            if kind == "attn":
+                x = _attn_block(cfg, lp, x, positions, mode, seg, i, paged,
+                                window)
+            elif kind == "rwkv":
+                x = _rwkv_block(cfg, lp, x, seg, i)
             else:
-                attn_out, _ = A.gqa_decode_paged(
-                    lp["attn"], cfg, h, layer, paged["tables"],
-                    paged["lengths"], window=window)
-        elif mode == "decode":
-            layer = {name: caches[name][i] for name in ("k", "v", "ptr")}
-            attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions)
+                x = _rglru_block(cfg, lp, x, seg, i)
+    return rmsnorm(subtree(params, "final_norm"), x)
+
+
+def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
+    """rmsnorm -> attention -> rmsnorm -> MLP, as the reference's
+    `block_apply` kind "attn"; layer i of the segment's cache `seg`."""
+    h = rmsnorm(lp["ln1"], x)
+    if paged is not None:
+        layer = {"k": seg["k"][i], "v": seg["v"][i]}
+        if mode == "prefill":
+            attn_out, _ = A.gqa_prefill_paged(
+                lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"],
+                window=window, valid=paged["valid"])
         else:
-            attn_out, (k, v) = A.gqa_prefill(lp["attn"], cfg, h, positions,
-                                             kernel=mode == "prefill")
-            if mode == "prefill":
-                s, t = x.shape[1], caches["k"].shape[2]
-                caches["k"][i].copy_(A.prefill_cache_entries(k, t, s))
-                caches["v"][i].copy_(A.prefill_cache_entries(v, t, s))
-                caches["ptr"][i].fill_(s)
-        x = x + attn_out
-        h2 = rmsnorm(lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
-    return rmsnorm(subtree(params, "final_norm"), x)
+            attn_out, _ = A.gqa_decode_paged(
+                lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"],
+                window=window)
+    elif mode == "decode":
+        layer = {name: seg[name][i] for name in ("k", "v", "ptr")}
+        attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions)
+    else:
+        attn_out, (k, v) = A.gqa_prefill(lp["attn"], cfg, h, positions,
+                                         kernel=mode == "prefill",
+                                         window=window)
+        if mode == "prefill":
+            s, t = x.shape[1], seg["k"].shape[2]
+            seg["k"][i].copy_(A.prefill_cache_entries(k, t, s))
+            seg["v"][i].copy_(A.prefill_cache_entries(v, t, s))
+            seg["ptr"][i].fill_(s)
+    x = x + attn_out
+    h2 = rmsnorm(lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
 
 
-def _forward_rwkv(cfg, params, x, mode, caches):
-    """The RWKV6 stack: rmsnorm -> time_mix -> rmsnorm -> channel_mix per
-    layer, as the reference's `block_apply` kind "rwkv". The WKV state
-    advances in place in the cache; the shifts are copied in."""
-    if mode not in ("prefill", "decode") or caches is None:
-        raise NotImplementedError(f"RWKV6 layers run with a cache, in "
-                                  f"'prefill' or 'decode' mode, not {mode!r}")
-    for i, lp in enumerate(_layers(params, cfg.num_layers)):
-        state = {name: caches[name][i] for name in RWKV_LEAVES}
-        h = rmsnorm(lp["ln1"], x)
-        tm_out, state = RW.time_mix(lp["mix"], cfg, h, state)
-        x = x + tm_out
-        h2 = rmsnorm(lp["ln2"], x)
-        cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state)
-        x = x + cm_out
-        for name in ("shift", "cm_shift"):
-            caches[name][i].copy_(state[name])
-    return rmsnorm(subtree(params, "final_norm"), x)
+def _rwkv_block(cfg, lp, x, seg, i):
+    """rmsnorm -> time_mix -> rmsnorm -> channel_mix, as the reference's
+    `block_apply` kind "rwkv". The WKV state advances in place in the
+    cache; the shifts are copied in. Positions are unused."""
+    state = {name: seg[name][i] for name in RW.LEAVES}
+    h = rmsnorm(lp["ln1"], x)
+    tm_out, state = RW.time_mix(lp["mix"], cfg, h, state)
+    x = x + tm_out
+    h2 = rmsnorm(lp["ln2"], x)
+    cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state)
+    for name in ("shift", "cm_shift"):
+        seg[name][i].copy_(state[name])
+    return x + cm_out
+
+
+def _rglru_block(cfg, lp, x, seg, i):
+    """rmsnorm -> RG-LRU block -> rmsnorm -> MLP, as the reference's
+    `block_apply` kind "rglru". `h` advances in place in the cache and
+    the conv's last inputs are copied in. Positions are unused."""
+    state = {name: seg[name][i] for name in RG.LEAVES}
+    h = rmsnorm(lp["ln1"], x)
+    rnn_out, _ = RG.rglru_block(lp["rnn"], cfg, h, state)
+    x = x + rnn_out
+    h2 = rmsnorm(lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
 
 
 def logits_fn(cfg, params, x):
@@ -230,20 +287,31 @@ def train_loss(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
-    """Zero caches for decode; the config's sliding window, if any, caps
-    the ring's capacity. An RWKV6 stack's cache is its f32 recurrent
+def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None,
+               window=0):
+    """Zero per-segment caches for decode. Each attention segment's ring
+    holds min(seq_len, window) rows, the config's sliding window first,
+    else the `window` override; a recurrent segment's cache is its f32
     state, whatever `seq_len` and `dtype` (as in the reference)."""
-    if layer_kind(cfg) == "rwkv":
-        return RW.init_state(cfg, batch, lead=(cfg.num_layers,),
-                             device=device)
-    win = cfg.attn_window
+    win = cfg.attn_window or window
     cap = max(min(seq_len, win) if win else seq_len, 1)
-    shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "ptr": torch.zeros((cfg.num_layers,), dtype=torch.int32,
-                               device=device)}
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    caches = []
+    for kind, count in segments(cfg):
+        if kind == "rwkv":
+            caches.append(RW.init_state(cfg, batch, lead=(count,),
+                                        device=device))
+        elif kind == "rglru":
+            caches.append(RG.init_state(cfg, batch, lead=(count,),
+                                        device=device))
+        else:
+            shape = (count, batch, cap, kv, hd)
+            caches.append({
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "ptr": torch.zeros((count,), dtype=torch.int32,
+                                   device=device)})
+    return caches
 
 
 def _embed_tokens(cfg, params, tokens):
@@ -251,7 +319,8 @@ def _embed_tokens(cfg, params, tokens):
         getattr(torch, cfg.compute_dtype))
 
 
-def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None):
+def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None,
+            window=0):
     """Build caches from a full prompt batch {"tokens": [B,S]}. Returns
     (logits of the last position [B,1,V] in f32, caches).
 
@@ -262,13 +331,13 @@ def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = init_cache(cfg, b, max(cache_len or s, s), dtype=cache_dtype,
-                        device=x.device)
+                        device=x.device, window=window)
     x = forward(cfg, params, x, positions=positions, mode="prefill",
-                caches=caches)
+                caches=caches, window=window)
     return logits_fn(cfg, params, x[:, -1:]).float(), caches
 
 
-def decode_step(cfg, params, token, caches, position):
+def decode_step(cfg, params, token, caches, position, window=0):
     """token: [B,1] int; position: the absolute position of every row
     (int or 0-dim tensor). Returns (logits [B,1,V] in f32, caches)."""
     params = _cast(cfg, params)
@@ -277,64 +346,71 @@ def decode_step(cfg, params, token, caches, position):
     positions = torch.as_tensor(position, dtype=torch.int32,
                                 device=x.device).reshape(1, 1).expand(b, 1)
     x = forward(cfg, params, x, positions=positions, mode="decode",
-                caches=caches)
+                caches=caches, window=window)
     return logits_fn(cfg, params, x).float(), caches
 
 
 # The slot arena (continuous batching, `repro_torch.serve`): the caches of
-# `slots` independent in-flight requests, with ptr per row ([L, slots]) so
-# every slot decodes at its own depth. Admission prefills ONE request
+# `slots` independent in-flight requests, with ptr per row ([count, slots])
+# so every slot decodes at its own depth. Admission prefills ONE request
 # (batch-1 forward) straight into its slot's rows between decode steps;
 # the decode step runs all slots with per-row positions.
 
 
-def init_arena(cfg, slots, capacity, dtype=torch.bfloat16, device=None):
-    """Slot-arena caches: `init_cache` with per-row ptr [layers, slots]
-    (a recurrent state has no ptr)."""
-    arena = init_cache(cfg, slots, capacity, dtype=dtype, device=device)
-    if layer_kind(cfg) == "rwkv":
-        return arena
-    arena["ptr"] = torch.zeros((cfg.num_layers, slots), dtype=torch.int32,
-                               device=device)
+def init_arena(cfg, slots, capacity, dtype=torch.bfloat16, device=None,
+               window=0):
+    """Slot-arena caches: `init_cache` with per-row ptr [count, slots] in
+    every attention segment (a recurrent state has no ptr)."""
+    arena = init_cache(cfg, slots, capacity, dtype=dtype, device=device,
+                       window=window)
+    for seg in arena:
+        if "ptr" in seg:
+            seg["ptr"] = torch.zeros(seg["ptr"].shape + (slots,),
+                                     dtype=torch.int32, device=device)
     return arena
 
 
-def prefill_into_slot(cfg, params, tokens, length, slot, caches):
+def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0):
     """Admit one request into arena slot `slot` between decode steps.
 
     tokens: [1, Sp] int, right-padded to a bucketed length Sp (causal
     attention keeps positions < length from seeing the pads, and the
     slot's validity length is `length`; a recurrent stack folds every
-    token into its state, so its prompts come at their exact length);
-    length: the true prompt length; slot: the arena row to overwrite;
-    caches: the arena from `init_arena`. The prefill writes the slot's
-    whole cache row (zeros past the prompt) through views of the arena,
-    and sets its ptr to `length` (the tokens actually in the cache); a
-    recurrent slot's state is zeroed first, so the request does not start
-    from its slot's previous occupant. Returns (logits [1,1,V] in f32 at
-    position length - 1, the arena, updated in place)."""
+    token into its state, and a sliding-window ring would let pads evict
+    real context, so their prompts come at their exact length); length:
+    the true prompt length; slot: the arena row to overwrite; caches: the
+    arena from `init_arena`. The prefill writes the slot's whole cache
+    rows (zeros past the prompt; a prompt longer than a windowed ring
+    wraps, slot i % T holding token i) through views of the arena, and
+    sets its ptr to `length` (the tokens actually in the cache); every
+    recurrent leaf of the slot is zeroed first, so the request does not
+    start from its slot's previous occupant. Returns (logits [1,1,V] in
+    f32 at position length - 1, the arena, updated in place)."""
     params = _cast(cfg, params)
     x = _embed_tokens(cfg, params, tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None]
     slot, length = int(slot), int(length)
-    if layer_kind(cfg) == "rwkv":
-        row = {name: caches[name][:, slot:slot + 1] for name in RWKV_LEAVES}
-        for leaf in row.values():
-            leaf.zero_()
-    else:
-        row = {"k": caches["k"][:, slot:slot + 1],
-               "v": caches["v"][:, slot:slot + 1],
-               "ptr": caches["ptr"][:, slot]}
+    rows = []
+    for seg in caches:
+        row = {name: leaf[:, slot:slot + 1] for name, leaf in seg.items()
+               if name != "ptr"}
+        if "ptr" in seg:
+            row["ptr"] = seg["ptr"][:, slot]
+        else:
+            for leaf in row.values():
+                leaf.zero_()
+        rows.append(row)
     x = forward(cfg, params, x, positions=positions, mode="prefill",
-                caches=row)
-    if "ptr" in row:
-        row["ptr"].fill_(length)
+                caches=rows, window=window)
+    for row in rows:
+        if "ptr" in row:
+            row["ptr"].fill_(length)
     logits = logits_fn(cfg, params, x[:, length - 1:length]).float()
     return logits, caches
 
 
-def decode_rows(cfg, params, token, caches, positions):
+def decode_rows(cfg, params, token, caches, positions, window=0):
     """One decode step over all arena slots.
 
     token: [B,1] int (one current token per slot); positions: int [B],
@@ -348,7 +424,7 @@ def decode_rows(cfg, params, token, caches, positions):
     positions = torch.as_tensor(positions, dtype=torch.int32,
                                 device=x.device).reshape(b, 1)
     x = forward(cfg, params, x, positions=positions, mode="decode",
-                caches=caches)
+                caches=caches, window=window)
     return logits_fn(cfg, params, x).float(), caches
 
 
@@ -358,14 +434,15 @@ def decode_rows(cfg, params, token, caches, positions):
 # returns the advanced positions, which feed the next step directly.
 
 
-def prefill_into_slot_token(cfg, params, tokens, length, slot, caches):
+def prefill_into_slot_token(cfg, params, tokens, length, slot, caches,
+                            window=0):
     """`prefill_into_slot` returning (0-dim int32 greedy token, arena)."""
     logits, caches = prefill_into_slot(cfg, params, tokens, length, slot,
-                                       caches)
+                                       caches, window=window)
     return torch.argmax(logits[0, -1], -1).to(torch.int32), caches
 
 
-def decode_rows_tokens(cfg, params, tokens, caches, positions):
+def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0):
     """`decode_rows` returning (next [B] int32, arena, positions + 1).
 
     tokens: [B] int (each slot's incoming token, i.e. the previous step's
@@ -375,7 +452,7 @@ def decode_rows_tokens(cfg, params, tokens, caches, positions):
     positions = torch.as_tensor(positions, dtype=torch.int32,
                                 device=tokens.device)
     logits, caches = decode_rows(cfg, params, tokens[:, None], caches,
-                                 positions)
+                                 positions, window=window)
     nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
     return nxt, caches, positions + 1
 
@@ -389,13 +466,20 @@ def decode_rows_tokens(cfg, params, tokens, caches, positions):
 
 def init_pool(cfg, num_blocks, block_size, dtype=torch.bfloat16,
               device=None):
-    """Zero paged pool {"k", "v": [L, num_blocks + 1, block_size, KV,
-    hd]}; block 0 is the null block, so allocatable ids are
-    1..num_blocks."""
-    shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Zero paged pool, one {"k", "v": [count, num_blocks + 1, block_size,
+    KV, hd]} per segment; block 0 is the null block, so allocatable ids
+    are 1..num_blocks. Attention stacks only: recurrent state has no
+    pages."""
+    pool = []
+    for kind, count in segments(cfg):
+        if kind != "attn":
+            raise NotImplementedError(f"{cfg.name}: {kind} layers have no "
+                                      "paged pool (recurrent state)")
+        shape = (count, num_blocks + 1, block_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        pool.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return pool
 
 
 def prefill_chunk_into_blocks(cfg, params, tokens, length, ctx_len,

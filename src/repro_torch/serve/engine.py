@@ -16,9 +16,11 @@ reference's `overlap=False`):
     request is bounded by `plen + max_new_tokens <= capacity`; prompts
     are right-padded to a power-of-two bucket of at least 8 where that
     is inert (`FamilyCaps.pad_prompts`: a full-causal attention stack)
-    and prefill at their exact length otherwise (an RWKV6 stack, whose
-    state would fold the pads in). A recurrent row holds its state, not
-    a KV cache.
+    and prefill at their exact length otherwise (a stack with recurrent
+    layers, whose state would fold the pads in, or with a sliding window
+    below the capacity, whose ring the pads would wrap). A recurrent
+    layer's row holds its state, not a KV cache; a windowed attention
+    layer's row is a ring of the window's capacity.
 
     **paged** (`paged=True`): all rows share one pool of fixed-size KV
     blocks (`Model.init_pool`) through host-side block tables

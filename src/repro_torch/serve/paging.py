@@ -2,8 +2,8 @@
 `blocks_needed` and `BlockAllocator` from `repro/serve/paging.py`).
 
 The paged engine keeps one shared pool of fixed-size KV blocks
-(`models.transformer.init_pool`: `{"k", "v": [layers, num_blocks + 1,
-block_size, KV, hd]}`); this module owns the host half of it: a free
+(`models.transformer.init_pool`: per segment `{"k", "v": [layers,
+num_blocks + 1, block_size, KV, hd]}`); this module owns the host half of it: a free
 list of block ids and the accounting both admission policies rest on.
 Block id 0 is the null block: unallocated table entries point at it,
 masked writes land in it, and no live row ever attends to it, so the

@@ -11,8 +11,10 @@ the model's jnp `chunked_attention` at 2e-4. The plain paged and ring decode
 versions (`ref.decode_attention_paged`, `ref.decode_attention_ring`) are
 held against the JAX Pallas kernels in interpret mode and the JAX oracles
 at 1e-6 in f32 (within one bf16 ulp in bf16). The plain WKV recurrence
-(`ref.rwkv6`) is held against the JAX oracle and TPU kernel in
-`tests/test_torch_rwkv.py`; here its CUDA kernel is held against it. The
+(`ref.rwkv6`) and the plain RG-LRU recurrence (`ref.rglru`) are held
+against the JAX oracles and TPU kernels in `tests/test_torch_rwkv.py` and
+`tests/test_torch_recurrentgemma.py`; here their CUDA kernels are held
+against them. The
 CUDA cases need the card (marker `cuda`); they import no JAX, so they
 also run where JAX is absent:
 
@@ -35,6 +37,7 @@ from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
 
 KW = dict(tau=0.1, rho=20.0, num_walks=2, num_agents=4)
@@ -456,6 +459,8 @@ def _bf16_close(got, want):
     (256, 14, 2, 64, 0),      # the serving prefill's shape
     (96, 4, 2, 32, 0),        # ragged tile, smoke head_dim
     (200, 4, 1, 128, 64),     # MQA sliding window
+    (200, 10, 1, 256, 0),     # recurrentgemma-2b's prefill (10:1 heads of 256)
+    (300, 10, 1, 256, 128),   # ... with a window that binds
 ])
 def test_flash_kernel_matches_plain_version_on_card(cuda, dtype, s, h, kv,
                                                     hd, window):
@@ -481,6 +486,8 @@ def test_flash_kernel_matches_plain_version_on_card(cuda, dtype, s, h, kv,
     (8, 512, 14, 2, 64),      # the serving decode's shape
     (3, 100, 4, 2, 32),       # smoke head_dim, ragged tile
     (2, 300, 16, 2, 128),     # 8 heads of 128 per kv head
+    (8, 2048, 10, 1, 256),    # recurrentgemma-2b: G * hd = 2560, full ring
+    (3, 700, 10, 1, 256),     # ... ragged tile
 ])
 def test_decode_kernel_matches_plain_version_on_card(cuda, dtype, b, t, h,
                                                      kv, hd):
@@ -538,6 +545,7 @@ def _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype):
     (8, 14, 2, 64, 16, 32),   # the serving decode's shape (<= 512 tokens)
     (3, 4, 2, 32, 8, 6),      # smoke head_dim, ragged tile
     (2, 16, 2, 128, 4, 40),   # 8 heads of 128 per kv head, tiny blocks
+    (3, 10, 1, 256, 16, 8),   # G * hd = 2560 (the shared decode body)
 ])
 def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, b, h, kv,
                                                     hd, bs, w):
@@ -707,3 +715,65 @@ def test_rwkv6_kernel_in_pieces_equals_one_pass_on_card(cuda, dtype):
     out0, final0 = ops.rwkv6_scan(r, k, v, w, u, torch.zeros_like(state))
     want0, wfinal0 = ref.rwkv6(r, k, v, w, u)
     assert _rwkv_close(out0, want0) and _rwkv_close(final0, wfinal0)
+
+
+def _rglru_operands(cuda, gen, b, s, w, strided):
+    """a in (0, 1) (exp of -8 softplus(1) r, r in (0, 1), as the model
+    makes it), u at unit scale and a unit-normal incoming state; strided:
+    a and u as views of one [B, S, 2, W] buffer."""
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    if strided:
+        au = draw((b, s, 2, w))
+        a, u = au[:, :, 0], au[:, :, 1]
+    else:
+        a, u = draw((b, s, w)), draw((b, s, w))
+    a.copy_(torch.exp(-8.0 * 1.3133 * torch.sigmoid(a)))
+    return a, u, draw((b, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,strided", [
+    (1, 200, 2560, False),    # recurrentgemma-2b's prefill
+    (8, 1, 2560, False),      # ... and decode step
+    (3, 37, 300, True),       # W not a multiple of the block, strided
+], ids=["prefill", "decode", "ragged-strided"])
+def test_rglru_kernel_matches_plain_version_on_card(cuda, out_dtype, b, s,
+                                                    w, strided):
+    """Bitwise: the kernel rounds the product and the sum of each step as
+    the plain version's two ops do, and a bf16 output is the f32 value
+    rounded to nearest-even; the state is overwritten in place."""
+    gen = torch.Generator(device=cuda).manual_seed(b * s + w)
+    a, u, state = _rglru_operands(cuda, gen, b, s, w, strided)
+    got_state = state.clone()
+    before = rglru_scan_cuda.launches
+    out, returned = ops.rglru_scan(a, u, got_state, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert rglru_scan_cuda.launches == before + 1
+    assert returned is got_state
+    assert out.dtype == out_dtype and out.shape == (b, s, w)
+    want, want_state = ref.rglru(a, u, state)
+    assert torch.equal(out, want.to(out_dtype))
+    assert torch.equal(got_state, want_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_in_pieces_equals_one_pass_on_card(cuda, out_dtype):
+    """A prompt cut at 1, 16, 40 and 95 of 130 steps (the kernel loads 16
+    steps ahead), the state carried in place, is bitwise one pass; from a
+    zero state it is the plain version from none."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    a, u, state = _rglru_operands(cuda, gen, 2, 130, 2560, True)
+    whole_state = state.clone()
+    whole, _ = ops.rglru_scan(a, u, whole_state, out_dtype=out_dtype)
+    cuts = (0, 1, 16, 40, 95, 130)
+    pieces = [ops.rglru_scan(a[:, x:z], u[:, x:z], state,
+                             out_dtype=out_dtype)[0]
+              for x, z in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(pieces, dim=1), whole)
+    assert torch.equal(state, whole_state)
+    out0, final0 = ops.rglru_scan(a, u, torch.zeros_like(state))
+    want0, wfinal0 = ref.rglru(a, u)
+    assert torch.equal(out0, want0) and torch.equal(final0, wfinal0)

@@ -108,7 +108,7 @@ def _assert_pool_equal(jpool, tpool, skip_null=False):
     takes the dead rows' writes, whose winner is undefined in both)."""
     lo = 1 if skip_null else 0
     for name, want in jpool[0].items():
-        want, got = np.asarray(want), tpool[name].numpy()
+        want, got = np.asarray(want), tpool[0][name].numpy()
         assert got.shape == want.shape and got.dtype == want.dtype, name
         np.testing.assert_allclose(got[:, lo:], want[:, lo:], rtol=0,
                                    atol=ATOL, err_msg=name)
@@ -159,18 +159,18 @@ def test_pool_from_jax_round_trip(jx, served):
     jnp = jx.jnp
     jmodel, _, tmodel, _ = served
     jpool = jx.jax.device_get(jmodel.init_pool(6, 8, dtype=jnp.float32))
-    tpool = pool_from_jax(jpool)
+    (tpool,) = pool_from_jax(jpool)
     cfg = tmodel.cfg
     shape = (cfg.num_layers, 7, 8, cfg.num_kv_heads, cfg.head_dim)
     assert set(tpool) == {"k", "v"}
-    own = tmodel.init_pool(6, 8, dtype=torch.float32)
+    (own,) = tmodel.init_pool(6, 8, dtype=torch.float32)
     for name in ("k", "v"):
         assert tuple(tpool[name].shape) == shape == jpool[0][name].shape
         assert tpool[name].dtype == own[name].dtype == torch.float32
         assert own[name].shape == tpool[name].shape
     jb = jx.jax.device_get(jmodel.init_pool(2, 4, dtype=jnp.bfloat16))
     jb[0]["v"] = jb[0]["v"] + jnp.bfloat16(-2.5)
-    tb = pool_from_jax(jb)
+    (tb,) = pool_from_jax(jb)
     assert tb["v"].dtype == torch.bfloat16 and bool((tb["v"] == -2.5).all())
 
 
@@ -549,14 +549,31 @@ def test_preemption_count_depends_on_lengths_only(served):
     assert counts[0] == counts[1] and counts[0][0] >= 1
 
 
-def test_windowed_arena_raises(served_windowed):
-    _, _, tmodel, tparams = served_windowed
+def test_windowed_arena_raises(jx, served_windowed):
+    """A windowed dense model serves from the arena too, as a ring of the
+    window's capacity with prompts at their exact length (the reference's
+    caps: no padding below the capacity): its tokens equal the JAX
+    windowed arena engine's and the ring-paged engine's, on prompts and
+    generations past the window. Only its training raises, and a bad
+    preemption policy."""
+    jmodel, jparams, tmodel, tparams = served_windowed
+    prompts = _prompts(tmodel.cfg.vocab_size, (5, 23, 11, 3), 44)
+    budgets = [30, 30, 12, 25]
+    want = _jax_arena(jx, served_windowed, prompts, budgets, 128)
+    eng = Engine(tmodel, tparams, max_batch=3, max_len=128,
+                 cache_dtype=torch.float32)
+    assert not eng.paged and not eng.caps.pad_prompts
+    outs, _ = _run(eng, prompts, budgets)
+    assert outs == want
+    assert eng.prefill_shapes == {5, 23, 11, 3}
+    ring = _port(served_windowed, max_batch=2, max_len=128, block_size=8,
+                 num_blocks=24, prefill_chunk=32)
+    assert _run(ring, prompts, budgets)[0] == want
+    arena = tmodel.init_arena(3, 128, dtype=torch.float32)
+    assert arena[0]["k"].shape[2] == WINDOW     # the ring, not the capacity
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="sliding window"):
-        Engine(tmodel, tparams, max_batch=1, max_len=16)
-    for name in ("prefill", "decode_step", "init_cache", "train_loss",
-                 "prefill_into_slot", "decode_rows"):
-        with pytest.raises(NotImplementedError, match="sliding window"):
-            getattr(tmodel, name)(None, None)
+        tmodel.train_loss(tparams, {"tokens": tokens, "targets": tokens})
     with pytest.raises(ValueError, match="preemption"):
         Engine(tmodel, tparams, max_batch=1, max_len=16, paged=True,
                preemption="lifo")

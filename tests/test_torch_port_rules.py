@@ -98,7 +98,8 @@ def test_serve_on_cpu_when_asked():
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "decode_attention_paged",
-                                  "decode_attention_ring", "rwkv6_scan"])
+                                  "decode_attention_ring", "rwkv6_scan",
+                                  "rglru_scan"])
 def test_attention_ops_reject_devices_without_a_kernel(name):
     q = torch.empty(1, 4, 2, 32, device="meta")
     k = torch.empty(1, 4, 1, 32, device="meta")
@@ -113,6 +114,8 @@ def test_attention_ops_reject_devices_without_a_kernel(name):
                                        lengths=ones)
         elif name == "rwkv6_scan":
             ops.rwkv6_scan(q, q, q, q, q[0, 0], k)
+        elif name == "rglru_scan":
+            ops.rglru_scan(q[0], q[0], q[0, 0])
         else:
             ops.decode_attention_ring(q[:, 0], k, k, ones[:, None],
                                       ring_starts=ones, lengths=ones,
@@ -138,7 +141,8 @@ def test_every_kernel_source_is_built():
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "decode_attention_paged", "rwkv6_scan"])
+                                  "decode_attention_paged", "rwkv6_scan",
+                                  "rglru_scan"])
 def test_failed_attention_build_raises(monkeypatch, tmp_path, name):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 1\n")
@@ -303,3 +307,36 @@ def test_rwkv6_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):     # head_dim 128
         scan(r128, r128, r128, r128, torch.zeros(h, 128, device=cuda),
              torch.zeros(b, h, 128, 128, device=cuda))
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_rejects_bad_inputs(cuda):
+    b, s, w = 2, 5, 64
+    a = torch.full((b, s, w), 0.5, device=cuda)
+    state = torch.zeros(b, w, device=cuda)
+    scan = ops.rglru_scan
+    with pytest.raises(ValueError):     # u on the CPU
+        scan(a, a.cpu(), state)
+    with pytest.raises(ValueError):     # state on the CPU
+        scan(a, a, state.cpu())
+    with pytest.raises(TypeError):      # a not f32
+        scan(a.bfloat16(), a, state)
+    with pytest.raises(TypeError):      # state not f32
+        scan(a, a, state.bfloat16())
+    with pytest.raises(TypeError):      # an output dtype it does not write
+        scan(a, a, state, out_dtype=torch.float16)
+    flat = torch.full((b * s * w + 1,), 0.5, device=cuda)
+    with pytest.raises(ValueError):     # misaligned address
+        scan(flat[1:].view(b, s, w), a, state)
+    with pytest.raises(ValueError):     # last dim not contiguous
+        scan(a.transpose(1, 2), a.transpose(1, 2), state)
+    with pytest.raises(ValueError):     # u of another length
+        scan(a, a[:, :4], state)
+    with pytest.raises(ValueError):     # state of another batch
+        scan(a, a, state[:1])
+    with pytest.raises(ValueError):     # state not contiguous
+        scan(a, a, torch.zeros(w, b, device=cuda).T)
+    with pytest.raises(ValueError):     # not [B, S, W]
+        scan(a[0], a[0], state)
+    out, st = scan(a, a, state)
+    assert out.shape == a.shape and st is state

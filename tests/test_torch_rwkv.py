@@ -236,7 +236,8 @@ def test_port_init_has_the_reference_leaves(jx, served):
 
 def _assert_state_equal(jcache, tcache, atol=STATE_ATOL):
     """Every state leaf, to atol (and rtol 1e-5 where atol > 0)."""
-    want = arena_from_jax(jcache)
+    (want,) = arena_from_jax(jcache)
+    (tcache,) = tcache
     assert set(tcache) == set(want) == {"shift", "wkv", "cm_shift"}
     for name, w in want.items():
         got = tcache[name]
@@ -251,17 +252,17 @@ def test_arena_from_jax_recurrent_state(jx, served):
     jmodel, _, tmodel, _ = served
     jarena = jax.device_get(jmodel.init_arena(SLOTS, CAPACITY,
                                               dtype=jnp.float32))
-    own = tmodel.init_arena(SLOTS, CAPACITY, dtype=torch.float32)
+    (own,) = tmodel.init_arena(SLOTS, CAPACITY, dtype=torch.float32)
     cfg = tmodel.cfg
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     assert {n: tuple(t.shape) for n, t in own.items()} == {
         "shift": (cfg.num_layers, SLOTS, d),
         "wkv": (cfg.num_layers, SLOTS, d // hd, hd, hd),
         "cm_shift": (cfg.num_layers, SLOTS, d)}
-    _assert_state_equal(jarena, own, atol=0)
+    _assert_state_equal(jarena, [own], atol=0)
     # the reference's bf16 shifts (after a bf16 decode step) come back f32
     jarena[0]["shift"] = (jarena[0]["shift"] + 1.5).astype(jnp.bfloat16)
-    got = arena_from_jax(jarena)
+    (got,) = arena_from_jax(jarena)
     assert got["shift"].dtype == torch.float32
     assert bool((got["shift"] == 1.5).all())
     # the port's arena has no ptr, as the reference's recurrent arena
@@ -367,13 +368,13 @@ def test_slot_arena_matches_reference_and_readmission_resets_state(
     for slot, prompt in zip((2, 0, 1), prompts[:3]):
         admit(slot, prompt)
     decode(6)
-    assert float(tarena["wkv"][:, 0].abs().max()) > 0    # occupied
+    assert float(tarena[0]["wkv"][:, 0].abs().max()) > 0    # occupied
     admit(0, prompts[3])
     fresh = tmodel.init_arena(1, CAPACITY, dtype=torch.float32)
     tmodel.prefill_into_slot(tparams, torch.from_numpy(prompts[3][None]),
                              len(prompts[3]), 0, fresh)
-    for name, leaf in fresh.items():
-        assert torch.equal(tarena[name][:, 0], leaf[:, 0]), name
+    for name, leaf in fresh[0].items():
+        assert torch.equal(tarena[0][name][:, 0], leaf[:, 0]), name
     decode(4)
 
 
@@ -596,9 +597,9 @@ def test_rwkv_serving_steps_on_card_match_cpu(cuda, monkeypatch):
             for dev, p, arena in runs)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
         cur, pos = want[:, -1].argmax(-1).numpy().astype(np.int32), pos + 1
-    for name in runs[0][2]:
-        torch.testing.assert_close(runs[1][2][name].cpu(), runs[0][2][name],
-                                   rtol=1e-5, atol=1e-4)
+    for name in runs[0][2][0]:
+        torch.testing.assert_close(runs[1][2][0][name].cpu(),
+                                   runs[0][2][0][name], rtol=1e-5, atol=1e-4)
     assert rwkv6_scan_cuda.launches - before == 10 * cfg.num_layers
 
 

@@ -78,7 +78,7 @@ def _padded(prompt):
 
 def _assert_arena_equal(jarena, tarena):
     for name, want in jarena[0].items():
-        want, got = np.asarray(want), tarena[name].numpy()
+        want, got = np.asarray(want), tarena[0][name].numpy()
         assert got.shape == want.shape and got.dtype == want.dtype, name
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL, err_msg=name)
 
@@ -110,7 +110,7 @@ def test_arena_from_jax_round_trip(jx, served):
     jmodel, _, tmodel, _ = served
     jarena = jax.device_get(jmodel.init_arena(SLOTS, CAPACITY,
                                               dtype=jnp.float32))
-    tarena = arena_from_jax(jarena)
+    (tarena,) = arena_from_jax(jarena)
     cfg = tmodel.cfg
     shape = (cfg.num_layers, SLOTS, CAPACITY, cfg.num_kv_heads, cfg.head_dim)
     assert set(tarena) == {"k", "v", "ptr"}
@@ -120,14 +120,14 @@ def test_arena_from_jax_round_trip(jx, served):
     assert tarena["ptr"].dtype == torch.int32
     assert tuple(tarena["ptr"].shape) == (cfg.num_layers, SLOTS)
     # the port's own arena has the same leaves
-    own = tmodel.init_arena(SLOTS, CAPACITY, dtype=torch.float32)
+    (own,) = tmodel.init_arena(SLOTS, CAPACITY, dtype=torch.float32)
     for name in own:
         assert own[name].shape == tarena[name].shape
         assert own[name].dtype == tarena[name].dtype
     # bf16 leaves convert exactly
     jb = jax.device_get(jmodel.init_arena(1, 8, dtype=jnp.bfloat16))
     jb[0]["k"] = jb[0]["k"] + jnp.bfloat16(1.5)
-    tb = arena_from_jax(jb)
+    (tb,) = arena_from_jax(jb)
     assert tb["k"].dtype == torch.bfloat16 and bool((tb["k"] == 1.5).all())
 
 
@@ -137,7 +137,7 @@ def test_prefill_into_slot_matches_reference(jx, served):
         assert tl.shape == jl.shape == (1, 1, served[0].cfg.vocab_size)
         np.testing.assert_allclose(tl, jl, rtol=0, atol=ATOL)
     _assert_arena_equal(jarena, tarena)
-    assert tarena["ptr"][:, [2, 0, 1]].tolist()[0] == [5, 11, 3]
+    assert tarena[0]["ptr"][:, [2, 0, 1]].tolist()[0] == [5, 11, 3]
 
 
 def test_decode_rows_match_reference_past_the_ring(jx, served):
