@@ -11,12 +11,20 @@ non-zero before the last line:
      flash_attention, decode_attention, decode_attention_paged, rwkv6_scan,
      rglru_scan), compiled from the sources
      in this checkout, all at once (the old libraries are removed
-     first), with ptxas's registers and spills;
+     first), with ptxas's registers and spills, and for every
+     instantiation of the flash and decode kernels its registers, spills
+     and static shared bytes, beside the dynamic shared bytes a launch
+     asks for;
   3. kernels: each kernel against its plain PyTorch version at its main
      path's shapes and one larger case, with timings (device time from
      torch.profiler, and CUDA events around back-to-back calls, which
      add the host's gaps), the card's lower bound and, for attention,
-     PyTorch's scaled_dot_product_attention as the yardstick;
+     PyTorch's scaled_dot_product_attention as the yardstick; flash also
+     at S = 17 (a cut 16-row fragment) and S = 65 under a window of 40
+     (edges inside a tile), decode also with rows at the chunk and tile
+     edges (lengths 0, 1, 63, 64, 65, R, R + 1 and T = 700 for chunks of
+     R = split_rows rows), each decode case with its split_rows and
+     split count;
   4. training main path: `repro_torch.launch.train` at full qwen2-0.5b
      width, A=4 agents, M=2 walks, 3 supersteps, with every kernel launch
      count reset just before and read just after;
@@ -84,9 +92,10 @@ non-zero before the last line:
      pieces with the state carried, which must equal one pass bitwise;
      flash prefill with 10 query heads of 256 over 1 kv head (200 tokens,
      and 3,000 under the 2048-token window, which binds) and grouped
-     decode at G * hd = 2560 (a 512-slot ring, lengths spread, and a full
-     2048 ring) against their plain versions, beside SDPA; timed as in
-     phase 3;
+     decode at G * hd = 2560 (a 512-slot ring, lengths spread, a full
+     2048 ring, and rows at the chunk edges of T = 2100) against their
+     plain versions, beside SDPA, and flash at S = 17; timed as in phase
+     3;
  19. hybrid serving main path: `repro_torch.launch.serve --arch
      recurrentgemma-2b` at full width and depth on phase 7's workload,
      counts reset just before and read just after (18 rglru_scan launches
@@ -132,7 +141,7 @@ from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.trainer import init_train_state, make_train_step  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_cuda)
+    decode_attention_cuda, num_splits, split_rows)
 from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
     decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -204,35 +213,89 @@ def event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, one_kernel=False, attempts=3):
-    """Mean device ms per call of fn(): the summed time of every kernel
-    and copy it launched, from torch.profiler's device events (no host
-    gaps), after one warm-up. For a fn that launches one kernel
-    (`one_kernel`, a kernel's wrapper) it is that kernel's mean time per
-    recorded launch: late in a long run the profiler has dropped device
-    events (once all of a profile's, for 50 calls of a 4 us kernel; once
-    about two thirds of 20 calls of a 1.3 ms kernel, against CUDA
-    events), which would bias a sum over the calls. A profile that
-    recorded no device event is taken again, up to `attempts` times."""
+def queued_ms(fn, iters):
+    """Device ms per call of fn() from CUDA events around `iters` calls
+    queued behind a sleep kernel, so that the device runs them back to
+    back with no host gap between them (the gaps between back-to-back
+    launches stay in). The sleep is sized from one call's host time; if
+    the host still took longer to queue the calls than the device slept,
+    that is said, and the time includes its gaps."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(int(min(2.0, 2 * host_s * iters + 1e-3) * 2e9))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if queue_ms > slept.elapsed_time(start):
+        print(f"queued_ms: the host took {queue_ms:.3f} ms to queue what the "
+              f"device slept {slept.elapsed_time(start):.3f} ms for; host "
+              "gaps included", flush=True)
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, one_kernel=False, attempts=4):
+    """Mean device ms per call of fn(): the time of every kernel and copy
+    it launched, from torch.profiler's device events (no host gaps), after
+    one warm-up. Late in a long run the profiler drops the first device
+    events of a profile, a count that grows over the run (12 to 22 by
+    phase 18), so for a fn that launches one kernel (`one_kernel`, a
+    kernel's wrapper) the time is the mean per recorded event. A profile
+    that recorded no device event is taken again, up to `attempts` times;
+    when none did, or one kept fewer than half the events of its calls
+    (counted in a profile of one call), the calls are timed queued
+    behind a sleep instead (`queued_ms`), and that is said."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
+    def device_events(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = [ev for ev in prof.key_averages()
                   if ev.device_type == DeviceType.CUDA]
-        total_us = sum(ev.self_device_time_total for ev in events)
-        if total_us:
-            calls = sum(ev.count for ev in events) if one_kernel else iters
-            return total_us / 1e3 / calls
-        print("device_ms: the profile recorded no device time; again",
+        return (sum(ev.self_device_time_total for ev in events),
+                sum(ev.count for ev in events))
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = 1 if one_kernel else 0
+    for _ in range(attempts):
+        if not per_call:
+            per_call = device_events(1)[1]
+            if not per_call:
+                print("device_ms: the profile recorded no device time; "
+                      "again", flush=True)
+                continue
+        total_us, n = device_events(iters)
+        if not total_us:
+            print("device_ms: the profile recorded no device time; again",
+                  flush=True)
+            continue
+        if n >= per_call * iters:
+            return total_us / 1e3 / iters
+        if 2 * n >= per_call * iters:
+            print(f"device_ms: the profile kept {n} of {per_call * iters} "
+                  "device events; mean per event", flush=True)
+            return total_us / 1e3 / n * per_call
+        print(f"device_ms: the profile kept {n} of {per_call * iters} "
+              "device events; timed queued behind a sleep instead",
               flush=True)
-    raise AssertionError("torch.profiler recorded no device time")
+        return queued_ms(fn, iters)
+    print("device_ms: torch.profiler recorded no device time; timed queued "
+          "behind a sleep instead", flush=True)
+    return queued_ms(fn, iters)
 
 
 def timings(fn, plain, library, iters):
@@ -430,11 +493,15 @@ def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0):
     return dict(case, shape=[list(q.shape), list(k.shape)], window=window)
 
 
-def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False):
+def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False,
+                      edges=False):
     """One decode step of b rows over [b, t, kv, hd] caches (slices of an
     arena), h query heads (qwen2-0.5b's 14 over 2 of 64 by default), bf16,
-    lengths spread over 1..t (all t if `full`)."""
+    lengths spread over 1..t (all t if `full`; with `edges`, the 8 rows
+    sit at the kernel's chunk and tile edges: 0, 1, 63, 64, 65, R, R + 1
+    and t for chunks of R = split_rows rows)."""
     bf = torch.bfloat16
+    rows, splits = split_rows(t, kv, hd), num_splits(t, kv, hd)
     q = torch.randn((b, h, hd), generator=gen, device=DEV).to(bf)
     arena = torch.randn((2, 2, b, t, kv, hd), generator=gen,
                         device=DEV).to(bf)
@@ -443,6 +510,9 @@ def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False):
     lengths[0] = t
     if full:
         lengths.fill_(t)
+    if edges:
+        lengths = torch.tensor([0, 1, 63, 64, 65, rows, rows + 1, t],
+                               dtype=torch.int32, device=DEV)
     valid = torch.arange(t, device=DEV)[None] < lengths[:, None]
     qt = q[:, :, None]
     kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
@@ -457,8 +527,13 @@ def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False):
         lambda: ref.decode_attention(q, k, v, lengths=lengths),
         lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
         nbytes, flops, iters=50)
+    print(json.dumps({"decode_split": {"case": label, "split_rows": rows,
+                                       "splits": splits,
+                                       "blocks": kv * b * splits}}),
+          flush=True)
     return dict(case, shape=[list(q.shape), list(k.shape)],
-                lengths=[int(lengths.min()), int(lengths.max())])
+                lengths=[int(lengths.min()), int(lengths.max())],
+                split_rows=rows, splits=splits)
 
 
 def serving_summary(out, launches):
@@ -1426,6 +1501,66 @@ def hybrid_reference_check():
                       "logits 1e-4; states 1e-4 + 1e-5 |x|"}), flush=True)
 
 
+def ptxas_report(logs, names=("flash_attention", "decode_attention")):
+    """Phase 2: registers, spills and static shared bytes that ptxas
+    reports for every instantiation of the flash and decode kernels
+    (names demangled with c++filt where the toolkit's machine has it), and
+    the dynamic shared bytes each launch asks for, from the libraries'
+    own size functions at the head dims and groups the main paths use."""
+    import ctypes
+    import re
+
+    records = []
+    for lib in names:
+        entry = None
+        for line in logs[lib].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = {"library": lib, "kernel": m.group(1)}
+                records.append(entry)
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                entry.update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                entry["static_smem"] = int(smem.group(1)) if smem else 0
+    try:
+        names_out = subprocess.run(
+            ["c++filt"], input="\n".join(r["kernel"] for r in records),
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.splitlines()
+        for r, name in zip(records, names_out):
+            name = name.replace("(anonymous namespace)::", "")
+            r["kernel"] = name.split("(")[0].removeprefix("void ")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    for r in records:
+        print(json.dumps({"ptxas": r}), flush=True)
+    flash = build.load("flash_attention")
+    decode = build.load("decode_attention")
+    for fn in (flash.flash_attention_smem_bytes,
+               decode.decode_attention_smem_bytes):
+        fn.restype = ctypes.c_int
+    dynamic = {f"flash hd {hd} {dt}": flash.flash_attention_smem_bytes(
+        int(dt == "bf16"), hd) for hd in (32, 64, 128, 256)
+        for dt in ("bf16", "f32")}
+    dynamic.update({f"decode hd {hd} G {g} {dt}":
+                    decode.decode_attention_smem_bytes(int(dt == "bf16"), hd,
+                                                       g)
+                    for hd, g in ((64, 7), (256, 10), (32, 4), (128, 8))
+                    for dt in ("bf16", "f32")})
+    print(json.dumps({"dynamic_smem_bytes": dynamic}), flush=True)
+    return records
+
+
 def kernel_entry(name, source, replaces, launches, cases, rep):
     """One kernel's record in the `kernels` line: its launches summed over
     the main paths that run it (`launches`: {path: count}, each counted
@@ -1462,6 +1597,7 @@ def main():
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  " + line.strip())
+    ptxas_report(logs)
 
     phase("3 kernels against their plain versions")
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1471,9 +1607,14 @@ def main():
                  ("mlp.w_gate bf16 x", (4, 24, 896, 4864), torch.bfloat16))]
     torch.cuda.empty_cache()
     flash_cases = [check_flash_case("serving prefill Sp=256", 256, gen),
-                   check_flash_case("long prompt S=2048", 2048, gen)]
+                   check_flash_case("long prompt S=2048", 2048, gen),
+                   check_flash_case("S=17 (cuts a 16-row fragment)", 17, gen),
+                   check_flash_case("S=65, window 40 (edges mid-tile)", 65,
+                                    gen, window=40)]
     decode_cases = [check_decode_case("serving decode B=8 T=512", 8, 512, gen),
-                    check_decode_case("B=64 T=4096", 64, 4096, gen)]
+                    check_decode_case("B=64 T=4096", 64, 4096, gen),
+                    check_decode_case("chunk edges B=8 T=700", 8, 700, gen,
+                                      edges=True)]
     torch.cuda.empty_cache()
 
     phase("4 main path: repro_torch.launch.train, full qwen2-0.5b")
@@ -1585,11 +1726,15 @@ def main():
                          f"{RG_WINDOW} (binds)", LONG_PROMPT, gen,
                          window=RG_WINDOW, **rg_attn)]
     torch.cuda.empty_cache()
+    flash_cases.append(check_flash_case(
+        "hybrid S=17, 10:1 heads of 256", 17, gen, **rg_attn))
     decode_cases += [
         check_decode_case("hybrid decode B=8 ring 512, 10:1 heads of 256",
                           8, 512, gen, **rg_attn),
         check_decode_case(f"hybrid decode B=8 full ring {RG_WINDOW}", 8,
-                          RG_WINDOW, gen, full=True, **rg_attn)]
+                          RG_WINDOW, gen, full=True, **rg_attn),
+        check_decode_case("hybrid chunk edges B=8 T=2100", 8, 2100, gen,
+                          edges=True, **rg_attn)]
     torch.cuda.empty_cache()
 
     phase("19 hybrid serving main path: repro_torch.launch.serve, full "

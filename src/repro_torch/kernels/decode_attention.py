@@ -9,8 +9,18 @@ f32 running max, sum and accumulator, out = acc / max(l, 1e-30)). It reads
 q [B, H, hd] and the arena's k, v [B, T, KV, hd] through their strides
 (the JAX wrapper transposes the cache to [B*KV, T, hd] first, which on the
 card would copy a layer's whole arena each step), and reads `lengths` on
-the device. The wrapper checks its inputs, allocates the output with
-`torch.empty`, launches on the current stream and raises if the launch
+the device.
+
+The kernel splits the cache across blocks (flash-decoding): each block
+takes `split_rows(T, KV, hd)` cache rows of one (batch row, kv head), and
+the last block of a row to finish combines the splits' partials in the
+same launch. `split_rows` depends on T, KV and hd only, never on B or on
+the lengths, so a row's result is bitwise the same alone or in any batch
+and the launch needs no host sync. The wrapper checks its inputs,
+allocates the output and the partials' scratch with `torch.empty`, keeps
+one zeroed int32 ticket counter per (batch row, kv head) per device (the
+kernel leaves them 0; two launches on different streams at once would
+share them), launches on the current stream and raises if the launch
 reports an error. `decode_attention_cuda.launches` counts its launches.
 """
 from __future__ import annotations
@@ -28,8 +38,37 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_int_vector,
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 8
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3)
 MAX_GROUP_WIDTH = 2560      # (H / KV) * hd: at most 10 outputs per thread
+MIN_SPLIT_ROWS = 128        # the fewest cache rows a block takes
+MIN_SPLIT_VALUES = 8192     # ... and at least this many K values (hd 32)
+MAX_ROW_BLOCKS = 32         # most blocks of one batch row (KV * splits)
+_TICKETS = {}               # device -> int32 ticket counters, all 0
+
+
+def split_rows(t, kv, hd):
+    """Cache rows per block of the decode kernel: a multiple of 64, at least
+    128 rows and 8192 K values of a head, and as many as keep a batch row
+    to at most 32 blocks over its KV heads (so at most 32 splits). It
+    depends on T, KV and hd only: never on the batch or the lengths."""
+    rows = max(MIN_SPLIT_ROWS, MIN_SPLIT_VALUES // hd,
+               -(-t // max(1, MAX_ROW_BLOCKS // kv)))
+    return -(-rows // 64) * 64
+
+
+def num_splits(t, kv, hd):
+    """Blocks the kernel gives one (batch row, kv head): ceil(T / rows)."""
+    return max(1, -(-t // split_rows(t, kv, hd)))
+
+
+def _tickets(device, n):
+    """At least n zeroed int32 counters on `device`, allocated once and
+    grown (zeroed anew) when a launch needs more."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,12 +113,20 @@ def decode_attention_cuda(q, k, v, *, lengths, scale=None):
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else float(1.0 / math.sqrt(hd))
+    rows, splits = split_rows(t, kv, hd), num_splits(t, kv, hd)
+    partial = tickets = None
+    if splits > 1:      # each split's (acc [G, hd], m [G], l [G]) in f32
+        partial = torch.empty(b * kv * splits * (h // kv) * (hd + 2),
+                              dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, b * kv)
     fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                  out.data_ptr(), b, t, h, kv, hd, *q.stride()[:2],
-                 *k.stride()[:3], *v.stride()[:3], scale, stream)
+                 *k.stride()[:3], *v.stride()[:3], scale, rows,
+                 None if partial is None else partial.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

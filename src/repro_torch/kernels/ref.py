@@ -106,6 +106,47 @@ def decode_attention(q, k, v, *, lengths, scale=None):
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+def decode_attention_split(q, k, v, *, lengths, split_rows, scale=None):
+    """`decode_attention` by the decode kernel's split-and-combine
+    arithmetic (the tests hold it against `decode_attention` and the TPU
+    kernel; the card runs the kernel).
+
+    The cache is cut into chunks of `split_rows` rows. Each chunk that
+    starts below a row's length keeps, in f32, its own max m_s, sum l_s and
+    unnormalised acc_s over its valid rows; the chunks combine as
+        M = max_s m_s;  out = sum_s e^(m_s - M) acc_s
+                              / max(sum_s e^(m_s - M) l_s, 1e-30).
+    A row that fits one chunk gets acc_0 / max(l_0, 1e-30), the same value;
+    a row of length 0 gets 0. Shapes as `decode_attention`.
+    """
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else float(1.0 / math.sqrt(hd))
+    n = max(1, -(-t // split_rows))
+    pad = n * split_rows - t
+    kp, vp = (torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+              .reshape(b, n, split_rows, kv, hd) for x in (k, v))
+    pos = torch.arange(n * split_rows, device=q.device).reshape(n, split_rows)
+    lens = lengths.to(q.device).reshape(b, 1, 1)
+    valid = pos[None] < lens                                  # [b, n, R]
+    active = pos[None, :, 0] < lens[:, :, 0]                  # [b, n]
+    logits = torch.einsum("bcgd,bnrcd->bcgnr",
+                          q.float().reshape(b, kv, g, hd), kp) * scale
+    logits = torch.where(valid[:, None, None], logits, _NEG_INF)
+    m = logits.amax(dim=-1)                                   # [b,kv,g,n]
+    p = torch.exp(logits - m[..., None])
+    vz = torch.where(valid[..., None, None], vp, 0.0)
+    acc = torch.einsum("bcgnr,bnrcd->bcgnd", p, vz)
+    l_s = p.sum(dim=-1)
+    act = active[:, None, None]                               # [b,1,1,n]
+    big = torch.where(act, m, -math.inf).amax(dim=-1, keepdim=True)
+    w = torch.where(act, torch.exp(m - torch.where(act, big, 0.0)), 0.0)
+    out = (w[..., None] * acc).sum(dim=-2) / torch.clamp_min(
+        (w * l_s).sum(dim=-1), 1e-30)[..., None]
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
 def gather_pages(pool, tables):
     """pool [NB, bs, ...] through int tables [B, W] -> linear [B, W * bs,
     ...]: logical position p of row b is row p % bs of pool block

@@ -7,7 +7,10 @@ kernel (Pallas, interpret mode) and the JAX oracle: rtol 1e-6 / atol
 attention versions (`ref.attention`, `ref.decode_attention`) are held
 against the JAX Pallas kernels in interpret mode and the JAX oracles at
 the reference's own tolerances (1e-5 in f32, 3e-2 in bf16), and against
-the model's jnp `chunked_attention` at 2e-4. The plain paged and ring decode
+the model's jnp `chunked_attention` at 2e-4. The decode kernel's split-and-
+combine arithmetic (`ref.decode_attention_split`, chunks of
+`split_rows(T, KV, hd)` rows) is held against `ref.decode_attention` and
+the JAX kernel in interpret mode. The plain paged and ring decode
 versions (`ref.decode_attention_paged`, `ref.decode_attention_ring`) are
 held against the JAX Pallas kernels in interpret mode and the JAX oracles
 at 1e-6 in f32 (within one bf16 ulp in bf16). The plain WKV recurrence
@@ -31,7 +34,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_cuda)
+    decode_attention_cuda, num_splits, split_rows)
 from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
     decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -227,6 +230,85 @@ def test_decode_plain_ignores_rows_past_the_length():
     tk[0, 5:], tv[0, 5:] = float("nan"), float("inf")
     got = ops.decode_attention(tq, tk, tv, lengths=lengths)
     assert torch.equal(got, want)
+
+
+# ---- the decode kernel's split-and-combine arithmetic, on the CPU ----
+
+SPLIT_CASES = [(4, 2, 64, 700), (10, 1, 256, 2100), (8, 2, 32, 1000)]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_split_rows_is_a_multiple_of_64_from_t_kv_and_hd_only(hd):
+    """The decode kernel's chunk: a multiple of 64 rows, at least 128, at
+    most 32 blocks a batch row, and a function of (T, KV, hd) alone, so a
+    row's grid and arithmetic cannot depend on the batch."""
+    import inspect
+    assert list(inspect.signature(split_rows).parameters) == ["t", "kv", "hd"]
+    for t in (1, 63, 64, 65, 128, 129, 512, 700, 2048, 4096, 32768):
+        for kv in (1, 2, 8, 64):
+            rows = split_rows(t, kv, hd)
+            splits = num_splits(t, kv, hd)
+            assert rows % 64 == 0 and rows >= 128, (t, kv, rows)
+            assert splits == max(1, -(-t // rows)) and splits <= 32
+            assert kv * splits <= max(32, kv), (t, kv, splits)
+    # the serving shapes: qwen2 (2 kv heads of 64), recurrentgemma (1 of 256)
+    assert num_splits(512, 2, 64) == 4 and num_splits(2048, 1, 256) == 16
+
+
+def _split_case(seed, h, kv, hd, t, dtype):
+    """Rows at every edge of a chunk and a tile: lengths 0, 1, 63, 64, 65,
+    R, R + 1 and T (T not a multiple of R)."""
+    rows = split_rows(t, kv, hd)
+    assert t % rows and num_splits(t, kv, hd) > 2
+    lengths = np.array([0, 1, 63, 64, 65, rows, rows + 1, t], np.int32)
+    b = len(lengths)
+    arrs, ts = _attn_inputs(seed, [(b, h, hd), (b, t, kv, hd),
+                                   (b, t, kv, hd)], dtype)
+    return arrs, ts, lengths, rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,hd,t", SPLIT_CASES)
+def test_split_combine_plain_matches_plain_decode(dtype, h, kv, hd, t):
+    _, (tq, tk, tv), lengths, rows = _split_case(11, h, kv, hd, t, dtype)
+    lens = torch.from_numpy(lengths)
+    got = ref.decode_attention_split(tq, tk, tv, lengths=lens,
+                                     split_rows=rows)
+    want = ref.decode_attention(tq, tk, tv, lengths=lens)
+    assert got.dtype == tq.dtype and got.shape == want.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))     # length 0
+    got, want = got.float().numpy(), want.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:   # both round one f32 value once, summed in another order
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want) + 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_combine_plain_matches_jax_kernel(jx, dtype):
+    """Against the TPU kernel in interpret mode and the JAX oracle, with
+    chunks wholly past a row's length (every row but the last). At length
+    0 the TPU kernel, which zeroes invalid V rows, gives 0, and the oracle
+    the mean of V: that row is held against the kernel only."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    h, kv, hd, t = SPLIT_CASES[0]
+    (q, k, v), (tq, tk, tv), lengths, rows = _split_case(12, h, kv, hd, t,
+                                                         dtype)
+    got = ref.decode_attention_split(tq, tk, tv,
+                                     lengths=torch.from_numpy(lengths),
+                                     split_rows=rows)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    kern = jax_ops.decode_attention(jq, jk, jv, lengths=jnp.asarray(lengths),
+                                    block_k=128, interpret=True)
+    oracle = jax_ref.decode_attention(jq, jk.transpose(0, 2, 1, 3),
+                                      jv.transpose(0, 2, 1, 3),
+                                      valid_len=jnp.asarray(lengths))
+    for want, first in ((kern, 0), (oracle, 1)):
+        np.testing.assert_allclose(got[first:].float().numpy(),
+                                   np.asarray(want, np.float32)[first:],
+                                   rtol=ATOL[dtype], atol=ATOL[dtype])
 
 
 def test_ops_sends_cpu_attention_to_ref_without_launching():
@@ -509,6 +591,111 @@ def test_decode_kernel_matches_plain_version_on_card(cuda, dtype, b, t, h,
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert _bf16_close(got, want)
+
+
+def _flash_operands(cuda, seed, b, s, h, kv, hd, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    kvbuf = torch.randn((b, s, 2, kv, hd), generator=gen,
+                        device=cuda).to(dtype)
+    return q, kvbuf[:, :, 0], kvbuf[:, :, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("s", [1, 15, 17, 65])
+def test_flash_kernel_cuts_fragments_and_tiles_on_card(cuda, s, hd):
+    """bf16 (the tensor-core body): prompts that cut the 16-row MMA
+    fragments and the 64-row tiles, at every head_dim."""
+    h, kv = (10, 1) if hd == 256 else (4, 2)
+    q, k, v = _flash_operands(cuda, s * hd, 2, s, h, kv, hd, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, ref.attention(q, k, v, causal=True),
+                         torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("window", [40, 100])
+def test_flash_kernel_window_ending_mid_tile_on_card(cuda, dtype, hd,
+                                                     window):
+    """Windows whose edge falls inside a 64-row tile and inside a warp's
+    16 rows, over 150 positions."""
+    h, kv = (10, 1) if hd == 256 else (4, 2)
+    q, k, v = _flash_operands(cuda, window + hd, 1, 150, h, kv, hd, dtype)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    _assert_kernel_close(
+        got, ref.attention(q, k, v, causal=True, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_kernel_row_alone_equals_row_in_batch_on_card(cuda, dtype, hd):
+    h, kv = (10, 1) if hd == 256 else (14, 2)
+    q, k, v = _flash_operands(cuda, hd, 8, 200, h, kv, hd, dtype)
+    batch = ops.flash_attention(q, k, v, causal=True, window=64)
+    for i in (0, 5):
+        alone = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    causal=True, window=64)
+        assert torch.equal(alone[0], batch[i])
+
+
+def _split_operands(cuda, seed, h, kv, hd, t, dtype):
+    """Decode operands whose lengths sit at every chunk and tile edge: 0,
+    1, 63, 64, 65, R, R + 1 and T (T not a multiple of R), in an arena."""
+    rows = split_rows(t, kv, hd)
+    lengths = torch.tensor([0, 1, 63, 64, 65, rows, rows + 1, t],
+                           dtype=torch.int32, device=cuda)
+    b = lengths.numel()
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    arena = torch.randn((2, 2, b, t, kv, hd), generator=gen,
+                        device=cuda).to(dtype)
+    return q, arena[1, 0], arena[1, 1], lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd,t", SPLIT_CASES)
+def test_decode_kernel_split_edges_on_card(cuda, dtype, h, kv, hd, t):
+    q, k, v, lengths = _split_operands(cuda, t, h, kv, hd, t, dtype)
+    assert t % split_rows(t, kv, hd) and num_splits(t, kv, hd) > 2
+    got = ops.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))     # length 0
+    _assert_kernel_close(got, ref.decode_attention(q, k, v, lengths=lengths),
+                         dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd,t", SPLIT_CASES[:2])
+def test_decode_kernel_row_alone_equals_row_in_batch_on_card(cuda, dtype, h,
+                                                             kv, hd, t):
+    q, k, v, lengths = _split_operands(cuda, t + 1, h, kv, hd, t, dtype)
+    batch = ops.decode_attention(q, k, v, lengths=lengths)
+    for i in range(lengths.numel()):
+        alone = ops.decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     lengths=lengths[i:i + 1])
+        assert torch.equal(alone[0], batch[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_back_to_back_calls_are_bitwise_equal_on_card(cuda,
+                                                                    dtype):
+    """The last split of each row resets its ticket counter: a second
+    launch combines exactly as the first (else no block would combine)."""
+    h, kv, hd, t = SPLIT_CASES[1]
+    q, k, v, lengths = _split_operands(cuda, 3, h, kv, hd, t, dtype)
+    first = ops.decode_attention(q, k, v, lengths=lengths)
+    second = ops.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _bf16_within_one_ulp(got, want):
