@@ -12,9 +12,9 @@ non-zero before the last line:
      rglru_scan), compiled from the sources
      in this checkout, all at once (the old libraries are removed
      first), with ptxas's registers and spills, and for every
-     instantiation of the flash and decode kernels its registers, spills
-     and static shared bytes, beside the dynamic shared bytes a launch
-     asks for;
+     instantiation of the flash, decode and paged decode kernels its
+     registers, spills and static shared bytes, beside the dynamic shared
+     bytes a launch asks for;
   3. kernels: each kernel against its plain PyTorch version at its main
      path's shapes and one larger case, with timings (device time from
      torch.profiler, and CUDA events around back-to-back calls, which
@@ -52,7 +52,13 @@ non-zero before the last line:
      single PyTorch call computes paged attention), with a ring at
      window 256 (rows unwrapped, part-filled and wrapped) that must be
      bitwise invariant under a joint rotation of table and starts, and
-     an identity table that must reproduce the linear decode kernel;
+     an identity table that must reproduce the linear decode kernel
+     within one bf16 ulp (whether it does so bitwise is printed); each
+     case with its split_rows and split count, and bitwise invariant to
+     the table's width (W against 2W, the extra entries null), to the
+     batch (each row alone) and to a second call, the shared ticket
+     counters back at 0 after every launch; ptxas's registers, spills and
+     shared bytes of paged_fwd;
  11. paged serving main path: `repro_torch.launch.serve --paged` at full
      width on phase 7's workload (block size 16, chunks of 32), counts
      reset just before and read just after (24 paged launches per decode
@@ -140,10 +146,12 @@ from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.trainer import init_train_state, make_train_step  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, num_splits, split_rows)
 from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
-    decode_attention_paged_cuda, decode_attention_ring_cuda)
+    decode_attention_paged_cuda, decode_attention_ring_cuda, paged_num_splits,
+    paged_split_rows)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
@@ -776,11 +784,64 @@ def check_paged_case(label, b, max_len, bs, dtype, gen):
     case.update(gather_sdpa_ms=device_ms(lib, 50),
                 gather_sdpa_event_ms=event_ms(lib, 50),
                 shape=[list(q.shape), list(kp.shape), list(tables.shape)],
-                lengths=[int(lengths.min()), int(lengths.max())])
+                lengths=[int(lengths.min()), int(lengths.max())],
+                **check_pool_invariance(label, q, kp, vp, tables, lengths))
     print(json.dumps({"gather_sdpa": {k: case[k] for k in (
         "case", "dtype", "gather_sdpa_ms", "gather_sdpa_event_ms")}}),
         flush=True)
     return case
+
+
+def tickets_zero():
+    """The decode kernels' shared ticket counters, all back at 0."""
+    torch.cuda.synchronize()
+    return all(not bool(t.any()) for t in dattn._TICKETS.values())
+
+
+def check_pool_invariance(label, q, kp, vp, tables, lengths, ring=None):
+    """The paged (ring) kernel's output must be bitwise the same under a
+    table of width W and of 2W (the extra entries null; a ring in its
+    unrotated order, starts 0), for each row alone and in the batch, and
+    in a second call; the ticket counters must be back at 0 after each
+    launch. Every row here lies within W * bs. Returns the split_rows,
+    split count and the checks."""
+    ring = ring or {}
+
+    def run(qq, tt, ll, rr):
+        if rr:
+            return ops.decode_attention_ring(qq, kp, vp, tt, lengths=ll,
+                                             **rr)
+        return ops.decode_attention_paged(qq, kp, vp, tt, lengths=ll)
+
+    b, w = tables.shape
+    bs, hd = kp.shape[1], q.shape[2]
+    cap = w * bs if not ring else min(ring["window"], w * bs)
+    base = run(q, tables, lengths, ring)
+    checks = {"repeat_bitwise": torch.equal(run(q, tables, lengths, ring),
+                                            base),
+              "tickets_zero": tickets_zero()}
+    flat, wide_ring = tables, {}
+    if ring:
+        flat = ref.ring_order(tables, ring["ring_starts"]).int()
+        wide_ring = dict(ring_starts=torch.zeros_like(ring["ring_starts"]),
+                         window=ring["window"])
+    wide = torch.cat([flat, torch.zeros_like(flat)], dim=1).contiguous()
+    checks["width_bitwise"] = torch.equal(run(q, wide, lengths, wide_ring),
+                                          base)
+    checks["batch_bitwise"] = all(torch.equal(run(
+        q[i:i + 1], tables[i:i + 1].contiguous(), lengths[i:i + 1],
+        {k: (v[i:i + 1] if torch.is_tensor(v) else v)
+         for k, v in ring.items()})[0], base[i]) for i in range(b))
+    checks["tickets_zero"] &= tickets_zero()
+    out = {"split_rows": paged_split_rows(hd),
+           "splits": paged_num_splits(cap, hd),
+           "blocks": kp.shape[2] * b * paged_num_splits(cap, hd), **checks}
+    print(json.dumps({"paged_split": {"case": label, "dtype": str(q.dtype),
+                                      **out}}), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"paged kernel not invariant on {label}: "
+                             f"{checks}")
+    return out
 
 
 def check_ring_case(label, b, window, bs, dtype, gen):
@@ -821,7 +882,10 @@ def check_ring_case(label, b, window, bs, dtype, gen):
                 gather_sdpa_event_ms=event_ms(lib, 50),
                 rotation_invariant="bitwise",
                 shape=[list(q.shape), list(kp.shape), list(tables.shape)],
-                lengths=[int(lengths.min()), int(lengths.max())])
+                lengths=[int(lengths.min()), int(lengths.max())],
+                **check_pool_invariance(label, q, kp, vp, tables, lengths,
+                                        dict(ring_starts=starts,
+                                             window=window)))
     print(json.dumps({"ring_rotation_bitwise": label}), flush=True)
     return case
 
@@ -845,6 +909,8 @@ def check_identity_table(gen):
     ok, err = bf16_close(paged, linear)
     print(json.dumps({"identity_table_vs_linear_kernel": {
         "max_abs_err": err, "bitwise": bool(torch.equal(paged, linear)),
+        "paged_split_rows": paged_split_rows(hd),
+        "linear_split_rows": split_rows(t, kv, hd),
         "tolerance": "<= 1 bf16 ulp + 1e-5"}}), flush=True)
     if not ok:
         raise AssertionError(f"paged kernel with an identity table differs "
@@ -1501,7 +1567,8 @@ def hybrid_reference_check():
                       "logits 1e-4; states 1e-4 + 1e-5 |x|"}), flush=True)
 
 
-def ptxas_report(logs, names=("flash_attention", "decode_attention")):
+def ptxas_report(logs, names=("flash_attention", "decode_attention",
+                              "decode_attention_paged")):
     """Phase 2: registers, spills and static shared bytes that ptxas
     reports for every instantiation of the flash and decode kernels
     (names demangled with c++filt where the toolkit's machine has it), and
@@ -1546,8 +1613,10 @@ def ptxas_report(logs, names=("flash_attention", "decode_attention")):
         print(json.dumps({"ptxas": r}), flush=True)
     flash = build.load("flash_attention")
     decode = build.load("decode_attention")
+    paged = build.load("decode_attention_paged")
     for fn in (flash.flash_attention_smem_bytes,
-               decode.decode_attention_smem_bytes):
+               decode.decode_attention_smem_bytes,
+               paged.decode_attention_paged_smem_bytes):
         fn.restype = ctypes.c_int
     dynamic = {f"flash hd {hd} {dt}": flash.flash_attention_smem_bytes(
         int(dt == "bf16"), hd) for hd in (32, 64, 128, 256)
@@ -1556,6 +1625,12 @@ def ptxas_report(logs, names=("flash_attention", "decode_attention")):
                     decode.decode_attention_smem_bytes(int(dt == "bf16"), hd,
                                                        g)
                     for hd, g in ((64, 7), (256, 10), (32, 4), (128, 8))
+                    for dt in ("bf16", "f32")})
+    # the paged main path (hd 64, G 7, bs 16) at 4 and 32 splits
+    dynamic.update({f"paged hd {hd} G {g} splits {n} bs 16 {dt}":
+                    paged.decode_attention_paged_smem_bytes(
+                        int(dt == "bf16"), hd, g, n, paged_split_rows(hd), 16)
+                    for hd, g, n in ((64, 7, 4), (64, 7, 32), (256, 10, 4))
                     for dt in ("bf16", "f32")})
     print(json.dumps({"dynamic_smem_bytes": dynamic}), flush=True)
     return records
@@ -1597,7 +1672,7 @@ def main():
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  " + line.strip())
-    ptxas_report(logs)
+    ptx = ptxas_report(logs)
 
     phase("3 kernels against their plain versions")
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1668,6 +1743,9 @@ def main():
                         gen)
         for dtype in (torch.bfloat16, torch.float32)]
     check_identity_table(gen)
+    print(json.dumps({"paged_fwd_ptxas": [
+        r for r in ptx if r["library"] == "decode_attention_paged"]}),
+        flush=True)
     torch.cuda.empty_cache()
 
     phase("11 paged serving main path: repro_torch.launch.serve --paged")

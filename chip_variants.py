@@ -6,10 +6,11 @@ design choices `PERF.md` records.
 
 Each variant is the kernel source in this checkout with one text
 substitution (a constant, a call, a removed line), built with the
-repo's nvcc flags into its own library under `build/variants/` and
-called through the kernel's wrapper on the main paths' bf16 shapes,
-beside the plain version and the one PyTorch call (SDPA) on the same
-inputs; device time comes from chip_smoke's `device_ms` (torch.profiler,
+repo's nvcc flags into its own library under `build/variants/`, or the
+kernel with another chunk size from its wrapper (the paged kernel's
+rows per split), called through the kernel's wrapper on the main paths'
+bf16 shapes, beside the plain version and the one PyTorch call (SDPA;
+gather + SDPA for the paged kernel) on the same inputs; device time comes from chip_smoke's `device_ms` (torch.profiler,
 early in a fresh process, where it keeps its events), two rounds in
 turns. A variant that changes the arithmetic (one bf16 term
 of P, a fast exp) is timing only: its output is printed as its largest
@@ -26,6 +27,7 @@ import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import decode_attention_paged as dap
 from repro_torch.kernels import flash_attention as fa
 
 OUT = pathlib.Path(build.BUILD_DIR).parent / "variants"
@@ -75,6 +77,37 @@ def decode_variants():
     }
 
 
+# split_decode's split-level staging of a paged row's block ids, and the
+# two places a tile's copies are issued (the prologue and the loop)
+SPLIT_STAGE = """    rows.stage(row0, row1, tid);   // the split's block ids, once
+    if constexpr (Rows::kStaged) __syncthreads();
+"""
+PROLOGUE_COPY = """            const int r0 = row0 + st * kRows;
+"""
+LOOP_COPY = """            const int at = (nxt % kSplitStages) * kRows * kPitch;
+"""
+STAGE_TILE = """            rows.stage({r0}, min({r0} + kRows, row1), tid);
+            if constexpr (Rows::kStaged) __syncthreads();
+"""
+PAGED_ROWS = {"R 256": 256, "R 512": 512}   # else paged_split_rows(hd)
+
+
+def paged_variants():
+    """The paged kernel, and its block ids staged per tile (each tile's
+    ids looked up behind their own barrier just before its copies are
+    issued) instead of once per split; the rows-per-split arms reuse the
+    kernel's own library."""
+    src = (build.CSRC / "decode_attention_paged.cu").read_text()
+    head = (build.CSRC / "attention_common.cuh").read_text()
+    per_tile = substituted(head, SPLIT_STAGE, "")
+    per_tile = substituted(per_tile, PROLOGUE_COPY, PROLOGUE_COPY
+                           + STAGE_TILE.format(r0="r0"))
+    per_tile = substituted(per_tile, LOOP_COPY, LOOP_COPY + STAGE_TILE.format(
+        r0="row0 + nxt * kRows"))
+    return {"kernel": (src, None), "R 256": (src, None),
+            "R 512": (src, None), "per-tile staging": (src, per_tile)}
+
+
 def build_all(kernel, variants):
     """{variant: ctypes library}, every variant compiled in parallel."""
     OUT.mkdir(parents=True, exist_ok=True)
@@ -99,10 +132,13 @@ def build_all(kernel, variants):
     return libs
 
 
-def time_variants(module, entry, libs, cases, launch, plain, library):
+def time_variants(module, entry, libs, cases, launch, plain, library,
+                  before=None):
     """Two rounds of every variant on every case, through the wrapper with
-    its entry swapped for the variant's, each round closed by the case's
-    plain version and its one PyTorch call."""
+    its entry swapped for the variant's (and `before(name)` called first,
+    `before(None)` after), each round closed by the case's plain version
+    and its one PyTorch call."""
+    before = before or (lambda name: None)
     wants = [launch(*c[1:]) for c in cases]
     original = module._entry
     for rnd in range(2):
@@ -118,6 +154,7 @@ def time_variants(module, entry, libs, cases, launch, plain, library):
             fn.argtypes = module._ARGTYPES
             fn.restype = ctypes.c_int
             module._entry = lambda dtype, fn=fn: fn
+            before(name)
             try:
                 row = {"kernel": entry, "variant": name, "round": rnd}
                 for c, want in zip(cases, wants):
@@ -129,6 +166,7 @@ def time_variants(module, entry, libs, cases, launch, plain, library):
                             (got.float() - want.float()).abs().max())}
             finally:
                 module._entry = original
+                before(None)
             print(json.dumps(row), flush=True)
 
 
@@ -199,6 +237,65 @@ def main():
                   lambda q, k, v, lengths: cs.ref.decode_attention(
                       q, k, v, lengths=lengths),
                   decode_library)
+
+    paged_libs = build_all("paged", paged_variants())
+    paged_cases = []
+    for label, b, max_len, window in (
+            ("qwen2 paged B=8 <=512 bs=16", 8, 512, 0),
+            ("qwen2 paged B=64 <=4096 bs=16", 64, 4096, 0),
+            ("qwen2 ring window 256 B=8 bs=16", 8, 256, 256)):
+        q, kp, vp, tables = cs._pool_operands(b, max_len, 16, bf, gen)
+        span = 3 * window if window else max_len
+        lengths = torch.linspace(1, span, b, device=cs.DEV).round().to(
+            torch.int32)
+        lengths[0] = span
+        ring = None
+        if window:
+            ring = torch.randint(0, tables.shape[1], (b,), generator=gen,
+                                 device=cs.DEV, dtype=torch.int32)
+        else:
+            nblk = (lengths + 15) // 16
+            tables[torch.arange(tables.shape[1], device=cs.DEV)[None]
+                   >= nblk[:, None]] = 0
+        paged_cases.append((label, q, kp, vp, tables, lengths, ring, window))
+
+    def paged_launch(q, kp, vp, tables, lengths, starts, window):
+        if window:
+            return dap.decode_attention_ring_cuda(
+                q, kp, vp, tables, ring_starts=starts, lengths=lengths,
+                window=window)
+        return dap.decode_attention_paged_cuda(q, kp, vp, tables,
+                                               lengths=lengths)
+
+    def paged_plain(q, kp, vp, tables, lengths, starts, window):
+        if window:
+            return cs.ref.decode_attention_ring(
+                q, kp, vp, tables, ring_starts=starts, lengths=lengths,
+                window=window)
+        return cs.ref.decode_attention_paged(q, kp, vp, tables,
+                                             lengths=lengths)
+
+    def paged_library(q, kp, vp, tables, lengths, starts, window):
+        """Gather the blocks in ring order, then SDPA with a length mask
+        (chip_smoke's yardstick)."""
+        if window:
+            tables = cs.ref.ring_order(tables, starts)
+            lengths = torch.clamp(lengths, max=window)
+        valid = (torch.arange(tables.shape[1] * kp.shape[1],
+                              device=cs.DEV)[None] < lengths[:, None])
+        return cs._gather_sdpa(q, kp, vp, tables, valid)()
+
+    rows = dap.paged_split_rows
+
+    def set_rows(name):
+        """The wrapper's rows per split for the variant `name`."""
+        dap.paged_split_rows = (
+            (lambda hd, r=PAGED_ROWS[name]: r) if name in PAGED_ROWS
+            else rows)
+
+    time_variants(dap, "decode_attention_paged_bf16", paged_libs,
+                  paged_cases, paged_launch, paged_plain, paged_library,
+                  before=set_rows)
 
 
 if __name__ == "__main__":

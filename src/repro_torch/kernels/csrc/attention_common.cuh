@@ -2,11 +2,12 @@
 // decode_attention.cu, decode_attention_paged.cu): element conversion,
 // 8-wide loads from shared memory, the cooperative copy of a [64, HD] tile
 // into shared memory (synchronous, and with cp.async), inline PTX for
-// ldmatrix and the bf16 mma.sync, and two bodies of one-token grouped
-// decode attention over a `Rows` interface (where logical cache row p
-// lies in device memory): grouped_decode, one block over a row's whole
-// cache, which the paged and ring kernels use, and split_decode, one
-// block over one chunk of it, which the linear decode kernel uses.
+// ldmatrix and the bf16 mma.sync, the `Rows` interface (where logical
+// cache row p of a linear cache or a paged pool lies in device memory),
+// and the split one-token grouped decode that the linear, paged and ring
+// decode kernels share: split_decode, one block over one chunk of a row's
+// cache, and finish_split, which writes a chunk's output or partial and
+// combines a row's partials in the last block to finish.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -219,27 +220,16 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
 }
 
 // ---------------------------------------------------------------------------
-// One-token grouped decode attention: the body of one block, which serves
-// one (kv head, batch row) and the G query heads of that kv head. In f32:
-//     s_gj = (q_g . k_j) * scale for logical cache rows j < len, else -1e30,
-//     out_g = sum_j exp(s_gj - m_g) v_j / max(sum_j exp(s_gj - m_g), 1e-30)
-// with V rows at or past len zeroed, and the running max, sum and
-// accumulator in f32 across tiles of 64 rows, as the TPU kernels keep them
-// in scratch across their sequential kv grid axis. The block loops over
-// [0, len) only; `rows` says where row p lies (see LinearRows, PagedRows).
+// Where the cache rows of one (kv head, batch row) lie: the `Rows`
+// interface of split_decode. k_row(p) and v_row(p) are the device
+// addresses of logical cache row p; a staged map (kStaged) first looks up
+// what its rows need, once per split, with stage(row0, row1, tid), called
+// by every thread of the block and followed by a barrier.
 // ---------------------------------------------------------------------------
 
 constexpr int kDecodeThreads = 256;
 // most outputs a thread owns: G * HD <= 2560 (10 query heads of 256)
 constexpr int kMaxDecodeOutputs = 10;
-
-// Dynamic shared memory of grouped_decode: the K and V tiles, q, the
-// [G, 64] logits and the running max, sum and correction per head.
-template <typename T, int HD>
-__host__ __device__ constexpr size_t decode_smem_bytes(int group) {
-    return sizeof(T) * pitch<T, HD>() * 2 * kTileRows +
-           sizeof(float) * (group * HD + group * kTileRows + 3 * group);
-}
 
 // Rows of a linear cache: row p of a kv head lies at base + p * stride.
 template <typename T>
@@ -253,11 +243,20 @@ struct LinearRows {
     __device__ const T* v_row(int p) const { return v + p * v_stride; }
 };
 
+// Shared ints PagedRows stages for a split of `rows` rows: the table
+// entries rows [row0, row0 + rows) touch, at most rows / bs + 2.
+__host__ __device__ constexpr int paged_ids(int rows, int block_size) {
+    return rows / block_size + 2;
+}
+
 // Rows of a paged pool: logical row p of a batch row lies at row p % bs of
 // pool block table[(start + p / bs) % W] (start = 0 for a paged row, the
 // row's ring start for a ring, where p counts ring slots). `stage` looks
-// up the 64 block ids of a tile once, into shared memory; a block id
-// outside the pool is clamped into it, so a bad table cannot fault.
+// up the block ids of the split's rows [row0, row1) once, into shared
+// memory (entry p / bs at blk_s[p / bs - first], first = row0 / bs), so
+// that every tile's cp.async copies find their ids before they are issued;
+// a block id outside the pool is clamped into it, so a bad table cannot
+// fault.
 template <typename T>
 struct PagedRows {
     const T* k;          // the kv head's slice of the K pool
@@ -265,178 +264,55 @@ struct PagedRows {
     int64_t k_block, k_row_stride, v_block, v_row_stride;
     const int* table;    // this batch row's [W] block ids
     int num_blocks, block_size, width, start;
-    int* blk_s;          // shared [64]: the tile's block ids
+    int first;           // the split's first table entry: row0 / bs
+    int* blk_s;          // shared [paged_ids(rows, bs)]: the split's ids
     static constexpr bool kStaged = true;
-    __device__ void stage(int row0, int len, int tid) const {
-        if (tid < kTileRows) {
-            const int p = row0 + tid;
-            int blk = 0;
-            if (p < len) {
-                int e = (start + p / block_size) % width;
-                e += e < 0 ? width : 0;
-                blk = min(max(table[e], 0), num_blocks - 1);
-            }
-            blk_s[tid] = blk;
+    __device__ void stage(int row0, int row1, int tid) const {
+        if (row1 <= row0) return;
+        const int last = (row1 - 1) / block_size;
+        for (int e = row0 / block_size + tid; e <= last; e += kDecodeThreads) {
+            int x = (start + e) % width;
+            x += x < 0 ? width : 0;
+            blk_s[e - first] = min(max(table[x], 0), num_blocks - 1);
         }
     }
     __device__ const T* k_row(int p) const {
-        return k + blk_s[p % kTileRows] * k_block +
+        return k + blk_s[p / block_size - first] * k_block +
                (p % block_size) * k_row_stride;
     }
     __device__ const T* v_row(int p) const {
-        return v + blk_s[p % kTileRows] * v_block +
+        return v + blk_s[p / block_size - first] * v_block +
                (p % block_size) * v_row_stride;
     }
 };
-
-// q: the block's first query head (G heads, qsh elements apart, each HD
-// contiguous); out: a contiguous [G, HD] destination; NO outputs per
-// thread (G * HD <= NO * kDecodeThreads). Every thread of the block calls
-// it; `smem` holds decode_smem_bytes<T, HD>(group) bytes.
-template <typename T, int HD, int NO, typename Rows>
-__device__ __forceinline__ void grouped_decode(const T* __restrict__ q,
-                                               int64_t qsh, int group, int len,
-                                               const Rows& rows, float scale,
-                                               T* __restrict__ out,
-                                               unsigned char* smem) {
-    constexpr int kThreads = kDecodeThreads;
-    constexpr int kWarps = kThreads / 32;
-    constexpr int kPitch = pitch<T, HD>();
-    T* k_tile = reinterpret_cast<T*>(smem);
-    T* v_tile = k_tile + kTileRows * kPitch;
-    float* q_s = reinterpret_cast<float*>(v_tile + kTileRows * kPitch);
-    float* p_s = q_s + group * HD;            // [G, 64] logits, then probs
-    float* m_s = p_s + group * kTileRows;     // [G] running max
-    float* l_s = m_s + group;                 // [G] running sum
-    float* c_s = l_s + group;                 // [G] this tile's correction
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nout = group * HD;
-
-    for (int i = tid; i < nout; i += kThreads) {
-        q_s[i] = to_f32(q[(i / HD) * qsh + i % HD]);
-    }
-    for (int g = tid; g < group; g += kThreads) {
-        m_s[g] = kNegInf;
-        l_s[g] = 0.f;
-    }
-
-    float acc[NO];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-
-    for (int k0 = 0; k0 < len; k0 += kTileRows) {
-        __syncthreads();   // q_s ready / the previous tile is consumed
-        if constexpr (Rows::kStaged) {
-            rows.stage(k0, len, tid);
-            __syncthreads();
-        }
-        load_rows<T, HD>(k_tile, [&](int p) { return rows.k_row(p); }, k0, len,
-                         tid, kThreads);
-        load_rows<T, HD>(v_tile, [&](int p) { return rows.v_row(p); }, k0, len,
-                         tid, kThreads);
-        __syncthreads();
-
-        // logits: one (head, cache row) pair per thread and step
-        for (int i = tid; i < group * kTileRows; i += kThreads) {
-            const int g = i / kTileRows;
-            const int t = i % kTileRows;
-            const float* qg = q_s + g * HD;
-            const T* kt = k_tile + t * kPitch;
-            float s = 0.f;
-#pragma unroll
-            for (int d = 0; d < HD; d += 8) {
-                float kv[8];
-                load8(kt + d, kv);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) s = fmaf(qg[d + e], kv[e], s);
-            }
-            p_s[i] = k0 + t < len ? s * scale : kNegInf;
-        }
-        __syncthreads();
-
-        // running max and sum: one warp per head, two logits per lane
-        for (int g = warp; g < group; g += kWarps) {
-            float* pg = p_s + g * kTileRows;
-            const float a = pg[lane];
-            const float c = pg[lane + 32];
-            float tmax = fmaxf(a, c);
-#pragma unroll
-            for (int o = 16; o > 0; o /= 2) {
-                tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-            }
-            const float m_old = m_s[g];
-            const float m_new = fmaxf(m_old, tmax);
-            const float pa = expf(a - m_new);
-            const float pc = expf(c - m_new);
-            pg[lane] = pa;
-            pg[lane + 32] = pc;
-            float sum = pa + pc;
-#pragma unroll
-            for (int o = 16; o > 0; o /= 2) {
-                sum += __shfl_xor_sync(0xffffffffu, sum, o);
-            }
-            if (lane == 0) {
-                const float corr = expf(m_old - m_new);
-                l_s[g] = l_s[g] * corr + sum;
-                m_s[g] = m_new;
-                c_s[g] = corr;
-            }
-        }
-        __syncthreads();
-
-        // acc = acc * corr + p @ v for the outputs this thread owns
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-            const int o = tid + i * kThreads;
-            if (o < nout) {
-                const int g = o / HD;
-                const int d = o % HD;
-                const float* pg = p_s + g * kTileRows;
-                float a = acc[i] * c_s[g];
-#pragma unroll 8
-                for (int t = 0; t < kTileRows; ++t) {
-                    a = fmaf(pg[t], to_f32(v_tile[t * kPitch + d]), a);
-                }
-                acc[i] = a;
-            }
-        }
-    }
-    __syncthreads();   // l_s is final (also when the row holds no token)
-
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-        const int o = tid + i * kThreads;
-        if (o < nout) {
-            store(out + o, acc[i] / fmaxf(l_s[o / HD], 1e-30f));
-        }
-    }
-}
 
 
 // ---------------------------------------------------------------------------
 // One chunk of a split one-token grouped decode (flash-decoding): the body
 // of one block, which serves one (kv head, batch row), its G query heads
-// and the cache rows [row0, row1) (all valid) of one split. It computes
-// what grouped_decode computes over those rows only, in f32: the chunk's
-// running max m_g, sum l_g and unnormalised accumulator acc_g, left in
-// shared memory (m, l) and in each thread's NO outputs (acc: outputs tid +
-// i * 256 of the flat [G, HD]). The caller normalises them, or writes them
-// out for the combine. K/V tiles go through a ring of 2 cp.async stages:
-// the next tile's copy is in flight while this tile is scored and
-// accumulated, and a stage is refilled behind the tile's first barrier.
-// In bf16 both products run on the tensor cores (mma.sync, f32
-// accumulators, the G heads padded to 16-row tiles): the logits from Q and
-// K fragments, each warp scoring 8 of a tile's 64 rows, and P V with P in
-// three bf16 terms (as in flash_attention.cu), each warp owning every 8th
-// 8-dim n-tile of the output; the fragments reach acc through shared
-// memory after the last tile. f32 inputs (the tests and the card-against-
-// CPU checks) take f32 FMAs, as grouped_decode: one (head, row) pair per
-// thread and step for the logits, NO outputs per thread for p @ v. `rows`
-// is a Rows as above (only unstaged rows: LinearRows; PagedRows would
-// stage its block ids ahead of each copy).
+// and the cache rows [row0, row1) (all valid) of one split. Over those
+// rows only, in f32,
+//     s_gj = (q_g . k_j) * scale,
+//     m_g = max_j s_gj,  l_g = sum_j exp(s_gj - m_g),
+//     acc_g = sum_j exp(s_gj - m_g) v_j,
+// with the running max, sum and accumulator carried across tiles of rows
+// as the TPU kernels carry them in scratch across their sequential kv grid
+// axis (logits of rows past the chunk in a tile are -1e30, and their V
+// rows are zero-filled). m and l are left in shared memory and acc in each
+// thread's NO outputs (outputs tid + i * 256 of the flat [G, HD]);
+// finish_split normalises them or combines them with the other chunks'.
+// A staged `rows` (PagedRows) stages the split's block ids first, behind
+// one barrier. K/V tiles go through a ring of 2 cp.async stages: the next
+// tile's copy is in flight while this tile is scored and accumulated, and
+// a stage is refilled behind the tile's first barrier. In bf16 both
+// products run on the tensor cores (mma.sync, f32 accumulators, the G
+// heads padded to 16-row tiles): the logits from Q and K fragments, each
+// warp scoring 8 of a tile's 64 rows, and P V with P in three bf16 terms
+// (as in flash_attention.cu), each warp owning every 8th 8-dim n-tile of
+// the output; the fragments reach acc through shared memory after the
+// last tile. f32 inputs (the tests and the card-against-CPU checks) take
+// f32 FMAs: one (head, row) pair per thread and step for the logits, NO
+// outputs per thread for p @ v.
 // ---------------------------------------------------------------------------
 
 // Cache rows per staged tile: 64, or 32 where two stages of 64-row K and
@@ -504,7 +380,6 @@ __device__ __forceinline__ void split_decode(const T* __restrict__ q,
                                              int row1, const Rows& rows,
                                              float scale, unsigned char* smem,
                                              float (&acc)[NO]) {
-    static_assert(!Rows::kStaged, "split_decode takes unstaged rows");
     constexpr int kThreads = kDecodeThreads;
     constexpr int kWarps = kThreads / 32;
     using Smem = SplitSmem<T, HD>;
@@ -524,6 +399,9 @@ __device__ __forceinline__ void split_decode(const T* __restrict__ q,
     const int ntiles = (row1 - row0 + kRows - 1) / kRows;
     const auto k_row = [&](int p) { return rows.k_row(p); };
     const auto v_row = [&](int p) { return rows.v_row(p); };
+
+    rows.stage(row0, row1, tid);   // the split's block ids, once
+    if constexpr (Rows::kStaged) __syncthreads();
 
     // the first kSplitStages - 1 tiles, one commit group each (empty past
     // the chunk), so that the wait below always leaves one group pending
@@ -757,6 +635,132 @@ __device__ __forceinline__ void split_decode(const T* __restrict__ q,
             acc[i] = x < nout ? sm.red[x] : 0.f;
         }
         __syncthreads();   // read before the caller reuses shared memory
+    }
+}
+
+
+// ---------------------------------------------------------------------------
+// The end of one split: after split_decode over chunk `split` of the
+// `active` chunks that start below the row's length. A row that fits one
+// chunk (and a row of length 0, which gives 0) is written by its block:
+// out = acc / max(l, 1e-30). Otherwise every working block writes its
+// partial (acc [G * HD], m [G], l [G]) in f32 to `partial` (this (row, kv
+// head)'s [active][G * (HD + 2)] scratch), fences, and takes a ticket
+// from `ticket`; the last to arrive combines, in the same launch:
+//     M = max_s m_s;
+//     out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)
+// reading the partials in split order (never arrival order), so the
+// result is deterministic, and resets the ticket to 0 for the next launch;
+// each of its threads has the loads of 4 splits in flight at once. `out`
+// is the contiguous [G, HD] destination; `smem` is split_decode's, which
+// the combine reuses: it holds at least combine_smem_bytes(active, G).
+// ---------------------------------------------------------------------------
+
+constexpr int kCombineSplits = 4;   // splits the combine loads at once
+
+// The combine's shared memory: [splits][G] maxima, sums and weights, [G]
+// denominators.
+__host__ __device__ constexpr size_t combine_smem_bytes(int splits,
+                                                        int group) {
+    return sizeof(float) * (3 * splits + 1) * group;
+}
+
+template <typename T, int HD, int NO>
+__device__ __forceinline__ void finish_split(const float (&acc)[NO],
+                                             int group, int split, int active,
+                                             float* __restrict__ partial,
+                                             int* __restrict__ ticket,
+                                             T* __restrict__ out,
+                                             unsigned char* smem) {
+    constexpr int kThreads = kDecodeThreads;
+    __shared__ int last;
+    const SplitSmem<T, HD> sm(smem, group);
+    const int tid = threadIdx.x;
+    const int nout = group * HD;
+    if (active == 1) {
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+            const int x = tid + i * kThreads;
+            if (x < nout) store(out + x, acc[i] / fmaxf(sm.l[x / HD], 1e-30f));
+        }
+        return;
+    }
+
+    const int stride = nout + 2 * group;
+    float* mine = partial + split * stride;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+        const int x = tid + i * kThreads;
+        if (x < nout) mine[x] = acc[i];
+    }
+    for (int g = tid; g < group; g += kThreads) {
+        mine[nout + g] = sm.m[g];
+        mine[nout + group + g] = sm.l[g];
+    }
+    __threadfence();   // the partial is visible before the ticket
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(ticket, 1) == active - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid == 0) *ticket = 0;   // ready for the next launch
+
+    // the combine, in split order; the body's shared memory is free again
+    float* ms = reinterpret_cast<float*>(smem);   // [active][G] maxima
+    float* ls = ms + active * group;              // [active][G] sums
+    float* w = ls + active * group;               // [active][G] weights
+    float* den = w + active * group;              // [G] denominators
+    for (int i = tid; i < active * group; i += kThreads) {
+        const float* ml = partial + (i / group) * stride + nout + i % group;
+        ms[i] = __ldcg(ml);
+        ls[i] = __ldcg(ml + group);
+    }
+    __syncthreads();
+    for (int g = tid; g < group; g += kThreads) {
+        float mx = kNegInf;
+        for (int s = 0; s < active; ++s) mx = fmaxf(mx, ms[s * group + g]);
+        float l = 0.f;
+        for (int s = 0; s < active; ++s) {
+            const float e = expf(ms[s * group + g] - mx);
+            w[s * group + g] = e;
+            l = fmaf(e, ls[s * group + g], l);
+        }
+        den[g] = fmaxf(l, 1e-30f);
+    }
+    __syncthreads();
+    float a[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) a[i] = 0.f;
+    for (int s0 = 0; s0 < active; s0 += kCombineSplits) {
+        // the loads of kCombineSplits splits in flight together, then the
+        // sums in split order
+        float part[kCombineSplits][NO];
+#pragma unroll
+        for (int j = 0; j < kCombineSplits; ++j) {
+#pragma unroll
+            for (int i = 0; i < NO; ++i) {
+                const int x = tid + i * kThreads;
+                part[j][i] = s0 + j < active && x < nout
+                                 ? __ldcg(partial + (s0 + j) * stride + x)
+                                 : 0.f;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kCombineSplits; ++j) {
+#pragma unroll
+            for (int i = 0; i < NO; ++i) {
+                const int x = tid + i * kThreads;
+                if (s0 + j < active && x < nout) {
+                    a[i] = fmaf(w[(s0 + j) * group + x / HD], part[j][i],
+                                a[i]);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+        const int x = tid + i * kThreads;
+        if (x < nout) store(out + x, a[i] / den[x / HD]);
     }
 }
 

@@ -37,16 +37,13 @@
 // per head; P V on the tensor cores as well, P in three bf16 terms (on
 // f32 FMAs for f32 inputs); NO of the G * hd outputs per thread (NO = 10
 // at G * hd = 2560). A block whose chunk starts at or past
-// lengths[b] returns at once. When the row's valid rows fit one chunk (and
-// for a row of length 0, which gives 0) that block writes the output
-// itself. Otherwise every working block writes its partial (m, l, acc)
-// in f32 to scratch, fences, and takes a ticket from an int32 counter per
-// (batch row, kv head); the last to arrive combines, in the same launch:
-//     M = max_s m_s;
-//     out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)
-// reading the partials in split order (never arrival order), so the
-// result is deterministic, and resets the counter to 0 for the next call;
-// each of its threads has the loads of 4 splits in flight at once.
+// lengths[b] returns at once. attn::finish_split ends the others: when the
+// row's valid rows fit one chunk (and for a row of length 0, which gives
+// 0) that block writes the output itself; otherwise every working block
+// writes its partial (m, l, acc) in f32 to scratch and takes a ticket
+// from an int32 counter per (batch row, kv head), and the last to arrive
+// combines the partials in split order in the same launch (deterministic)
+// and resets the counter to 0 for the next call.
 // The wrapper allocates the scratch (torch.empty) and the counters (once
 // per device, zeroed); the kernel launches on the caller's stream,
 // allocates nothing, and each entry point returns cudaGetLastError(). The
@@ -59,7 +56,6 @@ namespace {
 
 constexpr int kThreads = attn::kDecodeThreads;
 constexpr int kMaxSplits = 32;   // most splits of one row (the combine's)
-constexpr int kCombineSplits = 4;   // splits the combine loads at once
 
 struct Strides {
     int64_t b, t, h;   // elements between batch rows, positions, heads
@@ -70,7 +66,7 @@ struct Strides {
 template <typename T, int HD>
 size_t smem_bytes(int group) {
     const size_t body = attn::SplitSmem<T, HD>::bytes(group);
-    const size_t combine = sizeof(float) * (3 * kMaxSplits + 1) * group;
+    const size_t combine = attn::combine_smem_bytes(kMaxSplits, group);
     return body > combine ? body : combine;
 }
 
@@ -82,11 +78,9 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
            int64_t qsh, Strides ks, Strides vs, float scale, int split_rows,
            float* __restrict__ partial, int* __restrict__ tickets) {
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int last;
     const int kvh = blockIdx.x;
     const int b = blockIdx.y;
     const int split = blockIdx.z;
-    const int tid = threadIdx.x;
     const int len = min(max(lengths[b], 0), Tk);
     const int active = len == 0 ? 1 : (len + split_rows - 1) / split_rows;
     if (split >= active) return;
@@ -97,99 +91,11 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
     float acc[NO];
     attn::split_decode<T, HD, NO>(q + b * qsb + kvh * group * qsh, qsh,
                                   group, row0, row1, rows, scale, smem, acc);
-    const attn::SplitSmem<T, HD> sm(smem, group);
-    const int nout = group * HD;
-    T* o = out + (static_cast<int64_t>(b) * H + kvh * group) * HD;
-    if (active == 1) {
-#pragma unroll
-        for (int i = 0; i < NO; ++i) {
-            const int x = tid + i * kThreads;
-            if (x < nout) {
-                attn::store(o + x, acc[i] / fmaxf(sm.l[x / HD], 1e-30f));
-            }
-        }
-        return;
-    }
-
-    // this split's partial: [acc (G * HD), m (G), l (G)]
     const int64_t slot = static_cast<int64_t>(b) * gridDim.x + kvh;
-    const int stride = nout + 2 * group;
-    float* base = partial + slot * gridDim.z * stride;
-    float* mine = base + split * stride;
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-        const int x = tid + i * kThreads;
-        if (x < nout) mine[x] = acc[i];
-    }
-    for (int g = tid; g < group; g += kThreads) {
-        mine[nout + g] = sm.m[g];
-        mine[nout + group + g] = sm.l[g];
-    }
-    __threadfence();   // the partial is visible before the ticket
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(tickets + slot, 1) == active - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    if (tid == 0) tickets[slot] = 0;   // ready for the next launch
-
-    // the combine, in split order; the body's shared memory is free again
-    float* ms = reinterpret_cast<float*>(smem);   // [active][G] maxima
-    float* ls = ms + active * group;              // [active][G] sums
-    float* w = ls + active * group;               // [active][G] weights
-    float* den = w + active * group;              // [G] denominators
-    for (int i = tid; i < active * group; i += kThreads) {
-        const float* ml = base + (i / group) * stride + nout + i % group;
-        ms[i] = __ldcg(ml);
-        ls[i] = __ldcg(ml + group);
-    }
-    __syncthreads();
-    for (int g = tid; g < group; g += kThreads) {
-        float mx = attn::kNegInf;
-        for (int s = 0; s < active; ++s) mx = fmaxf(mx, ms[s * group + g]);
-        float l = 0.f;
-        for (int s = 0; s < active; ++s) {
-            const float e = expf(ms[s * group + g] - mx);
-            w[s * group + g] = e;
-            l = fmaf(e, ls[s * group + g], l);
-        }
-        den[g] = fmaxf(l, 1e-30f);
-    }
-    __syncthreads();
-    float a[NO];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) a[i] = 0.f;
-    for (int s0 = 0; s0 < active; s0 += kCombineSplits) {
-        // the loads of kCombineSplits splits in flight together, then the
-        // sums in split order
-        float part[kCombineSplits][NO];
-#pragma unroll
-        for (int j = 0; j < kCombineSplits; ++j) {
-#pragma unroll
-            for (int i = 0; i < NO; ++i) {
-                const int x = tid + i * kThreads;
-                part[j][i] = s0 + j < active && x < nout
-                                 ? __ldcg(base + (s0 + j) * stride + x)
-                                 : 0.f;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < kCombineSplits; ++j) {
-#pragma unroll
-            for (int i = 0; i < NO; ++i) {
-                const int x = tid + i * kThreads;
-                if (s0 + j < active && x < nout) {
-                    a[i] = fmaf(w[(s0 + j) * group + x / HD], part[j][i],
-                                a[i]);
-                }
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-        const int x = tid + i * kThreads;
-        if (x < nout) attn::store(o + x, a[i] / den[x / HD]);
-    }
+    attn::finish_split<T, HD, NO>(
+        acc, group, split, active,
+        partial + slot * gridDim.z * (group * (HD + 2)), tickets + slot,
+        out + (static_cast<int64_t>(b) * H + kvh * group) * HD, smem);
 }
 
 struct Args {

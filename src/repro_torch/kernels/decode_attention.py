@@ -18,10 +18,11 @@ same launch. `split_rows` depends on T, KV and hd only, never on B or on
 the lengths, so a row's result is bitwise the same alone or in any batch
 and the launch needs no host sync. The wrapper checks its inputs,
 allocates the output and the partials' scratch with `torch.empty`, keeps
-one zeroed int32 ticket counter per (batch row, kv head) per device (the
-kernel leaves them 0; two launches on different streams at once would
-share them), launches on the current stream and raises if the launch
-reports an error. `decode_attention_cuda.launches` counts its launches.
+one zeroed int32 ticket counter per (batch row, kv head) per device,
+which the paged and ring kernels share (each kernel leaves them 0; two
+launches on different streams at once would share them), launches on the
+current stream and raises if the launch reports an error.
+`decode_attention_cuda.launches` counts its launches.
 """
 from __future__ import annotations
 

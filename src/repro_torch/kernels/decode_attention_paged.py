@@ -13,11 +13,20 @@ numerics (-1e30, invalid V rows zeroed, f32 running max, sum and
 accumulator, out = acc / max(l, 1e-30)) and read q [B, H, hd] and the
 pool's layer slice [NB, bs, KV, hd] through their strides; the tables,
 ring starts and lengths are read on the device. The JAX wrappers repeat
-the tables per kv head for a [B*KV] grid; here one block serves one (kv
-head, batch row) and reads the row's table directly. Each wrapper checks
-its inputs, allocates the output with `torch.empty`, launches on the
-current stream and raises if the launch reports an error; `.launches`
-counts its launches.
+the tables per kv head for a [B*KV] grid; here a block reads the row's
+table directly.
+
+Like the linear decode kernel, it splits a row's cache across blocks:
+each block takes `paged_split_rows(hd)` logical rows (ring slots) of one
+(batch row, kv head), looks up their block ids once, and the last block
+of a row to finish combines the splits' partials in the same launch. The
+chunk depends on hd only, never on the table's width (which the serving
+engine changes as rows join, leave and grow), the batch or the lengths,
+so a row's result is bitwise the same under any table width and in any
+batch. Each wrapper checks its inputs, allocates the output and the
+partials' scratch with `torch.empty`, shares the linear kernel's zeroed
+per-device ticket counters, launches on the current stream and raises
+if the launch reports an error; `.launches` counts its launches.
 """
 from __future__ import annotations
 
@@ -28,14 +37,31 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import MAX_GROUP_WIDTH
+from repro_torch.kernels.decode_attention import (MAX_GROUP_WIDTH,
+                                                  MIN_SPLIT_ROWS,
+                                                  MIN_SPLIT_VALUES, _tickets)
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_int_vector,
                                                  check_operand)
 
 _ENTRY = {torch.float32: "decode_attention_paged_f32",
           torch.bfloat16: "decode_attention_paged_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3)
+
+
+def paged_split_rows(hd):
+    """Logical rows (ring slots) per block of the paged and ring kernels:
+    the linear kernel's floor, at least 128 rows and 8192 K values of a
+    head, a multiple of 64. It depends on hd only: never on the table's
+    width, the batch or the lengths."""
+    rows = max(MIN_SPLIT_ROWS, MIN_SPLIT_VALUES // hd)
+    return -(-rows // 64) * 64
+
+
+def paged_num_splits(cap, hd):
+    """Blocks the kernel gives one (batch row, kv head) whose rows can
+    reach `cap` (W * bs, or min(window, W * bs) for a ring)."""
+    return max(1, -(-cap // paged_split_rows(hd)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,6 +119,13 @@ def _launch(wrapper, q, k_pool, v_pool, block_tables, ring_starts, lengths,
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else float(1.0 / math.sqrt(hd))
+    cap = w * bs if window == 0 else min(window, w * bs)
+    rows, splits = paged_split_rows(hd), paged_num_splits(cap, hd)
+    partial = tickets = None
+    if splits > 1:      # each split's (acc [G, hd], m [G], l [G]) in f32
+        partial = torch.empty(b * kv * splits * (h // kv) * (hd + 2),
+                              dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, b * kv)
     fn = _entry(q.dtype)
     starts = 0 if ring_starts is None else ring_starts.data_ptr()
     with torch.cuda.device(q.device):
@@ -101,7 +134,9 @@ def _launch(wrapper, q, k_pool, v_pool, block_tables, ring_starts, lengths,
                  block_tables.data_ptr(), starts, lengths.data_ptr(),
                  out.data_ptr(), b, h, kv, hd, nb, bs, w, window,
                  *q.stride()[:2], *k_pool.stride()[:3],
-                 *v_pool.stride()[:3], scale, stream)
+                 *v_pool.stride()[:3], scale, rows,
+                 None if partial is None else partial.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_paged kernel launch failed: "
                            f"CUDA error {err}")

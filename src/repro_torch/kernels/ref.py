@@ -172,6 +172,15 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, *, lengths,
                             lengths=lengths, scale=scale)
 
 
+def ring_order(block_tables, ring_starts):
+    """Undo each row's table rotation: ring block bi of row b sits at table
+    entry (ring_starts[b] + bi) % W; returns the tables in ring order."""
+    b, w = block_tables.shape
+    order = (ring_starts.long().reshape(b, 1)
+             + torch.arange(w, device=block_tables.device)[None]) % w
+    return torch.gather(block_tables.long(), 1, order)
+
+
 def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
                           lengths, window, scale=None):
     """One-token GQA decode over a sliding-window ring of blocks (the TPU
@@ -185,13 +194,37 @@ def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
     q: [B, H, hd]; pools [NB, bs, KV, hd]; block_tables: int [B, W];
     ring_starts, lengths: int [B]. Returns [B, H, hd] in q's dtype.
     """
-    b, w = block_tables.shape
-    order = (ring_starts.long().reshape(b, 1)
-             + torch.arange(w, device=block_tables.device)[None]) % w
-    ring = torch.gather(block_tables.long(), 1, order)
-    return decode_attention_paged(q, k_pool, v_pool, ring,
+    return decode_attention_paged(q, k_pool, v_pool,
+                                  ring_order(block_tables, ring_starts),
                                   lengths=torch.clamp(lengths, max=window),
                                   scale=scale)
+
+
+def decode_attention_paged_split(q, k_pool, v_pool, block_tables, *, lengths,
+                                 split_rows, ring_starts=None, window=0,
+                                 scale=None):
+    """`decode_attention_paged` (window 0) or `decode_attention_ring`
+    (window > 0, with ring_starts) by the paged kernel's split-and-combine
+    arithmetic (the tests hold it against both and the TPU kernels; the
+    card runs the kernel): the row's blocks gathered in logical (ring-
+    slot) order into a linear cache of W * bs rows, each row's length
+    capped where the kernel caps it (at W * bs, and at the window for a
+    ring), then `decode_attention_split` over chunks of `split_rows`, one
+    batch row at a time as the kernel's blocks take them (PyTorch's CPU
+    matmul rounds a batch of rows otherwise than one row alone), so that
+    a row's bits depend neither on the batch nor on the table's width.
+    Shapes as `decode_attention_paged`.
+    """
+    cap = block_tables.shape[1] * k_pool.shape[1]
+    if window:
+        block_tables = ring_order(block_tables, ring_starts)
+        cap = min(cap, window)
+    lengths = torch.clamp(lengths, 0, cap)
+    return torch.cat([decode_attention_split(
+        q[i:i + 1], gather_pages(k_pool, block_tables[i:i + 1]),
+        gather_pages(v_pool, block_tables[i:i + 1]),
+        lengths=lengths[i:i + 1], split_rows=split_rows, scale=scale)
+        for i in range(q.shape[0])])
 
 
 def rwkv6(r, k, v, w, u, state=None):

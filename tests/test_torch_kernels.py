@@ -13,7 +13,11 @@ combine arithmetic (`ref.decode_attention_split`, chunks of
 the JAX kernel in interpret mode. The plain paged and ring decode
 versions (`ref.decode_attention_paged`, `ref.decode_attention_ring`) are
 held against the JAX Pallas kernels in interpret mode and the JAX oracles
-at 1e-6 in f32 (within one bf16 ulp in bf16). The plain WKV recurrence
+at 1e-6 in f32 (within one bf16 ulp in bf16), and the paged kernel's
+split arithmetic for the pool layouts (`ref.decode_attention_paged_split`,
+chunks of `paged_split_rows(hd)` rows) against them, the JAX kernels and
+oracles at 1e-5 (one bf16 ulp + 1e-5 in bf16), at every split and tile
+edge and bitwise under a wider table and alone. The plain WKV recurrence
 (`ref.rwkv6`) and the plain RG-LRU recurrence (`ref.rglru`) are held
 against the JAX oracles and TPU kernels in `tests/test_torch_rwkv.py` and
 `tests/test_torch_recurrentgemma.py`; here their CUDA kernels are held
@@ -32,11 +36,13 @@ torch = pytest.importorskip("torch")
 # parallel test workers from oversubscribing the CPU
 torch.set_num_threads(1)
 
+from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, num_splits, split_rows)
 from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
-    decode_attention_paged_cuda, decode_attention_ring_cuda)
+    decode_attention_paged_cuda, decode_attention_ring_cuda, paged_num_splits,
+    paged_split_rows)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
@@ -495,6 +501,188 @@ def test_ops_sends_cpu_paged_attention_to_ref_without_launching():
             decode_attention_ring_cuda.launches) == before
 
 
+# ---- the paged and ring kernel's split arithmetic, on the CPU ----
+
+# (layout, bs, W, window): the ring's window binds inside the table
+POOL_SPLIT_CASES = [("paged", 4, 80, 0), ("paged", 8, 40, 0),
+                    ("paged", 16, 20, 0), ("paged", 3, 100, 0),
+                    ("ring", 16, 20, 300), ("ring", 8, 40, 320)]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_paged_split_rows_is_a_multiple_of_64_from_hd_only(hd):
+    """The paged kernel's chunk: a multiple of 64 rows, at least 128 and
+    8192 K values of a head, a function of hd alone (never of the
+    table's width, which the engine changes as rows come and go, of the
+    batch or of the lengths); at qwen2's widths it is the linear kernel's
+    chunk at the arena's 512 rows, so an identity table can reproduce the
+    linear kernel bitwise."""
+    import inspect
+    assert list(inspect.signature(paged_split_rows).parameters) == ["hd"]
+    rows = paged_split_rows(hd)
+    assert rows % 64 == 0 and rows >= 128 and rows * hd >= 8192
+    for cap in (1, 63, 64, 65, rows, rows + 1, 4096, 40 * rows + 5):
+        assert paged_num_splits(cap, hd) == max(1, -(-cap // rows))
+    assert paged_split_rows(64) == split_rows(512, 2, 64) == 128
+    assert paged_num_splits(512, 64) == 4 and paged_num_splits(4096, 64) == 32
+
+
+def _pool_split_case(seed, layout, bs, w, window, dtype, h=4, kv=2, hd=64):
+    """A pool, random disjoint tables [B, W] (trailing entries of short
+    paged rows on the null block), random ring starts, and one row at each
+    split and tile edge: lengths 0, 1, 63, 64, 65, R, R + 1, the cap and
+    past the cap (a ring row past its window has wrapped)."""
+    rows = paged_split_rows(hd)
+    cap = w * bs if layout == "paged" else min(window, w * bs)
+    lengths = np.array([0, 1, 63, 64, 65, rows, rows + 1, cap, cap + 37],
+                       np.int32)
+    b = len(lengths)
+    nb = 1 + b * w
+    (q, kp, vp), (tq, tkp, tvp) = _paged_inputs(seed, b, h, kv, hd, bs, nb,
+                                                dtype)
+    rng = np.random.default_rng(seed)
+    tables = (rng.permutation(nb - 1) + 1)[:b * w].reshape(b, w)
+    starts = rng.integers(0, w, b).astype(np.int32)
+    if layout == "paged":
+        for i, n in enumerate(lengths):
+            tables[i, (int(n) + bs - 1) // bs:] = 0
+        starts = None
+    return ((q, kp, vp), (tq, tkp, tvp), tables.astype(np.int32), starts,
+            lengths, rows)
+
+
+def _pool_split(tq, tkp, tvp, tables, starts, lengths, rows, window):
+    """The plain split arithmetic for the pool layouts, numpy in."""
+    ring = {} if starts is None else dict(
+        ring_starts=torch.from_numpy(starts), window=window)
+    return ref.decode_attention_paged_split(
+        tq, tkp, tvp, torch.from_numpy(tables),
+        lengths=torch.from_numpy(lengths), split_rows=rows, **ring)
+
+
+def _pool_plain(tq, tkp, tvp, tables, starts, lengths, window):
+    """The plain (unsplit) paged or ring version, numpy in."""
+    if starts is None:
+        return ref.decode_attention_paged(tq, tkp, tvp,
+                                          torch.from_numpy(tables),
+                                          lengths=torch.from_numpy(lengths))
+    return ref.decode_attention_ring(
+        tq, tkp, tvp, torch.from_numpy(tables),
+        ring_starts=torch.from_numpy(starts),
+        lengths=torch.from_numpy(lengths), window=window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout,bs,w,window", POOL_SPLIT_CASES)
+def test_pool_split_plain_at_split_and_tile_edges(dtype, layout, bs, w,
+                                                  window):
+    """Every edge of a chunk and a 64-row tile, for block sizes that do
+    and do not divide 64, against the plain paged and ring versions: f32
+    to 1e-5, bf16 within one bf16 ulp + 1e-5 (both round one f32 value
+    once, summed in another order); a row of length 0 gives 0."""
+    _, (tq, tkp, tvp), tables, starts, lengths, rows = _pool_split_case(
+        bs + w, layout, bs, w, window, dtype)
+    got = _pool_split(tq, tkp, tvp, tables, starts, lengths, rows, window)
+    want = _pool_plain(tq, tkp, tvp, tables, starts, lengths, window)
+    assert got.dtype == tq.dtype and got.shape == want.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    got, want = got.float().numpy(), want.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want) + 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_pool_split_plain_matches_jax_kernel_and_oracle(jx, dtype, layout):
+    """The split arithmetic for the pool layouts against the TPU kernels in
+    interpret mode and the JAX oracles, with rows of several chunks (f32 to
+    1e-5; bf16 within one bf16 ulp + 1e-5). The row of length 0 is held
+    against the kernel only: the JAX oracles average V there."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    bs, w, window = 16, 20, 300
+    (q, kp, vp), (tq, tkp, tvp), tables, starts, lengths, rows = \
+        _pool_split_case(15, layout, bs, w, window, dtype)
+    got = _pool_split(tq, tkp, tvp, tables, starts, lengths, rows, window)
+    jdt = getattr(jnp, dtype)
+    jq, jkp, jvp = (jnp.asarray(a, jdt) for a in (q, kp, vp))
+    jt, jl = jnp.asarray(tables), jnp.asarray(lengths)
+    if layout == "paged":
+        wants = [jax_ops.decode_attention_paged(jq, jkp, jvp, jt, jl,
+                                                interpret=True),
+                 jax_ref.decode_attention_paged(jq, jkp, jvp, jt, jl)]
+    else:
+        js = jnp.asarray(starts)
+        wants = [jax_ops.decode_attention_ring(jq, jkp, jvp, jt, js, jl,
+                                               window=window, interpret=True),
+                 jax_ref.decode_attention_ring(jq, jkp, jvp, jt, js, jl,
+                                               window=window)]
+    for want, first in zip(wants, (0, 1)):
+        want = np.asarray(want, np.float32)[first:]
+        g = got[first:].float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert np.all(np.abs(g - want) <= _bf16_ulp(want) + 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_pool_split_plain_is_bitwise_invariant_to_width_and_batch(layout):
+    """A row's chunks do not depend on the table's width or the batch: its
+    output is bitwise the same under a table of width W and of 2W (the
+    extra entries null; a ring in its unrotated order, starts 0), and
+    alone or in the batch."""
+    bs, w, window = 8, 40, 320
+    _, (tq, tkp, tvp), tables, starts, lengths, rows = _pool_split_case(
+        16, layout, bs, w, window, "float32")
+    base = _pool_split(tq, tkp, tvp, tables, starts, lengths, rows, window)
+    flat = tables
+    if starts is not None:
+        flat = ref.ring_order(torch.from_numpy(tables),
+                               torch.from_numpy(starts)).int().numpy()
+    wide = np.concatenate([flat, np.zeros_like(flat)], axis=1)
+    zeros = None if starts is None else np.zeros_like(starts)
+    # past the cap the wider table holds more rows: those rows differ
+    keep = lengths <= w * bs
+    got = _pool_split(tq, tkp, tvp, wide, zeros, lengths, rows, window)
+    assert torch.equal(got[keep], base[keep])
+    for i in range(len(lengths)):
+        one = None if starts is None else starts[i:i + 1]
+        alone = _pool_split(tq[i:i + 1], tkp, tvp, tables[i:i + 1], one,
+                            lengths[i:i + 1], rows, window)
+        assert torch.equal(alone[0], base[i]), i
+
+
+def test_ring_split_plain_rotation_invariant_and_narrow_table(jx):
+    """Rotating (table, start) together leaves the split arithmetic
+    bitwise unchanged; a table narrower than the ring (W * bs < window)
+    caps the rows at W * bs, as the JAX oracle does."""
+    _, jax_ref = jx
+    import jax.numpy as jnp
+    bs, w, window = 8, 40, 320
+    _, (tq, tkp, tvp), tables, starts, lengths, rows = _pool_split_case(
+        17, "ring", bs, w, window, "float32")
+    base = _pool_split(tq, tkp, tvp, tables, starts, lengths, rows, window)
+    for s in (1, w // 2, w - 1):
+        rot = np.roll(tables, s, axis=1)
+        out = _pool_split(tq, tkp, tvp, rot, (starts + s) % w, lengths, rows,
+                          window)
+        assert torch.equal(out, base)
+    narrow = tables[:, :20]       # W * bs = 160 < window
+    (q, kp, vp), _, _, _, _, _ = _pool_split_case(17, "ring", bs, w, window,
+                                                  "float32")
+    starts = starts % 20
+    got = _pool_split(tq, tkp, tvp, narrow, starts, lengths, rows, window)
+    want = jax_ref.decode_attention_ring(
+        *(jnp.asarray(a, jnp.float32) for a in (q, kp, vp)),
+        jnp.asarray(narrow), jnp.asarray(starts), jnp.asarray(lengths),
+        window=window)
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(want)[1:],
+                               rtol=1e-5, atol=1e-5)
+
+
 # ---- on the card ----
 
 
@@ -733,11 +921,14 @@ def _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype):
     (3, 4, 2, 32, 8, 6),      # smoke head_dim, ragged tile
     (2, 16, 2, 128, 4, 40),   # 8 heads of 128 per kv head, tiny blocks
     (3, 10, 1, 256, 16, 8),   # G * hd = 2560 (the shared decode body)
+    (2, 14, 2, 64, 16, 300),  # 38 splits of 128 rows (more than 32)
 ])
 def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, b, h, kv,
                                                     hd, bs, w):
     """Lengths from 0 to past the table (a dead row drifted beyond W * bs
-    attends to the whole table, as in the plain version)."""
+    attends to the whole table, as in the plain version); the kernel also
+    matches the plain form of its split arithmetic, and leaves the ticket
+    counters at 0."""
     gen = torch.Generator(device=cuda).manual_seed(b * w + hd)
     q, kp, vp, tables = _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype)
     lengths = torch.randint(0, w * bs + 1, (b,), generator=gen, device=cuda,
@@ -752,15 +943,25 @@ def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, b, h, kv,
     assert decode_attention_cuda.launches == before[1]
     want = ref.decode_attention_paged(q, kp, vp, tables, lengths=lengths)
     _assert_kernel_close(got, want, dtype)
+    _assert_kernel_close(got, ref.decode_attention_paged_split(
+        q, kp, vp, tables, lengths=lengths,
+        split_rows=paged_split_rows(hd)), dtype)
+    assert _tickets_are_zero()
+
+
+def _tickets_are_zero():
+    """The decode kernels' shared ticket counters, all back at 0."""
+    return all(not bool(t.any()) for t in dattn._TICKETS.values())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bs,window", [(16, 256), (8, 40)])
+@pytest.mark.parametrize("bs,window", [(16, 256), (8, 40), (16, 4600)])
 def test_ring_kernel_matches_plain_and_is_rotation_invariant_on_card(
         cuda, dtype, bs, window):
-    """Unwrapped, part-filled and wrapped rows; rotating (table, start)
-    together leaves the kernel's output bitwise unchanged."""
+    """Unwrapped, part-filled and wrapped rows (a window of 4600 takes 36
+    splits); rotating (table, start) together leaves the kernel's output
+    bitwise unchanged."""
     b, h, kv, hd = 4, 14, 2, 64
     w = -(-window // bs)
     gen = torch.Generator(device=cuda).manual_seed(window)
@@ -782,6 +983,85 @@ def test_ring_kernel_matches_plain_and_is_rotation_invariant_on_card(
         out = ops.decode_attention_ring(q, kp, vp, rot, ring_starts=starts,
                                         lengths=lengths, window=window)
         assert torch.equal(out, base)
+    assert _tickets_are_zero()
+
+
+def _card_pool_split_case(cuda, seed, layout, bs, w, window, dtype):
+    """_pool_split_case's operands (14 query heads over 2 kv heads of 64)
+    on the card."""
+    _, (tq, tkp, tvp), tables, starts, lengths, rows = _pool_split_case(
+        seed, layout, bs, w, window, {torch.float32: "float32",
+                                      torch.bfloat16: "bfloat16"}[dtype],
+        h=14)
+    ring = {} if starts is None else dict(
+        ring_starts=torch.from_numpy(starts).to(cuda), window=window)
+    return ((tq.to(cuda), tkp.to(cuda), tvp.to(cuda)),
+            torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(lengths).to(cuda), ring, rows)
+
+
+def _pool_kernel(q, kp, vp, tables, lengths, ring):
+    if ring:
+        return ops.decode_attention_ring(q, kp, vp, tables, lengths=lengths,
+                                         **ring)
+    return ops.decode_attention_paged(q, kp, vp, tables, lengths=lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,bs,w,window", POOL_SPLIT_CASES)
+def test_pool_kernel_split_edges_on_card(cuda, dtype, layout, bs, w, window):
+    """Rows at every split and tile edge (lengths 0, 1, 63, 64, 65, R,
+    R + 1, the cap, past it), block sizes 3, 4, 8 and 16: the kernel
+    against the plain paged or ring version and the plain form of its
+    split arithmetic; a row of length 0 gives 0; the tickets end at 0."""
+    (q, kp, vp), tables, lengths, ring, rows = _card_pool_split_case(
+        cuda, bs + w, layout, bs, w, window, dtype)
+    got = _pool_kernel(q, kp, vp, tables, lengths, ring)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    if ring:
+        want = ref.decode_attention_ring(q, kp, vp, tables, lengths=lengths,
+                                         **ring)
+    else:
+        want = ref.decode_attention_paged(q, kp, vp, tables, lengths=lengths)
+    _assert_kernel_close(got, want, dtype)
+    _assert_kernel_close(got, ref.decode_attention_paged_split(
+        q, kp, vp, tables, lengths=lengths, split_rows=rows, **ring), dtype)
+    assert _tickets_are_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_pool_kernel_bitwise_invariant_to_width_and_batch_on_card(
+        cuda, dtype, layout):
+    """A row's output is bitwise the same under a table of width W and of
+    2W (the extra entries null; a ring in unrotated order, starts 0), alone
+    and in the batch of 9, and in two calls; the tickets end at 0."""
+    bs, w, window = 8, 40, 320
+    (q, kp, vp), tables, lengths, ring, _ = _card_pool_split_case(
+        cuda, 16, layout, bs, w, window, dtype)
+    base = _pool_kernel(q, kp, vp, tables, lengths, ring)
+    assert torch.equal(_pool_kernel(q, kp, vp, tables, lengths, ring), base)
+    flat = tables
+    wide_ring = {}
+    if ring:
+        flat = ref.ring_order(tables, ring["ring_starts"]).int()
+        wide_ring = dict(ring_starts=torch.zeros_like(ring["ring_starts"]),
+                         window=window)
+    wide = torch.cat([flat, torch.zeros_like(flat)], dim=1).contiguous()
+    keep = lengths <= w * bs
+    got = _pool_kernel(q, kp, vp, wide, lengths, wide_ring)
+    assert torch.equal(got[keep], base[keep])
+    for i in range(lengths.numel()):
+        one = {k: (v[i:i + 1] if torch.is_tensor(v) else v)
+               for k, v in ring.items()}
+        alone = _pool_kernel(q[i:i + 1], kp, vp, tables[i:i + 1].contiguous(),
+                             lengths[i:i + 1], one)
+        assert torch.equal(alone[0], base[i]), i
+    torch.cuda.synchronize()
+    assert _tickets_are_zero()
 
 
 @pytest.mark.cuda
@@ -789,7 +1069,8 @@ def test_ring_kernel_matches_plain_and_is_rotation_invariant_on_card(
 def test_paged_kernel_with_identity_table_equals_linear_kernel(cuda, dtype):
     """The arena cut into blocks of 16 under an identity table: the paged
     kernel and the linear decode kernel agree within one bf16 ulp (they
-    share one body and one tile order)."""
+    share one body, one tile order and, at R = 128 rows a split, one
+    chunking and combine)."""
     b, t, h, kv, hd, bs = 8, 512, 14, 2, 64, 16
     gen = torch.Generator(device=cuda).manual_seed(7)
     q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
