@@ -12,9 +12,9 @@ non-zero before the last line:
      rglru_scan), compiled from the sources
      in this checkout, all at once (the old libraries are removed
      first), with ptxas's registers and spills, and for every
-     instantiation of the flash, decode and paged decode kernels its
-     registers, spills and static shared bytes, beside the dynamic shared
-     bytes a launch asks for;
+     instantiation of the flash, decode, paged decode, WKV and RG-LRU
+     kernels its registers, spills and static shared bytes, beside the
+     dynamic shared bytes a launch asks for;
   3. kernels: each kernel against its plain PyTorch version at its main
      path's shapes and one larger case, with timings (device time from
      torch.profiler, and CUDA events around back-to-back calls, which
@@ -73,29 +73,38 @@ non-zero before the last line:
  13. paged reference: the smoke config in f32 on the card and on the CPU,
      paged, paged with preemption and ring-paged: logits within 1e-4,
      equal tokens, equal preemption counts;
- 14. WKV kernel: the rwkv6_scan library built (phase 2), then the kernel
-     against its plain version in bf16 and f32 at rwkv6-1.6b's shapes
-     (32 heads of 64, in the model's [B, S, H, hd] layout): a 200-token
-     prefill, a decode step of 8 rows from a random state, and a
-     4096-token prompt, also run in 8 pieces with the state carried,
-     which must equal one pass bitwise; timed as in phase 3;
+ 14. WKV kernel: the rwkv6_scan library built (phase 2) and its ptxas
+     lines, then the kernel against its plain version in bf16 and f32 at
+     rwkv6-1.6b's shapes (32 heads of 64, in the model's [B, S, H, hd]
+     layout): a 200-token prefill, a decode step of 8 rows from a random
+     state, a 4096-token prompt, also run in 8 pieces with the state
+     carried, which must equal one pass bitwise, a chunk boundary (S =
+     128), one S on each side of the chunked body's threshold, head_dim
+     32, and strong decays (w0 = 0, +1, +2, held to the reference's
+     chunked-form bound of 1e-3); each case with its body and device
+     launches a call; timed as in phase 3;
  15. RWKV6 serving main path: `repro_torch.launch.serve --arch
      rwkv6-1.6b` at full width on phase 7's workload, counts reset just
      before and read just after (24 rwkv6_scan launches per admission and
-     per decode step, no attention kernel), every prompt prefilled at its
+     per decode step, no attention kernel; beside them the device launches
+     its bodies make), every prompt prefilled at its
      exact length, every request served to its budget, and two requests
      re-served alone giving the same tokens;
  16. RWKV6 reference: the smoke config in f32 on the card and on the CPU
-     from one set of parameters: prefill_into_slot, a readmission over a
+     from one set of parameters: prefill_into_slot (one prompt of 100
+     tokens, so the chunked body), a readmission over a
      used slot and 8 decode_rows steps (logits within 1e-4, states within
      1e-4 + 1e-5 of their size), and an engine whose tokens must be equal;
  17. RWKV6 serving profile: 8 steady decode steps at full width under
-     torch.profiler: device time by kernel, launches per step, busy share;
- 18. RG-LRU kernel and attention at head_dim 256: the rglru_scan kernel
-     against its plain version (bitwise, f32 and bf16 out) at
-     recurrentgemma-2b's width (2560): a 200-token prefill, a decode step
-     of 8 rows from a random state, and a 4096-step prompt, also in 8
-     pieces with the state carried, which must equal one pass bitwise;
+     torch.profiler: device time by kernel, launches per step, busy share,
+     and the admission round before them: the WKV kernel's wrapper calls
+     and device launches per admission and per step;
+ 18. RG-LRU kernel and attention at head_dim 256: the fused rglru_scan
+     kernel (gate math and recurrence) and its ptxas lines, against its
+     plain version (bitwise, bf16 and f32) at recurrentgemma-2b's width
+     (2560): a 200-token prefill, a decode step of 8 rows from a random
+     state, and a 4096-step prompt, also in 8 pieces with the state
+     carried, which must equal one pass bitwise;
      flash prefill with 10 query heads of 256 over 1 kv head (200 tokens,
      and 3,000 under the 2048-token window, which binds) and grouped
      decode at G * hd = 2560 (a 512-slot ring, lengths spread, a full
@@ -118,8 +127,9 @@ non-zero before the last line:
      be equal; then recurrentgemma-2b's widths (d_model 2560, 10:1 heads
      of 256, RG-LRU 2560, d_ff 7680) cut to 3 layers and vocab 512;
  21. hybrid serving profile: 8 steady decode steps at full width under
-     torch.profiler: launches per step, device ms, busy share and the
-     RG-LRU kernel's time per launch in the model.
+     torch.profiler: launches per step, device ms, busy share, the RG-LRU
+     kernel's time per launch in the model, and its wrapper calls and
+     device launches per admission and per step.
 
 Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -146,7 +156,8 @@ from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.trainer import init_train_state, make_train_step  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels import decode_attention as dattn  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
+from repro_torch.kernels import tickets as ticket_pool  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, num_splits, split_rows)
 from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
@@ -165,6 +176,7 @@ from repro_torch.serve import Engine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 COUNTERS = {"prox_update": prox_update_cuda,
             "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda,
@@ -252,13 +264,58 @@ def queued_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, one_kernel=False, attempts=4):
+PAD_KERNEL = "spin_kernel"     # the kernel of torch.cuda._sleep
+PAD_LAUNCHES = 128
+
+
+def pad_profile():
+    """Sleeps that bracket what a profile counts: late in a long run the
+    profiler drops device events at a profile's edge (8 to 22 by phase
+    18), or every event of a short profile, so a count is taken between
+    PAD_LAUNCHES sleeps on each side, which every count leaves out by
+    name (PAD_KERNEL)."""
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(100)
+
+
+def device_launches(fn, calls=50, attempts=4):
+    """Device launches a call of fn(), after one warm-up call: each
+    kernel's count over `calls` calls in one profile between
+    pad_profile()'s sleeps, divided by `calls` and rounded (a profile may
+    lose a few events at its edge, never half of one kernel's), summed
+    over the kernels. A profile that recorded no event of fn at all is
+    taken again, up to `attempts` times; then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profile()
+            for _ in range(calls):
+                fn()
+            pad_profile()
+            torch.cuda.synchronize()
+        counts = [ev.count for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA
+                  and PAD_KERNEL not in ev.key]
+        if counts:
+            return sum(round(n / calls) for n in counts)
+        print("device_launches: the profile recorded no device event of "
+              "the calls; again", flush=True)
+    raise AssertionError("device_launches: no profile recorded a device "
+                         "event of the calls")
+
+
+def device_ms(fn, iters, one_kernel=False, attempts=4, launches=None):
     """Mean device ms per call of fn(): the time of every kernel and copy
     it launched, from torch.profiler's device events (no host gaps), after
     one warm-up. Late in a long run the profiler drops the first device
     events of a profile, a count that grows over the run (12 to 22 by
     phase 18), so for a fn that launches one kernel (`one_kernel`, a
-    kernel's wrapper) the time is the mean per recorded event. A profile
+    kernel's wrapper), or `launches` kernels (counted by
+    device_launches), the time is the mean per recorded event. A profile
     that recorded no device event is taken again, up to `attempts` times;
     when none did, or one kept fewer than half the events of its calls
     (counted in a profile of one call), the calls are timed queued
@@ -278,7 +335,7 @@ def device_ms(fn, iters, one_kernel=False, attempts=4):
 
     fn()
     torch.cuda.synchronize()
-    per_call = 1 if one_kernel else 0
+    per_call = launches or (1 if one_kernel else 0)
     for _ in range(attempts):
         if not per_call:
             per_call = device_events(1)[1]
@@ -306,10 +363,13 @@ def device_ms(fn, iters, one_kernel=False, attempts=4):
     return queued_ms(fn, iters)
 
 
-def timings(fn, plain, library, iters):
+def timings(fn, plain, library, iters, one_kernel=True, launches=None):
     """Device ms (profiler) and event ms of fn, of its plain version and of
-    the library call (None where there is none)."""
-    t = {"kernel_ms": device_ms(fn, iters, one_kernel=True),
+    the library call (None where there is none); `one_kernel`: fn makes
+    one device launch, `launches`: fn makes that many (else its launches
+    are counted in a profile)."""
+    t = {"kernel_ms": device_ms(fn, iters, one_kernel=one_kernel,
+                                launches=launches),
          "event_ms": event_ms(fn, iters),
          "plain_ms": device_ms(plain, 3), "plain_event_ms": event_ms(plain, 3),
          "library_ms": None, "library_event_ms": None}
@@ -656,14 +716,38 @@ def serving_reference_check():
         raise AssertionError(f"card and CPU serving logits differ by {worst}")
 
 
+def launches_by_kernel(prof):
+    """Device launches in a profile (pad_profile()'s sleeps left out): the
+    total, and the sums over the WKV kernels (`wkv_fwd`, the name every
+    body's kernels share) and the RG-LRU kernel (`rglru_fwd`)."""
+    from torch.autograd import DeviceType
+
+    out = {"total": 0, "wkv_fwd": 0, "rglru_fwd": 0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or PAD_KERNEL in ev.key:
+            continue
+        out["total"] += ev.count
+        for key in ("wkv_fwd", "rglru_fwd"):
+            if key in ev.key:
+                out[key] += ev.count
+    return out
+
+
 def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
     """Device time by kernel over `steps` steady decode steps at full
     width (8 live rows of 200-token prompts of `argv`'s model; arena or
     paged pool),
     launches per step and the device's busy share of the steps' wall time
-    under the profiler. The `steps` steps before them run unprofiled:
-    their wall time over the profiled device time estimates the busy
-    share without the profiler's host overhead."""
+    under the profiler; and the admission round before them (8 admissions
+    and one decode step) profiled apart, for the recurrent kernels' wrapper
+    calls and device launches per admission beside those per step. The
+    `steps` steps before the profiled ones run unprofiled: their wall time
+    over the profiled device time estimates the busy share without the
+    profiler's host overhead. Both profiles are bracketed by
+    pad_profile()'s sleeps, which no count or time includes. Returns the
+    recurrent kernels' wrapper calls and device launches per admission
+    and per step ({"per_admission": ..., "per_step": ...}), or None when
+    the profile recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,27 +758,55 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
     del params
     for p in prompts[:8]:
         eng.submit(p, max_new_tokens=2 * steps + 4)
-    eng.step()              # admission round + the first decode step
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as aprof:
+        pad_profile()
+        eng.step()          # admission round + the first decode step
+        pad_profile()
+        torch.cuda.synchronize()
+    round_calls = counts()
+    admitted = eng.stats["admissions"]
+    round_launches = launches_by_kernel(aprof)
     eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()          # each step ends in its [B] token fetch
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_profile()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        pad_profile()
+        torch.cuda.synchronize()
+    step_calls = counts()
     rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key[:90])
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
+                   and PAD_KERNEL not in ev.key
                    and ev.self_device_time_total > 0), reverse=True)
+    step_launches = launches_by_kernel(prof)
+    # the admission round's launches less one decode step's, per admission
+    recurrent = {"rwkv6_scan": "wkv_fwd", "rglru_scan": "rglru_fwd"}
+    per_admission = {
+        name: {"wrapper_calls": (round_calls[name] - step_calls[name] / steps)
+               / max(1, admitted),
+               "device_launches": (round_launches[key]
+                                   - step_launches[key] / steps)
+               / max(1, admitted)}
+        for name, key in recurrent.items()}
+    per_step = {name: {"wrapper_calls": step_calls[name] / steps,
+                       "device_launches": step_launches[key] / steps}
+                for name, key in recurrent.items()}
     device_ms = sum(ms for ms, _, _ in rows)
     if not device_ms:
         print("serving profile: no device time recorded (not measured)")
-        return
+        return None
     backend = "paged" if paged else "arena"
     if cfg.name != "qwen2-0.5b":
         backend = f"{cfg.name}_{backend}"
@@ -714,8 +826,32 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
         "rglru_scan_us_per_launch": 1e3 * sum(
             ms for ms, _, name in rows if "rglru_fwd" in name) / max(1, sum(
                 n for _, n, name in rows if "rglru_fwd" in name)),
+        "rwkv6_scan_us_per_launch": 1e3 * sum(
+            ms for ms, _, name in rows if "wkv_fwd" in name) / max(1, sum(
+                n for _, n, name in rows if "wkv_fwd" in name)),
+        "admission_round": {"admissions": admitted, "decode_steps": 1,
+                            "wrapper_calls": round_calls,
+                            "device_launches": round_launches},
+        "recurrent_per_admission": per_admission,
+        "recurrent_per_decode_step": per_step,
         "top": [{"ms": ms, "count": n, "name": name}
                 for ms, n, name in rows[:15]]}}), flush=True)
+    return {"per_admission": per_admission, "per_step": per_step}
+
+
+def assert_recurrent_launches(what, measured, name, per_admission,
+                              per_step):
+    """The profiled admission and step of `what` (profile_decode_steps'
+    return) made `name`'s wrapper calls and device launches as expected:
+    (wrapper calls, device launches) per admission and per step."""
+    want = {"per_admission": per_admission, "per_step": per_step}
+    got = None if measured is None else {
+        key: (measured[key][name]["wrapper_calls"],
+              measured[key][name]["device_launches"]) for key in want}
+    if got is None or any(abs(a - b) > 1e-6 for key in want
+                          for a, b in zip(got[key], want[key])):
+        raise AssertionError(f"{what}: {name} (wrapper calls, device "
+                             f"launches) {got}, expected {want}")
 
 
 PAGED_SERVE_ARGS = SERVE_ARGS + ["--paged", "--block-size", "16"]
@@ -795,7 +931,7 @@ def check_paged_case(label, b, max_len, bs, dtype, gen):
 def tickets_zero():
     """The decode kernels' shared ticket counters, all back at 0."""
     torch.cuda.synchronize()
-    return all(not bool(t.any()) for t in dattn._TICKETS.values())
+    return all(not bool(t.any()) for t in ticket_pool.TICKETS.values())
 
 
 def check_pool_invariance(label, q, kp, vp, tables, lengths, ring=None):
@@ -1142,16 +1278,28 @@ def rwkv_close(got, want):
     return bool((err <= tol).all()), float(err.max())
 
 
-def check_rwkv_case(label, b, s, dtype, gen, pieces=1):
-    """The WKV recurrence of rwkv6-1.6b (32 heads of 64) for b rows of s
-    steps from a random state, r/k/v in dtype and the model's [B,S,H,hd]
-    layout viewed as [B,H,S,hd], decays near the model's exp(-exp(-2)).
-    With pieces > 1 the kernel also runs the steps in that many pieces,
-    the state carried in place, and must equal its one pass bitwise."""
-    h, hd = 32, 64
+STRONG_DECAY_ATOL = 1e-3   # the reference's own CHUNKED_ATOL (module doc)
+
+
+def wkv_launches_per_call(s):
+    """Device launches of one rwkv6_scan call over s steps: the chunked
+    body makes two, the step body one."""
+    return 2 if wkv.body(s) else 1
+
+
+def check_rwkv_case(label, b, s, dtype, gen, pieces=1, hd=64, w0=-2.0):
+    """The WKV recurrence of rwkv6-1.6b (32 heads of 64, or of hd) for b
+    rows of s steps from a random state, r/k/v in dtype and the model's
+    [B, S, H, hd] layout viewed as [B, H, S, hd], decays exp(-exp(w0 + 0.5
+    z)) (w0 = -2: the model's exp(-exp(-2)); 0 to +2: strong decays, held
+    to STRONG_DECAY_ATOL instead of RWKV_RULE). With pieces > 1 the kernel
+    also runs the steps in that many pieces (each on chunk edges and long
+    enough for the chunked body), the state carried in place, and must
+    equal its one pass bitwise."""
+    h = 2048 // hd
     r, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEV)
                .to(dtype).transpose(1, 2) for _ in range(3))
-    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+    w = torch.exp(-torch.exp(w0 + 0.5 * torch.randn(
         (b, s, h, hd), generator=gen, device=DEV))).transpose(1, 2)
     u = (0.1 * torch.randn((h, hd), generator=gen, device=DEV)).to(dtype)
     state = torch.randn((b, h, hd, hd), generator=gen, device=DEV)
@@ -1159,8 +1307,17 @@ def check_rwkv_case(label, b, s, dtype, gen, pieces=1):
     out, _ = ops.rwkv6_scan(r, k, v, w, u, got_state)
     torch.cuda.synchronize()
     want, want_state = ref.rwkv6(r, k, v, w, u, state)
-    ok_out, err_out = rwkv_close(out, want)
-    ok_state, err_state = rwkv_close(got_state, want_state)
+    if w0 == -2.0:
+        tolerance = RWKV_RULE
+        ok_out, err_out = rwkv_close(out, want)
+        ok_state, err_state = rwkv_close(got_state, want_state)
+    else:
+        tolerance = (f"|kernel - plain| <= {STRONG_DECAY_ATOL} (the "
+                     "reference's chunked-form bound)")
+        err_out = float((out - want).abs().max())
+        err_state = float((got_state - want_state).abs().max())
+        ok_out = err_out <= STRONG_DECAY_ATOL
+        ok_state = err_state <= STRONG_DECAY_ATOL
     del want, want_state
     pieces_bitwise = None
     if pieces > 1:
@@ -1175,20 +1332,32 @@ def check_rwkv_case(label, b, s, dtype, gen, pieces=1):
         del parts, carried
     del out
     scratch = state.clone()
+    per_call = device_launches(lambda: ops.rwkv6_scan(r, k, v, w, u,
+                                                      scratch))
     t = timings(lambda: ops.rwkv6_scan(r, k, v, w, u, scratch),
                 lambda: ref.rwkv6(r, k, v, w, u, state), None,
-                iters=20 if s > 1000 else 50)
+                iters=20 if s > 1000 else 50, launches=per_call)
     esize = r.element_size()
     n = b * h * s * hd
     nbytes = 3 * n * esize + 4 * n + 4 * n + 2 * 4 * b * h * hd * hd \
         + h * hd * esize
-    flops = (5 * hd * hd + 4 * hd) * b * h * s
+    # the fewest operations: the chunked form (chunks of c steps), its four
+    # products on the TF32 tensor cores (q k~^T and A v over the lower
+    # triangle, r_dec S_in, k_dec^T v: 4 hd^2 + 2 (c + 1) hd a step), the
+    # u bonus and the decays' log and exp on the f32 units (5 hd a step)
+    c = min(s, wkv.CHUNK)
+    mma_flops = (4 * hd * hd + 2 * (c + 1) * hd) * b * h * s
+    f32_flops = 5 * hd * b * h * s
+    flops = mma_flops + f32_flops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    case = {"case": label, "dtype": str(dtype),
+    t_ops = (mma_flops / TF32_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S) \
+        * 1e3
+    case = {"case": label, "dtype": str(dtype), "w0": w0,
+            "body": "chunked" if wkv.body(s) else "step",
+            "chunk": wkv.body(s), "device_launches_per_call": per_call,
             "shape": [list(r.shape), list(state.shape)],
             "max_abs_err": max(err_out, err_state), "max_abs_err_out": err_out,
-            "max_abs_err_state": err_state, "tolerance": RWKV_RULE,
+            "max_abs_err_state": err_state, "tolerance": tolerance,
             "pieces": pieces, "pieces_equal_one_pass_bitwise": pieces_bitwise,
             **t, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1198,6 +1367,10 @@ def check_rwkv_case(label, b, s, dtype, gen, pieces=1):
     if not (ok_out and ok_state) or pieces_bitwise is False:
         raise AssertionError(f"rwkv6_scan kernel disagrees with its plain "
                              f"version on {label}: {case}")
+    if per_call != wkv_launches_per_call(s):
+        raise AssertionError(f"rwkv6_scan made {per_call} device launches "
+                             f"in a call on {label}, expected "
+                             f"{wkv_launches_per_call(s)}")
     return case
 
 
@@ -1245,7 +1418,8 @@ def rwkv_serve_main_path():
 
 def rwkv_reference_check():
     """Phase 16: the RWKV6 smoke config in f32 on the card and on the CPU
-    from one set of parameters: prefill_into_slot into two slots, 8
+    from one set of parameters: prefill_into_slot into two slots (one
+    prompt of 100, long enough for the chunked WKV body), 8
     decode_rows steps, a readmission over slot 0's state and 4 more steps
     (logits within 1e-4, states within 1e-4 + 1e-5 of their size at the
     end), then an engine on each device whose tokens must be equal."""
@@ -1258,7 +1432,7 @@ def rwkv_reference_check():
     rng = np.random.default_rng(6)
     slots = 2
     runs = [(dev, {k: v.to(dev) for k, v in cpu.items()},
-             model.init_arena(slots, 32, device=dev))
+             model.init_arena(slots, 128, device=dev))
             for dev in (torch.device("cpu"), DEV)]
     worst = 0.0
     lengths = np.zeros(slots, np.int32)
@@ -1285,7 +1459,7 @@ def rwkv_reference_check():
             cur = want.argmax(-1).numpy().astype(np.int32)
             lengths = lengths + 1
 
-    admit(1, 11)
+    admit(1, 100)       # the chunked body (100 >= CHUNKED_MIN_STEPS)
     admit(0, 5)
     decode(8)
     admit(0, 9)         # over the state its previous occupant left
@@ -1298,11 +1472,11 @@ def rwkv_reference_check():
         state_ok &= bool(((got - leaf).abs()
                           <= 1e-4 + 1e-5 * leaf.abs()).all())
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in
-               (5, 11, 3, 8, 14, 2, 9)]
+               (5, 100, 3, 8, 14, 2, 9)]
     budgets = [6, 3, 9, 1, 5, 7, 4]
     tokens = []
     for _, p, _ in runs:
-        eng = Engine(model, p, max_batch=3, max_len=32,
+        eng = Engine(model, p, max_batch=3, max_len=128,
                      cache_dtype=torch.float32)
         for prompt, budget in zip(prompts, budgets):
             eng.submit(prompt, max_new_tokens=budget)
@@ -1326,25 +1500,35 @@ RG_LAYERS, RG_ATTN_LAYERS = 18, 8   # recurrentgemma-2b: RG-LRU, attention
 RG_WIDTH = 2560
 LONG_PROMPT, LONG_NEW, LONG_CAPACITY = 3000, 32, 4096
 RG_WINDOW = 2048
+# the fused RG-LRU's f32 operations an element: 2 bias adds, 2 sigmoids (4
+# each: negate, exp, add, divide), the decay's product and exp, i * xa,
+# a * a, 1 - a^2, the clamp, sqrt, the scale's product, the step's 2
+RGLRU_OPS_PER_ELEMENT = 21
 
 
-def check_rglru_case(label, b, s, out_dtype, gen, pieces=1):
-    """The RG-LRU recurrence at recurrentgemma-2b's width for b rows of s
-    steps from a random state, a and u in f32 as the model makes them (a =
-    exp(-8 softplus(1) r), r in (0, 1)), out in out_dtype. Bitwise against
-    the plain version, out and final state; with pieces > 1 the kernel
-    also runs the steps in that many pieces, the state carried in place,
-    and must equal its one pass bitwise."""
+def check_rglru_case(label, b, s, dtype, gen, pieces=1):
+    """The fused RG-LRU (gate math and recurrence) at recurrentgemma-2b's
+    width for b rows of s steps from a random state: gate products, xa and
+    the parameters in dtype at the model's scales (b_a, b_i near 0, lamb
+    spread over (-1, 3) around the model's 1), out in dtype. Bitwise
+    against the plain version (`ref.rglru_gated`: the block's former op
+    sequence, then the scan), out and final state; with pieces > 1 the
+    kernel also runs the steps in that many pieces, the state carried in
+    place, and must equal its one pass bitwise."""
     w = RG_WIDTH
-    a = torch.exp(-8.0 * 1.3133 * torch.sigmoid(
-        torch.randn((b, s, w), generator=gen, device=DEV)))
-    u = torch.randn((b, s, w), generator=gen, device=DEV)
+
+    def draw(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEV)).to(
+            dtype)
+    ga, gi, xa = draw(b, s, w), draw(b, s, w), draw(b, s, w)
+    b_a, b_i = draw(w, scale=0.1), draw(w, scale=0.1)
+    lamb = (-1.0 + 4.0 * torch.rand(w, generator=gen, device=DEV)).to(dtype)
+    args = (ga, gi, b_a, b_i, lamb, xa)
     state = torch.randn((b, w), generator=gen, device=DEV)
     got_state = state.clone()
-    out, _ = ops.rglru_scan(a, u, got_state, out_dtype=out_dtype)
+    out, _ = ops.rglru_scan(*args, got_state)
     torch.cuda.synchronize()
-    want, want_state = ref.rglru(a, u, state)
-    want = want.to(out_dtype)
+    want, want_state = ref.rglru_gated(*args, state)
     bitwise = bool(torch.equal(out, want) and torch.equal(got_state,
                                                           want_state))
     max_err = max(float((out.float() - want.float()).abs().max()),
@@ -1354,27 +1538,30 @@ def check_rglru_case(label, b, s, out_dtype, gen, pieces=1):
     if pieces > 1:
         carried = state.clone()
         cut = s // pieces
-        parts = [ops.rglru_scan(a[:, x:x + cut], u[:, x:x + cut], carried,
-                                out_dtype=out_dtype)[0]
+        parts = [ops.rglru_scan(ga[:, x:x + cut], gi[:, x:x + cut], b_a, b_i,
+                                lamb, xa[:, x:x + cut], carried)[0]
                  for x in range(0, s, cut)]
         pieces_bitwise = bool(torch.equal(torch.cat(parts, dim=1), out)
                               and torch.equal(carried, got_state))
         del parts, carried
     del out
     scratch = state.clone()
-    t = timings(lambda: ops.rglru_scan(a, u, scratch, out_dtype=out_dtype),
-                lambda: ref.rglru(a, u, state), None,
+    per_call = device_launches(lambda: ops.rglru_scan(*args, scratch))
+    t = timings(lambda: ops.rglru_scan(*args, scratch),
+                lambda: ref.rglru_gated(*args, state), None,
                 iters=20 if s > 1000 else 50)
     n = b * s * w
-    esize = torch.empty((), dtype=out_dtype).element_size()
-    nbytes = 8 * n + esize * n + 2 * 4 * b * w
-    flops = 2 * n
+    esize = xa.element_size()
+    # ga, gi, xa in, out out; b_a, b_i, lamb once; the state in and out
+    nbytes = 4 * n * esize + 3 * w * esize + 2 * 4 * b * w
+    flops = RGLRU_OPS_PER_ELEMENT * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    case = {"case": label, "out_dtype": str(out_dtype),
-            "shape": [list(a.shape), list(state.shape)],
+    case = {"case": label, "dtype": str(dtype),
+            "shape": [list(xa.shape), list(state.shape)],
             "max_abs_err": max_err, "bitwise": bitwise,
             "tolerance": "bitwise (out and final state)",
+            "device_launches_per_call": per_call,
             "pieces": pieces, "pieces_equal_one_pass_bitwise": pieces_bitwise,
             **t, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1384,6 +1571,9 @@ def check_rglru_case(label, b, s, out_dtype, gen, pieces=1):
     if not bitwise or pieces_bitwise is False:
         raise AssertionError(f"rglru_scan kernel disagrees with its plain "
                              f"version on {label}: {case}")
+    if per_call != 1:
+        raise AssertionError(f"rglru_scan made {per_call} device launches "
+                             f"in a call on {label}, expected 1")
     return case
 
 
@@ -1568,9 +1758,11 @@ def hybrid_reference_check():
 
 
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
-                              "decode_attention_paged")):
+                              "decode_attention_paged", "rwkv6_scan",
+                              "rglru_scan")):
     """Phase 2: registers, spills and static shared bytes that ptxas
-    reports for every instantiation of the flash and decode kernels
+    reports for every instantiation of the flash, decode, WKV and RG-LRU
+    kernels
     (names demangled with c++filt where the toolkit's machine has it), and
     the dynamic shared bytes each launch asks for, from the libraries'
     own size functions at the head dims and groups the main paths use."""
@@ -1632,6 +1824,16 @@ def ptxas_report(logs, names=("flash_attention", "decode_attention",
                         int(dt == "bf16"), hd, g, n, paged_split_rows(hd), 16)
                     for hd, g, n in ((64, 7, 4), (64, 7, 32), (256, 10, 4))
                     for dt in ("bf16", "f32")})
+    wkv_lib = build.load("rwkv6_scan")
+    rglru_lib = build.load("rglru_scan")
+    wkv_lib.rwkv6_scan_smem_bytes.restype = ctypes.c_int
+    rglru_lib.rglru_scan_smem_bytes.restype = ctypes.c_int
+    dynamic.update({f"wkv chunk {wkv.CHUNK} hd {hd} {dt} launch {n + 1}":
+                    wkv_lib.rwkv6_scan_smem_bytes(int(dt == "bf16"), hd, n)
+                    for hd in (32, 64) for n in (0, 1)
+                    for dt in ("bf16", "f32")})
+    dynamic.update({f"rglru {dt}": rglru_lib.rglru_scan_smem_bytes(
+        int(dt == "bf16")) for dt in ("bf16", "f32")})
     print(json.dumps({"dynamic_smem_bytes": dynamic}), flush=True)
     return records
 
@@ -1762,13 +1964,30 @@ def main():
     phase("14 WKV kernel against its plain version")
     if not build.library_path("rwkv6_scan").is_file():
         raise AssertionError("phase 2 did not build rwkv6_scan")
+    print(json.dumps({"wkv_fwd_ptxas": [
+        r for r in ptx if r["library"] == "rwkv6_scan"],
+        "chunk": wkv.CHUNK, "chunked_min_steps": wkv.CHUNKED_MIN_STEPS}),
+        flush=True)
     rwkv_cases = []
+    below = wkv.CHUNKED_MIN_STEPS - 1
     for dtype in (torch.bfloat16, torch.float32):
         rwkv_cases += [
             check_rwkv_case("rwkv prefill B=1 S=200", 1, 200, dtype, gen),
             check_rwkv_case("rwkv decode B=8 S=1", 8, 1, dtype, gen),
             check_rwkv_case("rwkv long prompt B=1 S=4096, 8 pieces", 1,
-                            4096, dtype, gen, pieces=8)]
+                            4096, dtype, gen, pieces=8),
+            check_rwkv_case("rwkv chunk boundary B=2 S=128", 2, 128, dtype,
+                            gen),
+            check_rwkv_case(f"rwkv below the threshold B=2 S={below}", 2,
+                            below, dtype, gen),
+            check_rwkv_case(f"rwkv at the threshold B=2 S={below + 1}", 2,
+                            below + 1, dtype, gen),
+            check_rwkv_case("rwkv hd 32 B=2 S=200", 2, 200, dtype, gen,
+                            hd=32)]
+        rwkv_cases += [
+            check_rwkv_case(f"rwkv strong decays w0={w0:+.0f} B=1 S=200", 1,
+                            200, dtype, gen, w0=w0)
+            for w0 in (0.0, 1.0, 2.0)]
         torch.cuda.empty_cache()
 
     phase("15 RWKV6 serving main path: repro_torch.launch.serve, full "
@@ -1780,20 +1999,29 @@ def main():
     rwkv_reference_check()
 
     phase("17 RWKV6 serving profile")
-    profile_decode_steps(argv=RWKV_SERVE_ARGS)
+    # the phase 15 path's admissions and steps, profiled: wrapper calls
+    # beside the device launches they made
+    prompt_len = serve_cli.parse_args(RWKV_SERVE_ARGS).prompt_len
+    assert_recurrent_launches(
+        "the RWKV6 serving profile",
+        profile_decode_steps(argv=RWKV_SERVE_ARGS), "rwkv6_scan",
+        (N_LAYERS, N_LAYERS * wkv_launches_per_call(prompt_len)),
+        (N_LAYERS, N_LAYERS * wkv_launches_per_call(1)))
     torch.cuda.empty_cache()
 
     phase("18 RG-LRU kernel and attention at head_dim 256 against their "
           "plain versions")
+    print(json.dumps({"rglru_fwd_ptxas": [
+        r for r in ptx if r["library"] == "rglru_scan"]}), flush=True)
     rglru_cases = []
-    for out_dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.bfloat16, torch.float32):
         rglru_cases += [
             check_rglru_case("rglru prefill B=1 S=200 W=2560", 1, 200,
-                             out_dtype, gen),
-            check_rglru_case("rglru decode B=8 S=1 W=2560", 8, 1, out_dtype,
+                             dtype, gen),
+            check_rglru_case("rglru decode B=8 S=1 W=2560", 8, 1, dtype,
                              gen),
             check_rglru_case("rglru long prompt B=1 S=4096 W=2560, 8 pieces",
-                             1, 4096, out_dtype, gen, pieces=8)]
+                             1, 4096, dtype, gen, pieces=8)]
         torch.cuda.empty_cache()
     rg_attn = dict(h=10, kv=1, hd=256)
     flash_cases += [
@@ -1825,7 +2053,12 @@ def main():
     torch.cuda.empty_cache()
 
     phase("21 hybrid serving profile")
-    profile_decode_steps(argv=RG_SERVE_ARGS)
+    # one device launch a wrapper call: the gates and the scan in one
+    # kernel
+    assert_recurrent_launches(
+        "the hybrid serving profile",
+        profile_decode_steps(argv=RG_SERVE_ARGS), "rglru_scan",
+        (RG_LAYERS, RG_LAYERS), (RG_LAYERS, RG_LAYERS))
     torch.cuda.empty_cache()
 
     # top level: each kernel's main-path case for the times (the largest

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time variants of the attention kernels on one NVIDIA GPU, for the
-design choices `PERF.md` records.
+"""Time variants of the port's kernels on one NVIDIA GPU, for the design
+choices `PERF.md` records.
 
     python3 chip_variants.py
 
 Each variant is the kernel source in this checkout with one text
 substitution (a constant, a call, a removed line), built with the
 repo's nvcc flags into its own library under `build/variants/`, or the
-kernel with another chunk size from its wrapper (the paged kernel's
-rows per split), called through the kernel's wrapper on the main paths'
-bf16 shapes, beside the plain version and the one PyTorch call (SDPA;
-gather + SDPA for the paged kernel) on the same inputs; device time comes from chip_smoke's `device_ms` (torch.profiler,
-early in a fresh process, where it keeps its events), two rounds in
-turns. A variant that changes the arithmetic (one bf16 term
-of P, a fast exp) is timing only: its output is printed as its largest
-difference from the repo's kernel, never used. Prints the card's name and
-power limit, then one JSON line per variant and round.
+kernel with another setting from its wrapper (the paged kernel's rows
+per split; the fewest steps that take the WKV kernel's chunked body),
+or the chunked WKV kernel with one phase removed (its
+output wrong: timing only), called through the kernel's wrapper on the
+main paths' bf16 shapes, beside the plain version and the one PyTorch
+call (SDPA; gather + SDPA for the paged kernel; none for the
+recurrences) on the same inputs; device time comes from chip_smoke's
+`device_ms` (torch.profiler, early in a fresh process, where it keeps
+its events), two rounds in turns. A variant that changes the arithmetic
+(one bf16 term of P, a fast exp, another chunk length) is timing only:
+its output is printed as its largest difference from the repo's kernel,
+never used. Prints the card's name and power limit, then one JSON line
+per variant and round.
 """
 import ctypes
 import json
@@ -29,6 +33,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import decode_attention_paged as dap
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as wkv
 
 OUT = pathlib.Path(build.BUILD_DIR).parent / "variants"
 
@@ -170,6 +176,200 @@ def time_variants(module, entry, libs, cases, launch, plain, library,
             print(json.dumps(row), flush=True)
 
 
+# the WKV arms: (library variant, CHUNK, CHUNKED_MIN_STEPS) for the wrapper
+WKV_ARMS = {"step body": ("kernel", wkv.CHUNK, 1 << 30),
+            "chunked, C = 64": ("kernel", wkv.CHUNK, 1),
+            "chunked, C = 32": ("C = 32", 32, 1)}
+WKV_STEPS = (8, 12, 16, 24, 32, 48, 200, 4096)
+WKV_CHUNK_LINE = "constexpr int kChunk = 64;"
+
+
+def wkv_sweep(gen):
+    """The WKV kernel (rwkv6-1.6b's 32 heads of 64, batch 1, bf16, the
+    model's layout) at S around the chunked body's threshold and at the
+    main path's S = 200 and a long prompt: the step body against the
+    chunked body at C = 64 (the kernel) and C = 32 (the source with
+    kChunk = 32, its scratch sized by the wrapper's CHUNK), through the
+    wrapper with its settings and entry swapped for each arm's."""
+    src = (build.CSRC / "rwkv6_scan.cu").read_text()
+    libs = build_all("wkv_chunk", {
+        "kernel": (src, None),
+        "C = 32": (substituted(src, WKV_CHUNK_LINE,
+                               WKV_CHUNK_LINE.replace("64", "32")), None)})
+    bf = torch.bfloat16
+    cases = []
+    for s in WKV_STEPS:
+        r, k, v = (torch.randn((1, s, 32, 64), generator=gen, device=cs.DEV)
+                   .to(bf).transpose(1, 2) for _ in range(3))
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+            (1, s, 32, 64), generator=gen, device=cs.DEV))).transpose(1, 2)
+        u = (0.1 * torch.randn((32, 64), generator=gen, device=cs.DEV)).to(bf)
+        state = torch.randn((1, 32, 64, 64), generator=gen, device=cs.DEV)
+        cases.append((s, (r, k, v, w, u), state))
+    kept = wkv.CHUNK, wkv.CHUNKED_MIN_STEPS, wkv._entry
+    wants = [wkv.rwkv6_scan_cuda(*a, st.clone())[0] for _, a, st in cases]
+    try:
+        for rnd in range(2):
+            for arm, (lib, chunk, least) in WKV_ARMS.items():
+                fn = libs[lib].rwkv6_scan_bf16
+                fn.argtypes = wkv._ARGTYPES
+                fn.restype = ctypes.c_int
+                wkv._entry = lambda dtype, fn=fn: fn
+                wkv.CHUNK, wkv.CHUNKED_MIN_STEPS = chunk, least
+                row = {"kernel": "rwkv6_scan_bf16", "variant": arm,
+                       "round": rnd}
+                for (s, args, st), want in zip(cases, wants):
+                    scratch = st.clone()
+                    got = wkv.rwkv6_scan_cuda(*args, scratch)[0]
+                    row[f"S={s}"] = {
+                        "us": 1e3 * cs.device_ms(
+                            lambda: wkv.rwkv6_scan_cuda(*args, scratch),
+                            20, launches=2 if wkv.body(s) else 1),
+                        "max_diff_vs_kernel": float(
+                            (got - want).abs().max())}
+                print(json.dumps(row), flush=True)
+    finally:
+        wkv.CHUNK, wkv.CHUNKED_MIN_STEPS, wkv._entry = kept
+
+
+# phase-removed variants of the chunked WKV kernel (timing only: what each
+# phase of a block's chain costs), and its diagonal with the per-lane
+# branches the selects replaced
+WKV_PHASES = {
+    "no diagonal blocks": ("    // (a) the diagonal blocks, exact:",
+                           "    if (false) // (a)"),
+    "no logs": ("    // (b) per (sub-chunk, channel): log-decays,",
+                "    if (false) // (b)"),
+    "no off-diagonal blocks": (
+        "    for (int p = warp; p < kPairs; p += kChunkThreads / 32) {",
+        "    if (false) for (int p = warp; p < kPairs; "
+        "p += kChunkThreads / 32) {"),
+    "no A v": ("    // (d) the intra-chunk output A v into out: row block J, "
+               "all or half of\n    // the hd columns a warp\n    {",
+               "    if (false) {"),
+    "no dS": ("    // (e) the chunk's contribution dS = k_dec^T v, k_dec = k~ "
+              "prod_{m>I} E_m:\n    // a 16-channel row block of dS a warp "
+              "(two warps share one at hd 32)\n    {",
+              "    if (false) {"),
+    "no fold": ("    if (!last) return;\n", "    return;\n"),
+    "no staging wait": ("        attn::cp_async_wait<0>();\n        "
+                        "__syncthreads();\n        if constexpr (Sm::kRaw) {",
+                        "        __syncthreads();\n        "
+                        "if constexpr (Sm::kRaw) {"),
+    "diagonal with branches": (
+        """                    const float coef =
+                        after ? kp[j] : (here ? kp[j] * uv[j] : 0.f);
+                    acc[t] = fmaf(rv[j], coef, acc[t]);
+                    kp[j] = after ? kp[j] * wv[j] : kp[j];""",
+        """                    if (here) {
+                        acc[t] = fmaf(rv[j], kp[j] * uv[j], acc[t]);
+                    } else if (after) {
+                        acc[t] = fmaf(rv[j], kp[j], acc[t]);
+                        kp[j] *= wv[j];
+                    }"""),
+}
+
+
+def wkv_phase_sweep(gen):
+    """The chunked WKV kernel with one phase removed at a time (its output
+    wrong: timing only), bf16, rwkv6-1.6b's heads, batch 1, S = 200 and
+    4096: a call's device time (both launches) beside the kernel's."""
+    src = (build.CSRC / "rwkv6_scan.cu").read_text()
+    variants = {"kernel": (src, None)}
+    variants.update({name: (substituted(src, old, new), None)
+                     for name, (old, new) in WKV_PHASES.items()})
+    libs = build_all("wkv", variants)
+    bf = torch.bfloat16
+    cases = []
+    for s in (200, 4096):
+        r, k, v = (torch.randn((1, s, 32, 64), generator=gen, device=cs.DEV)
+                   .to(bf).transpose(1, 2) for _ in range(3))
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+            (1, s, 32, 64), generator=gen, device=cs.DEV))).transpose(1, 2)
+        u = (0.1 * torch.randn((32, 64), generator=gen, device=cs.DEV)).to(bf)
+        state = torch.randn((1, 32, 64, 64), generator=gen, device=cs.DEV)
+        cases.append((s, (r, k, v, w, u), state))
+    original = wkv._entry
+    try:
+        for rnd in range(2):
+            for name, lib in libs.items():
+                fn = lib.rwkv6_scan_bf16
+                fn.argtypes = wkv._ARGTYPES
+                fn.restype = ctypes.c_int
+                wkv._entry = lambda dtype, fn=fn: fn
+                row = {"kernel": "rwkv6_scan_bf16 phases", "variant": name,
+                       "round": rnd}
+                for s, args, st in cases:
+                    scratch = st.clone()
+                    row[f"S={s}"] = {"us": 1e3 * cs.device_ms(
+                        lambda: wkv.rwkv6_scan_cuda(*args, scratch), 20)}
+                wkv._entry = original
+                print(json.dumps(row), flush=True)
+    finally:
+        wkv._entry = original
+
+
+def rglru_variants():
+    """The fused RG-LRU kernel with 32 and 64 channels a block."""
+    src = (build.CSRC / "rglru_scan.cu").read_text()
+    line = "constexpr int kChannels = 16;"
+    return {"16 channels (kernel)": (src, None),
+            "32 channels": (substituted(src, line, line.replace("16", "32")),
+                            None),
+            "64 channels": (substituted(src, line, line.replace("16", "64")),
+                            None)}
+
+
+def rglru_sweep(gen):
+    """The fused RG-LRU at recurrentgemma-2b's width, bf16: the prefill
+    (B = 1, S = 200), a decode step (B = 8) and a long prompt (S =
+    4096), each variant's output against the kernel's (bitwise: the
+    arithmetic does not change)."""
+    libs = build_all("rglru", rglru_variants())
+    bf, w = torch.bfloat16, 2560
+    cases = []
+    for label, b, s in (("prefill B=1 S=200", 1, 200),
+                        ("decode B=8 S=1", 8, 1),
+                        ("long B=1 S=4096", 1, 4096)):
+        ga, gi, xa = (torch.randn((b, s, w), generator=gen, device=cs.DEV)
+                      .to(bf) for _ in range(3))
+        b_a, b_i = ((0.1 * torch.randn(w, generator=gen, device=cs.DEV))
+                    .to(bf) for _ in range(2))
+        lamb = (-1.0 + 4.0 * torch.rand(w, generator=gen, device=cs.DEV)
+                ).to(bf)
+        state = torch.randn((b, w), generator=gen, device=cs.DEV)
+        cases.append((label, (ga, gi, b_a, b_i, lamb, xa), state))
+    wants = [rg.rglru_scan_cuda(*a, st.clone())[0] for _, a, st in cases]
+    original = rg._entry
+    try:
+        for rnd in range(2):
+            row = {"kernel": "rglru_scan_bf16", "variant": "plain",
+                   "round": rnd}
+            for label, args, st in cases:
+                row[label] = {"plain_us": 1e3 * cs.device_ms(
+                    lambda: cs.ref.rglru_gated(*args, st), 3)}
+            print(json.dumps(row), flush=True)
+            for name, lib in libs.items():
+                fn = lib.rglru_scan_bf16
+                fn.argtypes = rg._ARGTYPES
+                fn.restype = ctypes.c_int
+                rg._entry = lambda dtype, fn=fn: fn
+                row = {"kernel": "rglru_scan_bf16", "variant": name,
+                       "round": rnd}
+                for (label, args, st), want in zip(cases, wants):
+                    scratch = st.clone()
+                    got = rg.rglru_scan_cuda(*args, scratch)[0]
+                    row[label] = {
+                        "us": 1e3 * cs.device_ms(
+                            lambda: rg.rglru_scan_cuda(*args, scratch), 20,
+                            one_kernel=True),
+                        "bitwise_vs_kernel": bool(torch.equal(got, want))}
+                rg._entry = original
+                print(json.dumps(row), flush=True)
+    finally:
+        rg._entry = original
+
+
 def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -296,6 +496,10 @@ def main():
     time_variants(dap, "decode_attention_paged_bf16", paged_libs,
                   paged_cases, paged_launch, paged_plain, paged_library,
                   before=set_rows)
+
+    wkv_sweep(gen)
+    wkv_phase_sweep(gen)
+    rglru_sweep(gen)
 
 
 if __name__ == "__main__":

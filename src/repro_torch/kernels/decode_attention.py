@@ -17,12 +17,11 @@ the last block of a row to finish combines the splits' partials in the
 same launch. `split_rows` depends on T, KV and hd only, never on B or on
 the lengths, so a row's result is bitwise the same alone or in any batch
 and the launch needs no host sync. The wrapper checks its inputs,
-allocates the output and the partials' scratch with `torch.empty`, keeps
-one zeroed int32 ticket counter per (batch row, kv head) per device,
-which the paged and ring kernels share (each kernel leaves them 0; two
-launches on different streams at once would share them), launches on the
-current stream and raises if the launch reports an error.
-`decode_attention_cuda.launches` counts its launches.
+allocates the output and the partials' scratch with `torch.empty`, takes
+one zeroed int32 ticket counter per (batch row, kv head) from the
+per-device pool of `tickets.py`, launches on the current stream and
+raises if the launch reports an error. `decode_attention_cuda.launches`
+counts its launches.
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_int_vector,
                                                  check_operand)
+from repro_torch.kernels.tickets import ticket_counters
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
@@ -44,7 +44,6 @@ MAX_GROUP_WIDTH = 2560      # (H / KV) * hd: at most 10 outputs per thread
 MIN_SPLIT_ROWS = 128        # the fewest cache rows a block takes
 MIN_SPLIT_VALUES = 8192     # ... and at least this many K values (hd 32)
 MAX_ROW_BLOCKS = 32         # most blocks of one batch row (KV * splits)
-_TICKETS = {}               # device -> int32 ticket counters, all 0
 
 
 def split_rows(t, kv, hd):
@@ -60,16 +59,6 @@ def split_rows(t, kv, hd):
 def num_splits(t, kv, hd):
     """Blocks the kernel gives one (batch row, kv head): ceil(T / rows)."""
     return max(1, -(-t // split_rows(t, kv, hd)))
-
-
-def _tickets(device, n):
-    """At least n zeroed int32 counters on `device`, allocated once and
-    grown (zeroed anew) when a launch needs more."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,7 +108,7 @@ def decode_attention_cuda(q, k, v, *, lengths, scale=None):
     if splits > 1:      # each split's (acc [G, hd], m [G], l [G]) in f32
         partial = torch.empty(b * kv * splits * (h // kv) * (hd + 2),
                               dtype=torch.float32, device=q.device)
-        tickets = _tickets(q.device, b * kv)
+        tickets = ticket_counters(q.device, b * kv)
     fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -39,9 +39,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (MAX_GROUP_WIDTH,
                                                   MIN_SPLIT_ROWS,
-                                                  MIN_SPLIT_VALUES, _tickets)
+                                                  MIN_SPLIT_VALUES)
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_int_vector,
                                                  check_operand)
+from repro_torch.kernels.tickets import ticket_counters
 
 _ENTRY = {torch.float32: "decode_attention_paged_f32",
           torch.bfloat16: "decode_attention_paged_bf16"}
@@ -125,7 +126,7 @@ def _launch(wrapper, q, k_pool, v_pool, block_tables, ring_starts, lengths,
     if splits > 1:      # each split's (acc [G, hd], m [G], l [G]) in f32
         partial = torch.empty(b * kv * splits * (h // kv) * (hd + 2),
                               dtype=torch.float32, device=q.device)
-        tickets = _tickets(q.device, b * kv)
+        tickets = ticket_counters(q.device, b * kv)
     fn = _entry(q.dtype)
     starts = 0 if ring_starts is None else ring_starts.data_ptr()
     with torch.cuda.device(q.device):

@@ -6,8 +6,6 @@ failure on the card falls back to the plain version.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.decode_attention_paged import (
@@ -111,16 +109,20 @@ def rwkv6_scan(r, k, v, w, u, state):
     raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
 
 
-def rglru_scan(a, u, state, out_dtype=torch.float32):
-    """RG-LRU recurrence h_t = a_t * h_{t-1} + u_t. a, u: f32 [B,S,W] (a
-    contiguous last dim); state: the incoming f32 [B,W].
+def rglru_scan(gate_a, gate_i, b_a, b_i, lamb, xa, state):
+    """RG-LRU gate math and recurrence h_t = a_t * h_{t-1} + u_t, a and u
+    made from the gate products as `ref.rglru_gated` states. gate_a =
+    xa @ W_a, gate_i = xa @ W_i, xa: [B,S,W] (f32 or bf16; a contiguous
+    last dim); b_a, b_i, lamb: [W] in xa's dtype; state: the incoming f32
+    [B,W].
 
-    Returns (out [B,S,W] in out_dtype, float32 or bfloat16 rounded from
-    the f32 value; state). `state` is overwritten with the final h, on
-    both routes, so a slot's state advances where it lies in the arena."""
-    if a.device.type == "cuda":
-        return rglru_scan_cuda(a, u, state, out_dtype)
-    if a.device.type == "cpu":
-        out, final = ref.rglru(a, u, state)
-        return out.to(out_dtype), state.copy_(final)
-    raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    Returns (out [B,S,W] in xa's dtype, state). `state` is overwritten
+    with the final h, on both routes, so a slot's state advances where it
+    lies in the arena."""
+    args = (gate_a, gate_i, b_a, b_i, lamb, xa)
+    if xa.device.type == "cuda":
+        return rglru_scan_cuda(*args, state)
+    if xa.device.type == "cpu":
+        out, final = ref.rglru_gated(*args, state)
+        return out, state.copy_(final)
+    raise ValueError(f"rglru_scan: no kernel for device {xa.device}")

@@ -255,6 +255,116 @@ def rwkv6(r, k, v, w, u, state=None):
     return torch.stack(outs, dim=2), st
 
 
+SUB = 16    # steps of a sub-chunk: the span of every log-decay sum
+
+
+def _products(factors):
+    """[prod_{m<j}, prod_{m>j}] of a list of equal-shaped tensors, each
+    product taken in ascending m, as the kernel forms them."""
+    n = len(factors)
+    one = torch.ones_like(factors[0])
+    pre, suf = [], []
+    for j in range(n):
+        p = one
+        for m in range(j):
+            p = p * factors[m]
+        pre.append(p)
+        q = one
+        for m in range(j + 1, n):
+            q = q * factors[m]
+        suf.append(q)
+    return pre, suf
+
+
+def rwkv6_chunked(r, k, v, w, u, state=None, chunk=64):
+    """The chunked WKV kernel's arithmetic as plain PyTorch (tests only:
+    the CPU path runs `rwkv6`, the card the kernel). Same arguments and
+    results as `rwkv6`.
+
+    Time is cut into chunks of `chunk` steps (the last padded with r = k =
+    v = 0, w = 1) and each chunk into sub-chunks of 16. With lw =
+    log2(max(w, 1e-38)), every exponent is a sum of lw over at most 16
+    steps of one sub-chunk, taken from its start (Lp_t, the steps before t)
+    or towards its end (Ls_s, the steps after s), so every factor is <= 1:
+        q_t = r_t 2^Lp_t,   k~_s = k_s 2^Ls_s,   E_j = 2^(sum of lw over j).
+    Decay across whole sub-chunks is a product of the E's. The chunk's
+    matrix A (t, s):
+      * diagonal 16x16 blocks: the exact ratio, a running product of the
+        decays, sum_d r_td k_sd prod_{s<q<t} w_qd for s < t, the bonus
+        r_t . (u k_t) at s = t, 0 above (nothing to mask: no exp);
+      * block (J, I), I < J: q_J (k~_I prod_{I<m<J} E_m)^T.
+    Then out = A v + (q_t prod_{m<J} E_m) S_in, and across chunks, in
+    chunk order, S <- diag(prod_m E_m) S + sum_s (k~_s prod_{m>I} E_m)^T v_s.
+    """
+    b, h, s, hd = r.shape
+    c = chunk
+    nc = -(-s // c)
+    pad = nc * c - s
+    n = c // SUB
+    f32, dev = torch.float32, r.device
+    rf, kf, vf = (torch.nn.functional.pad(a.to(f32), (0, 0, 0, pad))
+                  for a in (r, k, v))
+    wf = torch.nn.functional.pad(w.to(f32), (0, 0, 0, pad), value=1.0)
+    shape = (b, h, nc, n, SUB, hd)
+    rf, kf, vf, wf = (a.reshape(shape) for a in (rf, kf, vf, wf))
+    lw = torch.log2(torch.clamp_min(wf, 1e-38))
+    acc = torch.zeros_like(lw[..., 0, :])
+    lp = []
+    for t in range(SUB):                      # exclusive prefix sums
+        lp.append(acc)
+        acc = acc + lw[..., t, :]
+    total = acc                               # [b, h, nc, n, hd]
+    acc = torch.zeros_like(total)
+    ls = [None] * SUB
+    for t in reversed(range(SUB)):            # exclusive suffix sums
+        ls[t] = acc
+        acc = acc + lw[..., t, :]
+    q = rf * torch.exp2(torch.stack(lp, dim=-2))
+    kt = kf * torch.exp2(torch.stack(ls, dim=-2))
+    e = [torch.exp2(total[..., j, :]) for j in range(n)]
+    pre, suf = _products(e)
+    uf = u.to(f32)[None, :, None, None, None, :]
+
+    # diagonal blocks: running products over t, every s at once
+    kp = kf.clone()
+    idx = torch.arange(SUB, device=dev)
+    rows = []
+    for t in range(SUB):
+        coef = torch.where((idx == t)[:, None], kp * uf,
+                           torch.where((idx < t)[:, None], kp, 0.0))
+        rows.append(torch.einsum("...d,...sd->...s", rf[..., t, :], coef))
+        kp = torch.where((idx < t)[:, None], kp * wf[..., t:t + 1, :], kp)
+    diag = torch.stack(rows, dim=-2)          # [b, h, nc, n, t, s]
+
+    a = torch.zeros((b, h, nc, c, c), dtype=f32, device=dev)
+    for jb in range(n):
+        sl = slice(SUB * jb, SUB * (jb + 1))
+        a[..., sl, sl] = diag[..., jb, :, :]
+        for ib in range(jb):
+            mid = torch.ones_like(e[0])
+            for m in range(ib + 1, jb):
+                mid = mid * e[m]
+            a[..., sl, SUB * ib:SUB * (ib + 1)] = torch.einsum(
+                "...td,...sd->...ts", q[..., jb, :, :],
+                kt[..., ib, :, :] * mid[..., None, :])
+    vc = vf.reshape(b, h, nc, c, hd)
+    intra = a @ vc
+    rdec = torch.cat([q[..., j, :, :] * pre[j][..., None, :]
+                      for j in range(n)], dim=-2)
+    kdec = torch.cat([kt[..., j, :, :] * suf[j][..., None, :]
+                      for j in range(n)], dim=-2)
+    tot = pre[-1] * e[-1]                     # prod over every sub-chunk
+    st = (torch.zeros((b, h, hd, hd), dtype=f32, device=dev)
+          if state is None
+          else state.to(f32))
+    outs = []
+    for ci in range(nc):
+        outs.append(intra[:, :, ci] + rdec[:, :, ci] @ st)
+        st = tot[:, :, ci, :, None] * st + kdec[:, :, ci].transpose(-1, -2) \
+            @ vc[:, :, ci]
+    return torch.cat(outs, dim=2)[:, :, :s], st
+
+
 def rglru(a, u, h0=None):
     """RG-LRU gated linear recurrence (the TPU kernel `rglru_scan_bsw`, with
     state in and out), a sequential loop over time in f32:
@@ -274,3 +384,26 @@ def rglru(a, u, h0=None):
         h = af[:, t] * h + uf[:, t]
         outs.append(h)
     return torch.stack(outs, dim=1), h
+
+
+def rglru_gated(gate_a, gate_i, b_a, b_i, lamb, xa, h0=None):
+    """The RG-LRU block's gate math and recurrence (the fused kernel's
+    plain version): the block's ops in its order and roundings, then
+    `rglru`.
+
+    gate_a = xa @ W_a, gate_i = xa @ W_i and xa: [B, S, W] in the compute
+    dtype; b_a, b_i, lamb: [W] in the same dtype; h0: f32 [B, W] (None:
+    zeros), not modified. The gates and i * xa round to the compute dtype,
+    the decay and the scale are f32:
+        r = sigmoid(gate_a + b_a),  i = sigmoid(gate_i + b_i)
+        a = exp(-8 softplus(lamb) r),  u = sqrt(max(1 - a^2, 1e-12)) (i xa)
+    Returns (h [B, S, W] in xa's dtype, the final h [B, W] in f32).
+    """
+    r = torch.sigmoid(gate_a + b_a)
+    i = torch.sigmoid(gate_i + b_i)
+    log_a = -8.0 * torch.nn.functional.softplus(lamb.float()) * r.float()
+    a = torch.exp(log_a)                                     # [B,S,W] in (0,1)
+    gated = (i * xa).float()
+    scale = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
+    out, final = rglru(a, scale * gated, h0)
+    return out.to(xa.dtype), final

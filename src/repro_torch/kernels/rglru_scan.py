@@ -1,20 +1,23 @@
-"""RG-LRU gated linear recurrence with state in and out: the Hopper kernel's
-wrapper.
+"""RG-LRU gated linear recurrence with its gate math fused in and state in
+and out: the Hopper kernel's wrapper.
 
 The kernel (`csrc/rglru_scan.cu`, CUDA C++ for sm_90a, bound with ctypes)
-replaces the TPU kernel `repro/kernels/rglru_scan.py:rglru_scan_bsw`:
+replaces the TPU kernel `repro/kernels/rglru_scan.py:rglru_scan_bsw`,
 
     h_t = a_t * h_{t-1} + u_t    (f32, the product and the sum each rounded)
 
-per batch row and channel, with an output per step. The TPU kernel starts
+per batch row and channel, with an output per step, and computes a and u
+itself from the RG-LRU block's gate products (`models/rglru.py`): from
+ga = xa @ W_a, gi = xa @ W_i and xa ([B, S, W], f32 or bf16, one dtype)
+and the block's b_a, b_i and lamb ([W], the same dtype), in PyTorch's
+order and roundings (`ref.rglru_gated`, bitwise). The TPU kernel starts
 from zero and returns no state; this one starts from `state` (f32 [B, W])
-and writes the final h back into it, so decode steps continue the prompt's
-recurrence. It reads a and u (f32 [B, S, W]) through their batch and time
-strides and writes out in f32, or in bf16 (`out_dtype`), rounded to
-nearest-even from the f32 value: bitwise `out_f32.to(torch.bfloat16)`.
-The wrapper checks its inputs, allocates the output with `torch.empty`,
-launches on the current stream and raises if the launch reports an error.
-`rglru_scan_cuda.launches` counts its launches.
+and writes the final h back into it, so decode steps continue the
+prompt's recurrence. It writes out in the inputs' dtype, rounded to
+nearest-even from the f32 h. The wrapper checks its inputs, allocates the
+output with `torch.empty`, launches on the current stream and raises if
+the launch reports an error. `rglru_scan_cuda.launches` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -27,55 +30,69 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_operand
 
 _ENTRY = {torch.float32: "rglru_scan_f32", torch.bfloat16: "rglru_scan_bf16"}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
              + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype):
-    """The typed ctypes function for an output dtype, set up once."""
+    """The typed ctypes function for a compute dtype, set up once."""
     fn = getattr(build.load("rglru_scan"), _ENTRY[dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_inputs(a, u, state, out_dtype=torch.float32):
-    """Raise unless a and u (f32 [B,S,W]) and state (contiguous f32 [B,W])
-    lie on one CUDA device with a contiguous last dim and 16-byte aligned
-    addresses and strides, and out_dtype is float32 or bfloat16."""
-    f32 = torch.float32
-    check_operand("rglru_scan", "a", a, 3, a.device, f32)
-    check_operand("rglru_scan", "u", u, 3, a.device, f32)
-    check_operand("rglru_scan", "state", state, 2, a.device, f32)
-    b, _, w = a.shape
-    if u.shape != a.shape or tuple(state.shape) != (b, w):
-        raise ValueError(f"rglru_scan kernel: a {tuple(a.shape)}, u "
-                         f"{tuple(u.shape)} and state {tuple(state.shape)} "
-                         "do not match as [B,S,W], [B,S,W], [B,W]")
+def check_inputs(gate_a, gate_i, b_a, b_i, lamb, xa, state):
+    """Raise unless gate_a, gate_i and xa ([B,S,W], f32 or bf16, one dtype,
+    a contiguous last dim and 16-byte aligned addresses and strides), b_a,
+    b_i and lamb (contiguous [W], the same dtype) and state (contiguous f32
+    [B,W], 16-byte aligned) lie on one CUDA device."""
+    dev, dtype = xa.device, xa.dtype
+    for name, t in (("gate_a", gate_a), ("gate_i", gate_i), ("xa", xa)):
+        check_operand("rglru_scan", name, t, 3, dev, dtype)
+    check_operand("rglru_scan", "state", state, 2, dev, torch.float32)
+    b, _, w = xa.shape
+    if gate_a.shape != xa.shape or gate_i.shape != xa.shape:
+        raise ValueError(f"rglru_scan kernel: gate_a {tuple(gate_a.shape)}, "
+                         f"gate_i {tuple(gate_i.shape)} and xa "
+                         f"{tuple(xa.shape)} differ")
+    for name, t in (("b_a", b_a), ("b_i", b_i), ("lamb", lamb)):
+        # read one element a channel: no alignment asked
+        if t.device != dev:
+            raise ValueError(f"rglru_scan kernel: {name} is on {t.device}, "
+                             f"expected the CUDA device {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"rglru_scan kernel: {name} is {t.dtype}, "
+                            f"expected {dtype}")
+        if tuple(t.shape) != (w,) or not t.is_contiguous():
+            raise ValueError(f"rglru_scan kernel: {name} needs to be a "
+                             f"contiguous ({w},), got {tuple(t.shape)} with "
+                             f"strides {t.stride()}")
+    if tuple(state.shape) != (b, w):
+        raise ValueError(f"rglru_scan kernel: state {tuple(state.shape)} "
+                         f"does not match xa {tuple(xa.shape)} as [B,W]")
     if not state.is_contiguous():
         raise ValueError(f"rglru_scan kernel: state needs to be contiguous, "
                          f"got strides {state.stride()}")
-    if out_dtype not in _ENTRY:
-        raise TypeError(f"rglru_scan kernel: out_dtype {out_dtype}; it "
-                        "writes float32 or bfloat16")
 
 
-def rglru_scan_cuda(a, u, state, out_dtype=torch.float32):
-    """Launch the kernel on CUDA tensors. Returns (out [B,S,W] in out_dtype,
-    `state`, overwritten with the final h)."""
-    check_inputs(a, u, state, out_dtype)
-    b, s, w = a.shape
-    out = torch.empty((b, s, w), dtype=out_dtype, device=a.device)
+def rglru_scan_cuda(gate_a, gate_i, b_a, b_i, lamb, xa, state):
+    """Launch the kernel on CUDA tensors. Returns (out [B,S,W] in xa's
+    dtype, `state`, overwritten with the final h)."""
+    check_inputs(gate_a, gate_i, b_a, b_i, lamb, xa, state)
+    b, s, w = xa.shape
+    out = torch.empty((b, s, w), dtype=xa.dtype, device=xa.device)
     if out.numel() == 0:
         return out, state
-    strides = (ctypes.c_int64 * 6)(*[st for t in (a, u, out)
+    strides = (ctypes.c_int64 * 8)(*[st for t in (gate_a, gate_i, xa, out)
                                      for st in t.stride()[:2]])
-    fn = _entry(out_dtype)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), u.data_ptr(), out.data_ptr(), state.data_ptr(),
-                 b, s, w, strides, stream)
+    fn = _entry(xa.dtype)
+    with torch.cuda.device(xa.device):
+        stream = torch.cuda.current_stream(xa.device).cuda_stream
+        err = fn(gate_a.data_ptr(), gate_i.data_ptr(), b_a.data_ptr(),
+                 b_i.data_ptr(), lamb.data_ptr(), xa.data_ptr(),
+                 out.data_ptr(), state.data_ptr(), b, s, w, strides, stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -11,10 +11,17 @@ writes the final state back into it, so decode steps continue the
 prompt's recurrence. It reads r, k, v [B, H, S, hd] (f32 or bf16) and w
 (f32) through their strides, so the model's [B, S, H, hd] projections go
 in as transposed views, and writes out (f32) into a [B, S, H, hd] buffer
-that it returns as a [B, H, S, hd] view. The wrapper checks its inputs,
-allocates the output with `torch.empty`, launches on the current stream
-and raises if the launch reports an error. `rwkv6_scan_cuda.launches`
-counts its launches.
+that it returns as a [B, H, S, hd] view.
+
+The body is picked from S alone (`body(s)`), never from the batch: below
+`CHUNKED_MIN_STEPS` (decode) the step body walks time one step after
+another; from there on the chunked body computes chunks of `CHUNK` steps
+on the tensor cores in two launches (`ref.rwkv6_chunked` states its
+arithmetic), with f32 scratch from `torch.empty` and the per-device
+ticket counters it shares with the decode kernels (`tickets.py`). The
+wrapper checks its inputs, allocates the output, launches on the current
+stream and raises if a launch reports an error. `rwkv6_scan_cuda.launches` counts its calls (one a call, whichever
+body: the chunked body's two device launches count once).
 """
 from __future__ import annotations
 
@@ -24,11 +31,31 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tickets import ticket_counters
 
 _ENTRY = {torch.float32: "rwkv6_scan_f32", torch.bfloat16: "rwkv6_scan_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-             + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+             + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+             + [ctypes.c_void_p] * 3)
 HEAD_DIMS = (32, 64)
+# The chunked body costs ~24 us a call on an H100 however few its steps
+# (two launches of dependent phases); the step body ~0.26 us a step, so
+# the step body is the faster up to ~90 steps (chip_variants.py, PERF.md
+# section 6). C = 32 is no faster at 200 steps and slower at 4096.
+CHUNK = 64                  # steps a chunk of the chunked body: kChunk
+CHUNKED_MIN_STEPS = 96      # the fewest steps that take the chunked body
+
+
+def body(s):
+    """The chunk length the kernel takes for S steps, 0 for the step
+    body: a function of S alone."""
+    return CHUNK if s >= CHUNKED_MIN_STEPS else 0
+
+
+def scratch_floats(b, h, s, hd, chunk):
+    """f32 scratch of the chunked body: per (b, h) and chunk, r_dec [chunk,
+    hd], dS (then S_in) [hd, hd] and the total decay [hd]."""
+    return b * h * -(-s // chunk) * (chunk * hd + hd * hd + hd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,12 +117,20 @@ def rwkv6_scan_cuda(r, k, v, w, u, state):
         return out, state
     strides = (ctypes.c_int64 * 15)(*[st for t in (r, k, v, w, out)
                                       for st in t.stride()[:3]])
+    chunk = body(s)
+    scratch = tickets = None
+    if chunk:
+        scratch = torch.empty(scratch_floats(b, h, s, hd, chunk),
+                              dtype=torch.float32, device=r.device)
+        tickets = ticket_counters(r.device, b * h)
     fn = _entry(r.dtype)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), out.data_ptr(), state.data_ptr(), b, h, s, hd,
-                 strides, stream)
+                 strides, int(chunk > 0),
+                 None if scratch is None else scratch.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")

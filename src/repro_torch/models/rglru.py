@@ -12,9 +12,10 @@ RG-LRU recurrence (per channel):
     log a_t = -c * softplus(Lambda) * r_t     (c = 8)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * xhat_t)
 
-The reference scans over time with `lax.scan`; the port runs the
-recurrence through `kernels.ops.rglru_scan` (the CUDA kernel on the card,
-its plain version on the CPU), from the slot's `h`, which it advances in
+The reference scans over time with `lax.scan`; the port runs the gates,
+the decay and the recurrence from the two gate products on through
+`kernels.ops.rglru_scan` (one CUDA kernel on the card, its plain version
+`ref.rglru_gated` on the CPU), from the slot's `h`, which it advances in
 place. Every step keeps the reference's order of ops and of roundings in
 the compute dtype: the gates and `i * xhat` in the compute dtype, the
 decay and the scale in f32, the conv as the taps' sum from 0 in order,
@@ -28,7 +29,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _he
 
-_C = 8.0
 LEAVES = ("conv", "h")
 
 
@@ -85,13 +85,10 @@ def rglru_block(params, cfg, x, state):
     xa = x @ params["w_x"]
     xa, conv_state = _causal_conv(params, xa, state["conv"])
 
-    r = torch.sigmoid(xa @ params["w_a"] + params["b_a"])
-    i = torch.sigmoid(xa @ params["w_i"] + params["b_i"])
-    log_a = (-_C * F.softplus(params["lamb"].float()) * r.float())
-    a = torch.exp(log_a)                                     # [B,S,W] in (0,1)
-    gated = (i * xa).float()
-    scale = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
-    h_seq, _ = ops.rglru_scan(a, scale * gated, state["h"], out_dtype=x.dtype)
+    # the gates, the decay and the recurrence: one kernel after the GEMMs
+    h_seq, _ = ops.rglru_scan(xa @ params["w_a"], xa @ params["w_i"],
+                              params["b_a"], params["b_i"], params["lamb"],
+                              xa, state["h"])
 
     yb = F.gelu(x @ params["w_y"], approximate="tanh")
     out = (h_seq * yb) @ params["w_out"]

@@ -36,7 +36,7 @@ torch = pytest.importorskip("torch")
 # parallel test workers from oversubscribing the CPU
 torch.set_num_threads(1)
 
-from repro_torch.kernels import decode_attention as dattn  # noqa: E402
+from repro_torch.kernels import tickets as ticket_pool  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, num_splits, split_rows)
@@ -47,7 +47,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    CHUNKED_MIN_STEPS, rwkv6_scan_cuda)
 
 KW = dict(tau=0.1, rho=20.0, num_walks=2, num_agents=4)
 # sizes on both sides of the reference's 1024-lane tiling, and ragged ones
@@ -951,7 +952,7 @@ def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, b, h, kv,
 
 def _tickets_are_zero():
     """The decode kernels' shared ticket counters, all back at 0."""
-    return all(not bool(t.any()) for t in dattn._TICKETS.values())
+    return all(not bool(t.any()) for t in ticket_pool.TICKETS.values())
 
 
 @pytest.mark.cuda
@@ -1111,18 +1112,26 @@ def test_ring_kernel_with_a_table_narrower_than_the_ring_on_card(cuda,
 def _rwkv_close(got, want):
     """|kernel - plain| <= 1e-5 * rms(plain) + 1e-4 * |plain|, in f32 on
     both sides (bf16 inputs convert exactly): the sums run in another
-    order, the state carries each step's rounding into the next, and an
-    output near zero is a cancelling sum of 64 terms of the outputs'
-    size, so the absolute term scales with the outputs' RMS."""
+    order (the chunked body also in another form, `ref.rwkv6_chunked`),
+    the state carries each step's rounding into the next, and an output
+    near zero is a cancelling sum of 64 terms of the outputs' size, so the
+    absolute term scales with the outputs' RMS."""
     want = want.float()
     tol = 1e-5 * want.pow(2).mean().sqrt() + 1e-4 * want.abs()
     return bool(((got.float() - want).abs() <= tol).all())
 
 
-def _rwkv_operands(cuda, gen, b, h, s, hd, dtype, strided):
+# the reference's own bound on its chunked form against its sequential
+# scan (tests/test_torch_rwkv.py CHUNKED_ATOL): at strong decays the
+# chunked form's exponents lose what the sequential products keep
+STRONG_DECAY_ATOL = 1e-3
+
+
+def _rwkv_operands(cuda, gen, b, h, s, hd, dtype, strided, w0=-2.0):
     """r, k, v [B,H,S,hd] in dtype (strided: transposed views of one
-    [B,S,3,H,hd] buffer, the model's layout), f32 decays near the model's
-    exp(-exp(-2)), u at 0.1 and a unit-normal incoming state."""
+    [B,S,3,H,hd] buffer, the model's layout), f32 decays exp(-exp(w0 +
+    0.5 z)) (w0 = -2 is the model's initial decay), u at 0.1 and a
+    unit-normal incoming state."""
     def draw(shape):
         return torch.randn(shape, generator=gen, device=cuda)
     if strided:
@@ -1132,15 +1141,39 @@ def _rwkv_operands(cuda, gen, b, h, s, hd, dtype, strided):
     else:
         r, k, v = (draw((b, h, s, hd)).to(dtype) for _ in range(3))
         w = draw((b, h, s, hd))
-    w = torch.exp(-torch.exp(-2.0 + 0.5 * w))
+    w = torch.exp(-torch.exp(w0 + 0.5 * w))
     u = (0.1 * draw((h, hd))).to(dtype)
     return r, k, v, w, u, draw((b, h, hd, hd))
+
+
+def test_wkv_body_depends_on_s_alone():
+    """The step body below CHUNKED_MIN_STEPS, the chunked body of CHUNK
+    steps (the source's one chunk length) from there on; the scratch
+    covers whole chunks."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rwkv6_scan as wkv
+    src = (build.CSRC / "rwkv6_scan.cu").read_text()
+    assert f"constexpr int kChunk = {wkv.CHUNK};" in src
+    assert wkv.CHUNK == 64 and wkv.CHUNKED_MIN_STEPS > 1
+    assert wkv.body(1) == wkv.body(wkv.CHUNKED_MIN_STEPS - 1) == 0
+    assert wkv.body(wkv.CHUNKED_MIN_STEPS) == wkv.body(4096) == wkv.CHUNK
+    assert wkv.scratch_floats(2, 3, 65, 64, 64) == 2 * 3 * 2 * (
+        64 * 64 + 64 * 64 + 64)
+
+
+# (b, s): decode, a prompt of 77, one S on each side of the chunked body's
+# threshold, a chunk boundary, the model's prefill, and a long prompt on
+# chunk bounds
+WKV_CASES = [(5, 1), (2, 77), (2, CHUNKED_MIN_STEPS - 1),
+             (2, CHUNKED_MIN_STEPS), (2, 128), (1, 200), (1, 4096)]
+WKV_IDS = ["decode", "prefill", "below-threshold", "threshold",
+           "chunk-boundary", "model-prefill", "long"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64])
-@pytest.mark.parametrize("b,s", [(5, 1), (2, 77)], ids=["decode", "prefill"])
+@pytest.mark.parametrize("b,s", WKV_CASES, ids=WKV_IDS)
 @pytest.mark.parametrize("strided", [False, True],
                          ids=["contiguous", "model-layout"])
 def test_rwkv6_kernel_matches_plain_version_on_card(cuda, dtype, hd, b, s,
@@ -1164,11 +1197,33 @@ def test_rwkv6_kernel_matches_plain_version_on_card(cuda, dtype, hd, b, s,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w0", [0.0, 1.0, 2.0])
+@pytest.mark.parametrize("s", [200, 1024])
+def test_rwkv6_kernel_at_strong_decays_on_card(cuda, dtype, w0, s):
+    """Decays exp(-exp(w0 + 0.5 z)) far below the model's: the chunked
+    body against the plain sequential loop within STRONG_DECAY_ATOL,
+    output and final state, and its arithmetic (`ref.rwkv6_chunked`) on
+    the same inputs within RWKV's rule."""
+    gen = torch.Generator(device=cuda).manual_seed(int(10 * w0) + s)
+    r, k, v, w, u, state = _rwkv_operands(cuda, gen, 1, 4, s, 64, dtype,
+                                          True, w0=w0)
+    got_state = state.clone()
+    out, _ = ops.rwkv6_scan(r, k, v, w, u, got_state)
+    torch.cuda.synchronize()
+    want, want_state = ref.rwkv6(r, k, v, w, u, state)
+    assert float((out - want).abs().max()) <= STRONG_DECAY_ATOL
+    assert float((got_state - want_state).abs().max()) <= STRONG_DECAY_ATOL
+    form, form_state = ref.rwkv6_chunked(r, k, v, w, u, state)
+    assert _rwkv_close(out, form) and _rwkv_close(got_state, form_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_kernel_in_pieces_equals_one_pass_on_card(cuda, dtype):
-    """A prompt cut in pieces (at 1, 40 and 95 of 130 steps; the kernel
-    stages 32 steps at a time), the state carried in place between them,
-    is bitwise one pass; from a zero state it is the plain version from
-    none."""
+    """A prompt cut in pieces (at 1, 40 and 95 of 130 steps: the pieces take
+    the step body, the whole prompt the chunked body), the state carried
+    in place, agrees with one pass under RWKV's rule; from a zero state
+    the kernel is the plain version from none."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     r, k, v, w, u, state = _rwkv_operands(cuda, gen, 2, 4, 130, 64, dtype,
                                           True)
@@ -1178,26 +1233,76 @@ def test_rwkv6_kernel_in_pieces_equals_one_pass_on_card(cuda, dtype):
     pieces = [ops.rwkv6_scan(r[:, :, a:z], k[:, :, a:z], v[:, :, a:z],
                              w[:, :, a:z], u, state)[0]
               for a, z in zip(cuts, cuts[1:])]
-    assert torch.equal(torch.cat(pieces, dim=2), whole)
-    assert torch.equal(state, whole_state)
+    assert _rwkv_close(torch.cat(pieces, dim=2), whole)
+    assert _rwkv_close(state, whole_state)
     out0, final0 = ops.rwkv6_scan(r, k, v, w, u, torch.zeros_like(state))
     want0, wfinal0 = ref.rwkv6(r, k, v, w, u)
     assert _rwkv_close(out0, want0) and _rwkv_close(final0, wfinal0)
 
 
-def _rglru_operands(cuda, gen, b, s, w, strided):
-    """a in (0, 1) (exp of -8 softplus(1) r, r in (0, 1), as the model
-    makes it), u at unit scale and a unit-normal incoming state; strided:
-    a and u as views of one [B, S, 2, W] buffer."""
-    def draw(shape):
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rwkv6_kernel_in_chunk_aligned_pieces_is_bitwise_on_card(cuda, dtype,
+                                                                  hd):
+    """Cut at chunk edges into three pieces that each take the chunked
+    body (the last one ragged), the state carried in place: every chunk
+    sees the same inputs and the same incoming state, so the pieces equal
+    one pass bitwise, and each row alone equals its row in the batch."""
+    from repro_torch.kernels.rwkv6_scan import CHUNK
+    gen = torch.Generator(device=cuda).manual_seed(17 + hd)
+    step = CHUNK * -(-CHUNKED_MIN_STEPS // CHUNK)   # whole chunks, chunked
+    s = 3 * step - 7
+    r, k, v, w, u, state = _rwkv_operands(cuda, gen, 2, 4, s, hd, dtype,
+                                          True)
+    whole_state = state.clone()
+    whole, _ = ops.rwkv6_scan(r, k, v, w, u, whole_state)
+    cuts = (0, step, 2 * step, s)
+    carried = state.clone()
+    pieces = [ops.rwkv6_scan(r[:, :, a:z], k[:, :, a:z], v[:, :, a:z],
+                             w[:, :, a:z], u, carried)[0]
+              for a, z in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(pieces, dim=2), whole)
+    assert torch.equal(carried, whole_state)
+    alone_state = state[1:].clone()
+    alone, _ = ops.rwkv6_scan(r[1:], k[1:], v[1:], w[1:], u, alone_state)
+    assert torch.equal(alone, whole[1:])
+    assert torch.equal(alone_state, whole_state[1:])
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_back_to_back_calls_are_bitwise_equal_on_card(cuda):
+    """The chunked body's ticket counters are back at 0 after a call: a
+    second call on the same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    r, k, v, w, u, state = _rwkv_operands(cuda, gen, 3, 5, 300, 64,
+                                          torch.bfloat16, True)
+    firsts = [ops.rwkv6_scan(r, k, v, w, u, state.clone()) for _ in range(2)]
+    assert torch.equal(firsts[0][0], firsts[1][0])
+    assert torch.equal(firsts[0][1], firsts[1][1])
+    from repro_torch.kernels.tickets import TICKETS
+    assert int(TICKETS[r.device].abs().sum()) == 0
+
+
+def _rglru_operands(cuda, gen, b, s, w, dtype, strided):
+    """The fused RG-LRU's inputs in dtype: gate products at the scale of
+    He-initialised projections, xa at unit scale, b_a and b_i at 0.5, lamb
+    spread over (-1, 3) with one channel past softplus's threshold of 20,
+    and a unit-normal f32 incoming state; strided: ga, gi and xa as views
+    of one [B, S, 3, W'] buffer, W' the next multiple of 8 (16-byte
+    aligned strides, channels past W unread)."""
+    def draw(*shape):
         return torch.randn(shape, generator=gen, device=cuda)
     if strided:
-        au = draw((b, s, 2, w))
-        a, u = au[:, :, 0], au[:, :, 1]
+        wide = -(-w // 8) * 8
+        buf = draw(b, s, 3, wide).to(dtype)
+        ga, gi, xa = (buf[:, :, i, :w] for i in range(3))
     else:
-        a, u = draw((b, s, w)), draw((b, s, w))
-    a.copy_(torch.exp(-8.0 * 1.3133 * torch.sigmoid(a)))
-    return a, u, draw((b, w))
+        ga, gi, xa = (draw(b, s, w).to(dtype) for _ in range(3))
+    b_a, b_i = ((0.5 * draw(w)).to(dtype) for _ in range(2))
+    lamb = (-1.0 + 4.0 * torch.rand(w, generator=gen, device=cuda))
+    lamb[w // 2] = 25.0
+    return ga, gi, b_a, b_i, lamb.to(dtype), xa, draw(b, w)
 
 
 @pytest.mark.cuda
@@ -1209,39 +1314,42 @@ def _rglru_operands(cuda, gen, b, s, w, strided):
 ], ids=["prefill", "decode", "ragged-strided"])
 def test_rglru_kernel_matches_plain_version_on_card(cuda, out_dtype, b, s,
                                                     w, strided):
-    """Bitwise: the kernel rounds the product and the sum of each step as
-    the plain version's two ops do, and a bf16 output is the f32 value
-    rounded to nearest-even; the state is overwritten in place."""
+    """Bitwise: the kernel computes the gates, the decay and the scale
+    with PyTorch's ops in their order and roundings, and each step's
+    product and sum as the plain version's two ops; the output is in the
+    inputs' dtype (`out_dtype`) and the state is overwritten in place."""
     gen = torch.Generator(device=cuda).manual_seed(b * s + w)
-    a, u, state = _rglru_operands(cuda, gen, b, s, w, strided)
+    *args, state = _rglru_operands(cuda, gen, b, s, w, out_dtype, strided)
     got_state = state.clone()
     before = rglru_scan_cuda.launches
-    out, returned = ops.rglru_scan(a, u, got_state, out_dtype=out_dtype)
+    out, returned = ops.rglru_scan(*args, got_state)
     torch.cuda.synchronize()
     assert rglru_scan_cuda.launches == before + 1
     assert returned is got_state
     assert out.dtype == out_dtype and out.shape == (b, s, w)
-    want, want_state = ref.rglru(a, u, state)
-    assert torch.equal(out, want.to(out_dtype))
+    want, want_state = ref.rglru_gated(*args, state)
+    assert torch.equal(out, want)
     assert torch.equal(got_state, want_state)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_in_pieces_equals_one_pass_on_card(cuda, out_dtype):
-    """A prompt cut at 1, 16, 40 and 95 of 130 steps (the kernel loads 16
-    steps ahead), the state carried in place, is bitwise one pass; from a
+    """A prompt cut at 1, 16, 40, 64 and 95 of 130 steps (the kernel walks
+    tiles of 64), the state carried in place, is bitwise one pass; from a
     zero state it is the plain version from none."""
     gen = torch.Generator(device=cuda).manual_seed(15)
-    a, u, state = _rglru_operands(cuda, gen, 2, 130, 2560, True)
+    ga, gi, b_a, b_i, lamb, xa, state = _rglru_operands(
+        cuda, gen, 2, 130, 2560, out_dtype, True)
     whole_state = state.clone()
-    whole, _ = ops.rglru_scan(a, u, whole_state, out_dtype=out_dtype)
-    cuts = (0, 1, 16, 40, 95, 130)
-    pieces = [ops.rglru_scan(a[:, x:z], u[:, x:z], state,
-                             out_dtype=out_dtype)[0]
+    whole, _ = ops.rglru_scan(ga, gi, b_a, b_i, lamb, xa, whole_state)
+    cuts = (0, 1, 16, 40, 64, 95, 130)
+    pieces = [ops.rglru_scan(ga[:, x:z], gi[:, x:z], b_a, b_i, lamb,
+                             xa[:, x:z], state)[0]
               for x, z in zip(cuts, cuts[1:])]
     assert torch.equal(torch.cat(pieces, dim=1), whole)
     assert torch.equal(state, whole_state)
-    out0, final0 = ops.rglru_scan(a, u, torch.zeros_like(state))
-    want0, wfinal0 = ref.rglru(a, u)
+    out0, final0 = ops.rglru_scan(ga, gi, b_a, b_i, lamb, xa,
+                                  torch.zeros_like(state))
+    want0, wfinal0 = ref.rglru_gated(ga, gi, b_a, b_i, lamb, xa)
     assert torch.equal(out0, want0) and torch.equal(final0, wfinal0)

@@ -115,7 +115,8 @@ def test_attention_ops_reject_devices_without_a_kernel(name):
         elif name == "rwkv6_scan":
             ops.rwkv6_scan(q, q, q, q, q[0, 0], k)
         elif name == "rglru_scan":
-            ops.rglru_scan(q[0], q[0], q[0, 0])
+            w = q[0, 0, 0]
+            ops.rglru_scan(q[0], q[0], w, w, w, q[0], q[0, 0])
         else:
             ops.decode_attention_ring(q[:, 0], k, k, ones[:, None],
                                       ring_starts=ones, lengths=ones,
@@ -312,31 +313,45 @@ def test_rwkv6_kernel_rejects_bad_inputs(cuda):
 @pytest.mark.cuda
 def test_rglru_kernel_rejects_bad_inputs(cuda):
     b, s, w = 2, 5, 64
-    a = torch.full((b, s, w), 0.5, device=cuda)
+    x = torch.full((b, s, w), 0.5, device=cuda)
+    p = torch.zeros(w, device=cuda)
     state = torch.zeros(b, w, device=cuda)
-    scan = ops.rglru_scan
-    with pytest.raises(ValueError):     # u on the CPU
-        scan(a, a.cpu(), state)
+
+    def scan(ga=x, gi=x, ba=p, bi=p, lamb=p, xa=x, st=state):
+        return ops.rglru_scan(ga, gi, ba, bi, lamb, xa, st)
+
+    with pytest.raises(ValueError):     # a gate on the CPU
+        scan(gi=x.cpu())
     with pytest.raises(ValueError):     # state on the CPU
-        scan(a, a, state.cpu())
-    with pytest.raises(TypeError):      # a not f32
-        scan(a.bfloat16(), a, state)
+        scan(st=state.cpu())
+    with pytest.raises(ValueError):     # a parameter on the CPU
+        scan(lamb=p.cpu())
+    with pytest.raises(TypeError):      # a compute dtype it does not take
+        scan(ga=x.half(), gi=x.half(), ba=p.half(), bi=p.half(),
+             lamb=p.half(), xa=x.half())
+    with pytest.raises(TypeError):      # a gate in another dtype than xa
+        scan(ga=x.bfloat16())
+    with pytest.raises(TypeError):      # a parameter in another dtype
+        scan(ba=p.bfloat16())
     with pytest.raises(TypeError):      # state not f32
-        scan(a, a, state.bfloat16())
-    with pytest.raises(TypeError):      # an output dtype it does not write
-        scan(a, a, state, out_dtype=torch.float16)
+        scan(st=state.bfloat16())
     flat = torch.full((b * s * w + 1,), 0.5, device=cuda)
     with pytest.raises(ValueError):     # misaligned address
-        scan(flat[1:].view(b, s, w), a, state)
+        scan(ga=flat[1:].view(b, s, w))
     with pytest.raises(ValueError):     # last dim not contiguous
-        scan(a.transpose(1, 2), a.transpose(1, 2), state)
-    with pytest.raises(ValueError):     # u of another length
-        scan(a, a[:, :4], state)
+        t = x.transpose(1, 2)
+        scan(ga=t, gi=t, xa=t)
+    with pytest.raises(ValueError):     # a gate of another length
+        scan(gi=x[:, :4])
+    with pytest.raises(ValueError):     # a parameter of another width
+        scan(bi=p[:32])
+    with pytest.raises(ValueError):     # a parameter not contiguous
+        scan(lamb=torch.zeros(2 * w, device=cuda)[::2])
     with pytest.raises(ValueError):     # state of another batch
-        scan(a, a, state[:1])
+        scan(st=state[:1])
     with pytest.raises(ValueError):     # state not contiguous
-        scan(a, a, torch.zeros(w, b, device=cuda).T)
+        scan(st=torch.zeros(w, b, device=cuda).T)
     with pytest.raises(ValueError):     # not [B, S, W]
-        scan(a[0], a[0], state)
-    out, st = scan(a, a, state)
-    assert out.shape == a.shape and st is state
+        scan(ga=x[0], gi=x[0], xa=x[0], st=state[0])
+    out, st = scan()
+    assert out.shape == x.shape and out.dtype == x.dtype and st is state

@@ -136,6 +136,88 @@ def test_plain_rwkv6_matches_jax_tpu_kernel_from_zero(jx, s, hd, chunk):
     assert final.shape == (2, 3, hd, hd)
 
 
+def _decay_inputs(shape, seed, w0):
+    """r, k, v unit-normal, decays exp(-exp(w0 + 0.5 z)) (w0 = -2: the
+    model's initial decay; 0 to +2: strong), u at 0.1 and a unit-normal
+    incoming state, f32 numpy (the card tests' operands)."""
+    rng = np.random.default_rng(seed)
+    b, h, _, hd = shape
+    r, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(w0 + 0.5 * rng.standard_normal(shape))).astype(
+        np.float32)
+    u = (0.1 * rng.standard_normal((h, hd))).astype(np.float32)
+    st = rng.standard_normal((b, h, hd, hd)).astype(np.float32)
+    return (r, k, v, w, u), st
+
+
+def _rule(got, want):
+    """The card tests' RWKV rule: |got - want| <= 1e-5 rms(want) + 1e-4
+    |want|."""
+    tol = 1e-5 * want.pow(2).mean().sqrt() + 1e-4 * want.abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("w0", [-2.0, 2.0], ids=["model-decay", "strong"])
+@pytest.mark.parametrize("s,chunk", [(192, 64), (200, 64), (70, 32)])
+def test_plain_chunked_form_matches_jax_wkv_chunked_and_the_loop(jx, w0, s,
+                                                                 chunk):
+    """`ref.rwkv6_chunked` (the chunked kernel's arithmetic: sub-chunk
+    anchored exponents, running products on the diagonal) against the
+    sequential `ref.rwkv6` under the card tests' RWKV rule, against the
+    reference's sequential oracle within its CHUNKED_ATOL of 1e-3, and,
+    at the model's decays, against the reference's own chunked form
+    `wkv_chunked` (S a multiple of its chunk) within the same 1e-3. At
+    w0 = +2 `wkv_chunked` itself is 1.3e-3 from the loop at S = 192: its
+    exponents are sums over 64 steps."""
+    jnp = jx.jnp
+    arrays, st = _decay_inputs((1, 3, s, 64), seed=s + chunk, w0=w0)
+    ta = _torch(arrays)
+    out, final = ref.rwkv6_chunked(*ta, torch.from_numpy(st), chunk=chunk)
+    want, want_final = ref.rwkv6(*ta, torch.from_numpy(st))
+    assert _rule(out, want) and _rule(final, want_final)
+    ja = [jnp.asarray(a, jnp.float32) for a in arrays]
+    jst = jnp.asarray(st, jnp.float32)
+    jout, jfinal = jx.ref.rwkv6(*ja, state=jst)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0,
+                               atol=CHUNKED_ATOL)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), rtol=0,
+                               atol=CHUNKED_ATOL)
+    if s % chunk == 0 and w0 == -2.0:
+        jout, jfinal = jx.rw.wkv_chunked(*ja, jst, chunk=chunk)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0,
+                                   atol=CHUNKED_ATOL)
+        np.testing.assert_allclose(final.numpy(), np.asarray(jfinal),
+                                   rtol=0, atol=CHUNKED_ATOL)
+
+
+@pytest.mark.parametrize("w0", [0.0, 1.0, 2.0])
+def test_plain_chunked_form_at_strong_decays_stays_within_chunked_atol(w0):
+    """At strong decays the chunked form's exponents lose what the
+    sequential products keep; with every exponent a sum over at most 16
+    steps it stays well inside the reference's CHUNKED_ATOL (1e-3) of the
+    sequential loop, and no masked entry turns into inf or NaN."""
+    arrays, st = _decay_inputs((1, 4, 256, 64), seed=int(w0), w0=w0)
+    ta = _torch(arrays)
+    out, final = ref.rwkv6_chunked(*ta, torch.from_numpy(st))
+    want, want_final = ref.rwkv6(*ta, torch.from_numpy(st))
+    assert torch.isfinite(out).all() and torch.isfinite(final).all()
+    assert float((out - want).abs().max()) <= CHUNKED_ATOL
+    assert float((final - want_final).abs().max()) <= CHUNKED_ATOL
+
+
+def test_plain_chunked_form_pads_a_ragged_chunk_and_starts_from_zero():
+    """S not a multiple of the chunk (padded with r = k = v = 0, w = 1),
+    S below one sub-chunk, and state None (zeros), against the loop."""
+    for s in (1, 5, 17, 100):
+        arrays, _ = _decay_inputs((2, 2, s, 32), seed=s, w0=-2.0)
+        ta = _torch(arrays)
+        out, final = ref.rwkv6_chunked(*ta)
+        want, want_final = ref.rwkv6(*ta)
+        assert out.shape == want.shape and final.shape == want_final.shape
+        assert _rule(out, want) and _rule(final, want_final)
+
+
 def test_state_carried_across_a_split_equals_one_pass():
     """`ops.rwkv6_scan` over S in two pieces, the state carried in place
     between them, is bitwise one pass: each step runs the same ops on the
@@ -487,6 +569,113 @@ def test_probe_family_caps(jx, served):
     assert probe_family_caps(windowed, capacity=16).pad_prompts
 
 
+# ---------------------------------------------------------------------------
+# bf16 (the smoke config's own compute dtype) against the reference
+# ---------------------------------------------------------------------------
+
+# XLA and PyTorch round bf16 activations at other points (XLA fuses
+# elementwise chains), so the two bf16 runs differ by about as much as
+# either differs from f32. Measured on the CPU at smoke size: the port's
+# bf16 logits lie within 0.0213 of max |logit| of the reference's over
+# prefill and 8 decode steps, the port's f32 path (the control: the whole
+# stack in another precision) within 0.0495 of the same reference. The
+# limit sits between the two; a greedy token may flip only where the
+# reference's top two logits lie within that limit (the one flip measured
+# had a gap of 0.0061), and at most as many requests flip as did (one).
+BF16_LOGIT_RTOL = 0.03
+BF16_MAX_FLIPS = 1
+
+
+def bf16_close(tl, jl, rtol):
+    """(max |port - reference| <= rtol * max |reference|, that max)."""
+    want = np.asarray(jl, np.float32)
+    err = float(np.abs(tl.float().numpy() - want).max())
+    return err <= rtol * float(np.abs(want).max()), err
+
+
+def assert_tokens_equal_up_to_ties(prompts, outs, jouts, ref_logits, margin,
+                                   max_flips):
+    """Each request's tokens equal the reference's, or first differ where
+    the reference's logits (`ref_logits(prompt + its tokens so far)`) put
+    the port's token within margin * max |logit| of its own: a tie that
+    bf16 rounding may break either way (CHANGES.md PRs 4, 6); at most
+    max_flips requests differ."""
+    flips = 0
+    for prompt, out, jout in zip(prompts, outs, jouts):
+        assert len(out) == len(jout)
+        if out == jout:
+            continue
+        i = next(n for n, (a, b) in enumerate(zip(out, jout)) if a != b)
+        logits = np.asarray(ref_logits(np.concatenate(
+            [np.asarray(prompt), np.asarray(jout[:i], np.int64)])),
+            np.float32)
+        gap = float(logits[jout[i]] - logits[out[i]])
+        tie = margin * float(np.abs(logits).max())
+        assert 0 <= gap <= tie, (i, gap, tie)
+        flips += 1
+    assert flips <= max_flips, flips
+
+
+@pytest.fixture(scope="module")
+def served_bf16(jx):
+    """Both sides in the smoke config's bf16 compute (f32 parameters and
+    recurrent state), from the reference's parameters."""
+    jcfg, tcfg = jx.get_smoke(ARCH), get_smoke(ARCH)
+    assert jcfg.compute_dtype == tcfg.compute_dtype == "bfloat16"
+    jmodel, tmodel = jx.build_model(jcfg), build_model(tcfg)
+    jparams = jmodel.init(jx.jax.random.PRNGKey(0))
+    tparams = params_from_jax(jx.jax.device_get(jparams))
+    return jmodel, jparams, tmodel, tparams
+
+
+def test_bf16_prefill_and_decode_logits_match_reference(jx, served_bf16):
+    """bf16 prefill of two prompts of 20 (the port's chunked WKV form, the
+    reference's sequential scan) and 8 decode steps from the reference's
+    tokens: logits within BF16_LOGIT_RTOL."""
+    jax, jnp = jx.jax, jx.jnp
+    jmodel, jparams, tmodel, tparams = served_bf16
+    toks = np.random.default_rng(5).integers(
+        0, jmodel.cfg.vocab_size, (2, 20)).astype(np.int32)
+    jl, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                cache_dtype=jnp.bfloat16)
+    tl, tcache = tmodel.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                                cache_dtype=torch.bfloat16)
+    ok, err = bf16_close(tl, jl, BF16_LOGIT_RTOL)
+    assert ok, err
+    jdecode = jax.jit(jmodel.decode_step)
+    for position in range(20, 28):
+        cur = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+        jl, jcache = jdecode(jparams, jnp.asarray(cur), jcache,
+                             jnp.int32(position))
+        tl, tcache = tmodel.decode_step(tparams, torch.from_numpy(cur),
+                                        tcache, position)
+        ok, err = bf16_close(tl, jl, BF16_LOGIT_RTOL)
+        assert ok, (position, err)
+
+
+def test_bf16_engine_tokens_match_reference_up_to_ties(jx, served_bf16):
+    """The bf16 engines on the workload: equal tokens, or a first
+    difference at a reference near-tie."""
+    jnp = jx.jnp
+    jmodel, jparams, tmodel, tparams = served_bf16
+    prompts = _prompts(jmodel.cfg.vocab_size)
+    budgets = [b for _, b in WORKLOAD]
+    outs = _run(Engine(tmodel, tparams, max_batch=SLOTS, max_len=CAPACITY,
+                       cache_dtype=torch.bfloat16), prompts, budgets)
+    jouts = _run(jx.Engine(jmodel, jparams, max_batch=SLOTS,
+                           max_len=CAPACITY, cache_dtype=jnp.bfloat16),
+                 prompts, budgets)
+
+    def ref_logits(seq):
+        jl, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(seq[None],
+                                                               jnp.int32)},
+                               cache_dtype=jnp.bfloat16)
+        return jl[0, -1]
+
+    assert_tokens_equal_up_to_ties(prompts, outs, jouts, ref_logits,
+                                   BF16_LOGIT_RTOL, BF16_MAX_FLIPS)
+
+
 def test_paged_engine_serves_rwkv_from_the_arena(served):
     """Engine(paged=True) on a family that cannot page serves from the
     arena, as the reference does, with the arena's tokens."""
@@ -566,7 +755,8 @@ def cuda():
 
 @pytest.mark.cuda
 def test_rwkv_serving_steps_on_card_match_cpu(cuda, monkeypatch):
-    """Smoke config in f32 (TF32 off): prefill_into_slot into 2 slots and 8
+    """Smoke config in f32 (TF32 off): prefill_into_slot into 2 slots (one
+    prompt long enough for the chunked body) and 8
     decode_rows steps through the kernel on the card and the plain version
     on the CPU, from one set of parameters: logits within 1e-4 (f32 sums
     in another order), states within 1e-4 + 1e-5 of their size, and one
@@ -576,13 +766,14 @@ def test_rwkv_serving_steps_on_card_match_cpu(cuda, monkeypatch):
     cfg = dataclasses.replace(get_smoke(ARCH), compute_dtype="float32")
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0))
+    # an RWKV slot holds no positions: a prompt may pass the capacity
     runs = [(dev, {k: v.to(dev) for k, v in cpu.items()},
              model.init_arena(2, CAPACITY, device=dev))
             for dev in (torch.device("cpu"), cuda)]
     before = rwkv6_scan_cuda.launches
     rng = np.random.default_rng(4)
     pos = np.zeros(2, np.int32)
-    for slot, plen in ((1, 11), (0, 5)):
+    for slot, plen in ((1, 100), (0, 5)):     # 100: the chunked WKV body
         toks = rng.integers(0, cfg.vocab_size, (1, plen)).astype(np.int32)
         want, got = (model.prefill_into_slot(
             p, torch.from_numpy(toks).to(dev), plen, slot, arena)[0].cpu()
