@@ -34,17 +34,20 @@ non-zero before the last line:
   6. training profile: 2 more supersteps under torch.profiler, device
      time by kernel and the device's busy share;
   7. serving main path: `repro_torch.launch.serve` at full qwen2-0.5b
-     width (16 requests, max_batch 8, prompts of 200, budgets 16/64),
-     counts reset just before and read just after (24 flash launches per
-     admission, 24 decode launches per decode step), every request served
-     to its budget, and two requests re-served alone giving the same
-     tokens;
+     width (16 requests, max_batch 8, prompts of 200, budgets 16/64) at
+     the engine's default, overlapped admission (fused mixed steps ran,
+     first tokens resolved deferred), counts reset just before and read
+     just after (24 flash launches per admission, 24 decode launches per
+     decode step, mixed or not), every request served to its budget, and
+     two requests re-served alone giving the same tokens;
   8. serving reference: the smoke config in f32, prefill_into_slot and 8
      decode_rows steps on the card and on the CPU from one set of
      parameters, which must agree;
   9. serving profile: 8 steady decode steps at full width under
-     torch.profiler, on the arena and on the paged pool: device time by
-     kernel, launches per step, busy share (and its estimate without the
+     torch.profiler, on the arena and on the paged pool (the engine's
+     default; the arena's admissions ride the 7 steps after the first,
+     so the profiled steps are pure decode): device time by kernel,
+     launches per step, busy share (and its estimate without the
      profiler, from 8 unprofiled steps);
  10. paged kernels: the paged and ring decode kernels against their
      plain versions in f32 and bf16 at the paged serving shape and a
@@ -60,16 +63,19 @@ non-zero before the last line:
      counters back at 0 after every launch; ptxas's registers, spills and
      shared bytes of paged_fwd;
  11. paged serving main path: `repro_torch.launch.serve --paged` at full
-     width on phase 7's workload (block size 16, chunks of 32), counts
+     width on phase 7's workload (block size 16, chunks of 32),
+     overlapped as phase 7, counts
      reset just before and read just after (24 paged launches per decode
      step, no linear decode launch), every block returned; then the same
      requests in a block-scarce pool under "recompute" (preempting
      exactly as often as the same run at smoke size on the CPU, with the
      unpreempted run's tokens) and under "reserve" (never preempting);
  12. ring-paged serving: a full-width model with a 256-token window
-     through `Engine(paged=True)`, 8 prompts of 200 and budgets of 320,
-     so every ring wraps (24 ring launches per step, no block allocated
-     once the rings are full, every block returned);
+     through `Engine(paged=True)` (overlapped), 12 prompts of 200 in 8
+     rows, budgets 160 and 320 alternating, so every ring wraps and the
+     four later admissions ride decode steps of full rings (24 ring
+     launches per step, no more blocks in use than once the first rings
+     were full, every block returned);
  13. paged reference: the smoke config in f32 on the card and on the CPU,
      paged, paged with preemption and ring-paged: logits within 1e-4,
      equal tokens, equal preemption counts;
@@ -129,7 +135,23 @@ non-zero before the last line:
  21. hybrid serving profile: 8 steady decode steps at full width under
      torch.profiler: launches per step, device ms, busy share, the RG-LRU
      kernel's time per launch in the model, and its wrapper calls and
-     device launches per admission and per step.
+     device launches per admission and per step;
+ 22. the serialized scheduler: phase 7's, phase 11's (with its 112-block
+     "recompute" arm, which preempts during overlapped admissions) and
+     phase 12's workloads through `Engine(..., overlap=False)`, every
+     request's tokens equal to the overlapped run's, both arms' tokens/s,
+     p50/p99, prefill wait, mixed steps and overlapped admissions;
+ 23. mixed steps, card against CPU: the smoke config in f32, three
+     mixed steps on the arena, the pool and the ring (logits within
+     1e-4, equal tokens);
+ 24. mixed-step profile at full width: one arena mixed step (B = 8, Sp =
+     256) and one pool and one ring mixed step (C = 32) beside a decode
+     step plus the standalone prefill or chunk on the same state: kernel
+     launches per mixed step (24 flash + 24 decode; 24 paged; 24 ring,
+     asserted), device launches and ms, and the largest |logit|
+     difference of the mixed step's decode rows from a standalone decode
+     step (0: the trunk is row-stable), with the MLP's down projection
+     per half and shared, beside each shared op's row stability.
 
 Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -625,9 +647,17 @@ def serving_summary(out, launches):
         "stats": st}
 
 
+def assert_overlapped(what, st):
+    """The engine ran overlapped admission: fused mixed steps carried
+    prefills and first tokens resolved deferred."""
+    if (st["overlap_mode"] != "fused" or st["mixed_steps"] < 1
+            or st["overlapped_admissions"] < 1):
+        raise AssertionError(f"{what}: not overlapped: {st}")
+
+
 def serve_main_path():
-    """The serving main path at full width; returns (result, launches,
-    outputs)."""
+    """The serving main path at full width, at the engine's default
+    (overlapped); returns (result, launches, the serve() output)."""
     args = serve_cli.parse_args(SERVE_ARGS)
     print(" ".join(SERVE_ARGS))
     reset_counts()
@@ -636,7 +666,8 @@ def serve_main_path():
     st = out["stats"]
     summary = serving_summary(out, launches)
     print(json.dumps({"serving_main_path": summary}), flush=True)
-    n_layers = 24
+    assert_overlapped("the arena main path", st)
+    n_layers = N_LAYERS
     if launches["flash_attention"] != n_layers * st["admissions"]:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times for "
@@ -663,7 +694,7 @@ def serve_main_path():
                                  f"{alone.output.tolist()}, batched "
                                  f"{out['outputs'][uid]}")
     print(json.dumps({"solo_reserves_equal": [0, 1]}), flush=True)
-    return summary, launches, out["outputs"]
+    return summary, launches, out
 
 
 def serving_reference_check():
@@ -857,6 +888,7 @@ def assert_recurrent_launches(what, measured, name, per_admission,
 PAGED_SERVE_ARGS = SERVE_ARGS + ["--paged", "--block-size", "16"]
 SCARCE_BLOCKS = 112     # 8 prompts of 13 blocks + watermark fill it
 RING_WINDOW = 256
+RING_BUDGETS = (160, 320)   # alternating, every one past the window
 
 
 def _pool_operands(b, max_len, bs, dtype, gen):
@@ -1055,7 +1087,9 @@ def check_identity_table(gen):
 
 def paged_serve_main_path(arena_outputs):
     """Phase 11: the paged serving main path, then a block-scarce pool
-    under "recompute" and "reserve". Returns (summary, launches)."""
+    under "recompute" and "reserve", all at the engine's default
+    (overlapped). Returns (summary, launches, {"paged": the main path's
+    serve() output, "scarce": the "recompute" arm's})."""
     n_layers = N_LAYERS
     args = serve_cli.parse_args(PAGED_SERVE_ARGS)
     print(" ".join(PAGED_SERVE_ARGS))
@@ -1066,6 +1100,7 @@ def paged_serve_main_path(arena_outputs):
     summary["requests_equal_to_arena"] = sum(
         a == b for a, b in zip(out["outputs"], arena_outputs))
     print(json.dumps({"paged_serving_main_path": summary}), flush=True)
+    assert_overlapped("the paged main path", out["stats"])
     steps = out["stats"]["decode_steps"]
     if launches["decode_attention_paged"] != n_layers * steps:
         raise AssertionError(f"decode_attention_paged launched "
@@ -1090,13 +1125,16 @@ def paged_serve_main_path(arena_outputs):
     if predicted < 1:
         raise AssertionError("the scarce pool does not preempt at smoke "
                              "size; shrink it")
-    runs = {}
+    runs, outs = {}, {"paged": out}
     for policy in ("recompute", "reserve"):
         argv = scarce_argv + ["--preemption", policy]
         print(" ".join(argv))
         reset_counts()
         run = serve_cli.serve(serve_cli.parse_args(argv))
         run_launches = counts()
+        if policy == "recompute":
+            assert_overlapped("the scarce pool", run["stats"])
+            outs["scarce"] = run
         runs[policy] = serving_summary(run, run_launches)
         runs[policy]["outputs_equal_to_unpreempted"] = (
             run["outputs"] == out["outputs"])
@@ -1117,29 +1155,33 @@ def paged_serve_main_path(arena_outputs):
     print(json.dumps({"paged_scarce_pool": {
         "num_blocks": SCARCE_BLOCKS, "predicted_preemptions_cpu": predicted,
         **runs}}), flush=True)
-    return summary, launches
+    return summary, launches, outs
 
 
-def ring_serving():
+def ring_serving(overlap=True):
     """Phase 12: a full-width windowed model served from the ring-paged
-    pool; returns (summary, launches)."""
+    pool through `Engine(..., overlap=overlap)`; returns (summary,
+    launches, outputs in submit order)."""
     cfg = get_config("qwen2-0.5b")
     model = build_model(cfg, window=RING_WINDOW)
     params = model.init(torch.Generator(device=DEV).manual_seed(0))
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, (200,)) for _ in range(8)]
-    budget = 320
+    # 12 requests in 8 rows: the four admitted when the first short ones
+    # finish ride the decode steps of the full rings
+    prompts = [rng.integers(0, cfg.vocab_size, (200,)) for _ in range(12)]
+    budgets = [RING_BUDGETS[i % 2] for i in range(12)]
     eng = Engine(model, params, max_batch=8, max_len=512, paged=True,
-                 block_size=16, prefill_chunk=32)
+                 block_size=16, prefill_chunk=32, overlap=overlap)
     del params
     ring_blocks = RING_WINDOW // 16
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    uids = [eng.submit(p, max_new_tokens=budget) for p in prompts]
-    in_use, full_at = [], None
+    uids = [eng.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    in_use, full_at, latency = [], None, {}
     while eng.pending or eng.num_active:
-        eng.step()
+        for r in eng.step():
+            latency[r.uid] = time.perf_counter() - t0
         in_use.append(eng._allocator.in_use)
         live = [int(eng._lengths[s]) for s in range(eng.max_batch)
                 if eng._slot_req[s] is not None]
@@ -1150,9 +1192,12 @@ def ring_serving():
     done = {r.uid: r for r in eng.run()}
     st = eng.stats
     steps = st["decode_steps"]
+    lats = [latency[u] for u in uids]
     summary = {
-        "window": RING_WINDOW, "requests": len(uids), "budget": budget,
-        "tokens_per_s": len(uids) * budget / total, "decode_steps": steps,
+        "window": RING_WINDOW, "requests": len(uids),
+        "budgets": RING_BUDGETS, "tokens_per_s": sum(budgets) / total,
+        "p50_s": float(np.percentile(lats, 50)),
+        "p99_s": float(np.percentile(lats, 99)), "decode_steps": steps,
         "decode_ms_per_step": st["decode_s"] / steps * 1e3,
         "prefill_ms_per_admission": (st["admit_host_s"]
                                      + st["prefill_wait_s"])
@@ -1161,7 +1206,11 @@ def ring_serving():
         "blocks_in_use_once_full": in_use[full_at - 1] if full_at else None,
         "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "stats": st}
-    print(json.dumps({"ring_paged_serving": summary}), flush=True)
+    print(json.dumps({"ring_paged_serving" if overlap
+                      else "ring_paged_serving_serialized": summary}),
+          flush=True)
+    if overlap:
+        assert_overlapped("the ring pool", st)
     if launches["decode_attention_ring"] != N_LAYERS * steps:
         raise AssertionError(f"decode_attention_ring launched "
                              f"{launches['decode_attention_ring']} times "
@@ -1169,7 +1218,7 @@ def ring_serving():
     if launches["decode_attention_paged"] or launches["decode_attention"]:
         raise AssertionError(f"the ring path launched another decode "
                              f"kernel: {launches}")
-    if any(len(done[u].output) != budget for u in uids):
+    if [len(done[u].output) for u in uids] != budgets:
         raise AssertionError("a ring request did not get its budget")
     if full_at is None or any(n > in_use[full_at - 1]
                               for n in in_use[full_at:]):
@@ -1180,7 +1229,7 @@ def ring_serving():
                              f"rings hold {8 * ring_blocks}")
     if eng.free_blocks != eng.num_blocks:
         raise AssertionError("ring blocks were not returned")
-    return summary, launches
+    return summary, launches, [done[u].output.tolist() for u in uids]
 
 
 def paged_reference_check():
@@ -1757,6 +1806,396 @@ def hybrid_reference_check():
                       "logits 1e-4; states 1e-4 + 1e-5 |x|"}), flush=True)
 
 
+def scheduler_summary(out):
+    """The numbers the two schedulers are compared by, from a serve()
+    output."""
+    st = out["stats"]
+    return {"tokens_per_s": out["tokens_per_s"], "p50_s": out["p50_s"],
+            "p99_s": out["p99_s"], "prefill_wait_s": st["prefill_wait_s"],
+            "admit_host_s": st["admit_host_s"],
+            "prefill_ms_per_admission": (st["admit_host_s"]
+                                         + st["prefill_wait_s"])
+            / st["admissions"] * 1e3,
+            "decode_steps": st["decode_steps"],
+            "decode_ms_per_step": st["decode_s"] / st["decode_steps"] * 1e3,
+            "mixed_steps": st["mixed_steps"],
+            "overlapped_admissions": st["overlapped_admissions"],
+            "overlap_mode": st["overlap_mode"],
+            "preemptions": st["preemptions"]}
+
+
+def serialized_arms(arena, paged):
+    """Phase 22: phase 7's, phase 11's (main path and the 112-block
+    "recompute" arm) and phase 12's workloads again through
+    `Engine(..., overlap=False)`: every request's tokens must equal the
+    overlapped run's. Returns the serialized arms' kernel launches by
+    path."""
+    report, launches = {}, {}
+    arms = [("arena", SERVE_ARGS, arena),
+            ("paged", PAGED_SERVE_ARGS, paged["paged"]),
+            ("paged_scarce_recompute",
+             PAGED_SERVE_ARGS + ["--num-blocks", str(SCARCE_BLOCKS)],
+             paged["scarce"])]
+    for name, argv, overlapped in arms:
+        print(" ".join(argv), "(overlap=False)")
+        reset_counts()
+        out = serve_cli.serve(serve_cli.parse_args(argv), overlap=False)
+        launches[name] = counts()
+        st = out["stats"]
+        if st["overlap_mode"] or st["mixed_steps"]:
+            raise AssertionError(f"{name}: overlap=False ran overlapped: "
+                                 f"{st}")
+        differ = [u for u, (a, b) in enumerate(zip(out["outputs"],
+                                                   overlapped["outputs"]))
+                  if a != b]
+        if differ or len(out["outputs"]) != len(overlapped["outputs"]):
+            raise AssertionError(f"{name}: overlapped and serialized tokens "
+                                 f"differ for requests {differ}")
+        report[name] = {"requests_equal": len(out["outputs"]),
+                        "overlapped": scheduler_summary(overlapped),
+                        "serialized": scheduler_summary(out)}
+        if name == "paged_scarce_recompute" and (
+                st["preemptions"] != overlapped["stats"]["preemptions"]):
+            print(json.dumps({"scarce_preemptions": {
+                "overlapped": overlapped["stats"]["preemptions"],
+                "serialized": st["preemptions"]}}), flush=True)
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def ring_arms(ring_summary, ring_outputs):
+    """Phase 22, the ring: phase 12's workload through
+    `Engine(..., overlap=False)`, tokens equal request by request."""
+    summary, launches, outputs = ring_serving(overlap=False)
+    differ = [u for u, (a, b) in enumerate(zip(outputs, ring_outputs))
+              if a != b]
+    if differ:
+        raise AssertionError(f"ring: overlapped and serialized tokens "
+                             f"differ for requests {differ}")
+    keys = ("tokens_per_s", "p50_s", "p99_s", "decode_steps",
+            "decode_ms_per_step", "prefill_ms_per_admission")
+    pick = {}
+    for arm, summ in (("overlapped", ring_summary),
+                      ("serialized", summary)):
+        st = summ["stats"]
+        pick[arm] = {**{k: summ[k] for k in keys},
+                     "prefill_wait_s": st["prefill_wait_s"],
+                     "mixed_steps": st["mixed_steps"],
+                     "overlapped_admissions": st["overlapped_admissions"],
+                     "overlap_mode": st["overlap_mode"]}
+    return {"requests_equal": len(outputs), **pick}, launches
+
+
+def mixed_reference_check():
+    """Phase 23: the smoke config in f32 (TF32 off), one set of parameters:
+    two live rows and three mixed steps prefilling the middle slot (the
+    arena: three prompts; the pool and the ring: three chunks of one
+    prompt) on the card and on the CPU; logits within 1e-4 and equal
+    greedy tokens, from the logits and from the `*_tokens` entry
+    points."""
+    from repro_torch.models import transformer as TF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), compute_dtype="float32")
+    devs = (torch.device("cpu"), DEV)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (11, 6, 4, 9, 13)]
+    report = {}
+
+    def compare(name, pairs, token_pairs):
+        worst = max(float((got.cpu() - want).abs().max())
+                    for want, got in pairs)
+        equal = all(bool((got.cpu().argmax(-1) == want.argmax(-1)).all())
+                    for want, got in pairs)
+        equal &= all(torch.equal(want, got.cpu())
+                     for want, got in token_pairs)
+        report[name] = {"max_abs_err": worst, "tokens_equal": equal}
+        if worst > 1e-4 or not equal:
+            raise AssertionError(f"mixed step {name}: card and CPU differ "
+                                 f"({report[name]})")
+
+    for window in (0, 16):
+        model = build_model(cfg, window=window)
+        cpu = model.init(torch.Generator().manual_seed(0))
+        params = [{k: v.to(d) for k, v in cpu.items()} for d in devs]
+        cur = np.array([3, 0, 5], np.int32)
+        pairs, token_pairs = [], []
+        if not window:
+            arenas = [model.init_arena(3, 32, dtype=torch.float32, device=d)
+                      for d in devs]
+            pos = np.array([11, 0, 6], np.int32)
+            for slot, prompt in zip((0, 2), prompts[:2]):
+                toks = np.zeros((1, 16), np.int32)
+                toks[0, :len(prompt)] = prompt
+                for d, p, a in zip(devs, params, arenas):
+                    model.prefill_into_slot(p, torch.from_numpy(toks).to(d),
+                                            len(prompt), slot, a)
+            for prompt in prompts[2:]:
+                toks = np.zeros((1, 16 if len(prompt) > 8 else 8), np.int32)
+                toks[0, :len(prompt)] = prompt
+                probe = [[{k: v.clone() for k, v in seg.items()}
+                          for seg in a] for a in arenas]
+                (wd, wp, _), (gd, gp, _) = [TF.mixed_step(
+                    cfg, p, torch.from_numpy(cur).to(d), a,
+                    torch.from_numpy(pos).to(d),
+                    torch.from_numpy(toks).to(d), len(prompt), 1)
+                    for d, p, a in zip(devs, params, probe)]
+                pairs += [(wd[[0, 2]], gd[[0, 2]]), (wp, gp)]
+                (wn, _, wpos, wt), (gn, _, gpos, gt) = [
+                    model.mixed_step_tokens(
+                        p, torch.from_numpy(cur).to(d), a,
+                        torch.from_numpy(pos).to(d),
+                        torch.from_numpy(toks).to(d), len(prompt), 1)
+                    for d, p, a in zip(devs, params, arenas)]
+                token_pairs += [(wn[[0, 2]], gn[[0, 2]]), (wpos, gpos),
+                                (wt, gt)]
+                cur = wn.numpy().copy()
+                cur[1] = int(wt)
+                pos = wpos.numpy().copy()
+                pos[1] = len(prompt)
+            compare("arena", pairs, token_pairs)
+            continue
+        for name, win in (("paged", 0), ("ring", window)):
+            model = build_model(cfg, window=win)
+            pools = [model.init_pool(24, 4, dtype=torch.float32, device=d)
+                     for d in devs]
+            tables = np.zeros((3, 8), np.int32)
+            tables[0, :3] = [5, 2, 9]
+            tables[2, :2] = [7, 1]
+            lengths = np.array([11, 0, 6], np.int32)
+            for row, prompt in zip((0, 2), prompts[:2]):
+                toks = np.zeros((1, 16), np.int32)
+                toks[0, :len(prompt)] = prompt
+                for d, p, pool in zip(devs, params, pools):
+                    model.prefill_chunk_into_blocks(
+                        p, torch.from_numpy(toks).to(d), len(prompt), 0,
+                        torch.from_numpy(tables[row]).to(d), pool)
+            c_table = np.array([12, 13, 14, 0], np.int32)
+            free = iter([3, 4, 6, 8, 10, 11])
+            cur = np.array([3, 0, 5], np.int32)
+            for i in range(3):
+                for row in (0, 2):
+                    at = int(lengths[row]) % (win or 1 << 30)
+                    if tables[row, at // 4] == 0:
+                        tables[row, at // 4] = next(free)
+                part = prompts[4][i * 4:(i + 1) * 4]
+                toks = np.zeros((1, 4), np.int32)
+                toks[0, :len(part)] = part
+                ops_in = [(p, pool, torch.from_numpy(cur).to(d),
+                           torch.from_numpy(tables).to(d),
+                           torch.from_numpy(lengths).to(d),
+                           torch.from_numpy(toks).to(d),
+                           torch.from_numpy(c_table).to(d))
+                          for d, p, pool in zip(devs, params, pools)]
+                probe = [[{k: v.clone() for k, v in seg.items()}
+                          for seg in pool] for pool in pools]
+                (wd, wc, _), (gd, gc, _) = [TF.mixed_step_paged(
+                    cfg, p, c, pr, t, ln, tk, len(part), i * 4, ct,
+                    window=win)
+                    for (p, _, c, t, ln, tk, ct), pr in zip(ops_in, probe)]
+                pairs += [(wd[[0, 2]], gd[[0, 2]]), (wc, gc)]
+                (wn, _, wl, wt), (gn, _, gl, gt) = [
+                    model.mixed_step_paged_tokens(p, c, pool, t, ln, tk,
+                                                  len(part), i * 4, ct)
+                    for p, pool, c, t, ln, tk, ct in ops_in]
+                token_pairs += [(wn[[0, 2]], gn[[0, 2]]), (wl, gl)]
+                if i == 2:
+                    token_pairs.append((wt, gt))
+                cur = wn.numpy().copy()
+                lengths = wl.numpy().copy()
+                lengths[1] = 0
+            compare(name, pairs, token_pairs)
+            pairs, token_pairs = [], []
+    print(json.dumps({"mixed_reference": report, "tolerance": 1e-4}),
+          flush=True)
+
+
+def _row_stability(params, h_rows, p_rows, gen):
+    """Bitwise row stability of the mixed trunk's shared ops at the main
+    path's shapes: each op on B decode rows and on S prefill rows alone
+    against the same rows of one [1, B + S, .] call, max |difference| of
+    (decode rows, prefill rows), layer 0's weights, unit-normal inputs
+    (the ops' kernels are chosen by shape, not values)."""
+    from repro_torch.models.layers import rmsnorm
+
+    d = params["embed.table"].shape[1]
+    ff = params["segments.0.mlp.w_down"].shape[1]
+    out = {}
+
+    def one(name, width, fn):
+        xd = torch.randn((h_rows, 1, width), generator=gen,
+                         device=DEV).to(torch.bfloat16)
+        xp = torch.randn((1, p_rows, width), generator=gen,
+                         device=DEV).to(torch.bfloat16)
+        xm = torch.cat([xd.transpose(0, 1), xp], dim=1)
+        full = fn(xm)[0]
+        out[name] = [float((fn(xd)[:, 0].float() - full[:h_rows].float())
+                           .abs().max()),
+                     float((fn(xp)[0].float() - full[h_rows:].float())
+                           .abs().max())]
+
+    for w in ("wq", "wk", "wv"):
+        one(w, d, lambda x, w=w: x @ params[f"segments.0.attn.{w}"][0])
+    one("wo", d, lambda x: x @ params["segments.0.attn.wo"][0])
+    for w in ("w_gate", "w_up"):
+        one(w, d, lambda x, w=w: x @ params[f"segments.0.mlp.{w}"][0])
+    one("w_down", ff, lambda x: x @ params["segments.0.mlp.w_down"][0])
+    scale = {"scale": params["segments.0.ln1.scale"][0]}
+    one("rmsnorm", d, lambda x: rmsnorm(scale, x))
+    return out
+
+
+def profile_mixed_steps():
+    """Phase 24: one arena mixed step (8 rows, one slot dead, a 200-token
+    prompt at Sp = 256) and one pool and one ring mixed step (8 rows, a
+    32-token chunk) at full qwen2-0.5b width, each beside a decode step
+    plus the standalone prefill (or chunk) on the same state: kernel
+    launches per mixed step (asserted), device launches and device ms
+    (torch.profiler), the largest |logit| difference between the mixed
+    step's decode rows and a standalone decode step, and the
+    admission's against its standalone prefill, with the MLP's down
+    projection per half (the port) and shared (what it would be
+    without the split), and each shared op's row stability."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.bucketing import table_width
+
+    args = serve_cli.parse_args(SERVE_ARGS)
+    _, cfg, model, params = serve_cli.build(args)
+    # the engine's one cast, so each call casts nothing
+    params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+              for k, v in params.items()}
+    prompts, _ = serve_cli.workload(args, cfg.vocab_size)
+    b, dead, plen = 8, 3, len(prompts[0])
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    cur = torch.tensor([int(p[-1]) for p in prompts[:b]], dtype=torch.int32,
+                       device=DEV)
+    report = {}
+
+    def clone(caches):
+        return [{k: v.clone() for k, v in seg.items()} for seg in caches]
+
+    def logit_gaps(mixed_fn, decode_fn, prefill_fn, caches):
+        gaps = {}
+        for split in (True, False):
+            TF.MIXED_DOWN_PER_HALF = split
+            try:
+                ld, lp, _ = mixed_fn(clone(caches))
+            finally:
+                TF.MIXED_DOWN_PER_HALF = True
+            live = [r for r in range(b) if r != dead]
+            c = clone(caches)
+            want_d = decode_fn(c)
+            want_p = prefill_fn(c)
+            gaps["down_per_half" if split else "down_shared"] = {
+                "decode_rows": float((ld[live] - want_d[live]).abs().max()),
+                "admission": float((lp - want_p).abs().max())}
+        return gaps
+
+    def measure(name, mixed, serial, want_launches, gaps, rows):
+        reset_counts()
+        mixed()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        if got != want_launches:
+            raise AssertionError(f"{name} mixed step launched {got}, "
+                                 f"expected {want_launches}")
+        n_mixed = device_launches(mixed, calls=10)
+        n_serial = device_launches(serial, calls=10)
+        report[name] = {
+            "kernel_launches_per_mixed_step": got,
+            "mixed_step": {"device_launches": n_mixed,
+                           "device_ms": device_ms(mixed, 10,
+                                                  launches=n_mixed)},
+            "decode_step_plus_standalone": {
+                "device_launches": n_serial,
+                "device_ms": device_ms(serial, 10, launches=n_serial)},
+            "max_abs_logit_diff": gaps, "row_stability": rows}
+        print(json.dumps({f"mixed_step_profile_{name}": report[name]}),
+              flush=True)
+
+    # the arena: 7 live rows of 200-token prompts, slot 3 dead
+    arena = model.init_arena(b, 512, device=DEV)
+    sp = 256
+    toks = [torch.zeros((1, sp), dtype=torch.int32, device=DEV)
+            for _ in range(b)]
+    for slot, p in enumerate(prompts[:b]):
+        toks[slot][0, :plen] = torch.from_numpy(p.astype(np.int32))
+        if slot != dead:
+            model.prefill_into_slot_token(params, toks[slot], plen, slot,
+                                          arena)
+    pos = torch.full((b,), plen, dtype=torch.int32, device=DEV)
+    p_toks = toks[dead]
+    gaps = logit_gaps(
+        lambda c: TF.mixed_step(cfg, params, cur, c, pos, p_toks, plen,
+                                dead),
+        lambda c: TF.decode_rows(cfg, params, cur[:, None], c, pos)[0],
+        lambda c: TF.prefill_into_slot(cfg, params, p_toks, plen, dead,
+                                       c)[0], arena)
+    measure("arena_B8_Sp256",
+            lambda: model.mixed_step_tokens(params, cur, arena, pos, p_toks,
+                                            plen, dead),
+            lambda: (model.decode_rows_tokens(params, cur, arena, pos),
+                     model.prefill_into_slot_token(params, p_toks, plen,
+                                                   dead, arena)),
+            {"flash_attention": N_LAYERS, "decode_attention": N_LAYERS},
+            gaps, _row_stability(params, b, sp, gen))
+    del arena
+    torch.cuda.empty_cache()
+
+    # the pool and the ring: 7 live rows, the dead row's chunk 3 (ctx 96)
+    c, bs = 32, 16
+    for name, window in (("paged_B8_C32", 0), ("ring_B8_C32", RING_WINDOW)):
+        wmodel = build_model(cfg, window=window)
+        w = table_width(plen + 1, bs, 256, window=window)
+        pool = wmodel.init_pool(8 * w + w, bs, device=DEV)
+        tables = torch.zeros((b, w), dtype=torch.int32, device=DEV)
+        for row in range(b):
+            if row != dead:
+                tables[row] = torch.arange(1 + row * w, 1 + (row + 1) * w,
+                                           dtype=torch.int32, device=DEV)
+        c_table = torch.arange(1 + b * w, 1 + (b + 1) * w, dtype=torch.int32,
+                               device=DEV)
+        for row, p in enumerate(prompts[:b]):
+            table = c_table if row == dead else tables[row]
+            for i in range(4 if row == dead else -(-plen // c)):
+                chunk = torch.zeros((1, c), dtype=torch.int32, device=DEV)
+                part = torch.from_numpy(p[i * c:(i + 1) * c].astype(np.int32))
+                chunk[0, :len(part)] = part
+                if row == dead and i == 3:
+                    ctoks = chunk      # chunk 3 rides the mixed step
+                    break
+                wmodel.prefill_chunk_into_blocks_token(
+                    params, chunk, len(part), i * c, table, pool)
+        lengths = torch.full((b,), plen, dtype=torch.int32, device=DEV)
+        lengths[dead] = 0
+        gaps = logit_gaps(
+            lambda cc: TF.mixed_step_paged(cfg, params, cur, cc, tables,
+                                           lengths, ctoks, c, 3 * c, c_table,
+                                           window=window),
+            lambda cc: TF.decode_rows_paged(cfg, params, cur[:, None], cc,
+                                            tables, lengths,
+                                            window=window)[0],
+            lambda cc: TF.prefill_chunk_into_blocks(
+                cfg, params, ctoks, c, 3 * c, c_table, cc,
+                window=window)[0], pool)
+        kernel = "decode_attention_ring" if window else "decode_attention_paged"
+        measure(name,
+                lambda: wmodel.mixed_step_paged_tokens(
+                    params, cur, pool, tables, lengths, ctoks, c, 3 * c,
+                    c_table),
+                lambda: (wmodel.decode_rows_paged_tokens(
+                    params, cur, pool, tables, lengths),
+                    wmodel.prefill_chunk_into_blocks_token(
+                        params, ctoks, c, 3 * c, c_table, pool)),
+                {kernel: N_LAYERS}, gaps,
+                _row_stability(params, b, c, gen))
+        del pool
+        torch.cuda.empty_cache()
+    return report
+
+
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
                               "decode_attention_paged", "rwkv6_scan",
                               "rglru_scan")):
@@ -1918,7 +2357,8 @@ def main():
     torch.cuda.empty_cache()
 
     phase("7 serving main path: repro_torch.launch.serve, full qwen2-0.5b")
-    _, serve_launches, arena_outputs = serve_main_path()
+    _, serve_launches, arena_out = serve_main_path()
+    arena_outputs = arena_out["outputs"]
     torch.cuda.empty_cache()
 
     phase("8 serving reference: card against CPU at smoke size")
@@ -1951,11 +2391,11 @@ def main():
     torch.cuda.empty_cache()
 
     phase("11 paged serving main path: repro_torch.launch.serve --paged")
-    _, paged_launches = paged_serve_main_path(arena_outputs)
+    _, paged_launches, paged_outs = paged_serve_main_path(arena_outputs)
     torch.cuda.empty_cache()
 
     phase("12 ring-paged serving: window 256, full qwen2-0.5b")
-    _, ring_launches = ring_serving()
+    ring_summary, ring_launches, ring_outputs = ring_serving()
     torch.cuda.empty_cache()
 
     phase("13 paged reference: card against CPU at smoke size")
@@ -2061,6 +2501,21 @@ def main():
         (RG_LAYERS, RG_LAYERS), (RG_LAYERS, RG_LAYERS))
     torch.cuda.empty_cache()
 
+    phase("22 the serialized scheduler on phases 7, 11 and 12's workloads")
+    schedulers, ser_launches = serialized_arms(arena_out, paged_outs)
+    schedulers["ring"], ser_ring_launches = ring_arms(ring_summary,
+                                                      ring_outputs)
+    print(json.dumps({"schedulers": schedulers}), flush=True)
+    del arena_out, paged_outs
+    torch.cuda.empty_cache()
+
+    phase("23 mixed steps: card against CPU at smoke size")
+    mixed_reference_check()
+
+    phase("24 mixed-step profile: full qwen2-0.5b")
+    profile_mixed_steps()
+    torch.cuda.empty_cache()
+
     # top level: each kernel's main-path case for the times (the largest
     # leaf's f32 case for prox_update), the worst case for the error
     print(json.dumps({"kernels": [
@@ -2071,27 +2526,38 @@ def main():
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:78",
-                     {"qwen2 arena": serve_launches["flash_attention"],
+                     {"qwen2 arena, overlapped":
+                          serve_launches["flash_attention"],
+                      "qwen2 arena, serialized":
+                          ser_launches["arena"]["flash_attention"],
                       "recurrentgemma arena":
                           rg_launches["flash_attention"]},
                      flash_cases, flash_cases[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:89",
-                     {"qwen2 arena": serve_launches["decode_attention"],
+                     {"qwen2 arena, overlapped":
+                          serve_launches["decode_attention"],
+                      "qwen2 arena, serialized":
+                          ser_launches["arena"]["decode_attention"],
                       "recurrentgemma arena":
                           rg_launches["decode_attention"]},
                      decode_cases, decode_cases[0]),
         kernel_entry("decode_attention_paged",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
                      "src/repro/kernels/decode_attention.py:188",
-                     {"qwen2 paged":
-                          paged_launches["decode_attention_paged"]},
+                     {"qwen2 paged, overlapped":
+                          paged_launches["decode_attention_paged"],
+                      "qwen2 paged, serialized":
+                          ser_launches["paged"]["decode_attention_paged"]},
                      paged_cases, paged_cases[0]),
         kernel_entry("decode_attention_ring",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
                      "src/repro/kernels/decode_attention.py:298",
-                     {"qwen2 ring": ring_launches["decode_attention_ring"]},
+                     {"qwen2 ring, overlapped":
+                          ring_launches["decode_attention_ring"],
+                      "qwen2 ring, serialized":
+                          ser_ring_launches["decode_attention_ring"]},
                      ring_cases, ring_cases[0]),
         kernel_entry("rwkv6_scan",
                      "src/repro_torch/kernels/csrc/rwkv6_scan.cu",

@@ -1,8 +1,10 @@
 """Greedy continuous-batching serving on one GPU (the port's serving driver).
 
-Runs the slot-arena engine (`repro_torch.serve.Engine`, serialized
-scheduler) on CUDA unless --device cpu is given; with no GPU it raises
-rather than run on the CPU unasked. Weights are random, from seed 0;
+Runs the continuous-batching engine (`repro_torch.serve.Engine`) at its
+default, overlapped admission where the family has a mixed step (the
+dense GQA stack; rwkv6 and recurrentgemma serve serialized), on CUDA
+unless --device cpu is given; with no GPU it raises rather than run on
+the CPU unasked. Weights are random, from seed 0;
 prompts are random token ids from seed 0. Example (full qwen2-0.5b width
 on an H100):
 
@@ -26,8 +28,12 @@ serves from a shared pool of KV blocks (--block-size tokens each,
 prefill, admitting under --preemption recompute (optimistic, preempting
 the newest request when the pool runs dry) or reserve (worst-case
 reservation); a model that cannot page (rwkv6, recurrentgemma) serves
-from the arena and says so. The reference's --wave is not ported. Prints tokens/s,
-p50/p99 request latency and, for the pool, preemptions and free blocks.
+from the arena and says so. The reference's --wave is not ported, and,
+as the reference's CLI, this one always runs the engine's default
+scheduler (`Engine(overlap=False)` is the serialized one). Prints
+tokens/s, p50/p99 request latency, the resolved overlap mode with its
+mixed steps and overlapped admissions, and, for the pool, preemptions
+and free blocks.
 """
 from __future__ import annotations
 
@@ -91,8 +97,10 @@ def build(args):
     return device, cfg, model, params
 
 
-def serve(args):
-    """Serve the workload. Returns {"outputs" (token lists by uid),
+def serve(args, overlap=True):
+    """Serve the workload through `Engine(..., overlap=overlap)` (the CLI
+    keeps the engine's default, overlapped where the family allows it).
+    Returns {"outputs" (token lists by uid),
     "budgets", "prefill_shapes" (the admitted prompt or chunk lengths),
     "step_ms" (host time of every engine step, ending in its
     token fetch), "decode_ms" (the decode part of each step that ran
@@ -115,7 +123,8 @@ def serve(args):
     max_len = bucket_length(args.prompt_len + max(budgets))
     eng = Engine(model, params, max_batch=args.max_batch, max_len=max_len,
                  paged=args.paged, block_size=args.block_size,
-                 num_blocks=args.num_blocks, preemption=args.preemption)
+                 num_blocks=args.num_blocks, preemption=args.preemption,
+                 overlap=overlap)
     del params      # the engine holds its compute-dtype copy
 
     t0 = time.perf_counter()
@@ -142,7 +151,10 @@ def serve(args):
     p50, p99 = (float(np.percentile(lats, q)) for q in (50, 99))
     backend = (f"paged, {eng.num_blocks} blocks of {eng.block_size}, "
                f"{eng.preemption}" if eng.paged else "arena")
-    print(f"[{cfg.name}] continuous ({backend}, serialized) on {device}: "
+    st = eng.stats
+    scheduler = (f"overlapped, {st['overlap_mode']}" if eng.overlap
+                 else "serialized")
+    print(f"[{cfg.name}] continuous ({backend}, {scheduler}) on {device}: "
           f"{args.requests} reqs (budgets {sorted(set(budgets))}), "
           f"max_batch {args.max_batch}, capacity {eng.capacity}")
     print(f"  {toks} tokens in {total:.3f}s ({toks / total:.1f} tok/s); "
@@ -150,6 +162,9 @@ def serve(args):
     if args.paged and not eng.paged:
         print(f"  --paged: {cfg.name} cannot page (recurrent state), so it "
               "was served from the arena")
+    print(f"  overlap_mode {st['overlap_mode']!r}; mixed_steps "
+          f"{st['mixed_steps']}; overlapped_admissions "
+          f"{st['overlapped_admissions']}")
     print(f"  paged {eng.paged}; num_preemptions {eng.num_preemptions}; "
           f"free_blocks {eng.free_blocks}")
     for u in uids[:min(4, len(uids))]:
@@ -158,7 +173,8 @@ def serve(args):
             "budgets": budgets, "prefill_shapes": sorted(eng.prefill_shapes),
             "step_ms": step_ms, "decode_ms": decode_ms,
             "admit_ms": admit_ms, "latency_s": lats,
-            "tokens_per_s": toks / total, "p50_s": p50, "p99_s": p99, "stats": eng.stats,
+            "tokens_per_s": toks / total, "p50_s": p50, "p99_s": p99,
+            "stats": st,
             "max_len": max_len, "paged": eng.paged,
             "num_preemptions": eng.num_preemptions,
             "free_blocks": eng.free_blocks,

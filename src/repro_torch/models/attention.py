@@ -147,22 +147,30 @@ def gqa_decode(params, cfg, x, cache, position):
     Inserts the new token's K/V first, then attends over the valid slots
     min(ptr + 1, T) of each row (so the token attends to itself), through
     `ops.decode_attention`. Updates the cache in place (K/V insert, ptr
-    + 1) and returns ([B,1,D], cache). q is cast to the cache's dtype for
-    the kernel, which takes one dtype. A windowed config's cache is a
+    + 1) and returns ([B,1,D], cache). A windowed config's cache is a
     ring of capacity window, so no mask beyond `lengths` is needed."""
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
     q, k_new, v_new = _project_qkv(params, cfg, x, position)
+    out = _decode_attend(cfg, q[:, 0], k_new[:, 0], v_new[:, 0], cache)
+    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+
+
+def _decode_attend(cfg, q, k_new, v_new, cache):
+    """`gqa_decode` after the projection: q [B,KV,G,hd], k_new, v_new
+    [B,KV,hd]. Inserts K/V at each row's ptr, attends, advances ptr, in
+    place. Returns [B, H*hd] in the cache's dtype (q is cast to it for
+    the kernel, which takes one dtype)."""
+    b = q.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
     t = cache["k"].shape[1]
-    ring_insert(cache["k"], k_new[:, 0], cache["ptr"])
-    ring_insert(cache["v"], v_new[:, 0], cache["ptr"])
+    ring_insert(cache["k"], k_new, cache["ptr"])
+    ring_insert(cache["v"], v_new, cache["ptr"])
     lengths = torch.clamp(cache["ptr"] + 1, max=t).to(torch.int32)
     lengths = lengths.expand(b).contiguous()
-    out = ops.decode_attention(q[:, 0].reshape(b, h, hd).to(cache["k"].dtype),
+    out = ops.decode_attention(q.reshape(b, h, hd).to(cache["k"].dtype),
                                cache["k"], cache["v"], lengths=lengths)
     cache["ptr"].add_(1)
-    out = out.reshape(b, 1, h * hd).to(x.dtype)
-    return out @ params["wo"], cache
+    return out.reshape(b, h * hd)
 
 
 # ---------------------------------------------------------------------------
@@ -280,19 +288,29 @@ def gqa_prefill_paged(params, cfg, x, cache, table, ctx_len, window=0,
     blocks in place. `valid` (the chunk's true length) routes a ring's pad
     entries to the null block. Returns ([1,C,D], cache)."""
     b, c, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
     positions = ctx_len + torch.arange(c, device=x.device)[None].expand(b, c)
     q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    out = _chunk_attend(cfg, q, k_new, v_new, cache, table, ctx_len,
+                        window, valid)
+    return out.to(x.dtype) @ params["wo"], cache
+
+
+def _chunk_attend(cfg, q, k_new, v_new, cache, table, ctx_len, window,
+                  valid):
+    """`gqa_prefill_paged` after the projection: q [1,C,KV,G,hd], k_new,
+    v_new [1,C,KV,hd]. Returns [1, C, H*hd] in f32 and writes the chunk's
+    K/V into the pool."""
+    c = q.shape[1]
+    h, hd = cfg.num_heads, cfg.head_dim
     k_ctx = gather_pages(cache["k"], table[None])
     v_ctx = gather_pages(cache["v"], table[None])
     out = _paged_context_attention(q, k_ctx, v_ctx, k_new, v_new, ctx_len,
                                    float(1.0 / math.sqrt(hd)), window=window)
-    out = out.reshape(b, c, h * hd).to(x.dtype)
     scatter_chunk_pages(cache["k"], k_new[0], table, ctx_len, window=window,
                         valid=valid)
     scatter_chunk_pages(cache["v"], v_new[0], table, ctx_len, window=window,
                         valid=valid)
-    return out @ params["wo"], cache
+    return out.reshape(1, c, h * hd)
 
 
 def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0):
@@ -310,13 +328,21 @@ def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0):
     `ops.decode_attention_ring` (ring starts 0: the engine keeps each
     table in ring order). Returns ([B,1,D], cache)."""
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
     q, k_new, v_new = _project_qkv(params, cfg, x, lengths.reshape(b, 1))
-    scatter_token_pages(cache["k"], k_new[:, 0], tables, lengths,
-                        window=window)
-    scatter_token_pages(cache["v"], v_new[:, 0], tables, lengths,
-                        window=window)
-    q = q[:, 0].reshape(b, h, hd).to(cache["k"].dtype)
+    out = _paged_decode_attend(cfg, q[:, 0], k_new[:, 0], v_new[:, 0], cache,
+                               tables, lengths, window)
+    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+
+
+def _paged_decode_attend(cfg, q, k_new, v_new, cache, tables, lengths,
+                         window):
+    """`gqa_decode_paged` after the projection: q [B,KV,G,hd], k_new,
+    v_new [B,KV,hd]. Returns [B, H*hd] in the pool's dtype."""
+    b = q.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    scatter_token_pages(cache["k"], k_new, tables, lengths, window=window)
+    scatter_token_pages(cache["v"], v_new, tables, lengths, window=window)
+    q = q.reshape(b, h, hd).to(cache["k"].dtype)
     if window:
         out = ops.decode_attention_ring(
             q, cache["k"], cache["v"], tables,
@@ -325,5 +351,98 @@ def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0):
     else:
         out = ops.decode_attention_paged(q, cache["k"], cache["v"], tables,
                                          lengths=lengths + 1)
-    out = out.reshape(b, 1, h * hd).to(x.dtype)
+    return out.reshape(b, h * hd)
+
+
+# ---------------------------------------------------------------------------
+# the fused mixed step (overlapped admission): decode rows [:nd] and one
+# prefill unit [nd:] as one token batch [1, nd + S, D]
+#
+# The q/k/v and output projections run once over all tokens; rope and the
+# attention cores run per half, each half's core exactly what its
+# standalone step runs after the projection (the decode and flash kernels
+# on the arena, the paged or ring kernel and the plain chunk attention on
+# the pool). Projection rows are bitwise those of the standalone launches
+# where the GEMM is row-stable across M (the engine's overlapped output
+# equals its serialized output only then; `transformer._mixed_mlp` says
+# which op is not). Cache writes keep the sequential order: the decode
+# half inserts first, then the prefill half writes (on the arena the
+# whole slot row, over the dead slot's garbage insert; on the pool its
+# private blocks, disjoint from the decode writes).
+# ---------------------------------------------------------------------------
+
+
+def _rope_mixed(t, nd, pos_d, pos_p, theta):
+    """apply_rope over the concatenated token axis, each half with its own
+    positions (pos_d [1, nd], pos_p [1, S]); rope is elementwise, so each
+    half is bitwise its standalone value."""
+    return torch.cat([apply_rope(t[:, :nd], pos_d, theta),
+                      apply_rope(t[:, nd:], pos_p, theta)], dim=1)
+
+
+def _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p):
+    """`_project_qkv` for the mixed batch x [1, nd + S, D]: one set of
+    q/k/v products over every token, rope per half."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = _rope_mixed(q.reshape(b, s, h, hd), nd, pos_d, pos_p, cfg.rope_theta)
+    k = _rope_mixed(k.reshape(b, s, kv, hd), nd, pos_d, pos_p,
+                    cfg.rope_theta)
+    return q.reshape(b, s, kv, h // kv, hd), k, v.reshape(b, s, kv, hd)
+
+
+def gqa_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot,
+              window=0):
+    """Fused arena layer: decode rows [:nd] and a whole prompt [nd:].
+
+    x [1, nd + Sp, D] (normed); pos_d [1, nd]: the decode rows' positions;
+    pos_p [1, Sp]: 0..Sp-1. cache: one arena layer {k, v: [nd, T, KV,
+    hd], ptr [nd]}, written in place. Slot `p_slot` (an int) must be dead
+    to decode: the decode half's insert into its row is overwritten whole
+    by the prompt's entries, and its ptr set to `p_len`, as
+    `decode_rows` followed by `prefill_into_slot` leave it. Returns
+    ([1, nd + Sp, D], cache)."""
+    sp = x.shape[1] - nd
+    h, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p)
+    out_d = _decode_attend(cfg, q[0, :nd], k[0, :nd], v[0, :nd], cache)
+    # the prefill half: gqa_prefill(kernel=True) after the projection
+    out_p = ops.flash_attention(q[:, nd:].reshape(1, sp, h, hd), k[:, nd:],
+                                v[:, nd:], causal=True,
+                                window=window or cfg.attn_window)
+    # the prompt's row over the decode half's insert
+    t = cache["k"].shape[1]
+    cache["k"][p_slot].copy_(prefill_cache_entries(k[:, nd:], t, sp)[0])
+    cache["v"][p_slot].copy_(prefill_cache_entries(v[:, nd:], t, sp)[0])
+    cache["ptr"][p_slot] = p_len
+    out = torch.cat([out_d[None].to(x.dtype), out_p.reshape(1, sp, h * hd)],
+                    dim=1)
+    return out @ params["wo"], cache
+
+
+def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
+                    ctx_len, c_table, window=0, c_valid=None):
+    """Fused pool layer: decode rows [:nd] and one prefill chunk [nd:].
+
+    cache: one pool layer {k, v: [NB, bs, KV, hd]}, written in place;
+    tables int32 [nd, W] and lengths int32 [nd]: the decode operands of
+    `gqa_decode_paged`; ctx_len, c_table int [Wc] and c_valid: the chunk
+    operands of `gqa_prefill_paged`. The decode half scatters first (a
+    streaming slot's zeroed table row routes its writes to the null
+    block); the chunk then gathers its context from the updated pool and
+    scatters its own entries into its private blocks. Returns ([1, nd + C,
+    D], cache)."""
+    q, k, v = _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p)
+    out_d = _paged_decode_attend(cfg, q[0, :nd], k[0, :nd], v[0, :nd], cache,
+                                 tables, lengths, window)
+    out_p = _chunk_attend(cfg, q[:, nd:], k[:, nd:], v[:, nd:], cache,
+                          c_table, ctx_len, window, c_valid)
+    out = torch.cat([out_d[None].to(x.dtype), out_p.to(x.dtype)], dim=1)
     return out @ params["wo"], cache

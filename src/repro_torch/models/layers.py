@@ -76,15 +76,19 @@ def mlp_init(generator, lead, d_model, d_ff, dtype, mlp_type="swiglu"):
     return p
 
 
+def mlp_hidden(params, x, mlp_type):
+    """The MLP's activations before its down projection: swiglu, or gelu
+    in its tanh form (`jax.nn.gelu`'s default)."""
+    if mlp_type == "swiglu":
+        return F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    if mlp_type == "gelu":
+        return F.gelu(x @ params["w_up"], approximate="tanh")
+    raise ValueError(f"mlp_type {mlp_type!r} is not ported")
+
+
 def mlp_apply(params, x, mlp_type):
     """swiglu, or gelu in its tanh form (`jax.nn.gelu`'s default)."""
-    if mlp_type == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    elif mlp_type == "gelu":
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
-    else:
-        raise ValueError(f"mlp_type {mlp_type!r} is not ported")
-    return h @ params["w_down"]
+    return mlp_hidden(params, x, mlp_type) @ params["w_down"]
 
 
 # ---------------------------------------------------------------------------

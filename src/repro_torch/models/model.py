@@ -8,8 +8,10 @@ recurrentgemma-2b); the others raise. The dense serving entry points
 cover the slot arena and the paged pool; a model with recurrent layers
 has the arena's only (its state has no pages, as the reference's
 `FamilyCaps` says), and its `train_loss` raises (training it is a later
-slice). The reference's mixed-step entry points (overlapped admission)
-are not ported. A sliding window (`cfg.attn_window` or the `window`
+slice). The dense stack also has the reference's mixed-step entry
+points (one fused decode + prefill step, the engine's overlapped
+admission) on the arena and the pool; the recurrent families have none,
+as in the reference. A sliding window (`cfg.attn_window` or the `window`
 override) serves from the arena, as a ring of the window's capacity, and
 from the paged pool, as a block ring; windowed training is not ported,
 and `train_loss` raises rather than ignore the window.
@@ -49,6 +51,15 @@ class Model:
                                         #  lengths)
     prefill_chunk_into_blocks_token: Callable = None  # -> (tok [], pool)
     decode_rows_paged_tokens: Callable = None   # -> (toks [B], pool, len+1)
+    # fused decode + prefill steps (the engine's overlapped admission);
+    # None for the recurrent families
+    mixed_step_tokens: Callable = None  # (params, tokens, arena, positions,
+                                        #  p_tokens, p_len, p_slot)
+                                        # -> (toks [B], arena, pos+1, tok [])
+    mixed_step_paged_tokens: Callable = None  # (params, tokens, pool,
+                                              #  tables, lengths, c_tokens,
+                                              #  c_len, ctx_len, c_table)
+                                              # -> (toks, pool, len+1, tok)
 
 
 # ported family -> the layer types it has, and its MLP (None: no MLP)
@@ -136,4 +147,11 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
         decode_rows_paged_tokens=lambda p, t, pool, tables, lengths:
             TF.decode_rows_paged_tokens(cfg, p, t, pool, tables, lengths,
                                         window=window),
+        mixed_step_tokens=lambda p, t, arena, pos, p_tokens, p_len, p_slot:
+            TF.mixed_step_tokens(cfg, p, t, arena, pos, p_tokens, p_len,
+                                 p_slot, window=window),
+        mixed_step_paged_tokens=lambda p, t, pool, tables, lengths, c_tokens,
+            c_len, ctx_len, c_table: TF.mixed_step_paged_tokens(
+                cfg, p, t, pool, tables, lengths, c_tokens, c_len, ctx_len,
+                c_table, window=window),
     )

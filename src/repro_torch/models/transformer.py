@@ -35,8 +35,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (
-    _he, embed, embedding_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
-    unembed,
+    _he, embed, embedding_init, mlp_apply, mlp_hidden, mlp_init, rmsnorm,
+    rmsnorm_init, unembed,
 )
 
 # the layer kinds the port runs
@@ -546,3 +546,148 @@ def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
                                      block_tables, lengths, window=window)
     nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
     return nxt, pool, lengths + 1
+
+
+# The fused mixed steps (overlapped admission, `repro_torch.serve` with
+# overlap=True): ONE forward over the decode rows of every slot and one
+# prefill unit (the arena's whole padded prompt, or one chunk of the
+# pool's), as the token batch [1, B + S, D]. The two halves touch disjoint
+# state: the slot being prefilled is dead to decode until the engine
+# resolves it. Each half's rows are bitwise what its standalone step
+# computes wherever the shared ops are row-stable; only all-attention
+# stacks reach this path (`FamilyCaps.supports_mixed_step`).
+
+# The MLP's down projection runs per half: on an H100, cuBLAS's bf16
+# product of 8 decode rows (K = 4864) differs from the same rows of the
+# 264-row mixed batch at Sp = 256 (by up to 0.0078, and the decode rows'
+# logits by up to 0.0415), while every other shared op was bitwise
+# row-stable there; `chip_smoke.py`'s mixed-step profile measures each
+# op and the logits with the split and without it.
+MIXED_DOWN_PER_HALF = True
+
+
+def _mixed_mlp(params, x, nd, mlp_type):
+    """`mlp_apply` on the mixed batch, the down projection per half."""
+    h = mlp_hidden(params, x, mlp_type)
+    if not MIXED_DOWN_PER_HALF:
+        return h @ params["w_down"]
+    return torch.cat([h[:, :nd] @ params["w_down"],
+                      h[:, nd:] @ params["w_down"]], dim=1)
+
+
+def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves):
+    """The shared trunk of the mixed steps over x [1, nd + S, D]: each
+    layer's rmsnorm -> `attn_fn(p_attn, h, layer_cache)` -> rmsnorm ->
+    MLP, then the final norm. `leaves` names the cache leaves of a layer
+    (written in place by `attn_fn`)."""
+    segs = segments(cfg)
+    if segs != [("attn", cfg.num_layers)]:
+        raise NotImplementedError(f"{cfg.name}: the mixed step needs one "
+                                  f"attention segment, got {segs}")
+    seg = caches[0]
+    for i, lp in enumerate(_layers(params, 0, cfg.num_layers)):
+        h = rmsnorm(lp["ln1"], x)
+        attn_out, _ = attn_fn(lp["attn"], h,
+                              {name: seg[name][i] for name in leaves})
+        x = x + attn_out
+        h2 = rmsnorm(lp["ln2"], x)
+        x = x + _mixed_mlp(lp["mlp"], h2, nd, cfg.mlp_type)
+    return rmsnorm(subtree(params, "final_norm"), x)
+
+
+def _mixed_embed(cfg, params, dec_tokens, adm_tokens):
+    """Embed the decode tokens [B] as [B, 1] and the admission tokens
+    [1, S] apart (the shapes of the standalone steps) and concatenate the
+    embeddings into the mixed batch [1, B + S, D]."""
+    xd = _embed_tokens(cfg, params, dec_tokens[:, None])         # [B, 1, D]
+    xa = _embed_tokens(cfg, params, adm_tokens)                  # [1, S, D]
+    return torch.cat([xd.transpose(0, 1), xa], dim=1)
+
+
+def _mixed_logits(cfg, params, x, b, last_idx):
+    """Logits of the trunk's output x [1, B + S, D] for the B decode rows
+    ([B, 1, V]) and for position `last_idx` of the token axis ([1, 1, V]),
+    in f32, from one unembed over the B + 1 rows."""
+    h_sel = torch.cat([x[0, :b], x[0, last_idx:last_idx + 1]])[None]
+    logits = logits_fn(cfg, params, h_sel).float()
+    return logits[0, :b, None], logits[:, b:]
+
+
+def mixed_step(cfg, params, tokens, caches, positions, p_tokens, p_len,
+               p_slot, window=0):
+    """One fused arena step: decode every slot and prefill one request.
+
+    tokens, positions: the `decode_rows` operands ([B] int, int32 [B]);
+    p_tokens [1, Sp], p_len, p_slot: the `prefill_into_slot` operands (the
+    padded prompt, its true length, its slot). Slot `p_slot` must be dead
+    to decode: its row is overwritten whole after the decode half's
+    insert. Returns (decode logits [B, 1, V], the prompt's logits [1, 1, V]
+    at position p_len - 1, both f32, and the arena, updated in place)."""
+    params = _cast(cfg, params)
+    b, sp = tokens.shape[0], p_tokens.shape[1]
+    p_len, p_slot = int(p_len), int(p_slot)
+    dev = tokens.device
+    x = _mixed_embed(cfg, params, tokens, p_tokens)
+    pos_d = torch.as_tensor(positions, dtype=torch.int32, device=dev)[None]
+    pos_p = torch.arange(sp, device=dev)[None]
+
+    def attn_fn(p, h, layer):
+        return A.gqa_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len, p_slot,
+                           window=window)
+
+    x = _mixed_forward(cfg, params, x, caches, b, attn_fn, ("k", "v", "ptr"))
+    return _mixed_logits(cfg, params, x, b, b + p_len - 1) + (caches,)
+
+
+def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
+                     c_tokens, c_len, ctx_len, c_table, window=0):
+    """One fused pool step: decode every slot and stream one prompt chunk.
+
+    tokens, block_tables, lengths: the `decode_rows_paged` operands; the
+    streaming slot carries a zeroed table row (its decode writes go to the
+    null block). c_tokens [1, C], c_len, ctx_len, c_table int [Wc]: the
+    `prefill_chunk_into_blocks` operands. Returns (decode logits [B, 1,
+    V], the chunk's logits [1, 1, V] at chunk position c_len - 1, both
+    f32, and the pool, written in place)."""
+    params = _cast(cfg, params)
+    b, c = tokens.shape[0], c_tokens.shape[1]
+    c_len, ctx_len = int(c_len), int(ctx_len)
+    x = _mixed_embed(cfg, params, tokens, c_tokens)
+    pos_d = lengths[None]
+    pos_p = ctx_len + torch.arange(c, device=tokens.device)[None]
+
+    def attn_fn(p, h, layer):
+        return A.gqa_mixed_paged(p, cfg, h, b, pos_d, pos_p, layer,
+                                 block_tables, lengths, ctx_len, c_table,
+                                 window=window, c_valid=c_len)
+
+    x = _mixed_forward(cfg, params, x, pool, b, attn_fn, ("k", "v"))
+    return _mixed_logits(cfg, params, x, b, b + c_len - 1) + (pool,)
+
+
+def mixed_step_tokens(cfg, params, tokens, caches, positions, p_tokens,
+                      p_len, p_slot, window=0):
+    """`mixed_step` returning (next [B] int32, arena, positions + 1, the
+    prompt's greedy token [] int32), the outputs of `decode_rows_tokens`
+    and `prefill_into_slot_token` in one launch sequence."""
+    positions = torch.as_tensor(positions, dtype=torch.int32,
+                                device=tokens.device)
+    logits_d, logits_p, caches = mixed_step(cfg, params, tokens, caches,
+                                            positions, p_tokens, p_len,
+                                            p_slot, window=window)
+    nxt = torch.argmax(logits_d[:, -1], -1).to(torch.int32)
+    p_tok = torch.argmax(logits_p[0, -1], -1).to(torch.int32)
+    return nxt, caches, positions + 1, p_tok
+
+
+def mixed_step_paged_tokens(cfg, params, tokens, pool, block_tables, lengths,
+                            c_tokens, c_len, ctx_len, c_table, window=0):
+    """`mixed_step_paged` returning (next [B] int32, pool, lengths + 1, the
+    chunk's greedy token [] int32, meaningful for a prompt's last chunk
+    only)."""
+    logits_d, logits_c, pool = mixed_step_paged(
+        cfg, params, tokens, pool, block_tables, lengths, c_tokens, c_len,
+        ctx_len, c_table, window=window)
+    nxt = torch.argmax(logits_d[:, -1], -1).to(torch.int32)
+    c_tok = torch.argmax(logits_c[0, -1], -1).to(torch.int32)
+    return nxt, pool, lengths + 1, c_tok

@@ -1,7 +1,7 @@
 """Slot-based continuous-batching greedy serving engine (arena or paged KV).
 
-A port of `repro/serve/engine.py` with its serialized scheduler (the
-reference's `overlap=False`):
+A port of `repro/serve/engine.py`, with both of its schedulers (the
+overlapped one by default, as in the reference):
 
   * a fixed batch of `max_batch` decode rows and ONE decode step over all
     of them; dead rows decode garbage that the host ignores, and are
@@ -53,12 +53,37 @@ reference's `overlap=False`):
     mirrors, block tables included, re-upload only when admission, a
     finish, a preemption, a block top-up or a replay changes them).
 
+  * overlapped admission (`overlap=True`, the default where the family
+    has a mixed step): admission does not block the decode step. The
+    queue head's prefill rides the decode launch of the live rows as a
+    **stream**, in one fused mixed step (`Model.mixed_step_tokens` on the
+    arena: the whole padded prompt; `mixed_step_paged_tokens` on the
+    pool: one chunk a step), and on the pool every further admissible
+    request is **staged**: its chunk launches go in flight in the same
+    pass. A streaming or staged slot stays dead to decode (the arena's
+    mixed step overwrites the dead row whole after its decode insert; a
+    pool slot keeps a zeroed table row and length 0, so its decode
+    writes go to the null block, and its blocks live in a private table)
+    until `_resolve_staged` installs it at the start of a later step,
+    after that step's `[B]` fetch has synchronised past the launches
+    that produced its first token. Staged admissions resolve together
+    with the stream they queued behind, oldest first, so FIFO completion
+    order survives. `overlap_mode="async"` runs the serialized step
+    functions back to back with no fetch between them instead of the
+    fused step (the pool stages every admission; the arena decodes, then
+    prefills the stream's slot). The arena cannot stage: its decode
+    inserts at a cache-carried per-slot ptr, which would clobber a staged
+    prefill's row. A windowed arena (prompts at their exact length) and
+    the recurrent families stay serialized.
+
 Greedy decode is row-independent, so a request's output does not depend
-on what else is in the batch, on preemption, or on the storage mode. The
-engine casts the parameters to the compute dtype once at construction
-(the reference casts inside every jitted call; in eager PyTorch that
-would be a full-model cast per step). Overlapped admission (the fused
-mixed step) is not ported and raises.
+on what else is in the batch, on preemption, on the storage mode or on
+the scheduler: the overlapped engine's tokens equal the serialized
+engine's (each half of the mixed step sees the operands of its
+standalone step; `models/transformer.py` says which shared product had
+to run per half on the card). The engine casts the parameters to the
+compute dtype once at construction (the reference casts inside every
+jitted call; in eager PyTorch that would be a full-model cast per step).
 """
 from __future__ import annotations
 
@@ -81,8 +106,8 @@ _ADMIT_WATERMARK = 1    # spare blocks optimistic admission leaves free
 
 @dataclasses.dataclass(frozen=True)
 class FamilyCaps:
-    """What the serving engine may do with a model (the reference's flags
-    that the port uses):
+    """What the serving engine may do with a model (the reference's
+    flags):
 
       pad_prompts: padding prompts to pow2 buckets is inert (an attention
         stack whose rings hold the whole capacity). Recurrent layers fold
@@ -90,9 +115,19 @@ class FamilyCaps:
         pads evict real context: those prefill at exact lengths.
       supports_paging: the block-pool backend works (an attention stack
         with `init_pool`; recurrent state has no pages to page).
+      supports_chunked_prefill: prompts can stream in through fixed
+        chunks (the pool's admission; the same predicate).
+      supports_mixed_step: the fused decode + prefill step is sound: a
+        dead slot that the fused prefill overwrites whole (pad_prompts,
+        on the arena) or whose writes go to the null block (paging), and
+        the model's two mixed entry points. The engine also requires its
+        resolved backend to be one of those: a windowed arena stays
+        serialized, a windowed pool overlaps.
     """
     pad_prompts: bool
     supports_paging: bool
+    supports_chunked_prefill: bool
+    supports_mixed_step: bool
 
 
 def probe_family_caps(model, *, capacity: int) -> FamilyCaps:
@@ -100,9 +135,13 @@ def probe_family_caps(model, *, capacity: int) -> FamilyCaps:
     (a sliding window below it disables padding)."""
     all_attn = all(t == "attn" for t in model.cfg.layer_types)
     window = int(model.window or 0)
-    return FamilyCaps(
-        pad_prompts=all_attn and (not window or window >= capacity),
-        supports_paging=all_attn and model.init_pool is not None)
+    pad = all_attn and (not window or window >= capacity)
+    paging = all_attn and model.init_pool is not None
+    mixed = bool((pad or paging) and model.mixed_step_tokens is not None
+                 and model.mixed_step_paged_tokens is not None)
+    return FamilyCaps(pad_prompts=pad, supports_paging=paging,
+                      supports_chunked_prefill=paging,
+                      supports_mixed_step=mixed)
 
 
 @dataclasses.dataclass
@@ -131,21 +170,27 @@ class Engine:
     num_blocks (default: the arena's footprint, max_batch * capacity
     tokens) and prefill_chunk size it, and preemption picks its admission
     policy ("recompute" or "reserve"; see the module docstring).
+
+    overlap=True (default) overlaps admission with decode where the
+    family and backend allow it (`engine.overlap` tells); overlap_mode
+    picks how: "fused" runs the mixed step, "async" the serialized step
+    functions back to back without a fetch between them, and "auto" is
+    "fused" (the reference picks "async" only on a mesh with a data axis,
+    and the port runs on one device).
     """
 
     def __init__(self, model, params, *, max_batch: int = 8,
                  max_len: int = 256, cache_dtype=torch.bfloat16,
                  paged: bool = False, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
-                 preemption: str = "recompute", overlap: bool = False):
+                 preemption: str = "recompute", overlap: bool = True,
+                 overlap_mode: str = "auto"):
         if preemption not in ("recompute", "reserve"):
             raise ValueError(f"preemption must be 'recompute' or 'reserve', "
                              f"got {preemption!r}")
-        if overlap:
-            raise NotImplementedError(
-                "overlapped admission (the fused mixed prefill+decode step) "
-                "is not ported yet; use overlap=False (the serialized "
-                "scheduler)")
+        if overlap_mode not in ("auto", "fused", "async"):
+            raise ValueError(f"overlap_mode must be 'auto', 'fused' or "
+                             f"'async', got {overlap_mode!r}")
         if model.prefill_into_slot_token is None:
             raise NotImplementedError(
                 f"family {model.cfg.family!r} has no slot-arena entry points")
@@ -162,6 +207,15 @@ class Engine:
         self.num_preemptions = 0    # total evictions
         # the model's sliding window (0 = full causal): a ring on the pool
         self.window = int(model.window or 0)
+        # overlap needs the mixed step and a backend whose dead slots
+        # survive a fused prefill: the pool (null-block routing) or an
+        # arena that pads prompts; a windowed arena stays serialized
+        self.overlap = bool(overlap and self.caps.supports_mixed_step
+                            and (self.paged or self.caps.pad_prompts))
+        # the resolved strategy ("" without overlap)
+        self.overlap_mode = ("fused" if overlap_mode == "auto"
+                             else overlap_mode) if self.overlap else ""
+        self._mixed = None
         self.prefill_shapes: set = set()    # admitted Sp / chunk sizes
         if self.paged:
             self.block_size = int(block_size)
@@ -183,12 +237,16 @@ class Engine:
             self._slot_reserved = [0] * self.max_batch
             self._prefill = model.prefill_chunk_into_blocks_token
             self._decode = model.decode_rows_paged_tokens
+            if self.overlap_mode == "fused":
+                self._mixed = model.mixed_step_paged_tokens
             self._caches = model.init_pool(self.num_blocks, self.block_size,
                                            dtype=cache_dtype,
                                            device=self.device)
         else:
             self._prefill = model.prefill_into_slot_token
             self._decode = model.decode_rows_tokens
+            if self.overlap_mode == "fused":
+                self._mixed = model.mixed_step_tokens
             self._caches = model.init_arena(self.max_batch, self.capacity,
                                             dtype=cache_dtype,
                                             device=self.device)
@@ -215,6 +273,15 @@ class Engine:
         self._cur_dirty = True
         self._lengths_dirty = True
         self._tables_dirty = True
+        # overlapped admission: `_stream` is the one admission whose
+        # prefill rides the decode launches (the whole padded prompt in
+        # one mixed step on the arena, a chunk a step on the pool);
+        # `_staged` holds admissions whose prefill launches are all in
+        # flight and whose first token is not resolved yet. Their slots
+        # stay dead to decode until `_resolve_staged`; on the pool their
+        # blocks live in the entry's private table until then.
+        self._stream: Optional[dict] = None
+        self._staged: List[dict] = []
         self._stats = {
             "admissions": 0,         # requests prefilled into a slot
             "admit_host_s": 0.0,     # host time launching admissions
@@ -223,6 +290,9 @@ class Engine:
             "decode_s": 0.0,         # decode launch + [B]-token fetch
             "decode_dispatch_s": 0.0,   # ... its mirror-sync + launch half
             "decode_fetch_s": 0.0,      # ... its blocked-on-tokens half
+            "mixed_steps": 0,        # decode launches that carried a prefill
+            "overlapped_admissions": 0,  # first tokens resolved deferred
+                                         # (never blocked a decode dispatch)
             "topup_host_s": 0.0,     # paged block top-up / eviction work
             "replayed_tokens": 0,    # recompute replays (paged)
             "h2d_uploads": 0,        # mirror re-syncs (stale -> upload)
@@ -232,13 +302,14 @@ class Engine:
 
     @property
     def stats(self) -> dict:
-        """Per-step telemetry, with the reference's keys where they apply:
-        admission host time vs prefill wait vs decode step time, block
-        top-up time, replayed tokens, mirror uploads, the per-step fetch's
-        size and dtype, and preemptions. The scheduler is serialized (""
-        overlap mode)."""
+        """Per-step telemetry, with the reference's keys: admission host
+        time vs prefill wait vs decode step time, block top-up time,
+        mixed steps and overlapped admissions, replayed tokens, mirror
+        uploads, the per-step fetch's size and dtype, preemptions, and
+        the resolved overlap mode ("fused", "async", or "" for the
+        serialized scheduler)."""
         return dict(self._stats, preemptions=self.num_preemptions,
-                    overlap_mode="")
+                    overlap_mode=self.overlap_mode)
 
     def _put(self, x):
         """Upload host state to a device mirror (a copy: the host array
@@ -305,7 +376,7 @@ class Engine:
 
     @property
     def num_active(self) -> int:
-        """Requests currently decoding in the batch."""
+        """Requests holding a slot (decoding, streaming or staged)."""
         return sum(r is not None for r in self._slot_req)
 
     @property
@@ -314,14 +385,13 @@ class Engine:
         return self._allocator.available if self.paged else None
 
     # ------------------------------------------------------------------
-    # serving
+    # prefill launches (shared by both schedulers)
     # ------------------------------------------------------------------
 
-    def _admit(self, req: Request, slot: int):
-        """Launch the prefill of `req` into arena `slot` (no host sync)
-        and mark the slot live. Returns (req, slot, device token) for
-        `_resolve_admission`: the first token is not fetched here, so the
-        round's other prefills launch without waiting on this one."""
+    def _arena_prompt(self, req: Request) -> torch.Tensor:
+        """`req`'s prompt on the device as the arena prefills it: padded
+        to its power-of-two bucket where padding is inert, else at its
+        exact length."""
         plen = len(req.prompt)
         if self.caps.pad_prompts:
             sp = min(bucket_length(plen, _PREFILL_FLOOR), self.capacity)
@@ -330,12 +400,65 @@ class Engine:
         self.prefill_shapes.add(sp)
         toks = np.zeros((1, sp), np.int32)
         toks[0, :plen] = req.prompt
+        return torch.from_numpy(toks).to(self.device)
+
+    def _alloc_prompt(self, req: Request, slot: int) -> np.ndarray:
+        """Allocate the blocks of `req`'s prompt (and, under "reserve",
+        reserve the rest of its worst case); returns a table row holding
+        them."""
+        plen = len(req.prompt)
+        n_prompt = self._prompt_blocks(plen)
+        table = np.zeros(self.num_blocks, np.int32)
+        table[:n_prompt] = self._allocator.alloc(n_prompt)
+        if self.preemption == "reserve":
+            need = self._worst_case_blocks(plen, req.max_new_tokens)
+            self._allocator.reserve(need - n_prompt)
+            self._slot_reserved[slot] = need - n_prompt
+        return table
+
+    def _prompt_table(self, table: np.ndarray, plen: int) -> torch.Tensor:
+        """A prompt's table on the device at the prompt's bucketed width
+        (chunk pads past it go to the null block): every chunk of the
+        prompt, streamed, staged or serialized, sees this operand."""
+        return torch.from_numpy(
+            table[:self._table_width(plen)].copy()).to(self.device)
+
+    def _chunk(self, prompt: np.ndarray, i: int):
+        """Chunk i of `prompt`, right-padded to the chunk size, on the
+        device, and its true length."""
+        c = self.prefill_chunk
+        chunk = prompt[i * c:(i + 1) * c]
+        toks = np.zeros((1, c), np.int32)
+        toks[0, :len(chunk)] = chunk
+        return torch.from_numpy(toks).to(self.device), len(chunk)
+
+    def _prefill_chunks(self, prompt: np.ndarray, table: torch.Tensor,
+                        first: int, stop: int):
+        """Launch chunks [first, stop) of `prompt` into the blocks of
+        `table`; returns the last chunk's device token."""
+        tok = None
+        for i in range(first, stop):
+            toks, n = self._chunk(prompt, i)
+            tok, self._caches = self._prefill(
+                self.params, toks, n, i * self.prefill_chunk, table,
+                self._caches)
+        return tok
+
+    # ------------------------------------------------------------------
+    # the serialized scheduler
+    # ------------------------------------------------------------------
+
+    def _admit(self, req: Request, slot: int):
+        """Launch the prefill of `req` into arena `slot` (no host sync)
+        and mark the slot live. Returns (req, slot, device token) for
+        `_resolve_admission`: the first token is not fetched here, so the
+        round's other prefills launch without waiting on this one."""
         tok_dev, self._caches = self._prefill(
-            self.params, torch.from_numpy(toks).to(self.device), plen, slot,
+            self.params, self._arena_prompt(req), len(req.prompt), slot,
             self._caches)
         self._slot_req[slot] = req
         self._gen[slot] = []
-        self._lengths[slot] = plen
+        self._lengths[slot] = len(req.prompt)
         self._lengths_dirty = True
         return req, slot, tok_dev
 
@@ -347,42 +470,28 @@ class Engine:
         (same chunks, offsets and table width), queues its generated
         tokens for replay and returns None: its next token is known."""
         plen = len(req.prompt)
-        n_prompt = self._prompt_blocks(plen)
-        blocks = self._allocator.alloc(n_prompt)
-        if self.preemption == "reserve":
-            need = self._worst_case_blocks(plen, req.max_new_tokens)
-            self._allocator.reserve(need - n_prompt)
-            self._slot_reserved[slot] = need - n_prompt
-        self._tables[slot, :n_prompt] = blocks
+        self._tables[slot] = self._alloc_prompt(req, slot)
         self._tables_dirty = True
-        # the prompt's bucketed width: chunk pads past it go to the null
-        # block
-        table = torch.from_numpy(
-            self._tables[slot, :self._table_width(plen)].copy()).to(
-                self.device)
-        c = self.prefill_chunk
-        self.prefill_shapes.add(c)
-        tok_dev = None
-        for i in range(chunks_needed(plen, c)):
-            chunk = req.prompt[i * c:(i + 1) * c]
-            toks = np.zeros((1, c), np.int32)
-            toks[0, :len(chunk)] = chunk
-            tok_dev, self._caches = self._prefill(
-                self.params, torch.from_numpy(toks).to(self.device),
-                len(chunk), i * c, table, self._caches)
+        self.prefill_shapes.add(self.prefill_chunk)
+        tok_dev = self._prefill_chunks(
+            req.prompt, self._prompt_table(self._tables[slot], plen), 0,
+            chunks_needed(plen, self.prefill_chunk))
         self._slot_req[slot] = req
         self._gen[slot] = []
         self._lengths[slot] = plen
         self._lengths_dirty = True
         if req.gen_prefix:
-            # resume: the prompt's KV is rebuilt (its token would only
-            # re-derive gen_prefix[0]); the generated tokens replay
-            # through the decode step, each rewriting its KV entry
-            self._cur[slot] = req.gen_prefix[0]
-            self._cur_dirty = True
-            self._replay[slot] = deque(req.gen_prefix[1:])
+            self._resume(req, slot)
             return None
         return req, slot, tok_dev
+
+    def _resume(self, req: Request, slot: int) -> None:
+        """A recompute re-admission: the prompt's KV is rebuilt (its token
+        would only re-derive gen_prefix[0]); the generated tokens replay
+        through the decode step, each rewriting its KV entry."""
+        self._cur[slot] = req.gen_prefix[0]
+        self._cur_dirty = True
+        self._replay[slot] = deque(req.gen_prefix[1:])
 
     def _resolve_admission(self, req: Request, slot: int,
                            tok: int) -> Optional[Request]:
@@ -419,7 +528,10 @@ class Engine:
         recompute prefix, free its blocks and re-queue it in uid
         position. Running uids are lower than every never-admitted queued
         uid (admission is FIFO), so the queue stays uid-sorted and no
-        request overtakes an older one."""
+        request overtakes an older one. A streaming or staged slot holds
+        its blocks in a private table: evicting it cancels the admission,
+        and the launches already in flight write freed blocks, which
+        every later prefill overwrites before any position is valid."""
         req = self._slot_req[slot]
         req.gen_prefix.extend(self._gen[slot])
         req.preemptions += 1
@@ -427,7 +539,15 @@ class Engine:
         self._slot_req[slot] = None
         self._gen[slot] = []
         self._replay[slot] = deque()  # rebuilt from gen_prefix on re-admission
-        self._allocator.free_partial(self._tables[slot])
+        staged = [e for e in self._staged if e["slot"] == slot]
+        if self._stream is not None and self._stream["slot"] == slot:
+            self._allocator.free_partial(self._stream["table"])
+            self._stream = None
+        elif staged:
+            self._staged.remove(staged[0])
+            self._allocator.free_partial(staged[0]["table"])
+        else:
+            self._allocator.free_partial(self._tables[slot])
         self._tables[slot] = 0
         self._lengths[slot] = 0
         self._cur[slot] = 0
@@ -495,7 +615,13 @@ class Engine:
     @hot_loop
     def step(self) -> List[Request]:
         """Admit queued requests into free slots, then run ONE decode step
-        over the batch; returns the requests finished by this step."""
+        over the batch; returns the requests finished by this step. With
+        `engine.overlap`, admissions ride the decode launch (mixed steps)
+        or launch beside it, and their first tokens resolve a step later,
+        after the decode fetch has synchronised past them: the same
+        tokens, with no admission blocking a decode dispatch."""
+        if self.overlap:
+            return self._step_overlapped()
         return self._step_serialized()
 
     def _sync_mirrors(self, active: List[int]) -> None:
@@ -517,24 +643,9 @@ class Engine:
             self._cur_dev = self._put(self._cur)
             self._cur_dirty = False
 
-    @hot_loop
-    def _step_serialized(self) -> List[Request]:
-        """The blocking scheduler: resolve every admission's first token
-        before dispatching the decode step."""
-        finished: List[Request] = []
-        while self._admit_round(finished):
-            pass    # instant finishes free slots: try again
-
-        active = [s for s in range(self.max_batch)
-                  if self._slot_req[s] is not None]
-        if self.paged and active:
-            self._topup_blocks(active)
-            active = [s for s in active if self._slot_req[s] is not None]
-        if not active:
-            return finished
-
-        t0 = time.perf_counter()
-        self._sync_mirrors(active)
+    def _launch_decode(self) -> torch.Tensor:
+        """Launch the decode step over every row; returns its next tokens
+        (the advanced lengths stay in the device mirror)."""
         if self.paged:
             toks_dev, self._caches, self._lengths_dev = self._decode(
                 self.params, self._cur_dev, self._caches, self._tables_dev,
@@ -542,6 +653,14 @@ class Engine:
         else:
             toks_dev, self._caches, self._lengths_dev = self._decode(
                 self.params, self._cur_dev, self._caches, self._lengths_dev)
+        return toks_dev
+
+    @hot_loop
+    def _emit(self, toks_dev: torch.Tensor, active: List[int], t0: float,
+              finished: List[Request]) -> None:
+        """Fetch the decode step's `[B]` tokens (its launch began at t0)
+        and advance the rows of `active`, in that order: replay, emit, or
+        finish on budget or EOS."""
         # the step's outputs are the next step's inputs: tokens and
         # advanced lengths stay on the device
         self._cur_dev = toks_dev
@@ -573,6 +692,27 @@ class Engine:
             if (len(req.gen_prefix) + len(self._gen[s]) >= req.max_new_tokens
                     or (req.eos_id is not None and tok == req.eos_id)):
                 finished.append(self._finish(s))
+
+    @hot_loop
+    def _step_serialized(self) -> List[Request]:
+        """The blocking scheduler: resolve every admission's first token
+        before dispatching the decode step (overlap=False, and families
+        or backends without a mixed step)."""
+        finished: List[Request] = []
+        while self._admit_round(finished):
+            pass    # instant finishes free slots: try again
+
+        active = [s for s in range(self.max_batch)
+                  if self._slot_req[s] is not None]
+        if self.paged and active:
+            self._topup_blocks(active)
+            active = [s for s in active if self._slot_req[s] is not None]
+        if not active:
+            return finished
+
+        t0 = time.perf_counter()
+        self._sync_mirrors(active)
+        self._emit(self._launch_decode(), active, t0, finished)
         return finished
 
     def _topup_blocks(self, active: List[int]) -> None:
@@ -582,7 +722,8 @@ class Engine:
         when the pool is dry, preempts the newest admission (LIFO) until
         a block frees up: an eviction returns >= 1 block, and the oldest
         running request is never the victim while a younger one holds
-        blocks, so every request completes."""
+        blocks, so every request completes. Streaming and staged slots,
+        the newest admissions, are the first victims."""
         t0 = time.perf_counter()
         for s in sorted(active, key=lambda t: self._slot_req[t].uid):
             if self._slot_req[s] is None:
@@ -614,9 +755,211 @@ class Engine:
             self._tables_dirty = True
         self._stats["topup_host_s"] += time.perf_counter() - t0
 
+    # ------------------------------------------------------------------
+    # overlapped admission (the stream, the staged admissions and the
+    # fused mixed step)
+    # ------------------------------------------------------------------
+
+    def _start_stream(self, req: Request, slot: int) -> None:
+        """Begin streaming `req`'s prefill through the decode launches.
+        The slot is claimed (it counts as active and can be preempted)
+        but stays dead to decode until `_resolve_staged` installs it; on
+        the pool the prompt's blocks live in a private table until then.
+        The arena streams the padded prompt (overlap needs pad_prompts
+        there)."""
+        plen = len(req.prompt)
+        self._slot_req[slot] = req
+        self._gen[slot] = []
+        self._stream = {"req": req, "slot": slot, "plen": plen, "i": 0,
+                        "total": 1, "tok": None}
+        if self.paged:
+            table = self._alloc_prompt(req, slot)
+            self.prefill_shapes.add(self.prefill_chunk)
+            self._stream.update(
+                table=table, ctable=self._prompt_table(table, plen),
+                total=chunks_needed(plen, self.prefill_chunk))
+        else:
+            self._stream["tokens"] = self._arena_prompt(req)
+
+    def _stage_admit(self, req: Request, slot: int) -> None:
+        """Admit `req` on the pool with every chunk launch in flight now
+        and nothing resolved; the slot stays dead to decode until
+        `_resolve_staged`, which installs it with the stream it queued
+        behind (FIFO start order). The launches, shapes and operands of
+        `_admit_paged`, with deferred resolution."""
+        plen = len(req.prompt)
+        self._slot_req[slot] = req
+        self._gen[slot] = []
+        table = self._alloc_prompt(req, slot)
+        self.prefill_shapes.add(self.prefill_chunk)
+        tok = self._prefill_chunks(req.prompt, self._prompt_table(table, plen),
+                                   0, chunks_needed(plen, self.prefill_chunk))
+        self._staged.append({"req": req, "slot": slot, "plen": plen,
+                             "tok": tok, "table": table})
+
+    def _admission_phase(self) -> None:
+        """Pop the queue head into the stream (its prefill rides the
+        decode launches) and, on the pool, stage every further admissible
+        request into a free slot. Requests pop strictly head first (a
+        blocked head blocks everything behind it), and staged slots come
+        alive together with the stream they queued behind: FIFO twice
+        over. The arena admits through the stream only (its decode would
+        clobber a staged row at the slot's cache-carried ptr). In "async"
+        mode the pool has no stream: every admission stages, its chunks
+        in flight this step."""
+        t0 = time.perf_counter()
+        free = deque(s for s in range(self.max_batch)
+                     if self._slot_req[s] is None)
+        stream_ok = not (self.paged and self._mixed is None)
+        if (stream_ok and self._stream is None and self._queue and free
+                and self._can_admit(self._queue[0])):
+            self._start_stream(self._queue.popleft(), free.popleft())
+            self._stats["admissions"] += 1
+        while (self.paged and self._queue and free
+               and self._can_admit(self._queue[0])):
+            self._stage_admit(self._queue.popleft(), free.popleft())
+            self._stats["admissions"] += 1
+        self._stats["admit_host_s"] += time.perf_counter() - t0
+
+    def _drain_stream(self) -> None:
+        """Launch an in-flight stream's remaining prefill through the
+        plain prefill step and stage it: there is no decode row to ride
+        (the serialized admission, which is what the situation is)."""
+        st, self._stream = self._stream, None
+        t0 = time.perf_counter()
+        entry = {"req": st["req"], "slot": st["slot"], "plen": st["plen"]}
+        if self.paged:
+            entry["table"] = st["table"]
+            entry["tok"] = self._prefill_chunks(
+                st["req"].prompt, st["ctable"], st["i"], st["total"])
+        else:
+            entry["tok"], self._caches = self._prefill(
+                self.params, st["tokens"], st["plen"], st["slot"],
+                self._caches)
+        self._stats["admit_host_s"] += time.perf_counter() - t0
+        self._staged.append(entry)
+
+    @hot_loop
+    def _resolve_staged(self, finished: List[Request],
+                        deferred: bool = True) -> None:
+        """Install every staged admission, oldest first: block table and
+        length (the slot becomes visible to decode), then its first token,
+        or the replay queue of a recompute re-admission. Held back while
+        a stream is in flight: the stream is the oldest unresolved
+        admission, and resolving younger ones first would let them decode
+        ahead of it. Deferred (at a step's start), the fetch costs
+        nothing: the previous step's `[B]` fetch synchronised past the
+        launches that produced these tokens."""
+        if self._stream is not None or not self._staged:
+            return
+        t1 = time.perf_counter()
+        entries = sorted(self._staged, key=lambda e: e["req"].uid)
+        self._staged = []
+        fresh = [e for e in entries if not e["req"].gen_prefix]
+        toks = {}
+        if fresh:
+            # repro-lint: disable=host-sync-in-hot-loop -- deferred
+            # first-token resolution: the prior step's [B] decode fetch
+            # already synced past the launches that produced these tokens
+            got = np.asarray(torch.stack([e["tok"] for e in fresh]).cpu())
+            toks = {e["slot"]: tok for e, tok in zip(fresh, got.tolist())}
+        for e in entries:
+            req, slot = e["req"], e["slot"]
+            if self.paged:
+                self._tables[slot] = e["table"]
+                self._tables_dirty = True
+            self._lengths[slot] = e["plen"]
+            self._lengths_dirty = True
+            if deferred:
+                self._stats["overlapped_admissions"] += 1
+            if req.gen_prefix:
+                self._resume(req, slot)
+                continue
+            f = self._resolve_admission(req, slot, toks[slot])
+            if f is not None:
+                finished.append(f)
+        self._stats["prefill_wait_s"] += time.perf_counter() - t1
+
+    @hot_loop
+    def _step_overlapped(self) -> List[Request]:
+        """One pass of the overlapped scheduler: install the staged
+        admissions, launch this step's admissions, then dispatch ONE
+        decode launch, mixed with the stream's prefill unit when a
+        stream is in flight, with no first-token wait between admission
+        and dispatch. Each half sees the operands of its serialized step
+        (the decode tables at the live rows' width, the chunk's table at
+        its prompt's)."""
+        finished: List[Request] = []
+        self._resolve_staged(finished)
+        self._admission_phase()
+
+        st = self._stream
+        dead = {e["slot"] for e in self._staged}
+        if st is not None:
+            dead.add(st["slot"])
+        active = [s for s in range(self.max_batch)
+                  if self._slot_req[s] is not None and s not in dead]
+        if not active:
+            # no decode launch to ride: flush and resolve now (a cold
+            # start, or everything just finished)
+            if st is not None:
+                self._drain_stream()
+            self._resolve_staged(finished, deferred=False)
+            active = [s for s in range(self.max_batch)
+                      if self._slot_req[s] is not None]
+        if self.paged and active:
+            self._topup_blocks(active)
+            active = [s for s in active if self._slot_req[s] is not None]
+        if not active:
+            return finished
+
+        t0 = time.perf_counter()
+        self._sync_mirrors(active)
+        st = self._stream
+        if st is None:
+            toks_dev = self._launch_decode()
+        elif self.paged:
+            # the pool streams only in "fused" mode
+            ctoks, n = self._chunk(st["req"].prompt, st["i"])
+            toks_dev, self._caches, self._lengths_dev, st["tok"] = \
+                self._mixed(self.params, self._cur_dev, self._caches,
+                            self._tables_dev, self._lengths_dev, ctoks, n,
+                            st["i"] * self.prefill_chunk, st["ctable"])
+            self._stats["mixed_steps"] += 1
+            st["i"] += 1
+        else:
+            if self._mixed is not None:
+                toks_dev, self._caches, self._lengths_dev, st["tok"] = \
+                    self._mixed(self.params, self._cur_dev, self._caches,
+                                self._lengths_dev, st["tokens"], st["plen"],
+                                st["slot"])
+                self._stats["mixed_steps"] += 1
+            else:
+                # async: decode FIRST (the dead slot's insert lands before
+                # the prefill overwrites its row and ptr, the mixed step's
+                # order), then the serialized prefill, no fetch between
+                toks_dev = self._launch_decode()
+                st["tok"], self._caches = self._prefill(
+                    self.params, st["tokens"], st["plen"], st["slot"],
+                    self._caches)
+            st["i"] = 1
+        if st is not None and st["i"] == st["total"]:
+            self._stream = None
+            self._staged.append({k: st[k] for k in
+                                 ("req", "slot", "plen", "tok", "table")
+                                 if k in st})
+        # uid order, not slot order: overlapped slot assignment does not
+        # follow uid order, and same-step finishes complete oldest first
+        self._emit(toks_dev, sorted(active,
+                                    key=lambda t: self._slot_req[t].uid),
+                   t0, finished)
+        return finished
+
     def run(self) -> List[Request]:
         """Drain queue + batch; returns every request completed so far
-        (accumulating across earlier step() calls)."""
+        (accumulating across earlier step() calls). Streaming and staged
+        admissions hold their slots, so the loop cannot end with an
+        admission half landed."""
         while self._queue or self.num_active:
             self.step()
         return list(self._done)

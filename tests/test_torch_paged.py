@@ -493,7 +493,8 @@ def test_reserve_never_preempts_and_drains_fifo(served, workload):
     returns, and the outputs equal the JAX arena engine's."""
     prompts, budgets, want = workload
     eng = _port(served, max_batch=3, max_len=16, block_size=4,
-                num_blocks=8, prefill_chunk=4, preemption="reserve")
+                num_blocks=8, prefill_chunk=4, preemption="reserve",
+                overlap=False)
     uids = [eng.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
     eng.step()
     assert eng.num_active < 3 and eng.pending >= 1
@@ -510,7 +511,7 @@ def test_preemption_fifo_fairness_and_uid_order(served):
     position), and every block returns."""
     prompts = _prompts(served[2].cfg.vocab_size, [5] * 6, 33)
     eng = _port(served, max_batch=3, max_len=32, block_size=4, num_blocks=8,
-                prefill_chunk=4)
+                prefill_chunk=4, overlap=False)
     uids = [eng.submit(p, max_new_tokens=16) for p in prompts]
     for _ in range(800):
         eng.step()
@@ -541,7 +542,7 @@ def test_preemption_count_depends_on_lengths_only(served):
     for params in (tparams, other):
         eng = Engine(tmodel, params, max_batch=3, max_len=32,
                      cache_dtype=torch.float32, paged=True, block_size=4,
-                     num_blocks=9, prefill_chunk=4)
+                     num_blocks=9, prefill_chunk=4, overlap=False)
         _, reqs = _run(eng, prompts, [14] * 5)
         counts.append((eng.num_preemptions, [r.preemptions for r in reqs],
                        eng.stats["decode_steps"],

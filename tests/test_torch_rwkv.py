@@ -562,10 +562,12 @@ def test_probe_family_caps(jx, served):
         jcaps.pad_prompts, jcaps.supports_paging) == (False, False)
     dense = get_smoke("qwen2-0.5b")
     assert probe_family_caps(build_model(dense), capacity=32) == (
-        type(caps)(pad_prompts=True, supports_paging=True))
+        type(caps)(pad_prompts=True, supports_paging=True,
+                   supports_chunked_prefill=True, supports_mixed_step=True))
     windowed = build_model(dense, window=16)
     assert probe_family_caps(windowed, capacity=32) == (
-        type(caps)(pad_prompts=False, supports_paging=True))
+        type(caps)(pad_prompts=False, supports_paging=True,
+                   supports_chunked_prefill=True, supports_mixed_step=True))
     assert probe_family_caps(windowed, capacity=16).pad_prompts
 
 

@@ -1,5 +1,6 @@
-"""Parity of the port's serving path (arena engine, serialized scheduler)
-with the JAX reference, at smoke size on the CPU.
+"""Parity of the port's serving path (the arena engine; its overlapped
+scheduler is held in tests/test_torch_mixed.py) with the JAX reference, at
+smoke size on the CPU.
 
 Both sides start from the reference's parameters (`params_from_jax`) and,
 for the model entry points, from the same arena (`arena_from_jax`), and
@@ -231,17 +232,19 @@ def _run(engine, prompts, budgets, eos=None):
     return [done[u].output.tolist() for u in uids]
 
 
-def _port_engine(served, max_batch=SLOTS):
+def _port_engine(served, max_batch=SLOTS, **kw):
     _, _, tmodel, tparams = served
     return Engine(tmodel, tparams, max_batch=max_batch, max_len=CAPACITY,
-                  cache_dtype=torch.float32)
+                  cache_dtype=torch.float32, **kw)
 
 
 @pytest.fixture(scope="module")
 def port_outputs(served):
+    """The serialized scheduler's run (its accounting is checked below;
+    the overlapped engine's is in tests/test_torch_mixed.py)."""
     prompts = _prompts(served[0].cfg.vocab_size)
     budgets = [b for _, b in WORKLOAD]
-    eng = _port_engine(served)
+    eng = _port_engine(served, overlap=False)
     outs = _run(eng, prompts, budgets)
     return prompts, budgets, outs, eng
 
@@ -279,12 +282,14 @@ def test_engine_stats_and_fetch_contract(port_outputs):
 
 def test_engine_eos_on_prefill_token_frees_the_slot(served):
     """EOS emitted by the prefill itself finishes the request during
-    admission; the slot is reused by the next request in the same step."""
+    admission; the slot is reused by the next request in the same step
+    (the serialized scheduler's admission rounds; the overlapped one
+    resolves first tokens a step later, tests/test_torch_mixed.py)."""
     vocab = served[0].cfg.vocab_size
     rng = np.random.default_rng(16)
     prompt = rng.integers(0, vocab, (6,))
     (first,) = _run(_port_engine(served, max_batch=1), [prompt], [1])
-    eng = _port_engine(served, max_batch=1)
+    eng = _port_engine(served, max_batch=1, overlap=False)
     eng.submit(prompt, max_new_tokens=10, eos_id=first[0])
     other = eng.submit(rng.integers(0, vocab, (4,)), max_new_tokens=3)
     done = eng.step()                   # admission finishes request 0
@@ -298,16 +303,6 @@ def test_engine_rejects_longer_than_slot(served):
     with pytest.raises(ValueError, match="slot capacity"):
         eng.submit(np.arange(20, dtype=np.int32), max_new_tokens=13)
     eng.submit(np.arange(20, dtype=np.int32), max_new_tokens=12)   # fits
-
-
-@pytest.mark.parametrize("kw", [{"paged": True, "overlap": True},
-                                {"overlap": True}])
-def test_engine_unported_modes_raise(served, kw):
-    """Overlapped admission (the fused mixed step) is not ported, on
-    either backend; paged=True alone serves (tests/test_torch_paged.py)."""
-    _, _, tmodel, tparams = served
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(tmodel, tparams, max_batch=1, max_len=16, **kw)
 
 
 # ---------------------------------------------------------------------------
