@@ -150,16 +150,40 @@ non-zero before the last line:
      launches per mixed step (24 flash + 24 decode; 24 paged; 24 ring,
      asserted), device launches and ms, and the largest |logit|
      difference of the mixed step's decode rows from a standalone decode
-     step (0: the trunk is row-stable), with the MLP's down projection
-     per half and shared, beside each shared op's row stability.
+     step (0: the trunk is row-stable), with the ops of
+     `attention.MIXED_PER_HALF` per half and shared, beside each shared
+     op's row stability;
+ 25. attention kernels at head_dim 128 against their plain versions, at
+     the dense family's main-path shapes: flash over the 256-token
+     prompt bucket and decode over 8 arena rows of 512 for
+     internlm2-1.8b (16 query heads over 8 kv heads), qwen3-8b (32 over
+     8) and nemotron-4-15b (48 over 8), paged decode for qwen3-8b (256
+     blocks of 16), timed beside SDPA (gather + SDPA for paged);
+ 26. the mixed step's row stability (phase 24's report, with each
+     norm's f32 mean of squares beside it) at those three configs'
+     widths, on layer 0's random weights;
+ 27. dense serving: the three at full width and depth through
+     `repro_torch.launch.serve` on phase 7's workload, qwen3-8b also on
+     phase 11's pool, each overlapped and then serialized: one flash
+     launch per layer an admission and one decode (paged) launch per
+     layer a step (24, 36, 32), every budget served, every block
+     returned, tokens equal between the schedulers request by request,
+     peak memory;
+ 28. dense reference: phases 8 and 23 on the three smoke configs (card
+     against CPU, f32, logits within 1e-4, equal tokens);
+ 29. dense training: one superstep of internlm2-1.8b at full width cut
+     to 2 layers (phase 4's settings, bf16 compute; one prox launch a
+     leaf), the same in f32 card against CPU at A=2, M=1, and one of
+     nemotron's smoke config on bf16 parameters, card against CPU.
 
-Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
+Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
 non-zero and prints no result.
 """
 import dataclasses
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -214,6 +238,9 @@ LEAVES = 14
 N_LAYERS = 24           # qwen2-0.5b: one attention kernel launch per layer
 
 
+# the dense configs this script serves at full width besides qwen2-0.5b
+DENSE_ARCHS = ("internlm2-1.8b", "qwen3-8b", "nemotron-4-15b")
+
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "16", "--max-batch", "8",
               "--prompt-len", "200", "--new-tokens", "64", "--mixed"]
 
@@ -236,8 +263,11 @@ def main_args(steps, log_every):
 DEV = torch.device("cuda")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def event_ms(fn, iters):
@@ -697,12 +727,12 @@ def serve_main_path():
     return summary, launches, out
 
 
-def serving_reference_check():
-    """Smoke config in f32: prefill_into_slot + 8 decode_rows steps on the
-    card and on the CPU from one set of parameters."""
+def serving_reference_check(arch="qwen2-0.5b"):
+    """`arch`'s smoke config in f32: prefill_into_slot + 8 decode_rows
+    steps on the card and on the CPU from one set of parameters."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(5)
@@ -739,7 +769,7 @@ def serving_reference_check():
         # both devices continue from the CPU's tokens
         cur = want.argmax(-1).numpy().astype(np.int32)
         lengths += 1
-    print(json.dumps({"serving_reference_max_abs_err": worst,
+    print(json.dumps({"serving_reference_max_abs_err": worst, "arch": arch,
                       "tolerance": 1e-4, "greedy_tokens_checked": tie_free,
                       "greedy_tokens_equal": equal}), flush=True)
     # f32 sums run in another order on the card than on the CPU
@@ -891,10 +921,10 @@ RING_WINDOW = 256
 RING_BUDGETS = (160, 320)   # alternating, every one past the window
 
 
-def _pool_operands(b, max_len, bs, dtype, gen):
-    """q [b,14,64] and a k/v pool [2, 1 + b*W, bs, 2, 64] (block 0 the
-    null block) with random disjoint tables [b, W], W = max_len / bs."""
-    h, kv, hd = 14, 2, 64
+def _pool_operands(b, max_len, bs, dtype, gen, h=14, kv=2, hd=64):
+    """q [b,h,hd] and a k/v pool [2, 1 + b*W, bs, kv, hd] (block 0 the null
+    block; qwen2-0.5b's 14 heads over 2 of 64 by default) with random
+    disjoint tables [b, W], W = max_len / bs."""
     w = max_len // bs
     nb = 1 + b * w
     q = torch.randn((b, h, hd), generator=gen, device=DEV).to(dtype)
@@ -921,17 +951,24 @@ def _gather_sdpa(q, kp, vp, tables, valid):
     return run
 
 
-def _paged_bytes(q, used, used_blocks, esize):
+def _paged_bytes(q, kp, used, used_blocks):
     """q read and out written once, each valid K/V row once, the table
     entries and lengths the rows use."""
-    return (esize * (2 * q.numel() + 2 * used * 2 * 64)
+    return (q.element_size() * (2 * q.numel()
+                                + 2 * used * kp.shape[2] * kp.shape[3])
             + 4 * (q.shape[0] + used_blocks))
 
 
-def check_paged_case(label, b, max_len, bs, dtype, gen):
+def _paged_flops(q, used):
+    """Both products over the valid rows: 4 hd flops a (query head, row)."""
+    return 4 * q.shape[2] * q.shape[1] * used
+
+
+def check_paged_case(label, b, max_len, bs, dtype, gen, **heads):
     """One paged decode step of b rows whose lengths spread over
-    1..max_len; table entries past a row's blocks point at block 0."""
-    q, kp, vp, tables = _pool_operands(b, max_len, bs, dtype, gen)
+    1..max_len; table entries past a row's blocks point at block 0.
+    `heads`: h, kv and hd, if not qwen2-0.5b's."""
+    q, kp, vp, tables = _pool_operands(b, max_len, bs, dtype, gen, **heads)
     w = tables.shape[1]
     lengths = torch.linspace(1, max_len, b, device=DEV).round().to(
         torch.int32)
@@ -946,8 +983,8 @@ def check_paged_case(label, b, max_len, bs, dtype, gen):
                                            lengths=lengths),
         lambda: ref.decode_attention_paged(q, kp, vp, tables,
                                            lengths=lengths),
-        None, _paged_bytes(q, used, int(nblk.sum()), q.element_size()),
-        4 * 64 * 14 * used, iters=50, dtype=dtype)
+        None, _paged_bytes(q, kp, used, int(nblk.sum())),
+        _paged_flops(q, used), iters=50, dtype=dtype)
     lib = _gather_sdpa(q, kp, vp, tables, valid)
     case.update(gather_sdpa_ms=device_ms(lib, 50),
                 gather_sdpa_event_ms=event_ms(lib, 50),
@@ -1033,9 +1070,8 @@ def check_ring_case(label, b, window, bs, dtype, gen):
         "decode_attention_ring", label,
         lambda: ops.decode_attention_ring(q, kp, vp, tables, **kw),
         lambda: ref.decode_attention_ring(q, kp, vp, tables, **kw),
-        None, _paged_bytes(q, used, int(((live + bs - 1) // bs).sum()),
-                           q.element_size()),
-        4 * 64 * 14 * used, iters=50, dtype=dtype)
+        None, _paged_bytes(q, kp, used, int(((live + bs - 1) // bs).sum())),
+        _paged_flops(q, used), iters=50, dtype=dtype)
     base = ops.decode_attention_ring(q, kp, vp, tables, **kw)
     for shift in (1, w // 2, w - 1):
         rot = torch.roll(tables, shift, dims=1).contiguous()
@@ -1083,6 +1119,32 @@ def check_identity_table(gen):
     if not ok:
         raise AssertionError(f"paged kernel with an identity table differs "
                              f"from the linear kernel by {err}")
+
+
+def dense_kernel_cases(gen):
+    """Phase a: the attention kernels at the new dense configs' main-path
+    shapes (head_dim 128 over 8 kv heads; G = 4 for qwen3-8b, 2 for
+    internlm2-1.8b, 6 for nemotron-4-15b), bf16, against their plain
+    versions, timed beside SDPA (flash, decode) and gather + SDPA (paged):
+    flash over the 256-token prompt bucket, decode over 8 arena rows of
+    512 with lengths 1..512, paged over 8 rows of <= 512 tokens in 256
+    blocks of 16. Returns (flash, decode, paged) cases."""
+    flash, decode, paged = [], [], []
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        heads = dict(h=cfg.num_heads, kv=cfg.num_kv_heads, hd=cfg.head_dim)
+        tag = f"{arch} {cfg.num_heads}:{cfg.num_kv_heads} heads of " \
+              f"{cfg.head_dim}"
+        flash.append(check_flash_case(f"{tag}, prefill Sp=256", 256, gen,
+                                      **heads))
+        decode.append(check_decode_case(f"{tag}, decode B=8 T=512", 8, 512,
+                                        gen, **heads))
+        if arch == "qwen3-8b":
+            paged.append(check_paged_case(
+                f"{tag}, paged B=8 <=512 tokens, 256 blocks of 16", 8, 512,
+                16, torch.bfloat16, gen, **heads))
+        torch.cuda.empty_cache()
+    return flash, decode, paged
 
 
 def paged_serve_main_path(arena_outputs):
@@ -1886,8 +1948,9 @@ def ring_arms(ring_summary, ring_outputs):
     return {"requests_equal": len(outputs), **pick}, launches
 
 
-def mixed_reference_check():
-    """Phase 23: the smoke config in f32 (TF32 off), one set of parameters:
+def mixed_reference_check(arch="qwen2-0.5b"):
+    """Phase 23: `arch`'s smoke config in f32 (TF32 off), one set of
+    parameters:
     two live rows and three mixed steps prefilling the middle slot (the
     arena: three prompts; the pool and the ring: three chunks of one
     prompt) on the card and on the CPU; logits within 1e-4 and equal
@@ -1897,7 +1960,7 @@ def mixed_reference_check():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     devs = (torch.device("cpu"), DEV)
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
@@ -2008,8 +2071,16 @@ def mixed_reference_check():
                 lengths[1] = 0
             compare(name, pairs, token_pairs)
             pairs, token_pairs = [], []
-    print(json.dumps({"mixed_reference": report, "tolerance": 1e-4}),
+    print(json.dumps({"mixed_reference": report, "arch": arch,
+                      "tolerance": 1e-4}),
           flush=True)
+
+
+# the mixed trunk's shared products: (name, leaf of layer 0), where the
+# config has the leaf
+SHARED_PRODUCTS = (("wq", "attn.wq"), ("wk", "attn.wk"), ("wv", "attn.wv"),
+                   ("wo", "attn.wo"), ("w_gate", "mlp.w_gate"),
+                   ("w_up", "mlp.w_up"), ("w_down", "mlp.w_down"))
 
 
 def _row_stability(params, h_rows, p_rows, gen):
@@ -2017,17 +2088,21 @@ def _row_stability(params, h_rows, p_rows, gen):
     path's shapes: each op on B decode rows and on S prefill rows alone
     against the same rows of one [1, B + S, .] call, max |difference| of
     (decode rows, prefill rows), layer 0's weights, unit-normal inputs
-    (the ops' kernels are chosen by shape, not values)."""
+    (the ops' kernels are chosen by shape, not values). The products,
+    rmsnorm over d_model, qk-norm over hd on [rows, heads, hd] where the
+    config has it, and the unembedding on the B + 1 rows the mixed step
+    selects (B decode rows against the prompt's last one); beside each
+    norm, its f32 mean of squares ("_f32_mean"), where another summation
+    order shows at once, though it tips the bf16 output only now and
+    then."""
     from repro_torch.models.layers import rmsnorm
 
-    d = params["embed.table"].shape[1]
-    ff = params["segments.0.mlp.w_down"].shape[1]
     out = {}
 
-    def one(name, width, fn):
-        xd = torch.randn((h_rows, 1, width), generator=gen,
+    def one(name, width, fn, p=p_rows, heads=()):
+        xd = torch.randn((h_rows, 1) + heads + (width,), generator=gen,
                          device=DEV).to(torch.bfloat16)
-        xp = torch.randn((1, p_rows, width), generator=gen,
+        xp = torch.randn((1, p) + heads + (width,), generator=gen,
                          device=DEV).to(torch.bfloat16)
         xm = torch.cat([xd.transpose(0, 1), xp], dim=1)
         full = fn(xm)[0]
@@ -2036,15 +2111,65 @@ def _row_stability(params, h_rows, p_rows, gen):
                      float((fn(xp)[0].float() - full[h_rows:].float())
                            .abs().max())]
 
-    for w in ("wq", "wk", "wv"):
-        one(w, d, lambda x, w=w: x @ params[f"segments.0.attn.{w}"][0])
-    one("wo", d, lambda x: x @ params["segments.0.attn.wo"][0])
-    for w in ("w_gate", "w_up"):
-        one(w, d, lambda x, w=w: x @ params[f"segments.0.mlp.{w}"][0])
-    one("w_down", ff, lambda x: x @ params["segments.0.mlp.w_down"][0])
+    for name, leaf in SHARED_PRODUCTS:
+        w = params.get(f"segments.0.{leaf}")
+        if w is not None:
+            one(name, w.shape[1], lambda x, w=w[0]: x @ w)
+    def mean_sq(x):
+        x = x.float()
+        return torch.mean(x * x, dim=-1)
+
     scale = {"scale": params["segments.0.ln1.scale"][0]}
+    d = scale["scale"].shape[0]
     one("rmsnorm", d, lambda x: rmsnorm(scale, x))
+    one("rmsnorm_f32_mean", d, mean_sq)
+    for name in ("q_norm", "k_norm"):
+        w = params.get(f"segments.0.attn.{name}.scale")
+        if w is not None:
+            heads = params["segments.0.attn.wq" if name == "q_norm"
+                           else "segments.0.attn.wk"].shape[2] // w.shape[1]
+            one(name, w.shape[1], lambda x, w=w[0]: rmsnorm({"scale": w}, x),
+                heads=(heads,))
+            one(f"{name}_f32_mean", w.shape[1], mean_sq, heads=(heads,))
+    head = params.get("head")
+    if head is None:
+        head = params["embed.table"].T
+    one("unembed", head.shape[0], lambda x: x @ head, p=1)
     return out
+
+
+def dense_row_stability(gen):
+    """Phase b: `_row_stability` at each new dense config's widths (layer
+    0's weights and the unembedding, random bf16, made on the card), for
+    the arena's mixed batch (8 decode rows + Sp = 256) and the pool's (8 +
+    C = 32). Returns {arch: {"arena_B8_Sp256": ..., "pool_B8_C32": ...}}
+    and prints each op that is not bitwise row-stable."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import _he
+
+    bf = torch.bfloat16
+    report = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        params = {f"segments.0.{k}": v for k, v in TF.block_init(
+            gen, (1,), cfg, "attn", bf).items()}
+        params["head"] = _he(gen, (cfg.d_model, cfg.vocab_size), bf,
+                             cfg.d_model)
+        report[arch] = {"arena_B8_Sp256": _row_stability(params, 8, 256, gen),
+                        "pool_B8_C32": _row_stability(params, 8, 32, gen)}
+        del params
+        torch.cuda.empty_cache()
+    unstable = {arch: {shape: {op: d for op, d in ops_.items() if any(d)}
+                       for shape, ops_ in r.items()}
+                for arch, r in report.items()}
+    print(json.dumps({"dense_row_stability": report,
+                      "not_row_stable": unstable}), flush=True)
+    return report
+
+
+# steps each of phase 24's profiles counts and times (each holds some
+# 3,000-5,000 device launches a step)
+MIXED_PROFILE_CALLS = 5
 
 
 def profile_mixed_steps():
@@ -2055,9 +2180,10 @@ def profile_mixed_steps():
     launches per mixed step (asserted), device launches and device ms
     (torch.profiler), the largest |logit| difference between the mixed
     step's decode rows and a standalone decode step, and the
-    admission's against its standalone prefill, with the MLP's down
-    projection per half (the port) and shared (what it would be
-    without the split), and each shared op's row stability."""
+    admission's against its standalone prefill, with the products of
+    `attention.MIXED_PER_HALF` per half (the port) and shared (what it
+    would be without the split), and each shared op's row stability."""
+    from repro_torch.models import attention as A
     from repro_torch.models import transformer as TF
     from repro_torch.serve.bucketing import table_width
 
@@ -2077,18 +2203,18 @@ def profile_mixed_steps():
         return [{k: v.clone() for k, v in seg.items()} for seg in caches]
 
     def logit_gaps(mixed_fn, decode_fn, prefill_fn, caches):
-        gaps = {}
+        gaps, per_half = {}, A.MIXED_PER_HALF
         for split in (True, False):
-            TF.MIXED_DOWN_PER_HALF = split
+            A.MIXED_PER_HALF = per_half if split else frozenset()
             try:
                 ld, lp, _ = mixed_fn(clone(caches))
             finally:
-                TF.MIXED_DOWN_PER_HALF = True
+                A.MIXED_PER_HALF = per_half
             live = [r for r in range(b) if r != dead]
             c = clone(caches)
             want_d = decode_fn(c)
             want_p = prefill_fn(c)
-            gaps["down_per_half" if split else "down_shared"] = {
+            gaps["per_half" if split else "shared"] = {
                 "decode_rows": float((ld[live] - want_d[live]).abs().max()),
                 "admission": float((lp - want_p).abs().max())}
         return gaps
@@ -2101,16 +2227,17 @@ def profile_mixed_steps():
         if got != want_launches:
             raise AssertionError(f"{name} mixed step launched {got}, "
                                  f"expected {want_launches}")
-        n_mixed = device_launches(mixed, calls=10)
-        n_serial = device_launches(serial, calls=10)
+        n_mixed = device_launches(mixed, calls=MIXED_PROFILE_CALLS)
+        n_serial = device_launches(serial, calls=MIXED_PROFILE_CALLS)
         report[name] = {
             "kernel_launches_per_mixed_step": got,
             "mixed_step": {"device_launches": n_mixed,
-                           "device_ms": device_ms(mixed, 10,
+                           "device_ms": device_ms(mixed, MIXED_PROFILE_CALLS,
                                                   launches=n_mixed)},
             "decode_step_plus_standalone": {
                 "device_launches": n_serial,
-                "device_ms": device_ms(serial, 10, launches=n_serial)},
+                "device_ms": device_ms(serial, MIXED_PROFILE_CALLS,
+                                       launches=n_serial)},
             "max_abs_logit_diff": gaps, "row_stability": rows}
         print(json.dumps({f"mixed_step_profile_{name}": report[name]}),
               flush=True)
@@ -2196,6 +2323,192 @@ def profile_mixed_steps():
     return report
 
 
+def dense_serving(arch, paged=False):
+    """Phase 27: `arch` at full width and depth on phase 7's workload
+    (`paged`: phase 11's pool, 256 blocks of 16, chunks of 32) through
+    `repro_torch.launch.serve` at the engine's default (overlapped), then
+    through `overlap=False`: one flash launch per layer an admission and
+    one decode (paged) launch per layer a step in both, every request
+    served to its budget, the pool's blocks all returned, and every
+    request's tokens equal between the schedulers. Returns (the
+    overlapped run's launches, the serialized run's)."""
+    argv = ["--arch", arch] + SERVE_ARGS[2:]
+    if paged:
+        argv += ["--paged", "--block-size", "16"]
+    n_layers = get_config(arch).num_layers
+    decode = "decode_attention_paged" if paged else "decode_attention"
+    runs, launches = {}, {}
+    for overlap in (True, False):
+        print(" ".join(argv), f"(overlap={overlap})")
+        reset_counts()
+        out = serve_cli.serve(serve_cli.parse_args(argv), overlap=overlap)
+        got = counts()
+        st = out["stats"]
+        if overlap:
+            assert_overlapped(f"{arch} {decode}", st)
+        elif st["overlap_mode"] or st["mixed_steps"]:
+            raise AssertionError(f"{arch}: overlap=False ran overlapped")
+        want = {"flash_attention": 0 if paged else n_layers
+                * st["admissions"], decode: n_layers * st["decode_steps"]}
+        want.update({k: 0 for k in got if k not in want})
+        if got != want:
+            raise AssertionError(f"{arch} (overlap={overlap}): launches "
+                                 f"{got}, expected {want}")
+        if [len(o) for o in out["outputs"]] != out["budgets"]:
+            raise AssertionError(f"{arch}: a request did not get its budget")
+        if paged and out["free_blocks"] != out["num_blocks"]:
+            raise AssertionError(f"{arch}: blocks were not returned")
+        runs[overlap], launches[overlap] = out, got
+        summary = serving_summary(out, got)
+        summary["decode_launches_per_step"] = got[decode] / st["decode_steps"]
+        print(json.dumps({f"dense_serving_{arch}_"
+                          f"{'paged' if paged else 'arena'}_"
+                          f"{'overlapped' if overlap else 'serialized'}":
+                          summary}), flush=True)
+        del out
+        torch.cuda.empty_cache()
+    differ = [u for u, (a, b) in enumerate(zip(runs[True]["outputs"],
+                                               runs[False]["outputs"]))
+              if a != b]
+    if differ:
+        raise AssertionError(f"{arch}: overlapped and serialized tokens "
+                             f"differ for requests {differ}")
+    print(json.dumps({"dense_schedulers_equal": {
+        "arch": arch, "paged": paged,
+        "requests_equal": len(runs[True]["outputs"])}}), flush=True)
+    return launches[True], launches[False]
+
+
+# phase 29: internlm2-1.8b at full width cut to 2 of its 24 layers; the
+# card against the CPU with A=2 agents and M=1 walk
+TRAIN_CUT_LAYERS = 2
+CPU_AGENTS, CPU_WALKS = 2, 1
+
+
+def _state_close(card, cpu, atol_fn):
+    """{part: (ok, max |card - cpu|)}: each leaf of each part within
+    atol_fn(cpu leaf, part)."""
+    out = {}
+    for part, leaves in cpu.items():
+        ok, worst = True, 0.0
+        for k, want in leaves.items():
+            err = (card[part][k].cpu().float() - want.float()).abs()
+            ok &= bool((err <= atol_fn(want.float(), part)).all())
+            worst = max(worst, float(err.max()))
+        out[part] = (ok, worst)
+    return out
+
+
+def dense_training():
+    """Phase 29: one API-BCD superstep of internlm2-1.8b at full width,
+    depth cut to 2 of 24 layers, A=4, M=2, B=2, S=256 (phase 4's
+    settings), in its own dtypes (bf16 compute) on the card, one
+    prox_update launch a leaf; then in f32 from one state on the card and
+    on the CPU (the plain versions), which must agree (loss rtol 1e-4,
+    state 1e-4, phase 5's), at A=2, M=1 (CPU_AGENTS): the CPU's copy of
+    the state at A=4, M=2 would hold 40 GB of the host's memory beside
+    the step's temporaries, at A=2, M=1 16 GB. Then one superstep of
+    nemotron's smoke config with its full config's bf16 parameters (f32
+    compute), card against CPU: the update runs on bf16 leaves, and every
+    leaf lies within one bf16 ulp of its value plus one of the leaf's
+    largest |value| of the CPU's (both round the same f32 gradient and
+    update to bf16, where the f32 sums' order can tip a rounding, and a
+    gradient tipped by one ulp moves the update and the token's f32 delta
+    by at most one bf16 ulp of the leaf's scale; tests/test_torch_dense.py
+    holds the CPU path so against the reference)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CUT_LAYERS,
+                              layer_types=("attn",) * TRAIN_CUT_LAYERS)
+    tcfg = TrainConfig(num_agents=4, num_walks=2, tau=0.05, rho=20.0)
+    toks, targs = next(agent_batches(cfg.vocab_size, 4, 2, 256, seed=0))
+    batch = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(targs)}
+    report = {}
+
+    # the config's own dtypes on the card
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=DEV).manual_seed(0))
+    leaves = len(state["params"])
+    step_fn = make_train_step(model, tcfg)
+    gpu_batch = {k: v.to(DEV) for k, v in batch.items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, gpu_batch, 0)
+    torch.cuda.synchronize()
+    report["internlm2_bf16_compute"] = {
+        "layers": TRAIN_CUT_LAYERS, "leaves": leaves,
+        "loss": float(m["loss"]),
+        "superstep_ms_incl_first_use": (time.perf_counter() - t0) * 1e3,
+        "launches": counts(),
+        "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps({"dense_training": report}), flush=True)
+    if counts()["prox_update"] != leaves or not np.isfinite(float(
+            m["loss"])):
+        raise AssertionError(f"internlm2 superstep: {report}")
+    del state, m
+    torch.cuda.empty_cache()
+
+    # f32, card against CPU, from one state
+    for name, c, t, b, tol in (
+            ("internlm2_f32_card_vs_cpu",
+             dataclasses.replace(cfg, compute_dtype="float32"),
+             TrainConfig(num_agents=CPU_AGENTS, num_walks=CPU_WALKS,
+                         tau=0.05, rho=20.0),
+             {k: v[:CPU_AGENTS] for k, v in batch.items()},
+             lambda want, part: 1e-4),
+            ("nemotron_smoke_bf16_params_card_vs_cpu",
+             dataclasses.replace(get_smoke("nemotron-4-15b"),
+                                 param_dtype="bfloat16",
+                                 compute_dtype="float32"),
+             TrainConfig(num_agents=4, num_walks=2), None,
+             lambda want, part: (bf16_ulp(want)
+                                 + bf16_ulp(want.abs().max())))):
+        model = build_model(c)
+        if b is None:
+            bt, bg = next(agent_batches(c.vocab_size, 4, 2, 32, seed=1))
+            b = {"tokens": torch.from_numpy(bt),
+                 "targets": torch.from_numpy(bg)}
+        cpu = init_train_state(model, t, torch.Generator().manual_seed(0))
+        gpu = {part: {k: v.to(DEV, copy=True) for k, v in leaves_.items()}
+               for part, leaves_ in cpu.items()}
+        step_fn = make_train_step(model, t)
+        t0 = time.perf_counter()
+        cpu, m_cpu = step_fn(cpu, b, 0)
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        gpu, m_gpu = step_fn(gpu, {k: v.to(DEV) for k, v in b.items()}, 0)
+        torch.cuda.synchronize()
+        launches = counts()
+        close = _state_close(gpu, cpu, tol)
+        report[name] = {
+            "param_dtype": c.param_dtype,
+            "x_dtypes": sorted({str(v.dtype) for v in gpu["params"].values()}),
+            "loss_card": float(m_gpu["loss"]),
+            "loss_cpu": float(m_cpu["loss"]),
+            "max_abs_err": {p: e for p, (_, e) in close.items()},
+            "cpu_superstep_s": cpu_s, "launches": launches,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "host_peak_rss_GB": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 1e6}
+        print(json.dumps({"dense_training": {name: report[name]}}),
+              flush=True)
+        if (not all(ok for ok, _ in close.values())
+                or launches["prox_update"] != len(cpu["params"])
+                or report[name]["x_dtypes"] != [f"torch.{c.param_dtype}"]
+                or abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
+                > 1e-4 * abs(float(m_cpu["loss"]))):
+            raise AssertionError(f"{name}: card and CPU disagree: "
+                                 f"{report[name]}")
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    return report
+
+
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
                               "decode_attention_paged", "rwkv6_scan",
                               "rglru_scan")):
@@ -2255,13 +2568,16 @@ def ptxas_report(logs, names=("flash_attention", "decode_attention",
     dynamic.update({f"decode hd {hd} G {g} {dt}":
                     decode.decode_attention_smem_bytes(int(dt == "bf16"), hd,
                                                        g)
-                    for hd, g in ((64, 7), (256, 10), (32, 4), (128, 8))
+                    for hd, g in ((64, 7), (256, 10), (32, 4), (128, 2),
+                                  (128, 4), (128, 6), (128, 8))
                     for dt in ("bf16", "f32")})
-    # the paged main path (hd 64, G 7, bs 16) at 4 and 32 splits
+    # the paged main paths: qwen2 (hd 64, G 7, bs 16) at 4 and 32 splits,
+    # recurrentgemma (hd 256, G 10) and qwen3-8b (hd 128, G 4) at 4
     dynamic.update({f"paged hd {hd} G {g} splits {n} bs 16 {dt}":
                     paged.decode_attention_paged_smem_bytes(
                         int(dt == "bf16"), hd, g, n, paged_split_rows(hd), 16)
-                    for hd, g, n in ((64, 7, 4), (64, 7, 32), (256, 10, 4))
+                    for hd, g, n in ((64, 7, 4), (64, 7, 32), (256, 10, 4),
+                                     (128, 4, 4))
                     for dt in ("bf16", "f32")})
     wkv_lib = build.load("rwkv6_scan")
     rglru_lib = build.load("rglru_scan")
@@ -2516,6 +2832,47 @@ def main():
     profile_mixed_steps()
     torch.cuda.empty_cache()
 
+    phase("25 attention kernels at head_dim 128 (internlm2-1.8b, qwen3-8b, "
+          "nemotron-4-15b) against their plain versions")
+    dense_flash, dense_decode, dense_paged = dense_kernel_cases(gen)
+    flash_cases += dense_flash
+    decode_cases += dense_decode
+    paged_cases += dense_paged
+    print(json.dumps({"hd128_ptxas": [
+        r for r in ptx if "128" in r["kernel"]
+        and r["library"] != "rwkv6_scan"]}), flush=True)
+
+    phase("26 row stability of the mixed step's shared ops at the new "
+          "dense widths")
+    dense_row_stability(gen)
+
+    phase("27 dense serving main paths: repro_torch.launch.serve, full "
+          "internlm2-1.8b, qwen3-8b (also --paged) and nemotron-4-15b")
+    dense_launches = {}
+    for arch, paged in [(a, False) for a in DENSE_ARCHS] + [("qwen3-8b",
+                                                              True)]:
+        dense_launches[arch, paged] = dense_serving(arch, paged)
+
+    phase("28 dense reference: card against CPU at smoke size")
+    for arch in DENSE_ARCHS:
+        serving_reference_check(arch)
+        mixed_reference_check(arch)
+
+    phase("29 dense training: internlm2-1.8b full width, 2 layers; "
+          "nemotron smoke with bf16 parameters")
+    dense_training()
+    torch.cuda.empty_cache()
+
+    def dense_paths(kernel, paged=False):
+        """{path: launches} of phase 27's runs of `kernel`."""
+        out = {}
+        for (arch, pg), runs in dense_launches.items():
+            if pg == paged:
+                for sched, got in zip(("overlapped", "serialized"), runs):
+                    out[f"{arch} {'paged' if paged else 'arena'}, "
+                        f"{sched}"] = got[kernel]
+        return out
+
     # top level: each kernel's main-path case for the times (the largest
     # leaf's f32 case for prox_update), the worst case for the error
     print(json.dumps({"kernels": [
@@ -2531,7 +2888,8 @@ def main():
                       "qwen2 arena, serialized":
                           ser_launches["arena"]["flash_attention"],
                       "recurrentgemma arena":
-                          rg_launches["flash_attention"]},
+                          rg_launches["flash_attention"],
+                      **dense_paths("flash_attention")},
                      flash_cases, flash_cases[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2541,7 +2899,8 @@ def main():
                       "qwen2 arena, serialized":
                           ser_launches["arena"]["decode_attention"],
                       "recurrentgemma arena":
-                          rg_launches["decode_attention"]},
+                          rg_launches["decode_attention"],
+                      **dense_paths("decode_attention")},
                      decode_cases, decode_cases[0]),
         kernel_entry("decode_attention_paged",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
@@ -2549,7 +2908,8 @@ def main():
                      {"qwen2 paged, overlapped":
                           paged_launches["decode_attention_paged"],
                       "qwen2 paged, serialized":
-                          ser_launches["paged"]["decode_attention_paged"]},
+                          ser_launches["paged"]["decode_attention_paged"],
+                      **dense_paths("decode_attention_paged", paged=True)},
                      paged_cases, paged_cases[0]),
         kernel_entry("decode_attention_ring",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",

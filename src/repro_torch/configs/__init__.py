@@ -17,6 +17,9 @@ ARCH_IDS = {
     "qwen2-0.5b": "qwen2_0p5b",
     "rwkv6-1.6b": "rwkv6_1p6b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "internlm2-1.8b": "internlm2_1p8b",
+    "qwen3-8b": "qwen3_8b",
+    "nemotron-4-15b": "nemotron4_15b",
 }
 
 

@@ -2,7 +2,7 @@
 
 24L, d_model=896, 14H (GQA kv=2), d_ff=4864, vocab=151936, tied embeddings.
 """
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, TrainConfig
 
 CONFIG = ArchConfig(
     name="qwen2-0.5b",
@@ -19,6 +19,9 @@ CONFIG = ArchConfig(
     tie_embeddings=True,
     rope_theta=1e6,
 )
+
+# the reference also names model_parallel=1: the port runs on one device
+TRAIN = TrainConfig(num_agents=16, num_walks=4, tau=0.1, rho=20.0)
 
 
 def smoke() -> ArchConfig:

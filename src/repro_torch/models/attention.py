@@ -30,11 +30,13 @@ import math
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import _he, apply_rope
+from repro_torch.models.layers import _he, apply_rope, rmsnorm, rmsnorm_init
 
 
 def gqa_init(generator, lead, cfg, dtype):
-    """Projection weights with leading dims `lead` (the stacked layer axis)."""
+    """Projection weights with leading dims `lead` (the stacked layer axis);
+    with qk_norm, unit rmsnorm scales over hd for q and k ("q_norm.scale",
+    "k_norm.scale")."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": _he(generator, lead + (d, h * hd), dtype, d),
@@ -47,7 +49,21 @@ def gqa_init(generator, lead, cfg, dtype):
         p["bq"] = torch.zeros(lead + (h * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros(lead + (kv * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros(lead + (kv * hd,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[f"{name}.scale"] = rmsnorm_init(lead + (hd,), dtype,
+                                              generator.device)["scale"]
     return p
+
+
+def _qk_norm(params, cfg, q, k, norm=rmsnorm):
+    """qk-norm (rmsnorm over hd, or `norm`) of q [..., H, hd] and k [...,
+    KV, hd], as the reference applies it after the reshape and before
+    rope; q and k unchanged without it."""
+    if not cfg.qk_norm:
+        return q, k
+    return (norm({"scale": params["q_norm.scale"]}, q),
+            norm({"scale": params["k_norm.scale"]}, k))
 
 
 def _project_qkv(params, cfg, x, positions):
@@ -61,8 +77,10 @@ def _project_qkv(params, cfg, x, positions):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
+    q, k = _qk_norm(params, cfg, q.reshape(b, s, h, hd),
+                    k.reshape(b, s, kv, hd))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
     return q.reshape(b, s, kv, h // kv, hd), k, v.reshape(b, s, kv, hd)
 
 
@@ -358,18 +376,54 @@ def _paged_decode_attend(cfg, q, k_new, v_new, cache, tables, lengths,
 # the fused mixed step (overlapped admission): decode rows [:nd] and one
 # prefill unit [nd:] as one token batch [1, nd + S, D]
 #
-# The q/k/v and output projections run once over all tokens; rope and the
-# attention cores run per half, each half's core exactly what its
-# standalone step runs after the projection (the decode and flash kernels
-# on the arena, the paged or ring kernel and the plain chunk attention on
-# the pool). Projection rows are bitwise those of the standalone launches
-# where the GEMM is row-stable across M (the engine's overlapped output
-# equals its serialized output only then; `transformer._mixed_mlp` says
-# which op is not). Cache writes keep the sequential order: the decode
-# half inserts first, then the prefill half writes (on the arena the
-# whole slot row, over the dead slot's garbage insert; on the pool its
-# private blocks, disjoint from the decode writes).
+# The gate and up projections, the elementwise ops and the unembedding
+# run once over all tokens; rope, the attention cores and the ops in
+# MIXED_PER_HALF (the other products, rmsnorm) run per half, each half's
+# core exactly what its standalone step runs after the projection (the
+# decode and flash kernels on the arena, the paged or ring kernel and the
+# plain chunk attention on the pool). A shared op's rows are bitwise those
+# of the standalone launches only where it is row-stable across M (the
+# engine's overlapped output equals its serialized output only then).
+# Cache writes keep the sequential order: the decode half inserts first,
+# then the prefill half writes (on the arena the whole slot row, over the
+# dead slot's garbage insert; on the pool its private blocks, disjoint
+# from the decode writes).
 # ---------------------------------------------------------------------------
+
+# The ops that run per half: every product here, and rmsnorm. On an H100,
+# cuBLAS's bf16 product of the 8 decode rows alone differs from the same
+# rows inside the mixed batch (8 + 256 on the arena, 8 + 32 on the pool)
+# for each of these products at one of the dense configs' widths at least:
+# w_down at K = 4864 (qwen2), 8192, 12288 and 24576; wk and wv at K = 4096
+# (qwen3, where 32 chunk rows alone differ from them among 40 too); wq,
+# wk, wv and wo at K = 6144 (nemotron). rmsnorm's f32 mean of squares
+# over d_model (2048, 4096, 6144) sums in another order for 8 + 256 rows
+# than for 8, which tips a bf16 rounding now and then: shared, it made
+# internlm2's and qwen3's overlapped logits leave the serialized ones on
+# the card, and qwen3's tokens. qk-norm (the same reduction over hd)
+# measured row-stable and runs per half with the other norms. The gate
+# and up projections and the unembedding were bitwise row-stable at
+# every width. `chip_smoke.py`'s row-stability report measures each op.
+MIXED_PER_HALF = frozenset({"wq", "wk", "wv", "wo", "w_down", "rmsnorm"})
+
+
+def per_half(fn, x, nd, name):
+    """fn over the mixed batch x [1, nd + S, ...]: per half (the decode
+    rows [:nd], then the rest, as the standalone steps run it) where the
+    op `name` is in MIXED_PER_HALF, else once over all rows."""
+    if name not in MIXED_PER_HALF:
+        return fn(x)
+    return torch.cat([fn(x[:, :nd]), fn(x[:, nd:])], dim=1)
+
+
+def mixed_product(x, w, nd, name):
+    """x [1, nd + S, K] @ w for the product `name`, through `per_half`."""
+    return per_half(lambda t: t @ w, x, nd, name)
+
+
+def mixed_rmsnorm(params, x, nd):
+    """rmsnorm over the mixed batch's last axis, through `per_half`."""
+    return per_half(lambda t: rmsnorm(params, t), x, nd, "rmsnorm")
 
 
 def _rope_mixed(t, nd, pos_d, pos_p, theta):
@@ -381,20 +435,22 @@ def _rope_mixed(t, nd, pos_d, pos_p, theta):
 
 
 def _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p):
-    """`_project_qkv` for the mixed batch x [1, nd + S, D]: one set of
-    q/k/v products over every token, rope per half."""
+    """`_project_qkv` for the mixed batch x [1, nd + S, D]: the q/k/v
+    products through `mixed_product`, qk-norm through `mixed_rmsnorm`,
+    rope per half."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q, k, v = (mixed_product(x, params[w], nd, w)
+               for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = _rope_mixed(q.reshape(b, s, h, hd), nd, pos_d, pos_p, cfg.rope_theta)
-    k = _rope_mixed(k.reshape(b, s, kv, hd), nd, pos_d, pos_p,
-                    cfg.rope_theta)
+    q, k = _qk_norm(params, cfg, q.reshape(b, s, h, hd),
+                    k.reshape(b, s, kv, hd),
+                    norm=lambda p, t: mixed_rmsnorm(p, t, nd))
+    q = _rope_mixed(q, nd, pos_d, pos_p, cfg.rope_theta)
+    k = _rope_mixed(k, nd, pos_d, pos_p, cfg.rope_theta)
     return q.reshape(b, s, kv, h // kv, hd), k, v.reshape(b, s, kv, hd)
 
 
@@ -424,7 +480,7 @@ def gqa_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot,
     cache["ptr"][p_slot] = p_len
     out = torch.cat([out_d[None].to(x.dtype), out_p.reshape(1, sp, h * hd)],
                     dim=1)
-    return out @ params["wo"], cache
+    return mixed_product(out, params["wo"], nd, "wo"), cache
 
 
 def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
@@ -445,4 +501,4 @@ def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
     out_p = _chunk_attend(cfg, q[:, nd:], k[:, nd:], v[:, nd:], cache,
                           c_table, ctx_len, window, c_valid)
     out = torch.cat([out_d[None].to(x.dtype), out_p.to(x.dtype)], dim=1)
-    return out @ params["wo"], cache
+    return mixed_product(out, params["wo"], nd, "wo"), cache

@@ -28,8 +28,10 @@ def flatten(tree, prefix=""):
 
 
 def params_from_jax(tree):
-    """The reference's params pytree -> the port's flat dict of CPU tensors."""
-    return {k: torch.from_numpy(np.array(v)) for k, v in flatten(tree).items()}
+    """The reference's params pytree -> the port's flat dict of CPU tensors,
+    in their dtype (bf16 leaves too, as nemotron-4-15b's `param_dtype`
+    makes them)."""
+    return {k: _tensor(v) for k, v in flatten(tree).items()}
 
 
 def state_from_jax(state):

@@ -59,14 +59,14 @@ def apply_rope(x, positions, theta=1e4):
 
 
 # ---------------------------------------------------------------------------
-# MLPs (swiglu; gelu: one up projection)
+# MLPs (swiglu; gelu and sq_relu: one up projection)
 # ---------------------------------------------------------------------------
 
 
 def mlp_init(generator, lead, d_model, d_ff, dtype, mlp_type="swiglu"):
     """MLP weights with leading dims `lead` (the stacked layer axis):
-    swiglu's w_gate, w_up, w_down, or gelu's w_up, w_down."""
-    if mlp_type not in ("swiglu", "gelu"):
+    swiglu's w_gate, w_up, w_down, or gelu's and sq_relu's w_up, w_down."""
+    if mlp_type not in ("swiglu", "gelu", "sq_relu"):
         raise ValueError(f"mlp_type {mlp_type!r} is not ported")
     p = {}
     if mlp_type == "swiglu":
@@ -77,17 +77,20 @@ def mlp_init(generator, lead, d_model, d_ff, dtype, mlp_type="swiglu"):
 
 
 def mlp_hidden(params, x, mlp_type):
-    """The MLP's activations before its down projection: swiglu, or gelu
-    in its tanh form (`jax.nn.gelu`'s default)."""
+    """The MLP's activations before its down projection: swiglu, gelu in
+    its tanh form (`jax.nn.gelu`'s default), or squared ReLU."""
     if mlp_type == "swiglu":
         return F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     if mlp_type == "gelu":
         return F.gelu(x @ params["w_up"], approximate="tanh")
+    if mlp_type == "sq_relu":
+        return torch.square(F.relu(x @ params["w_up"]))
     raise ValueError(f"mlp_type {mlp_type!r} is not ported")
 
 
 def mlp_apply(params, x, mlp_type):
-    """swiglu, or gelu in its tanh form (`jax.nn.gelu`'s default)."""
+    """swiglu, gelu in its tanh form (`jax.nn.gelu`'s default), or squared
+    ReLU."""
     return mlp_hidden(params, x, mlp_type) @ params["w_down"]
 
 

@@ -1,7 +1,8 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Three families are ported: the dense decoder-only GQA stack, the RWKV6
+Three families are ported: the dense decoder-only GQA stack (a swiglu or
+squared-ReLU MLP, qk-norm where the config asks for it), the RWKV6
 recurrent stack (family "ssm", every layer "rwkv") and the RG-LRU hybrid
 (family "hybrid", layers "rglru" and "attn" with a gelu MLP, as
 recurrentgemma-2b); the others raise. The dense serving entry points
@@ -62,9 +63,10 @@ class Model:
                                               # -> (toks, pool, len+1, tok)
 
 
-# ported family -> the layer types it has, and its MLP (None: no MLP)
-PORTED_FAMILIES = {"dense": ({"attn"}, "swiglu"), "ssm": ({"rwkv"}, None),
-                   "hybrid": ({"rglru", "attn"}, "gelu")}
+# ported family -> the layer types it has, and its MLPs (empty: no MLP)
+PORTED_FAMILIES = {"dense": ({"attn"}, {"swiglu", "sq_relu"}),
+                   "ssm": ({"rwkv"}, set()),
+                   "hybrid": ({"rglru", "attn"}, {"gelu"})}
 
 
 def _check_ported(cfg: ArchConfig):
@@ -72,13 +74,11 @@ def _check_ported(cfg: ArchConfig):
     if cfg.family not in PORTED_FAMILIES:
         unported.append(f"family {cfg.family!r}")
     else:
-        types, mlp = PORTED_FAMILIES[cfg.family]
+        types, mlps = PORTED_FAMILIES[cfg.family]
         if set(cfg.layer_types) != types:
             unported.append(f"layer types {sorted(set(cfg.layer_types))}")
-        if mlp is not None and cfg.mlp_type != mlp:
+        if mlps and cfg.mlp_type not in mlps:
             unported.append(f"mlp {cfg.mlp_type!r}")
-    if cfg.qk_norm:
-        unported.append("qk_norm")
     if cfg.norm_type != "rmsnorm":
         unported.append(f"norm {cfg.norm_type!r}")
     if unported:

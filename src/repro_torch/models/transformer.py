@@ -554,31 +554,24 @@ def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
 # pool's), as the token batch [1, B + S, D]. The two halves touch disjoint
 # state: the slot being prefilled is dead to decode until the engine
 # resolves it. Each half's rows are bitwise what its standalone step
-# computes wherever the shared ops are row-stable; only all-attention
-# stacks reach this path (`FamilyCaps.supports_mixed_step`).
-
-# The MLP's down projection runs per half: on an H100, cuBLAS's bf16
-# product of 8 decode rows (K = 4864) differs from the same rows of the
-# 264-row mixed batch at Sp = 256 (by up to 0.0078, and the decode rows'
-# logits by up to 0.0415), while every other shared op was bitwise
-# row-stable there; `chip_smoke.py`'s mixed-step profile measures each
-# op and the logits with the split and without it.
-MIXED_DOWN_PER_HALF = True
+# computes wherever the shared ops are row-stable (`attention.
+# MIXED_PER_HALF` names the ops that are not, and run per half);
+# only all-attention stacks reach this path (`FamilyCaps.
+# supports_mixed_step`).
 
 
 def _mixed_mlp(params, x, nd, mlp_type):
-    """`mlp_apply` on the mixed batch, the down projection per half."""
+    """`mlp_apply` on the mixed batch: the activations over every row, the
+    down projection through `attention.mixed_product`."""
     h = mlp_hidden(params, x, mlp_type)
-    if not MIXED_DOWN_PER_HALF:
-        return h @ params["w_down"]
-    return torch.cat([h[:, :nd] @ params["w_down"],
-                      h[:, nd:] @ params["w_down"]], dim=1)
+    return A.mixed_product(h, params["w_down"], nd, "w_down")
 
 
 def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves):
     """The shared trunk of the mixed steps over x [1, nd + S, D]: each
     layer's rmsnorm -> `attn_fn(p_attn, h, layer_cache)` -> rmsnorm ->
-    MLP, then the final norm. `leaves` names the cache leaves of a layer
+    MLP, then the final norm (the norms through `attention.
+    mixed_rmsnorm`). `leaves` names the cache leaves of a layer
     (written in place by `attn_fn`)."""
     segs = segments(cfg)
     if segs != [("attn", cfg.num_layers)]:
@@ -586,13 +579,13 @@ def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves):
                                   f"attention segment, got {segs}")
     seg = caches[0]
     for i, lp in enumerate(_layers(params, 0, cfg.num_layers)):
-        h = rmsnorm(lp["ln1"], x)
+        h = A.mixed_rmsnorm(lp["ln1"], x, nd)
         attn_out, _ = attn_fn(lp["attn"], h,
                               {name: seg[name][i] for name in leaves})
         x = x + attn_out
-        h2 = rmsnorm(lp["ln2"], x)
+        h2 = A.mixed_rmsnorm(lp["ln2"], x, nd)
         x = x + _mixed_mlp(lp["mlp"], h2, nd, cfg.mlp_type)
-    return rmsnorm(subtree(params, "final_norm"), x)
+    return A.mixed_rmsnorm(subtree(params, "final_norm"), x, nd)
 
 
 def _mixed_embed(cfg, params, dec_tokens, adm_tokens):
