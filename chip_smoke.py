@@ -160,8 +160,13 @@ non-zero before the last line:
      8) and nemotron-4-15b (48 over 8), paged decode for qwen3-8b (256
      blocks of 16), timed beside SDPA (gather + SDPA for paged);
  26. the mixed step's row stability (phase 24's report, with each
-     norm's f32 mean of squares beside it) at those three configs'
-     widths, on layer 0's random weights;
+     norm's f32 mean of squares beside it) at every dense config's
+     widths (qwen2-0.5b and those three), on layer 0's random weights,
+     swept over the engine's prompt buckets (Sp = 8 ... 512) and the
+     pool's chunk of 32 beside B = 1, 4 and 8 decode rows; one JSON line
+     (the whole report in build/row_stability_sweep.json), failing
+     if an op the mixed step shares between its halves is not
+     row-stable at some shape;
  27. dense serving: the three at full width and depth through
      `repro_torch.launch.serve` on phase 7's workload, qwen3-8b also on
      phase 11's pool, each overlapped and then serialized: one flash
@@ -174,7 +179,26 @@ non-zero before the last line:
  29. dense training: one superstep of internlm2-1.8b at full width cut
      to 2 layers (phase 4's settings, bf16 compute; one prox launch a
      leaf), the same in f32 card against CPU at A=2, M=1, and one of
-     nemotron's smoke config on bf16 parameters, card against CPU.
+     nemotron's smoke config on bf16 parameters, card against CPU;
+ 30. DP baseline main path: `repro_torch.launch.train --baseline` at full
+     qwen2-0.5b width with phase 4's settings (global batch 8 x 256,
+     adamw, constant 3e-4), 3 steps, counts reset just before and read
+     just after (no kernel runs), finite losses, step ms and peak; then
+     3 steps at smoke size in f32, adamw and sgd with momentum, card
+     against CPU from one set of parameters (loss, params, moments);
+ 31. long-sequence superstep: `repro_torch.launch.train` at full
+     qwen2-0.5b width, A=4, M=2, 2 x 2048 tokens an agent (two K/V
+     chunks), remat on, 2 supersteps, counts reset just before and read
+     just after (14 prox launches a superstep), superstep ms and peak;
+     then one superstep at S = 1024 with remat on and one with it off,
+     each with its peak;
+ 32. windowed training past one chunk: the smoke config in f32 at S =
+     1100, window 0 and 300, one superstep card against CPU from one
+     state (loss and state within 1e-4), and agent 0's gradient on the
+     card with remat on and off against the CPU's;
+ 33. checkpoints: phase 32's card state and a nemotron smoke state on bf16
+     parameters written in the reference's format and loaded into
+     templates on the card and on the CPU, bitwise, dtypes kept.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -200,7 +224,9 @@ if not torch.cuda.is_available():
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
-from repro_torch.dist.trainer import init_train_state, make_train_step  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch.dist.trainer import (  # noqa: E402
+    init_train_state, make_dp_baseline_step, make_train_step)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import tickets as ticket_pool  # noqa: E402
@@ -2138,32 +2164,77 @@ def _row_stability(params, h_rows, p_rows, gen):
     return out
 
 
+# phase 26's sweep: the engine's prompt buckets (powers of two from its
+# floor of 8 up to the arena's capacity of 512) and the pool's chunk of
+# 32, each beside B = 1, 4 and 8 decode rows
+SWEEP_SP = (8, 16, 32, 64, 128, 256, 512)
+SWEEP_B = (1, 4, 8)
+SWEEP_CHUNK = 32
+
+
+def _per_half(op):
+    """Whether the mixed step runs the op of a row-stability report per
+    half: the products of `attention.MIXED_PER_HALF`, and every norm (the
+    layer norms and qk-norm go through `mixed_rmsnorm`)."""
+    from repro_torch.models.attention import MIXED_PER_HALF
+
+    base = op.replace("_f32_mean", "")
+    return base in MIXED_PER_HALF or base in ("q_norm", "k_norm")
+
+
 def dense_row_stability(gen):
-    """Phase b: `_row_stability` at each new dense config's widths (layer
-    0's weights and the unembedding, random bf16, made on the card), for
-    the arena's mixed batch (8 decode rows + Sp = 256) and the pool's (8 +
-    C = 32). Returns {arch: {"arena_B8_Sp256": ..., "pool_B8_C32": ...}}
-    and prints each op that is not bitwise row-stable."""
+    """Phase 26: `_row_stability` at every dense config's widths (layer 0's
+    weights and the unembedding, random bf16, made on the card), for the
+    arena's mixed batch (B decode rows + Sp prompt rows, every prompt
+    bucket) and the pool's (B + C = 32), B = 1, 4, 8. Prints one JSON line:
+    for each config, each op that is not bitwise row-stable with the
+    shapes where it is not and their largest difference, and the shared
+    ops among them (those the mixed step does not run per half). Writes
+    the whole report to build/row_stability_sweep.json. Raises if a
+    shared op is not row-stable at some shape: there the overlapped
+    engine's tokens could leave the serialized ones."""
     from repro_torch.models import transformer as TF
     from repro_torch.models.layers import _he
 
     bf = torch.bfloat16
-    report = {}
-    for arch in DENSE_ARCHS:
+    report, unstable, shared = {}, {}, {}
+    for arch in ("qwen2-0.5b",) + DENSE_ARCHS:
         cfg = get_config(arch)
         params = {f"segments.0.{k}": v for k, v in TF.block_init(
             gen, (1,), cfg, "attn", bf).items()}
         params["head"] = _he(gen, (cfg.d_model, cfg.vocab_size), bf,
                              cfg.d_model)
-        report[arch] = {"arena_B8_Sp256": _row_stability(params, 8, 256, gen),
-                        "pool_B8_C32": _row_stability(params, 8, 32, gen)}
+        shapes = {f"arena_B{b}_Sp{sp}": (b, sp)
+                  for b in SWEEP_B for sp in SWEEP_SP}
+        shapes.update({f"pool_B{b}_C{SWEEP_CHUNK}": (b, SWEEP_CHUNK)
+                       for b in SWEEP_B})
+        report[arch] = {name: _row_stability(params, b, p, gen)
+                        for name, (b, p) in shapes.items()}
         del params
         torch.cuda.empty_cache()
-    unstable = {arch: {shape: {op: d for op, d in ops_.items() if any(d)}
-                       for shape, ops_ in r.items()}
-                for arch, r in report.items()}
-    print(json.dumps({"dense_row_stability": report,
-                      "not_row_stable": unstable}), flush=True)
+        ops_ = {}
+        for shape, r in report[arch].items():
+            for op, d in r.items():
+                if any(d):
+                    ops_.setdefault(op, {})[shape] = max(d)
+        unstable[arch] = ops_
+        moved = sorted(op for op in ops_ if not _per_half(op))
+        if moved:
+            shared[arch] = {op: ops_[op] for op in moved}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "row_stability_sweep.json"),
+              "w") as f:
+        json.dump(report, f)
+    print(json.dumps({"row_stability_sweep": {
+        "Sp": SWEEP_SP, "B": SWEEP_B, "pool_chunk": SWEEP_CHUNK,
+        "not_row_stable": {arch: {op: {"shapes": len(v),
+                                       "max_abs": max(v.values())}
+                                  for op, v in ops_.items()}
+                           for arch, ops_ in unstable.items()},
+        "shared_not_row_stable": shared}}), flush=True)
+    if shared:
+        raise AssertionError(f"shared ops of the mixed step are not "
+                             f"row-stable: {shared}")
     return report
 
 
@@ -2509,6 +2580,328 @@ def dense_training():
     return report
 
 
+# phase 30's card-against-CPU arms: (name, optimizer, schedule), as
+# tests/test_torch_train_paths.py runs them against the reference
+DP_STEPS, DP_LR = 3, 3e-4
+DP_ARMS = (("adamw_constant", lambda: optim.adamw(weight_decay=0.0),
+            lambda: optim.constant(DP_LR)),
+           ("sgd_momentum_warmup_cosine", lambda: optim.sgd(momentum=0.9),
+            lambda: optim.warmup_cosine(0.1, 2, 3)))
+
+
+def _to(tree, device):
+    """A copy of a tree of dicts (and tuples) of tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device, copy=True)
+
+
+def _max_err(card, cpu):
+    """max |card - cpu| over a tree's tensor leaves."""
+    if isinstance(cpu, dict):
+        return max((_max_err(card[k], v) for k, v in cpu.items()),
+                   default=0.0)
+    return float((card.cpu().double() - cpu.double()).abs().max())
+
+
+def dp_baseline():
+    """Phase 30: the DP baseline main path, `repro_torch.launch.train
+    --baseline` at full qwen2-0.5b width with phase 4's settings (global
+    batch 8 x 256, adamw without weight decay at a constant 3e-4) for
+    STEPS steps, counts reset just before and read just after (the
+    baseline runs no kernel: the reference's runs no Pallas kernel
+    either); then, at smoke size in f32, DP_STEPS steps of each DP_ARMS
+    arm on the card and on the CPU from one set of parameters.
+
+    Tolerances: loss rtol 1e-4 (phase 5's). sgd with momentum: params and
+    velocity within 1e-5. adamw: Adam's first steps move a parameter by
+    about lr * sign(g), so a gradient near zero whose sign the two f32
+    summation orders flip can move it by up to 2 * lr a step: params
+    within 2 * lr * DP_STEPS everywhere and within 1e-5 (rtol 1e-5) on
+    all but 0.1 % of elements; mu within 1e-5 and nu within 1e-7 (squares
+    of gradients of ~1e-3)."""
+    argv = main_args(STEPS, log_every=1) + ["--baseline"]
+    print(" ".join(argv))
+    reset_counts()
+    out = train_cli.train(train_cli.parse_args(argv))
+    launches = counts()
+    report = {"main_path": {
+        "losses": out["losses"], "step_ms": out["step_ms"],
+        "step_ms_after_first": float(np.mean(out["step_ms"][1:])),
+        "peak_GB": out["peak_bytes"] / 1e9, "launches": launches}}
+    print(json.dumps({"dp_baseline": report}), flush=True)
+    if not np.all(np.isfinite(out["losses"])) or any(launches.values()):
+        raise AssertionError(f"DP baseline main path: {report}")
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    p0 = model.init(torch.Generator().manual_seed(0))
+    for name, make_opt, make_sched in DP_ARMS:
+        opt = make_opt()
+        step_fn = make_dp_baseline_step(model, opt, make_sched())
+        cpu = (p0, opt.init(p0))
+        card = _to(cpu, DEV)
+        batches = agent_batches(cfg.vocab_size, 4, 2, 32, seed=1)
+        losses = []
+        for step in range(DP_STEPS):
+            toks, targs = (torch.from_numpy(x.reshape(-1, 32))
+                           for x in next(batches))
+            b = {"tokens": toks, "targets": targs}
+            *cpu, m_cpu = step_fn(*cpu, b, step)
+            *card, m_card = step_fn(*card, _to(b, DEV), step)
+            losses.append((float(m_card["loss"]), float(m_cpu["loss"])))
+        (pc, sc), (pg, sg) = cpu, card
+        errs = {"params": _max_err(pg, pc)}
+        ok = all(abs(g - c) <= 1e-4 * abs(c) for g, c in losses)
+        if name.startswith("sgd"):
+            errs["velocity"] = _max_err(sg, sc)
+            ok &= errs["params"] <= 1e-5 and errs["velocity"] <= 1e-5
+        else:
+            errs["mu"], errs["nu"] = (_max_err(sg[p], sc[p])
+                                      for p in ("mu", "nu"))
+            off = sum(int(((pg[k].cpu() - v).abs()
+                           > 1e-5 + 1e-5 * v.abs()).sum())
+                      for k, v in pc.items())
+            total = sum(v.numel() for v in pc.values())
+            errs["params_off_1e-5"] = [off, total]
+            ok &= (errs["params"] <= 2 * DP_LR * DP_STEPS
+                   and off <= total // 1000 and errs["mu"] <= 1e-5
+                   and errs["nu"] <= 1e-7
+                   and int(sg["count"]) == int(sc["count"]) == DP_STEPS)
+        report[name] = {"losses_card_cpu": losses, "max_abs_err": errs}
+        print(json.dumps({"dp_baseline": {name: report[name]}}), flush=True)
+        if not ok:
+            raise AssertionError(f"DP baseline {name}: card and CPU "
+                                 f"disagree: {report[name]}")
+    return report
+
+
+def _loss_grads(model, params, batch, remat):
+    """(loss, {leaf: gradient}) of model.train_loss at params, by
+    torch.autograd.grad on detached leaves, as the trainer takes it."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, _ = model.train_loss(leaves, batch, remat=remat)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()))))
+
+
+LONG_SEQ = 2048          # phase 31: two K/V chunks of 1024 an agent
+REMAT_SEQ = 1024         # phase 31's peak with remat on and off
+
+
+def long_sequence_training():
+    """Phase 31: `repro_torch.launch.train` at full qwen2-0.5b width, A=4,
+    M=2, 2 x LONG_SEQ tokens an agent (remat on, the default), 2
+    supersteps, counts reset just before and read just after (one
+    prox_update launch a leaf a superstep); then one superstep at
+    REMAT_SEQ from a fresh state with remat on and one with it off (a
+    model from `dataclasses.replace(model, train_loss=...)`), each with
+    its peak and its peak over the state. The superstep's peak may be
+    its update's (the embedding's temporaries), so one agent's loss and
+    gradient alone, the part remat changes, is measured too: its peak
+    over what was allocated before it, at REMAT_SEQ and LONG_SEQ, remat
+    on and off."""
+    from repro_torch.models import transformer as TF
+
+    steps = 2
+    argv = ["--arch", "qwen2-0.5b", "--agents", "4", "--walks", "2",
+            "--steps", str(steps), "--batch-per-agent", "2", "--seq",
+            str(LONG_SEQ), "--log-every", "1"]
+    print(" ".join(argv))
+    reset_counts()
+    out = train_cli.train(train_cli.parse_args(argv))
+    launches = counts()
+    report = {f"S{LONG_SEQ}_remat": {
+        "losses": out["losses"], "superstep_ms": out["step_ms"],
+        "peak_GB": out["peak_bytes"] / 1e9, "launches": launches}}
+    print(json.dumps({"long_sequence": report}), flush=True)
+    if (not np.all(np.isfinite(out["losses"]))
+            or launches["prox_update"] != LEAVES * steps):
+        raise AssertionError(f"long-sequence superstep: {report}")
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    tcfg = TrainConfig(num_agents=4, num_walks=2, tau=0.05, rho=20.0)
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=DEV).manual_seed(0))
+    toks, targs = next(agent_batches(cfg.vocab_size, 4, 2, REMAT_SEQ,
+                                     seed=0))
+    batch = {"tokens": torch.from_numpy(toks).to(DEV),
+             "targets": torch.from_numpy(targs).to(DEV)}
+    for step, remat in enumerate((True, False)):
+        m = dataclasses.replace(model, train_loss=(
+            lambda p, b, remat=remat: TF.train_loss(cfg, p, b,
+                                                    remat=remat)))
+        step_fn = make_train_step(m, tcfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch, step)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        report[f"S{REMAT_SEQ}_{'remat' if remat else 'no_remat'}"] = {
+            "loss": float(met["loss"]),
+            "superstep_ms": (time.perf_counter() - t0) * 1e3,
+            "peak_GB": peak / 1e9, "state_GB": base / 1e9,
+            "peak_over_state_GB": (peak - base) / 1e9}
+        if not np.isfinite(float(met["loss"])):
+            raise AssertionError(f"S={REMAT_SEQ} remat={remat}: {report}")
+    params0 = {k: v[0] for k, v in state["params"].items()}
+    grad_peaks = {}
+    for seq in (REMAT_SEQ, LONG_SEQ):
+        toks, targs = next(agent_batches(cfg.vocab_size, 1, 2, seq, seed=3))
+        agent = {"tokens": torch.from_numpy(toks[0]).to(DEV),
+                 "targets": torch.from_numpy(targs[0]).to(DEV)}
+        for remat in (True, False):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = _loss_grads(model, params0, agent, remat)
+            torch.cuda.synchronize()
+            grad_peaks[f"S{seq}_{'remat' if remat else 'no_remat'}"] = (
+                (torch.cuda.max_memory_allocated() - base) / 1e9)
+            del loss, grads
+    report["agent_gradient_peak_over_start_GB"] = grad_peaks
+    print(json.dumps({"long_sequence": {
+        k: v for k, v in report.items() if not k.startswith(
+            f"S{LONG_SEQ}")}}), flush=True)
+    del state, params0
+    torch.cuda.empty_cache()
+    return report
+
+
+WINDOWED_SEQ = 1100      # phase 32: past one K/V chunk of 1024
+WINDOWS = (0, 300)
+
+
+def windowed_reference_check():
+    """Phase 32: the smoke config in f32 at S = WINDOWED_SEQ, window 0 and
+    300 (`build_model(cfg, window=300)`), one superstep (A=4, M=2, one
+    sequence an agent) on the card and on the CPU from one state: loss
+    rtol 1e-4 and every state leaf within 1e-4 (phase 5's limits); then
+    agent 0's loss and gradient on the card with remat on and off against
+    the CPU's with it on: loss rtol 1e-5, every gradient leaf within rtol
+    1e-4 / atol 1e-5 (the bound tests/test_torch_model.py holds the f32
+    gradient to against the reference). Returns the card's state after
+    the windowed step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"),
+                              compute_dtype="float32")
+    tcfg = TrainConfig(num_agents=4, num_walks=2)
+    toks, targs = next(agent_batches(cfg.vocab_size, 4, 1, WINDOWED_SEQ,
+                                     seed=2))
+    b_cpu = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(targs)}
+    b_card = _to(b_cpu, DEV)
+    report = {}
+    for window in WINDOWS:
+        model = build_model(cfg, window=window)
+        cpu = init_train_state(model, tcfg, torch.Generator().manual_seed(0))
+        p0 = {k: v[0].clone() for k, v in cpu["params"].items()}
+        card = _to(cpu, DEV)
+        step_fn = make_train_step(model, tcfg)
+        cpu, m_cpu = step_fn(cpu, b_cpu, 0)
+        card, m_card = step_fn(card, b_card, 0)
+        close = _state_close(card, cpu, lambda want, part: 1e-4)
+        state_err = {part: err for part, (_, err) in close.items()}
+        agent0 = {k: v[0] for k, v in b_cpu.items()}
+        loss_c, grads_c = _loss_grads(model, p0, agent0, remat=True)
+        grads_ok, grad_err, losses = True, {}, {}
+        for remat in (True, False):
+            loss_g, grads_g = _loss_grads(model, _to(p0, DEV),
+                                          _to(agent0, DEV), remat)
+            losses[remat] = float(loss_g)
+            grad_err[remat] = _max_err(grads_g, grads_c)
+            grads_ok &= abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(
+                float(loss_c))
+            grads_ok &= all(bool(((grads_g[k].cpu() - g).abs()
+                                  <= 1e-5 + 1e-4 * g.abs()).all())
+                            for k, g in grads_c.items())
+        report[f"window_{window}"] = {
+            "loss_card": float(m_card["loss"]),
+            "loss_cpu": float(m_cpu["loss"]), "state_max_abs_err": state_err,
+            "agent0_loss_cpu": float(loss_c),
+            "agent0_loss_card_remat_no_remat": [losses[True], losses[False]],
+            "grad_max_abs_err_remat_no_remat": [grad_err[True],
+                                                grad_err[False]]}
+        print(json.dumps({"windowed_reference": {
+            f"window_{window}": report[f"window_{window}"]}}), flush=True)
+        if (abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+                > 1e-4 * abs(float(m_cpu["loss"]))
+                or not all(ok for ok, _ in close.values()) or not grads_ok):
+            raise AssertionError(f"window {window}: card and CPU disagree: "
+                                 f"{report[f'window_{window}']}")
+    return card
+
+
+def _assert_loaded(got, want, what):
+    for part, leaves in want.items():
+        for k, v in leaves.items():
+            g = got[part][k]
+            if g.dtype != v.dtype or not torch.equal(g.cpu(), v.cpu()):
+                raise AssertionError(f"{what}: {part}/{k} did not load back "
+                                     "bitwise")
+
+
+def checkpoint_on_card(state):
+    """Phase 33: `save_checkpoint` of phase 32's card state (qwen2 smoke,
+    window 300, after one superstep), loaded into a template of zeros on
+    the card and on the CPU: bitwise, dtypes kept; the same for one
+    superstep's state of nemotron's smoke config on bf16 parameters. At
+    smoke size: a full-width qwen2 state at A=4, M=2 is ~39.5 GB on
+    disk."""
+    import shutil
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = dataclasses.replace(get_smoke("nemotron-4-15b"),
+                              param_dtype="bfloat16")
+    tcfg = TrainConfig(num_agents=4, num_walks=2)
+    model = build_model(cfg)
+    nemo = init_train_state(model, tcfg,
+                            torch.Generator(device=DEV).manual_seed(0))
+    toks, targs = next(agent_batches(cfg.vocab_size, 4, 2, 32, seed=1))
+    nemo, _ = make_train_step(model, tcfg)(
+        nemo, {"tokens": torch.from_numpy(toks).to(DEV),
+               "targets": torch.from_numpy(targs).to(DEV)}, 0)
+    path = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    report = {}
+    for name, st in (("qwen2_smoke_window_300", state),
+                     ("nemotron_smoke_bf16_params", nemo)):
+        shutil.rmtree(path, ignore_errors=True)
+        t0 = time.perf_counter()
+        save_checkpoint(path, st, step=1, metadata={"arch": name})
+        save_s = time.perf_counter() - t0
+        for device in (DEV, torch.device("cpu")):
+            like = {part: {k: torch.zeros_like(v, device=device)
+                           for k, v in leaves.items()}
+                    for part, leaves in st.items()}
+            got, step = load_checkpoint(path, like)
+            if step != 1 or {v.device.type for p in got.values()
+                             for v in p.values()} != {device.type}:
+                raise AssertionError(f"{name}: loaded on the wrong device "
+                                     f"or step {step}")
+            _assert_loaded(got, st, f"{name} on {device.type}")
+        report[name] = {
+            "bytes": os.path.getsize(os.path.join(path, "arrays.npz")),
+            "save_s": save_s,
+            "param_dtypes": sorted({str(v.dtype)
+                                    for v in st["params"].values()}),
+            "bitwise_card_and_cpu": True}
+    shutil.rmtree(path, ignore_errors=True)
+    print(json.dumps({"checkpoint": report}), flush=True)
+    return report
+
+
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
                               "decode_attention_paged", "rwkv6_scan",
                               "rglru_scan")):
@@ -2842,8 +3235,8 @@ def main():
         r for r in ptx if "128" in r["kernel"]
         and r["library"] != "rwkv6_scan"]}), flush=True)
 
-    phase("26 row stability of the mixed step's shared ops at the new "
-          "dense widths")
+    phase("26 row stability of the mixed step's shared ops: every dense "
+          "config, every prompt bucket, B = 1, 4, 8")
     dense_row_stability(gen)
 
     phase("27 dense serving main paths: repro_torch.launch.serve, full "
@@ -2863,6 +3256,24 @@ def main():
     dense_training()
     torch.cuda.empty_cache()
 
+    phase("30 DP baseline main path: repro_torch.launch.train --baseline, "
+          "full qwen2-0.5b; card against CPU at smoke size")
+    dp_baseline()
+    torch.cuda.empty_cache()
+
+    phase(f"31 long-sequence superstep: full qwen2-0.5b, S = {LONG_SEQ}, "
+          "remat; peaks at S = 1024 with remat and without")
+    long_run = long_sequence_training()
+
+    phase(f"32 windowed training past one chunk (S = {WINDOWED_SEQ}): card "
+          "against CPU at smoke size")
+    windowed_state = windowed_reference_check()
+
+    phase("33 checkpoints on the card")
+    checkpoint_on_card(windowed_state)
+    del windowed_state
+    torch.cuda.empty_cache()
+
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
         out = {}
@@ -2879,7 +3290,11 @@ def main():
         kernel_entry("prox_update",
                      "src/repro_torch/kernels/csrc/prox_update.cu",
                      "src/repro/kernels/prox_update.py:35",
-                     {"qwen2 training": launches}, cases, cases[1]),
+                     {"qwen2 training": launches,
+                      f"qwen2 training S={LONG_SEQ}":
+                          long_run[f"S{LONG_SEQ}_remat"]["launches"][
+                              "prox_update"]},
+                     cases, cases[1]),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:78",

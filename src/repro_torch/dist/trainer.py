@@ -5,7 +5,11 @@ agent axis ([A, ...]; the token copies zhat are [A, M, ...]). Each
 superstep:
 
   * every agent computes its loss gradient on its own batch (a loop over
-    agents with `torch.func.grad`, one agent's activations at a time),
+    agents with `torch.autograd.grad` on leaves detached from the agent's
+    views of the parameters, one agent's activations at a time; a
+    `torch.utils.checkpoint` region inside `train_loss`, which the
+    model's remat uses, runs under `torch.autograd.grad` but not under
+    `torch.func.grad`),
   * the M token-holding agents, marked by the round-robin schedule
     `(slot - step) % (A/M) == 0`, apply the closed-form update through
     `kernels.ops.prox_update` (the Hopper kernel on CUDA), and credit
@@ -57,6 +61,19 @@ def init_train_state(model, tcfg, generator):
     return state
 
 
+def _grad(model, params, batch):
+    """(grads, (loss, metrics)) of `model.train_loss` at `params`.
+
+    Each leaf is detached (a view on the same storage, so no copy) and
+    made to require grad; the gradients come from `torch.autograd.grad`.
+    """
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, metrics = model.train_loss(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (dict(zip(leaves, grads)),
+            (loss.detach(), {k: v.detach() for k, v in metrics.items()}))
+
+
 def make_train_step(model, tcfg):
     """Build the superstep: (state, batch, step) -> (state, metrics).
 
@@ -71,12 +88,6 @@ def make_train_step(model, tcfg):
     tau, rho = float(tcfg.tau), float(tcfg.rho)
     accumulate = bool(tcfg.accumulate_between_visits)
 
-    def loss_aux(params, batch):
-        loss, metrics = model.train_loss(params, batch)
-        return loss, (loss.detach(), metrics)
-
-    grad_fn = torch.func.grad(loss_aux, has_aux=True)
-
     def step_fn(state, batch, step):
         params, token = state["params"], state["token"]
         zhat, gacc = state["zhat"], state["gacc"]
@@ -88,8 +99,9 @@ def make_train_step(model, tcfg):
             for k, v in params.items()}
         losses, nlls, auxs = [], [], []
         for i in range(a):
-            g_i, (loss, metr) = grad_fn({k: v[i] for k, v in params.items()},
-                                        {k: v[i] for k, v in batch.items()})
+            g_i, (loss, metr) = _grad(model, {k: v[i] for k, v in
+                                              params.items()},
+                                      {k: v[i] for k, v in batch.items()})
             for k, g in g_i.items():
                 if accumulate:
                     grads[k][i] += g
@@ -97,8 +109,8 @@ def make_train_step(model, tcfg):
                     grads[k][i] = g
             del g_i
             losses.append(loss)
-            nlls.append(metr["nll"].detach())
-            auxs.append(metr["aux"].detach())
+            nlls.append(metr["nll"])
+            auxs.append(metr["aux"])
 
         rel = [(i - step) % a for i in range(a)]
         active = [i for i in range(a) if rel[i] % period == 0]
@@ -126,5 +138,27 @@ def make_train_step(model, tcfg):
                    "nll": torch.stack(nlls).mean(),
                    "aux": torch.stack(auxs).mean()}
         return state, metrics
+
+    return step_fn
+
+
+def make_dp_baseline_step(model, opt, schedule):
+    """Synchronous all-reduce data-parallel baseline (what API-BCD
+    replaces): one parameter set, the global batch's gradient, one
+    optimizer step (`repro_torch.optim`).
+
+    Returns (params, opt_state, batch, step) -> (params, opt_state,
+    metrics) with metrics {"loss", "nll", "aux"}; params and opt_state are
+    new dicts, as in the reference. On one device the global batch is
+    one batch, so there is no all-reduce to make.
+    """
+    from repro_torch.optim.optimizers import apply_updates
+
+    def step_fn(params, opt_state, batch, step):
+        grads, (loss, metr) = _grad(model, params, batch)
+        lr = schedule(step)
+        updates, opt_state = opt.update(grads, opt_state, params, lr)
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": loss, **metr}
 
     return step_fn

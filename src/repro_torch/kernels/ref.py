@@ -39,8 +39,7 @@ def _masked_softmax_attend(logits, mask, v):
     logits [B, KV, G, S, T]; mask broadcastable to it; v [B, KV, T, hd]
     (one kv head for its G query heads, so K and V are never repeated).
     The row max only shifts the exponent: it is detached, as its gradient
-    is zero, so autograd runs through this for the training path.
-    Returns [B, KV, G, S, hd] in f32.
+    is zero. Returns [B, KV, G, S, hd] in f32.
     """
     logits = torch.where(mask, logits, _NEG_INF)
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
@@ -60,8 +59,9 @@ def _logits(q, k, scale):
 
 def attention(q, k, v, *, causal=True, window=0, scale=None):
     """Online-softmax GQA attention (the TPU kernel `flash_attention_bhsd`)
-    as one masked softmax; also the training path's attention
-    (`models.attention.chunked_attention`), which autograd runs through.
+    as one masked softmax. The training path's attention is the
+    reference's chunked online softmax (`models.attention.
+    chunked_attention`), not this.
 
     q: [B, S, H, hd]; k, v: [B, T, KV, hd] with H = KV * G (query head h
     reads kv head h // G). Masks: causal kv <= q, window kv > q - window

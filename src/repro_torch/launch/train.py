@@ -12,6 +12,11 @@ and at smoke size on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --smoke --agents 4 --walks 2 --steps 10 --batch-per-agent 2 \
         --seq 64 --device cpu
+
+`--baseline` runs the synchronous all-reduce DP baseline instead (adamw,
+no weight decay, a constant rate of 3e-4, on the global batch [A * B,
+S]); `--checkpoint-dir DIR` writes the API-BCD state after the last
+step in the reference's checkpoint format.
 """
 from __future__ import annotations
 
@@ -31,9 +36,13 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--tau", type=float, default=0.05)
     ap.add_argument("--rho", type=float, default=20.0)
+    ap.add_argument("--baseline", action="store_true",
+                    help="run the synchronous all-reduce DP baseline "
+                         "instead of API-BCD")
     ap.add_argument("--paper-faithful", action="store_true",
                     help="disable gradient accumulation between visits "
                          "(idle agents, as in the paper)")
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--log-dir", default=None,
@@ -55,17 +64,21 @@ def resolve_device(name):
 
 
 def train(args):
-    """Run args.steps supersteps. Returns {"losses", "step_ms",
-    "peak_bytes", "device"}; peak_bytes is None on the CPU."""
+    """Run args.steps supersteps (or DP baseline steps with
+    args.baseline). Returns {"losses", "step_ms", "peak_bytes",
+    "device"}; peak_bytes is None on the CPU."""
     import numpy as np
     import torch
 
+    from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.tokens import agent_batches
-    from repro_torch.dist.trainer import init_train_state, make_train_step
+    from repro_torch.dist.trainer import (
+        init_train_state, make_dp_baseline_step, make_train_step)
     from repro_torch.models import build_model
     from repro_torch.models.transformer import check_trainable
+    from repro_torch.optim import adamw, constant
     from repro_torch.utils.logging import MetricLogger
 
     device = resolve_device(args.device)
@@ -80,24 +93,37 @@ def train(args):
     check_trainable(cfg)
     model = build_model(cfg)
     a = args.agents
-    print(f"agents={a} walks={args.walks} arch={cfg.name} device={device}")
+    print(f"agents={a} walks={args.walks} arch={cfg.name} device={device}"
+          + (" baseline" if args.baseline else ""))
     tcfg = TrainConfig(num_agents=a, num_walks=args.walks, tau=args.tau,
                        rho=args.rho,
                        accumulate_between_visits=not args.paper_faithful)
     batches = agent_batches(cfg.vocab_size, a, args.batch_per_agent,
                             args.seq, seed=0)
-    state = init_train_state(model, tcfg,
-                             torch.Generator(device=device).manual_seed(0))
-    train_step = make_train_step(model, tcfg)
+    generator = torch.Generator(device=device).manual_seed(0)
+    if args.baseline:
+        opt = adamw(weight_decay=0.0)
+        params = model.init(generator)
+        opt_state = opt.init(params)
+        dp_step = make_dp_baseline_step(model, opt, constant(3e-4))
+    else:
+        state = init_train_state(model, tcfg, generator)
+        train_step = make_train_step(model, tcfg)
 
     logger = MetricLogger(args.log_dir, echo_every=args.log_every)
     losses, step_ms = [], []
     for step in range(args.steps):
         toks, targs = next(batches)
+        if args.baseline:       # the global batch [A * B, S]
+            toks, targs = (x.reshape(-1, args.seq) for x in (toks, targs))
         batch = {"tokens": torch.from_numpy(toks).to(device),
                  "targets": torch.from_numpy(targs).to(device)}
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batch, step)
+        if args.baseline:
+            params, opt_state, metrics = dp_step(params, opt_state, batch,
+                                                 step)
+        else:
+            state, metrics = train_step(state, batch, step)
         if cuda:
             torch.cuda.synchronize(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -108,6 +134,10 @@ def train(args):
     logger.close()
     if not np.all(np.isfinite(losses)):
         raise FloatingPointError(f"non-finite loss: {losses}")
+    if args.checkpoint_dir and not args.baseline:
+        save_checkpoint(args.checkpoint_dir, state, step=args.steps,
+                        metadata={"arch": cfg.name})
+        print("checkpoint written to", args.checkpoint_dir)
     return {"losses": losses, "step_ms": step_ms, "device": str(device),
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if cuda else None)}

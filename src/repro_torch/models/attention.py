@@ -3,13 +3,12 @@ KV cache, one-token decode against it), as in `repro/models/attention.py`.
 
 Training attention stays plain PyTorch (`chunked_attention`), as the
 reference computes it outside any Pallas kernel, so autograd can run
-through it; it is the flash kernel's plain version (`kernels.ref.
-attention`) in the model's layout. It keeps the reference's numerics:
-f32 logits from the compute-dtype q and k, masked logits at -1e30, and
-the output as acc / max(l, 1e-30) cast to v's dtype. At the trainer's
-lengths one chunk
-of the reference's online softmax covers the whole sequence, so one
-masked softmax computes the same function.
+through it. It is the reference's online softmax over K/V chunks of
+1024 with its numerics: f32 logits from the compute-dtype q and k,
+masked logits at -1e30, an f32 running max, sum and accumulator, and the
+output as acc / max(l, 1e-30) cast to v's dtype; each block of 1024
+queries runs under `torch.utils.checkpoint`, so that backward recomputes
+its chunk loop instead of keeping every chunk's probabilities.
 
 Serving goes through the kernels (`kernels.ops`): prefill attention
 through `flash_attention` and decode attention through
@@ -28,6 +27,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import _he, apply_rope, rmsnorm, rmsnorm_init
@@ -84,19 +84,64 @@ def _project_qkv(params, cfg, x, positions):
     return q.reshape(b, s, kv, h // kv, hd), k, v.reshape(b, s, kv, hd)
 
 
-def chunked_attention(q, k, v, *, causal=True, window=0):
-    """Masked softmax attention, the reference's one-chunk case: the
-    kernels' plain version `ref.attention` in the [B, S, KV, G, hd]
-    layout.
+def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
+                      kv_chunk=1024, q_offset=0):
+    """Online-softmax attention with O(chunk^2) activation memory, as the
+    reference's `chunked_attention`.
 
     q: [B, S, KV, G, hd]; k, v: [B, T, KV, hd]. window > 0 limits each
-    query to the last `window` positions (inclusive). Returns
-    [B, S, KV, G, hd] in v's dtype.
+    query to the last `window` positions (inclusive). q_offset: the
+    absolute position of q[:, 0]. Returns [B, S, KV, G, hd] in v's dtype.
+
+    K/V run in chunks of `kv_chunk` (the last one cut short, where the
+    reference pads and masks it), queries in blocks of `q_chunk`, each
+    block under non-reentrant `torch.utils.checkpoint`. K and V are never
+    repeated over the G query heads of their kv head.
     """
-    b, s, kv, g, hd = q.shape
-    out = ref.attention(q.reshape(b, s, kv * g, hd), k, v, causal=causal,
-                        window=window)
-    return out.reshape(q.shape).to(v.dtype)
+    b, s, kvh, g, hd = q.shape
+    t = k.shape[1]
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, t)
+    scale = float(1.0 / math.sqrt(hd))
+    qh = q.float().permute(0, 2, 3, 1, 4)                   # [b,kv,g,s,hd]
+    kh = k.float().permute(0, 2, 3, 1)                      # [b,kv,hd,t]
+    vh = v.float().permute(0, 2, 1, 3)                      # [b,kv,t,hd_v]
+
+    def q_block(q0, qblk, kh, vh):
+        qc = qblk.shape[3]
+        q_idx = q_offset + q0 + torch.arange(qc, device=q.device)[:, None]
+        qflat = qblk.reshape(b, kvh, g * qc, hd)
+        m = qblk.new_full((b, kvh, g, qc), ref._NEG_INF)
+        l = qblk.new_zeros((b, kvh, g, qc))
+        acc = qblk.new_zeros((b, kvh, g, qc, vh.shape[-1]))
+        for k0 in range(0, t, kv_chunk):
+            kc = min(kv_chunk, t - k0)
+            logits = (qflat @ kh[..., k0:k0 + kc]).reshape(
+                b, kvh, g, qc, kc) * scale
+            kv_idx = k0 + torch.arange(kc, device=q.device)[None, :]
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kv_idx <= q_idx
+            if window > 0:
+                mask &= kv_idx > q_idx - window
+            logits = torch.where(mask, logits, ref._NEG_INF)
+            # the running max only shifts the exponents (its gradient is
+            # zero), so it is detached
+            m_new = torch.maximum(m, logits.amax(dim=-1)).detach()
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = (p.reshape(b, kvh, g * qc, kc) @ vh[:, :, k0:k0 + kc])
+            acc = acc * corr[..., None] + pv.reshape(acc.shape)
+            m = m_new
+        return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+    # flash semantics: backward recomputes each block's chunk loop instead
+    # of keeping per-chunk probabilities (otherwise it holds O(S^2))
+    outs = [checkpoint(q_block, q0, qh[:, :, :, q0:q0 + q_chunk], kh, vh,
+                       use_reentrant=False, preserve_rng_state=False)
+            for q0 in range(0, s, q_chunk)]
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).to(v.dtype)
 
 
 def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0):

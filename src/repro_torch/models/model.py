@@ -14,8 +14,9 @@ points (one fused decode + prefill step, the engine's overlapped
 admission) on the arena and the pool; the recurrent families have none,
 as in the reference. A sliding window (`cfg.attn_window` or the `window`
 override) serves from the arena, as a ring of the window's capacity, and
-from the paged pool, as a block ring; windowed training is not ported,
-and `train_loss` raises rather than ignore the window.
+from the paged pool, as a block ring, and `train_loss` trains with it.
+`train_loss(params, batch, remat=True)` checkpoints each layer's
+activations, as the reference's does by default.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.models import transformer as TF
 class Model:
     cfg: ArchConfig
     init: Callable           # (generator) -> params dict
-    train_loss: Callable     # (params, batch) -> (loss, metrics)
+    train_loss: Callable     # (params, batch, remat=True) -> (loss, metrics)
     prefill: Callable        # (params, batch, **kw) -> (logits, caches)
     decode_step: Callable    # (params, token, caches, position) -> (logits, caches)
     init_cache: Callable     # (batch, seq_len, **kw) -> caches
@@ -86,23 +87,14 @@ def _check_ported(cfg: ArchConfig):
                                   f"yet: {', '.join(unported)}")
 
 
-def _windowed_training(window):
-    """`train_loss` of a windowed model, which the port does not train."""
-    def unported(*args, **kwargs):
-        raise NotImplementedError(
-            f"train_loss with a sliding window ({window}) is not ported yet "
-            "(windowed training is later work); a windowed model serves "
-            "from the arena or the paged pool")
-    return unported
-
-
 def build_model(cfg: ArchConfig, window: int = 0) -> Model:
     """window: sliding-window override (0 = the config's own)."""
     _check_ported(cfg)
     window = cfg.attn_window or window
     entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),
-        train_loss=lambda p, b: TF.train_loss(cfg, p, b),
+        train_loss=lambda p, b, **kw: TF.train_loss(cfg, p, b,
+                                                     window=window, **kw),
         prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, window=window,
                                                **kw),
         decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos,
@@ -122,8 +114,6 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
         decode_rows_tokens=lambda p, t, c, pos: TF.decode_rows_tokens(
             cfg, p, t, c, pos, window=window),
     )
-    if set(cfg.layer_types) == {"attn"} and window:
-        entries["train_loss"] = _windowed_training(window)
     if set(cfg.layer_types) != {"attn"}:
         if window and "attn" not in cfg.layer_types:
             raise ValueError(f"{cfg.name}: a sliding window applies to "

@@ -30,6 +30,7 @@ updates caches and pools in place where the reference returns new
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
@@ -147,10 +148,13 @@ def transformer_init(cfg, generator, dtype=None):
 
 
 def forward(cfg, params, x, *, positions, mode="train", caches=None,
-            paged=None, window=0):
+            paged=None, window=0, remat=False):
     """Run the stack on embeddings x [B,S,D]. Returns the final-normed x.
 
-    mode "train": no cache. "prefill": fills `caches` (from `init_cache`,
+    mode "train": no cache; with `remat`, each layer's block runs under
+    non-reentrant `torch.utils.checkpoint` (activation checkpointing per
+    block, as the reference's `jax.checkpoint`), so backward keeps one
+    [B,S,D] input a layer and recomputes the rest. "prefill": fills `caches` (from `init_cache`,
     batch B) with the prompt's K/V, ring-ordered, and sets each attention
     layer's ptr to S; recurrent layers run from their state in `caches`
     and leave their new state there. "decode": x is one token per row;
@@ -173,7 +177,11 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
                 f"{kind} layers run with a cache, in 'prefill' or 'decode' "
                 f"mode, not {mode!r}")
         for i, lp in enumerate(_layers(params, si, count)):
-            if kind == "attn":
+            if kind == "attn" and remat and mode == "train":
+                x = checkpoint(_attn_block, cfg, lp, x, positions, mode, seg,
+                               i, paged, window, use_reentrant=False,
+                               preserve_rng_state=False)
+            elif kind == "attn":
                 x = _attn_block(cfg, lp, x, positions, mode, seg, i, paged,
                                 window)
             elif kind == "rwkv":
@@ -253,12 +261,15 @@ def _cast(cfg, params):
             for k, v in params.items()}
 
 
-def train_loss(cfg, params, batch):
+def train_loss(cfg, params, batch, window=0, remat=True):
     """batch: {tokens [B,S], targets [B,S], loss_mask [B,S] (optional)}.
 
     Returns (loss, metrics). Every float parameter, the embedding table
     included, is cast to the compute dtype first; the logits come from a
     compute-dtype product and are cast to f32 for the cross-entropy.
+    window: the sliding window of every attention layer (0: the
+    config's own); remat: checkpoint each layer's activations (see
+    `forward`), the reference's default.
     """
     check_trainable(cfg)
     params = _cast(cfg, params)
@@ -266,7 +277,8 @@ def train_loss(cfg, params, batch):
     x = embed(subtree(params, "embed"), tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x = forward(cfg, params, x, positions=positions)
+    x = forward(cfg, params, x, positions=positions, window=window,
+                remat=remat)
     logits = logits_fn(cfg, params, x).float()
     m = logits.amax(dim=-1).detach()
     logz = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))

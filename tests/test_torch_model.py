@@ -55,12 +55,12 @@ def _torch_loss_and_grads(tcfg, params, toks, targs):
     batch = {"tokens": torch.from_numpy(toks),
              "targets": torch.from_numpy(targs)}
 
-    def f(p):
-        loss, _ = model.train_loss(p, batch)
-        return loss, loss.detach()
-
-    grads, loss = torch.func.grad(f, has_aux=True)(params)
-    return float(loss), grads
+    # torch.autograd.grad, as the trainer takes it: train_loss checkpoints
+    # its layers, which torch.func.grad does not run
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, _ = model.train_loss(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
 
 
 def test_train_loss_and_every_gradient_leaf_match_f32():

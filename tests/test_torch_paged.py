@@ -555,8 +555,9 @@ def test_windowed_arena_raises(jx, served_windowed):
     window's capacity with prompts at their exact length (the reference's
     caps: no padding below the capacity): its tokens equal the JAX
     windowed arena engine's and the ring-paged engine's, on prompts and
-    generations past the window. Only its training raises, and a bad
-    preemption policy."""
+    generations past the window. Its training takes the window (loss
+    equal to the reference's windowed model's within 1e-5); a bad
+    preemption policy raises."""
     jmodel, jparams, tmodel, tparams = served_windowed
     prompts = _prompts(tmodel.cfg.vocab_size, (5, 23, 11, 3), 44)
     budgets = [30, 30, 12, 25]
@@ -572,9 +573,12 @@ def test_windowed_arena_raises(jx, served_windowed):
     assert _run(ring, prompts, budgets)[0] == want
     arena = tmodel.init_arena(3, 128, dtype=torch.float32)
     assert arena[0]["k"].shape[2] == WINDOW     # the ring, not the capacity
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        tmodel.train_loss(tparams, {"tokens": tokens, "targets": tokens})
+    tokens = np.stack(_prompts(tmodel.cfg.vocab_size, [40, 40], 48))
+    jloss, _ = jmodel.train_loss(jparams, {"tokens": jx.jnp.asarray(tokens),
+                                           "targets": jx.jnp.asarray(tokens)})
+    loss, _ = tmodel.train_loss(tparams, {"tokens": torch.from_numpy(tokens),
+                                          "targets": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     with pytest.raises(ValueError, match="preemption"):
         Engine(tmodel, tparams, max_batch=1, max_len=16, paged=True,
                preemption="lifo")

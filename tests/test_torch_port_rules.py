@@ -39,6 +39,19 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+def test_port_files_cover_every_package():
+    """The import rule scans every package of the port, the optimizers
+    and checkpoints among them."""
+    packages = {p.parent.name for p in PORT_FILES
+                if p.name == "__init__.py"}
+    assert {"configs", "data", "dist", "kernels", "launch", "models",
+            "optim", "checkpoint", "serve", "utils"} <= packages
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/schedules.py",
+            "src/repro_torch/checkpoint/checkpoint.py"} <= names
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"

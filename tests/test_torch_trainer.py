@@ -1,7 +1,9 @@
 """Parity of the port's API-BCD superstep with the JAX reference.
 
 Both sides start from the reference's train state (converted with
-`state_from_jax`) and see the same `agent_batches`. The model runs in
+`state_from_jax`) and see the same `agent_batches`; the port takes each
+agent's gradient with `torch.autograd.grad` through its checkpointed
+layers. The model runs in
 f32, where the two frameworks differ only in the order of f32 sums, so
 after every superstep params, token, zhat and gacc agree to atol 1e-5.
 The quadratic scenario of `test_mesh_equivalence.py` checks the same
@@ -47,8 +49,7 @@ def _assert_state_close(state, jstate, atol):
                                        atol=atol, err_msg=f"{part}/{k}")
 
 
-@pytest.mark.parametrize("accumulate", [True, False])
-def test_superstep_matches_jax_for_four_steps(accumulate):
+def _superstep_parity(accumulate, window=0, seq=16):
     arch = "qwen2-0.5b"
     jcfg = dataclasses.replace(jax_get_smoke(arch), compute_dtype="float32")
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
@@ -56,15 +57,15 @@ def test_superstep_matches_jax_for_four_steps(accumulate):
                            accumulate_between_visits=accumulate)
     tcfg = TrainConfig(num_agents=A, num_walks=M,
                        accumulate_between_visits=accumulate)
-    jmodel = jax_build_model(jcfg)
+    jmodel = jax_build_model(jcfg, window=window)
     jstate = jax_trainer.init_train_state(jmodel, jtcfg,
                                           key=jax.random.PRNGKey(0))
     state = state_from_jax(jstate)
     jstep = jax.jit(jax_trainer.make_train_step(jmodel, jtcfg))
-    step_fn = make_train_step(build_model(cfg), tcfg)
+    step_fn = make_train_step(build_model(cfg, window=window), tcfg)
 
-    jbatches = jax_agent_batches(jcfg.vocab_size, A, 2, 16, seed=0)
-    batches = agent_batches(cfg.vocab_size, A, 2, 16, seed=0)
+    jbatches = jax_agent_batches(jcfg.vocab_size, A, 2, seq, seed=0)
+    batches = agent_batches(cfg.vocab_size, A, 2, seq, seed=0)
     for step in range(4):
         jtoks, jtargs = next(jbatches)
         toks, targs = next(batches)
@@ -78,6 +79,17 @@ def test_superstep_matches_jax_for_four_steps(accumulate):
         np.testing.assert_allclose(float(metrics["loss"]),
                                    float(jmetrics["loss"]), rtol=1e-5)
         _assert_state_close(state, jstate, atol=1e-5)
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_superstep_matches_jax_for_four_steps(accumulate):
+    _superstep_parity(accumulate)
+
+
+def test_windowed_superstep_matches_jax_for_four_steps():
+    """A windowed model (window 24 at S = 64, so the window binds), its
+    gradients through the port's remat: the same atol 1e-5."""
+    _superstep_parity(True, window=24, seq=64)
 
 
 # ---- the quadratic scenario of test_mesh_equivalence.py ----
