@@ -9,7 +9,8 @@ non-zero before the last line:
   1. card: the `nvidia-smi` name and power limit;
   2. build: every CUDA kernel (`build.KERNELS`: prox_update,
      flash_attention, decode_attention, decode_attention_paged, rwkv6_scan,
-     rglru_scan), compiled from the sources
+     rwkv6_scan_bwd, rglru_scan with its backward), compiled from the
+     sources
      in this checkout, all at once (the old libraries are removed
      first), with ptxas's registers and spills, and for every
      instantiation of the flash, decode, paged decode, WKV and RG-LRU
@@ -198,7 +199,25 @@ non-zero before the last line:
      card with remat on and off against the CPU's;
  33. checkpoints: phase 32's card state and a nemotron smoke state on bf16
      parameters written in the reference's format and loaded into
-     templates on the card and on the CPU, bitwise, dtypes kept.
+     templates on the card and on the CPU, bitwise, dtypes kept;
+ 34. backward kernels: the WKV backward (`csrc/rwkv6_scan_bwd.cu`) and the
+     RG-LRU backward (`rglru_bwd` in `csrc/rglru_scan.cu`) and their
+     ptxas lines, each against its plain version (`ref.rwkv6_bwd`,
+     `ref.rglru_gated_bwd`) in bf16 and f32, with a repeat that must be
+     bitwise, timed as in phase 3 beside its bound: WKV at rwkv6's
+     training shape (B 2, H 32, S 256, hd 64), S = 16, hd 32 and strong
+     decays; RG-LRU at B 2, S 256, W 2560 and S = 3;
+ 35. rwkv6-1.6b training: 3 API-BCD supersteps at full width, depth cut
+     to 2 of 24 layers, A=4, M=2, B=2, S=256, bf16 compute, counts reset
+     before and read after each superstep (per agent and recurrent
+     layer one backward launch and, with remat, two forward launches;
+     one prox launch a leaf), superstep ms and peak;
+ 36. recurrentgemma-2b training: the same at full width cut to 3 of 26
+     layers (rglru, rglru, attn) at A=2, M=1 (A=4, M=2's state alone
+     would be ~121 GB);
+ 37. both families through `repro_torch.launch.train --smoke` on the card
+     (API-BCD, then `--baseline`), then one f32 superstep and one
+     DP-baseline step at smoke size, card against CPU.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -238,8 +257,10 @@ from repro_torch.kernels.decode_attention_paged import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.prox_update import prox_update_cuda  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda  # noqa: E402
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan_bwd_cuda, rglru_scan_cuda)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_scan_bwd_cuda, rwkv6_scan_cuda)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -255,7 +276,9 @@ COUNTERS = {"prox_update": prox_update_cuda,
             "decode_attention_paged": decode_attention_paged_cuda,
             "decode_attention_ring": decode_attention_ring_cuda,
             "rwkv6_scan": rwkv6_scan_cuda,
-            "rglru_scan": rglru_scan_cuda}
+            "rwkv6_scan_bwd": rwkv6_scan_bwd_cuda,
+            "rglru_scan": rglru_scan_cuda,
+            "rglru_scan_bwd": rglru_scan_bwd_cuda}
 KW = dict(tau=0.05, rho=20.0, num_walks=2, num_agents=4)   # the CLI's
 STEPS = 3
 # qwen2-0.5b leaves: embed.table, final_norm.scale and 12 stacked-layer
@@ -2902,9 +2925,292 @@ def checkpoint_on_card(state):
     return report
 
 
+# phase 34: the backward kernels' f32 operations per state element and
+# step (WKV: the forward state walked once, the gradient state once, three
+# row products and one column product, v . do) and per element (RG-LRU:
+# the gates, decay and scale made again, the step, and the chain back)
+WKV_BWD_OPS_PER_STATE_STEP = 14
+RGLRU_BWD_OPS_PER_ELEMENT = 42
+BWD_RULE = ("|kernel - plain| <= 1e-5 * rms(plain) + 1e-4 * |plain|, every "
+            "gradient (f32 sums in another order; chip_smoke's WKV rule)")
+
+
+def check_wkv_bwd_case(label, b, s, dtype, gen, hd=64, w0=-2.0):
+    """The WKV backward at rwkv6-1.6b's width (2048 / hd heads), b rows of
+    s steps from a random state, r/k/v in dtype and the model's [B, S, H,
+    hd] layout viewed as [B, H, S, hd] (dout too, as autograd gives it),
+    decays exp(-exp(w0 + 0.5 z)) (w0 = 0 to +2: strong decays, down to
+    ~1e-30 and below): against `ref.rwkv6_bwd` under BWD_RULE, and a
+    repeat that must be bitwise. No gradient of the final state, as in
+    training."""
+    h = 2048 // hd
+
+    def bshd(scale=1.0):
+        return (scale * torch.randn((b, s, h, hd), generator=gen,
+                                    device=DEV)).transpose(1, 2)
+    r, k, v = (bshd().to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(w0 + 0.5 * bshd()))
+    u = (0.1 * torch.randn((h, hd), generator=gen, device=DEV)).to(dtype)
+    state = torch.randn((b, h, hd, hd), generator=gen, device=DEV)
+    args = (r, k, v, w, u, state, bshd(), None)
+    got = rwkv6_scan_bwd_cuda(*args)
+    again = rwkv6_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    want = ref.rwkv6_bwd(*args)
+    names = ("dr", "dk", "dv", "dw", "du", "dstate_in")
+    errs, ok = {}, True
+    for name, g, x in zip(names, got, want):
+        close, errs[name] = rwkv_close(g, x)
+        ok &= close
+    repeat_bitwise = all(torch.equal(g, x) for g, x in zip(got, again))
+    del got, again, want
+    per_call = device_launches(lambda: rwkv6_scan_bwd_cuda(*args))
+    t = timings(lambda: rwkv6_scan_bwd_cuda(*args),
+                lambda: ref.rwkv6_bwd(*args), None, iters=20,
+                launches=per_call)
+    esize = r.element_size()
+    n = b * h * s * hd
+    # r, k, v in; w and dout (f32) in; dr, dk, dv, dw (f32) out; u in; the
+    # state in, dstate_in out; du out
+    nbytes = (3 * esize + 2 * 4 + 4 * 4) * n + h * hd * (esize + 4) \
+        + 2 * 4 * b * h * hd * hd
+    flops = WKV_BWD_OPS_PER_STATE_STEP * b * h * s * hd * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    case = {"case": label, "dtype": str(dtype), "w0": w0,
+            "shape": [list(r.shape), list(state.shape)],
+            "w_min": float(w.min()),
+            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "tolerance": BWD_RULE, "repeat_bitwise": repeat_bitwise,
+            "device_launches_per_call": per_call, **t,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+    print(json.dumps(case), flush=True)
+    if not ok or not repeat_bitwise:
+        raise AssertionError(f"rwkv6_scan backward kernel disagrees with "
+                             f"its plain version on {label}: {case}")
+    return case
+
+
+def check_rglru_bwd_case(label, b, s, dtype, gen):
+    """The RG-LRU backward at recurrentgemma-2b's width for b rows of s
+    steps from a random state, inputs drawn as `check_rglru_case` draws
+    them, dout in dtype: against `ref.rglru_gated_bwd` under BWD_RULE
+    (bitwise or not is printed), and a repeat that must be bitwise."""
+    w = RG_WIDTH
+
+    def draw(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEV)).to(
+            dtype)
+    ga, gi, xa = draw(b, s, w), draw(b, s, w), draw(b, s, w)
+    b_a, b_i = draw(w, scale=0.1), draw(w, scale=0.1)
+    lamb = (-1.0 + 4.0 * torch.rand(w, generator=gen, device=DEV)).to(dtype)
+    state = torch.randn((b, w), generator=gen, device=DEV)
+    args = (ga, gi, b_a, b_i, lamb, xa, state, draw(b, s, w), None)
+    got = rglru_scan_bwd_cuda(*args)
+    again = rglru_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    want = ref.rglru_gated_bwd(*args)
+    names = ("dgate_a", "dgate_i", "db_a", "db_i", "dlamb", "dxa", "dh0")
+    errs, ok = {}, True
+    for name, g, x in zip(names, got, want):
+        close, errs[name] = rwkv_close(g, x)
+        ok &= close
+    bitwise = all(torch.equal(g, x) for g, x in zip(got, want))
+    repeat_bitwise = all(torch.equal(g, x) for g, x in zip(got, again))
+    del got, again, want
+    per_call = device_launches(lambda: rglru_scan_bwd_cuda(*args))
+    t = timings(lambda: rglru_scan_bwd_cuda(*args),
+                lambda: ref.rglru_gated_bwd(*args), None,
+                iters=20, launches=per_call)
+    n = b * s * w
+    esize = xa.element_size()
+    # ga, gi, xa, dout in; dgate_a, dgate_i, dxa (f32) out; b_a, b_i, lamb
+    # in, their f32 gradients out; the state in, dh0 out
+    nbytes = (4 * esize + 3 * 4) * n + 3 * w * (esize + 4) + 2 * 4 * b * w
+    flops = RGLRU_BWD_OPS_PER_ELEMENT * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    case = {"case": label, "dtype": str(dtype),
+            "shape": [list(xa.shape), list(state.shape)],
+            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "tolerance": BWD_RULE, "bitwise": bitwise,
+            "repeat_bitwise": repeat_bitwise,
+            "device_launches_per_call": per_call, **t,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+    print(json.dumps(case), flush=True)
+    if not ok or not repeat_bitwise:
+        raise AssertionError(f"rglru_scan backward kernel disagrees with "
+                             f"its plain version on {label}: {case}")
+    return case
+
+
+def backward_kernel_cases(gen):
+    """Phase 34: each backward kernel against its plain version, in bf16
+    (the training path's compute dtype) at every case and in f32 at the
+    training shapes: WKV at rwkv6's training shape (B 2, H 32, S 256, hd
+    64), S = 16, hd 32 and strong decays (w0 = +2); RG-LRU at B 2, S 256,
+    W 2560 and S = 3. (The f32 runs of the smaller cases and the
+    final-state gradients are left to the card tests, to keep the phase
+    near 40 s: the plain WKV backward takes ~15 ms a call at S = 256.)"""
+    wkv_cases = [check_wkv_bwd_case("wkv bwd training B=2 S=256", 2, 256,
+                                    dtype, gen)
+                 for dtype in (torch.bfloat16, torch.float32)]
+    wkv_cases += [
+        check_wkv_bwd_case("wkv bwd B=2 S=16", 2, 16, torch.bfloat16, gen),
+        check_wkv_bwd_case("wkv bwd hd 32 B=2 S=256", 2, 256,
+                           torch.bfloat16, gen, hd=32),
+        check_wkv_bwd_case("wkv bwd strong decays w0=+2 B=2 S=256", 2, 256,
+                           torch.bfloat16, gen, w0=2.0)]
+    torch.cuda.empty_cache()
+    rg_cases = [check_rglru_bwd_case("rglru bwd training B=2 S=256 W=2560",
+                                     2, 256, dtype, gen)
+                for dtype in (torch.bfloat16, torch.float32)]
+    rg_cases.append(check_rglru_bwd_case("rglru bwd B=2 S=3 W=2560", 2, 3,
+                                         torch.bfloat16, gen))
+    torch.cuda.empty_cache()
+    return wkv_cases, rg_cases
+
+
+# phases 35 and 36: the recurrent families at full width, depth cut
+RWKV_TRAIN_LAYERS = 2          # of rwkv6-1.6b's 24
+RG_TRAIN_LAYERS = 3            # of recurrentgemma-2b's 26: one period
+RECURRENT_STEPS = 3
+
+
+def recurrent_training(arch, layers, agents, walks):
+    """Phases 35 and 36: RECURRENT_STEPS API-BCD supersteps of `arch` at
+    full width, depth cut to `layers`, B = 2, S = 256, bf16 compute, on
+    the card; each superstep's counts reset just before and read just
+    after: per agent one backward launch per recurrent layer and (remat)
+    two forward launches per recurrent layer, one prox launch a leaf, no
+    attention kernel (training attention is plain chunked attention).
+    Returns the report, with the counts summed over the supersteps."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers,
+                              layer_types=full.layer_types[:layers])
+    kind = "rwkv" if arch.startswith("rwkv") else "rglru"
+    fwd, bwd = (("rwkv6_scan", "rwkv6_scan_bwd") if kind == "rwkv"
+                else ("rglru_scan", "rglru_scan_bwd"))
+    n_rec = sum(t == kind for t in cfg.layer_types)
+    tcfg = TrainConfig(num_agents=agents, num_walks=walks, tau=0.05,
+                       rho=20.0)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    n_params = sum(v[0].numel() for v in state["params"].values())
+    leaves = len(state["params"])
+    step_fn = make_train_step(model, tcfg)
+    batches = agent_batches(cfg.vocab_size, agents, 2, 256, seed=0)
+    want = {fwd: 2 * agents * n_rec, bwd: agents * n_rec,
+            "prox_update": leaves}
+    losses, step_ms, total = [], [], {}
+    for step in range(RECURRENT_STEPS):
+        toks, targs = next(batches)
+        batch = {"tokens": torch.from_numpy(toks).to(DEV),
+                 "targets": torch.from_numpy(targs).to(DEV)}
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v for k, v in counts().items() if v}
+        if got != want:
+            raise AssertionError(f"{arch} superstep {step}: launches {got}, "
+                                 f"expected {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        losses.append(float(m["loss"]))
+    report = {"arch": arch, "layers": layers,
+              "layer_types": list(cfg.layer_types), "agents": agents,
+              "walks": walks, "batch": [2, 256],
+              "compute_dtype": cfg.compute_dtype, "params": n_params,
+              "leaves": leaves, "state_GB": state_gb, "losses": losses,
+              "superstep_ms": step_ms,
+              "superstep_ms_after_first": float(np.mean(step_ms[1:])),
+              "launches_per_superstep": want, "launches": total,
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps({"recurrent_training": report}), flush=True)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: non-finite losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def recurrent_reference_check(arch):
+    """Phase 37 for one family: `repro_torch.launch.train --smoke` on the
+    card through its CLI (3 supersteps, then 2 DP-baseline steps), then
+    the smoke config in f32 from one state on the card and on the CPU: one
+    superstep (A=4, M=2; loss rtol 1e-4, params, token and zhat within
+    phase 5's 1e-4, gacc, which holds gradients of up to ~50 on these
+    models, within 1e-4 of its leaf's largest |value| where that passes
+    1) and one DP-baseline step with sgd and momentum 0.9 at phase 30's
+    rate (loss rtol 1e-4, params within 1e-4, the velocity, which is the
+    gradient, as gacc; adamw's first step moves a parameter by lr *
+    sign(g), which f32 noise can flip)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    for extra, steps in (([], 3), (["--baseline"], 2)):
+        argv = ["--arch", arch, "--smoke", "--steps", str(steps), "--seq",
+                "64", "--batch-per-agent", "2", "--log-every", "0", *extra]
+        out = train_cli.train(train_cli.parse_args(argv))
+        report["cli" + "".join(extra)] = {"argv": " ".join(argv),
+                                          "losses": out["losses"]}
+        if not np.all(np.isfinite(out["losses"])):
+            raise AssertionError(f"{arch} CLI: non-finite losses {out}")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+    model = build_model(cfg)
+    toks, targs = next(agent_batches(cfg.vocab_size, 4, 2, 48, seed=1))
+    b = {"tokens": torch.from_numpy(toks), "targets": torch.from_numpy(targs)}
+    tcfg = TrainConfig(num_agents=4, num_walks=2)
+    step_fn = make_train_step(model, tcfg)
+    cpu = init_train_state(model, tcfg, torch.Generator().manual_seed(0))
+    gpu = _to(cpu, DEV)
+    cpu, m_cpu = step_fn(cpu, b, 0)
+    gpu, m_gpu = step_fn(gpu, _to(b, DEV), 0)
+    close = _state_close(gpu, cpu, lambda want, part: 1e-4 * (
+        max(1.0, float(want.abs().max())) if part == "gacc" else 1.0))
+    ok = all(c for c, _ in close.values()) and abs(
+        float(m_gpu["loss"]) - float(m_cpu["loss"])) \
+        <= 1e-4 * abs(float(m_cpu["loss"]))
+    report["superstep_card_vs_cpu"] = {
+        "loss_card": float(m_gpu["loss"]), "loss_cpu": float(m_cpu["loss"]),
+        "max_abs_err": {p: e for p, (_, e) in close.items()}}
+    p0 = model.init(torch.Generator().manual_seed(0))
+    opt = optim.sgd(momentum=0.9)
+    dp_step = make_dp_baseline_step(model, opt, optim.constant(DP_LR))
+    bg = {k: v.reshape(-1, v.shape[-1]) for k, v in b.items()}
+    pc, sc, mc = dp_step(p0, opt.init(p0), bg, 0)
+    pg, sg, mg = dp_step(*_to((p0, opt.init(p0)), DEV), _to(bg, DEV), 0)
+    # the velocity after one step is the gradient: its leaf's scale
+    close = _state_close({"params": pg, "velocity": sg},
+                         {"params": pc, "velocity": sc},
+                         lambda want, part: 1e-4 * (
+                             max(1.0, float(want.abs().max()))
+                             if part == "velocity" else 1.0))
+    dp_errs = {p: e for p, (_, e) in close.items()}
+    ok &= all(c for c, _ in close.values()) and abs(
+        float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * abs(float(mc["loss"]))
+    report["dp_step_card_vs_cpu"] = {"loss_card": float(mg["loss"]),
+                                     "loss_cpu": float(mc["loss"]),
+                                     "max_abs_err": dp_errs}
+    print(json.dumps({"recurrent_reference": {arch: report}}), flush=True)
+    if not ok:
+        raise AssertionError(f"{arch}: card and CPU disagree: {report}")
+    return report
+
+
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
                               "decode_attention_paged", "rwkv6_scan",
-                              "rglru_scan")):
+                              "rwkv6_scan_bwd", "rglru_scan")):
     """Phase 2: registers, spills and static shared bytes that ptxas
     reports for every instantiation of the flash, decode, WKV and RG-LRU
     kernels
@@ -3274,6 +3580,25 @@ def main():
     del windowed_state
     torch.cuda.empty_cache()
 
+    phase("34 backward kernels (WKV, RG-LRU) against their plain versions")
+    print(json.dumps({"bwd_ptxas": [
+        r for r in ptx if r["library"] == "rwkv6_scan_bwd"
+        or "bwd" in r["kernel"]]}), flush=True)
+    wkv_bwd_cases, rg_bwd_cases = backward_kernel_cases(gen)
+
+    phase(f"35 rwkv6-1.6b training: full width, {RWKV_TRAIN_LAYERS} "
+          "layers, A=4, M=2")
+    rwkv_train = recurrent_training("rwkv6-1.6b", RWKV_TRAIN_LAYERS, 4, 2)
+
+    phase(f"36 recurrentgemma-2b training: full width, {RG_TRAIN_LAYERS} "
+          "layers, A=2, M=1")
+    rg_train = recurrent_training("recurrentgemma-2b", RG_TRAIN_LAYERS, 2, 1)
+
+    phase("37 recurrent training on the card through the CLI, and card "
+          "against CPU at smoke size")
+    for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
+        recurrent_reference_check(arch)
+
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
         out = {}
@@ -3293,7 +3618,11 @@ def main():
                      {"qwen2 training": launches,
                       f"qwen2 training S={LONG_SEQ}":
                           long_run[f"S{LONG_SEQ}_remat"]["launches"][
-                              "prox_update"]},
+                              "prox_update"],
+                      "rwkv6 training": rwkv_train["launches"][
+                          "prox_update"],
+                      "recurrentgemma training": rg_train["launches"][
+                          "prox_update"]},
                      cases, cases[1]),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3337,13 +3666,31 @@ def main():
         kernel_entry("rwkv6_scan",
                      "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                      "src/repro/kernels/rwkv6_scan.py:45",
-                     {"rwkv6 arena": rwkv_launches["rwkv6_scan"]},
+                     {"rwkv6 arena": rwkv_launches["rwkv6_scan"],
+                      "rwkv6 training": rwkv_train["launches"][
+                          "rwkv6_scan"]},
                      rwkv_cases, rwkv_cases[0]),
+        kernel_entry("rwkv6_scan_bwd",
+                     "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                     "src/repro/models/rwkv6.py:110 (no TPU kernel: the "
+                     "reference differentiates its lax.scan)",
+                     {"rwkv6 training": rwkv_train["launches"][
+                         "rwkv6_scan_bwd"]},
+                     wkv_bwd_cases, wkv_bwd_cases[0]),
         kernel_entry("rglru_scan",
                      "src/repro_torch/kernels/csrc/rglru_scan.cu",
                      "src/repro/kernels/rglru_scan.py:37",
-                     {"recurrentgemma arena": rg_launches["rglru_scan"]},
-                     rglru_cases, rglru_cases[0])]}))
+                     {"recurrentgemma arena": rg_launches["rglru_scan"],
+                      "recurrentgemma training": rg_train["launches"][
+                          "rglru_scan"]},
+                     rglru_cases, rglru_cases[0]),
+        kernel_entry("rglru_scan_bwd",
+                     "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                     "src/repro/models/rglru.py:77 (no TPU kernel: the "
+                     "reference differentiates its lax.scan)",
+                     {"recurrentgemma training": rg_train["launches"][
+                         "rglru_scan_bwd"]},
+                     rg_bwd_cases, rg_bwd_cases[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

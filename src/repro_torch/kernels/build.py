@@ -20,7 +20,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # every kernel source, csrc/<name>.cu
 KERNELS = ("prox_update", "flash_attention", "decode_attention",
-           "decode_attention_paged", "rwkv6_scan", "rglru_scan")
+           "decode_attention_paged", "rwkv6_scan", "rwkv6_scan_bwd",
+           "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

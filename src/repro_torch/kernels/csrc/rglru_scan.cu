@@ -46,6 +46,9 @@
 // strides (the last dim contiguous). The kernel launches on the caller's
 // stream, allocates nothing, and each entry point returns
 // cudaGetLastError().
+//
+// The backward (`rglru_bwd`, entry points rglru_scan_bwd_*): the gradient
+// of the gate math and the recurrence, for training; see its note below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +94,18 @@ __device__ __forceinline__ float sigmoid(float x) {
     return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
 }
 
+// One step's gate values: r, i and a, 1 - a^2 before its clamp, and i * xa
+// rounded to the compute type (f32 values).
+struct Gate {
+    float r, i, a, one_m, gated;
+};
+
+// sqrt(max(1 - a^2, 1e-12))
+__device__ __forceinline__ float scale_of(float one_m) {
+    const float floor = static_cast<float>(1e-12);
+    return __fsqrt_rn(one_m < floor ? floor : one_m);
+}
+
 // A channel's per-channel terms: its two biases and -8 softplus(lamb).
 struct Channel {
     float bias_a = 0.f, bias_i = 0.f, neg_sp = 0.f;
@@ -104,21 +119,26 @@ struct Channel {
         const float sp = l > 20.f ? l : log1pf(expf(l));
         neg_sp = __fmul_rn(sp, -8.f);
     }
-    // a and u of one step from its gate products and xa, in the block's
-    // order and roundings
+    // the gates, the decay, 1 - a^2 (unclamped) and i * xa of one step
+    // from its gate products and xa, in the block's order and roundings
+    template <typename T>
+    __device__ __forceinline__ Gate parts(float xg, float xi,
+                                          float x) const {
+        Gate g;
+        g.r = round_to<T>(sigmoid(round_to<T>(__fadd_rn(xg, bias_a))));
+        g.i = round_to<T>(sigmoid(round_to<T>(__fadd_rn(xi, bias_i))));
+        g.a = expf(__fmul_rn(neg_sp, g.r));
+        g.gated = round_to<T>(__fmul_rn(g.i, x));
+        g.one_m = __fsub_rn(1.f, __fmul_rn(g.a, g.a));
+        return g;
+    }
+    // a and u of one step
     template <typename T>
     __device__ __forceinline__ void gates(float xg, float xi, float x,
                                           float& a, float& u) const {
-        const float r =
-            round_to<T>(sigmoid(round_to<T>(__fadd_rn(xg, bias_a))));
-        const float i =
-            round_to<T>(sigmoid(round_to<T>(__fadd_rn(xi, bias_i))));
-        a = expf(__fmul_rn(neg_sp, r));
-        const float gated = round_to<T>(__fmul_rn(i, x));
-        float one_m = __fsub_rn(1.f, __fmul_rn(a, a));
-        one_m = one_m < static_cast<float>(1e-12) ? static_cast<float>(1e-12)
-                                                  : one_m;
-        u = __fmul_rn(__fsqrt_rn(one_m), gated);
+        const Gate g = parts<T>(xg, xi, x);
+        a = g.a;
+        u = __fmul_rn(scale_of(g.one_m), g.gated);
     }
 };
 
@@ -291,6 +311,118 @@ rglru_fwd_direct(const T* __restrict__ ga, const T* __restrict__ gi,
     *st = h;
 }
 
+// The backward (the port's own: the TPU kernel has none, and the
+// reference differentiates its jnp scan). One thread per (b, channel), 128
+// a block: it walks time forward, recomputing every step's a and u from
+// the gate products as the forward does (the same code, so the same bits)
+// and writing the f32 h to `hs` (the forward's output is rounded to T, so
+// it is no f32 h); then it walks back, with the carry c_t = a_{t+1}
+// dh_{t+1} (dh_final past the end):
+//     dh_t = dout_t + c_t,   da_t = dh_t h_{t-1},   du_t = dh_t
+// and back through the gate math, each op rounded alone as
+// `ref.rglru_gated_bwd` states it:
+//     dgated = dh scale,  dscale = dh gated,
+//     dclamp = dscale / (2 scale) where 1 - a^2 >= 1e-12, else 0,
+//     da -= 2 a dclamp,  dlog_a = da a,  dr = dlog_a (-8 softplus(lamb)),
+//     dgate_a = dr (1 - r) r,  di = dgated xa,  dgate_i = di (1 - i) i,
+//     dxa = dgated i.
+// db_a, db_i and dlamb (sum_t dlog_a r, times -8 softplus'(lamb)) are
+// summed over t in reverse for the thread's (b, channel), and dh0 = c_{-1}
+// written last. Bound: memory (ga, gi, xa, dout read twice or once, dgate_a,
+// dgate_i, dxa and hs written, hs read back). No atomics: a repeat is
+// bitwise.
+template <typename T>
+__global__ void __launch_bounds__(kDirectThreads)
+rglru_bwd(const T* __restrict__ ga, const T* __restrict__ gi,
+          const T* __restrict__ ba, const T* __restrict__ bi,
+          const T* __restrict__ lamb, const T* __restrict__ xa,
+          const float* __restrict__ state, const T* __restrict__ dout,
+          const float* __restrict__ dh_final, float* __restrict__ dga,
+          float* __restrict__ dgi, float* __restrict__ dxa,
+          float* __restrict__ dba, float* __restrict__ dbi,
+          float* __restrict__ dlamb, float* __restrict__ dh0,
+          float* __restrict__ hs, int S, int W, Seq gas, Seq gis, Seq xas,
+          Seq dos) {
+    const int w = blockIdx.x * kDirectThreads + threadIdx.x;
+    const int b = blockIdx.y;
+    if (w >= W) return;
+    Channel ch;
+    ch.load(ba, bi, lamb, w);
+    const int64_t bw = static_cast<int64_t>(b) * W + w;
+    const int64_t base = static_cast<int64_t>(b) * S * W + w;   // [B, S, W]
+    const float h0 = state[bw];
+    float h = h0;
+#pragma unroll 4
+    for (int t = 0; t < S; ++t) {
+        float a, u;
+        ch.gates<T>(to_f32(ga[b * gas.b + t * gas.s + w]),
+                    to_f32(gi[b * gis.b + t * gis.s + w]),
+                    to_f32(xa[b * xas.b + t * xas.s + w]), a, u);
+        h = __fadd_rn(__fmul_rn(a, h), u);
+        hs[base + static_cast<int64_t>(t) * W] = h;
+    }
+    float carry = dh_final ? dh_final[bw] : 0.f;
+    float acc_a = 0.f, acc_i = 0.f, acc_l = 0.f;
+#pragma unroll 4
+    for (int t = S - 1; t >= 0; --t) {
+        const float x = to_f32(xa[b * xas.b + t * xas.s + w]);
+        const Gate g = ch.parts<T>(to_f32(ga[b * gas.b + t * gas.s + w]),
+                                   to_f32(gi[b * gis.b + t * gis.s + w]), x);
+        const float scale = scale_of(g.one_m);
+        const float hp =
+            t > 0 ? hs[base + static_cast<int64_t>(t - 1) * W] : h0;
+        const float dh =
+            __fadd_rn(to_f32(dout[b * dos.b + t * dos.s + w]), carry);
+        const float dgated = __fmul_rn(dh, scale);
+        const float dclamp = __fdiv_rn(__fmul_rn(dh, g.gated),
+                                       __fmul_rn(2.f, scale));
+        const float done =
+            g.one_m >= static_cast<float>(1e-12) ? dclamp : 0.f;
+        const float da = __fsub_rn(__fmul_rn(dh, hp),
+                                   __fmul_rn(2.f, __fmul_rn(done, g.a)));
+        const float dlog = __fmul_rn(da, g.a);
+        const float dgav = __fmul_rn(
+            __fmul_rn(__fmul_rn(dlog, ch.neg_sp), __fsub_rn(1.f, g.r)), g.r);
+        const float dgiv = __fmul_rn(
+            __fmul_rn(__fmul_rn(dgated, x), __fsub_rn(1.f, g.i)), g.i);
+        const int64_t o = base + static_cast<int64_t>(t) * W;
+        dga[o] = dgav;
+        dgi[o] = dgiv;
+        dxa[o] = __fmul_rn(dgated, g.i);
+        acc_a = __fadd_rn(acc_a, dgav);
+        acc_i = __fadd_rn(acc_i, dgiv);
+        acc_l = __fadd_rn(acc_l, __fmul_rn(dlog, g.r));
+        carry = __fmul_rn(g.a, dh);
+    }
+    // softplus'(lamb): 1 past PyTorch's threshold of 20, else sigmoid
+    const float l = to_f32(lamb[w]);
+    const float dsoft = l > 20.f ? 1.f : sigmoid(l);
+    dh0[bw] = carry;
+    dba[bw] = acc_a;
+    dbi[bw] = acc_i;
+    dlamb[bw] = __fmul_rn(__fmul_rn(acc_l, -8.f), dsoft);
+}
+
+template <typename T>
+int launch_bwd(void* const* p, int B, int S, int W, const int64_t* st,
+               void* stream) {
+    const Seq gas{st[0], st[1]}, gis{st[2], st[3]}, xas{st[4], st[5]},
+        dos{st[6], st[7]};
+    const dim3 grid((W + kDirectThreads - 1) / kDirectThreads, B);
+    rglru_bwd<T><<<grid, kDirectThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+        static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+        static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
+        static_cast<const float*>(p[6]), static_cast<const T*>(p[7]),
+        static_cast<const float*>(p[8]), static_cast<float*>(p[9]),
+        static_cast<float*>(p[10]), static_cast<float*>(p[11]),
+        static_cast<float*>(p[12]), static_cast<float*>(p[13]),
+        static_cast<float*>(p[14]), static_cast<float*>(p[15]),
+        static_cast<float*>(p[16]), S, W, gas, gis, xas, dos);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* ga, const void* gi, const void* ba, const void* bi,
            const void* lamb, const void* xa, void* out, void* state, int B,
@@ -348,6 +480,24 @@ int rglru_scan_bf16(const void* ga, const void* gi, const void* ba,
                     const int64_t* strides, void* stream) {
     return launch<__nv_bfloat16>(ga, gi, ba, bi, lamb, xa, out, state, B, S,
                                  W, strides, stream);
+}
+
+// The backward. p: 17 pointers, in order ga, gi, b_a, b_i, lamb, xa (the
+// entry's type, as the forward takes them), state (the forward's incoming
+// f32 h, [B, W]), dout ([B, S, W], the entry's type), dh_final (f32 [B, W],
+// or null for zero), then the f32 outputs dgate_a, dgate_i, dxa
+// (contiguous [B, S, W]), db_a, db_i, dlamb (per batch row, contiguous
+// [B, W]) and dh0 ([B, W]), and the f32 scratch hs (contiguous [B, S, W]).
+// strides: 8 values, ga, gi, xa, dout, each as b, s (elements; the last
+// dim contiguous).
+int rglru_scan_bwd_f32(void* const* p, int B, int S, int W,
+                       const int64_t* strides, void* stream) {
+    return launch_bwd<float>(p, B, S, W, strides, stream);
+}
+
+int rglru_scan_bwd_bf16(void* const* p, int B, int S, int W,
+                        const int64_t* strides, void* stream) {
+    return launch_bwd<__nv_bfloat16>(p, B, S, W, strides, stream);
 }
 
 // Dynamic shared bytes of a launch for bf16 (or f32) inputs.

@@ -3,8 +3,15 @@
 A CUDA tensor goes to the kernel, which launches or raises; a CPU tensor
 goes to the plain version in `ref`. Nothing else is accepted, and no
 failure on the card falls back to the plain version.
+
+The two recurrences also have training routes (`rwkv6_scan_train`,
+`rglru_scan_train`): `torch.autograd.Function`s whose forward is the
+forward kernel from a fresh zero state and whose backward is the
+hand-written backward kernel (the plain forward and backward on the CPU).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -12,8 +19,10 @@ from repro_torch.kernels.decode_attention_paged import (
     decode_attention_paged_cuda, decode_attention_ring_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.prox_update import prox_update_cuda
-from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_cuda,
+                                            rglru_scan_cuda)
+from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_bwd_cuda,
+                                            rwkv6_scan_cuda)
 
 
 def prox_update(x, g, zsum, *, tau, rho, num_walks, num_agents):
@@ -126,3 +135,95 @@ def rglru_scan(gate_a, gate_i, b_a, b_i, lamb, xa, state):
         out, final = ref.rglru_gated(*args, state)
         return out, state.copy_(final)
     raise ValueError(f"rglru_scan: no kernel for device {xa.device}")
+
+
+def _route(name, t):
+    """True for the kernels (a CUDA tensor), False for the plain versions
+    (a CPU tensor); raises for any other device."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type == "cuda"
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The WKV recurrence from a zero state, differentiable in r, k, v, w
+    and u. Forward: `rwkv6_scan_cuda` on a state allocated here (which it
+    overwrites; nothing saved is written), or `ref.rwkv6`; backward:
+    `rwkv6_scan_bwd_cuda` or `ref.rwkv6_bwd` from the saved inputs, each
+    gradient returned in its input's dtype. A recompute (activation
+    checkpointing) runs the same forward on the same inputs and gives the
+    same output."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        b, h, _, hd = r.shape
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        if _route("rwkv6_scan_train", r):
+            out, _ = rwkv6_scan_cuda(r, k, v, w, u, state)
+        else:
+            out, _ = ref.rwkv6(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        r, k, v, w, u = ctx.saved_tensors
+        b, h, _, hd = r.shape
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        dout = dout.float()
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        if _route("rwkv6_scan_train", r):
+            grads = rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout)
+        else:
+            grads = ref.rwkv6_bwd(r, k, v, w, u, state, dout)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, (r, k, v, w, u)))
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU gate math and recurrence from h_0 = 0, differentiable in
+    every input. Forward: `rglru_scan_cuda` on a state allocated here, or
+    `ref.rglru_gated`; backward: `rglru_scan_bwd_cuda` or
+    `ref.rglru_gated_bwd`, each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, gate_a, gate_i, b_a, b_i, lamb, xa):
+        b, _, w = xa.shape
+        state = torch.zeros((b, w), dtype=torch.float32, device=xa.device)
+        args = (gate_a, gate_i, b_a, b_i, lamb, xa)
+        if _route("rglru_scan_train", xa):
+            out, _ = rglru_scan_cuda(*args, state)
+        else:
+            out, _ = ref.rglru_gated(*args, state)
+        ctx.save_for_backward(*args)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        args = ctx.saved_tensors
+        xa = args[-1]
+        state = torch.zeros((xa.shape[0], xa.shape[2]), dtype=torch.float32,
+                            device=xa.device)
+        if _route("rglru_scan_train", xa):
+            dout = dout.to(xa.dtype).contiguous()
+            grads = rglru_scan_bwd_cuda(*args, state, dout)
+        else:
+            grads = ref.rglru_gated_bwd(*args, state, dout)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, args))
+
+
+def rwkv6_scan_train(r, k, v, w, u):
+    """The WKV recurrence for training: `rwkv6_scan`'s arguments without a
+    state (it starts from zero, as the reference's train mode does).
+    Returns out [B,H,S,hd] in f32; autograd reaches r, k, v, w and u
+    through the backward kernel."""
+    return RWKV6Scan.apply(r, k, v, w, u)
+
+
+def rglru_scan_train(gate_a, gate_i, b_a, b_i, lamb, xa):
+    """The RG-LRU gate math and recurrence for training: `rglru_scan`'s
+    arguments without a state (h_0 = 0). Returns h [B,S,W] in xa's dtype;
+    autograd reaches every input through the backward kernel."""
+    return RGLRUScan.apply(gate_a, gate_i, b_a, b_i, lamb, xa)

@@ -407,3 +407,109 @@ def rglru_gated(gate_a, gate_i, b_a, b_i, lamb, xa, h0=None):
     scale = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
     out, final = rglru(a, scale * gated, h0)
     return out.to(xa.dtype), final
+
+
+def rwkv6_bwd(r, k, v, w, u, state, dout, dstate=None):
+    """The WKV recurrence's backward (the backward kernel's plain version),
+    a reverse-time loop in f32. With G_t the gradient of the state after
+    step t (G_{S-1} = dstate, None: zeros):
+
+        dr_t = (S_{t-1} + diag(u) k_t^T v_t) do_t
+        dk_t = G_t v_t + u * r_t (v_t . do_t)
+        dv_t = k_t G_t + (r_t . (u * k_t)) do_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du   = sum over b and t of r_t * k_t (v_t . do_t)
+        G_{t-1} = diag(w_t) G_t + r_t^T do_t
+
+    S_{t-1} comes from the forward recurrence run again from `state` (None:
+    zeros), never from S_t by dividing by w_t (decays reach ~1e-30). du
+    sums over t in reverse per batch row, then over the rows in order.
+    Arguments as `rwkv6`, dout f32 [B, H, S, hd]. Returns (dr, dk, dv, dw
+    [B, H, S, hd], du [H, hd], dstate_in = G_{-1} [B, H, hd, hd]), all f32.
+    """
+    b, h, s, hd = r.shape
+    f32 = torch.float32
+    rf, kf, vf, wf, dof = (a.to(f32) for a in (r, k, v, w, dout))
+    uf = u.to(f32)
+    st = (torch.zeros((b, h, hd, hd), dtype=f32, device=r.device)
+          if state is None else state.to(f32))
+    prev = []
+    for t in range(s):
+        prev.append(st)
+        st = wf[:, :, t, :, None] * st \
+            + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    g = (torch.zeros_like(st) if dstate is None else dstate.to(f32))
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((b, h, hd), dtype=f32, device=r.device)
+    for t in reversed(range(s)):
+        rt, kt, vt, wt, dot = (a[:, :, t] for a in (rf, kf, vf, wf, dof))
+        vdo = (vt * dot).sum(-1, keepdim=True)                 # [b, h, 1]
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", prev[t], dot) \
+            + uf * kt * vdo
+        dk[:, :, t] = torch.einsum("bhij,bhj->bhi", g, vt) + uf * rt * vdo
+        dv[:, :, t] = torch.einsum("bhi,bhij->bhj", kt, g) \
+            + (rt * uf * kt).sum(-1, keepdim=True) * dot
+        dw[:, :, t] = (g * prev[t]).sum(-1)
+        du = du + rt * kt * vdo
+        g = wt[..., None] * g + rt[..., None] * dot[:, :, None, :]
+    return dr, dk, dv, dw, du.sum(0), g
+
+
+def rglru_gated_bwd(gate_a, gate_i, b_a, b_i, lamb, xa, h0, dout,
+                    dh_final=None):
+    """The backward of `rglru_gated` (the backward kernel's plain version):
+    the forward's gates, decay and scale made again in its roundings, h
+    recomputed in f32 from h0 (None: zeros), then a reverse-time loop in
+    f32, each op rounded alone:
+
+        dh_t = dout_t + a_{t+1} dh_{t+1}   (dh_final, None: zeros, past S)
+        da_t = dh_t h_{t-1},  du_t = dh_t,  dh0 = a_0 dh_0
+
+    and back through u = sqrt(max(1 - a^2, 1e-12)) (i xa) (no gradient
+    where the clamp binds), a = exp(-8 softplus(lamb) r) and the two
+    sigmoids (their backward from the rounded outputs, g (1 - y) y).
+    db_a, db_i and dlamb sum over t in reverse per batch row (dlamb's
+    sum then times -8 softplus'(lamb)), then over the rows in order.
+    Returns (dgate_a, dgate_i [B, S, W], db_a, db_i, dlamb [W], dxa [B, S,
+    W], dh0 [B, W]), all f32.
+    """
+    b, s, w = xa.shape
+    f32 = torch.float32
+    r = torch.sigmoid(gate_a + b_a)
+    i = torch.sigmoid(gate_i + b_i)
+    lf = lamb.to(f32)
+    neg = -8.0 * torch.nn.functional.softplus(lf)
+    rf, i_f, xf = r.to(f32), i.to(f32), xa.to(f32)
+    a = torch.exp(neg * rf)
+    gated = (i * xa).to(f32)
+    one_m = 1.0 - a * a
+    scale = torch.sqrt(torch.clamp_min(one_m, 1e-12))
+    hs, _ = rglru(a, scale * gated, h0)
+    h_first = (torch.zeros((b, w), dtype=f32, device=xa.device)
+               if h0 is None else h0.to(f32))
+    h_prev = torch.cat([h_first[:, None], hs[:, :-1]], dim=1)
+    dof = dout.to(f32)
+    carry = (torch.zeros((b, w), dtype=f32, device=xa.device)
+             if dh_final is None else dh_final.to(f32))
+    dh = torch.empty_like(hs)
+    for t in reversed(range(s)):
+        dh[:, t] = dof[:, t] + carry
+        carry = a[:, t] * dh[:, t]
+    dgated = dh * scale
+    dcl = dh * gated / (2.0 * scale)
+    done = torch.where(one_m >= 1e-12, dcl, 0.0)
+    da = dh * h_prev - 2.0 * (done * a)
+    dlog = da * a
+    dga = dlog * neg * (1.0 - rf) * rf
+    di = dgated * xf
+    dgi = di * (1.0 - i_f) * i_f
+    dxa = dgated * i_f
+    parts = [torch.zeros((b, w), dtype=f32, device=xa.device)
+             for _ in range(3)]
+    for t in reversed(range(s)):
+        for p, x in zip(parts, (dga, dgi, dlog * rf)):
+            p += x[:, t]
+    dsoft = torch.where(lf > 20.0, 1.0, torch.sigmoid(lf))
+    parts[2] = parts[2] * -8.0 * dsoft
+    db_a, db_i, dlamb = (p.sum(0) for p in parts)
+    return dga, dgi, db_a, db_i, dlamb, dxa, carry

@@ -18,6 +18,13 @@ nearest-even from the f32 h. The wrapper checks its inputs, allocates the
 output with `torch.empty`, launches on the current stream and raises if
 the launch reports an error. `rglru_scan_cuda.launches` counts its
 launches.
+
+`rglru_scan_bwd_cuda` launches the backward (the same source's
+`rglru_bwd`, one launch a call, counted in `rglru_scan_bwd_cuda.launches`):
+the gradients of the gate products, the three parameters, xa and h_0 from
+the output's gradient (and optionally the final h's), as
+`ref.rglru_gated_bwd` states them, with its f32 scratch of h from
+`torch.empty`.
 """
 from __future__ import annotations
 
@@ -101,3 +108,62 @@ def rglru_scan_cuda(gate_a, gate_i, b_a, b_i, lamb, xa, state):
 
 
 rglru_scan_cuda.launches = 0
+
+
+_BWD_ENTRY = {torch.float32: "rglru_scan_bwd_f32",
+              torch.bfloat16: "rglru_scan_bwd_bf16"}
+_BWD_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 3 + [
+    ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(dtype):
+    fn = getattr(build.load("rglru_scan"), _BWD_ENTRY[dtype])
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rglru_scan_bwd_cuda(gate_a, gate_i, b_a, b_i, lamb, xa, state, dout,
+                        dh_final=None):
+    """Launch the backward on CUDA tensors: the forward's inputs as
+    `rglru_scan_cuda` takes them (`state`, its incoming f32 h, read only);
+    dout: the output's gradient [B,S,W] in xa's dtype (any batch and time
+    strides, a contiguous last dim); dh_final: the final h's f32 gradient
+    (contiguous [B,W]), None for zero. Returns (dgate_a, dgate_i [B,S,W],
+    db_a, db_i, dlamb [W], the kernel's per-row sums added over B in order,
+    dxa [B,S,W], dh0 [B,W]), all f32."""
+    check_inputs(gate_a, gate_i, b_a, b_i, lamb, xa, state)
+    check_operand("rglru_scan", "dout", dout, 3, xa.device, xa.dtype)
+    if dout.shape != xa.shape:
+        raise ValueError(f"rglru_scan backward: dout {tuple(dout.shape)} "
+                         f"does not match xa {tuple(xa.shape)}")
+    if dh_final is not None:
+        check_operand("rglru_scan", "dh_final", dh_final, 2, xa.device,
+                      torch.float32)
+        if dh_final.shape != state.shape or not dh_final.is_contiguous():
+            raise ValueError("rglru_scan backward: dh_final needs to be a "
+                             f"contiguous {tuple(state.shape)}")
+    b, s, w = xa.shape
+    f32 = dict(dtype=torch.float32, device=xa.device)
+    dga, dgi, dxa = (torch.empty((b, s, w), **f32) for _ in range(3))
+    dba, dbi, dlamb, dh0 = (torch.empty((b, w), **f32) for _ in range(4))
+    hs = torch.empty((b, s, w), **f32)
+    ptrs = (ctypes.c_void_p * 17)(*[
+        None if t is None else t.data_ptr()
+        for t in (gate_a, gate_i, b_a, b_i, lamb, xa, state, dout, dh_final,
+                  dga, dgi, dxa, dba, dbi, dlamb, dh0, hs)])
+    strides = (ctypes.c_int64 * 8)(*[st for t in (gate_a, gate_i, xa, dout)
+                                     for st in t.stride()[:2]])
+    fn = _bwd_entry(xa.dtype)
+    with torch.cuda.device(xa.device):
+        stream = torch.cuda.current_stream(xa.device).cuda_stream
+        err = fn(ptrs, b, s, w, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    rglru_scan_bwd_cuda.launches += 1
+    return (dga, dgi, dba.sum(0), dbi.sum(0), dlamb.sum(0), dxa, dh0)
+
+
+rglru_scan_bwd_cuda.launches = 0

@@ -22,6 +22,13 @@ ticket counters it shares with the decode kernels (`tickets.py`). The
 wrapper checks its inputs, allocates the output, launches on the current
 stream and raises if a launch reports an error. `rwkv6_scan_cuda.launches` counts its calls (one a call, whichever
 body: the chunked body's two device launches count once).
+
+`rwkv6_scan_bwd_cuda` launches the recurrence's backward
+(`csrc/rwkv6_scan_bwd.cu`, one launch a call, counted in
+`rwkv6_scan_bwd_cuda.launches`): the gradients of r, k, v, w, u and the
+incoming state from the gradient of the output (and optionally of the
+final state), as `ref.rwkv6_bwd` states them, with its f32 scratch from
+`torch.empty`.
 """
 from __future__ import annotations
 
@@ -105,14 +112,20 @@ def check_inputs(r, k, v, w, u, state):
                          f"{HEAD_DIMS}")
 
 
+def _bshd_buffer(b, h, s, hd, device):
+    """An f32 [B, H, S, hd] view of a [B, S, H, hd] buffer: the model's
+    layout, so the transpose back to it is free."""
+    return torch.empty((b, s, h, hd), dtype=torch.float32,
+                       device=device).transpose(1, 2)
+
+
 def rwkv6_scan_cuda(r, k, v, w, u, state):
     """Launch the kernel on CUDA tensors. Returns (out [B,H,S,hd] f32, a
     view of a [B,S,H,hd] buffer; `state`, overwritten with the final
     state)."""
     check_inputs(r, k, v, w, u, state)
     b, h, s, hd = r.shape
-    out = torch.empty((b, s, h, hd), dtype=torch.float32,
-                      device=r.device).transpose(1, 2)
+    out = _bshd_buffer(b, h, s, hd, r.device)
     if out.numel() == 0:
         return out, state
     strides = (ctypes.c_int64 * 15)(*[st for t in (r, k, v, w, out)
@@ -139,3 +152,63 @@ def rwkv6_scan_cuda(r, k, v, w, u, state):
 
 
 rwkv6_scan_cuda.launches = 0
+
+
+_BWD_ENTRY = {torch.float32: "rwkv6_scan_bwd_f32",
+              torch.bfloat16: "rwkv6_scan_bwd_bf16"}
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    """The backward's library, its entry points typed once."""
+    lib = build.load("rwkv6_scan_bwd")
+    for name in _BWD_ENTRY.values():
+        getattr(lib, name).argtypes = _BWD_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    lib.rwkv6_scan_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.rwkv6_scan_bwd_scratch_floats.restype = ctypes.c_int64
+    return lib
+
+
+def rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout, dstate=None):
+    """Launch the backward on CUDA tensors: r, k, v, w, u and `state` (the
+    forward's incoming f32 state, read only) as `rwkv6_scan_cuda` takes
+    them; dout: the output's f32 gradient [B,H,S,hd] (a contiguous last
+    dim); dstate: the final state's f32 gradient (contiguous [B,H,hd,hd]),
+    None for zero. Returns (dr, dk, dv, dw [B,H,S,hd] f32, views of [B,S,H,hd]
+    buffers; du [H,hd] f32, the kernel's per-row sums added over B in
+    order; dstate_in [B,H,hd,hd] f32)."""
+    check_inputs(r, k, v, w, u, state)
+    b, h, s, hd = r.shape
+    _check("dout", dout, r.device, torch.float32, r.shape)
+    if dstate is not None:
+        _check("dstate", dstate, r.device, torch.float32, state.shape,
+               contiguous=True)
+    dr, dk, dv, dw = (_bshd_buffer(b, h, s, hd, r.device) for _ in range(4))
+    du = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    dstate_in = torch.empty_like(state)
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.rwkv6_scan_bwd_scratch_floats(b, h, s, hd),
+                          dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_int64 * 27)(*[st for t in (r, k, v, w, dout, dr, dk,
+                                                   dv, dw)
+                                      for st in t.stride()[:3]])
+    fn = getattr(lib, _BWD_ENTRY[r.dtype])
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), state.data_ptr(), dout.data_ptr(),
+                 None if dstate is None else dstate.data_ptr(),
+                 dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                 du.data_ptr(), dstate_in.data_ptr(), b, h, s, hd, strides,
+                 scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    rwkv6_scan_bwd_cuda.launches += 1
+    return dr, dk, dv, dw, du.sum(0), dstate_in
+
+
+rwkv6_scan_bwd_cuda.launches = 0

@@ -77,7 +77,6 @@ def train(args):
     from repro_torch.dist.trainer import (
         init_train_state, make_dp_baseline_step, make_train_step)
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import check_trainable
     from repro_torch.optim import adamw, constant
     from repro_torch.utils.logging import MetricLogger
 
@@ -90,7 +89,6 @@ def train(args):
         torch.cuda.reset_peak_memory_stats(device)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    check_trainable(cfg)
     model = build_model(cfg)
     a = args.agents
     print(f"agents={a} walks={args.walks} arch={cfg.name} device={device}"

@@ -8,11 +8,13 @@ recurrent stack (family "ssm", every layer "rwkv") and the RG-LRU hybrid
 recurrentgemma-2b); the others raise. The dense serving entry points
 cover the slot arena and the paged pool; a model with recurrent layers
 has the arena's only (its state has no pages, as the reference's
-`FamilyCaps` says), and its `train_loss` raises (training it is a later
-slice). The dense stack also has the reference's mixed-step entry
-points (one fused decode + prefill step, the engine's overlapped
-admission) on the arena and the pool; the recurrent families have none,
-as in the reference. A sliding window (`cfg.attn_window` or the `window`
+`FamilyCaps` says). Every family trains: `train_loss` runs a recurrent
+layer from a zero state through the differentiable recurrences
+(`kernels.ops.rwkv6_scan_train`, `rglru_scan_train`, whose backward is a
+hand-written kernel on the card). The dense stack also has the
+reference's mixed-step entry points (one fused decode + prefill step,
+the engine's overlapped admission) on the arena and the pool; the
+recurrent families have none, as in the reference. A sliding window (`cfg.attn_window` or the `window`
 override) serves from the arena, as a ring of the window's capacity, and
 from the paged pool, as a block ring, and `train_loss` trains with it.
 `train_loss(params, batch, remat=True)` checkpoints each layer's

@@ -16,7 +16,10 @@ The reference scans over time with `lax.scan`; the port runs the gates,
 the decay and the recurrence from the two gate products on through
 `kernels.ops.rglru_scan` (one CUDA kernel on the card, its plain version
 `ref.rglru_gated` on the CPU), from the slot's `h`, which it advances in
-place. Every step keeps the reference's order of ops and of roundings in
+place. With no state (training, from the reference's zero `init_state`)
+the block takes `ops.rglru_scan_train`, whose backward is the RG-LRU
+backward kernel, and writes no state. Every step keeps the reference's
+order of ops and of roundings in
 the compute dtype: the gates and `i * xhat` in the compute dtype, the
 decay and the scale in f32, the conv as the taps' sum from 0 in order,
 then the bias.
@@ -81,16 +84,26 @@ def _causal_conv(params, x, conv_state):
 def rglru_block(params, cfg, x, state):
     """x: [B,S,D]; state: {"conv", "h"} of `init_state`'s leaves at batch B
     -> (out [B,S,D], state). `state["h"]` advances in place through the
-    scan and the new conv inputs are copied into `state["conv"]`."""
+    scan and the new conv inputs are copied into `state["conv"]`. state
+    None (training): from zeros, through the differentiable
+    `ops.rglru_scan_train`, returning (out, None)."""
     xa = x @ params["w_x"]
-    xa, conv_state = _causal_conv(params, xa, state["conv"])
+    conv_in = (xa.new_zeros((xa.shape[0], params["conv_kernel"].shape[0] - 1,
+                             xa.shape[2]))
+               if state is None else state["conv"])
+    xa, conv_state = _causal_conv(params, xa, conv_in)
 
     # the gates, the decay and the recurrence: one kernel after the GEMMs
-    h_seq, _ = ops.rglru_scan(xa @ params["w_a"], xa @ params["w_i"],
-                              params["b_a"], params["b_i"], params["lamb"],
-                              xa, state["h"])
+    gates = (xa @ params["w_a"], xa @ params["w_i"], params["b_a"],
+             params["b_i"], params["lamb"], xa)
+    if state is None:
+        h_seq = ops.rglru_scan_train(*gates)
+    else:
+        h_seq, _ = ops.rglru_scan(*gates, state["h"])
 
     yb = F.gelu(x @ params["w_y"], approximate="tanh")
     out = (h_seq * yb) @ params["w_out"]
+    if state is None:
+        return out, None
     state["conv"].copy_(conv_state)
     return out, state

@@ -14,7 +14,10 @@ The reference runs the recurrence as a `lax.scan` over time, or through
 its chunked closed form `wkv_chunked` when S % 64 == 0 and S > 64; the
 port has one recurrence for every S, `kernels.ops.rwkv6_scan` (the CUDA
 kernel on the card), and where the reference would take the chunked form
-it rounds the WKV output to the compute dtype as that form does. The
+it rounds the WKV output to the compute dtype as that form does. With no
+state (training, as the reference's train mode starts from
+`init_state`'s zeros) the blocks take `ops.rwkv6_scan_train`, whose
+backward is the WKV backward kernel, and return no state. The
 mixing parameters are one flat dict: "mu.r", ..., "cm_mu.k" for the
 reference's nested mix ratios.
 """
@@ -84,8 +87,11 @@ def init_state(cfg, batch, lead=(), device=None):
 
 def _token_shift(x, prev, mu):
     """lerp between shifted and current: x + (shifted - x) * mu (the
-    difference, the same for every mix, is taken once)."""
-    shifted = torch.cat([prev.to(x.dtype)[:, None, :], x[:, :-1, :]], dim=1)
+    difference, the same for every mix, is taken once). prev None: zeros
+    (training)."""
+    first = (x.new_zeros(x[:, :1].shape) if prev is None
+             else prev.to(x.dtype)[:, None, :])
+    shifted = torch.cat([first, x[:, :-1, :]], dim=1)
     diff = shifted - x
     return {n: x + diff * m for n, m in mu.items()}
 
@@ -94,12 +100,15 @@ def time_mix(params, cfg, x, state):
     """x: [B,S,D]; state: {"shift", "wkv", ...} of `init_state`'s leaves
     at batch B -> (out [B,S,D], new state). The WKV state advances in
     place (`state["wkv"]` is overwritten and returned); the new "shift"
-    is x's last position."""
+    is x's last position. state None (training): from zeros, through the
+    differentiable `ops.rwkv6_scan_train`, returning (out, None)."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
 
-    xs = _token_shift(x, state["shift"], {n: params[f"mu.{n}"] for n in MIX})
+    train = state is None
+    xs = _token_shift(x, None if train else state["shift"],
+                      {n: params[f"mu.{n}"] for n in MIX})
     r = (xs["r"] @ params["wr"]).reshape(b, s, h, hd)
     k = (xs["k"] @ params["wk"]).reshape(b, s, h, hd)
     v = (xs["v"] @ params["wv"]).reshape(b, s, h, hd)
@@ -110,9 +119,12 @@ def time_mix(params, cfg, x, state):
         xs["w"] @ params["w_lora_a"]) @ params["w_lora_b"]
     w = torch.exp(-torch.exp(w.float())).reshape(b, s, h, hd)   # in (0,1)
 
-    out, wkv = ops.rwkv6_scan(r.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), w.transpose(1, 2),
-                              params["u"], state["wkv"])
+    rkvw = (r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            w.transpose(1, 2))
+    if train:
+        out = ops.rwkv6_scan_train(*rkvw, params["u"])
+    else:
+        out, wkv = ops.rwkv6_scan(*rkvw, params["u"], state["wkv"])
     if s % CHUNK == 0 and s > CHUNK:
         # the reference's chunked form returns its output in r's dtype
         out = out.to(r.dtype).float()
@@ -125,13 +137,19 @@ def time_mix(params, cfg, x, state):
     out = out.reshape(b, s, d) * params["ln_out_scale"].float()
 
     out = (out.to(x.dtype) * g) @ params["wo"]
+    if train:
+        return out, None
     return out, dict(state, shift=x[:, -1, :], wkv=wkv)
 
 
 def channel_mix(params, cfg, x, state):
-    xs = _token_shift(x, state["cm_shift"],
+    """x: [B,S,D] -> (out, new state with "cm_shift" x's last position);
+    state None (training): from a zero shift, returning (out, None)."""
+    xs = _token_shift(x, None if state is None else state["cm_shift"],
                       {n: params[f"cm_mu.{n}"] for n in CM_MIX})
     r = torch.sigmoid(xs["r"] @ params["cm_wr"])
     k = torch.square(torch.relu(xs["k"] @ params["cm_wk"]))
     out = r * (k @ params["cm_wv"])
+    if state is None:
+        return out, None
     return out, dict(state, cm_shift=x[:, -1, :])

@@ -42,9 +42,6 @@ from repro_torch.models.layers import (
 
 # the layer kinds the port runs
 KINDS = ("attn", "rwkv", "rglru")
-# the recurrent kinds: their name, and the kernel whose backward training
-# them needs
-RECURRENT = {"rwkv": ("RWKV6", "rwkv6_scan"), "rglru": ("RG-LRU", "rglru_scan")}
 
 
 def build_segments(layer_types):
@@ -67,17 +64,6 @@ def segments(cfg):
         raise NotImplementedError(f"{cfg.name}: layer types {unknown} are "
                                   f"not among the port's {KINDS}")
     return segs
-
-
-def check_trainable(cfg):
-    """Raise for a stack the port cannot train yet: training a recurrent
-    layer (the backward through its scan kernel) is a later slice."""
-    for kind in sorted({k for k, _ in segments(cfg)} & set(RECURRENT)):
-        name, kernel = RECURRENT[kind]
-        raise NotImplementedError(
-            f"{cfg.name}: training {name} layers is not ported yet (a later "
-            f"slice: the backward of the {kernel} kernel as a "
-            "torch.autograd.Function); the port serves them")
 
 
 def subtree(params, prefix):
@@ -151,10 +137,12 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
             paged=None, window=0, remat=False):
     """Run the stack on embeddings x [B,S,D]. Returns the final-normed x.
 
-    mode "train": no cache; with `remat`, each layer's block runs under
-    non-reentrant `torch.utils.checkpoint` (activation checkpointing per
-    block, as the reference's `jax.checkpoint`), so backward keeps one
-    [B,S,D] input a layer and recomputes the rest. "prefill": fills `caches` (from `init_cache`,
+    mode "train": no cache (recurrent layers start from a zero state and
+    keep none); with `remat`, each layer's block, of every kind, runs
+    under non-reentrant `torch.utils.checkpoint` (activation checkpointing
+    per block, as the reference's `jax.checkpoint` in `_segment_apply`),
+    so backward keeps one [B,S,D] input a layer and recomputes the rest.
+    "prefill": fills `caches` (from `init_cache`,
     batch B) with the prompt's K/V, ring-ordered, and sets each attention
     layer's ptr to S; recurrent layers run from their state in `caches`
     and leave their new state there. "decode": x is one token per row;
@@ -171,23 +159,24 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     """
     for si, (kind, count) in enumerate(segments(cfg)):
         seg = None if caches is None else caches[si]
-        if kind != "attn" and (mode not in ("prefill", "decode")
-                               or seg is None):
-            raise NotImplementedError(
-                f"{kind} layers run with a cache, in 'prefill' or 'decode' "
-                f"mode, not {mode!r}")
+        if kind != "attn" and (seg is None) != (mode == "train"):
+            raise ValueError(f"{kind} layers run with a cache in 'prefill' "
+                             f"or 'decode' mode and without one in 'train' "
+                             f"mode, not in {mode!r} with "
+                             f"{'none' if seg is None else 'one'}")
         for i, lp in enumerate(_layers(params, si, count)):
-            if kind == "attn" and remat and mode == "train":
-                x = checkpoint(_attn_block, cfg, lp, x, positions, mode, seg,
-                               i, paged, window, use_reentrant=False,
-                               preserve_rng_state=False)
-            elif kind == "attn":
-                x = _attn_block(cfg, lp, x, positions, mode, seg, i, paged,
-                                window)
+            if kind == "attn":
+                args = (_attn_block, cfg, lp, x, positions, mode, seg, i,
+                        paged, window)
             elif kind == "rwkv":
-                x = _rwkv_block(cfg, lp, x, seg, i)
+                args = (_rwkv_block, cfg, lp, x, seg, i)
             else:
-                x = _rglru_block(cfg, lp, x, seg, i)
+                args = (_rglru_block, cfg, lp, x, seg, i)
+            if remat and mode == "train":
+                x = checkpoint(*args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = args[0](*args[1:])
     return rmsnorm(subtree(params, "final_norm"), x)
 
 
@@ -225,23 +214,28 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
 def _rwkv_block(cfg, lp, x, seg, i):
     """rmsnorm -> time_mix -> rmsnorm -> channel_mix, as the reference's
     `block_apply` kind "rwkv". The WKV state advances in place in the
-    cache; the shifts are copied in. Positions are unused."""
-    state = {name: seg[name][i] for name in RW.LEAVES}
+    cache; the shifts are copied in. With no cache (training) the layer
+    starts from zeros and keeps no state. Positions are unused."""
+    state = None if seg is None else {name: seg[name][i]
+                                      for name in RW.LEAVES}
     h = rmsnorm(lp["ln1"], x)
     tm_out, state = RW.time_mix(lp["mix"], cfg, h, state)
     x = x + tm_out
     h2 = rmsnorm(lp["ln2"], x)
     cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state)
-    for name in ("shift", "cm_shift"):
-        seg[name][i].copy_(state[name])
+    if seg is not None:
+        for name in ("shift", "cm_shift"):
+            seg[name][i].copy_(state[name])
     return x + cm_out
 
 
 def _rglru_block(cfg, lp, x, seg, i):
     """rmsnorm -> RG-LRU block -> rmsnorm -> MLP, as the reference's
     `block_apply` kind "rglru". `h` advances in place in the cache and
-    the conv's last inputs are copied in. Positions are unused."""
-    state = {name: seg[name][i] for name in RG.LEAVES}
+    the conv's last inputs are copied in; with no cache (training) the
+    layer starts from zeros and keeps no state. Positions are unused."""
+    state = None if seg is None else {name: seg[name][i]
+                                      for name in RG.LEAVES}
     h = rmsnorm(lp["ln1"], x)
     rnn_out, _ = RG.rglru_block(lp["rnn"], cfg, h, state)
     x = x + rnn_out
@@ -271,7 +265,6 @@ def train_loss(cfg, params, batch, window=0, remat=True):
     config's own); remat: checkpoint each layer's activations (see
     `forward`), the reference's default.
     """
-    check_trainable(cfg)
     params = _cast(cfg, params)
     tokens = batch["tokens"]
     x = embed(subtree(params, "embed"), tokens)

@@ -672,15 +672,17 @@ def test_serve_cli_recurrentgemma_on_cpu(capsys):
     assert "served from the arena" in capsys.readouterr().out
 
 
-def test_training_the_hybrid_raises_not_implemented(served):
-    with pytest.raises(NotImplementedError, match="RG-LRU.*later slice"):
-        train_cli.main(["--arch", ARCH, "--smoke", "--steps", "1",
-                        "--seq", "8", "--batch-per-agent", "1",
-                        "--device", "cpu"])
-    tmodel, tparams = served[2], served[3]
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tmodel.train_loss(tparams, {"tokens": tokens, "targets": tokens})
+@pytest.mark.parametrize("steps,extra", [(3, []), (2, ["--baseline"])],
+                         ids=["api-bcd", "dp-baseline"])
+def test_train_cli_hybrid_on_cpu(steps, extra):
+    """The launcher trains the hybrid's smoke config (API-BCD supersteps,
+    or the DP baseline's steps) past its 32-token window, with finite
+    losses."""
+    out = train_cli.main(["--arch", ARCH, "--smoke", "--steps", str(steps),
+                          "--seq", "40", "--batch-per-agent", "1",
+                          "--device", "cpu", "--log-every", "0", *extra])
+    assert out["device"] == "cpu" and len(out["losses"]) == steps
+    assert np.all(np.isfinite(out["losses"]))
 
 
 def test_full_config_is_the_published_width(jx):
