@@ -217,7 +217,26 @@ non-zero before the last line:
      would be ~121 GB);
  37. both families through `repro_torch.launch.train --smoke` on the card
      (API-BCD, then `--baseline`), then one f32 superstep and one
-     DP-baseline step at smoke size, card against CPU.
+     DP-baseline step at smoke size, card against CPU;
+ 38. the MoE family (dbrx-132b), smoke config in f32, card against CPU
+     from one set of parameters: exact-length prefill and 8 decode steps
+     (logits within 1e-4), an engine with a mid-flight admission (equal
+     tokens, the serialized arena, prefill shapes the prompt lengths),
+     the scatter variant's train_loss (within 1e-4), then phase 37's
+     training checks (aux > 0 through the CLI; one prox launch a leaf);
+ 39. dbrx-132b served at full width cut to 4 of 40 layers (bf16, 28.5
+     GB) through `repro_torch.launch.serve --layers 4` on phase 7's
+     workload: the serialized arena, exact-length prefill, 4 flash
+     launches an admission and 4 decode launches a step and no other
+     kernel, every budget served, the init's and the run's peaks; two
+     requests re-served alone with the same tokens, one decode step over
+     8 rows repeated bitwise on a copy of its arena, the slots that the
+     admissions drop at capacity (the port's routing on each layer's
+     input, apart from the run), each MoE layer's decode ms against its
+     bound (its expert weights read once, 1.89 ms), `launch.serve --arch
+     dbrx-132b --smoke`; then 8 steady decode steps profiled as phase 9,
+     and flash at 48 query heads over 8 kv heads of 128, S = 200, against
+     its plain version and SDPA, timed as phase 25.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -776,9 +795,11 @@ def serve_main_path():
     return summary, launches, out
 
 
-def serving_reference_check(arch="qwen2-0.5b"):
+def serving_reference_check(arch="qwen2-0.5b", exact=False):
     """`arch`'s smoke config in f32: prefill_into_slot + 8 decode_rows
-    steps on the card and on the CPU from one set of parameters."""
+    steps on the card and on the CPU from one set of parameters; prompts
+    padded to 8 or 16 tokens, or at their `exact` length (a family whose
+    engine does not pad)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
@@ -793,7 +814,8 @@ def serving_reference_check(arch="qwen2-0.5b"):
     worst, tie_free, equal = 0.0, 0, 0
     lengths = np.zeros(slots, np.int32)
     for slot, plen in ((1, 11), (0, 5)):
-        toks = np.zeros((1, 16 if plen > 8 else 8), np.int32)
+        toks = np.zeros((1, plen if exact else 16 if plen > 8 else 8),
+                        np.int32)
         toks[0, :plen] = rng.integers(0, cfg.vocab_size, plen)
         want, got = (model.prefill_into_slot(
             p, torch.from_numpy(toks).to(dev), plen, slot, arena)[0].cpu()
@@ -3144,17 +3166,20 @@ def recurrent_training(arch, layers, agents, walks):
     return report
 
 
-def recurrent_reference_check(arch):
-    """Phase 37 for one family: `repro_torch.launch.train --smoke` on the
-    card through its CLI (3 supersteps, then 2 DP-baseline steps), then
-    the smoke config in f32 from one state on the card and on the CPU: one
-    superstep (A=4, M=2; loss rtol 1e-4, params, token and zhat within
-    phase 5's 1e-4, gacc, which holds gradients of up to ~50 on these
+def training_reference_check(arch):
+    """Phase 37 for one family (phase 38 for dbrx): `repro_torch.launch.
+    train --smoke` on the card through its CLI (3 supersteps, then 2
+    DP-baseline steps; finite losses, and an MoE family's load-balance
+    term above 0 in every step), then the smoke config in f32 from one
+    state on the card and on the CPU: one superstep (A=4, M=2; one prox
+    launch a leaf; loss rtol 1e-4, params, token and zhat within phase
+    5's 1e-4, gacc, which holds gradients of up to ~50 on the recurrent
     models, within 1e-4 of its leaf's largest |value| where that passes
     1) and one DP-baseline step with sgd and momentum 0.9 at phase 30's
     rate (loss rtol 1e-4, params within 1e-4, the velocity, which is the
     gradient, as gacc; adamw's first step moves a parameter by lr *
-    sign(g), which f32 noise can flip)."""
+    sign(g), which f32 noise can flip). Returns the report, with the
+    superstep's launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
@@ -3163,9 +3188,12 @@ def recurrent_reference_check(arch):
                 "64", "--batch-per-agent", "2", "--log-every", "0", *extra]
         out = train_cli.train(train_cli.parse_args(argv))
         report["cli" + "".join(extra)] = {"argv": " ".join(argv),
-                                          "losses": out["losses"]}
+                                          "losses": out["losses"],
+                                          "auxs": out["auxs"]}
         if not np.all(np.isfinite(out["losses"])):
             raise AssertionError(f"{arch} CLI: non-finite losses {out}")
+        if "moe" in get_smoke(arch).layer_types and min(out["auxs"]) <= 0:
+            raise AssertionError(f"{arch} CLI: no load-balance term {out}")
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     model = build_model(cfg)
     toks, targs = next(agent_batches(cfg.vocab_size, 4, 2, 48, seed=1))
@@ -3175,14 +3203,19 @@ def recurrent_reference_check(arch):
     cpu = init_train_state(model, tcfg, torch.Generator().manual_seed(0))
     gpu = _to(cpu, DEV)
     cpu, m_cpu = step_fn(cpu, b, 0)
+    reset_counts()
     gpu, m_gpu = step_fn(gpu, _to(b, DEV), 0)
+    launches = {k: v for k, v in counts().items() if v}
     close = _state_close(gpu, cpu, lambda want, part: 1e-4 * (
         max(1.0, float(want.abs().max())) if part == "gacc" else 1.0))
     ok = all(c for c, _ in close.values()) and abs(
         float(m_gpu["loss"]) - float(m_cpu["loss"])) \
         <= 1e-4 * abs(float(m_cpu["loss"]))
+    ok &= launches.get("prox_update") == len(cpu["params"])
     report["superstep_card_vs_cpu"] = {
         "loss_card": float(m_gpu["loss"]), "loss_cpu": float(m_cpu["loss"]),
+        "aux_card": float(m_gpu["aux"]), "aux_cpu": float(m_cpu["aux"]),
+        "leaves": len(cpu["params"]), "launches": launches,
         "max_abs_err": {p: e for p, (_, e) in close.items()}}
     p0 = model.init(torch.Generator().manual_seed(0))
     opt = optim.sgd(momentum=0.9)
@@ -3202,10 +3235,225 @@ def recurrent_reference_check(arch):
     report["dp_step_card_vs_cpu"] = {"loss_card": float(mg["loss"]),
                                      "loss_cpu": float(mc["loss"]),
                                      "max_abs_err": dp_errs}
-    print(json.dumps({"recurrent_reference": {arch: report}}), flush=True)
+    print(json.dumps({"training_reference": {arch: report}}), flush=True)
     if not ok:
         raise AssertionError(f"{arch}: card and CPU disagree: {report}")
     return report
+
+
+# phase 38: the MoE family (dbrx-132b) at smoke size, card against CPU
+MOE_ARCH = "dbrx-132b"
+
+
+def moe_reference_check():
+    """Phase 38: dbrx's smoke config in f32 on the card and on the CPU from
+    one set of parameters: exact-length prefill_into_slot and 8 decode
+    steps (phase 8's check; logits within 1e-4), an engine on each with
+    one mid-flight admission (equal tokens, the arena, serialized, every
+    prompt prefilled at its exact length), the scatter variant's
+    train_loss (REPRO_MOE_SCATTER; loss, nll and aux within 1e-4 of their
+    size), then phase 37's training checks (the CLI's API-BCD and
+    --baseline runs with aux > 0, one superstep and one DP-baseline step
+    card against CPU, one prox launch a leaf). Returns the training
+    report."""
+    serving_reference_check(MOE_ARCH, exact=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke(MOE_ARCH), compute_dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = _to(cpu, DEV)
+    rng = np.random.default_rng(14)
+    first, later = (rng.integers(0, cfg.vocab_size, (n,)) for n in (7, 5))
+    runs = {}
+    for name, params in (("cpu", cpu), ("card", gpu)):
+        eng = Engine(model, params, max_batch=2, max_len=32,
+                     cache_dtype=torch.float32)
+        eng.submit(first, max_new_tokens=8)
+        eng.step()
+        eng.step()
+        eng.submit(later, max_new_tokens=4)        # admitted mid-flight
+        runs[name] = {"outputs": [r.output.tolist() for r in
+                                  sorted(eng.run(), key=lambda r: r.uid)],
+                      "prefill_shapes": sorted(eng.prefill_shapes),
+                      "paged": eng.paged, "overlap": eng.overlap}
+    report = {"engines": runs}
+    if (runs["card"] != runs["cpu"] or runs["card"]["prefill_shapes"]
+            != [5, 7] or runs["card"]["paged"] or runs["card"]["overlap"]):
+        raise AssertionError(f"dbrx engines, card against CPU: {runs}")
+
+    toks, targs = next(agent_batches(cfg.vocab_size, 1, 2, 48, seed=2))
+    batch = {"tokens": torch.from_numpy(toks[0]),
+             "targets": torch.from_numpy(targs[0])}
+    os.environ["REPRO_MOE_SCATTER"] = "1"
+    (lc, mc), (lg, mg) = (model.train_loss(p, _to(batch, dev))
+                          for p, dev in ((cpu, torch.device("cpu")),
+                                         (gpu, DEV)))
+    del os.environ["REPRO_MOE_SCATTER"]
+    scatter = {k: (float(dict(mg, loss=lg)[k]), float(dict(mc, loss=lc)[k]))
+               for k in ("loss", "nll", "aux")}
+    report["scatter_train_loss_card_cpu"] = scatter
+    print(json.dumps({"moe_reference": report}), flush=True)
+    if any(abs(g - c) > 1e-4 * max(1.0, abs(c))
+           for g, c in scatter.values()) or scatter["aux"][1] <= 0:
+        raise AssertionError(f"dbrx scatter train_loss, card against CPU: "
+                             f"{scatter}")
+    return training_reference_check(MOE_ARCH)
+
+
+# phase 39: dbrx-132b at full width, depth cut to 4 of its 40 layers (a
+# layer is 6.52 GB of bf16 parameters, beside the 2.47 GB embedding and
+# head: 28.5 GB), on phase 7's workload
+MOE_LAYERS = 4
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--layers", str(MOE_LAYERS)] + \
+    SERVE_ARGS[2:]
+
+
+def moe_admission_drops(cfg, params, prompts):
+    """Slots dropped at capacity over the admissions of `prompts` (each
+    prefilled alone at its exact length, as the engine admits them),
+    counted with the port's routing (`moe.route`, `moe.bucket_positions`)
+    on each MoE layer's input, layer by layer, apart from the serving
+    run: {"dropped_by_layer", "slots_by_layer", "capacity"}."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import rmsnorm
+
+    p = TF._cast(cfg, params)
+    dropped = [0] * cfg.num_layers
+    slots, caps = 0, set()
+    for prompt in prompts:
+        x = TF._embed_tokens(cfg, p, torch.as_tensor(prompt[None],
+                                                     device=DEV))
+        s = x.shape[1]
+        positions = torch.arange(s, device=DEV)[None]
+        cap = MOE.capacity(cfg, s)
+        caps.add(cap)
+        slots += s * cfg.moe.top_k
+        for i, lp in enumerate(TF._layers(p, 0, cfg.num_layers)):
+            attn, _ = A.gqa_prefill(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
+                                    positions, kernel=True)
+            x = x + attn
+            h = rmsnorm(lp["ln2"], x)
+            _, _, gate_i = MOE.route(lp["moe"], cfg, h)
+            pos = MOE.bucket_positions(gate_i, cfg.moe.num_experts)
+            dropped[i] += int((pos >= cap).sum())
+            x = x + MOE.moe_apply(lp["moe"], cfg, h, with_aux=False)[0]
+    return {"dropped_by_layer": dropped, "slots_by_layer": slots,
+            "capacity": sorted(caps)}
+
+
+def moe_decode_layers(cfg, params, gen):
+    """Device ms of each MoE layer's `moe_apply` at the decode step's
+    shape (8 rows of one token, bf16), beside its bound: the layer's
+    expert weights read once."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    out = []
+    for lp in TF._layers(TF._cast(cfg, params), 0, cfg.num_layers):
+        moe = lp["moe"]
+        nbytes = sum(moe[k].numel() * moe[k].element_size()
+                     for k in ("w_gate", "w_up", "w_down"))
+        out.append({"ms": device_ms(lambda: MOE.moe_apply(
+            moe, cfg, x, with_aux=False), 10),
+            "launches": device_launches(lambda: MOE.moe_apply(
+                moe, cfg, x, with_aux=False), calls=10),
+            "expert_bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def moe_serving(gen):
+    """Phase 39: dbrx-132b at full width cut to MOE_LAYERS layers, bf16
+    parameters, through `repro_torch.launch.serve --layers` on phase 7's
+    workload: the arena, serialized, every prompt prefilled at its exact
+    length, MOE_LAYERS flash launches an admission and MOE_LAYERS decode
+    launches a step and no other kernel, every budget served, the init's
+    and the run's peaks; then two requests re-served alone (the same
+    tokens), one decode step over 8 live rows repeated on a copy of its
+    arena (bitwise equal logits), the slots the admissions drop at
+    capacity, each MoE layer's decode time against its bound, and
+    `launch.serve --arch dbrx-132b --smoke` on the card. Returns the
+    run's launches."""
+    args = serve_cli.parse_args(MOE_SERVE_ARGS)
+    print(" ".join(MOE_SERVE_ARGS))
+    reset_counts()
+    out = serve_cli.serve(args)
+    launches = counts()
+    st = out["stats"]
+    summary = serving_summary(out, launches)
+    summary.update(layers=MOE_LAYERS, prefill_shapes=out["prefill_shapes"],
+                   init_peak_GB=out["init_peak_bytes"] / 1e9,
+                   after_init_GB=out["init_bytes"] / 1e9)
+    print(json.dumps({"moe_serving": summary}), flush=True)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=MOE_LAYERS * st["admissions"],
+                decode_attention=MOE_LAYERS * st["decode_steps"])
+    if launches != want:
+        raise AssertionError(f"dbrx serving: launches {launches}, expected "
+                             f"{want}")
+    if out["paged"] or st["overlap_mode"] or st["mixed_steps"]:
+        raise AssertionError(f"dbrx serving did not run the serialized "
+                             f"arena: {st}")
+    if out["prefill_shapes"] != [args.prompt_len]:
+        raise AssertionError(f"dbrx prompts were not prefilled at their "
+                             f"exact length: {out['prefill_shapes']}")
+    if [len(o) for o in out["outputs"]] != out["budgets"]:
+        raise AssertionError("a dbrx request did not get its budget's "
+                             f"tokens: {[len(o) for o in out['outputs']]}")
+    torch.cuda.empty_cache()
+
+    _, cfg, model, params = serve_cli.build(args)
+    prompts, budgets = serve_cli.workload(args, cfg.vocab_size)
+    report = {"admission_drops": moe_admission_drops(cfg, params, prompts)}
+    print(json.dumps({"moe_serving": report}), flush=True)
+
+    # one decode step over 8 live rows, twice on copies of one arena
+    arena = model.init_arena(8, out["max_len"], device=DEV)
+    toks = []
+    for slot, prompt in enumerate(prompts[:8]):
+        tok, _ = model.prefill_into_slot_token(
+            params, torch.as_tensor(prompt[None], device=DEV), len(prompt),
+            slot, arena)
+        toks.append(tok)
+    tokens = torch.stack(toks)[:, None]
+    positions = torch.tensor([len(p) for p in prompts[:8]],
+                             dtype=torch.int32, device=DEV)
+    first, second = (model.decode_rows(params, tokens, [
+        {k: v.clone() for k, v in seg.items()} for seg in arena],
+        positions)[0] for _ in range(2))
+    report["decode_repeat_bitwise"] = bool(torch.equal(first, second))
+    del arena, first, second
+    report["moe_decode_layers"] = moe_decode_layers(cfg, params, gen)
+    print(json.dumps({"moe_serving": report}), flush=True)
+    if not report["decode_repeat_bitwise"]:
+        raise AssertionError("a repeated dbrx decode step gave other logits")
+
+    eng = Engine(model, params, max_batch=args.max_batch,
+                 max_len=out["max_len"])
+    del params
+    for uid in (0, 1):
+        eng.submit(prompts[uid], max_new_tokens=budgets[uid])
+        (alone,) = eng.run()[-1:]
+        if alone.output.tolist() != out["outputs"][uid]:
+            raise AssertionError(f"dbrx request {uid} served alone gave "
+                                 f"{alone.output.tolist()}, batched "
+                                 f"{out['outputs'][uid]}")
+    print(json.dumps({"moe_solo_reserves_equal": [0, 1]}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", MOE_ARCH, "--smoke", "--requests", "4", "--max-batch",
+            "2", "--prompt-len", "8", "--new-tokens", "4"]
+    print(" ".join(argv))
+    smoke = serve_cli.serve(serve_cli.parse_args(argv))
+    if [len(o) for o in smoke["outputs"]] != smoke["budgets"]:
+        raise AssertionError(f"dbrx smoke CLI: {smoke['outputs']}")
+    return launches
 
 
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
@@ -3597,7 +3845,22 @@ def main():
     phase("37 recurrent training on the card through the CLI, and card "
           "against CPU at smoke size")
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
-        recurrent_reference_check(arch)
+        training_reference_check(arch)
+
+    phase("38 MoE reference (dbrx-132b): card against CPU at smoke size, "
+          "serving and training")
+    moe_train = moe_reference_check()
+    torch.cuda.empty_cache()
+
+    phase(f"39 dbrx-132b serving: full width, {MOE_LAYERS} layers, through "
+          "repro_torch.launch.serve; profile; flash at 48:8 heads of 128")
+    moe_launches = moe_serving(gen)
+    torch.cuda.empty_cache()
+    profile_decode_steps(argv=MOE_SERVE_ARGS)
+    torch.cuda.empty_cache()
+    flash_cases.append(check_flash_case(
+        "dbrx-132b 48:8 heads of 128, exact-length prefill S=200", 200, gen,
+        h=48, kv=8, hd=128))
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
@@ -3622,6 +3885,9 @@ def main():
                       "rwkv6 training": rwkv_train["launches"][
                           "prox_update"],
                       "recurrentgemma training": rg_train["launches"][
+                          "prox_update"],
+                      "dbrx smoke training": moe_train[
+                          "superstep_card_vs_cpu"]["launches"][
                           "prox_update"]},
                      cases, cases[1]),
         kernel_entry("flash_attention",
@@ -3633,7 +3899,8 @@ def main():
                           ser_launches["arena"]["flash_attention"],
                       "recurrentgemma arena":
                           rg_launches["flash_attention"],
-                      **dense_paths("flash_attention")},
+                      **dense_paths("flash_attention"),
+                      "dbrx arena": moe_launches["flash_attention"]},
                      flash_cases, flash_cases[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3644,7 +3911,8 @@ def main():
                           ser_launches["arena"]["decode_attention"],
                       "recurrentgemma arena":
                           rg_launches["decode_attention"],
-                      **dense_paths("decode_attention")},
+                      **dense_paths("decode_attention"),
+                      "dbrx arena": moe_launches["decode_attention"]},
                      decode_cases, decode_cases[0]),
         kernel_entry("decode_attention_paged",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",

@@ -20,6 +20,7 @@ ARCH_IDS = {
     "internlm2-1.8b": "internlm2_1p8b",
     "qwen3-8b": "qwen3_8b",
     "nemotron-4-15b": "nemotron4_15b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 

@@ -17,18 +17,21 @@ and at smoke size on the CPU:
         --smoke --requests 4 --max-batch 2 --prompt-len 8 --new-tokens 4 \
         --device cpu
 
---arch rwkv6-1.6b serves the RWKV6 recurrent stack, and --arch
+--arch rwkv6-1.6b serves the RWKV6 recurrent stack, --arch
 recurrentgemma-2b the RG-LRU and local-attention hybrid (its 2048-token
-window a ring in each slot), from the arena, each prompt prefilled at its
-exact length.
+window a ring in each slot), and --arch dbrx-132b the mixture of experts
+(serialized: its expert capacity depends on the prompt's length), from
+the arena, each prompt prefilled at its exact length. --layers N keeps
+the first N layers at full width, for a model whose depth does not fit
+the card (dbrx-132b at 4 of its 40 layers is 28.5 GB in bf16).
 
 --mixed interleaves short (new_tokens // 4) and long budgets. --paged
 serves from a shared pool of KV blocks (--block-size tokens each,
 --num-blocks of them; default: the arena's footprint) with chunked
 prefill, admitting under --preemption recompute (optimistic, preempting
 the newest request when the pool runs dry) or reserve (worst-case
-reservation); a model that cannot page (rwkv6, recurrentgemma) serves
-from the arena and says so. The reference's --wave is not ported, and,
+reservation); a model that cannot page (rwkv6, recurrentgemma, dbrx)
+serves from the arena and says why. The reference's --wave is not ported, and,
 as the reference's CLI, this one always runs the engine's default
 scheduler (`Engine(overlap=False)` is the serialized one). Prints
 tokens/s, p50/p99 request latency, the resolved overlap mode with its
@@ -48,6 +51,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-feasible)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers (0: all)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -85,6 +90,8 @@ def workload(args, vocab_size):
 def build(args):
     """(device, cfg, model, params) for args: random weights from seed 0,
     made on the device."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config, get_smoke
@@ -92,6 +99,9 @@ def build(args):
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers,
+                                  layer_types=cfg.layer_types[:args.layers])
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     return device, cfg, model, params
@@ -108,15 +118,21 @@ def serve(args, overlap=True):
     each step that admitted: prefill launches + first-token fetch),
     "latency_s" (by uid), "tokens_per_s", "p50_s", "p99_s", "stats"
     (Engine.stats), "max_len", "paged", "num_preemptions", "free_blocks"
-    and "num_blocks" (None for the arena), "peak_bytes" (None on the
-    CPU), "device"}."""
+    and "num_blocks" (None for the arena), "peak_bytes" (the peak after
+    the init), "init_peak_bytes" (the init's peak: the parameters drawn)
+    and "init_bytes" (held once the engine was built), each None on the
+    CPU, "device"}."""
     import numpy as np
     import torch
 
     from repro_torch.serve import Engine, bucket_length
 
-    device, cfg, model, params = build(args)
+    device = resolve_device(args.device)
     cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    device, cfg, model, params = build(args)
+    init_peak = torch.cuda.max_memory_allocated(device) if cuda else None
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     prompts, budgets = workload(args, cfg.vocab_size)
@@ -126,6 +142,7 @@ def serve(args, overlap=True):
                  num_blocks=args.num_blocks, preemption=args.preemption,
                  overlap=overlap)
     del params      # the engine holds its compute-dtype copy
+    init_bytes = torch.cuda.memory_allocated(device) if cuda else None
 
     t0 = time.perf_counter()
     uids = [eng.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
@@ -160,8 +177,10 @@ def serve(args, overlap=True):
     print(f"  {toks} tokens in {total:.3f}s ({toks / total:.1f} tok/s); "
           f"latency p50 {p50:.3f}s p99 {p99:.3f}s")
     if args.paged and not eng.paged:
-        print(f"  --paged: {cfg.name} cannot page (recurrent state), so it "
-              "was served from the arena")
+        reason = ("moe routing capacity depends on the chunk length"
+                  if "moe" in cfg.layer_types else "recurrent state")
+        print(f"  --paged: {cfg.name} cannot page ({reason}), so it was "
+              "served from the arena")
     print(f"  overlap_mode {st['overlap_mode']!r}; mixed_steps "
           f"{st['mixed_steps']}; overlapped_admissions "
           f"{st['overlapped_admissions']}")
@@ -181,7 +200,8 @@ def serve(args, overlap=True):
             "num_blocks": eng.num_blocks if eng.paged else None,
             "device": str(device),
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
-                           if cuda else None)}
+                           if cuda else None),
+            "init_peak_bytes": init_peak, "init_bytes": init_bytes}
 
 
 def main(argv=None):

@@ -16,7 +16,10 @@ and at smoke size on the CPU:
 `--baseline` runs the synchronous all-reduce DP baseline instead (adamw,
 no weight decay, a constant rate of 3e-4, on the global batch [A * B,
 S]); `--checkpoint-dir DIR` writes the API-BCD state after the last
-step in the reference's checkpoint format.
+step in the reference's checkpoint format. `--arch dbrx-132b --smoke`
+trains the mixture of experts (its loss adds the load-balance term,
+printed as `aux`); at full width one dbrx layer's state would pass the
+card's 80 GB.
 """
 from __future__ import annotations
 
@@ -65,7 +68,8 @@ def resolve_device(name):
 
 def train(args):
     """Run args.steps supersteps (or DP baseline steps with
-    args.baseline). Returns {"losses", "step_ms", "peak_bytes",
+    args.baseline). Returns {"losses", "auxs" (the MoE load-balance term
+    of each loss, 0 without MoE layers), "step_ms", "peak_bytes",
     "device"}; peak_bytes is None on the CPU."""
     import numpy as np
     import torch
@@ -109,7 +113,7 @@ def train(args):
         train_step = make_train_step(model, tcfg)
 
     logger = MetricLogger(args.log_dir, echo_every=args.log_every)
-    losses, step_ms = [], []
+    losses, auxs, step_ms = [], [], []
     for step in range(args.steps):
         toks, targs = next(batches)
         if args.baseline:       # the global batch [A * B, S]
@@ -127,8 +131,9 @@ def train(args):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         loss = float(metrics["loss"])
         losses.append(loss)
+        auxs.append(float(metrics["aux"]))
         logger.log(step, loss=loss, nll=float(metrics["nll"]),
-                   step_ms=step_ms[-1])
+                   aux=auxs[-1], step_ms=step_ms[-1])
     logger.close()
     if not np.all(np.isfinite(losses)):
         raise FloatingPointError(f"non-finite loss: {losses}")
@@ -136,7 +141,8 @@ def train(args):
         save_checkpoint(args.checkpoint_dir, state, step=args.steps,
                         metadata={"arch": cfg.name})
         print("checkpoint written to", args.checkpoint_dir)
-    return {"losses": losses, "step_ms": step_ms, "device": str(device),
+    return {"losses": losses, "auxs": auxs, "step_ms": step_ms,
+            "device": str(device),
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if cuda else None)}
 

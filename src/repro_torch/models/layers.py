@@ -14,8 +14,11 @@ import torch.nn.functional as F
 
 
 def _he(generator, shape, dtype, fan_in):
-    return (torch.randn(shape, generator=generator, device=generator.device)
-            / math.sqrt(fan_in)).to(dtype)
+    # scaled in place: a large leaf (dbrx's [L, 16, 6144, 10752] experts)
+    # holds one f32 draw beside its cast, not two
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).div_(
+                           math.sqrt(fan_in)).to(dtype)
 
 
 # ---------------------------------------------------------------------------

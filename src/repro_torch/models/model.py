@@ -1,24 +1,30 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Three families are ported: the dense decoder-only GQA stack (a swiglu or
-squared-ReLU MLP, qk-norm where the config asks for it), the RWKV6
-recurrent stack (family "ssm", every layer "rwkv") and the RG-LRU hybrid
-(family "hybrid", layers "rglru" and "attn" with a gelu MLP, as
-recurrentgemma-2b); the others raise. The dense serving entry points
-cover the slot arena and the paged pool; a model with recurrent layers
-has the arena's only (its state has no pages, as the reference's
-`FamilyCaps` says). Every family trains: `train_loss` runs a recurrent
-layer from a zero state through the differentiable recurrences
+Four families are ported: the dense decoder-only GQA stack (a swiglu or
+squared-ReLU MLP, qk-norm where the config asks for it), the mixture of
+experts (family "moe", every layer "moe": GQA attention and top-k routed
+swiglu experts with GShard capacity, shared experts where the config has
+them, as dbrx-132b), the RWKV6 recurrent stack (family "ssm", every
+layer "rwkv") and the RG-LRU hybrid (family "hybrid", layers "rglru" and
+"attn" with a gelu MLP, as recurrentgemma-2b); the others raise, and so
+does MLA attention (deepseek-v2-236b). The dense serving entry points
+cover the slot arena and the paged pool; an MoE or recurrent model has
+the arena's only (expert capacity depends on the static chunk length,
+and recurrent state has no pages, as the reference's `FamilyCaps` says),
+and prefills every prompt at its exact length. `train_loss` adds the MoE
+layers' load-balance loss. Every family trains: `train_loss` runs a
+recurrent layer from a zero state through the differentiable recurrences
 (`kernels.ops.rwkv6_scan_train`, `rglru_scan_train`, whose backward is a
 hand-written kernel on the card). The dense stack also has the
 reference's mixed-step entry points (one fused decode + prefill step,
-the engine's overlapped admission) on the arena and the pool; the
-recurrent families have none, as in the reference. A sliding window (`cfg.attn_window` or the `window`
-override) serves from the arena, as a ring of the window's capacity, and
-from the paged pool, as a block ring, and `train_loss` trains with it.
-`train_loss(params, batch, remat=True)` checkpoints each layer's
-activations, as the reference's does by default.
+the engine's overlapped admission) on the arena and the pool; the MoE
+and recurrent families have none, as in the reference. A sliding window
+(`cfg.attn_window` or the `window` override) serves from the arena, as a
+ring of the window's capacity, and from the paged pool, as a block ring,
+and `train_loss` trains with it. `train_loss(params, batch, remat=True)`
+checkpoints each layer's activations, as the reference's does by
+default.
 """
 from __future__ import annotations
 
@@ -66,8 +72,10 @@ class Model:
                                               # -> (toks, pool, len+1, tok)
 
 
-# ported family -> the layer types it has, and its MLPs (empty: no MLP)
+# ported family -> the layer types it has, and its MLPs (empty: no MLP,
+# or, for "moe", swiglu experts whatever mlp_type says)
 PORTED_FAMILIES = {"dense": ({"attn"}, {"swiglu", "sq_relu"}),
+                   "moe": ({"moe"}, set()),
                    "ssm": ({"rwkv"}, set()),
                    "hybrid": ({"rglru", "attn"}, {"gelu"})}
 
@@ -84,6 +92,10 @@ def _check_ported(cfg: ArchConfig):
             unported.append(f"mlp {cfg.mlp_type!r}")
     if cfg.norm_type != "rmsnorm":
         unported.append(f"norm {cfg.norm_type!r}")
+    if cfg.mla is not None:
+        unported.append("MLA attention")
+    if cfg.frontend != "none" or cfg.encoder_layers:
+        unported.append(f"frontend {cfg.frontend!r}")
     if unported:
         raise NotImplementedError(f"{cfg.name}: not ported to repro_torch "
                                   f"yet: {', '.join(unported)}")
@@ -117,7 +129,7 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
             cfg, p, t, c, pos, window=window),
     )
     if set(cfg.layer_types) != {"attn"}:
-        if window and "attn" not in cfg.layer_types:
+        if window and not {"attn", "moe"} & set(cfg.layer_types):
             raise ValueError(f"{cfg.name}: a sliding window applies to "
                              "attention layers; this stack has none")
         return Model(cfg=cfg, window=window, **entries)    # no pages

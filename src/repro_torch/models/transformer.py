@@ -1,20 +1,25 @@
-"""Decoder-only transformer (dense GQA, RWKV6 and RG-LRU hybrid stacks):
-init, train forward and loss, and the serving entry points (prefill,
-decode, the slot arena and the paged pool).
+"""Decoder-only transformer (dense GQA, MoE, RWKV6 and RG-LRU hybrid
+stacks): init, train forward and loss, and the serving entry points
+(prefill, decode, the slot arena and the paged pool).
 
 The stack is a program of segments, as the reference builds it
 (`build_segments`): each run of consecutive layers of one kind ("attn",
-"rwkv" or "rglru") is one segment whose layers are stacked on a leading
-[count] axis; the forward pass loops over segments and layers in Python
-where the reference scans. recurrentgemma-2b's (rglru, rglru, attn)
-pattern over 26 layers makes 17 segments; qwen2 and rwkv6 make one.
+"moe", "rwkv" or "rglru") is one segment whose layers are stacked on a
+leading [count] axis; the forward pass loops over segments and layers in
+Python where the reference scans. recurrentgemma-2b's (rglru, rglru,
+attn) pattern over 26 layers makes 17 segments; qwen2, dbrx and rwkv6
+make one. A "moe" layer is the attention block with the mixture of
+experts (`models.moe`) in place of its MLP; its load-balance loss is
+summed over the layers into `train_loss`, and serving drops it.
 
 Parameters are one flat dict keyed by the reference pytree's paths
-("embed.table", "segments.0.attn.wq", "segments.3.rnn.w_x",
-"final_norm.scale", ...), with each segment's leaves stacked [count, ...].
+("embed.table", "segments.0.attn.wq", "segments.0.moe.w_gate",
+"segments.3.rnn.w_x", "final_norm.scale", ...), with each segment's
+leaves stacked [count, ...].
 
 Caches are a list of per-segment dicts, as the reference's list is, with
-the same leaves: an attention segment's {"k", "v": [count, B, T, KV, hd],
+the same leaves: an attention (or MoE) segment's {"k", "v": [count, B,
+T, KV, hd],
 "ptr"} (a ring of capacity T = min(seq_len, window) with a sliding
 window), an RWKV6 segment's {"shift", "cm_shift": [count, B, D], "wkv":
 [count, B, H, hd, hd]} and an RG-LRU segment's {"conv": [count, B, cw - 1,
@@ -29,10 +34,13 @@ updates caches and pools in place where the reference returns new
 """
 from __future__ import annotations
 
+import os
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (
@@ -41,7 +49,7 @@ from repro_torch.models.layers import (
 )
 
 # the layer kinds the port runs
-KINDS = ("attn", "rwkv", "rglru")
+KINDS = ("attn", "moe", "rwkv", "rglru")
 
 
 def build_segments(layer_types):
@@ -101,14 +109,16 @@ def block_init(generator, lead, cfg, kind, dtype):
     d = cfg.d_model
     dev = generator.device
     p = _flat("ln1", rmsnorm_init(lead + (d,), dtype, dev))
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         p.update(_flat("attn", A.gqa_init(generator, lead, cfg, dtype)))
     elif kind == "rwkv":
         p.update(_flat("mix", RW.rwkv_init(generator, lead, cfg, dtype)))
     else:
         p.update(_flat("rnn", RG.rglru_init(generator, lead, cfg, dtype)))
     p.update(_flat("ln2", rmsnorm_init(lead + (d,), dtype, dev)))
-    if kind != "rwkv":
+    if kind == "moe":
+        p.update(_flat("moe", MOE.moe_init(generator, lead, cfg, dtype)))
+    elif kind != "rwkv":
         p.update(_flat("mlp", mlp_init(generator, lead, d, cfg.d_ff, dtype,
                                        cfg.mlp_type)))
     return p
@@ -135,7 +145,9 @@ def transformer_init(cfg, generator, dtype=None):
 
 def forward(cfg, params, x, *, positions, mode="train", caches=None,
             paged=None, window=0, remat=False):
-    """Run the stack on embeddings x [B,S,D]. Returns the final-normed x.
+    """Run the stack on embeddings x [B,S,D]. Returns (the final-normed x,
+    aux): aux sums the MoE layers' load-balance losses in "train" mode,
+    and is None in the others or without MoE layers.
 
     mode "train": no cache (recurrent layers start from a zero state and
     keep none); with `remat`, each layer's block, of every kind, runs
@@ -157,15 +169,16 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     "decode" {"tables": int32 [B, W], "lengths": int32 [B]}, through
     `gqa_decode_paged`.
     """
+    aux = None
     for si, (kind, count) in enumerate(segments(cfg)):
         seg = None if caches is None else caches[si]
-        if kind != "attn" and (seg is None) != (mode == "train"):
+        if kind in ("rwkv", "rglru") and (seg is None) != (mode == "train"):
             raise ValueError(f"{kind} layers run with a cache in 'prefill' "
                              f"or 'decode' mode and without one in 'train' "
                              f"mode, not in {mode!r} with "
                              f"{'none' if seg is None else 'one'}")
         for i, lp in enumerate(_layers(params, si, count)):
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 args = (_attn_block, cfg, lp, x, positions, mode, seg, i,
                         paged, window)
             elif kind == "rwkv":
@@ -177,12 +190,20 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
                                preserve_rng_state=False)
             else:
                 x = args[0](*args[1:])
-    return rmsnorm(subtree(params, "final_norm"), x)
+            if kind == "moe":
+                x, layer_aux = x
+                if layer_aux is not None:
+                    aux = layer_aux if aux is None else aux + layer_aux
+    return rmsnorm(subtree(params, "final_norm"), x), aux
 
 
 def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
     """rmsnorm -> attention -> rmsnorm -> MLP, as the reference's
-    `block_apply` kind "attn"; layer i of the segment's cache `seg`."""
+    `block_apply` kind "attn"; layer i of the segment's cache `seg`. A
+    "moe" layer (parameters under "moe") runs the mixture of experts in
+    place of the MLP, `moe_apply_scatter` when REPRO_MOE_SCATTER is set
+    (read here, as the reference reads it), and returns (x, aux), aux
+    its load-balance loss in "train" mode and None otherwise."""
     h = rmsnorm(lp["ln1"], x)
     if paged is not None:
         layer = {"k": seg["k"][i], "v": seg["v"][i]}
@@ -208,6 +229,11 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
             seg["ptr"][i].fill_(s)
     x = x + attn_out
     h2 = rmsnorm(lp["ln2"], x)
+    if "moe" in lp:
+        moe_fn = (MOE.moe_apply_scatter if os.environ.get("REPRO_MOE_SCATTER")
+                  else MOE.moe_apply)
+        ff, aux = moe_fn(lp["moe"], cfg, h2, with_aux=mode == "train")
+        return x + ff, aux
     return x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
 
 
@@ -270,8 +296,8 @@ def train_loss(cfg, params, batch, window=0, remat=True):
     x = embed(subtree(params, "embed"), tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x = forward(cfg, params, x, positions=positions, window=window,
-                remat=remat)
+    x, aux = forward(cfg, params, x, positions=positions, window=window,
+                     remat=remat)
     logits = logits_fn(cfg, params, x).float()
     m = logits.amax(dim=-1).detach()
     logz = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
@@ -283,7 +309,8 @@ def train_loss(cfg, params, batch, window=0, remat=True):
     else:
         mask = mask.float()
         loss = torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"nll": loss, "aux": aux}
 
 
@@ -337,8 +364,8 @@ def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None,
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = init_cache(cfg, b, max(cache_len or s, s), dtype=cache_dtype,
                         device=x.device, window=window)
-    x = forward(cfg, params, x, positions=positions, mode="prefill",
-                caches=caches, window=window)
+    x, _ = forward(cfg, params, x, positions=positions, mode="prefill",
+                   caches=caches, window=window)
     return logits_fn(cfg, params, x[:, -1:]).float(), caches
 
 
@@ -350,8 +377,8 @@ def decode_step(cfg, params, token, caches, position, window=0):
     b = x.shape[0]
     positions = torch.as_tensor(position, dtype=torch.int32,
                                 device=x.device).reshape(1, 1).expand(b, 1)
-    x = forward(cfg, params, x, positions=positions, mode="decode",
-                caches=caches, window=window)
+    x, _ = forward(cfg, params, x, positions=positions, mode="decode",
+                   caches=caches, window=window)
     return logits_fn(cfg, params, x).float(), caches
 
 
@@ -406,8 +433,8 @@ def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0):
             for leaf in row.values():
                 leaf.zero_()
         rows.append(row)
-    x = forward(cfg, params, x, positions=positions, mode="prefill",
-                caches=rows, window=window)
+    x, _ = forward(cfg, params, x, positions=positions, mode="prefill",
+                   caches=rows, window=window)
     for row in rows:
         if "ptr" in row:
             row["ptr"].fill_(length)
@@ -428,8 +455,8 @@ def decode_rows(cfg, params, token, caches, positions, window=0):
     b = x.shape[0]
     positions = torch.as_tensor(positions, dtype=torch.int32,
                                 device=x.device).reshape(b, 1)
-    x = forward(cfg, params, x, positions=positions, mode="decode",
-                caches=caches, window=window)
+    x, _ = forward(cfg, params, x, positions=positions, mode="decode",
+                   caches=caches, window=window)
     return logits_fn(cfg, params, x).float(), caches
 
 
@@ -474,9 +501,15 @@ def init_pool(cfg, num_blocks, block_size, dtype=torch.bfloat16,
     """Zero paged pool, one {"k", "v": [count, num_blocks + 1, block_size,
     KV, hd]} per segment; block 0 is the null block, so allocatable ids
     are 1..num_blocks. Attention stacks only: recurrent state has no
-    pages."""
+    pages, and MoE routing capacity would change with the chunk."""
     pool = []
     for kind, count in segments(cfg):
+        if kind == "moe":
+            # chunked prefill would change the experts' capacity, which
+            # depends on the static chunk length
+            raise NotImplementedError(
+                f"{cfg.name}: paged KV needs a pure attention stack; moe "
+                "routing capacity depends on the chunk length")
         if kind != "attn":
             raise NotImplementedError(f"{cfg.name}: {kind} layers have no "
                                       "paged pool (recurrent state)")
@@ -502,10 +535,10 @@ def prefill_chunk_into_blocks(cfg, params, tokens, length, ctx_len,
     c = x.shape[1]
     length, ctx_len = int(length), int(ctx_len)
     positions = ctx_len + torch.arange(c, device=x.device)[None]
-    x = forward(cfg, params, x, positions=positions, mode="prefill",
-                caches=pool, window=window,
-                paged={"table": block_table, "ctx_len": ctx_len,
-                       "valid": length})
+    x, _ = forward(cfg, params, x, positions=positions, mode="prefill",
+                   caches=pool, window=window,
+                   paged={"table": block_table, "ctx_len": ctx_len,
+                          "valid": length})
     logits = logits_fn(cfg, params, x[:, length - 1:length]).float()
     return logits, pool
 
@@ -522,9 +555,9 @@ def decode_rows_paged(cfg, params, token, pool, block_tables, lengths,
     params = _cast(cfg, params)
     x = _embed_tokens(cfg, params, token)
     b = x.shape[0]
-    x = forward(cfg, params, x, positions=lengths.reshape(b, 1),
-                mode="decode", caches=pool, window=window,
-                paged={"tables": block_tables, "lengths": lengths})
+    x, _ = forward(cfg, params, x, positions=lengths.reshape(b, 1),
+                   mode="decode", caches=pool, window=window,
+                   paged={"tables": block_tables, "lengths": lengths})
     return logits_fn(cfg, params, x).float(), pool
 
 

@@ -17,7 +17,8 @@ overlapped one by default, as in the reference):
     are right-padded to a power-of-two bucket of at least 8 where that
     is inert (`FamilyCaps.pad_prompts`: a full-causal attention stack)
     and prefill at their exact length otherwise (a stack with recurrent
-    layers, whose state would fold the pads in, or with a sliding window
+    layers, whose state would fold the pads in, with MoE layers, whose
+    expert capacity follows the prompt's length, or with a sliding window
     below the capacity, whose ring the pads would wrap). A recurrent
     layer's row holds its state, not a KV cache; a windowed attention
     layer's row is a ring of the window's capacity.
@@ -32,7 +33,8 @@ overlapped one by default, as in the reference):
     p % window): a slot holds at most ceil(window / block_size) blocks,
     and a full ring allocates no further block however long it runs. A
     family that cannot page (`FamilyCaps.supports_paging`: recurrent
-    state has no pages) serves from the arena, as the reference does;
+    state has no pages, and chunks would change MoE expert capacity)
+    serves from the arena, as the reference does;
     `engine.paged` says which backend is in use.
 
     Paged admission has two policies (`preemption=`). "recompute"
@@ -111,10 +113,12 @@ class FamilyCaps:
 
       pad_prompts: padding prompts to pow2 buckets is inert (an attention
         stack whose rings hold the whole capacity). Recurrent layers fold
-        the pads into their state, and a sliding-window ring would let
-        pads evict real context: those prefill at exact lengths.
+        the pads into their state, MoE routing capacity depends on the
+        static sequence length, and a sliding-window ring would let pads
+        evict real context: those prefill at exact lengths.
       supports_paging: the block-pool backend works (an attention stack
-        with `init_pool`; recurrent state has no pages to page).
+        with `init_pool`; recurrent state has no pages to page, and
+        chunked prefill would change MoE expert capacity).
       supports_chunked_prefill: prompts can stream in through fixed
         chunks (the pool's admission; the same predicate).
       supports_mixed_step: the fused decode + prefill step is sound: a
