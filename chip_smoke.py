@@ -236,7 +236,31 @@ non-zero before the last line:
      bound (its expert weights read once, 1.89 ms), `launch.serve --arch
      dbrx-132b --smoke`; then 8 steady decode steps profiled as phase 9,
      and flash at 48 query heads over 8 kv heads of 128, S = 200, against
-     its plain version and SDPA, timed as phase 25.
+     its plain version and SDPA, timed as phase 25;
+ 40. MLA in f32, card against CPU from one set of parameters: deepseek-
+     v2-236b's smoke config (MLA over the MoE with a shared expert) as
+     phase 38 holds dbrx's (exact-length prefill and 8 decode steps, a
+     mid-flight admission on the serialized arena, then phase 37's
+     training checks: the CLI with aux > 0, one superstep and one DP
+     step, one prox launch a leaf); tests/test_server.py's dense MLA
+     stack on the arena and a 6-block pool (preempting), overlapped and
+     serialized, every run's tokens equal; with a window of 16 it
+     resolves to the serialized arena, tokens equal;
+ 41. MLA at full width, bf16: deepseek-v2-236b cut to 4 of 60 layers
+     (16.94 B parameters, 33.9 GB) through `repro_torch.launch.serve
+     --layers 4` on phase 7's workload as phase 39 serves dbrx, but with
+     no attention kernel launched (MLA's cores are plain PyTorch, as the
+     reference's are jnp), each MLA layer's decode ms against its bound
+     (wq_a ... wo and the latent cache read once) beside each MoE
+     layer's (2.25 ms), 8 steady decode steps profiled; then the dense
+     MLA stack at deepseek's widths (4 layers, its d_ff 1536 as a swiglu
+     MLP; built here, not registered) from the arena and the pool (256
+     blocks of 16, chunks of 32), overlapped and serialized, tokens equal
+     between the schedulers, phase 26's row-stability sweep over its
+     shared products and norms (build/row_stability_sweep_mla.json),
+     its MLA layers' decode ms, 8 profiled decode steps, and two bf16
+     supersteps at 2 layers, A=2, M=1, 2 x 256 tokens (one prox launch a
+     leaf each, ms, peak).
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -398,18 +422,24 @@ def pad_profile():
         torch.cuda._sleep(100)
 
 
-def device_launches(fn, calls=50, attempts=4):
+def device_launches(fn, calls=50, attempts=6):
     """Device launches a call of fn(), after one warm-up call: each
     kernel's count over `calls` calls in one profile between
-    pad_profile()'s sleeps, divided by `calls` and rounded (a profile may
-    lose a few events at its edge, never half of one kernel's), summed
-    over the kernels. A profile that recorded no event of fn at all is
-    taken again, up to `attempts` times; then it raises."""
+    pad_profile()'s sleeps, divided by `calls` and rounded, summed over
+    the kernels. A profile that shows a loss reaching fn's events is
+    taken again, up to `attempts` times: one that kept no more sleeps
+    than one side holds (the loss at an edge may then pass the sleeps),
+    or in which a kernel of fn kept fewer than half the events of its
+    calls (it rounds to none, though fn launches it once a call or more),
+    or no event of fn at all. A loss only lowers a count, so when every
+    profile showed one, the largest count is taken, and that is said; it
+    raises when no profile recorded an event of fn."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best = 0
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             pad_profile()
@@ -417,15 +447,27 @@ def device_launches(fn, calls=50, attempts=4):
                 fn()
             pad_profile()
             torch.cuda.synchronize()
-        counts = [ev.count for ev in prof.key_averages()
-                  if ev.device_type == DeviceType.CUDA
-                  and PAD_KERNEL not in ev.key]
-        if counts:
-            return sum(round(n / calls) for n in counts)
-        print("device_launches: the profile recorded no device event of "
-              "the calls; again", flush=True)
-    raise AssertionError("device_launches: no profile recorded a device "
-                         "event of the calls")
+        pads, counts = 0, []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            if PAD_KERNEL in ev.key:
+                pads += ev.count
+            else:
+                counts.append(ev.count)
+        per_kernel = [round(n / calls) for n in counts]
+        if counts and all(per_kernel) and pads > PAD_LAUNCHES:
+            return sum(per_kernel)
+        best = max(best, sum(per_kernel))
+        print(f"device_launches: the profile lost events (kept {pads} of "
+              f"{2 * PAD_LAUNCHES} sleeps; events of the calls by kernel "
+              f"{counts}); again", flush=True)
+    if not best:
+        raise AssertionError("device_launches: no profile recorded a device "
+                             "event of the calls")
+    print(f"device_launches: every profile lost events; the largest count, "
+          f"{best}", flush=True)
+    return best
 
 
 def device_ms(fn, iters, one_kernel=False, attempts=4, launches=None):
@@ -865,7 +907,7 @@ def launches_by_kernel(prof):
     return out
 
 
-def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
+def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS, cfg=None):
     """Device time by kernel over `steps` steady decode steps at full
     width (8 live rows of 200-token prompts of `argv`'s model; arena or
     paged pool),
@@ -879,12 +921,13 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
     pad_profile()'s sleeps, which no count or time includes. Returns the
     recurrent kernels' wrapper calls and device launches per admission
     and per step ({"per_admission": ..., "per_step": ...}), or None when
-    the profile recorded no device time."""
+    the profile recorded no device time. cfg: a config to build in place
+    of argv's --arch (`serve_cli.build`'s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = serve_cli.parse_args(argv)
-    _, cfg, model, params = serve_cli.build(args)
+    _, cfg, model, params = serve_cli.build(args, cfg)
     prompts, _ = serve_cli.workload(args, cfg.vocab_size)
     eng = Engine(model, params, max_batch=8, max_len=512, paged=paged)
     del params
@@ -2150,6 +2193,8 @@ def mixed_reference_check(arch="qwen2-0.5b"):
 # the mixed trunk's shared products: (name, leaf of layer 0), where the
 # config has the leaf
 SHARED_PRODUCTS = (("wq", "attn.wq"), ("wk", "attn.wk"), ("wv", "attn.wv"),
+                   ("wq_a", "attn.wq_a"), ("wq_b", "attn.wq_b"),
+                   ("wkv_a", "attn.wkv_a"),
                    ("wo", "attn.wo"), ("w_gate", "mlp.w_gate"),
                    ("w_up", "mlp.w_up"), ("w_down", "mlp.w_down"))
 
@@ -2165,7 +2210,8 @@ def _row_stability(params, h_rows, p_rows, gen):
     selects (B decode rows against the prompt's last one); beside each
     norm, its f32 mean of squares ("_f32_mean"), where another summation
     order shows at once, though it tips the bf16 output only now and
-    then."""
+    then. An MLA layer has MLA's down products (wq_a, wkv_a), wq_b and
+    its q_norm and kv_norm (over q_lora and r, one per token)."""
     from repro_torch.models.layers import rmsnorm
 
     out = {}
@@ -2194,7 +2240,12 @@ def _row_stability(params, h_rows, p_rows, gen):
     d = scale["scale"].shape[0]
     one("rmsnorm", d, lambda x: rmsnorm(scale, x))
     one("rmsnorm_f32_mean", d, mean_sq)
-    for name in ("q_norm", "k_norm"):
+    mla = "segments.0.attn.wkv_a" in params
+    for name in ("q_norm", "kv_norm") if mla else ():
+        w = params[f"segments.0.attn.{name}.scale"]
+        one(name, w.shape[1], lambda x, w=w[0]: rmsnorm({"scale": w}, x))
+        one(f"{name}_f32_mean", w.shape[1], mean_sq)
+    for name in () if mla else ("q_norm", "k_norm"):
         w = params.get(f"segments.0.attn.{name}.scale")
         if w is not None:
             heads = params["segments.0.attn.wq" if name == "q_norm"
@@ -2220,31 +2271,35 @@ SWEEP_CHUNK = 32
 def _per_half(op):
     """Whether the mixed step runs the op of a row-stability report per
     half: the products of `attention.MIXED_PER_HALF`, and every norm (the
-    layer norms and qk-norm go through `mixed_rmsnorm`)."""
+    layer norms, qk-norm and MLA's q_norm and kv_norm go through
+    `mixed_rmsnorm`)."""
     from repro_torch.models.attention import MIXED_PER_HALF
 
     base = op.replace("_f32_mean", "")
-    return base in MIXED_PER_HALF or base in ("q_norm", "k_norm")
+    return base in MIXED_PER_HALF or base in ("q_norm", "k_norm", "kv_norm")
 
 
-def dense_row_stability(gen):
+def dense_row_stability(gen, configs=None, out="row_stability_sweep.json"):
     """Phase 26: `_row_stability` at every dense config's widths (layer 0's
-    weights and the unembedding, random bf16, made on the card), for the
+    weights and the unembedding, random bf16, made on the card; `configs`
+    in place of those, as phase 41 gives the dense MLA stack), for the
     arena's mixed batch (B decode rows + Sp prompt rows, every prompt
     bucket) and the pool's (B + C = 32), B = 1, 4, 8. Prints one JSON line:
     for each config, each op that is not bitwise row-stable with the
     shapes where it is not and their largest difference, and the shared
     ops among them (those the mixed step does not run per half). Writes
-    the whole report to build/row_stability_sweep.json. Raises if a
-    shared op is not row-stable at some shape: there the overlapped
-    engine's tokens could leave the serialized ones."""
+    the whole report to build/`out`. Raises if a shared op is not
+    row-stable at some shape: there the overlapped engine's tokens could
+    leave the serialized ones."""
     from repro_torch.models import transformer as TF
     from repro_torch.models.layers import _he
 
     bf = torch.bfloat16
     report, unstable, shared = {}, {}, {}
-    for arch in ("qwen2-0.5b",) + DENSE_ARCHS:
-        cfg = get_config(arch)
+    if configs is None:
+        configs = [get_config(a) for a in ("qwen2-0.5b",) + DENSE_ARCHS]
+    for cfg in configs:
+        arch = cfg.name
         params = {f"segments.0.{k}": v for k, v in TF.block_init(
             gen, (1,), cfg, "attn", bf).items()}
         params["head"] = _he(gen, (cfg.d_model, cfg.vocab_size), bf,
@@ -2267,8 +2322,7 @@ def dense_row_stability(gen):
         if moved:
             shared[arch] = {op: ops_[op] for op in moved}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build", "row_stability_sweep.json"),
-              "w") as f:
+    with open(os.path.join(ROOT, "build", out), "w") as f:
         json.dump(report, f)
     print(json.dumps({"row_stability_sweep": {
         "Sp": SWEEP_SP, "B": SWEEP_B, "pool_chunk": SWEEP_CHUNK,
@@ -3245,21 +3299,15 @@ def training_reference_check(arch):
 MOE_ARCH = "dbrx-132b"
 
 
-def moe_reference_check():
-    """Phase 38: dbrx's smoke config in f32 on the card and on the CPU from
-    one set of parameters: exact-length prefill_into_slot and 8 decode
-    steps (phase 8's check; logits within 1e-4), an engine on each with
-    one mid-flight admission (equal tokens, the arena, serialized, every
-    prompt prefilled at its exact length), the scatter variant's
-    train_loss (REPRO_MOE_SCATTER; loss, nll and aux within 1e-4 of their
-    size), then phase 37's training checks (the CLI's API-BCD and
-    --baseline runs with aux > 0, one superstep and one DP-baseline step
-    card against CPU, one prox launch a leaf). Returns the training
-    report."""
-    serving_reference_check(MOE_ARCH, exact=True)
+def mid_flight_engines(arch):
+    """`arch`'s smoke config in f32 (TF32 off), one set of parameters on
+    the CPU and a copy on the card: an engine on each serves a request of
+    7 tokens, and one of 5 admitted after two steps; the tokens must be
+    equal, from the serialized arena, each prompt prefilled at its exact
+    length. Returns (model, CPU params, card params, the runs)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_smoke(MOE_ARCH), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(0))
     gpu = _to(cpu, DEV)
@@ -3277,10 +3325,28 @@ def moe_reference_check():
                                   sorted(eng.run(), key=lambda r: r.uid)],
                       "prefill_shapes": sorted(eng.prefill_shapes),
                       "paged": eng.paged, "overlap": eng.overlap}
-    report = {"engines": runs}
+    print(json.dumps({"mid_flight_engines": {arch: runs}}), flush=True)
     if (runs["card"] != runs["cpu"] or runs["card"]["prefill_shapes"]
             != [5, 7] or runs["card"]["paged"] or runs["card"]["overlap"]):
-        raise AssertionError(f"dbrx engines, card against CPU: {runs}")
+        raise AssertionError(f"{arch} engines, card against CPU: {runs}")
+    return model, cpu, gpu, runs
+
+
+def moe_reference_check():
+    """Phase 38: dbrx's smoke config in f32 on the card and on the CPU from
+    one set of parameters: exact-length prefill_into_slot and 8 decode
+    steps (phase 8's check; logits within 1e-4), an engine on each with
+    one mid-flight admission (equal tokens, the arena, serialized, every
+    prompt prefilled at its exact length), the scatter variant's
+    train_loss (REPRO_MOE_SCATTER; loss, nll and aux within 1e-4 of their
+    size), then phase 37's training checks (the CLI's API-BCD and
+    --baseline runs with aux > 0, one superstep and one DP-baseline step
+    card against CPU, one prox launch a leaf). Returns the training
+    report."""
+    serving_reference_check(MOE_ARCH, exact=True)
+    model, cpu, gpu, runs = mid_flight_engines(MOE_ARCH)
+    cfg = model.cfg
+    report = {"engines": runs}
 
     toks, targs = next(agent_batches(cfg.vocab_size, 1, 2, 48, seed=2))
     batch = {"tokens": torch.from_numpy(toks[0]),
@@ -3332,8 +3398,12 @@ def moe_admission_drops(cfg, params, prompts):
         caps.add(cap)
         slots += s * cfg.moe.top_k
         for i, lp in enumerate(TF._layers(p, 0, cfg.num_layers)):
-            attn, _ = A.gqa_prefill(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
-                                    positions, kernel=True)
+            h = rmsnorm(lp["ln1"], x)
+            if cfg.mla is not None:
+                attn, _ = A.mla_prefill(lp["attn"], cfg, h, positions)
+            else:
+                attn, _ = A.gqa_prefill(lp["attn"], cfg, h, positions,
+                                        kernel=True)
             x = x + attn
             h = rmsnorm(lp["ln2"], x)
             _, _, gate_i = MOE.route(lp["moe"], cfg, h)
@@ -3367,50 +3437,55 @@ def moe_decode_layers(cfg, params, gen):
     return out
 
 
-def moe_serving(gen):
-    """Phase 39: dbrx-132b at full width cut to MOE_LAYERS layers, bf16
-    parameters, through `repro_torch.launch.serve --layers` on phase 7's
-    workload: the arena, serialized, every prompt prefilled at its exact
-    length, MOE_LAYERS flash launches an admission and MOE_LAYERS decode
-    launches a step and no other kernel, every budget served, the init's
-    and the run's peaks; then two requests re-served alone (the same
-    tokens), one decode step over 8 live rows repeated on a copy of its
-    arena (bitwise equal logits), the slots the admissions drop at
-    capacity, each MoE layer's decode time against its bound, and
-    `launch.serve --arch dbrx-132b --smoke` on the card. Returns the
-    run's launches."""
-    args = serve_cli.parse_args(MOE_SERVE_ARGS)
-    print(" ".join(MOE_SERVE_ARGS))
+def moe_serving(gen, arch=MOE_ARCH, argv=MOE_SERVE_ARGS):
+    """Phase 39: dbrx-132b at full width cut to MOE_LAYERS layers (phase
+    41: deepseek-v2-236b, `arch` and `argv`), bf16 parameters, through
+    `repro_torch.launch.serve --layers` on phase 7's workload: the arena,
+    serialized, every prompt prefilled at its exact length, one flash
+    launch a layer an admission and one decode launch a layer a step and
+    no other kernel (MLA: no attention kernel at all; its cores are plain
+    PyTorch), every budget served, the init's and the run's peaks; then
+    two requests re-served alone (the same tokens), one decode step over
+    8 live rows repeated on a copy of its arena (bitwise equal logits),
+    the slots the admissions drop at capacity, each MoE layer's decode
+    time against its bound, and `launch.serve --arch ... --smoke` on the
+    card. Returns (the run's launches, the report)."""
+    args = serve_cli.parse_args(argv)
+    print(" ".join(argv))
     reset_counts()
     out = serve_cli.serve(args)
     launches = counts()
     st = out["stats"]
     summary = serving_summary(out, launches)
-    summary.update(layers=MOE_LAYERS, prefill_shapes=out["prefill_shapes"],
+    summary.update(arch=arch, layers=args.layers,
+                   prefill_shapes=out["prefill_shapes"],
                    init_peak_GB=out["init_peak_bytes"] / 1e9,
                    after_init_GB=out["init_bytes"] / 1e9)
     print(json.dumps({"moe_serving": summary}), flush=True)
     want = {k: 0 for k in launches}
-    want.update(flash_attention=MOE_LAYERS * st["admissions"],
-                decode_attention=MOE_LAYERS * st["decode_steps"])
+    if get_config(arch).mla is None:
+        want.update(flash_attention=args.layers * st["admissions"],
+                    decode_attention=args.layers * st["decode_steps"])
     if launches != want:
-        raise AssertionError(f"dbrx serving: launches {launches}, expected "
-                             f"{want}")
+        raise AssertionError(f"{arch} serving: launches {launches}, "
+                             f"expected {want}")
     if out["paged"] or st["overlap_mode"] or st["mixed_steps"]:
-        raise AssertionError(f"dbrx serving did not run the serialized "
+        raise AssertionError(f"{arch} serving did not run the serialized "
                              f"arena: {st}")
     if out["prefill_shapes"] != [args.prompt_len]:
-        raise AssertionError(f"dbrx prompts were not prefilled at their "
+        raise AssertionError(f"{arch} prompts were not prefilled at their "
                              f"exact length: {out['prefill_shapes']}")
     if [len(o) for o in out["outputs"]] != out["budgets"]:
-        raise AssertionError("a dbrx request did not get its budget's "
+        raise AssertionError(f"a {arch} request did not get its budget's "
                              f"tokens: {[len(o) for o in out['outputs']]}")
     torch.cuda.empty_cache()
 
     _, cfg, model, params = serve_cli.build(args)
     prompts, budgets = serve_cli.workload(args, cfg.vocab_size)
-    report = {"admission_drops": moe_admission_drops(cfg, params, prompts)}
-    print(json.dumps({"moe_serving": report}), flush=True)
+    report = {"arch": arch, "serving": summary,
+              "admission_drops": moe_admission_drops(cfg, params, prompts)}
+    print(json.dumps({"moe_serving": {"admission_drops": report[
+        "admission_drops"]}}), flush=True)
 
     # one decode step over 8 live rows, twice on copies of one arena
     arena = model.init_arena(8, out["max_len"], device=DEV)
@@ -3429,9 +3504,13 @@ def moe_serving(gen):
     report["decode_repeat_bitwise"] = bool(torch.equal(first, second))
     del arena, first, second
     report["moe_decode_layers"] = moe_decode_layers(cfg, params, gen)
-    print(json.dumps({"moe_serving": report}), flush=True)
+    if cfg.mla is not None:
+        report["mla_decode_layers"] = mla_decode_layers(cfg, params, gen)
+    print(json.dumps({"moe_serving": {k: v for k, v in report.items()
+                                      if k != "serving"}}), flush=True)
     if not report["decode_repeat_bitwise"]:
-        raise AssertionError("a repeated dbrx decode step gave other logits")
+        raise AssertionError(f"a repeated {arch} decode step gave other "
+                             "logits")
 
     eng = Engine(model, params, max_batch=args.max_batch,
                  max_len=out["max_len"])
@@ -3440,20 +3519,299 @@ def moe_serving(gen):
         eng.submit(prompts[uid], max_new_tokens=budgets[uid])
         (alone,) = eng.run()[-1:]
         if alone.output.tolist() != out["outputs"][uid]:
-            raise AssertionError(f"dbrx request {uid} served alone gave "
+            raise AssertionError(f"{arch} request {uid} served alone gave "
                                  f"{alone.output.tolist()}, batched "
                                  f"{out['outputs'][uid]}")
     print(json.dumps({"moe_solo_reserves_equal": [0, 1]}), flush=True)
     del eng
     torch.cuda.empty_cache()
 
-    argv = ["--arch", MOE_ARCH, "--smoke", "--requests", "4", "--max-batch",
+    argv = ["--arch", arch, "--smoke", "--requests", "4", "--max-batch",
             "2", "--prompt-len", "8", "--new-tokens", "4"]
     print(" ".join(argv))
     smoke = serve_cli.serve(serve_cli.parse_args(argv))
     if [len(o) for o in smoke["outputs"]] != smoke["budgets"]:
-        raise AssertionError(f"dbrx smoke CLI: {smoke['outputs']}")
-    return launches
+        raise AssertionError(f"{arch} smoke CLI: {smoke['outputs']}")
+    return launches, report
+
+
+# phases 40 and 41: MLA (deepseek-v2-236b's latent attention)
+MLA_ARCH = "deepseek-v2-236b"
+# (prompt_len, budget, arrival_step), as tests/test_server.py's _STAGGER
+STAGGER = [(9, 6, 0), (5, 8, 0), (7, 5, 2), (4, 7, 3), (6, 6, 5)]
+
+
+def mla_test_config():
+    """tests/test_server.py's _mla_cfg (a dense MLA stack: 2 layers,
+    d_model 64, 4 heads, kv_lora 16, q_lora 32, nope 16, rope 8, v 16),
+    in f32 compute."""
+    from repro_torch.configs.base import ArchConfig, MLAConfig
+
+    return ArchConfig(name="mla-overlap-t", family="dense", source="test",
+                      num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                      d_ff=128, vocab_size=256, tie_embeddings=True,
+                      compute_dtype="float32",
+                      mla=MLAConfig(kv_lora_rank=16, q_lora_rank=32,
+                                    qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                    v_head_dim=16))
+
+
+def run_staggered(eng, vocab):
+    """Drive STAGGER through `eng`: (outputs in submit order, stats)."""
+    rng = np.random.default_rng(7)
+    reqs = [(rng.integers(0, vocab, (n,)), b) for n, b, _ in STAGGER]
+    outs, uids, nxt, step_i = {}, [], 0, 0
+    while nxt < len(reqs) or eng.num_active or eng.pending:
+        if step_i >= 400:
+            raise AssertionError("the engine did not drain in 400 steps")
+        while nxt < len(reqs) and STAGGER[nxt][2] <= step_i:
+            uids.append(eng.submit(reqs[nxt][0], max_new_tokens=reqs[nxt][1]))
+            nxt += 1
+        for r in eng.step():
+            outs[r.uid] = r.output.tolist()
+        step_i += 1
+    return [outs[u] for u in uids], eng.stats
+
+
+def mla_reference_check():
+    """Phase 40: MLA in f32 (TF32 off), card against CPU from one set of
+    parameters. deepseek's smoke config (MLA over the MoE with a shared
+    expert): exact-length prefill and 8 decode steps (phase 8's check,
+    logits within 1e-4), an engine with a mid-flight admission (equal
+    tokens, the serialized arena, prefill shapes the lengths), then phase
+    37's training checks (launch.train --smoke with API-BCD and
+    --baseline, finite losses and aux > 0; one superstep and one DP step
+    within phase 37's rule; one prox launch a leaf). The dense MLA stack
+    at _mla_cfg's shape: the arena and the pool (6 blocks of 4, so it
+    preempts), overlapped and serialized, on STAGGER, every run's tokens
+    equal on the card and the CPU; and with a window of 16 it resolves to
+    the serialized arena, card against CPU. Returns the training
+    report."""
+    serving_reference_check(MLA_ARCH, exact=True)
+    mid_flight_engines(MLA_ARCH)
+    cfg = mla_test_config()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = _to(cpu, DEV)
+    report = {}
+    for paged in (False, True):
+        runs = {}
+        for overlap in (True, False):
+            for name, params in (("cpu", cpu), ("card", gpu)):
+                eng = Engine(model, params, max_batch=2, max_len=24,
+                             paged=paged, block_size=4, prefill_chunk=4,
+                             num_blocks=6 if paged else None, overlap=overlap,
+                             cache_dtype=torch.float32)
+                runs[name, overlap] = run_staggered(eng, cfg.vocab_size)
+        outs = {k: v[0] for k, v in runs.items()}
+        st = {f"{name}_{'overlapped' if ov else 'serialized'}": {
+            k: v[1][k] for k in ("overlap_mode", "mixed_steps",
+                                 "overlapped_admissions", "preemptions")}
+            for (name, ov), v in runs.items()}
+        report["paged" if paged else "arena"] = {"outputs": outs[
+            "card", True], "stats": st}
+        if len({str(o) for o in outs.values()}) != 1:
+            raise AssertionError(f"MLA {'paged' if paged else 'arena'} "
+                                 f"engines disagree: {outs}")
+        if any(runs[n, True][1]["mixed_steps"] < 1 for n in ("cpu", "card")):
+            raise AssertionError(f"MLA engines ran no mixed step: {st}")
+        if paged and any(v[1]["preemptions"] < 1 for v in runs.values()):
+            raise AssertionError(f"the MLA pool did not preempt: {st}")
+    windowed = build_model(cfg, window=16)
+    wruns = {}
+    for name, params in (("cpu", cpu), ("card", gpu)):
+        eng = Engine(windowed, params, max_batch=2, max_len=32, paged=True,
+                     cache_dtype=torch.float32)
+        if eng.paged or eng.overlap:
+            raise AssertionError("windowed MLA did not resolve to the "
+                                 "serialized arena")
+        wruns[name] = run_staggered(eng, cfg.vocab_size)[0]
+    report["windowed_arena"] = wruns["card"]
+    print(json.dumps({"mla_reference": report}), flush=True)
+    if wruns["card"] != wruns["cpu"]:
+        raise AssertionError(f"windowed MLA, card against CPU: {wruns}")
+    return training_reference_check(MLA_ARCH)
+
+
+MLA_LAYERS = 4              # of deepseek-v2-236b's 60: 16.94 B parameters
+MLA_SERVE_ARGS = ["--arch", MLA_ARCH, "--layers", str(MLA_LAYERS)] + \
+    SERVE_ARGS[2:]
+MLA_TRAIN_LAYERS = 2        # the dense MLA superstep: ~1.40 B parameters
+
+
+def dense_mla_config(layers=MLA_LAYERS):
+    """The dense MLA stack at deepseek-v2-236b's widths (its attention,
+    its d_ff of 1536 as a swiglu MLP, its embedding and head), cut to
+    `layers`, as tests/test_server.py builds _mla_cfg in place: no
+    registry entry."""
+    full = get_config(MLA_ARCH)
+    return dataclasses.replace(full, name="deepseek-v2-dense-mla",
+                               family="dense", num_layers=layers,
+                               layer_types=("attn",) * layers, moe=None)
+
+
+def mla_decode_layers(cfg, params, gen, b=8, t=512):
+    """Device ms and launches of each layer's `mla_decode` (the
+    projections, the absorbed attention in f32 and wo) over b rows of a
+    t-slot latent arena, bf16, beside its bound: the latent cache and
+    wq_a ... wo read once."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as TF
+
+    m = cfg.mla
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    out = []
+    for lp in TF._layers(TF._cast(cfg, params), 0, cfg.num_layers):
+        attn = lp["attn"]
+        cache = {"ckv": torch.randn((b, t, m.kv_lora_rank), generator=gen,
+                                    device=DEV).to(torch.bfloat16),
+                 "kpe": torch.randn((b, t, m.qk_rope_head_dim),
+                                    generator=gen, device=DEV).to(
+                                        torch.bfloat16),
+                 "ptr": torch.full((b,), 232, dtype=torch.int32,
+                                   device=DEV)}
+        pos = cache["ptr"].reshape(b, 1).clone()
+        nbytes = sum(v.numel() * v.element_size()
+                     for v in list(attn.values()) + [cache["ckv"],
+                                                     cache["kpe"]])
+
+        def fn(attn=attn, cache=cache, pos=pos):
+            return A.mla_decode(attn, cfg, x, cache, pos)
+
+        out.append({"ms": device_ms(fn, 10),
+                    "launches": device_launches(fn, calls=10),
+                    "bytes": nbytes,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def dense_mla_serving():
+    """Phase 41's dense MLA arms: `dense_mla_config()` through
+    `repro_torch.launch.serve` on phase 7's workload from the arena and
+    the paged pool (256 blocks of 16, chunks of 32), overlapped and then
+    serialized: no attention kernel launched (MLA's cores are plain
+    PyTorch), mixed steps in the overlapped runs, every budget served,
+    every block returned, and each request's tokens equal between the
+    schedulers on each backend. Returns the summaries."""
+    cfg = dense_mla_config()
+    report = {}
+    for paged in (False, True):
+        argv = SERVE_ARGS[2:] + (["--paged", "--block-size", "16"]
+                                 if paged else [])
+        backend = "paged" if paged else "arena"
+        runs = {}
+        for overlap in (True, False):
+            print(cfg.name, " ".join(argv), f"(overlap={overlap})")
+            reset_counts()
+            out = serve_cli.serve(serve_cli.parse_args(argv), overlap=overlap,
+                                  cfg=cfg)
+            got = counts()
+            st = out["stats"]
+            if overlap:
+                assert_overlapped(f"dense MLA {backend}", st)
+            elif st["overlap_mode"] or st["mixed_steps"]:
+                raise AssertionError("dense MLA: overlap=False ran "
+                                     "overlapped")
+            if any(got.values()):
+                raise AssertionError(f"dense MLA {backend} launched "
+                                     f"kernels: {got}")
+            if out["paged"] != paged or [len(o) for o in out["outputs"]] \
+                    != out["budgets"]:
+                raise AssertionError(f"dense MLA {backend}: not served "
+                                     f"as asked")
+            if paged and out["free_blocks"] != out["num_blocks"]:
+                raise AssertionError("dense MLA: blocks were not returned")
+            runs[overlap] = out
+            summary = serving_summary(out, got)
+            summary.update(init_peak_GB=out["init_peak_bytes"] / 1e9,
+                           after_init_GB=out["init_bytes"] / 1e9)
+            name = f"{backend}_{'overlapped' if overlap else 'serialized'}"
+            report[name] = summary
+            print(json.dumps({f"dense_mla_serving_{name}": summary}),
+                  flush=True)
+            torch.cuda.empty_cache()
+        differ = [u for u, (a, b) in enumerate(zip(runs[True]["outputs"],
+                                                   runs[False]["outputs"]))
+                  if a != b]
+        if differ:
+            raise AssertionError(f"dense MLA {backend}: overlapped and "
+                                 f"serialized tokens differ for {differ}")
+    return report
+
+
+def dense_mla_training():
+    """Phase 41's supersteps: two API-BCD supersteps of the dense MLA
+    stack cut to MLA_TRAIN_LAYERS layers in its own dtypes (bf16
+    parameters and compute), A=2, M=1, 2 x 256 tokens an agent (the
+    first's ms includes first use): finite losses, one prox launch a leaf
+    (16) each, superstep ms and peak."""
+    cfg = dense_mla_config(MLA_TRAIN_LAYERS)
+    tcfg = TrainConfig(num_agents=2, num_walks=1, tau=0.05, rho=20.0)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=DEV).manual_seed(0))
+    leaves = len(state["params"])
+    n_params = sum(v[0].numel() for v in state["params"].values())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step_fn = make_train_step(model, tcfg)
+    toks, targs = next(agent_batches(cfg.vocab_size, 2, 2, 256, seed=0))
+    batch = {"tokens": torch.from_numpy(toks).to(DEV),
+             "targets": torch.from_numpy(targs).to(DEV)}
+    step_ms, total = [], 0
+    for step in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: v for k, v in counts().items() if v}
+        total += launches.get("prox_update", 0)
+        loss = float(m["loss"])
+        if launches != {"prox_update": leaves} or not np.isfinite(loss):
+            raise AssertionError(f"dense MLA superstep {step}: loss {loss}, "
+                                 f"launches {launches}, {leaves} leaves")
+    report = {"layers": MLA_TRAIN_LAYERS, "agents": 2, "walks": 1,
+              "batch": [2, 256], "params": n_params, "leaves": leaves,
+              "state_GB": state_gb, "loss": loss, "superstep_ms": step_ms,
+              "launches_per_superstep": launches,
+              "launches": {"prox_update": total},
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps({"dense_mla_training": report}), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def mla_full_width(gen):
+    """Phase 41: deepseek-v2-236b at full width cut to MLA_LAYERS layers
+    through `launch.serve --layers` (`moe_serving`, no attention kernel),
+    the dense MLA stack at its widths served four ways with its shared
+    ops' row stability (phase 26's sweep), each MLA layer's decode time
+    against its bound, two bf16 supersteps of the dense stack, and 8
+    steady decode steps of each model profiled as phase 9. Returns the
+    report."""
+    report = {}
+    _, report["deepseek"] = moe_serving(gen, MLA_ARCH, MLA_SERVE_ARGS)
+    torch.cuda.empty_cache()
+    profile_decode_steps(argv=MLA_SERVE_ARGS)
+    torch.cuda.empty_cache()
+    report["dense_serving"] = dense_mla_serving()
+    dense_row_stability(gen, [dense_mla_config(1)],
+                        out="row_stability_sweep_mla.json")
+    cfg = dense_mla_config()
+    _, _, _, params = serve_cli.build(serve_cli.parse_args(SERVE_ARGS[2:]),
+                                      cfg)
+    report["dense_mla_decode_layers"] = mla_decode_layers(cfg, params, gen)
+    print(json.dumps({"dense_mla_decode_layers": report[
+        "dense_mla_decode_layers"]}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    profile_decode_steps(argv=SERVE_ARGS, cfg=cfg)
+    torch.cuda.empty_cache()
+    report["training"] = dense_mla_training()
+    return report
 
 
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
@@ -3854,13 +4212,25 @@ def main():
 
     phase(f"39 dbrx-132b serving: full width, {MOE_LAYERS} layers, through "
           "repro_torch.launch.serve; profile; flash at 48:8 heads of 128")
-    moe_launches = moe_serving(gen)
+    moe_launches, _ = moe_serving(gen)
     torch.cuda.empty_cache()
     profile_decode_steps(argv=MOE_SERVE_ARGS)
     torch.cuda.empty_cache()
     flash_cases.append(check_flash_case(
         "dbrx-132b 48:8 heads of 128, exact-length prefill S=200", 200, gen,
         h=48, kv=8, hd=128))
+    torch.cuda.empty_cache()
+
+    phase("40 MLA reference (deepseek-v2-236b, a dense MLA stack): card "
+          "against CPU at smoke size, serving and training")
+    mla_train = mla_reference_check()
+    torch.cuda.empty_cache()
+
+    phase(f"41 MLA at full width: deepseek-v2-236b, {MLA_LAYERS} layers, "
+          "through repro_torch.launch.serve; the dense MLA stack on the "
+          "arena and the pool, its row stability, its superstep; profiles")
+    mla_full = mla_full_width(gen)
+    torch.cuda.empty_cache()
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
@@ -3888,7 +4258,12 @@ def main():
                           "prox_update"],
                       "dbrx smoke training": moe_train[
                           "superstep_card_vs_cpu"]["launches"][
-                          "prox_update"]},
+                          "prox_update"],
+                      "deepseek smoke training": mla_train[
+                          "superstep_card_vs_cpu"]["launches"][
+                          "prox_update"],
+                      "dense MLA training": mla_full["training"][
+                          "launches"]["prox_update"]},
                      cases, cases[1]),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -21,6 +21,7 @@ ARCH_IDS = {
     "qwen3-8b": "qwen3_8b",
     "nemotron-4-15b": "nemotron4_15b",
     "dbrx-132b": "dbrx_132b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 

@@ -19,24 +19,26 @@ and at smoke size on the CPU:
 
 --arch rwkv6-1.6b serves the RWKV6 recurrent stack, --arch
 recurrentgemma-2b the RG-LRU and local-attention hybrid (its 2048-token
-window a ring in each slot), and --arch dbrx-132b the mixture of experts
-(serialized: its expert capacity depends on the prompt's length), from
-the arena, each prompt prefilled at its exact length. --layers N keeps
-the first N layers at full width, for a model whose depth does not fit
-the card (dbrx-132b at 4 of its 40 layers is 28.5 GB in bf16).
+window a ring in each slot), and --arch dbrx-132b and deepseek-v2-236b
+(MLA attention over a latent cache) the mixture of experts (serialized:
+its expert capacity depends on the prompt's length), from the arena,
+each prompt prefilled at its exact length. --layers N keeps the first N
+layers at full width, for a model whose depth does not fit the card
+(dbrx-132b at 4 of its 40 layers is 28.5 GB in bf16, deepseek-v2-236b at
+4 of its 60 layers 33.9 GB).
 
 --mixed interleaves short (new_tokens // 4) and long budgets. --paged
 serves from a shared pool of KV blocks (--block-size tokens each,
 --num-blocks of them; default: the arena's footprint) with chunked
 prefill, admitting under --preemption recompute (optimistic, preempting
 the newest request when the pool runs dry) or reserve (worst-case
-reservation); a model that cannot page (rwkv6, recurrentgemma, dbrx)
-serves from the arena and says why. The reference's --wave is not ported, and,
-as the reference's CLI, this one always runs the engine's default
-scheduler (`Engine(overlap=False)` is the serialized one). Prints
-tokens/s, p50/p99 request latency, the resolved overlap mode with its
-mixed steps and overlapped admissions, and, for the pool, preemptions
-and free blocks.
+reservation); a model that cannot page (rwkv6, recurrentgemma, dbrx,
+deepseek, a windowed MLA model) serves from the arena and says why. The
+reference's --wave is not ported, and, as the reference's CLI, this one
+always runs the engine's default scheduler (`Engine(overlap=False)` is
+the serialized one). Prints tokens/s, p50/p99 request latency, the
+resolved overlap mode with its mixed steps and overlapped admissions,
+and, for the pool, preemptions and free blocks.
 """
 from __future__ import annotations
 
@@ -87,9 +89,10 @@ def workload(args, vocab_size):
     return prompts, budgets
 
 
-def build(args):
+def build(args, cfg=None):
     """(device, cfg, model, params) for args: random weights from seed 0,
-    made on the device."""
+    made on the device. cfg: a config to build in place of --arch's (one
+    the registry does not hold), cut by --layers all the same."""
     import dataclasses
 
     import torch
@@ -98,7 +101,8 @@ def build(args):
     from repro_torch.models import build_model
 
     device = resolve_device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers,
                                   layer_types=cfg.layer_types[:args.layers])
@@ -107,9 +111,19 @@ def build(args):
     return device, cfg, model, params
 
 
-def serve(args, overlap=True):
+def paging_refusal(cfg):
+    """Why a model of `cfg` cannot page, as the engine's probe finds."""
+    if "moe" in cfg.layer_types:
+        return "moe routing capacity depends on the chunk length"
+    if cfg.mla is not None:
+        return "windowed MLA has no windowed arena family"
+    return "recurrent state"
+
+
+def serve(args, overlap=True, cfg=None):
     """Serve the workload through `Engine(..., overlap=overlap)` (the CLI
-    keeps the engine's default, overlapped where the family allows it).
+    keeps the engine's default, overlapped where the family allows it);
+    cfg: as `build`'s.
     Returns {"outputs" (token lists by uid),
     "budgets", "prefill_shapes" (the admitted prompt or chunk lengths),
     "step_ms" (host time of every engine step, ending in its
@@ -130,8 +144,12 @@ def serve(args, overlap=True):
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     if cuda:
+        # f32 products (MLA's absorbed decode) in full f32, never TF32, as
+        # the reference computes them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats(device)
-    device, cfg, model, params = build(args)
+    device, cfg, model, params = build(args, cfg)
     init_peak = torch.cuda.max_memory_allocated(device) if cuda else None
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -177,8 +195,7 @@ def serve(args, overlap=True):
     print(f"  {toks} tokens in {total:.3f}s ({toks / total:.1f} tok/s); "
           f"latency p50 {p50:.3f}s p99 {p99:.3f}s")
     if args.paged and not eng.paged:
-        reason = ("moe routing capacity depends on the chunk length"
-                  if "moe" in cfg.layer_types else "recurrent state")
+        reason = paging_refusal(cfg)
         print(f"  --paged: {cfg.name} cannot page ({reason}), so it was "
               "served from the arena")
     print(f"  overlap_mode {st['overlap_mode']!r}; mixed_steps "

@@ -1,5 +1,6 @@
-"""GQA attention: the training path and the serving half (prefill into a
-KV cache, one-token decode against it), as in `repro/models/attention.py`.
+"""GQA and MLA attention: the training path and the serving half (prefill
+into a cache, one-token decode against it), as in
+`repro/models/attention.py`.
 
 Training attention stays plain PyTorch (`chunked_attention`), as the
 reference computes it outside any Pallas kernel, so autograd can run
@@ -21,6 +22,13 @@ buffers. The paged pool's decode goes through `decode_attention_paged`
 (`decode_attention_ring` for a window), the paged and ring kernels on
 the card; its chunk prefill attends with plain PyTorch, as the
 reference does with jnp.
+
+MLA (DeepSeek-V2's latent attention, the `mla_*` functions) caches the
+latents {ckv, kpe} in place of K/V, on the arena and the pool alike. Its
+cores are plain PyTorch on every device, as the reference computes them
+with jnp outside any Pallas kernel: the prefill expands K/V (hd_qk 192,
+hd_v 128 at full width) into `chunked_attention`, and the decode attends
+in the latent space in f32.
 """
 from __future__ import annotations
 
@@ -418,12 +426,247 @@ def _paged_decode_attend(cfg, q, k_new, v_new, cache, tables, lengths,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+#
+# The cache holds the compressed latents, not K/V: per token the rmsnormed
+# c_kv [r] and one roped key head k_pe [rope] that all heads share. Prefill
+# and training are non-absorbed (K and V expanded from the latent through
+# wk_b and wv_b, then `chunked_attention` with g = 1); decode is absorbed
+# (q_nope folded through wk_b into the latent space, attention over c_kv
+# and k_pe, the context unfolded through wv_b), all in f32, as the
+# reference computes it. Both cores are plain PyTorch, as the reference's
+# are jnp outside any Pallas kernel: no kernel of the port takes
+# hd_qk 192 with hd_v 128, or one latent head of 512 + 64 under 128 query
+# heads.
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, lead, cfg, dtype):
+    """MLA weights with leading dims `lead`: wq_a [D, q_lora], q_norm over
+    q_lora, wq_b [q_lora, H*(nope+rope)], wkv_a [D, r+rope], kv_norm over
+    r, wk_b [r, H*nope], wv_b [r, H*v], wo [H*v, D], each He-scaled by its
+    fan-in (its first dim; H*v for wo)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r, dev = m.kv_lora_rank, generator.device
+    return {
+        "wq_a": _he(generator, lead + (d, m.q_lora_rank), dtype, d),
+        "q_norm.scale": rmsnorm_init(lead + (m.q_lora_rank,), dtype,
+                                     dev)["scale"],
+        "wq_b": _he(generator, lead + (m.q_lora_rank, h * qk), dtype,
+                    m.q_lora_rank),
+        "wkv_a": _he(generator, lead + (d, r + m.qk_rope_head_dim), dtype,
+                     d),
+        "kv_norm.scale": rmsnorm_init(lead + (r,), dtype, dev)["scale"],
+        "wk_b": _he(generator, lead + (r, h * m.qk_nope_head_dim), dtype, r),
+        "wv_b": _he(generator, lead + (r, h * m.v_head_dim), dtype, r),
+        "wo": _he(generator, lead + (h * m.v_head_dim, d), dtype,
+                  h * m.v_head_dim),
+    }
+
+
+def _mla_split_q(cfg, q, rope):
+    """q [B,S,H*(nope+rope)] -> (q_nope [B,S,H,nope], rope(q_pe))."""
+    m = cfg.mla
+    b, s, _ = q.shape
+    q = q.reshape(b, s, cfg.num_heads, m.qk_nope_head_dim
+                  + m.qk_rope_head_dim)
+    q_nope, q_pe = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                               dim=-1)
+    return q_nope, rope(q_pe)
+
+
+def _mla_split_kv(cfg, kv, norm, rope):
+    """kv [B,S,r+rope] -> (norm(c_kv) [B,S,r], k_pe [B,S,rope]): the
+    single rope head through `rope` as [B,S,1,rope]."""
+    m = cfg.mla
+    c_kv, k_pe = torch.split(kv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                             dim=-1)
+    return norm(c_kv), rope(k_pe[:, :, None, :])[:, :, 0]
+
+
+def _mla_q(params, cfg, x, positions):
+    """x [B,S,D] -> q_nope [B,S,H,nope], q_pe [B,S,H,rope] (roped):
+    through the q_lora bottleneck and its rmsnorm."""
+    q = rmsnorm({"scale": params["q_norm.scale"]}, x @ params["wq_a"])
+    return _mla_split_q(cfg, q @ params["wq_b"],
+                        lambda t: apply_rope(t, positions, cfg.rope_theta))
+
+
+def _mla_ckv(params, cfg, x, positions):
+    """x [B,S,D] -> the latents c_kv [B,S,r] (rmsnormed) and k_pe
+    [B,S,rope] (roped)."""
+    return _mla_split_kv(
+        cfg, x @ params["wkv_a"],
+        lambda t: rmsnorm({"scale": params["kv_norm.scale"]}, t),
+        lambda t: apply_rope(t, positions, cfg.rope_theta))
+
+
+def _mla_expand(params, cfg, c_kv, k_pe):
+    """Non-absorbed K [B,S,H,nope+rope] (k_pe broadcast over the heads)
+    and V [B,S,H,v] from the latents c_kv [B,S,r], k_pe [B,S,rope]."""
+    m = cfg.mla
+    b, s, _ = c_kv.shape
+    h = cfg.num_heads
+    k_nope = (c_kv @ params["wk_b"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ params["wv_b"]).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].to(k_nope.dtype).expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    return k, v
+
+
+def _mla_prefill_core(params, cfg, q_nope, q_pe, c_kv, k_pe):
+    """`mla_prefill` after the projection: K/V expanded, causal
+    `chunked_attention` with g = 1 and scale 1/sqrt(nope+rope). Returns
+    [B, S, H*v] in V's dtype."""
+    b, s, h, _ = q_nope.shape
+    k, v = _mla_expand(params, cfg, c_kv, k_pe)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    out = chunked_attention(q[:, :, :, None, :], k, v, causal=True)
+    return out.reshape(b, s, h * cfg.mla.v_head_dim)
+
+
+def mla_prefill(params, cfg, x, positions):
+    """Non-absorbed MLA for training and the serving prefill (plain
+    PyTorch: the reference has no kernel here). It ignores any sliding
+    window, as the reference's does. Returns ([B,S,D], (c_kv [B,S,r],
+    k_pe [B,S,rope])) for the cache."""
+    q_nope, q_pe = _mla_q(params, cfg, x, positions)
+    c_kv, k_pe = _mla_ckv(params, cfg, x, positions)
+    out = _mla_prefill_core(params, cfg, q_nope, q_pe, c_kv, k_pe)
+    return out @ params["wo"], (c_kv, k_pe)
+
+
+def _mla_absorbed(params, cfg, q_nope, q_pe, ckv, kpe, num_valid):
+    """Absorbed latent attention in f32, as the reference's: q_nope
+    [B,H,nope], q_pe [B,H,rope]; ckv [B,T,r], kpe [B,T,rope] with the first
+    num_valid (0-dim or [B]) slots of each row valid. wk_b and wv_b are
+    cast to f32 here, every call, as the reference casts them. Returns
+    [B, H*v] in f32."""
+    m = cfg.mla
+    b, h = q_nope.shape[0], cfg.num_heads
+    t = ckv.shape[1]
+    wk_b = params["wk_b"].float().reshape(m.kv_lora_rank, h,
+                                          m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), wk_b)
+    ckv = ckv.float()
+    scale = float(1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    logits = (torch.einsum("bhr,btr->bht", q_lat, ckv)
+              + torch.einsum("bhd,btd->bht", q_pe.float(), kpe.float())
+              ) * scale
+    valid = torch.arange(t, device=ckv.device) < num_valid.reshape(-1, 1)
+    logits = torch.where(valid[:, None, :], logits, ref._NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", p, ckv)
+    wv_b = params["wv_b"].float().reshape(m.kv_lora_rank, h, m.v_head_dim)
+    return torch.einsum("bhr,rhd->bhd", ctx, wv_b).reshape(
+        b, h * m.v_head_dim)
+
+
+def _mla_decode_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache):
+    """`mla_decode` after the projection: q_nope [B,H,nope], q_pe
+    [B,H,rope], c_kv [B,r], k_pe [B,rope]. Inserts the latents at each
+    row's ptr, attends over min(ptr + 1, T) slots, advances ptr, in
+    place. Returns [B, H*v] in f32."""
+    t = cache["ckv"].shape[1]
+    ring_insert(cache["ckv"], c_kv, cache["ptr"])
+    ring_insert(cache["kpe"], k_pe, cache["ptr"])
+    num_valid = torch.clamp(cache["ptr"] + 1, max=t)
+    out = _mla_absorbed(params, cfg, q_nope, q_pe, cache["ckv"],
+                        cache["kpe"], num_valid)
+    cache["ptr"].add_(1)
+    return out
+
+
+def mla_decode(params, cfg, x, cache, position):
+    """Absorbed MLA decode: x [B,1,D]; cache {ckv [B,T,r], kpe [B,T,rope],
+    ptr} (ptr 0-dim or per row [B]); position [B,1]. Inserts the token's
+    latents, then attends in the latent space, O(r) a position, never
+    materialising K/V. Updates the cache in place and returns ([B,1,D],
+    cache)."""
+    b = x.shape[0]
+    q_nope, q_pe = _mla_q(params, cfg, x, position)
+    c_kv, k_pe = _mla_ckv(params, cfg, x, position)
+    out = _mla_decode_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
+                             c_kv[:, 0], k_pe[:, 0], cache)
+    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+
+
+def _mla_chunk_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache, table,
+                      ctx_len):
+    """`mla_prefill_paged` after the projection: q_nope [1,C,H,nope], q_pe
+    [1,C,H,rope], c_kv [1,C,r], k_pe [1,C,rope]. The context latents,
+    gathered before the chunk is written and cast to the compute dtype,
+    and the chunk's own are expanded as in `mla_prefill`; the chunk's
+    latents are then scattered into its blocks. Returns [1, C, H*v] in
+    f32."""
+    c, h = q_nope.shape[1], cfg.num_heads
+    dt = c_kv.dtype
+    ckv_ctx = gather_pages(cache["ckv"], table[None])
+    kpe_ctx = gather_pages(cache["kpe"], table[None])
+    k_ctx, v_ctx = _mla_expand(params, cfg, ckv_ctx.to(dt), kpe_ctx)
+    k_new, v_new = _mla_expand(params, cfg, c_kv, k_pe)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    out = _paged_context_attention(q[:, :, :, None, :], k_ctx, v_ctx, k_new,
+                                   v_new, ctx_len,
+                                   float(1.0 / math.sqrt(q.shape[-1])))
+    scatter_chunk_pages(cache["ckv"], c_kv[0], table, ctx_len)
+    scatter_chunk_pages(cache["kpe"], k_pe[0], table, ctx_len)
+    return out.reshape(1, c, h * cfg.mla.v_head_dim)
+
+
+def mla_prefill_paged(params, cfg, x, cache, table, ctx_len):
+    """One MLA prefill chunk against a layer's latent pool (batch-1).
+
+    x [1,C,D]; cache {ckv [NB,bs,r], kpe [NB,bs,rope]} (kpe post-rope, as
+    the arena keeps it); table int [W]; ctx_len: tokens already in the
+    slot (an int). The chunk attends to its context, K/V reconstructed
+    from the gathered latents, and to itself, then its latents are
+    scattered into the blocks in place. Returns ([1,C,D], cache)."""
+    b, c, _ = x.shape
+    positions = ctx_len + torch.arange(c, device=x.device)[None].expand(b, c)
+    q_nope, q_pe = _mla_q(params, cfg, x, positions)
+    c_kv, k_pe = _mla_ckv(params, cfg, x, positions)
+    out = _mla_chunk_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache,
+                            table, ctx_len)
+    return out.to(x.dtype) @ params["wo"], cache
+
+
+def _mla_paged_decode_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache,
+                             tables, lengths):
+    """`mla_decode_paged` after the projection (operands as
+    `_mla_decode_attend`'s). Returns [B, H*v] in f32."""
+    scatter_token_pages(cache["ckv"], c_kv, tables, lengths)
+    scatter_token_pages(cache["kpe"], k_pe, tables, lengths)
+    return _mla_absorbed(params, cfg, q_nope, q_pe,
+                         gather_pages(cache["ckv"], tables),
+                         gather_pages(cache["kpe"], tables), lengths + 1)
+
+
+def mla_decode_paged(params, cfg, x, cache, tables, lengths):
+    """Absorbed MLA decode against a layer's latent pool: `mla_decode`'s
+    math over a block-table gather. x [B,1,D]; tables int32 [B, W];
+    lengths int32 [B] (the incoming token's position). Inserts the token's
+    latents at position lengths[b] first, in place. Returns ([B,1,D],
+    cache)."""
+    b = x.shape[0]
+    pos = lengths.reshape(b, 1)
+    q_nope, q_pe = _mla_q(params, cfg, x, pos)
+    c_kv, k_pe = _mla_ckv(params, cfg, x, pos)
+    out = _mla_paged_decode_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
+                                   c_kv[:, 0], k_pe[:, 0], cache, tables,
+                                   lengths)
+    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
 # the fused mixed step (overlapped admission): decode rows [:nd] and one
 # prefill unit [nd:] as one token batch [1, nd + S, D]
 #
-# The gate and up projections, the elementwise ops and the unembedding
-# run once over all tokens; rope, the attention cores and the ops in
-# MIXED_PER_HALF (the other products, rmsnorm) run per half, each half's
+# The elementwise ops and the unembedding run once over all tokens;
+# rope, the attention cores and the ops in MIXED_PER_HALF (every product
+# but the unembedding, rmsnorm) run per half, each half's
 # core exactly what its standalone step runs after the projection (the
 # decode and flash kernels on the arena, the paged or ring kernel and the
 # plain chunk attention on the pool). A shared op's rows are bitwise those
@@ -447,9 +690,18 @@ def _paged_decode_attend(cfg, q, k_new, v_new, cache, tables, lengths,
 # internlm2's and qwen3's overlapped logits leave the serialized ones on
 # the card, and qwen3's tokens. qk-norm (the same reduction over hd)
 # measured row-stable and runs per half with the other norms. The gate
-# and up projections and the unembedding were bitwise row-stable at
-# every width. `chip_smoke.py`'s row-stability report measures each op.
-MIXED_PER_HALF = frozenset({"wq", "wk", "wv", "wo", "w_down", "rmsnorm"})
+# and up projections were bitwise row-stable at the GQA configs' widths,
+# but not at deepseek-v2's (K = 5120, N = 1536: the 8 decode rows moved
+# by up to 0.0156 at Sp = 256, and the dense MLA stack's overlapped
+# tokens left the serialized ones), so they run per half with their
+# activation (the MLP's hidden layer, named "w_up"). The unembedding was
+# row-stable at every width. MLA's down projections wq_a and wkv_a (K =
+# d_model; unstable at 5120 too) and wq_b (K = q_lora) run per half, as
+# wq/wk/wv do, and its q_norm and kv_norm (over q_lora and r) are
+# rmsnorms; its expansion products and absorbed einsums touch one half
+# only. `chip_smoke.py`'s row-stability report measures each op.
+MIXED_PER_HALF = frozenset({"wq", "wk", "wv", "wo", "w_down", "rmsnorm",
+                            "w_gate", "w_up", "wq_a", "wq_b", "wkv_a"})
 
 
 def per_half(fn, x, nd, name):
@@ -545,5 +797,66 @@ def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
                                  tables, lengths, window)
     out_p = _chunk_attend(cfg, q[:, nd:], k[:, nd:], v[:, nd:], cache,
                           c_table, ctx_len, window, c_valid)
+    out = torch.cat([out_d[None].to(x.dtype), out_p.to(x.dtype)], dim=1)
+    return mixed_product(out, params["wo"], nd, "wo"), cache
+
+
+def _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p):
+    """`_mla_q` for the mixed batch: wq_a, q_norm and wq_b through
+    `mixed_product` and `mixed_rmsnorm`, rope per half."""
+    q = mixed_rmsnorm({"scale": params["q_norm.scale"]},
+                      mixed_product(x, params["wq_a"], nd, "wq_a"), nd)
+    return _mla_split_q(cfg, mixed_product(q, params["wq_b"], nd, "wq_b"),
+                        lambda t: _rope_mixed(t, nd, pos_d, pos_p,
+                                              cfg.rope_theta))
+
+
+def _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p):
+    """`_mla_ckv` for the mixed batch: wkv_a and kv_norm through
+    `mixed_product` and `mixed_rmsnorm`, rope per half."""
+    return _mla_split_kv(
+        cfg, mixed_product(x, params["wkv_a"], nd, "wkv_a"),
+        lambda t: mixed_rmsnorm({"scale": params["kv_norm.scale"]}, t, nd),
+        lambda t: _rope_mixed(t, nd, pos_d, pos_p, cfg.rope_theta))
+
+
+def mla_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot):
+    """Fused arena MLA layer: absorbed decode of rows [:nd] and the
+    non-absorbed prefill of a whole prompt [nd:]. cache: one arena layer
+    {ckv [nd,T,r], kpe [nd,T,rope], ptr [nd]}, written in place; the
+    contract of `gqa_mixed` (slot `p_slot` dead to decode, its row
+    overwritten whole after the decode half's insert, its ptr set to
+    `p_len`). Returns ([1, nd + Sp, D], cache)."""
+    sp = x.shape[1] - nd
+    q_nope, q_pe = _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p)
+    c_kv, k_pe = _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p)
+    out_d = _mla_decode_attend(params, cfg, q_nope[0, :nd], q_pe[0, :nd],
+                               c_kv[0, :nd], k_pe[0, :nd], cache)
+    out_p = _mla_prefill_core(params, cfg, q_nope[:, nd:], q_pe[:, nd:],
+                              c_kv[:, nd:], k_pe[:, nd:])
+    t = cache["ckv"].shape[1]
+    cache["ckv"][p_slot].copy_(prefill_cache_entries(c_kv[:, nd:], t, sp)[0])
+    cache["kpe"][p_slot].copy_(prefill_cache_entries(k_pe[:, nd:], t, sp)[0])
+    cache["ptr"][p_slot] = p_len
+    out = torch.cat([out_d[None].to(x.dtype), out_p], dim=1)
+    return mixed_product(out, params["wo"], nd, "wo"), cache
+
+
+def mla_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
+                    ctx_len, c_table):
+    """Fused pool MLA layer: absorbed decode of rows [:nd] and one chunk
+    [nd:]. cache: one latent pool layer {ckv [NB,bs,r], kpe [NB,bs,rope]},
+    written in place; the operands and op order of `gqa_mixed_paged` (the
+    decode half scatters first, the chunk then gathers its context from
+    the updated pool and scatters into its private blocks). Returns ([1,
+    nd + C, D], cache)."""
+    q_nope, q_pe = _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p)
+    c_kv, k_pe = _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p)
+    out_d = _mla_paged_decode_attend(params, cfg, q_nope[0, :nd],
+                                     q_pe[0, :nd], c_kv[0, :nd],
+                                     k_pe[0, :nd], cache, tables, lengths)
+    out_p = _mla_chunk_attend(params, cfg, q_nope[:, nd:], q_pe[:, nd:],
+                              c_kv[:, nd:], k_pe[:, nd:], cache, c_table,
+                              ctx_len)
     out = torch.cat([out_d[None].to(x.dtype), out_p.to(x.dtype)], dim=1)
     return mixed_product(out, params["wo"], nd, "wo"), cache

@@ -47,6 +47,8 @@ def arena_from_jax(caches):
 
       * attention: {"k", "v": [count, B, T, KV, hd], "ptr": int32 [count,
         B] (the slot arena) or [count] (`init_cache`)}, in their dtype;
+      * MLA attention: {"ckv": [count, B, T, r], "kpe": [count, B, T,
+        rope], "ptr"}, likewise;
       * RWKV6: {"shift", "cm_shift": [count, B, D], "wkv": [count, B, H,
         hd, hd]};
       * RG-LRU: {"conv": [count, B, cw - 1, W], "h": [count, B, W]}.
@@ -60,25 +62,26 @@ def arena_from_jax(caches):
         names = set(seg)
         if names in ({"shift", "wkv", "cm_shift"}, {"conv", "h"}):
             out.append({k: _tensor(v).float() for k, v in seg.items()})
-        elif names == {"k", "v", "ptr"}:
+        elif names in ({"k", "v", "ptr"}, {"ckv", "kpe", "ptr"}):
             tensors = {k: _tensor(v) for k, v in seg.items()}
             tensors["ptr"] = tensors["ptr"].to(torch.int32)
             out.append(tensors)
         else:
-            raise ValueError(f"not a GQA cache, an RWKV6 state or an RG-LRU "
-                             f"state: leaves {sorted(names)}")
+            raise ValueError(f"not a GQA or MLA cache, an RWKV6 state or an "
+                             f"RG-LRU state: leaves {sorted(names)}")
     return out
 
 
 def pool_from_jax(pools):
     """The reference's paged pool (a list of per-segment {"k", "v": [count,
-    NB + 1, bs, KV, hd]}, numpy leaves) -> the port's list of dicts of CPU
-    tensors with the same shapes and dtypes (block 0 is the null block in
-    both)."""
+    NB + 1, bs, KV, hd]}, or MLA's {"ckv": [count, NB + 1, bs, r], "kpe":
+    [count, NB + 1, bs, rope]}, numpy leaves) -> the port's list of dicts
+    of CPU tensors with the same shapes and dtypes (block 0 is the null
+    block in both)."""
     out = []
     for seg in pools:
-        if set(seg) != {"k", "v"}:
-            raise ValueError(f"not a GQA pool: leaves {sorted(seg)}")
+        if set(seg) not in ({"k", "v"}, {"ckv", "kpe"}):
+            raise ValueError(f"not a GQA or MLA pool: leaves {sorted(seg)}")
         out.append({k: _tensor(v) for k, v in seg.items()})
     return out
 

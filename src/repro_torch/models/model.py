@@ -1,14 +1,19 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Four families are ported: the dense decoder-only GQA stack (a swiglu or
+Four families are ported: the dense decoder-only stack (a swiglu or
 squared-ReLU MLP, qk-norm where the config asks for it), the mixture of
-experts (family "moe", every layer "moe": GQA attention and top-k routed
-swiglu experts with GShard capacity, shared experts where the config has
-them, as dbrx-132b), the RWKV6 recurrent stack (family "ssm", every
-layer "rwkv") and the RG-LRU hybrid (family "hybrid", layers "rglru" and
-"attn" with a gelu MLP, as recurrentgemma-2b); the others raise, and so
-does MLA attention (deepseek-v2-236b). The dense serving entry points
+experts (family "moe", every layer "moe": top-k routed swiglu experts
+with GShard capacity, shared experts where the config has them, as
+dbrx-132b and deepseek-v2-236b), the RWKV6 recurrent stack (family
+"ssm", every layer "rwkv") and the RG-LRU hybrid (family "hybrid", layers
+"rglru" and "attn" with a gelu MLP, as recurrentgemma-2b); the others
+(whisper-small's "audio", phi-3-vision's "vlm") raise. The attention of
+the dense and MoE families is GQA, or MLA where `cfg.mla` is set
+(deepseek-v2-236b's latent attention; a dense stack with it pages and
+has the mixed steps as a GQA one does, except with a sliding window:
+then `init_pool` raises, as the reference's does, and the engine serves
+it from the arena). The dense serving entry points
 cover the slot arena and the paged pool; an MoE or recurrent model has
 the arena's only (expert capacity depends on the static chunk length,
 and recurrent state has no pages, as the reference's `FamilyCaps` says),
@@ -92,8 +97,6 @@ def _check_ported(cfg: ArchConfig):
             unported.append(f"mlp {cfg.mlp_type!r}")
     if cfg.norm_type != "rmsnorm":
         unported.append(f"norm {cfg.norm_type!r}")
-    if cfg.mla is not None:
-        unported.append("MLA attention")
     if cfg.frontend != "none" or cfg.encoder_layers:
         unported.append(f"frontend {cfg.frontend!r}")
     if unported:
@@ -138,7 +141,7 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
         window=window,
         **entries,
         init_pool=lambda num_blocks, block_size, **kw: TF.init_pool(
-            cfg, num_blocks, block_size, **kw),
+            cfg, num_blocks, block_size, window=window, **kw),
         prefill_chunk_into_blocks=lambda p, tokens, length, ctx, table, pool:
             TF.prefill_chunk_into_blocks(cfg, p, tokens, length, ctx, table,
                                          pool, window=window),

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (dense GQA, MoE, RWKV6 and RG-LRU hybrid
-stacks): init, train forward and loss, and the serving entry points
+"""Decoder-only transformer (dense GQA or MLA, MoE, RWKV6 and RG-LRU
+hybrid stacks): init, train forward and loss, and the serving entry points
 (prefill, decode, the slot arena and the paged pool).
 
 The stack is a program of segments, as the reference builds it
@@ -10,7 +10,9 @@ Python where the reference scans. recurrentgemma-2b's (rglru, rglru,
 attn) pattern over 26 layers makes 17 segments; qwen2, dbrx and rwkv6
 make one. A "moe" layer is the attention block with the mixture of
 experts (`models.moe`) in place of its MLP; its load-balance loss is
-summed over the layers into `train_loss`, and serving drops it.
+summed over the layers into `train_loss`, and serving drops it. With
+`cfg.mla` set, the attention of every "attn" and "moe" layer is MLA
+(`attention.mla_*`: deepseek-v2-236b, or a dense MLA stack).
 
 Parameters are one flat dict keyed by the reference pytree's paths
 ("embed.table", "segments.0.attn.wq", "segments.0.moe.w_gate",
@@ -19,16 +21,18 @@ leaves stacked [count, ...].
 
 Caches are a list of per-segment dicts, as the reference's list is, with
 the same leaves: an attention (or MoE) segment's {"k", "v": [count, B,
-T, KV, hd],
-"ptr"} (a ring of capacity T = min(seq_len, window) with a sliding
-window), an RWKV6 segment's {"shift", "cm_shift": [count, B, D], "wkv":
-[count, B, H, hd, hd]} and an RG-LRU segment's {"conv": [count, B, cw - 1,
-W], "h": [count, B, W]} (recurrent state in f32). `ptr` counts the tokens
+T, KV, hd], "ptr"} (a ring of capacity T = min(seq_len, window) with a
+sliding window), or with MLA attention its latents {"ckv": [count, B, T,
+r], "kpe": [count, B, T, rope], "ptr"}, an RWKV6 segment's {"shift",
+"cm_shift": [count, B, D], "wkv": [count, B, H, hd, hd]} and an RG-LRU
+segment's {"conv": [count, B, cw - 1, W], "h": [count, B, W]} (recurrent
+state in f32). `ptr` counts the tokens
 written: int32 [count] for a cache from `init_cache` (every row at one
 depth) and [count, B] for the slot arena (`init_arena`, every row at its
 own depth). A paged pool (`init_pool`, attention stacks only) is a list of
-{"k", "v": [count, NB + 1, bs, KV, hd]} shared by every row, with block 0
-the null block; block tables say which blocks a row owns. The port
+{"k", "v": [count, NB + 1, bs, KV, hd]} (MLA: {"ckv": [count, NB + 1,
+bs, r], "kpe": [count, NB + 1, bs, rope]}) shared by every row, with block
+0 the null block; block tables say which blocks a row owns. The port
 updates caches and pools in place where the reference returns new
 (donated) buffers.
 """
@@ -110,7 +114,8 @@ def block_init(generator, lead, cfg, kind, dtype):
     dev = generator.device
     p = _flat("ln1", rmsnorm_init(lead + (d,), dtype, dev))
     if kind in ("attn", "moe"):
-        p.update(_flat("attn", A.gqa_init(generator, lead, cfg, dtype)))
+        init = A.mla_init if cfg.mla is not None else A.gqa_init
+        p.update(_flat("attn", init(generator, lead, cfg, dtype)))
     elif kind == "rwkv":
         p.update(_flat("mix", RW.rwkv_init(generator, lead, cfg, dtype)))
     else:
@@ -167,7 +172,8 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     `block_apply`): for "prefill" {"table": int [W], "ctx_len": int,
     "valid": int}, one chunk of one slot through `gqa_prefill_paged`; for
     "decode" {"tables": int32 [B, W], "lengths": int32 [B]}, through
-    `gqa_decode_paged`.
+    `gqa_decode_paged`. An MLA config (`cfg.mla`) takes the `mla_*`
+    function of each mode, and its caches hold the latents.
     """
     aux = None
     for si, (kind, count) in enumerate(segments(cfg)):
@@ -199,33 +205,46 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
 
 def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
     """rmsnorm -> attention -> rmsnorm -> MLP, as the reference's
-    `block_apply` kind "attn"; layer i of the segment's cache `seg`. A
-    "moe" layer (parameters under "moe") runs the mixture of experts in
-    place of the MLP, `moe_apply_scatter` when REPRO_MOE_SCATTER is set
-    (read here, as the reference reads it), and returns (x, aux), aux
-    its load-balance loss in "train" mode and None otherwise."""
+    `block_apply` kind "attn"; layer i of the segment's cache `seg`. MLA
+    (`cfg.mla`) runs the `mla_*` function of each mode. A "moe" layer
+    (parameters under "moe") runs the mixture of experts in place of the
+    MLP, `moe_apply_scatter` when REPRO_MOE_SCATTER is set (read here, as
+    the reference reads it), and returns (x, aux), aux its load-balance
+    loss in "train" mode and None otherwise."""
     h = rmsnorm(lp["ln1"], x)
+    mla = cfg.mla is not None
+    names = tuple(_entry_shapes(cfg))
     if paged is not None:
-        layer = {"k": seg["k"][i], "v": seg["v"][i]}
-        if mode == "prefill":
+        layer = {name: seg[name][i] for name in names}
+        if mode == "prefill" and mla:
+            attn_out, _ = A.mla_prefill_paged(
+                lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"])
+        elif mode == "prefill":
             attn_out, _ = A.gqa_prefill_paged(
                 lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"],
                 window=window, valid=paged["valid"])
+        elif mla:
+            attn_out, _ = A.mla_decode_paged(
+                lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"])
         else:
             attn_out, _ = A.gqa_decode_paged(
                 lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"],
                 window=window)
     elif mode == "decode":
-        layer = {name: seg[name][i] for name in ("k", "v", "ptr")}
-        attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions)
+        layer = {name: seg[name][i] for name in names + ("ptr",)}
+        decode = A.mla_decode if mla else A.gqa_decode
+        attn_out, _ = decode(lp["attn"], cfg, h, layer, positions)
     else:
-        attn_out, (k, v) = A.gqa_prefill(lp["attn"], cfg, h, positions,
-                                         kernel=mode == "prefill",
-                                         window=window)
+        if mla:     # ignores the window, as the reference's mla_prefill
+            attn_out, entries = A.mla_prefill(lp["attn"], cfg, h, positions)
+        else:
+            attn_out, entries = A.gqa_prefill(lp["attn"], cfg, h, positions,
+                                              kernel=mode == "prefill",
+                                              window=window)
         if mode == "prefill":
-            s, t = x.shape[1], seg["k"].shape[2]
-            seg["k"][i].copy_(A.prefill_cache_entries(k, t, s))
-            seg["v"][i].copy_(A.prefill_cache_entries(v, t, s))
+            s, t = x.shape[1], seg[names[0]].shape[2]
+            for name, e in zip(names, entries):
+                seg[name][i].copy_(A.prefill_cache_entries(e, t, s))
             seg["ptr"][i].fill_(s)
     x = x + attn_out
     h2 = rmsnorm(lp["ln2"], x)
@@ -327,7 +346,6 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None,
     state, whatever `seq_len` and `dtype` (as in the reference)."""
     win = cfg.attn_window or window
     cap = max(min(seq_len, win) if win else seq_len, 1)
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
     caches = []
     for kind, count in segments(cfg):
         if kind == "rwkv":
@@ -337,13 +355,24 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None,
             caches.append(RG.init_state(cfg, batch, lead=(count,),
                                         device=device))
         else:
-            shape = (count, batch, cap, kv, hd)
-            caches.append({
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "ptr": torch.zeros((count,), dtype=torch.int32,
-                                   device=device)})
+            seg = {name: torch.zeros((count, batch, cap) + shape,
+                                     dtype=dtype, device=device)
+                   for name, shape in _entry_shapes(cfg).items()}
+            seg["ptr"] = torch.zeros((count,), dtype=torch.int32,
+                                     device=device)
+            caches.append(seg)
     return caches
+
+
+def _entry_shapes(cfg):
+    """An attention layer's cache leaves, {name: the shape of one token's
+    entry}: MLA's latents {"ckv": (r,), "kpe": (rope,)}, else {"k", "v":
+    (KV, hd)}."""
+    if cfg.mla is not None:
+        return {"ckv": (cfg.mla.kv_lora_rank,),
+                "kpe": (cfg.mla.qk_rope_head_dim,)}
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+    return {"k": kv, "v": kv}
 
 
 def _embed_tokens(cfg, params, tokens):
@@ -497,11 +526,19 @@ def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0):
 
 
 def init_pool(cfg, num_blocks, block_size, dtype=torch.bfloat16,
-              device=None):
+              device=None, window=0):
     """Zero paged pool, one {"k", "v": [count, num_blocks + 1, block_size,
-    KV, hd]} per segment; block 0 is the null block, so allocatable ids
-    are 1..num_blocks. Attention stacks only: recurrent state has no
-    pages, and MoE routing capacity would change with the chunk."""
+    KV, hd]} per segment (MLA: {"ckv": [..., r], "kpe": [..., rope]});
+    block 0 is the null block, so allocatable ids are 1..num_blocks.
+    Attention stacks only: recurrent state has no pages, and MoE routing
+    capacity would change with the chunk. MLA with a sliding window (the
+    config's or `window`) does not page either."""
+    if (window or cfg.attn_window) and cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: paged KV + sliding window is GQA-only: the arena's "
+            "mla_prefill ignores the window, so there is no windowed-MLA "
+            "family for a ring to stay bit-identical with (use the slot "
+            "arena)")
     pool = []
     for kind, count in segments(cfg):
         if kind == "moe":
@@ -513,10 +550,9 @@ def init_pool(cfg, num_blocks, block_size, dtype=torch.bfloat16,
         if kind != "attn":
             raise NotImplementedError(f"{cfg.name}: {kind} layers have no "
                                       "paged pool (recurrent state)")
-        shape = (count, num_blocks + 1, block_size, cfg.num_kv_heads,
-                 cfg.head_dim)
-        pool.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)})
+        pool.append({name: torch.zeros(
+            (count, num_blocks + 1, block_size) + shape, dtype=dtype,
+            device=device) for name, shape in _entry_shapes(cfg).items()})
     return pool
 
 
@@ -599,9 +635,10 @@ def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
 
 
 def _mixed_mlp(params, x, nd, mlp_type):
-    """`mlp_apply` on the mixed batch: the activations over every row, the
-    down projection through `attention.mixed_product`."""
-    h = mlp_hidden(params, x, mlp_type)
+    """`mlp_apply` on the mixed batch: the gate and up products with their
+    activation through `attention.per_half` (as "w_up"), the down
+    projection through `attention.mixed_product`."""
+    h = A.per_half(lambda t: mlp_hidden(params, t, mlp_type), x, nd, "w_up")
     return A.mixed_product(h, params["w_down"], nd, "w_down")
 
 
@@ -663,10 +700,14 @@ def mixed_step(cfg, params, tokens, caches, positions, p_tokens, p_len,
     pos_p = torch.arange(sp, device=dev)[None]
 
     def attn_fn(p, h, layer):
+        if cfg.mla is not None:
+            return A.mla_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len,
+                               p_slot)
         return A.gqa_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len, p_slot,
                            window=window)
 
-    x = _mixed_forward(cfg, params, x, caches, b, attn_fn, ("k", "v", "ptr"))
+    x = _mixed_forward(cfg, params, x, caches, b, attn_fn,
+                       tuple(_entry_shapes(cfg)) + ("ptr",))
     return _mixed_logits(cfg, params, x, b, b + p_len - 1) + (caches,)
 
 
@@ -688,11 +729,15 @@ def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
     pos_p = ctx_len + torch.arange(c, device=tokens.device)[None]
 
     def attn_fn(p, h, layer):
+        if cfg.mla is not None:
+            return A.mla_mixed_paged(p, cfg, h, b, pos_d, pos_p, layer,
+                                     block_tables, lengths, ctx_len, c_table)
         return A.gqa_mixed_paged(p, cfg, h, b, pos_d, pos_p, layer,
                                  block_tables, lengths, ctx_len, c_table,
                                  window=window, c_valid=c_len)
 
-    x = _mixed_forward(cfg, params, x, pool, b, attn_fn, ("k", "v"))
+    x = _mixed_forward(cfg, params, x, pool, b, attn_fn,
+                       tuple(_entry_shapes(cfg)))
     return _mixed_logits(cfg, params, x, b, b + c_len - 1) + (pool,)
 
 

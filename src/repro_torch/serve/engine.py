@@ -33,8 +33,9 @@ overlapped one by default, as in the reference):
     p % window): a slot holds at most ceil(window / block_size) blocks,
     and a full ring allocates no further block however long it runs. A
     family that cannot page (`FamilyCaps.supports_paging`: recurrent
-    state has no pages, and chunks would change MoE expert capacity)
-    serves from the arena, as the reference does;
+    state has no pages, chunks would change MoE expert capacity, and
+    windowed MLA has no windowed arena family to match) serves from the
+    arena, as the reference does;
     `engine.paged` says which backend is in use.
 
     Paged admission has two policies (`preemption=`). "recompute"
@@ -117,8 +118,9 @@ class FamilyCaps:
         static sequence length, and a sliding-window ring would let pads
         evict real context: those prefill at exact lengths.
       supports_paging: the block-pool backend works (an attention stack
-        with `init_pool`; recurrent state has no pages to page, and
-        chunked prefill would change MoE expert capacity).
+        whose `init_pool` builds a pool; recurrent state has no pages to
+        page, chunked prefill would change MoE expert capacity, and a
+        windowed MLA model's `init_pool` raises).
       supports_chunked_prefill: prompts can stream in through fixed
         chunks (the pool's admission; the same predicate).
       supports_mixed_step: the fused decode + prefill step is sound: a
@@ -136,11 +138,19 @@ class FamilyCaps:
 
 def probe_family_caps(model, *, capacity: int) -> FamilyCaps:
     """The serving capabilities of `model` at slot capacity `capacity`
-    (a sliding window below it disables padding)."""
+    (a sliding window below it disables padding). Paging needs an
+    `init_pool` that builds a pool: it is tried on the meta device, where
+    it allocates nothing, and a windowed MLA model's raises, as the
+    reference's probe finds."""
     all_attn = all(t == "attn" for t in model.cfg.layer_types)
     window = int(model.window or 0)
     pad = all_attn and (not window or window >= capacity)
     paging = all_attn and model.init_pool is not None
+    if paging:
+        try:
+            model.init_pool(1, 2, device="meta")
+        except NotImplementedError:
+            paging = False
     mixed = bool((pad or paging) and model.mixed_step_tokens is not None
                  and model.mixed_step_paged_tokens is not None)
     return FamilyCaps(pad_prompts=pad, supports_paging=paging,

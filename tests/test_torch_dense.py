@@ -26,8 +26,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
-from repro_torch.configs.base import (  # noqa: E402
-    MLAConfig, MoEConfig, TrainConfig)
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.trainer import make_train_step  # noqa: E402
 from repro_torch.models import attention, build_model, layers  # noqa: E402
@@ -167,14 +166,12 @@ def test_nemotron_full_config_inits_bf16_leaves():
     assert "segments.0.mlp.w_gate" not in params
 
 
-# "moe": an MoE stack with MLA attention, as deepseek-v2-236b (the MoE
-# itself is ported; MLA is not)
+# "vlm": phi-3-vision's family, a vision frontend's patch prefix (MoE
+# and MLA stacks are ported)
 @pytest.mark.parametrize("change", [
-    dict(family="moe", layer_types=("moe",) * 2,
-         moe=MoEConfig(num_experts=4, top_k=2, num_shared_experts=1,
-                       d_ff_expert=64), mla=MLAConfig()),
+    dict(family="vlm", frontend="vision", num_patches=16),
     dict(norm_type="layernorm"), dict(mlp_type="gelu")],
-    ids=["moe", "layernorm", "gelu-dense"])
+    ids=["vlm", "layernorm", "gelu-dense"])
 def test_unported_dense_variants_still_raise(change):
     cfg = dataclasses.replace(get_smoke("qwen3-8b"), **change)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -146,11 +146,9 @@ def _port_config(jcfg):
     return ArchConfig(**fields)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-small",
-                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b"])
 def test_unported_reference_archs_raise(arch):
-    """The architectures still to port: deepseek-v2-236b for its MLA
-    attention (its shared experts are ported), whisper-small (audio
+    """The architectures still to port: whisper-small (audio
     encoder-decoder) and phi-3-vision (vision frontend), full config and
     smoke."""
     from repro.configs import get_config as jax_get_config
@@ -165,3 +163,20 @@ def test_dbrx_builds():
 
     for cfg in (get_config("dbrx-132b"), get_smoke("dbrx-132b")):
         assert build_model(cfg).cfg is cfg
+
+
+def test_deepseek_builds():
+    """deepseek-v2-236b (MLA over the MoE with shared experts), full
+    config and smoke, from the port's registry and from the reference's
+    config alike."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+
+    for cfg in (get_config("deepseek-v2-236b"),
+                get_smoke("deepseek-v2-236b")):
+        model = build_model(cfg)
+        assert model.cfg is cfg and cfg.mla is not None
+        assert model.init_pool is None
+    for jcfg in (jax_get_config("deepseek-v2-236b"),
+                 jax_get_smoke("deepseek-v2-236b")):
+        assert build_model(_port_config(jcfg)).cfg.mla is not None
