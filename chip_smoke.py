@@ -260,7 +260,36 @@ non-zero before the last line:
      shared products and norms (build/row_stability_sweep_mla.json),
      its MLA layers' decode ms, 8 profiled decode steps, and two bf16
      supersteps at 2 layers, A=2, M=1, 2 x 256 tokens (one prox launch a
-     leaf each, ms, peak).
+     leaf each, ms, peak);
+ 42. the attention kernels at whisper-small's and phi-3-vision's shapes,
+     bf16, against their plain versions and timed as phase 3 (SDPA with
+     is_causal=False beside the non-causal cases): flash non-causal over
+     whisper's encoder (1500 x 1500, 12 heads of 64) and cross-attention
+     prefill (200 over 1500), S = T = 17 and S = 65 over T = 130 (hd 96),
+     flash causal at hd 96 (1224 tokens, 32 heads); decode over the cross
+     K/V (8 rows of 1500, G = 1) and at hd 96 (8 rows over 1280); paged
+     and ring at hd 96 with phase 10's bitwise checks; the ptxas lines of
+     every hd 96 instantiation are printed in phase 2 ("hd96_ptxas");
+ 43. whisper's smoke config in f32, card against CPU from one set of
+     parameters: encode, a prefill and 8 decode steps (logits within 1e-4,
+     equal tokens; 3L flash launches a prefill, 2L decode launches a
+     step), train_loss and one API-BCD superstep (phase 37's rule);
+ 44. whisper-small at full width and depth through `repro_torch.launch.
+     serve --arch whisper-small` (the raw loop: 8 requests, prompts of 32,
+     64 new tokens): 36 flash launches for the prefill, 24 decode
+     launches a step, no other kernel, peaks; then 3 API-BCD supersteps at
+     A=4, M=2, 128 tokens over 1500 frames an agent (finite losses, one
+     prox launch a leaf, ms, peak);
+ 45. phi-3-vision-4.2b: its smoke config in f32 with head_dim 96, card
+     against CPU (patches, prefill and 8 decode steps, within 1e-4, equal
+     tokens); full width and depth through the raw loop (8 requests,
+     1024 patches + prompts of 200, 64 new tokens: 32 flash launches at hd
+     96, 32 decode launches a step, the init's and the run's peaks); full
+     width cut to 4 layers, text-only, through the engine on phase 7's
+     workload (arena and pool, overlapped and serialized, equal tokens),
+     phase 26's row-stability sweep at its widths
+     (build/row_stability_sweep_phi3.json); 3 supersteps at 2 layers, A=2,
+     M=1, 1024 patches + 128 tokens an agent.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -269,6 +298,7 @@ non-zero and prints no result.
 import dataclasses
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -329,6 +359,10 @@ STEPS = 3
 LEAVES = 14
 N_LAYERS = 24           # qwen2-0.5b: one attention kernel launch per layer
 
+
+# the attention kernels' libraries
+ATTENTION_LIBRARIES = ("flash_attention", "decode_attention",
+                       "decode_attention_paged")
 
 # the dense configs this script serves at full width besides qwen2-0.5b
 DENSE_ARCHS = ("internlm2-1.8b", "qwen3-8b", "nemotron-4-15b")
@@ -693,18 +727,22 @@ def attention_case(name, label, fn, plain, library, nbytes, flops, iters,
     return case
 
 
-def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0):
-    """Causal prefill of one prompt of s tokens, h heads over kv heads of
-    hd (qwen2-0.5b's 14 over 2 of 64 by default), bf16, in the model's
-    [1, S, heads, hd] layout, under a sliding window if given."""
+def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0,
+                     causal=True, t=None):
+    """Prefill of one prompt of s tokens over t keys (t = s by default), h
+    heads over kv heads of hd (qwen2-0.5b's 14 over 2 of 64 by default),
+    bf16, in the model's [1, S, heads, hd] layout, causal (under a sliding
+    window if given) or, with causal=False, every query over every key
+    (the whisper encoder's and cross-attention's prefill)."""
     bf = torch.bfloat16
+    t = t or s
     q = torch.randn((1, s, h, hd), generator=gen, device=DEV).to(bf)
-    k = torch.randn((1, s, kv, hd), generator=gen, device=DEV).to(bf)
-    v = torch.randn((1, s, kv, hd), generator=gen, device=DEV).to(bf)
+    k = torch.randn((1, t, kv, hd), generator=gen, device=DEV).to(bf)
+    v = torch.randn((1, t, kv, hd), generator=gen, device=DEV).to(bf)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    pairs = s * (s + 1) // 2                        # causal pairs only
+    pairs = s * (s + 1) // 2 if causal else s * t   # attended pairs only
     if window and window < s:
         pairs -= (s - window) * (s - window + 1) // 2
         i = torch.arange(s, device=DEV)
@@ -714,13 +752,14 @@ def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0):
             return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     else:
         def library():
-            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
     case = attention_case(
         "flash_attention", label,
-        lambda: ops.flash_attention(q, k, v, causal=True, window=window),
-        lambda: ref.attention(q, k, v, causal=True, window=window),
+        lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: ref.attention(q, k, v, causal=causal, window=window),
         library, nbytes, 4 * hd * h * pairs, iters=20)
-    return dict(case, shape=[list(q.shape), list(k.shape)], window=window)
+    return dict(case, shape=[list(q.shape), list(k.shape)], window=window,
+                causal=causal)
 
 
 def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False,
@@ -1163,12 +1202,12 @@ def check_pool_invariance(label, q, kp, vp, tables, lengths, ring=None):
     return out
 
 
-def check_ring_case(label, b, window, bs, dtype, gen):
+def check_ring_case(label, b, window, bs, dtype, gen, **heads):
     """One ring decode step of b rows over rings of window / bs blocks,
     rows unwrapped, part-filled and wrapped (lengths 1..3*window), random
     ring starts; rotating table and starts together must leave the
-    output bitwise unchanged."""
-    q, kp, vp, tables = _pool_operands(b, window, bs, dtype, gen)
+    output bitwise unchanged. `heads`: h, kv and hd, if not qwen2-0.5b's."""
+    q, kp, vp, tables = _pool_operands(b, window, bs, dtype, gen, **heads)
     w = tables.shape[1]
     lengths = torch.linspace(1, 3 * window, b, device=DEV).round().to(
         torch.int32)
@@ -2272,7 +2311,7 @@ def _per_half(op):
     """Whether the mixed step runs the op of a row-stability report per
     half: the products of `attention.MIXED_PER_HALF`, and every norm (the
     layer norms, qk-norm and MLA's q_norm and kv_norm go through
-    `mixed_rmsnorm`)."""
+    `mixed_norm`)."""
     from repro_torch.models.attention import MIXED_PER_HALF
 
     base = op.replace("_f32_mean", "")
@@ -2493,8 +2532,9 @@ def profile_mixed_steps():
     return report
 
 
-def dense_serving(arch, paged=False):
-    """Phase 27: `arch` at full width and depth on phase 7's workload
+def dense_serving(arch, paged=False, layers=0):
+    """Phase 27: `arch` at full width and depth (`layers`: cut to that
+    many, through --layers) on phase 7's workload
     (`paged`: phase 11's pool, 256 blocks of 16, chunks of 32) through
     `repro_torch.launch.serve` at the engine's default (overlapped), then
     through `overlap=False`: one flash launch per layer an admission and
@@ -2505,7 +2545,9 @@ def dense_serving(arch, paged=False):
     argv = ["--arch", arch] + SERVE_ARGS[2:]
     if paged:
         argv += ["--paged", "--block-size", "16"]
-    n_layers = get_config(arch).num_layers
+    if layers:
+        argv += ["--layers", str(layers)]
+    n_layers = layers or get_config(arch).num_layers
     decode = "decode_attention_paged" if paged else "decode_attention"
     runs, launches = {}, {}
     for overlap in (True, False):
@@ -3814,6 +3856,410 @@ def mla_full_width(gen):
     return report
 
 
+# phases 42-45: the encoder-decoder (whisper-small) and the VLM
+# (phi-3-vision-4.2b)
+WHISPER = "whisper-small"
+PHI3 = "phi-3-vision-4.2b"
+WHISPER_SERVE_ARGS = ["--arch", WHISPER, "--requests", "8", "--prompt-len",
+                      "32", "--new-tokens", "64"]
+PHI3_SERVE_ARGS = ["--arch", PHI3, "--requests", "8", "--prompt-len", "200",
+                   "--new-tokens", "64"]
+PHI3_ENGINE_LAYERS = 4      # phi-3 through the engine: 4 of its 32 layers
+PHI3_TRAIN_LAYERS = 2       # its superstep: 0.42 B parameters, A=2, M=1
+
+
+def new_shape_kernel_cases(gen):
+    """Phase 42: the attention kernels at the shapes of whisper-small and
+    phi-3-vision, bf16, each against its plain version and timed as phase
+    3 times them (SDPA beside flash and decode, with is_causal=False for
+    the non-causal cases; gather + SDPA beside paged and ring): flash
+    non-causal at whisper's encoder ([1,1500,12,64] over itself, 1500 no
+    multiple of the 64-row tile) and cross-attention prefill (200 queries
+    over 1500 keys), edge cases S = T = 17 and S = 65 over T = 130, flash
+    causal at phi-3's hd 96 (1024 patches + 200 tokens, 32 heads); decode
+    over whisper's cross K/V (8 rows, 1500 each, G = 1) and at hd 96 (8
+    rows over 1280, lengths 1..1280); paged and ring at hd 96, each
+    bitwise invariant to the table's width, the batch and a repeat (phase
+    10's checks). Returns (flash, decode, paged, ring) cases."""
+    w_heads = dict(h=12, kv=12, hd=64)
+    p_heads = dict(h=32, kv=32, hd=96)
+    flash = [
+        check_flash_case("whisper encoder, non-causal S=T=1500, 12 heads "
+                         "of 64", 1500, gen, causal=False, **w_heads),
+        check_flash_case("whisper cross-attention prefill, non-causal "
+                         "S=200 T=1500", 200, gen, causal=False, t=1500,
+                         **w_heads),
+        check_flash_case("non-causal S=T=17 (a cut fragment)", 17, gen,
+                         causal=False, **w_heads),
+        check_flash_case("non-causal S=65 T=130 at hd 96 (both cut "
+                         "mid-tile)", 65, gen, causal=False, t=130,
+                         **p_heads),
+        check_flash_case("phi-3 prefill S=1224 (1024 patches + 200), 32 "
+                         "heads of 96", 1224, gen, **p_heads)]
+    torch.cuda.empty_cache()
+    decode = [
+        check_decode_case("whisper cross K/V B=8 T=1500, 12 heads of 64 "
+                          "(G 1)", 8, 1500, gen, full=True, **w_heads),
+        check_decode_case("phi-3 decode B=8 T=1280, 32 heads of 96", 8,
+                          1280, gen, **p_heads)]
+    torch.cuda.empty_cache()
+    paged = [check_paged_case(
+        "phi-3 paged B=8 <=1280 tokens bs=16, 32 heads of 96", 8, 1280, 16,
+        dtype, gen, **p_heads) for dtype in (torch.bfloat16, torch.float32)]
+    ring = [check_ring_case(
+        f"ring window {RING_WINDOW} B=8 bs=16, 32 heads of 96", 8,
+        RING_WINDOW, 16, dtype, gen, **p_heads)
+        for dtype in (torch.bfloat16, torch.float32)]
+    torch.cuda.empty_cache()
+    return flash, decode, paged, ring
+
+
+def _greedy_run(model, params, batch, start, steps, cache_len, dev):
+    """model.prefill of `batch` on `dev` with a cache of cache_len rows in
+    f32, then `steps` decode steps at positions start + i, each from the
+    step's greedy token: (logits [B, 1 + steps, V] on the CPU, flash and
+    decode launches of the prefill, decode launches a step)."""
+    reset_counts()
+    logits, caches = model.prefill(params, {k: v.to(dev) for k, v in
+                                            batch.items()},
+                                   cache_dtype=torch.float32,
+                                   cache_len=cache_len)
+    prefill = counts()
+    seq = [logits.cpu()]
+    tok = logits[:, -1].argmax(-1)[:, None].int()
+    reset_counts()
+    for i in range(steps):
+        logits, caches = model.decode_step(params, tok, caches, start + i)
+        seq.append(logits.cpu())
+        tok = logits[:, -1].argmax(-1)[:, None].int()
+    per_step = {k: v / steps for k, v in counts().items()}
+    return torch.cat(seq, dim=1), prefill, per_step
+
+
+def _card_vs_cpu_serving(what, model, batch, start, steps, want_prefill,
+                         want_step):
+    """_greedy_run on the CPU and the card from one set of f32 parameters
+    (TF32 off): logits within 1e-4, equal greedy tokens, and the card's
+    launches as expected ({kernel: count}, the others 0). Returns the
+    report."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = model.init(torch.Generator().manual_seed(0))
+    (want, _, _), (got, prefill, per_step) = (
+        _greedy_run(model, p, batch, start, steps, start + steps, dev)
+        for dev, p in ((torch.device("cpu"), cpu), (DEV, _to(cpu, DEV))))
+    err = float((got - want).abs().max())
+    equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    report = {"max_abs_err": err, "tolerance": 1e-4, "tokens_equal": equal,
+              "prefill_launches": {k: v for k, v in prefill.items() if v},
+              "launches_per_step": {k: v for k, v in per_step.items() if v}}
+    print(json.dumps({f"{what}_card_vs_cpu": report}), flush=True)
+    if err > 1e-4 or not equal:
+        raise AssertionError(f"{what}: card and CPU disagree: {report}")
+    for got, want in ((prefill, want_prefill), (per_step, want_step)):
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise AssertionError(f"{what}: launches {got}, expected {full}")
+    return report
+
+
+def _frames_batch(cfg, lead, seed, tokens=None):
+    """Random frames [*lead, T_enc, D] (f32) beside random tokens and
+    targets [*lead, S] (S = `tokens`), numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    out = {"frames": rng.standard_normal(
+        lead + (cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    if tokens:
+        toks = rng.integers(0, cfg.vocab_size, lead + (tokens + 1,)).astype(
+            np.int32)
+        out.update(tokens=toks[..., :-1], targets=toks[..., 1:])
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def whisper_reference_check():
+    """Phase 43: whisper's smoke config in f32 (TF32 off), card against CPU
+    from one set of parameters: `encode` (within 1e-4), a batched prefill
+    and 8 decode steps (logits within 1e-4, equal tokens; 3L flash
+    launches a prefill, the encoder's, the decoder's self-attention's and
+    its cross-attention's, and 2L decode launches a step, self and
+    cross), `train_loss` (rtol 1e-4) and one API-BCD superstep (A=4, M=2,
+    phase 37's rule; one prox launch a leaf)."""
+    from repro_torch.models import encdec as ED
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke(WHISPER), compute_dtype="float32")
+    model = build_model(cfg)
+    n = cfg.num_layers
+    batch = _frames_batch(cfg, (2,), 1, tokens=9)
+    report = {"serving": _card_vs_cpu_serving(
+        "whisper_smoke", model, {k: batch[k] for k in ("frames", "tokens")},
+        9, 8, {"flash_attention": 3 * n}, {"decode_attention": 2 * n})}
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = _to(cpu, DEV)
+    enc = [ED.encode(cfg, p, batch["frames"].to(d), kernel=True).cpu()
+           for d, p in (("cpu", cpu), (DEV, gpu))]
+    loss = [float(model.train_loss(p, _to(batch, d))[0])
+            for d, p in (("cpu", cpu), (DEV, gpu))]
+    report.update(encode_max_abs_err=float((enc[1] - enc[0]).abs().max()),
+                  train_loss=loss)
+    tcfg = TrainConfig(num_agents=4, num_walks=2)
+    step_fn = make_train_step(model, tcfg)
+    b = _frames_batch(cfg, (4, 2), 2, tokens=16)
+    state = init_train_state(model, tcfg, torch.Generator().manual_seed(0))
+    gstate = _to(state, DEV)
+    state, m_cpu = step_fn(state, b, 0)
+    reset_counts()
+    gstate, m_gpu = step_fn(gstate, _to(b, DEV), 0)
+    launches = {k: v for k, v in counts().items() if v}
+    close = _state_close(gstate, state, lambda want, part: 1e-4 * (
+        max(1.0, float(want.abs().max())) if part == "gacc" else 1.0))
+    report["superstep_card_vs_cpu"] = {
+        "loss_card": float(m_gpu["loss"]), "loss_cpu": float(m_cpu["loss"]),
+        "leaves": len(state["params"]), "launches": launches,
+        "max_abs_err": {p: e for p, (_, e) in close.items()}}
+    print(json.dumps({"whisper_reference": report}), flush=True)
+    ok = report["encode_max_abs_err"] <= 1e-4 and abs(
+        loss[1] - loss[0]) <= 1e-4 * abs(loss[0])
+    ok &= all(c for c, _ in close.values()) and abs(
+        float(m_gpu["loss"]) - float(m_cpu["loss"])) \
+        <= 1e-4 * abs(float(m_cpu["loss"]))
+    ok &= launches == {"prox_update": len(state["params"])}
+    if not ok:
+        raise AssertionError(f"whisper: card and CPU disagree: {report}")
+    return report
+
+
+def raw_serving(argv, per_prefill, per_step):
+    """`repro_torch.launch.serve` through its raw loop (`serve_raw`) with
+    `argv` at full width, counts reset just before and read just after:
+    per_prefill and per_step ({kernel: launches}) for the one prefill and
+    each decode step, no other kernel; every row gets prefill's token and
+    one a step, all in the vocabulary. Returns (summary, launches)."""
+    print(" ".join(argv))
+    args = serve_cli.parse_args(argv)
+    reset_counts()
+    out = serve_cli.main(argv)
+    got = counts()
+    want = {k: per_prefill.get(k, 0) + args.new_tokens * per_step.get(k, 0)
+            for k in got}
+    toks = np.asarray(out["tokens"])
+    summary = {"argv": " ".join(argv), "prefill_s": out["prefill_s"],
+               "decode_s": out["decode_s"],
+               "decode_ms_per_step": out["decode_s"] * 1e3 / args.new_tokens,
+               "tokens_per_s": out["tokens_per_s"], "prefix": out["prefix"],
+               "init_peak_GB": out["init_peak_bytes"] / 1e9,
+               "peak_GB": out["peak_bytes"] / 1e9, "launches": got,
+               "first_row": toks[0].tolist()}
+    print(json.dumps({"raw_serving": summary}), flush=True)
+    if got != want:
+        raise AssertionError(f"{argv}: launches {got}, expected {want}")
+    if toks.shape != (args.requests, args.new_tokens + 1) or toks.min() < 0:
+        raise AssertionError(f"{argv}: tokens of shape {toks.shape}")
+    return summary, got
+
+
+def profile_raw_decode(argv, steps=8):
+    """Steady decode steps of the raw loop's model at full width (`argv`'s
+    --arch, --requests rows after a prefill of `raw_prompt`'s batch, bf16
+    parameters as `serve_raw` casts them): `steps` steps timed on the host
+    clock, then `steps` more under torch.profiler between pad_profile()'s
+    sleeps: device ms and device launches a step, the busy share of the
+    steps' wall time (profiled, and estimated from the unprofiled steps),
+    the attention kernels' device ms. Returns the report."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = serve_cli.parse_args(argv)
+    _, cfg, model, params = serve_cli.build(args)
+    params = {k: v.to(getattr(torch, cfg.compute_dtype))
+              if v.is_floating_point() else v for k, v in params.items()}
+    prompt, prefix = serve_cli.raw_prompt(cfg, args.requests,
+                                          args.prompt_len, DEV)
+    pos = args.prompt_len + prefix
+    logits, caches = model.prefill(params, prompt,
+                                   cache_len=pos + 2 * steps + 1)
+    tok = logits[:, -1].argmax(-1)[:, None].int()
+
+    def run(n):
+        # as the raw loop: each step's token stays on the device
+        nonlocal tok, caches, pos, logits
+        for _ in range(n):
+            logits, caches = model.decode_step(params, tok, caches, pos)
+            tok = logits[:, -1].argmax(-1)[:, None].int()
+            pos += 1
+
+    run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_profile()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        pad_profile()
+        torch.cuda.synchronize()
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and PAD_KERNEL not in ev.key
+            and ev.self_device_time_total > 0]
+    device = sum(ms for ms, _, _ in rows)
+    report = {"arch": cfg.name, "rows": args.requests, "steps": steps,
+              "device_ms_per_step": device / steps,
+              "device_launches_per_step": sum(n for _, n, _ in rows) / steps,
+              "wall_ms_per_step": wall_ms / steps,
+              "unprofiled_wall_ms_per_step": plain_ms / steps,
+              "device_busy_share": device / wall_ms if wall_ms else None,
+              "device_busy_share_unprofiled_estimate": device / plain_ms,
+              "attention_device_ms_per_step": sum(
+                  ms for ms, _, name in rows if "decode_fwd" in name) / steps}
+    print(json.dumps({"profile_raw_decode": report}), flush=True)
+    del params, caches
+    torch.cuda.empty_cache()
+    return report
+
+
+def superstep_run(what, cfg, agents, walks, batch, steps=3):
+    """`steps` API-BCD supersteps of `cfg` in its own dtypes from a state
+    made on the card, on `batch` (leaves [A, ...], on the card), and one
+    more under torch.profiler (device ms, device launches, busy share):
+    finite losses, one prox launch a leaf each and no other kernel, ms a
+    superstep (the first includes first use) and the peak. "launches"
+    counts the `steps` supersteps' prox launches. Returns the report."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tcfg = TrainConfig(num_agents=agents, num_walks=walks, tau=0.05,
+                       rho=20.0)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=DEV).manual_seed(0))
+    leaves = len(state["params"])
+    n_params = sum(v[0].numel() for v in state["params"].values())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step_fn = make_train_step(model, tcfg)
+    step_ms, losses, total = [], [], 0
+
+    def one(step):
+        nonlocal state, total
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: v for k, v in counts().items() if v}
+        total += launches.get("prox_update", 0)
+        losses.append(float(m["loss"]))
+        if launches != {"prox_update": leaves} or not np.isfinite(
+                losses[-1]):
+            raise AssertionError(f"{what} superstep {step}: loss "
+                                 f"{losses[-1]}, launches {launches}, "
+                                 f"{leaves} leaves")
+
+    for step in range(steps):
+        one(step)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one(steps)
+    wall = step_ms.pop()
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    device = sum(ev.self_device_time_total for ev in events) / 1e3
+    report = {"layers": cfg.num_layers, "agents": agents, "walks": walks,
+              "batch": {k: list(v.shape) for k, v in batch.items()},
+              "params": n_params, "leaves": leaves, "state_GB": state_gb,
+              "losses": losses, "superstep_ms": step_ms,
+              "superstep_ms_after_first": float(np.mean(step_ms[1:])),
+              "profiled_superstep": {
+                  "wall_ms": wall, "device_ms": device,
+                  "device_launches": sum(ev.count for ev in events),
+                  "device_busy_share": device / wall},
+              "launches": {"prox_update": total - leaves},
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps({f"{what}_training": report}), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def whisper_full():
+    """Phase 44: whisper-small at full width and depth (12 + 12 layers).
+    Served through `launch.serve --arch whisper-small` (the raw loop: 8
+    requests, prompts of 32, 64 new tokens, 1500 random frames each):
+    36 flash launches for the prefill (12 encoder, 12 self, 12 cross) and
+    24 decode launches a step (12 self, 12 over the cross K/V), no other
+    kernel; 8 steady decode steps profiled. Then 3 API-BCD supersteps at
+    A=4, M=2, one sequence of 128 tokens over 1500 frames an agent.
+    Returns (serving summary and launches, training report)."""
+    n = get_config(WHISPER).num_layers
+    serving = raw_serving(WHISPER_SERVE_ARGS, {"flash_attention": 3 * n},
+                          {"decode_attention": 2 * n})
+    torch.cuda.empty_cache()
+    profile_raw_decode(WHISPER_SERVE_ARGS)
+    cfg = get_config(WHISPER)
+    batch = _to(_frames_batch(cfg, (4, 1), 3, tokens=128), DEV)
+    return serving, superstep_run("whisper_full", cfg, 4, 2, batch)
+
+
+def phi3_full(gen):
+    """Phase 45: phi-3-vision-4.2b. (a) its smoke config in f32 with
+    head_dim raised to 96, card against CPU: a prefill with the patch
+    prefix and 8 decode steps (logits within 1e-4, equal tokens; L flash
+    launches a prefill and L decode a step). (b) Full width and depth
+    through `launch.serve --arch phi-3-vision-4.2b` (the raw loop: 8
+    requests, 1024 random patches + prompts of 200, 64 new tokens): 32
+    flash launches at hd 96 for the prefill and 32 decode launches a
+    step, the init's and the run's peaks, 8 steady decode steps
+    profiled. (c) Full width cut to 4
+    layers, text-only prompts through the engine (phase 27's
+    `dense_serving`): the arena and the pool, overlapped and serialized
+    with equal tokens; phase 26's row-stability sweep at its widths (d
+    3072, d_ff 8192, H * hd 3072); three supersteps at 2 layers, A=2,
+    M=1, 1024 patches + 128 tokens an agent. Returns the report."""
+    cfg = dataclasses.replace(get_smoke(PHI3), compute_dtype="float32",
+                              head_dim=96)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32)),
+        "patches": torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32))}
+    n = cfg.num_layers
+    report = {"smoke_hd96": _card_vs_cpu_serving(
+        "phi3_smoke_hd96", build_model(cfg), batch, cfg.num_patches + 9, 8,
+        {"flash_attention": n}, {"decode_attention": n})}
+    full = get_config(PHI3)
+    report["raw"], report["raw_launches"] = raw_serving(
+        PHI3_SERVE_ARGS, {"flash_attention": full.num_layers},
+        {"decode_attention": full.num_layers})
+    torch.cuda.empty_cache()
+    report["raw_profile"] = profile_raw_decode(PHI3_SERVE_ARGS)
+    report["engine"] = {paged: dense_serving(PHI3, paged,
+                                             layers=PHI3_ENGINE_LAYERS)
+                        for paged in (False, True)}
+    dense_row_stability(gen, [dataclasses.replace(
+        full, num_layers=1, layer_types=("attn",))],
+        out="row_stability_sweep_phi3.json")
+    cut = dataclasses.replace(full, num_layers=PHI3_TRAIN_LAYERS,
+                              layer_types=("attn",) * PHI3_TRAIN_LAYERS)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(0, full.vocab_size, (2, 1, 129), generator=g,
+                         device=DEV, dtype=torch.int32)
+    tbatch = {"tokens": toks[..., :-1].contiguous(),
+              "targets": toks[..., 1:].contiguous(),
+              "patches": torch.randn((2, 1, full.num_patches, full.d_model),
+                                     generator=g, device=DEV)}
+    report["training"] = superstep_run("phi3_2_layers", cut, 2, 1, tbatch)
+    return report
+
+
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
                               "decode_attention_paged", "rwkv6_scan",
                               "rwkv6_scan_bwd", "rglru_scan")):
@@ -3868,21 +4314,24 @@ def ptxas_report(logs, names=("flash_attention", "decode_attention",
                paged.decode_attention_paged_smem_bytes):
         fn.restype = ctypes.c_int
     dynamic = {f"flash hd {hd} {dt}": flash.flash_attention_smem_bytes(
-        int(dt == "bf16"), hd) for hd in (32, 64, 128, 256)
+        int(dt == "bf16"), hd) for hd in (32, 64, 96, 128, 256)
         for dt in ("bf16", "f32")}
+    # G 1: whisper's cross K/V (hd 64) and phi-3-vision (hd 96)
     dynamic.update({f"decode hd {hd} G {g} {dt}":
                     decode.decode_attention_smem_bytes(int(dt == "bf16"), hd,
                                                        g)
                     for hd, g in ((64, 7), (256, 10), (32, 4), (128, 2),
-                                  (128, 4), (128, 6), (128, 8))
+                                  (128, 4), (128, 6), (128, 8), (64, 1),
+                                  (96, 1))
                     for dt in ("bf16", "f32")})
     # the paged main paths: qwen2 (hd 64, G 7, bs 16) at 4 and 32 splits,
-    # recurrentgemma (hd 256, G 10) and qwen3-8b (hd 128, G 4) at 4
+    # recurrentgemma (hd 256, G 10) and qwen3-8b (hd 128, G 4) at 4,
+    # phi-3-vision (hd 96, G 1) at 10
     dynamic.update({f"paged hd {hd} G {g} splits {n} bs 16 {dt}":
                     paged.decode_attention_paged_smem_bytes(
                         int(dt == "bf16"), hd, g, n, paged_split_rows(hd), 16)
                     for hd, g, n in ((64, 7, 4), (64, 7, 32), (256, 10, 4),
-                                     (128, 4, 4))
+                                     (128, 4, 4), (96, 1, 10))
                     for dt in ("bf16", "f32")})
     wkv_lib = build.load("rwkv6_scan")
     rglru_lib = build.load("rglru_scan")
@@ -3935,6 +4384,9 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  " + line.strip())
     ptx = ptxas_report(logs)
+    print(json.dumps({"hd96_ptxas": [
+        r for r in ptx if r["library"] in ATTENTION_LIBRARIES
+        and re.search(r"\b96\b", r["kernel"])]}), flush=True)
 
     phase("3 kernels against their plain versions")
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -4232,6 +4684,29 @@ def main():
     mla_full = mla_full_width(gen)
     torch.cuda.empty_cache()
 
+    phase("42 attention kernels at whisper-small's and phi-3-vision's "
+          "shapes: non-causal flash, head_dim 96")
+    new_flash, new_decode, new_paged, new_ring = new_shape_kernel_cases(gen)
+    flash_cases += new_flash
+    decode_cases += new_decode
+    paged_cases += new_paged
+    ring_cases += new_ring
+
+    phase("43 whisper reference: card against CPU at smoke size, serving "
+          "and training")
+    whisper_reference_check()
+    torch.cuda.empty_cache()
+
+    phase("44 whisper-small at full width and depth: launch.serve's raw "
+          "loop, 3 supersteps")
+    (_, whisper_launches), whisper_train = whisper_full()
+
+    phase(f"45 phi-3-vision-4.2b: smoke at hd 96 card against CPU; full "
+          f"depth through the raw loop; {PHI3_ENGINE_LAYERS} layers through "
+          "the engine, row stability; a superstep")
+    phi3 = phi3_full(gen)
+    torch.cuda.empty_cache()
+
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
         out = {}
@@ -4241,6 +4716,13 @@ def main():
                     out[f"{arch} {'paged' if paged else 'arena'}, "
                         f"{sched}"] = got[kernel]
         return out
+
+    def phi3_paths(kernel, paged=False):
+        """{path: launches} of phase 45's engine runs of `kernel`."""
+        return {f"phi-3 {PHI3_ENGINE_LAYERS} layers "
+                f"{'paged' if paged else 'arena'}, {sched}": got[kernel]
+                for sched, got in zip(("overlapped", "serialized"),
+                                      phi3["engine"][paged])}
 
     # top level: each kernel's main-path case for the times (the largest
     # leaf's f32 case for prox_update), the worst case for the error
@@ -4263,6 +4745,10 @@ def main():
                           "superstep_card_vs_cpu"]["launches"][
                           "prox_update"],
                       "dense MLA training": mla_full["training"][
+                          "launches"]["prox_update"],
+                      "whisper-small training": whisper_train["launches"][
+                          "prox_update"],
+                      "phi-3 training, 2 layers": phi3["training"][
                           "launches"]["prox_update"]},
                      cases, cases[1]),
         kernel_entry("flash_attention",
@@ -4275,7 +4761,12 @@ def main():
                       "recurrentgemma arena":
                           rg_launches["flash_attention"],
                       **dense_paths("flash_attention"),
-                      "dbrx arena": moe_launches["flash_attention"]},
+                      "dbrx arena": moe_launches["flash_attention"],
+                      "whisper-small raw loop":
+                          whisper_launches["flash_attention"],
+                      "phi-3 raw loop": phi3["raw_launches"][
+                          "flash_attention"],
+                      **phi3_paths("flash_attention")},
                      flash_cases, flash_cases[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -4287,7 +4778,12 @@ def main():
                       "recurrentgemma arena":
                           rg_launches["decode_attention"],
                       **dense_paths("decode_attention"),
-                      "dbrx arena": moe_launches["decode_attention"]},
+                      "dbrx arena": moe_launches["decode_attention"],
+                      "whisper-small raw loop":
+                          whisper_launches["decode_attention"],
+                      "phi-3 raw loop": phi3["raw_launches"][
+                          "decode_attention"],
+                      **phi3_paths("decode_attention")},
                      decode_cases, decode_cases[0]),
         kernel_entry("decode_attention_paged",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
@@ -4296,7 +4792,8 @@ def main():
                           paged_launches["decode_attention_paged"],
                       "qwen2 paged, serialized":
                           ser_launches["paged"]["decode_attention_paged"],
-                      **dense_paths("decode_attention_paged", paged=True)},
+                      **dense_paths("decode_attention_paged", paged=True),
+                      **phi3_paths("decode_attention_paged", paged=True)},
                      paged_cases, paged_cases[0]),
         kernel_entry("decode_attention_ring",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",

@@ -1,8 +1,8 @@
 """Config registry of the port: one module per ported architecture.
 
 `get_config(name)` -> full ArchConfig; `get_smoke(name)` -> the reduced
-variant for CPU tests. Architectures the reference has but the port
-does not yet run raise.
+variant for CPU tests. All ten of the reference's architectures are
+registered.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ArchConfig, MLAConfig, MoEConfig, TrainConfig,
 )
 
-# user-facing ids -> module names, for the architectures ported so far
+# user-facing ids -> module names
 ARCH_IDS = {
     "qwen2-0.5b": "qwen2_0p5b",
     "rwkv6-1.6b": "rwkv6_1p6b",
@@ -22,6 +22,8 @@ ARCH_IDS = {
     "nemotron-4-15b": "nemotron4_15b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "whisper-small": "whisper_small",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
 }
 
 

@@ -158,6 +158,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
     switch (hd) {
         case 32: return by_outputs<T, 32>(a);
         case 64: return by_outputs<T, 64>(a);
+        case 96: return by_outputs<T, 96>(a);
         case 128: return by_outputs<T, 128>(a);
         case 256: return by_outputs<T, 256>(a);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -169,6 +170,7 @@ size_t smem_for(int hd, int group) {
     switch (hd) {
         case 32: return smem_bytes<T, 32>(group);
         case 64: return smem_bytes<T, 64>(group);
+        case 96: return smem_bytes<T, 96>(group);
         case 128: return smem_bytes<T, 128>(group);
         case 256: return smem_bytes<T, 256>(group);
         default: return 0;
@@ -182,7 +184,7 @@ size_t smem_for(int hd, int group) {
 // strides of their first three dims (the last dim of every operand is
 // contiguous); lengths: int32 [B] on the device; out: a contiguous
 // [B, H, hd] buffer of q's type. K/V pointers and strides in bytes are
-// multiples of 16; hd is 32, 64, 128 or 256; H is a multiple of KV with
+// multiples of 16; hd is 32, 64, 96, 128 or 256; H is a multiple of KV with
 // (H / KV) * hd <= 2560. split_rows is a multiple of 64 with at most 32
 // splits of T; where T > split_rows, partial is f32 scratch of
 // B * KV * splits * ((H / KV) * (hd + 2)) values and tickets int32 [B * KV]

@@ -198,6 +198,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
     switch (hd) {
         case 32: return by_outputs<T, 32>(a);
         case 64: return by_outputs<T, 64>(a);
+        case 96: return by_outputs<T, 96>(a);
         case 128: return by_outputs<T, 128>(a);
         case 256: return by_outputs<T, 256>(a);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -211,6 +212,8 @@ size_t smem_for(int hd, int group, int splits, int split_rows,
         case 32: return smem_bytes<T, 32>(group, splits, split_rows,
                                           block_size);
         case 64: return smem_bytes<T, 64>(group, splits, split_rows,
+                                          block_size);
+        case 96: return smem_bytes<T, 96>(group, splits, split_rows,
                                           block_size);
         case 128: return smem_bytes<T, 128>(group, splits, split_rows,
                                             block_size);
@@ -228,7 +231,7 @@ size_t smem_for(int hd, int group, int splits, int split_rows,
 // operand is contiguous; pointers and strides in bytes are multiples of
 // 16); tables: contiguous int32 [B, W]; starts: int32 [B] (read only when
 // window > 0, the ring); lengths: int32 [B]; out: a contiguous [B, H, hd]
-// buffer of q's type. hd is 32, 64, 128 or 256; H is a multiple of KV
+// buffer of q's type. hd is 32, 64, 96, 128 or 256; H is a multiple of KV
 // with (H / KV) * hd <= 2560. split_rows is a multiple of 64; with
 // splits = ceil(cap / split_rows) for cap = W * bs (paged) or
 // min(window, W * bs) (ring), at most 65535: where splits > 1, partial is

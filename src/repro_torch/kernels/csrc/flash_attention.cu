@@ -507,6 +507,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
         case 64:
             return launch<T, 64>(q, k, v, out, B, S, Tk, H, KV, qs, ks, vs,
                                  causal, window, scale, s);
+        case 96:
+            return launch<T, 96>(q, k, v, out, B, S, Tk, H, KV, qs, ks, vs,
+                                 causal, window, scale, s);
         case 128:
             return launch<T, 128>(q, k, v, out, B, S, Tk, H, KV, qs, ks, vs,
                                   causal, window, scale, s);
@@ -523,6 +526,7 @@ size_t smem_for(bool is_bf16, int hd) {
     switch (hd) {
         case 32: return is_bf16 ? mma_smem_bytes<32>() : smem_bytes<float, 32>();
         case 64: return is_bf16 ? mma_smem_bytes<64>() : smem_bytes<float, 64>();
+        case 96: return is_bf16 ? mma_smem_bytes<96>() : smem_bytes<float, 96>();
         case 128:
             return is_bf16 ? mma_smem_bytes<128>() : smem_bytes<float, 128>();
         case 256:
@@ -537,7 +541,7 @@ size_t smem_for(bool is_bf16, int hd) {
 // its base pointer and element strides of its first three dims (the last
 // dim is contiguous); out: a contiguous [B, S, H, hd] buffer of the same
 // type. Pointers and strides in bytes are multiples of 16; hd is 32, 64,
-// 128 or 256; H is a multiple of KV. stream is a cudaStream_t. Each returns
+// 96, 128 or 256; H is a multiple of KV. stream is a cudaStream_t. Each returns
 // cudaGetLastError() after its launch.
 extern "C" {
 

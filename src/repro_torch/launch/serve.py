@@ -39,6 +39,18 @@ always runs the engine's default scheduler (`Engine(overlap=False)` is
 the serialized one). Prints tokens/s, p50/p99 request latency, the
 resolved overlap mode with its mixed steps and overlapped admissions,
 and, for the pool, preemptions and free blocks.
+
+whisper-small (the encoder-decoder, whose prompts carry audio frames)
+and phi-3-vision-4.2b (whose prompts carry a patch prefix) are not served
+through the engine, which takes token-only prompts: as in the reference,
+they go through a raw loop (`serve_raw`), one batched prefill of all
+--requests prompts with random frames or patches, then --new-tokens
+greedy decode steps. --layers cuts the decoder's depth there too (and
+the encoder's to at most as many layers). For example, at full width on
+an H100:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-small --requests 8 --prompt-len 32 --new-tokens 64
 """
 from __future__ import annotations
 
@@ -105,7 +117,9 @@ def build(args, cfg=None):
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers,
-                                  layer_types=cfg.layer_types[:args.layers])
+                                  layer_types=cfg.layer_types[:args.layers],
+                                  encoder_layers=min(cfg.encoder_layers,
+                                                     args.layers))
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     return device, cfg, model, params
@@ -221,8 +235,111 @@ def serve(args, overlap=True, cfg=None):
             "init_peak_bytes": init_peak, "init_bytes": init_bytes}
 
 
+# the families the engine cannot serve: the encoder-decoder has no slot
+# arena, and a VLM's prompts carry a patch prefix
+RAW_FAMILIES = ("audio", "encdec", "vlm")
+
+
+def raw_prompt(cfg, requests, prompt_len, device):
+    """The raw loop's batch, as the reference's `_serve_raw` draws it from
+    `np.random.default_rng(0)`: {"tokens": int32 [B, P]} and, after them,
+    "frames" [B, T_enc, D] (encoder-decoder) or "patches" [B, P_img, D]
+    (VLM) in f32, on `device`; and the prefix length (the patches', or
+    0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    b = requests
+    prompt = {"tokens": rng.integers(0, cfg.vocab_size,
+                                     (b, prompt_len)).astype(np.int32)}
+    prefix = 0
+    if cfg.family in ("audio", "encdec"):
+        prompt["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        prompt["patches"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        prefix = cfg.num_patches
+    return ({k: torch.from_numpy(v).to(device) for k, v in prompt.items()},
+            prefix)
+
+
+def serve_raw(args, cfg=None):
+    """The reference's raw loop (`repro/launch/serve.py: _serve_raw`), for
+    the families the engine cannot serve: --requests prompts of
+    --prompt-len random tokens (seed 0), with random frames [B, T_enc, D]
+    (encoder-decoder) or patches [B, P, D] (VLM) drawn after them from the
+    same generator, prefilled in one batch with a cache of prompt + prefix
+    + --new-tokens rows, then --new-tokens greedy decode steps at
+    positions p + prefix + i. The parameters are cast to the compute dtype
+    once, before the loop, as the engine does (`raw_prompt` draws the
+    batch). Prints what the reference prints. Returns {"tokens" ([B,
+    new_tokens + 1]: the prefill's greedy token, then each decode
+    step's), "prefill_s", "decode_s", "tokens_per_s" (decoded tokens a
+    second), "prefix", "peak_bytes" (the run's peak after the init),
+    "init_peak_bytes" (the init's and the cast's), each None on the CPU,
+    "device"}."""
+    import torch
+
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats(device)
+    device, cfg, model, params = build(args, cfg)
+    compute = getattr(torch, cfg.compute_dtype)
+    params = {k: v.to(compute) if v.is_floating_point() else v
+              for k, v in params.items()}
+    init_peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    print(f"[{cfg.name}] {cfg.family}: raw prefill/decode loop (engine "
+          "serves token-only prompts)")
+
+    b, p = args.requests, args.prompt_len
+    prompt, prefix = raw_prompt(cfg, b, p, device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    total = p + prefix + args.new_tokens
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompt, cache_len=total)
+    token = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill: {b}x{p} tokens in {prefill_s:.3f}s")
+    tokens = [token]
+    t0 = time.perf_counter()
+    for i in range(args.new_tokens):
+        logits, caches = model.decode_step(params, token, caches,
+                                           p + prefix + i)
+        token = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        tokens.append(token)
+    sync()
+    decode_s = time.perf_counter() - t0
+    rate = args.new_tokens * b / decode_s
+    print(f"decode: {args.new_tokens} x batch {b} in {decode_s:.3f}s "
+          f"({rate:.1f} tok/s)")
+    return {"tokens": torch.cat(tokens, dim=1).cpu().tolist(),
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "tokens_per_s": rate, "prefix": prefix, "device": str(device),
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if cuda else None),
+            "init_peak_bytes": init_peak}
+
+
 def main(argv=None):
-    return serve(parse_args(argv))
+    args = parse_args(argv)
+    from repro_torch.configs import get_config
+
+    if get_config(args.arch).family in RAW_FAMILIES:
+        return serve_raw(args)
+    return serve(args)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,13 @@ buffers. The paged pool's decode goes through `decode_attention_paged`
 the card; its chunk prefill attends with plain PyTorch, as the
 reference does with jnp.
 
+The encoder-decoder's attention (`bidir_attention`, `cross_kv`,
+`cross_attention`, `cross_decode`) has the same two routes: training
+through `chunked_attention` with causal=False, serving through
+`flash_attention` with causal=False (the encoder over its frames, the
+decoder's prefill over the encoder's K/V) and `decode_attention` over the
+cached cross K/V (every row valid).
+
 MLA (DeepSeek-V2's latent attention, the `mla_*` functions) caches the
 latents {ckv, kpe} in place of K/V, on the arena and the pool alike. Its
 cores are plain PyTorch on every device, as the reference computes them
@@ -38,7 +45,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import _he, apply_rope, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (_he, apply_rope, layernorm, rmsnorm,
+                                       rmsnorm_init)
 
 
 def gqa_init(generator, lead, cfg, dtype):
@@ -171,6 +179,74 @@ def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0):
         out = chunked_attention(q, k, v, causal=True, window=win)
     out = out.reshape(b, s, h * hd)
     return out @ params["wo"], (k, v)
+
+
+def bidir_attention(params, cfg, x, positions, *, kernel=False):
+    """Encoder self-attention (no causal mask; rope on `positions`, as the
+    reference's). x [B,T,D] -> [B,T,D]. kernel=False (training):
+    `chunked_attention`; kernel=True (serving): `ops.flash_attention`
+    with causal=False."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if kernel:
+        out = ops.flash_attention(q.reshape(b, s, h, hd), k, v, causal=False)
+    else:
+        out = chunked_attention(q, k, v, causal=False)
+    return out.reshape(b, s, h * hd) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the whisper decoder over the encoder's output)
+# ---------------------------------------------------------------------------
+
+
+def cross_init(generator, lead, cfg, dtype):
+    """wq, wk, wv [D, H*hd] and wo [H*hd, D] with leading dims `lead`,
+    He-scaled by their fan-in."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {"wq": _he(generator, lead + (d, h * hd), dtype, d),
+            "wk": _he(generator, lead + (d, h * hd), dtype, d),
+            "wv": _he(generator, lead + (d, h * hd), dtype, d),
+            "wo": _he(generator, lead + (h * hd, d), dtype, h * hd)}
+
+
+def cross_kv(params, cfg, enc_out):
+    """The encoder output [B,T,D] -> its keys and values [B,T,H,hd] (every
+    query head its own: no grouping, no rope)."""
+    b, t, _ = enc_out.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    return ((enc_out @ params["wk"]).reshape(b, t, h, hd),
+            (enc_out @ params["wv"]).reshape(b, t, h, hd))
+
+
+def cross_attention(params, cfg, x, enc_k, enc_v, *, kernel=False):
+    """x [B,S,D] over the encoder's enc_k, enc_v [B,T,H,hd] (in x's dtype)
+    -> [B,S,D]. kernel=False (training): `chunked_attention`; kernel=True
+    (serving prefill): `ops.flash_attention` with causal=False."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    if kernel:
+        out = ops.flash_attention(q, enc_k, enc_v, causal=False)
+    else:
+        out = chunked_attention(q.reshape(b, s, h, 1, hd), enc_k, enc_v,
+                                causal=False)
+    return out.reshape(b, s, h * hd) @ params["wo"]
+
+
+def cross_decode(params, cfg, x, enc_k, enc_v):
+    """One decode token a row x [B,1,D] over the cached enc_k, enc_v [B,T,
+    H,hd], every row attending to all T rows, through `ops.decode_attention`
+    (q cast to the cache's dtype, as `_decode_attend` does; the reference
+    computes this with `cross_attention` over the cache cast to x's
+    dtype). Returns [B,1,D]."""
+    b = x.shape[0]
+    h, hd, t = cfg.num_heads, cfg.head_dim, enc_k.shape[1]
+    q = (x @ params["wq"]).reshape(b, h, hd).to(enc_k.dtype)
+    lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    out = ops.decode_attention(q, enc_k, enc_v, lengths=lengths)
+    return out.reshape(b, 1, h * hd).to(x.dtype) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -699,9 +775,12 @@ def mla_decode_paged(params, cfg, x, cache, tables, lengths):
 # d_model; unstable at 5120 too) and wq_b (K = q_lora) run per half, as
 # wq/wk/wv do, and its q_norm and kv_norm (over q_lora and r) are
 # rmsnorms; its expansion products and absorbed einsums touch one half
-# only. `chip_smoke.py`'s row-stability report measures each op.
+# only. layernorm (a layernorm stack's block and final norms) reduces over
+# d_model as rmsnorm does, and runs per half with it. `chip_smoke.py`'s
+# row-stability report measures each op.
 MIXED_PER_HALF = frozenset({"wq", "wk", "wv", "wo", "w_down", "rmsnorm",
-                            "w_gate", "w_up", "wq_a", "wq_b", "wkv_a"})
+                            "layernorm", "w_gate", "w_up", "wq_a", "wq_b",
+                            "wkv_a"})
 
 
 def per_half(fn, x, nd, name):
@@ -718,9 +797,11 @@ def mixed_product(x, w, nd, name):
     return per_half(lambda t: t @ w, x, nd, name)
 
 
-def mixed_rmsnorm(params, x, nd):
-    """rmsnorm over the mixed batch's last axis, through `per_half`."""
-    return per_half(lambda t: rmsnorm(params, t), x, nd, "rmsnorm")
+def mixed_norm(params, x, nd, norm_type="rmsnorm"):
+    """The norm `norm_type` ("rmsnorm" or "layernorm") over the mixed
+    batch's last axis, through `per_half`."""
+    norm = {"rmsnorm": rmsnorm, "layernorm": layernorm}[norm_type]
+    return per_half(lambda t: norm(params, t), x, nd, norm_type)
 
 
 def _rope_mixed(t, nd, pos_d, pos_p, theta):
@@ -733,7 +814,7 @@ def _rope_mixed(t, nd, pos_d, pos_p, theta):
 
 def _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p):
     """`_project_qkv` for the mixed batch x [1, nd + S, D]: the q/k/v
-    products through `mixed_product`, qk-norm through `mixed_rmsnorm`,
+    products through `mixed_product`, qk-norm through `mixed_norm`,
     rope per half."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -745,7 +826,7 @@ def _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p):
         v = v + params["bv"]
     q, k = _qk_norm(params, cfg, q.reshape(b, s, h, hd),
                     k.reshape(b, s, kv, hd),
-                    norm=lambda p, t: mixed_rmsnorm(p, t, nd))
+                    norm=lambda p, t: mixed_norm(p, t, nd))
     q = _rope_mixed(q, nd, pos_d, pos_p, cfg.rope_theta)
     k = _rope_mixed(k, nd, pos_d, pos_p, cfg.rope_theta)
     return q.reshape(b, s, kv, h // kv, hd), k, v.reshape(b, s, kv, hd)
@@ -803,8 +884,8 @@ def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
 
 def _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p):
     """`_mla_q` for the mixed batch: wq_a, q_norm and wq_b through
-    `mixed_product` and `mixed_rmsnorm`, rope per half."""
-    q = mixed_rmsnorm({"scale": params["q_norm.scale"]},
+    `mixed_product` and `mixed_norm`, rope per half."""
+    q = mixed_norm({"scale": params["q_norm.scale"]},
                       mixed_product(x, params["wq_a"], nd, "wq_a"), nd)
     return _mla_split_q(cfg, mixed_product(q, params["wq_b"], nd, "wq_b"),
                         lambda t: _rope_mixed(t, nd, pos_d, pos_p,
@@ -813,10 +894,10 @@ def _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p):
 
 def _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p):
     """`_mla_ckv` for the mixed batch: wkv_a and kv_norm through
-    `mixed_product` and `mixed_rmsnorm`, rope per half."""
+    `mixed_product` and `mixed_norm`, rope per half."""
     return _mla_split_kv(
         cfg, mixed_product(x, params["wkv_a"], nd, "wkv_a"),
-        lambda t: mixed_rmsnorm({"scale": params["kv_norm.scale"]}, t, nd),
+        lambda t: mixed_norm({"scale": params["kv_norm.scale"]}, t, nd),
         lambda t: _rope_mixed(t, nd, pos_d, pos_p, cfg.rope_theta))
 
 

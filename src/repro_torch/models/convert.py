@@ -56,7 +56,18 @@ def arena_from_jax(caches):
     Recurrent leaves come back in f32, the dtype the port keeps them in:
     the reference's RWKV6 shifts and RG-LRU conv inputs turn bf16 after a
     bf16 step (each is x's last positions, in the compute dtype), with
-    values that f32 holds exactly."""
+    values that f32 holds exactly.
+
+    The encoder-decoder's cache is one dict, not a list, {"k", "v": [L,
+    B, T, KV, hd], "ptr": [L], "ek", "ev": [L, B, T_enc, H, hd]}; it comes
+    back as the port's dict with the same leaves."""
+    if isinstance(caches, dict):
+        if set(caches) != {"k", "v", "ptr", "ek", "ev"}:
+            raise ValueError(f"not an encoder-decoder cache: leaves "
+                             f"{sorted(caches)}")
+        out = {k: _tensor(v) for k, v in caches.items()}
+        out["ptr"] = out["ptr"].to(torch.int32)
+        return out
     out = []
     for seg in caches:
         names = set(seg)

@@ -38,6 +38,30 @@ def rmsnorm(params, x, eps=1e-6):
     return (x * params["scale"].float()).to(dt)
 
 
+def layernorm_init(shape, dtype, device):
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps=1e-5):
+    """In f32 with the biased variance (`jnp.var`'s), as the reference."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"].float() + params["bias"].float()).to(dt)
+
+
+def make_norm(norm_type):
+    """(init, apply) of "rmsnorm" or "layernorm"."""
+    if norm_type == "rmsnorm":
+        return rmsnorm_init, rmsnorm
+    if norm_type == "layernorm":
+        return layernorm_init, layernorm
+    raise ValueError(norm_type)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings (split halves, f32 angles)
 # ---------------------------------------------------------------------------

@@ -1,15 +1,21 @@
 """Model dispatch: build (init, train_loss, and the serving entry points)
 per config, as `repro/models/model.py` does.
 
-Four families are ported: the dense decoder-only stack (a swiglu or
-squared-ReLU MLP, qk-norm where the config asks for it), the mixture of
-experts (family "moe", every layer "moe": top-k routed swiglu experts
-with GShard capacity, shared experts where the config has them, as
-dbrx-132b and deepseek-v2-236b), the RWKV6 recurrent stack (family
-"ssm", every layer "rwkv") and the RG-LRU hybrid (family "hybrid", layers
-"rglru" and "attn" with a gelu MLP, as recurrentgemma-2b); the others
-(whisper-small's "audio", phi-3-vision's "vlm") raise. The attention of
-the dense and MoE families is GQA, or MLA where `cfg.mla` is set
+Every family the reference builds is ported. The decoder-only stack
+(`models.transformer`) serves the dense family (a swiglu, gelu or
+squared-ReLU MLP, rmsnorm or layernorm, qk-norm where the config asks
+for it), the mixture of experts (family "moe", every layer "moe": top-k
+routed swiglu experts with GShard capacity, shared experts where the
+config has them, as dbrx-132b and deepseek-v2-236b), the RWKV6
+recurrent stack (family "ssm", every layer "rwkv"), the RG-LRU hybrid
+(family "hybrid", layers "rglru" and "attn", as recurrentgemma-2b) and
+the VLM (family "vlm", phi-3-vision: the dense stack, whose `train_loss`
+and `prefill` take a batch's patch embeddings as a prefix). The
+encoder-decoder (`models.encdec`; families "audio" and "encdec",
+whisper-small) has init, train_loss, prefill, decode_step and init_cache
+only, as in the reference: no slot arena, so the engine refuses it and
+`launch.serve` serves it through its raw loop. The attention of the
+dense and MoE families is GQA, or MLA where `cfg.mla` is set
 (deepseek-v2-236b's latent attention; a dense stack with it pages and
 has the mixed steps as a GQA one does, except with a sliding window:
 then `init_pool` raises, as the reference's does, and the engine serves
@@ -37,6 +43,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 
 
@@ -77,36 +84,39 @@ class Model:
                                               # -> (toks, pool, len+1, tok)
 
 
-# ported family -> the layer types it has, and its MLPs (empty: no MLP,
-# or, for "moe", swiglu experts whatever mlp_type says)
-PORTED_FAMILIES = {"dense": ({"attn"}, {"swiglu", "sq_relu"}),
-                   "moe": ({"moe"}, set()),
-                   "ssm": ({"rwkv"}, set()),
-                   "hybrid": ({"rglru", "attn"}, {"gelu"})}
+# the families, MLPs and norms the reference builds (`ArchConfig`'s)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "encdec")
+MLP_TYPES = ("swiglu", "gelu", "sq_relu")
+NORM_TYPES = ("rmsnorm", "layernorm")
 
 
 def _check_ported(cfg: ArchConfig):
-    unported = []
-    if cfg.family not in PORTED_FAMILIES:
-        unported.append(f"family {cfg.family!r}")
-    else:
-        types, mlps = PORTED_FAMILIES[cfg.family]
-        if set(cfg.layer_types) != types:
-            unported.append(f"layer types {sorted(set(cfg.layer_types))}")
-        if mlps and cfg.mlp_type not in mlps:
-            unported.append(f"mlp {cfg.mlp_type!r}")
-    if cfg.norm_type != "rmsnorm":
-        unported.append(f"norm {cfg.norm_type!r}")
-    if cfg.frontend != "none" or cfg.encoder_layers:
-        unported.append(f"frontend {cfg.frontend!r}")
-    if unported:
+    """Refuse a config outside the schema the reference builds: a family,
+    MLP or norm that `ArchConfig` does not name. It refuses nothing the
+    reference builds; an unknown layer kind raises where the stack is
+    built (`transformer.segments`), as in the reference."""
+    bad = [f"{what} {value!r}" for what, value, known in (
+        ("family", cfg.family, FAMILIES), ("mlp", cfg.mlp_type, MLP_TYPES),
+        ("norm", cfg.norm_type, NORM_TYPES)) if value not in known]
+    if bad:
         raise NotImplementedError(f"{cfg.name}: not ported to repro_torch "
-                                  f"yet: {', '.join(unported)}")
+                                  f"(the reference's configs name no "
+                                  f"{', '.join(bad)})")
 
 
 def build_model(cfg: ArchConfig, window: int = 0) -> Model:
     """window: sliding-window override (0 = the config's own)."""
     _check_ported(cfg)
+    if cfg.family in ("audio", "encdec"):
+        return Model(
+            cfg=cfg,
+            init=lambda generator: ED.encdec_init(cfg, generator),
+            train_loss=lambda p, b, **kw: ED.train_loss(cfg, p, b, **kw),
+            prefill=lambda p, b, **kw: ED.prefill(cfg, p, b, **kw),
+            decode_step=lambda p, t, c, pos: ED.decode_step(cfg, p, t, c,
+                                                            pos),
+            init_cache=lambda batch, seq, **kw: ED.init_cache(cfg, batch,
+                                                              seq, **kw))
     window = cfg.attn_window or window
     entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),

@@ -12,7 +12,11 @@ make one. A "moe" layer is the attention block with the mixture of
 experts (`models.moe`) in place of its MLP; its load-balance loss is
 summed over the layers into `train_loss`, and serving drops it. With
 `cfg.mla` set, the attention of every "attn" and "moe" layer is MLA
-(`attention.mla_*`: deepseek-v2-236b, or a dense MLA stack).
+(`attention.mla_*`: deepseek-v2-236b, or a dense MLA stack). Every block
+kind and the final norm take `cfg.norm_type` (rmsnorm or layernorm). A
+VLM (phi-3-vision) passes its patch embeddings in the batch
+("patches"), in front of the text, to `train_loss` (whose loss skips
+them) and `prefill`.
 
 Parameters are one flat dict keyed by the reference pytree's paths
 ("embed.table", "segments.0.attn.wq", "segments.0.moe.w_gate",
@@ -48,8 +52,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (
-    _he, embed, embedding_init, mlp_apply, mlp_hidden, mlp_init, rmsnorm,
-    rmsnorm_init, unembed,
+    _he, embed, embedding_init, make_norm, mlp_apply, mlp_hidden, mlp_init,
+    unembed,
 )
 
 # the layer kinds the port runs
@@ -85,15 +89,20 @@ def subtree(params, prefix):
 
 
 def _layers(params, si, count):
-    """Per-layer parameters of segment `si` [{"ln1": {...}, "attn": {...},
-    ...}, ...]; a leaf's key below its group keeps its dots ("mix" ->
-    "mu.r").
+    """Per-layer parameters of segment `si` (`stacked_layers`)."""
+    return stacked_layers(params, f"segments.{si}", count)
+
+
+def stacked_layers(params, prefix, count):
+    """Per-layer parameters of the `count` layers stacked under `prefix`
+    [{"ln1": {...}, "attn": {...}, ...}, ...]; a leaf's key below its
+    group keeps its dots ("mix" -> "mu.r").
 
     Each stacked leaf is unbound once: indexing it once per layer would
     make the backward pass build a zero [count, ...] gradient for every
     layer (O(L^2) memory traffic), where unbind's backward is one stack.
     """
-    prefix = f"segments.{si}."
+    prefix = prefix + "."
     layers = [{} for _ in range(count)]
     for key, v in params.items():
         if key.startswith(prefix):
@@ -112,7 +121,8 @@ def block_init(generator, lead, cfg, kind, dtype):
     leading dims `lead`, as the reference's `block_init` for `kind`."""
     d = cfg.d_model
     dev = generator.device
-    p = _flat("ln1", rmsnorm_init(lead + (d,), dtype, dev))
+    norm_init, _ = make_norm(cfg.norm_type)
+    p = _flat("ln1", norm_init(lead + (d,), dtype, dev))
     if kind in ("attn", "moe"):
         init = A.mla_init if cfg.mla is not None else A.gqa_init
         p.update(_flat("attn", init(generator, lead, cfg, dtype)))
@@ -120,7 +130,7 @@ def block_init(generator, lead, cfg, kind, dtype):
         p.update(_flat("mix", RW.rwkv_init(generator, lead, cfg, dtype)))
     else:
         p.update(_flat("rnn", RG.rglru_init(generator, lead, cfg, dtype)))
-    p.update(_flat("ln2", rmsnorm_init(lead + (d,), dtype, dev)))
+    p.update(_flat("ln2", norm_init(lead + (d,), dtype, dev)))
     if kind == "moe":
         p.update(_flat("moe", MOE.moe_init(generator, lead, cfg, dtype)))
     elif kind != "rwkv":
@@ -142,7 +152,8 @@ def transformer_init(cfg, generator, dtype=None):
         params.update(_flat(f"segments.{si}",
                             block_init(generator, (count,), cfg, kind,
                                        dtype)))
-    params.update(_flat("final_norm", rmsnorm_init((d,), dtype, dev)))
+    params.update(_flat("final_norm",
+                        make_norm(cfg.norm_type)[0]((d,), dtype, dev)))
     if not cfg.tie_embeddings:
         params["head"] = _he(generator, (d, cfg.vocab_size), dtype, d)
     return params
@@ -200,18 +211,21 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
                 x, layer_aux = x
                 if layer_aux is not None:
                     aux = layer_aux if aux is None else aux + layer_aux
-    return rmsnorm(subtree(params, "final_norm"), x), aux
+    _, norm = make_norm(cfg.norm_type)
+    return norm(subtree(params, "final_norm"), x), aux
 
 
 def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
-    """rmsnorm -> attention -> rmsnorm -> MLP, as the reference's
-    `block_apply` kind "attn"; layer i of the segment's cache `seg`. MLA
+    """norm -> attention -> norm -> MLP, as the reference's `block_apply`
+    kind "attn" (the norm `cfg.norm_type`, as in every block kind and
+    the final norm); layer i of the segment's cache `seg`. MLA
     (`cfg.mla`) runs the `mla_*` function of each mode. A "moe" layer
     (parameters under "moe") runs the mixture of experts in place of the
     MLP, `moe_apply_scatter` when REPRO_MOE_SCATTER is set (read here, as
     the reference reads it), and returns (x, aux), aux its load-balance
     loss in "train" mode and None otherwise."""
-    h = rmsnorm(lp["ln1"], x)
+    _, norm = make_norm(cfg.norm_type)
+    h = norm(lp["ln1"], x)
     mla = cfg.mla is not None
     names = tuple(_entry_shapes(cfg))
     if paged is not None:
@@ -247,7 +261,7 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
                 seg[name][i].copy_(A.prefill_cache_entries(e, t, s))
             seg["ptr"][i].fill_(s)
     x = x + attn_out
-    h2 = rmsnorm(lp["ln2"], x)
+    h2 = norm(lp["ln2"], x)
     if "moe" in lp:
         moe_fn = (MOE.moe_apply_scatter if os.environ.get("REPRO_MOE_SCATTER")
                   else MOE.moe_apply)
@@ -257,16 +271,17 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
 
 
 def _rwkv_block(cfg, lp, x, seg, i):
-    """rmsnorm -> time_mix -> rmsnorm -> channel_mix, as the reference's
+    """norm -> time_mix -> norm -> channel_mix, as the reference's
     `block_apply` kind "rwkv". The WKV state advances in place in the
     cache; the shifts are copied in. With no cache (training) the layer
     starts from zeros and keeps no state. Positions are unused."""
     state = None if seg is None else {name: seg[name][i]
                                       for name in RW.LEAVES}
-    h = rmsnorm(lp["ln1"], x)
+    _, norm = make_norm(cfg.norm_type)
+    h = norm(lp["ln1"], x)
     tm_out, state = RW.time_mix(lp["mix"], cfg, h, state)
     x = x + tm_out
-    h2 = rmsnorm(lp["ln2"], x)
+    h2 = norm(lp["ln2"], x)
     cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state)
     if seg is not None:
         for name in ("shift", "cm_shift"):
@@ -275,16 +290,17 @@ def _rwkv_block(cfg, lp, x, seg, i):
 
 
 def _rglru_block(cfg, lp, x, seg, i):
-    """rmsnorm -> RG-LRU block -> rmsnorm -> MLP, as the reference's
+    """norm -> RG-LRU block -> norm -> MLP, as the reference's
     `block_apply` kind "rglru". `h` advances in place in the cache and
     the conv's last inputs are copied in; with no cache (training) the
     layer starts from zeros and keeps no state. Positions are unused."""
     state = None if seg is None else {name: seg[name][i]
                                       for name in RG.LEAVES}
-    h = rmsnorm(lp["ln1"], x)
+    _, norm = make_norm(cfg.norm_type)
+    h = norm(lp["ln1"], x)
     rnn_out, _ = RG.rglru_block(lp["rnn"], cfg, h, state)
     x = x + rnn_out
-    h2 = rmsnorm(lp["ln2"], x)
+    h2 = norm(lp["ln2"], x)
     return x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
 
 
@@ -300,8 +316,18 @@ def _cast(cfg, params):
             for k, v in params.items()}
 
 
+def _prefix(x, batch):
+    """x [B,S,D] behind the batch's patch embeddings [B,P,D] (the VLM's
+    stub frontend; cast to x's dtype), and P (0 without patches)."""
+    patches = batch.get("patches")
+    if patches is None:
+        return x, 0
+    return torch.cat([patches.to(x.dtype), x], dim=1), patches.shape[1]
+
+
 def train_loss(cfg, params, batch, window=0, remat=True):
-    """batch: {tokens [B,S], targets [B,S], loss_mask [B,S] (optional)}.
+    """batch: {tokens [B,S], targets [B,S], loss_mask [B,S] (optional),
+    patches [B,P,D] (optional: a VLM's prefix, which the loss skips)}.
 
     Returns (loss, metrics). Every float parameter, the embedding table
     included, is cast to the compute dtype first; the logits come from a
@@ -312,12 +338,12 @@ def train_loss(cfg, params, batch, window=0, remat=True):
     """
     params = _cast(cfg, params)
     tokens = batch["tokens"]
-    x = embed(subtree(params, "embed"), tokens)
+    x, n_prefix = _prefix(embed(subtree(params, "embed"), tokens), batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x, aux = forward(cfg, params, x, positions=positions, window=window,
                      remat=remat)
-    logits = logits_fn(cfg, params, x).float()
+    logits = logits_fn(cfg, params, x[:, n_prefix:]).float()
     m = logits.amax(dim=-1).detach()
     logz = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
     gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
@@ -382,13 +408,14 @@ def _embed_tokens(cfg, params, tokens):
 
 def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None,
             window=0):
-    """Build caches from a full prompt batch {"tokens": [B,S]}. Returns
+    """Build caches from a full prompt batch {"tokens": [B,S], "patches":
+    [B,P,D] (optional: a VLM's prefix, in front of the text)}. Returns
     (logits of the last position [B,1,V] in f32, caches).
 
-    cache_len: total cache capacity (>= prompt length) to leave room for
-    later decode steps; defaults to the prompt length."""
+    cache_len: total cache capacity (>= P + prompt length) to leave room
+    for later decode steps; defaults to P + the prompt length."""
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, batch["tokens"])
+    x, _ = _prefix(_embed_tokens(cfg, params, batch["tokens"]), batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = init_cache(cfg, b, max(cache_len or s, s), dtype=cache_dtype,
@@ -644,23 +671,24 @@ def _mixed_mlp(params, x, nd, mlp_type):
 
 def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves):
     """The shared trunk of the mixed steps over x [1, nd + S, D]: each
-    layer's rmsnorm -> `attn_fn(p_attn, h, layer_cache)` -> rmsnorm ->
-    MLP, then the final norm (the norms through `attention.
-    mixed_rmsnorm`). `leaves` names the cache leaves of a layer
-    (written in place by `attn_fn`)."""
+    layer's norm -> `attn_fn(p_attn, h, layer_cache)` -> norm -> MLP,
+    then the final norm (the norms, `cfg.norm_type`, through `attention.
+    mixed_norm`). `leaves` names the cache leaves of a layer (written in
+    place by `attn_fn`)."""
     segs = segments(cfg)
     if segs != [("attn", cfg.num_layers)]:
         raise NotImplementedError(f"{cfg.name}: the mixed step needs one "
                                   f"attention segment, got {segs}")
     seg = caches[0]
     for i, lp in enumerate(_layers(params, 0, cfg.num_layers)):
-        h = A.mixed_rmsnorm(lp["ln1"], x, nd)
+        h = A.mixed_norm(lp["ln1"], x, nd, cfg.norm_type)
         attn_out, _ = attn_fn(lp["attn"], h,
                               {name: seg[name][i] for name in leaves})
         x = x + attn_out
-        h2 = A.mixed_rmsnorm(lp["ln2"], x, nd)
+        h2 = A.mixed_norm(lp["ln2"], x, nd, cfg.norm_type)
         x = x + _mixed_mlp(lp["mlp"], h2, nd, cfg.mlp_type)
-    return A.mixed_rmsnorm(subtree(params, "final_norm"), x, nd)
+    return A.mixed_norm(subtree(params, "final_norm"), x, nd,
+                        cfg.norm_type)
 
 
 def _mixed_embed(cfg, params, dec_tokens, adm_tokens):

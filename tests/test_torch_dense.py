@@ -166,16 +166,39 @@ def test_nemotron_full_config_inits_bf16_leaves():
     assert "segments.0.mlp.w_gate" not in params
 
 
-# "vlm": phi-3-vision's family, a vision frontend's patch prefix (MoE
-# and MLA stacks are ported)
+# variants of the dense stack that the reference builds: phi-3-vision's
+# family "vlm" with its patch prefix, layernorm in every norm, a gelu MLP
 @pytest.mark.parametrize("change", [
     dict(family="vlm", frontend="vision", num_patches=16),
     dict(norm_type="layernorm"), dict(mlp_type="gelu")],
     ids=["vlm", "layernorm", "gelu-dense"])
-def test_unported_dense_variants_still_raise(change):
-    cfg = dataclasses.replace(get_smoke("qwen3-8b"), **change)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg)
+def test_unported_dense_variants_still_raise(jx, change):
+    """Each variant of qwen3-8b's smoke config builds, and its f32
+    train_loss and prefill (a patch prefix with the vlm) match the
+    reference's from the reference's parameters: loss rtol 1e-5, logits
+    and caches to atol 1e-5."""
+    jmodel, jparams, tmodel, tparams = _models(jx, "qwen3-8b", **change)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, tmodel.cfg.vocab_size, (2, 13)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if change.get("num_patches"):
+        batch["patches"] = rng.standard_normal(
+            (2, 16, tmodel.cfg.d_model)).astype(np.float32)
+    if change.get("norm_type"):
+        assert "segments.0.ln1.bias" in tparams
+    jb = {k: jx.jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jloss, _ = jmodel.train_loss(jparams, jb)
+    loss, _ = tmodel.train_loss(tparams, tb)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    del jb["targets"], tb["targets"]
+    jl, jc = jmodel.prefill(jparams, jb, cache_dtype=jx.jnp.float32,
+                            cache_len=40)
+    tl, tc = tmodel.prefill(tparams, tb, cache_dtype=torch.float32,
+                            cache_len=40)
+    _close(tl, jl, "logits")
+    for name, want in jc[0].items():
+        _close(tc[0][name], np.asarray(want), name)
 
 
 # ---------------------------------------------------------------------------

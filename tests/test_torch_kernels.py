@@ -203,6 +203,33 @@ def test_flash_plain_matches_model_chunked_attention(window):
                                np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("s,t,h,kv,hd", [
+    (65, 130, 4, 2, 64),     # cross-attention: S != T, both cut mid-tile
+    (17, 150, 4, 4, 96),     # hd 96 (phi-3-vision's), every head its own
+    (96, 96, 2, 2, 96),      # an encoder's square, unmasked case at hd 96
+])
+def test_flash_plain_noncausal_matches_jax_kernel_and_oracle(jx, s, t, h, kv,
+                                                             hd):
+    """causal=False (the whisper encoder and cross-attention's prefill):
+    every query attends to every key, T != S."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    b = 2
+    (q, k, v), (tq, tk, tv) = _attn_inputs(
+        12, [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)], "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    jq, jk, jv = (jnp.asarray(a, jnp.float32) for a in (q, k, v))
+    kern = jax_ops.flash_attention(jq, jk, jv, causal=False, block_q=64,
+                                   block_k=64, interpret=True)
+    oracle = jax_ref.attention(jq.transpose(0, 2, 1, 3),
+                               jk.transpose(0, 2, 1, 3),
+                               jv.transpose(0, 2, 1, 3),
+                               causal=False).transpose(0, 2, 1, 3)
+    for want in (kern, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_jax_kernel_and_oracle(jx, dtype):
     """Per-row lengths: slot-arena decode, every row at its own depth."""
@@ -244,7 +271,7 @@ def test_decode_plain_ignores_rows_past_the_length():
 SPLIT_CASES = [(4, 2, 64, 700), (10, 1, 256, 2100), (8, 2, 32, 1000)]
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 def test_split_rows_is_a_multiple_of_64_from_t_kv_and_hd_only(hd):
     """The decode kernel's chunk: a multiple of 64 rows, at least 128, at
     most 32 blocks a batch row, and a function of (T, KV, hd) alone, so a
@@ -427,6 +454,69 @@ def test_ring_plain_matches_jax_kernel_and_oracle(jx, dtype):
         dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["linear", "paged", "ring"])
+def test_hd96_decode_plain_matches_jax_kernels(jx, dtype, layout):
+    """head_dim 96 (phi-3-vision's): the plain linear, paged and ring
+    decode versions against the TPU kernels in interpret mode and the JAX
+    oracles, 4 heads over 4 (phi-3's G = 1) and 8 over 4."""
+    jax_ops, jax_ref = jx
+    import jax.numpy as jnp
+    jdt = getattr(jnp, dtype)
+    b, kv, hd = 3, 4, 96
+    rng = np.random.default_rng(13)
+    for h in (4, 8):
+        if layout == "linear":
+            t = 200
+            (q, k, v), (tq, tk, tv) = _attn_inputs(
+                13 + h, [(b, h, hd), (b, t, kv, hd), (b, t, kv, hd)], dtype)
+            lengths = np.array([1, 97, t], np.int32)
+            got = ops.decode_attention(tq, tk, tv,
+                                       lengths=torch.from_numpy(lengths))
+            jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+            wants = [jax_ops.decode_attention(
+                jq, jk, jv, lengths=jnp.asarray(lengths), block_k=128,
+                interpret=True), jax_ref.decode_attention(
+                jq, jk.transpose(0, 2, 1, 3), jv.transpose(0, 2, 1, 3),
+                valid_len=jnp.asarray(lengths))]
+            for want in wants:      # the reference's own tolerances
+                np.testing.assert_allclose(got.float().numpy(),
+                                           np.asarray(want, np.float32),
+                                           rtol=ATOL[dtype], atol=ATOL[dtype])
+            continue
+        bs, w, window = 8, 6, 40
+        nb = 1 + b * w
+        (q, kp, vp), (tq, tkp, tvp) = _paged_inputs(13 + h, b, h, kv, hd,
+                                                    bs, nb, dtype)
+        tables = (rng.permutation(nb - 1) + 1)[:b * w].reshape(b, w).astype(
+            np.int32)
+        jq, jkp, jvp = (jnp.asarray(a, jdt) for a in (q, kp, vp))
+        if layout == "paged":
+            lengths = np.asarray([1, 19, w * bs], np.int32)
+            got = ops.decode_attention_paged(
+                tq, tkp, tvp, torch.from_numpy(tables),
+                lengths=torch.from_numpy(lengths))
+            args = (jnp.asarray(tables), jnp.asarray(lengths))
+            _close_to_jax(got, [
+                jax_ops.decode_attention_paged(jq, jkp, jvp, *args,
+                                               interpret=True),
+                jax_ref.decode_attention_paged(jq, jkp, jvp, *args)], dtype)
+        else:
+            lengths = np.asarray([1, 25, 100], np.int32)
+            starts = np.asarray([0, 2, 4], np.int32)
+            got = ops.decode_attention_ring(
+                tq, tkp, tvp, torch.from_numpy(tables),
+                ring_starts=torch.from_numpy(starts),
+                lengths=torch.from_numpy(lengths), window=window)
+            args = (jnp.asarray(tables), jnp.asarray(starts),
+                    jnp.asarray(lengths))
+            _close_to_jax(got, [
+                jax_ops.decode_attention_ring(jq, jkp, jvp, *args,
+                                              window=window, interpret=True),
+                jax_ref.decode_attention_ring(jq, jkp, jvp, *args,
+                                              window=window)], dtype)
+
+
 def test_ring_plain_rotation_invariant_and_degenerate_paged():
     """Rotating (table, start) together leaves the plain ring bitwise
     unchanged, and while no row has wrapped the ring is the paged plain
@@ -510,7 +600,7 @@ POOL_SPLIT_CASES = [("paged", 4, 80, 0), ("paged", 8, 40, 0),
                     ("ring", 16, 20, 300), ("ring", 8, 40, 320)]
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 def test_paged_split_rows_is_a_multiple_of_64_from_hd_only(hd):
     """The paged kernel's chunk: a multiple of 64 rows, at least 128 and
     8192 K values of a head, a function of hd alone (never of the
@@ -732,6 +822,7 @@ def _bf16_close(got, want):
     (200, 4, 1, 128, 64),     # MQA sliding window
     (200, 10, 1, 256, 0),     # recurrentgemma-2b's prefill (10:1 heads of 256)
     (300, 10, 1, 256, 128),   # ... with a window that binds
+    (300, 32, 32, 96, 0),     # phi-3-vision's 32 heads of 96
 ])
 def test_flash_kernel_matches_plain_version_on_card(cuda, dtype, s, h, kv,
                                                     hd, window):
@@ -759,6 +850,8 @@ def test_flash_kernel_matches_plain_version_on_card(cuda, dtype, s, h, kv,
     (2, 300, 16, 2, 128),     # 8 heads of 128 per kv head
     (8, 2048, 10, 1, 256),    # recurrentgemma-2b: G * hd = 2560, full ring
     (3, 700, 10, 1, 256),     # ... ragged tile
+    (4, 1280, 32, 32, 96),    # phi-3-vision: G = 1, hd 96
+    (3, 1500, 12, 12, 64),    # whisper's cross-attention K/V
 ])
 def test_decode_kernel_matches_plain_version_on_card(cuda, dtype, b, t, h,
                                                      kv, hd):
@@ -791,7 +884,7 @@ def _flash_operands(cuda, seed, b, s, h, kv, hd, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("s", [1, 15, 17, 65])
 def test_flash_kernel_cuts_fragments_and_tiles_on_card(cuda, s, hd):
     """bf16 (the tensor-core body): prompts that cut the 16-row MMA
@@ -802,6 +895,56 @@ def test_flash_kernel_cuts_fragments_and_tiles_on_card(cuda, s, hd):
     torch.cuda.synchronize()
     _assert_kernel_close(got, ref.attention(q, k, v, causal=True),
                          torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t,h,kv,hd", [
+    (1500, 1500, 12, 12, 64),   # whisper's encoder: 1500 is no tile multiple
+    (200, 1500, 12, 12, 64),    # whisper's cross-attention prefill
+    (1, 1500, 12, 12, 64),      # one query row
+    (17, 17, 4, 2, 64),         # a cut 16-row fragment
+    (65, 130, 4, 2, 96),        # S != T at hd 96, both cut mid-tile
+])
+def test_flash_kernel_noncausal_matches_plain_version_on_card(cuda, dtype, s,
+                                                              t, h, kv, hd):
+    """causal=False: no tile skipped, the keys' tail masked in the last
+    tile only; a row's result alone equals it in the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(s + t + hd)
+    q = torch.randn((2, s, h, hd), generator=gen, device=cuda).to(dtype)
+    kvbuf = torch.randn((2, t, 2, kv, hd), generator=gen,
+                        device=cuda).to(dtype)
+    k, v = kvbuf[:, :, 0], kvbuf[:, :, 1]
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, ref.attention(q, k, v, causal=False), dtype)
+    alone = ops.flash_attention(q[1:], k[1:], v[1:], causal=False)
+    assert torch.equal(alone[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernel_at_hd96_on_card(cuda, dtype):
+    """The ring kernel at head_dim 96 (G = 1): unwrapped, part-filled and
+    wrapped rows against the plain version, bitwise under a rotation."""
+    b, h, kv, hd, bs, window = 4, 8, 8, 96, 16, 256
+    w = window // bs
+    gen = torch.Generator(device=cuda).manual_seed(96)
+    q, kp, vp, tables = _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype)
+    lengths = torch.tensor([1, 131, window, 3 * window + 5],
+                           dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(b, dtype=torch.int32, device=cuda)
+    base = ops.decode_attention_ring(q, kp, vp, tables, ring_starts=zeros,
+                                     lengths=lengths, window=window)
+    torch.cuda.synchronize()
+    _assert_kernel_close(base, ref.decode_attention_ring(
+        q, kp, vp, tables, ring_starts=zeros, lengths=lengths,
+        window=window), dtype)
+    rot = torch.roll(tables, 5, dims=1).contiguous()
+    out = ops.decode_attention_ring(q, kp, vp, rot,
+                                    ring_starts=torch.full_like(zeros, 5),
+                                    lengths=lengths, window=window)
+    assert torch.equal(out, base) and _tickets_are_zero()
 
 
 @pytest.mark.cuda
@@ -923,6 +1066,7 @@ def _card_pool(cuda, gen, b, h, kv, hd, bs, w, dtype):
     (2, 16, 2, 128, 4, 40),   # 8 heads of 128 per kv head, tiny blocks
     (3, 10, 1, 256, 16, 8),   # G * hd = 2560 (the shared decode body)
     (2, 14, 2, 64, 16, 300),  # 38 splits of 128 rows (more than 32)
+    (3, 32, 32, 96, 16, 20),  # phi-3-vision: G = 1, hd 96, 3 splits
 ])
 def test_paged_kernel_matches_plain_version_on_card(cuda, dtype, b, h, kv,
                                                     hd, bs, w):

@@ -129,8 +129,9 @@ def test_chunked_attention_matches(window):
 
 
 def test_unported_family_raises():
-    """A family the port has not taken up (whisper-small's "audio")."""
-    cfg = dataclasses.replace(get_smoke(ARCH), family="audio")
+    """A family that neither package's configs name raises; every family
+    the reference builds is ported."""
+    cfg = dataclasses.replace(get_smoke(ARCH), family="bogus")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg)
 
@@ -148,14 +149,27 @@ def _port_config(jcfg):
 
 @pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b"])
 def test_unported_reference_archs_raise(arch):
-    """The architectures still to port: whisper-small (audio
-    encoder-decoder) and phi-3-vision (vision frontend), full config and
-    smoke."""
+    """The last two architectures ported, whisper-small (audio
+    encoder-decoder) and phi-3-vision (vision frontend), now build from
+    the reference's configs, full and smoke, and their inits have the
+    reference's leaf names and shapes: the port's init traced under
+    FakeTensorMode (no storage: phi-3-vision is 15 GB in f32) against the
+    reference's `jax.eval_shape`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro.configs import get_config as jax_get_config
 
     for jcfg in (jax_get_config(arch), jax_get_smoke(arch)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(_port_config(jcfg))
+        model = build_model(_port_config(jcfg))
+        assert model.cfg.family == jcfg.family
+        want = flatten(jax.tree.map(
+            lambda a: np.broadcast_to(np.zeros((), a.dtype), a.shape),
+            jax.eval_shape(jax_build_model(jcfg).init,
+                           jax.random.PRNGKey(0))))
+        with FakeTensorMode():
+            got = model.init(torch.Generator().manual_seed(0))
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            k: tuple(v.shape) for k, v in want.items()}
 
 
 def test_dbrx_builds():
