@@ -289,7 +289,19 @@ non-zero before the last line:
      workload (arena and pool, overlapped and serialized, equal tokens),
      phase 26's row-stability sweep at its widths
      (build/row_stability_sweep_phi3.json); 3 supersteps at 2 layers, A=2,
-     M=1, 1024 patches + 128 tokens an agent.
+     M=1, 1024 patches + 128 tokens an agent;
+ 46. the convex reference in float64 (`repro_torch.core`), each figure of
+     `repro_torch.examples.decentralized_lsq` (Figs. 3-6: cpusmall N=20,
+     cadata N=50, ijcnn1 N=50 on 10,000 rows, USPS N=10 on 2,000) at the
+     example's data size: WPG, I-BCD, API-BCD and gAPI-BCD for 50
+     run_serial activations and DGD for 5 rounds on the card and on the
+     CPU, within 1e-9 of max |x|; then every method through
+     simulate_incremental on the card (Figs. 3-4 in full, the Newton
+     methods of Figs. 5-6 cut to NEWTON_CUT, the cut printed), each
+     trace's metric past its start, with updates/s, host ms an update,
+     device ms and launches an update under torch.profiler over 5
+     updates and the busy share; DGD through simulate_gossip; no kernel
+     of the port launches.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -314,11 +326,15 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
 
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CyclicWalk, hamiltonian_cycle, run_serial, simulate_gossip,
+    simulate_incremental)
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.dist.trainer import (  # noqa: E402
     init_train_state, make_dp_baseline_step, make_train_step)
+from repro_torch.examples import decentralized_lsq  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import tickets as ticket_pool  # noqa: E402
@@ -4260,6 +4276,187 @@ def phi3_full(gen):
     return report
 
 
+# phase 46: the convex reference (float64), each figure of
+# examples/decentralized_lsq.py at the example's own data size
+CONVEX_UPDATES = 50     # run_serial activations, card against CPU
+CONVEX_DGD_ROUNDS = 5
+# activations a Newton method (I-BCD, API-BCD: ~7,400 launches, ~0.1 s
+# an update) takes through the simulator in Figs. 5-6, cut from the
+# figures' 800 and 300 to hold the phase near 120 s; lsq and the gradient
+# methods run in full
+NEWTON_CUT = {"fig5_ijcnn1": 150, "fig6_usps": 60}
+NEWTON_METHODS = ("I-BCD", "API-BCD")
+
+
+def convex_gap(card, cpu):
+    """max |card - cpu| over max |cpu|."""
+    cpu = cpu.double()
+    return float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+def convex_walker(method, net):
+    """fn() taking one activation a call, the state walking the
+    Hamiltonian cycle from run_serial's starts."""
+    order = hamiltonian_cycle(net)
+    n, m = net.num_agents, method.num_walks
+    walks = [CyclicWalk(order) for _ in range(m)]
+    pos = [(w * n) // m for w in range(m)]
+    rng = np.random.default_rng(0)
+    st = {"state": method.init(), "k": 0}
+
+    def step():
+        w = st["k"] % m
+        st["state"] = method.update(st["state"], pos[w], w)
+        pos[w] = walks[w].next_agent(pos[w], rng)
+        st["k"] += 1
+    return step
+
+
+def convex_profile(fn, calls=5, attempts=3):
+    """(device launches, device ms) an update: every device event of
+    `calls` calls of fn in one profile between pad_profile()'s sleeps
+    (left out by name), over `calls`, after one warm-up call. A profile
+    that kept no more sleeps than one side holds may have lost events of
+    the calls too, so it is taken again, up to `attempts` times; the last
+    is kept, and that is said. A Newton update is ~7,400 device events,
+    so they are read from the profiler's raw events: `key_averages()`
+    takes ~7 s to sort those of 5 updates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profile()
+            for _ in range(calls):
+                fn()
+            pad_profile()
+            torch.cuda.synchronize()
+        pads, n, ns = 0, 0, 0
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() != DeviceType.CUDA:
+                continue
+            if PAD_KERNEL in ev.name():
+                pads += 1
+            else:
+                n += 1
+                ns += ev.duration_ns()
+        if pads > PAD_LAUNCHES:
+            break
+        print(f"convex_profile: the profile kept {pads} of "
+              f"{2 * PAD_LAUNCHES} sleeps; again", flush=True)
+    return n / calls, ns / 1e6 / calls
+
+
+def convex_reference():
+    """Phase 46: every figure of `repro_torch.examples.decentralized_lsq`
+    (Figs. 3-6) on the card in float64. Each method's run_serial walk
+    (CONVEX_UPDATES activations) and DGD's rounds against the same on the
+    CPU, within 1e-9 of max |x|; then each method through
+    simulate_incremental on the card (the Newton methods of Figs. 5-6
+    cut to NEWTON_CUT), its metric past its start; updates/s and host ms
+    an update from that run, device ms and launches an update under
+    torch.profiler over 5 updates, and the busy share (device ms over the
+    wall ms of 5 unprofiled updates, after them). No kernel of the port
+    launches."""
+    reset_counts()
+    report = {}
+    for fig in decentralized_lsq.FIGURES:
+        t_fig = time.perf_counter()
+        problem, net, methods, dgd, iters = decentralized_lsq.build_figure(
+            fig, DEV)
+        _, _, cpu_methods, cpu_dgd, _ = decentralized_lsq.build_figure(
+            fig, "cpu")
+        rows = sum(f.shape[0] for f in problem.features) + len(
+            problem.test_features)
+        print(f"{fig}: N {net.num_agents}, {rows} rows, p {problem.dim}, "
+              f"{problem.kind}", flush=True)
+        gaps = {}
+        threads = torch.get_num_threads()
+        for method, cpu_method in zip(methods, cpu_methods):
+            card = run_serial(method, net, CONVEX_UPDATES)
+            # tiny f64 ops: threads only slow the CPU's side down
+            torch.set_num_threads(1)
+            cpu = run_serial(cpu_method, net, CONVEX_UPDATES)
+            torch.set_num_threads(threads)
+            gaps[method.name] = max(convex_gap(card.xs, cpu.xs),
+                                    convex_gap(card.tokens, cpu.tokens))
+        xs, cpu_xs = dgd.init(), cpu_dgd.init()
+        for _ in range(CONVEX_DGD_ROUNDS):
+            xs, cpu_xs = dgd.round(xs), cpu_dgd.round(cpu_xs)
+        gaps["DGD"] = convex_gap(xs, cpu_xs)
+        print(json.dumps({"figure": fig, "card_vs_cpu": gaps,
+                          "seconds": time.perf_counter() - t_fig}),
+              flush=True)
+        bad = {k: v for k, v in gaps.items() if not v <= 1e-9}
+        assert not bad, f"{fig}: card and CPU differ by {bad}"
+
+        lower = problem.kind == "lsq"
+        out = {"card_vs_cpu": gaps, "methods": {}}
+        order = hamiltonian_cycle(net)
+        for method in methods:
+            steps = iters
+            if method.name in NEWTON_METHODS and fig in NEWTON_CUT:
+                steps = NEWTON_CUT[fig]
+                print(f"  {method.name}: cut to {steps} of {iters} "
+                      "activations", flush=True)
+            walks = [CyclicWalk(order) for _ in range(method.num_walks)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = simulate_incremental(method, net, walks,
+                                       max_iterations=steps, eval_every=10)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            first, last = res.trace[0], res.trace[-1]
+            assert last.iteration == steps, (fig, method.name, last)
+            better = (last.metric < first.metric if lower
+                      else last.metric > first.metric)
+            assert better, (f"{fig} {method.name}: metric {first.metric} "
+                            f"-> {last.metric}")
+            fn = convex_walker(method, net)
+            t0 = time.perf_counter()
+            launches, dev_ms = convex_profile(fn)
+            profile_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+            row = {"activations": steps, "updates_per_s": steps / wall,
+                   "host_ms_per_update": wall * 1e3 / steps,
+                   "device_ms_per_update": dev_ms,
+                   "launches_per_update": launches,
+                   "wall_ms_per_update": wall_ms,
+                   "busy_share": dev_ms / wall_ms,
+                   "metric": [first.metric, last.metric],
+                   "sim_time_ms": last.time * 1e3, "comm": last.comm,
+                   "simulate_s": wall, "profile_s": profile_s}
+            out["methods"][method.name] = row
+            print(json.dumps({"figure": fig, "method": method.name, **row}),
+                  flush=True)
+        rounds = max(iters // net.num_agents, 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate_gossip(dgd, net, max_rounds=rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        first, last = res.trace[0], res.trace[-1]
+        better = (last.metric < first.metric if lower
+                  else last.metric > first.metric)
+        assert better, f"{fig} DGD: metric {first.metric} -> {last.metric}"
+        out["DGD"] = {"rounds": rounds, "rounds_per_s": rounds / wall,
+                      "metric": [first.metric, last.metric],
+                      "sim_time_ms": last.time * 1e3, "comm": last.comm}
+        out["seconds"] = time.perf_counter() - t_fig
+        print(json.dumps({"figure": fig, "method": "DGD", **out["DGD"],
+                          "figure_s": out["seconds"]}), flush=True)
+        report[fig] = out
+    assert not any(counts().values()), counts()
+    return report
+
+
 def ptxas_report(logs, names=("flash_attention", "decode_attention",
                               "decode_attention_paged", "rwkv6_scan",
                               "rwkv6_scan_bwd", "rglru_scan")):
@@ -4706,6 +4903,10 @@ def main():
           "the engine, row stability; a superstep")
     phi3 = phi3_full(gen)
     torch.cuda.empty_cache()
+
+    phase("46 the convex reference in float64: Figs. 3-6 card against CPU, "
+          "through the simulator, profiled")
+    convex_reference()
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""

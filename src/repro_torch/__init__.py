@@ -5,16 +5,31 @@ A package of its own beside `repro` (the JAX reference). It imports
 it shares with the reference are kept as copies here. Module names follow
 the reference, so each file has a clear counterpart.
 
-Ported so far, for the dense `qwen2-0.5b` family: the gAPI-BCD
-language-model trainer (`repro_torch.launch.train`), with the closed-form
-prox update as a hand-written CUDA kernel, and greedy continuous-batching
-serving over a slot arena or a paged pool of KV blocks (a ring of blocks
-for a sliding window) (`repro_torch.launch.serve`, `repro_torch.serve`),
-with prefill, decode, paged decode and ring decode attention as
-hand-written CUDA kernels (`repro_torch.kernels`). For the recurrent
-`rwkv6-1.6b`: greedy serving from the slot arena, with the WKV
-recurrence as a hand-written CUDA kernel. For the hybrid
-`recurrentgemma-2b` (RG-LRU and local attention): greedy serving from the
-slot arena, with the RG-LRU recurrence as a hand-written CUDA kernel
-beside the attention kernels at head_dim 256.
+What it covers:
+
+- the paper's convex experiments (`repro_torch.core`,
+  `repro_torch.data.synthetic`, `repro_torch.examples`): I-BCD, API-BCD
+  and gAPI-BCD, the WPG and DGD baselines, the serial driver and the
+  asynchronous event simulator behind Figs. 3-6, in float64;
+- the gAPI-BCD language-model trainer and the DP baseline
+  (`repro_torch.launch.train`, `repro_torch.dist.trainer`,
+  `repro_torch.optim`, `repro_torch.checkpoint`), with the closed-form
+  prox update as a hand-written CUDA kernel;
+- greedy continuous-batching serving over a slot arena, a paged pool of
+  KV blocks or a ring of blocks for a sliding window, overlapped or
+  serialized (`repro_torch.launch.serve`, `repro_torch.serve`), and the
+  reference's raw prefill/decode loop for the encoder-decoder and VLM
+  families;
+- all ten of the reference's architectures (`repro_torch.configs`,
+  `repro_torch.models`): the dense family (qwen2, internlm2, qwen3,
+  nemotron), rwkv6, recurrentgemma, the MoE dbrx, MLA deepseek-v2,
+  whisper-small and phi-3-vision;
+- every Pallas kernel of the reference as a hand-written CUDA kernel for
+  Hopper (`repro_torch.kernels`: prox update, flash prefill, linear,
+  paged and ring decode attention, the WKV and RG-LRU scans, and the
+  two scans' backward kernels), each with its plain PyTorch version,
+  which CPU tensors take.
+
+Entry points run on the card unless the caller asks for the CPU, and
+raise when there is no card.
 """

@@ -26,6 +26,8 @@ from __future__ import annotations
 import argparse
 import time
 
+from repro_torch.utils.device import resolve_device
+
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
@@ -52,18 +54,6 @@ def parse_args(argv=None):
                     help="write JSONL metrics here")
     ap.add_argument("--log-every", type=int, default=5)
     return ap.parse_args(argv)
-
-
-def resolve_device(name):
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {name!r}")
-    return device
 
 
 def train(args):

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 # parallel test workers from oversubscribing the CPU
 torch.set_num_threads(1)
 
+from repro_torch.examples import decentralized_lsq, quickstart  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 
@@ -44,12 +45,17 @@ def test_port_files_cover_every_package():
     and checkpoints among them."""
     packages = {p.parent.name for p in PORT_FILES
                 if p.name == "__init__.py"}
-    assert {"configs", "data", "dist", "kernels", "launch", "models",
-            "optim", "checkpoint", "serve", "utils"} <= packages
+    assert {"configs", "core", "data", "dist", "examples", "kernels",
+            "launch", "models", "optim", "checkpoint", "serve",
+            "utils"} <= packages
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/optim/optimizers.py",
             "src/repro_torch/optim/schedules.py",
-            "src/repro_torch/checkpoint/checkpoint.py"} <= names
+            "src/repro_torch/checkpoint/checkpoint.py",
+            "src/repro_torch/core/graph.py",
+            "src/repro_torch/data/synthetic.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/decentralized_lsq.py"} <= names
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -83,6 +89,38 @@ def test_train_on_cpu_when_asked():
                       "--log-every", "0"])
     assert out["device"] == "cpu" and len(out["losses"]) == 2
     assert out["peak_bytes"] is None
+
+
+def test_quickstart_without_cpu_request_raises_when_no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        decentralized_lsq.main(["--figures", "fig3_cpusmall"])
+
+
+def test_convex_entry_points_raise_when_no_gpu(monkeypatch):
+    from repro_torch.core import IBCD, centralized_solution
+    from repro_torch.data import make_problem
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    problem = make_problem("cpusmall", num_agents=4, subsample=200)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        IBCD(problem, tau=1.0)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        centralized_solution(problem)
+
+
+def test_quickstart_on_cpu_when_asked(capsys):
+    out = quickstart.main(["--device", "cpu", "--max-iterations", "40"])
+    printed = capsys.readouterr().out
+    assert "cut: 40 of 400" in printed and "simulated time" in printed
+    ibcd, apibcd = out["I-BCD"], out["API-BCD"]
+    assert ibcd.trace[-1].iteration == apibcd.trace[-1].iteration == 40
+    for res in (ibcd, apibcd):
+        assert res.trace[-1].metric < res.trace[0].metric
+    # 5 walks finish 40 activations in less simulated time than one
+    assert apibcd.trace[-1].time < ibcd.trace[-1].time
 
 
 def test_ops_rejects_devices_without_a_kernel():
