@@ -301,7 +301,24 @@ non-zero before the last line:
      trace's metric past its start, with updates/s, host ms an update,
      device ms and launches an update under torch.profiler over 5
      updates and the busy share; DGD through simulate_gossip; no kernel
-     of the port launches.
+     of the port launches;
+ 47. the async trainer (`repro_torch.dist.async_*`) on Fig. 3's problem
+     (cpusmall, N=20, all 8,192 rows, API-BCD tau 0.1, M=2): an update's
+     clock with and without the wait the worker adds (host ms, device ms
+     and launches); `run_threaded` with 4 workers (local steps 4, max
+     delay 2, adaptive, mid-round, speeds 1, 3, 1, 1, a 10 ms floor) on
+     the card twice and on the CPU once: equal integer trace columns,
+     tokens and objectives within 1e-9, equal digests on the card and in
+     its repeat; then `python -m repro_torch.launch.train_async
+     --processes 4` on the card for the arms of
+     benchmarks/bench_async_bcd.py (ASYNC_RUNS: lockstep and async+mid
+     over tcp and file, async, async+mid+measured twice), each run's 4
+     digests equal, tcp equal to file and repeats equal, staleness and
+     view lag within 4; wall s, updates/s, waits, each process's update
+     EMA and peak, the time to lockstep's final objective and the
+     speed-ups (printed, not gated); one logistic run (ijcnn1, N=50,
+     10,000 rows, cut to 4 rounds x 3 local steps) with equal digests
+     and an objective below its start; no kernel of the port launches.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -314,6 +331,7 @@ import re
 import resource
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -327,11 +345,15 @@ if not torch.cuda.is_available():
 
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    CyclicWalk, hamiltonian_cycle, run_serial, simulate_gossip,
-    simulate_incremental)
+    APIBCD, CyclicWalk, global_objective, hamiltonian_cycle, run_serial,
+    simulate_gossip, simulate_incremental)
 from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.data import DATASETS, make_problem  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch import optim  # noqa: E402
+from repro_torch.dist.async_schedule import WalkSequence  # noqa: E402
+from repro_torch.dist.async_trainer import (  # noqa: E402
+    AsyncBCDConfig, run_threaded)
 from repro_torch.dist.trainer import (  # noqa: E402
     init_train_state, make_dp_baseline_step, make_train_step)
 from repro_torch.examples import decentralized_lsq  # noqa: E402
@@ -472,6 +494,31 @@ def pad_profile():
         torch.cuda._sleep(100)
 
 
+def cuda_events(prof):
+    """(name, device µs) of every device event of a profile (kernels and
+    copies), read from the profiler's raw events: `key_averages()` first
+    builds and groups a Python event for every event of the profile,
+    which takes seconds for the tens of thousands a step launches."""
+    from torch.autograd import DeviceType
+
+    return [(ev.name(), ev.duration_ns() / 1e3)
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == DeviceType.CUDA
+            and not getattr(ev, "is_hidden_event", lambda: False)()]
+
+
+def cuda_rows(prof):
+    """[(device ms, count, name)] of a profile's device events by name,
+    pad_profile()'s sleeps and events of no duration left out."""
+    rows = {}
+    for name, us in cuda_events(prof):
+        if PAD_KERNEL in name or us <= 0:
+            continue
+        ms, n = rows.get(name, (0.0, 0))
+        rows[name] = (ms + us / 1e3, n + 1)
+    return [(ms, n, name) for name, (ms, n) in rows.items()]
+
+
 def device_launches(fn, calls=50, attempts=6):
     """Device launches a call of fn(), after one warm-up call: each
     kernel's count over `calls` calls in one profile between
@@ -484,7 +531,8 @@ def device_launches(fn, calls=50, attempts=6):
     or no event of fn at all. A loss only lowers a count, so when every
     profile showed one, the largest count is taken, and that is said; it
     raises when no profile recorded an event of fn."""
-    from torch.autograd import DeviceType
+    from collections import Counter
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -497,14 +545,9 @@ def device_launches(fn, calls=50, attempts=6):
                 fn()
             pad_profile()
             torch.cuda.synchronize()
-        pads, counts = 0, []
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            if PAD_KERNEL in ev.key:
-                pads += ev.count
-            else:
-                counts.append(ev.count)
+        by_name = Counter(name for name, _ in cuda_events(prof))
+        pads = sum(n for name, n in by_name.items() if PAD_KERNEL in name)
+        counts = [n for name, n in by_name.items() if PAD_KERNEL not in name]
         per_kernel = [round(n / calls) for n in counts]
         if counts and all(per_kernel) and pads > PAD_LAUNCHES:
             return sum(per_kernel)
@@ -532,7 +575,6 @@ def device_ms(fn, iters, one_kernel=False, attempts=4, launches=None):
     when none did, or one kept fewer than half the events of its calls
     (counted in a profile of one call), the calls are timed queued
     behind a sleep instead (`queued_ms`), and that is said."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def device_events(calls):
@@ -540,10 +582,8 @@ def device_ms(fn, iters, one_kernel=False, attempts=4, launches=None):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages()
-                  if ev.device_type == DeviceType.CUDA]
-        return (sum(ev.self_device_time_total for ev in events),
-                sum(ev.count for ev in events))
+        events = cuda_events(prof)
+        return sum(us for _, us in events), len(events)
 
     fn()
     torch.cuda.synchronize()
@@ -949,16 +989,14 @@ def launches_by_kernel(prof):
     """Device launches in a profile (pad_profile()'s sleeps left out): the
     total, and the sums over the WKV kernels (`wkv_fwd`, the name every
     body's kernels share) and the RG-LRU kernel (`rglru_fwd`)."""
-    from torch.autograd import DeviceType
-
     out = {"total": 0, "wkv_fwd": 0, "rglru_fwd": 0}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or PAD_KERNEL in ev.key:
+    for name, _ in cuda_events(prof):
+        if PAD_KERNEL in name:
             continue
-        out["total"] += ev.count
+        out["total"] += 1
         for key in ("wkv_fwd", "rglru_fwd"):
-            if key in ev.key:
-                out[key] += ev.count
+            if key in name:
+                out[key] += 1
     return out
 
 
@@ -978,7 +1016,6 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS, cfg=None):
     and per step ({"per_admission": ..., "per_step": ...}), or None when
     the profile recorded no device time. cfg: a config to build in place
     of argv's --arch (`serve_cli.build`'s)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = serve_cli.parse_args(argv)
@@ -1015,11 +1052,8 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS, cfg=None):
         pad_profile()
         torch.cuda.synchronize()
     step_calls = counts()
-    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key[:90])
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA
-                   and PAD_KERNEL not in ev.key
-                   and ev.self_device_time_total > 0), reverse=True)
+    rows = sorted(((ms, n, name[:90]) for ms, n, name in cuda_rows(prof)),
+                  reverse=True)
     step_launches = launches_by_kernel(prof)
     # the admission round's launches less one decode step's, per admission
     recurrent = {"rwkv6_scan": "wkv_fwd", "rglru_scan": "rglru_fwd"}
@@ -4084,7 +4118,6 @@ def profile_raw_decode(argv, steps=8):
     sleeps: device ms and device launches a step, the busy share of the
     steps' wall time (profiled, and estimated from the unprofiled steps),
     the attention kernels' device ms. Returns the report."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = serve_cli.parse_args(argv)
@@ -4122,10 +4155,7 @@ def profile_raw_decode(argv, steps=8):
         wall_ms = (time.perf_counter() - t0) * 1e3
         pad_profile()
         torch.cuda.synchronize()
-    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and PAD_KERNEL not in ev.key
-            and ev.self_device_time_total > 0]
+    rows = cuda_rows(prof)
     device = sum(ms for ms, _, _ in rows)
     report = {"arch": cfg.name, "rows": args.requests, "steps": steps,
               "device_ms_per_step": device / steps,
@@ -4149,7 +4179,6 @@ def superstep_run(what, cfg, agents, walks, batch, steps=3):
     finite losses, one prox launch a leaf each and no other kernel, ms a
     superstep (the first includes first use) and the peak. "launches"
     counts the `steps` supersteps' prox launches. Returns the report."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tcfg = TrainConfig(num_agents=agents, num_walks=walks, tau=0.05,
@@ -4186,9 +4215,8 @@ def superstep_run(what, cfg, agents, walks, batch, steps=3):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one(steps)
     wall = step_ms.pop()
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA]
-    device = sum(ev.self_device_time_total for ev in events) / 1e3
+    events = cuda_events(prof)
+    device = sum(us for _, us in events) / 1e3
     report = {"layers": cfg.num_layers, "agents": agents, "walks": walks,
               "batch": {k: list(v.shape) for k, v in batch.items()},
               "params": n_params, "leaves": leaves, "state_GB": state_gb,
@@ -4196,7 +4224,7 @@ def superstep_run(what, cfg, agents, walks, batch, steps=3):
               "superstep_ms_after_first": float(np.mean(step_ms[1:])),
               "profiled_superstep": {
                   "wall_ms": wall, "device_ms": device,
-                  "device_launches": sum(ev.count for ev in events),
+                  "device_launches": len(events),
                   "device_busy_share": device / wall},
               "launches": {"prox_update": total - leaves},
               "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
@@ -4319,9 +4347,7 @@ def convex_profile(fn, calls=5, attempts=3):
     that kept no more sleeps than one side holds may have lost events of
     the calls too, so it is taken again, up to `attempts` times; the last
     is kept, and that is said. A Newton update is ~7,400 device events,
-    so they are read from the profiler's raw events: `key_averages()`
-    takes ~7 s to sort those of 5 updates."""
-    from torch.autograd import DeviceType
+    so they are read from the profiler's raw events (`cuda_events`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -4333,20 +4359,14 @@ def convex_profile(fn, calls=5, attempts=3):
                 fn()
             pad_profile()
             torch.cuda.synchronize()
-        pads, n, ns = 0, 0, 0
-        for ev in prof.profiler.kineto_results.events():
-            if ev.device_type() != DeviceType.CUDA:
-                continue
-            if PAD_KERNEL in ev.name():
-                pads += 1
-            else:
-                n += 1
-                ns += ev.duration_ns()
+        events = cuda_events(prof)
+        pads = sum(PAD_KERNEL in name for name, _ in events)
         if pads > PAD_LAUNCHES:
             break
         print(f"convex_profile: the profile kept {pads} of "
               f"{2 * PAD_LAUNCHES} sleeps; again", flush=True)
-    return n / calls, ns / 1e6 / calls
+    calls_us = [us for name, us in events if PAD_KERNEL not in name]
+    return len(calls_us) / calls, sum(calls_us) / 1e3 / calls
 
 
 def convex_reference():
@@ -4454,6 +4474,246 @@ def convex_reference():
                           "figure_s": out["seconds"]}), flush=True)
         report[fig] = out
     assert not any(counts().values()), counts()
+    return report
+
+
+# phase 47: the async runtime on Fig. 3's problem (`FIGURES`: cpusmall,
+# N = 20, all 8,192 rows, lsq, API-BCD tau 0.1) with M = 2 walks, and the
+# launcher's arms with benchmarks/bench_async_bcd.py:53-59's flags and its
+# quick settings (4 processes, 12 rounds, 4 local steps, max delay 4, a
+# 3x straggler on process 1, a 10 ms update floor, rate rounds 4)
+ASYNC_PROCS = 4
+ASYNC_FIG = "fig3_cpusmall"
+ASYNC_LAUNCH = ["--walks", "2", "--rounds", "12", "--straggle", "1:3.0",
+                "--min-update-ms", "10", "--seed", "0"]
+ASYNC_ASYNC = ["--max-delay", "4", "--local-steps", "4", "--adaptive"]
+ASYNC_ARMS = {
+    "lockstep": ["--max-delay", "0", "--local-steps", "1"],
+    "async": ASYNC_ASYNC,
+    "async+mid": ASYNC_ASYNC + ["--mid-round"],
+    "async+mid+measured": ASYNC_ASYNC + [
+        "--mid-round", "--measured-speeds", "--rate-rounds", "4"],
+}
+# (arm, transport), in order; the last repeats the measured arm. The
+# second tcp run of async+mid is cut for time (each launch starts four
+# processes that import torch; launch_s says how long): its file run
+# repeats it
+ASYNC_RUNS = (("lockstep", "tcp"), ("lockstep", "file"),
+              ("async+mid", "tcp"), ("async+mid", "file"),
+              ("async", "tcp"), ("async+mid+measured", "tcp"),
+              ("async+mid+measured", "tcp"))
+# the logistic run through the Newton prox, cut for time (Fig. 5 walks
+# 800 activations a method)
+ASYNC_LOGISTIC = ["--dataset", "ijcnn1", "--agents", "50", "--subsample",
+                  "10000", "--tau", "0.1", "--walks", "2", "--rounds", "4",
+                  "--local-steps", "3", "--max-delay", "2", "--seed", "0"]
+INT_TRACE = ("event", "round", "epoch", "own_updates", "applied_updates",
+             "comm_events", "ingested", "staleness", "view_lag", "gated")
+
+
+def async_figure():
+    """(dataset, agents, rows, tau) of Fig. 3, every row of its dataset."""
+    ds, n, _, _, _, _, tau, sub, _ = decentralized_lsq.FIGURES[ASYNC_FIG]
+    return ds, n, sub or DATASETS[ds].num_samples, tau
+
+
+def async_update_clock(problem, tau):
+    """An API-BCD lsq update on the card with and without the wait the
+    async worker adds after each: host ms of each (100 updates after a
+    warm-up), and device ms and launches an update under the profiler."""
+    method = APIBCD(problem, tau=tau, num_walks=2, device=DEV)
+    steps = WalkSequence(problem.num_agents, 1, 0, 2)
+    st = {"state": method.init()}
+
+    def update():
+        agent, walk = steps.take(1)[0]
+        st["state"] = method.update(st["state"], agent, walk)
+
+    def synced():
+        update()
+        torch.cuda.current_stream().synchronize()
+
+    launches, dev_ms = convex_profile(update)
+    out = {}
+    for name, fn in (("unsynced", update), ("synced", synced)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_host_ms"] = (time.perf_counter() - t0) * 10.0
+    return {**out, "device_ms": dev_ms, "launches": launches}
+
+
+def async_threaded(problem, tau):
+    """run_threaded at P = 4 on the card twice and on the CPU once: equal
+    integer trace columns, tokens within 1e-9 of max |z| and objectives
+    within 1e-9 of max |objective|, 4 equal card digests and a card
+    repeat's equal to them."""
+    cfg = AsyncBCDConfig(
+        num_procs=ASYNC_PROCS, num_agents=problem.num_agents, num_walks=2,
+        rounds=12, local_steps=4, max_delay=2, adaptive=True, mid_round=True,
+        speeds=(1.0, 3.0, 1.0, 1.0), min_update_s=0.01)
+
+    def go(device):
+        methods = [APIBCD(problem, tau=tau, num_walks=2, device=device)
+                   for _ in range(ASYNC_PROCS)]
+        t0 = time.perf_counter()
+        res = run_threaded(cfg, methods)
+        return res, time.perf_counter() - t0
+
+    card, card_s = go(DEV)
+    repeat, _ = go(DEV)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cpu, cpu_s = go("cpu")
+    torch.set_num_threads(threads)
+    digests = {r.digest for r in card}
+    assert len(digests) == 1, digests
+    assert {r.digest for r in repeat} == digests, (
+        [r.digest for r in repeat], digests)
+    token_gap = obj_gap = 0.0
+    for c, h in zip(card, cpu):
+        assert [[rec[k] for k in INT_TRACE] for rec in c.trace] == [
+            [rec[k] for k in INT_TRACE] for rec in h.trace], c.proc
+        token_gap = max(token_gap, convex_gap(c.tokens, h.tokens))
+        co = torch.tensor([rec["objective"] for rec in c.trace])
+        ho = torch.tensor([rec["objective"] for rec in h.trace])
+        obj_gap = max(obj_gap, convex_gap(co, ho))
+    assert token_gap <= 1e-9 and obj_gap <= 1e-9, (token_gap, obj_gap)
+    first, last = card[0].trace[0], card[0].trace[-1]
+    assert last["objective"] < first["objective"], (first, last)
+    return {"digest": card[0].digest, "card_s": card_s, "cpu_s": cpu_s,
+            "card_wall_s": max(r.wall_s for r in card),
+            "cpu_wall_s": max(r.wall_s for r in cpu),
+            "updates": card[0].applied_updates,
+            "ingested": sum(r.mid_round_ingested for r in card),
+            "max_view_lag": max(r.max_view_lag for r in card),
+            "update_ema_ms": [r.update_ema_s * 1e3 for r in card],
+            "objective": [first["objective"], last["objective"]],
+            "card_vs_cpu_tokens": token_gap, "card_vs_cpu_objective": obj_gap}
+
+
+def train_async(flags, out):
+    """`python -m repro_torch.launch.train_async` with 4 processes on the
+    card: (the merged run, launch seconds). Fails unless it exits 0 with
+    4 equal digests."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train_async",
+           "--processes", str(ASYNC_PROCS), "--timeout", "300",
+           "--out", out, *flags]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=400)
+    launch_s = time.perf_counter() - t0
+    digests = [ln.split("digest=")[1] for ln in res.stdout.splitlines()
+               if "ASYNC_BCD_OK" in ln]
+    if res.returncode != 0 or len(digests) != ASYNC_PROCS \
+            or len(set(digests)) != 1:
+        print(res.stdout[-6000:], res.stderr[-6000:], flush=True)
+        raise AssertionError(f"train_async {flags}: rc {res.returncode}, "
+                             f"digests {digests}")
+    with open(out) as f:
+        run = json.load(f)
+    assert run["digest"] == digests[0] and run["device"].startswith("cuda")
+    return run, launch_s
+
+
+def async_summary(run, launch_s, target=None):
+    """The numbers phase 47 prints for one launcher run."""
+    procs = run["processes"]
+    own = sum(p["own_updates"] for p in procs)
+    recs = sorted((r for p in procs for r in p["trace"]),
+                  key=lambda r: r["wall_s"])
+    hit = None if target is None else next(
+        (r["wall_s"] for r in recs if r["objective"] <= target), None)
+    return {"digest": run["digest"], "launch_s": launch_s,
+            "wall_s": run["wall_s"], "total_updates": run["total_updates"],
+            "updates_per_s": own / run["wall_s"],
+            "comm_events": run["total_comm_events"],
+            "final_objective": run["final_objective"],
+            "gate_wait_s": sum(p["gate_wait_s"] for p in procs),
+            "ingest_wait_s": sum(p["ingest_wait_s"] for p in procs),
+            "max_staleness": run["max_staleness"],
+            "max_view_lag": run["max_view_lag"],
+            "ingested": run["mid_round_ingested"],
+            "update_ema_ms": [p["update_ema_s"] * 1e3 for p in procs],
+            "local_steps": [p["local_steps"] for p in procs],
+            "speed_buckets": procs[0]["speed_buckets"],
+            "peak_mb": [p["peak_bytes"] / 2 ** 20 for p in procs],
+            "time_to_lockstep_objective_s": hit}
+
+
+def async_runtime():
+    """Phase 47: the async runtime on one card. The threaded runtime card
+    against CPU (async_threaded) and a synchronised update's clock on
+    Fig. 3's problem; `launch.train_async` with 4 processes on the card
+    for each of ASYNC_RUNS (equal digests within each run, tcp against
+    file, repeats, staleness and view lag within the bound of 4); one
+    logistic run (ijcnn1) through the Newton prox. No kernel of the port
+    launches; no speed is gated."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    ds, n, rows, tau = async_figure()
+    flags = ["--dataset", ds, "--agents", str(n), "--subsample", str(rows),
+             "--tau", str(tau)]
+    problem = make_problem(ds, n, seed=0, subsample=rows)
+    clock = async_update_clock(problem, tau)
+    print(json.dumps({"async_update_clock": clock}), flush=True)
+    threaded = async_threaded(problem, tau)
+    print(json.dumps({"async_threaded": threaded}), flush=True)
+    assert not any(counts().values()), counts()
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as td:
+        for i, (arm, transport) in enumerate(ASYNC_RUNS):
+            run, launch_s = train_async(
+                [*flags, *ASYNC_LAUNCH, *ASYNC_ARMS[arm],
+                 "--transport", transport],
+                os.path.join(td, f"{i}.json"))
+            runs.setdefault(arm, []).append((transport, run, launch_s))
+        print(f"logistic: cut to 4 rounds x 3 local steps a process "
+              f"(ijcnn1, N = 50, 10,000 rows)", flush=True)
+        logistic, logistic_s = train_async(
+            [*ASYNC_LOGISTIC, "--transport", "tcp"],
+            os.path.join(td, "logistic.json"))
+
+    target = runs["lockstep"][0][1]["final_objective"]
+    lock_wall = runs["lockstep"][0][1]["wall_s"]
+    report = {}
+    for arm, got in runs.items():
+        row = async_summary(got[0][1], got[0][2], target)
+        hit = row["time_to_lockstep_objective_s"]
+        row["speedup_vs_lockstep"] = lock_wall / hit if hit else None
+        row["runs"] = [{"transport": t, "digest": r["digest"],
+                        "wall_s": r["wall_s"], "launch_s": s,
+                        "max_staleness": r["max_staleness"],
+                        "max_view_lag": r["max_view_lag"],
+                        "speed_buckets": r["processes"][0]["speed_buckets"],
+                        "update_ema_ms": [p["update_ema_s"] * 1e3
+                                          for p in r["processes"]]}
+                       for t, r, s in got]
+        report[arm] = row
+        print(json.dumps({"async_arm": arm, **row}), flush=True)
+    print(json.dumps({"async_speedups": {
+        arm: row["speedup_vs_lockstep"] for arm, row in report.items()}}),
+        flush=True)
+    for arm, row in report.items():
+        assert len({r["digest"] for r in row["runs"]}) == 1, (arm,
+                                                             row["runs"])
+        assert all(r["max_staleness"] <= 4 and r["max_view_lag"] <= 4
+                   for r in row["runs"]), (arm, row["runs"])
+
+    logistic_problem = make_problem("ijcnn1", 50, seed=0, subsample=10000)
+    start = float(global_objective(logistic_problem, torch.zeros(
+        logistic_problem.dim, dtype=torch.float64)))
+    row = async_summary(logistic, logistic_s)
+    assert row["final_objective"] < start, (row["final_objective"], start)
+    print(json.dumps({"async_logistic": {**row, "start_objective": start}}),
+          flush=True)
+    print(json.dumps({"phase47_s": time.perf_counter() - t_phase}),
+          flush=True)
     return report
 
 
@@ -4907,6 +5167,11 @@ def main():
     phase("46 the convex reference in float64: Figs. 3-6 card against CPU, "
           "through the simulator, profiled")
     convex_reference()
+
+    phase("47 the async trainer: the threaded runtime card against CPU; "
+          "launch.train_async with 4 processes on the card, 4 arms over "
+          "tcp and file; a logistic run")
+    async_runtime()
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""

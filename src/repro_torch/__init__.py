@@ -11,6 +11,10 @@ What it covers:
   `repro_torch.data.synthetic`, `repro_torch.examples`): I-BCD, API-BCD
   and gAPI-BCD, the WPG and DGD baselines, the serial driver and the
   asynchronous event simulator behind Figs. 3-6, in float64;
+- the true-async multi-process trainer that runs those methods with
+  bounded staleness (`repro_torch.dist.async_trainer`,
+  `repro_torch.launch.train_async`), over a TCPStore or a shared
+  directory, digests bitwise equal across processes;
 - the gAPI-BCD language-model trainer and the DP baseline
   (`repro_torch.launch.train`, `repro_torch.dist.trainer`,
   `repro_torch.optim`, `repro_torch.checkpoint`), with the closed-form

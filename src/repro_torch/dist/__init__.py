@@ -1,1 +1,21 @@
-"""Single-process training of the port."""
+"""repro_torch.dist — the port's API-BCD runtimes (the port of
+`repro/dist`):
+
+  trainer        — init_train_state / make_train_step (the API-BCD
+                   superstep on a language model, one process) /
+                   make_dp_baseline_step.
+  async_trainer  — the TRUE-async runtime: per-process event loops over
+                   sharded agents, bounded-staleness token exchange,
+                   adaptive update rates, straggler injection
+                   (`launch/train_async.py` drives it multi-process).
+  async_schedule — deterministic virtual-time schedules + the
+                   bounded-staleness gate (digest reproducibility).
+  async_comm     — block-update transports (torch.distributed TCPStore,
+                   file, in-memory).
+
+The event-driven simulator of Algorithm 2's *cost model* lives in
+`repro_torch.core.simulator`; `async_trainer` is where wall-clock
+asynchrony runs on a real multi-process runtime.
+"""
+from repro_torch.dist import (  # noqa: F401
+    async_comm, async_schedule, async_trainer, trainer)

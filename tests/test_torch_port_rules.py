@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 
 from repro_torch.examples import decentralized_lsq, quickstart  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import serve, train, train_async  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -89,6 +89,20 @@ def test_train_on_cpu_when_asked():
                       "--log-every", "0"])
     assert out["device"] == "cpu" and len(out["losses"]) == 2
     assert out["peak_bytes"] is None
+
+
+def test_train_async_without_cpu_request_raises_when_no_gpu(monkeypatch,
+                                                          tmp_path):
+    """The parent raises before it spawns a process, and a child given
+    no --device cpu raises before it touches its transport."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_async.main(["--processes", "2"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_async.main(["--processes", "2", "--process-id", "1",
+                          "--transport", "file", "--kv-dir",
+                          str(tmp_path / "kv")])
+    assert not (tmp_path / "kv").exists()
 
 
 def test_quickstart_without_cpu_request_raises_when_no_gpu(monkeypatch):
