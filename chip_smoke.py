@@ -319,6 +319,22 @@ non-zero before the last line:
      speed-ups (printed, not gated); one logistic run (ijcnn1, N=50,
      10,000 rows, cut to 4 rounds x 3 local steps) with equal digests
      and an objective below its start; no kernel of the port launches.
+ 48. cost accounting (`repro_torch.utils.roofline.StepCost`,
+     `repro_torch.launch.dryrun`): the A=4, M=2 qwen2-0.5b superstep at
+     2 x 256 tokens an agent, an 8-row qwen2 decode step with every row
+     at a capacity of 512, a 2048-token qwen2 prefill (flash) and an
+     8-row rwkv6-1.6b decode step (the WKV kernel), each counted on the
+     card and held equal to the dry run's count on fake tensors (FLOPs by
+     unit and bytes, exactly, and each kernel's calls); each timed
+     unprofiled (host clock to synchronize) and profiled (device ms from
+     raw events), with its roofline bound and the term that sets it, the
+     roofline share (bound / device ms), mfu (model FLOPs / (wall s x
+     peak)) and max_memory_allocated beside the dry run's argument bytes;
+     the host cost of the count check with no count open; then
+     `repro_torch.examples.train_lm_apibcd --preset paper --steps 30`
+     (its 300 steps cut to 30), which must print "(improved)", and
+     `repro_torch.examples.serve_batched --arch qwen2-0.5b`, every request
+     to its budget.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 With no GPU, or without the rest of the repo beside it, it exits
@@ -347,7 +363,7 @@ from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     APIBCD, CyclicWalk, global_objective, hamiltonian_cycle, run_serial,
     simulate_gossip, simulate_incremental)
-from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.data import DATASETS, make_problem  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch import optim  # noqa: E402
@@ -357,6 +373,10 @@ from repro_torch.dist.async_trainer import (  # noqa: E402
 from repro_torch.dist.trainer import (  # noqa: E402
     init_train_state, make_dp_baseline_step, make_train_step)
 from repro_torch.examples import decentralized_lsq  # noqa: E402
+from repro_torch.examples import serve_batched  # noqa: E402
+from repro_torch.examples import train_lm_apibcd  # noqa: E402
+from repro_torch.kernels import costs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import tickets as ticket_pool  # noqa: E402
@@ -376,11 +396,8 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
+from repro_torch.utils import roofline  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core peak
 COUNTERS = {"prox_update": prox_update_cuda,
             "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda,
@@ -658,10 +675,9 @@ def check_prox_case(label, shape, dtype, gen):
     del xn, d, rxn, rd, err_x
     t = timings(lambda: ops.prox_update(x, g, z, **KW),
                 lambda: ref.prox_update(x, g, z, **KW), None, 10)
-    numel = x.numel()
-    nbytes = numel * (2 * x.element_size() + 3 * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 7 * numel / F32_FLOPS_PER_S * 1e3
+    cost = costs.prox_update(x, g, z)
+    nbytes = cost.bytes
+    t_bytes, t_ops = bound_terms(cost)
     case = {"case": label, "shape": list(shape), "dtype": str(dtype),
             "max_abs_err": max_err, "tolerance": rule, **t,
             "bound_ms": max(t_bytes, t_ops),
@@ -758,17 +774,24 @@ def bf16_close(got, want):
 ATTN_RULE = "|kernel - plain| <= 1 bf16 ulp of plain + 1e-5 (f32 sums in both)"
 
 
-def attention_case(name, label, fn, plain, library, nbytes, flops, iters,
+def bound_terms(cost):
+    """(bytes ms, operations ms): a kernel call's `kernels.costs` record
+    against the card's memory rate and its units' peaks."""
+    return (cost.bytes / roofline.HBM_BW * 1e3,
+            roofline.compute_seconds(cost.ops) * 1e3)
+
+
+def attention_case(name, label, fn, plain, library, cost, iters,
                    dtype=torch.bfloat16):
-    """Check fn() against plain() and time fn, plain and the library call."""
+    """Check fn() against plain() and time fn, plain and the library call;
+    `cost`: the call's `kernels.costs` record."""
     got = fn()
     torch.cuda.synchronize()
     ok, max_err = bf16_close(got, plain())
     del got
     t = timings(fn, plain, library, iters)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_ops = flops / peak * 1e3
+    t_bytes, t_ops = bound_terms(cost)
+    nbytes, flops = cost.bytes, cost.flops
     case = {"case": label, "dtype": str(dtype), "max_abs_err": max_err,
             "tolerance": ATTN_RULE, **t,
             "bound_ms": max(t_bytes, t_ops),
@@ -797,10 +820,7 @@ def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0,
     v = torch.randn((1, t, kv, hd), generator=gen, device=DEV).to(bf)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    pairs = s * (s + 1) // 2 if causal else s * t   # attended pairs only
     if window and window < s:
-        pairs -= (s - window) * (s - window + 1) // 2
         i = torch.arange(s, device=DEV)
         mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
 
@@ -813,7 +833,8 @@ def check_flash_case(label, s, gen, h=14, kv=2, hd=64, window=0,
         "flash_attention", label,
         lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
         lambda: ref.attention(q, k, v, causal=causal, window=window),
-        library, nbytes, 4 * hd * h * pairs, iters=20)
+        library, costs.flash_attention(q, k, v, causal=causal,
+                                       window=window), iters=20)
     return dict(case, shape=[list(q.shape), list(k.shape)], window=window,
                 causal=causal)
 
@@ -843,15 +864,12 @@ def check_decode_case(label, b, t, gen, h=14, kv=2, hd=64, full=False,
     kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
     mask = valid[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    used = int(lengths.sum())
-    nbytes = 2 * (2 * q.numel() + 2 * used * kv * hd) + 4 * b
-    flops = 4 * hd * h * used
     case = attention_case(
         "decode_attention", label,
         lambda: ops.decode_attention(q, k, v, lengths=lengths),
         lambda: ref.decode_attention(q, k, v, lengths=lengths),
         lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
-        nbytes, flops, iters=50)
+        costs.decode_attention(q, k, v, lengths=lengths), iters=50)
     print(json.dumps({"decode_split": {"case": label, "split_rows": rows,
                                        "splits": splits,
                                        "blocks": kv * b * splits}}),
@@ -1154,19 +1172,6 @@ def _gather_sdpa(q, kp, vp, tables, valid):
     return run
 
 
-def _paged_bytes(q, kp, used, used_blocks):
-    """q read and out written once, each valid K/V row once, the table
-    entries and lengths the rows use."""
-    return (q.element_size() * (2 * q.numel()
-                                + 2 * used * kp.shape[2] * kp.shape[3])
-            + 4 * (q.shape[0] + used_blocks))
-
-
-def _paged_flops(q, used):
-    """Both products over the valid rows: 4 hd flops a (query head, row)."""
-    return 4 * q.shape[2] * q.shape[1] * used
-
-
 def check_paged_case(label, b, max_len, bs, dtype, gen, **heads):
     """One paged decode step of b rows whose lengths spread over
     1..max_len; table entries past a row's blocks point at block 0.
@@ -1179,15 +1184,15 @@ def check_paged_case(label, b, max_len, bs, dtype, gen, **heads):
     nblk = (lengths + bs - 1) // bs
     tables[torch.arange(w, device=DEV)[None] >= nblk[:, None]] = 0
     valid = torch.arange(w * bs, device=DEV)[None] < lengths[:, None]
-    used = int(lengths.sum())
     case = attention_case(
         "decode_attention_paged", label,
         lambda: ops.decode_attention_paged(q, kp, vp, tables,
                                            lengths=lengths),
         lambda: ref.decode_attention_paged(q, kp, vp, tables,
                                            lengths=lengths),
-        None, _paged_bytes(q, kp, used, int(nblk.sum())),
-        _paged_flops(q, used), iters=50, dtype=dtype)
+        None, costs.decode_attention_paged(q, kp, vp, tables,
+                                           lengths=lengths),
+        iters=50, dtype=dtype)
     lib = _gather_sdpa(q, kp, vp, tables, valid)
     case.update(gather_sdpa_ms=device_ms(lib, 50),
                 gather_sdpa_event_ms=event_ms(lib, 50),
@@ -1267,14 +1272,14 @@ def check_ring_case(label, b, window, bs, dtype, gen, **heads):
     order = (starts.long()[:, None] + torch.arange(w, device=DEV)[None]) % w
     ring_tables = torch.gather(tables, 1, order).contiguous()
     valid = torch.arange(w * bs, device=DEV)[None] < live[:, None]
-    used = int(live.sum())
     kw = dict(ring_starts=starts, lengths=lengths, window=window)
     case = attention_case(
         "decode_attention_ring", label,
         lambda: ops.decode_attention_ring(q, kp, vp, tables, **kw),
         lambda: ref.decode_attention_ring(q, kp, vp, tables, **kw),
-        None, _paged_bytes(q, kp, used, int(((live + bs - 1) // bs).sum())),
-        _paged_flops(q, used), iters=50, dtype=dtype)
+        None, costs.decode_attention_ring(q, kp, vp, tables, lengths=lengths,
+                                          window=window),
+        iters=50, dtype=dtype)
     base = ops.decode_attention_ring(q, kp, vp, tables, **kw)
     for shift in (1, w // 2, w - 1):
         rot = torch.roll(tables, shift, dims=1).contiguous()
@@ -1651,21 +1656,10 @@ def check_rwkv_case(label, b, s, dtype, gen, pieces=1, hd=64, w0=-2.0):
     t = timings(lambda: ops.rwkv6_scan(r, k, v, w, u, scratch),
                 lambda: ref.rwkv6(r, k, v, w, u, state), None,
                 iters=20 if s > 1000 else 50, launches=per_call)
-    esize = r.element_size()
-    n = b * h * s * hd
-    nbytes = 3 * n * esize + 4 * n + 4 * n + 2 * 4 * b * h * hd * hd \
-        + h * hd * esize
-    # the fewest operations: the chunked form (chunks of c steps), its four
-    # products on the TF32 tensor cores (q k~^T and A v over the lower
-    # triangle, r_dec S_in, k_dec^T v: 4 hd^2 + 2 (c + 1) hd a step), the
-    # u bonus and the decays' log and exp on the f32 units (5 hd a step)
-    c = min(s, wkv.CHUNK)
-    mma_flops = (4 * hd * hd + 2 * (c + 1) * hd) * b * h * s
-    f32_flops = 5 * hd * b * h * s
-    flops = mma_flops + f32_flops
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (mma_flops / TF32_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S) \
-        * 1e3
+    # the fewest operations: the chunked form (`costs.rwkv6_scan`)
+    cost = costs.rwkv6_scan(r, k, v, w, u, state)
+    nbytes, flops = cost.bytes, cost.flops
+    t_bytes, t_ops = bound_terms(cost)
     case = {"case": label, "dtype": str(dtype), "w0": w0,
             "body": "chunked" if wkv.body(s) else "step",
             "chunk": wkv.body(s), "device_launches_per_call": per_call,
@@ -1814,10 +1808,6 @@ RG_LAYERS, RG_ATTN_LAYERS = 18, 8   # recurrentgemma-2b: RG-LRU, attention
 RG_WIDTH = 2560
 LONG_PROMPT, LONG_NEW, LONG_CAPACITY = 3000, 32, 4096
 RG_WINDOW = 2048
-# the fused RG-LRU's f32 operations an element: 2 bias adds, 2 sigmoids (4
-# each: negate, exp, add, divide), the decay's product and exp, i * xa,
-# a * a, 1 - a^2, the clamp, sqrt, the scale's product, the step's 2
-RGLRU_OPS_PER_ELEMENT = 21
 
 
 def check_rglru_case(label, b, s, dtype, gen, pieces=1):
@@ -1864,13 +1854,9 @@ def check_rglru_case(label, b, s, dtype, gen, pieces=1):
     t = timings(lambda: ops.rglru_scan(*args, scratch),
                 lambda: ref.rglru_gated(*args, state), None,
                 iters=20 if s > 1000 else 50)
-    n = b * s * w
-    esize = xa.element_size()
-    # ga, gi, xa in, out out; b_a, b_i, lamb once; the state in and out
-    nbytes = 4 * n * esize + 3 * w * esize + 2 * 4 * b * w
-    flops = RGLRU_OPS_PER_ELEMENT * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    cost = costs.rglru_scan(*args, state)
+    nbytes, flops = cost.bytes, cost.flops
+    t_bytes, t_ops = bound_terms(cost)
     case = {"case": label, "dtype": str(dtype),
             "shape": [list(xa.shape), list(state.shape)],
             "max_abs_err": max_err, "bitwise": bitwise,
@@ -3093,12 +3079,6 @@ def checkpoint_on_card(state):
     return report
 
 
-# phase 34: the backward kernels' f32 operations per state element and
-# step (WKV: the forward state walked once, the gradient state once, three
-# row products and one column product, v . do) and per element (RG-LRU:
-# the gates, decay and scale made again, the step, and the chain back)
-WKV_BWD_OPS_PER_STATE_STEP = 14
-RGLRU_BWD_OPS_PER_ELEMENT = 42
 BWD_RULE = ("|kernel - plain| <= 1e-5 * rms(plain) + 1e-4 * |plain|, every "
             "gradient (f32 sums in another order; chip_smoke's WKV rule)")
 
@@ -3136,15 +3116,9 @@ def check_wkv_bwd_case(label, b, s, dtype, gen, hd=64, w0=-2.0):
     t = timings(lambda: rwkv6_scan_bwd_cuda(*args),
                 lambda: ref.rwkv6_bwd(*args), None, iters=20,
                 launches=per_call)
-    esize = r.element_size()
-    n = b * h * s * hd
-    # r, k, v in; w and dout (f32) in; dr, dk, dv, dw (f32) out; u in; the
-    # state in, dstate_in out; du out
-    nbytes = (3 * esize + 2 * 4 + 4 * 4) * n + h * hd * (esize + 4) \
-        + 2 * 4 * b * h * hd * hd
-    flops = WKV_BWD_OPS_PER_STATE_STEP * b * h * s * hd * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    cost = costs.rwkv6_scan_bwd(*args[:7])
+    nbytes, flops = cost.bytes, cost.flops
+    t_bytes, t_ops = bound_terms(cost)
     case = {"case": label, "dtype": str(dtype), "w0": w0,
             "shape": [list(r.shape), list(state.shape)],
             "w_min": float(w.min()),
@@ -3192,14 +3166,9 @@ def check_rglru_bwd_case(label, b, s, dtype, gen):
     t = timings(lambda: rglru_scan_bwd_cuda(*args),
                 lambda: ref.rglru_gated_bwd(*args), None,
                 iters=20, launches=per_call)
-    n = b * s * w
-    esize = xa.element_size()
-    # ga, gi, xa, dout in; dgate_a, dgate_i, dxa (f32) out; b_a, b_i, lamb
-    # in, their f32 gradients out; the state in, dh0 out
-    nbytes = (4 * esize + 3 * 4) * n + 3 * w * (esize + 4) + 2 * 4 * b * w
-    flops = RGLRU_BWD_OPS_PER_ELEMENT * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    cost = costs.rglru_scan_bwd(*args[:8])
+    nbytes, flops = cost.bytes, cost.flops
+    t_bytes, t_ops = bound_terms(cost)
     case = {"case": label, "dtype": str(dtype),
             "shape": [list(xa.shape), list(state.shape)],
             "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
@@ -3525,7 +3494,7 @@ def moe_decode_layers(cfg, params, gen):
             "launches": device_launches(lambda: MOE.moe_apply(
                 moe, cfg, x, with_aux=False), calls=10),
             "expert_bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            "bound_ms": nbytes / roofline.HBM_BW * 1e3})
     return out
 
 
@@ -3774,7 +3743,7 @@ def mla_decode_layers(cfg, params, gen, b=8, t=512):
         out.append({"ms": device_ms(fn, 10),
                     "launches": device_launches(fn, calls=10),
                     "bytes": nbytes,
-                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+                    "bound_ms": nbytes / roofline.HBM_BW * 1e3})
     return out
 
 
@@ -4819,6 +4788,173 @@ def kernel_entry(name, source, replaces, launches, cases, rep):
             "library_ms": rep["library_ms"], "cases": cases}
 
 
+# phase 48's steps: (label, arch, shape, API-BCD TrainConfig or None)
+COST_STEPS = [
+    ("qwen2 superstep A=4 M=2 2x256", "qwen2-0.5b",
+     ShapeConfig("superstep_a4_2x256", 256, 8, "train"),
+     TrainConfig(num_agents=4, num_walks=2, tau=0.05, rho=20.0)),
+    ("qwen2 decode B=8 T=512", "qwen2-0.5b",
+     ShapeConfig("decode_b8_t512", 512, 8, "decode"), None),
+    ("qwen2 prefill S=2048", "qwen2-0.5b",
+     ShapeConfig("prefill_s2048", 2048, 1, "prefill"), None),
+    ("rwkv6 decode B=8", "rwkv6-1.6b",
+     ShapeConfig("decode_b8", 512, 8, "decode"), None),
+]
+
+
+def _count_difference(card, fake):
+    """What differs between the card's count and the dry run's, by part."""
+    sc = fake["step_cost"]
+    parts = {"flops_by_unit": (card.ops_by_unit(), sc["flops_by_unit"]),
+             "aten_flops": (sum(card.flops_by_unit.values()),
+                            sc["aten_flops"]),
+             "aten_bytes": (card.aten_bytes, sc["aten_bytes"]),
+             "kernels": (card.by_kernel(), sc["kernels"])}
+    return {k: {"card": a, "fake": b} for k, (a, b) in parts.items()
+            if a != b}
+
+
+def cost_step(label, arch, shape, train, smi, reps):
+    """Count one step on the card against the dry run's fake count, then,
+    after a warm step, time it unprofiled (`reps` steps, host clock to
+    synchronize each) and profiled (device ms of `reps` steps from raw
+    events). A profile that recorded no device time is taken again, up to
+    3 times in all, and it raises when none did: the step launches
+    kernels, so an empty profile is a failed measurement."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    fake = dryrun.lower_combo(arch, shape, train=train, verbose=False)
+    fake_s = time.perf_counter() - t0
+    combo = dryrun.make_combo(arch, shape, train=train)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inputs = dryrun.step_inputs(
+        combo, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    with roofline.StepCost() as card:
+        dryrun.run_step(combo, inputs)
+    torch.cuda.synchronize()
+    diff = _count_difference(card, fake)
+
+    def step():
+        dryrun.run_step(combo, inputs)
+
+    step()                      # warm, uncounted
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    attempts = 3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profile()
+            for _ in range(reps):
+                step()
+            pad_profile()
+            torch.cuda.synchronize()
+        rows = cuda_rows(prof)
+        device = sum(ms for ms, _, _ in rows) / reps
+        if device:
+            break
+        print(f"{label}: the profile recorded no device time; again",
+              flush=True)
+    else:
+        raise AssertionError(f"{label}: {attempts} profiles of {reps} steps "
+                             "recorded no device time")
+    peak = torch.cuda.max_memory_allocated()
+    del inputs
+    torch.cuda.empty_cache()
+    rl = fake["roofline"]
+    bound_ms = max(rl["compute_s"], rl["memory_s"]) * 1e3
+    wall = float(np.median(walls))
+    rec = {"step": label, "arch": combo.name,
+           "shape": dataclasses.asdict(shape),
+           "card": smi, "flops": card.flops, "bytes": card.bytes,
+           "flops_by_unit": card.ops_by_unit(),
+           "kernels": card.by_kernel(),
+           "equal_to_fake_count": not diff, "fake_count_s": fake_s,
+           "wall_ms": walls, "wall_ms_median": wall,
+           "device_ms": device,
+           "device_launches": sum(n for _, n, _ in rows) / reps,
+           "busy_share": device / wall,
+           "bound_ms": bound_ms, "bound_by": rl["dominant"],
+           "compute_ms": rl["compute_s"] * 1e3,
+           "memory_ms": rl["memory_s"] * 1e3,
+           "roofline_share": bound_ms / device,
+           "model_flops": fake["model_flops"],
+           "mfu": roofline.mfu(fake["model_flops"], wall / 1e3,
+                               combo.cfg.compute_dtype),
+           "useful_flop_ratio": fake["useful_flop_ratio"],
+           "peak_GB": peak / 1e9,
+           "dry_run_argument_GB":
+               fake["memory_analysis"]["argument_size_in_bytes"] / 1e9}
+    print(json.dumps({"cost_step": rec}), flush=True)
+    if diff:
+        raise AssertionError(f"{label}: the card's count differs from the "
+                             f"dry run's on fake tensors: {diff}")
+    return rec
+
+
+def check_cost(reps):
+    """The host time of the count check in an `ops` dispatcher with no
+    count open, per call (one global lookup and a null context)."""
+    q = torch.empty(1, 1, 1, 1)
+    assert costs.OPEN is None
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with ops._counted(costs.flash_attention, q, q, q):
+            pass
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def cost_accounting(smi):
+    """Phase 48 (see the module's docstring). Returns its records."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps = [cost_step(label, arch, shape, train, smi,
+                       reps=3 if train is not None else 8)
+             for label, arch, shape, train in COST_STEPS]
+    check_us = check_cost(200_000)
+    decode = steps[1]
+    print(json.dumps({"count_check": {
+        "host_us_per_call": check_us,
+        "calls_per_qwen2_decode_step": decode["kernels"][
+            "decode_attention"]["calls"],
+        "host_us_per_decode_step": check_us * decode["kernels"][
+            "decode_attention"]["calls"],
+        "decode_step_wall_ms_no_count_open": decode["wall_ms_median"],
+        "card": smi}}), flush=True)
+
+    t1 = time.perf_counter()
+    out = train_lm_apibcd.main(["--preset", "paper", "--steps", "30"])
+    train_s = time.perf_counter() - t1
+    if not out["improved"] or not np.all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train_lm_apibcd --preset paper did not "
+                             f"improve: {out['losses']}")
+    t1 = time.perf_counter()
+    served = serve_batched.main(["--arch", "qwen2-0.5b"])
+    serve_s = time.perf_counter() - t1
+    lengths = [len(served["outputs"][uid])
+               for uid in range(len(served["budgets"]))]
+    if lengths != served["budgets"]:
+        raise AssertionError(f"serve_batched: outputs of {lengths} tokens "
+                             f"for budgets {served['budgets']}")
+    print(json.dumps({"examples": {
+        "train_lm_apibcd_paper_30_steps": {
+            "s": train_s, "first10": float(np.mean(out["losses"][:10])),
+            "last10": float(np.mean(out["losses"][-10:])),
+            "improved": out["improved"]},
+        "serve_batched_qwen2": {"s": serve_s, "steps": served["steps"],
+                                "tokens_per_s": served["tokens_per_s"]},
+        "card": smi}}), flush=True)
+    print(f"phase 48: {time.perf_counter() - t0:.1f} s", flush=True)
+    return steps
+
+
 def main():
     phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5172,6 +5308,11 @@ def main():
           "launch.train_async with 4 processes on the card, 4 arms over "
           "tcp and file; a logistic run")
     async_runtime()
+
+    phase("48 cost accounting: four steps counted on the card against the "
+          "dry run's fake count, timed beside their roofline bounds; the "
+          "two LM examples")
+    cost_accounting(smi)
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""

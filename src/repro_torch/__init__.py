@@ -28,6 +28,11 @@ What it covers:
   `repro_torch.models`): the dense family (qwen2, internlm2, qwen3,
   nemotron), rwkv6, recurrentgemma, the MoE dbrx, MLA deepseek-v2,
   whisper-small and phi-3-vision;
+- cost accounting on one card (`repro_torch.utils.roofline`,
+  `repro_torch.kernels.costs`, `repro_torch.launch.dryrun`): a step's
+  FLOPs and HBM bytes, counted alike on the card, the CPU and fake
+  tensors, against one H100's peaks, for every architecture at the
+  reference's input shapes; and the reference's two LM examples;
 - every Pallas kernel of the reference as a hand-written CUDA kernel for
   Hopper (`repro_torch.kernels`: prox update, flash prefill, linear,
   paged and ring decode attention, the WKV and RG-LRU scans, and the

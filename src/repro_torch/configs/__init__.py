@@ -1,7 +1,8 @@
 """Config registry of the port: one module per ported architecture.
 
 `get_config(name)` -> full ArchConfig; `get_smoke(name)` -> the reduced
-variant for CPU tests. All ten of the reference's architectures are
+variant for CPU tests; `get_train(name)` -> the architecture's API-BCD
+TrainConfig defaults. All ten of the reference's architectures are
 registered.
 """
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, MLAConfig, MoEConfig, TrainConfig,
+    ArchConfig, INPUT_SHAPES, MLAConfig, MoEConfig, ShapeConfig, TrainConfig,
 )
 
 # user-facing ids -> module names
@@ -41,3 +42,7 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).smoke()
+
+
+def get_train(name: str) -> TrainConfig:
+    return getattr(_module(name), "TRAIN", TrainConfig())

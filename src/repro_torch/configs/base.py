@@ -1,7 +1,8 @@
 """Architecture + run configuration (copy of `repro/configs/base.py`).
 
-`ArchConfig` is the reference's schema field for field, so a config
-written for one package reads the same in the other. `TrainConfig` keeps
+`ArchConfig` and `ShapeConfig` (with the four assigned `INPUT_SHAPES`)
+are the reference's schema field for field, so a config written for one
+package reads the same in the other. `TrainConfig` keeps
 only the fields the port's single-process trainer reads; the mesh-only
 fields (model_parallel, store_copy_sum, zero_shard_tokens,
 microbatch_per_agent) and the baseline's learning_rate come with the
@@ -92,6 +93,31 @@ class ArchConfig:
         if len(self.layer_types) != self.num_layers:
             raise ValueError(f"{self.name}: {len(self.layer_types)} layer "
                              f"types for {self.num_layers} layers")
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if decode at 500k is feasible: recurrent state or windowed
+        attention (native or via long_context_window override)."""
+        if self.family in ("encdec", "audio"):
+            return False            # whisper decoder: short trained context
+        return True                 # ssm/hybrid native; attention via window
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input shape."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

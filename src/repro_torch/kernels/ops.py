@@ -1,8 +1,17 @@
 """Dispatch between the Hopper kernels and their plain versions.
 
 A CUDA tensor goes to the kernel, which launches or raises; a CPU tensor
-goes to the plain version in `ref`. Nothing else is accepted, and no
-failure on the card falls back to the plain version.
+goes to the plain version in `ref`. A fake tensor
+(`torch._subclasses.fake_tensor`, as the dry-run counts on) gets the
+kernel's outputs, their shapes and dtypes, without running anything (a
+recurrence's state advances in shape only), the abstract implementation
+a custom op's `register_fake` would give. Nothing else is accepted, and
+no failure on the card falls back to the plain version.
+
+While a `utils.roofline.StepCost` is open (`costs.OPEN`), each call
+records its `kernels.costs` entry there and pauses the count while the
+kernel's wrapper or plain version runs, so a step counts the kernel's
+work whatever runs it; with no count open that is one global lookup.
 
 The two recurrences also have training routes (`rwkv6_scan_train`,
 `rglru_scan_train`): `torch.autograd.Function`s whose forward is the
@@ -11,9 +20,11 @@ hand-written backward kernel (the plain forward and backward on the CPU).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import costs, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.decode_attention_paged import (
     decode_attention_paged_cuda, decode_attention_ring_cuda)
@@ -25,17 +36,40 @@ from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_bwd_cuda,
                                             rwkv6_scan_cuda)
 
 
+def _route(name, t):
+    """"fake" for a fake tensor, "cuda" for the kernel, "cpu" for the
+    plain version; raises for any other device."""
+    if costs.is_fake(t):
+        return "fake"
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def _counted(cost_fn, *args, **kwargs):
+    """Record `cost_fn(*args, **kwargs)` in the open count and return a
+    context that pauses it; a no-op context when no count is open."""
+    count = costs.OPEN
+    if count is None:
+        return contextlib.nullcontext()
+    count.record(cost_fn(*args, **kwargs))
+    return count.paused()
+
+
 def prox_update(x, g, zsum, *, tau, rho, num_walks, num_agents):
     """Fused gAPI-BCD update on one tensor of any shape.
 
     Returns (x_new in x.dtype, delta in f32) — see kernels/prox_update.py.
     """
     kw = dict(tau=tau, rho=rho, num_walks=num_walks, num_agents=num_agents)
-    if x.device.type == "cuda":
-        return prox_update_cuda(x, g, zsum, **kw)
-    if x.device.type == "cpu":
+    route = _route("prox_update", x)
+    with _counted(costs.prox_update, x, g, zsum):
+        if route == "fake":
+            return x.new_empty(x.shape), x.new_empty(x.shape,
+                                                     dtype=torch.float32)
+        if route == "cuda":
+            return prox_update_cuda(x, g, zsum, **kw)
         return ref.prox_update(x, g, zsum, **kw)
-    raise ValueError(f"prox_update: no kernel for device {x.device}")
 
 
 def prox_update_tree(xs, gs, zsums, *, tau, rho, num_walks, num_agents):
@@ -52,21 +86,27 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: [B,S,H,hd]; k, v: [B,T,KV,hd]. Returns [B,S,H,hd] in q's dtype
     (forward only: the TPU kernel has no backward either)."""
     kw = dict(causal=causal, window=window, scale=scale)
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, **kw)
-    if q.device.type == "cpu":
+    route = _route("flash_attention", q)
+    with _counted(costs.flash_attention, q, k, v, causal=causal,
+                  window=window):
+        if route == "fake":
+            return q.new_empty(q.shape)
+        if route == "cuda":
+            return flash_attention_cuda(q, k, v, **kw)
         return ref.attention(q, k, v, **kw)
-    raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
 def decode_attention(q, k, v, *, lengths, scale=None):
     """q: [B,H,hd]; k, v: [B,T,KV,hd]; lengths: int32 [B] valid cache rows
     per batch row. Returns [B,H,hd] in q's dtype."""
-    if q.device.type == "cuda":
-        return decode_attention_cuda(q, k, v, lengths=lengths, scale=scale)
-    if q.device.type == "cpu":
+    route = _route("decode_attention", q)
+    with _counted(costs.decode_attention, q, k, v, lengths=lengths):
+        if route == "fake":
+            return q.new_empty(q.shape)
+        if route == "cuda":
+            return decode_attention_cuda(q, k, v, lengths=lengths,
+                                         scale=scale)
         return ref.decode_attention(q, k, v, lengths=lengths, scale=scale)
-    raise ValueError(f"decode_attention: no kernel for device {q.device}")
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_tables, *, lengths,
@@ -74,14 +114,17 @@ def decode_attention_paged(q, k_pool, v_pool, block_tables, *, lengths,
     """q: [B,H,hd]; k_pool, v_pool: [NB,bs,KV,hd] (block 0 the null
     block); block_tables: int32 [B,W]; lengths: int32 [B] valid logical
     positions per row. Returns [B,H,hd] in q's dtype."""
-    if q.device.type == "cuda":
-        return decode_attention_paged_cuda(q, k_pool, v_pool, block_tables,
-                                           lengths=lengths, scale=scale)
-    if q.device.type == "cpu":
+    route = _route("decode_attention_paged", q)
+    with _counted(costs.decode_attention_paged, q, k_pool, v_pool,
+                  block_tables, lengths=lengths):
+        if route == "fake":
+            return q.new_empty(q.shape)
+        if route == "cuda":
+            return decode_attention_paged_cuda(q, k_pool, v_pool,
+                                               block_tables, lengths=lengths,
+                                               scale=scale)
         return ref.decode_attention_paged(q, k_pool, v_pool, block_tables,
                                           lengths=lengths, scale=scale)
-    raise ValueError(f"decode_attention_paged: no kernel for device "
-                     f"{q.device}")
 
 
 def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
@@ -92,14 +135,23 @@ def decode_attention_ring(q, k_pool, v_pool, block_tables, *, ring_starts,
     ring_starts int32 [B]."""
     kw = dict(ring_starts=ring_starts, lengths=lengths, window=window,
               scale=scale)
-    if q.device.type == "cuda":
-        return decode_attention_ring_cuda(q, k_pool, v_pool, block_tables,
-                                          **kw)
-    if q.device.type == "cpu":
+    route = _route("decode_attention_ring", q)
+    with _counted(costs.decode_attention_ring, q, k_pool, v_pool,
+                  block_tables, lengths=lengths, window=window):
+        if route == "fake":
+            return q.new_empty(q.shape)
+        if route == "cuda":
+            return decode_attention_ring_cuda(q, k_pool, v_pool,
+                                              block_tables, **kw)
         return ref.decode_attention_ring(q, k_pool, v_pool, block_tables,
                                          **kw)
-    raise ValueError(f"decode_attention_ring: no kernel for device "
-                     f"{q.device}")
+
+
+def _wkv_out(r):
+    """The kernel's f32 output for r [B,H,S,hd]: a [B,H,S,hd] view of a
+    [B,S,H,hd] buffer (on a fake tensor, its shape only)."""
+    b, h, s, hd = r.shape
+    return r.new_empty((b, s, h, hd), dtype=torch.float32).transpose(1, 2)
 
 
 def rwkv6_scan(r, k, v, w, u, state):
@@ -110,12 +162,14 @@ def rwkv6_scan(r, k, v, w, u, state):
     Returns (out [B,H,S,hd] in f32, state). `state` is overwritten with
     the final state, on both routes, so a layer's state advances where it
     lies in the cache."""
-    if r.device.type == "cuda":
-        return rwkv6_scan_cuda(r, k, v, w, u, state)
-    if r.device.type == "cpu":
+    route = _route("rwkv6_scan", r)
+    with _counted(costs.rwkv6_scan, r, k, v, w, u, state):
+        if route == "fake":
+            return _wkv_out(r), state
+        if route == "cuda":
+            return rwkv6_scan_cuda(r, k, v, w, u, state)
         out, final = ref.rwkv6(r, k, v, w, u, state)
         return out, state.copy_(final)
-    raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
 
 
 def rglru_scan(gate_a, gate_i, b_a, b_i, lamb, xa, state):
@@ -129,20 +183,14 @@ def rglru_scan(gate_a, gate_i, b_a, b_i, lamb, xa, state):
     with the final h, on both routes, so a slot's state advances where it
     lies in the arena."""
     args = (gate_a, gate_i, b_a, b_i, lamb, xa)
-    if xa.device.type == "cuda":
-        return rglru_scan_cuda(*args, state)
-    if xa.device.type == "cpu":
+    route = _route("rglru_scan", xa)
+    with _counted(costs.rglru_scan, *args, state):
+        if route == "fake":
+            return xa.new_empty(xa.shape), state
+        if route == "cuda":
+            return rglru_scan_cuda(*args, state)
         out, final = ref.rglru_gated(*args, state)
         return out, state.copy_(final)
-    raise ValueError(f"rglru_scan: no kernel for device {xa.device}")
-
-
-def _route(name, t):
-    """True for the kernels (a CUDA tensor), False for the plain versions
-    (a CPU tensor); raises for any other device."""
-    if t.device.type in ("cuda", "cpu"):
-        return t.device.type == "cuda"
-    raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
 class RWKV6Scan(torch.autograd.Function):
@@ -152,33 +200,39 @@ class RWKV6Scan(torch.autograd.Function):
     `rwkv6_scan_bwd_cuda` or `ref.rwkv6_bwd` from the saved inputs, each
     gradient returned in its input's dtype. A recompute (activation
     checkpointing) runs the same forward on the same inputs and gives the
-    same output."""
+    same output. Fake tensors get shapes, and a count records both
+    kernels, as in `rwkv6_scan`."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
         b, h, _, hd = r.shape
-        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                            device=r.device)
-        if _route("rwkv6_scan_train", r):
-            out, _ = rwkv6_scan_cuda(r, k, v, w, u, state)
-        else:
-            out, _ = ref.rwkv6(r, k, v, w, u, state)
+        route = _route("rwkv6_scan_train", r)
+        state = r.new_zeros((b, h, hd, hd), dtype=torch.float32)
         ctx.save_for_backward(r, k, v, w, u)
-        return out
+        with _counted(costs.rwkv6_scan, r, k, v, w, u, state):
+            if route == "fake":
+                return _wkv_out(r)
+            if route == "cuda":
+                return rwkv6_scan_cuda(r, k, v, w, u, state)[0]
+            return ref.rwkv6(r, k, v, w, u, state)[0]
 
     @staticmethod
     def backward(ctx, dout):
         r, k, v, w, u = ctx.saved_tensors
         b, h, _, hd = r.shape
-        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                            device=r.device)
+        route = _route("rwkv6_scan_train", r)
+        state = r.new_zeros((b, h, hd, hd), dtype=torch.float32)
         dout = dout.float()
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
-        if _route("rwkv6_scan_train", r):
-            grads = rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout)
-        else:
-            grads = ref.rwkv6_bwd(r, k, v, w, u, state, dout)
+        with _counted(costs.rwkv6_scan_bwd, r, k, v, w, u, state, dout):
+            if route == "fake":
+                grads = (_wkv_out(r),) * 4 + (
+                    u.new_empty(u.shape, dtype=torch.float32),)
+            elif route == "cuda":
+                grads = rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout)
+            else:
+                grads = ref.rwkv6_bwd(r, k, v, w, u, state, dout)
         return tuple(g.to(x.dtype) for g, x in zip(grads, (r, k, v, w, u)))
 
 
@@ -186,31 +240,39 @@ class RGLRUScan(torch.autograd.Function):
     """The RG-LRU gate math and recurrence from h_0 = 0, differentiable in
     every input. Forward: `rglru_scan_cuda` on a state allocated here, or
     `ref.rglru_gated`; backward: `rglru_scan_bwd_cuda` or
-    `ref.rglru_gated_bwd`, each gradient in its input's dtype."""
+    `ref.rglru_gated_bwd`, each gradient in its input's dtype. Fake
+    tensors get shapes, and a count records both kernels, as in
+    `rglru_scan`."""
 
     @staticmethod
     def forward(ctx, gate_a, gate_i, b_a, b_i, lamb, xa):
         b, _, w = xa.shape
-        state = torch.zeros((b, w), dtype=torch.float32, device=xa.device)
         args = (gate_a, gate_i, b_a, b_i, lamb, xa)
-        if _route("rglru_scan_train", xa):
-            out, _ = rglru_scan_cuda(*args, state)
-        else:
-            out, _ = ref.rglru_gated(*args, state)
+        route = _route("rglru_scan_train", xa)
+        state = xa.new_zeros((b, w), dtype=torch.float32)
         ctx.save_for_backward(*args)
-        return out
+        with _counted(costs.rglru_scan, *args, state):
+            if route == "fake":
+                return xa.new_empty(xa.shape)
+            if route == "cuda":
+                return rglru_scan_cuda(*args, state)[0]
+            return ref.rglru_gated(*args, state)[0]
 
     @staticmethod
     def backward(ctx, dout):
         args = ctx.saved_tensors
         xa = args[-1]
-        state = torch.zeros((xa.shape[0], xa.shape[2]), dtype=torch.float32,
-                            device=xa.device)
-        if _route("rglru_scan_train", xa):
-            dout = dout.to(xa.dtype).contiguous()
-            grads = rglru_scan_bwd_cuda(*args, state, dout)
-        else:
-            grads = ref.rglru_gated_bwd(*args, state, dout)
+        route = _route("rglru_scan_train", xa)
+        state = xa.new_zeros((xa.shape[0], xa.shape[2]), dtype=torch.float32)
+        with _counted(costs.rglru_scan_bwd, *args, state, dout):
+            if route == "fake":
+                grads = tuple(x.new_empty(x.shape, dtype=torch.float32)
+                              for x in args)
+            elif route == "cuda":
+                grads = rglru_scan_bwd_cuda(
+                    *args, state, dout.to(xa.dtype).contiguous())
+            else:
+                grads = ref.rglru_gated_bwd(*args, state, dout)
         return tuple(g.to(x.dtype) for g, x in zip(grads, args))
 
 

@@ -36,13 +36,22 @@ ring of the window's capacity, and from the paged pool, as a block ring,
 and `train_loss` trains with it. `train_loss(params, batch, remat=True)`
 checkpoints each layer's activations, as the reference's does by
 default.
+
+`param_specs`, `input_specs` and `cache_specs` give the parameters, a
+batch of an assigned `ShapeConfig` and the decode caches as fake tensors
+(`torch._subclasses.fake_tensor`): the reference's shapes and dtypes,
+with nothing allocated, as its `jax.eval_shape` and `ShapeDtypeStruct`s
+give them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs.base import ArchConfig
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 
@@ -172,3 +181,83 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
                 cfg, p, t, pool, tables, lengths, c_tokens, c_len, ctx_len,
                 c_table, window=window),
     )
+
+
+# ---------------------------------------------------------------------------
+# specs: fake tensors (shapes and dtypes only; nothing is allocated)
+# ---------------------------------------------------------------------------
+
+
+def _fake(mode):
+    """The caller's FakeTensorMode (passed in, else the one it has
+    entered), or a new one."""
+    if mode is None:
+        mode = torch._guards.detect_fake_mode()
+    return FakeTensorMode() if mode is None else mode
+
+
+def param_specs(cfg: ArchConfig, mode=None):
+    """`model.init` on fake tensors, {dotted path: fake tensor}: the port's
+    counterpart of the reference's `jax.eval_shape(model.init, key)`.
+    Made inside `mode` (a FakeTensorMode; by default the one entered,
+    else one opened here), as `input_specs` and `cache_specs` are."""
+    with _fake(mode):
+        return build_model(cfg).init(torch.Generator())
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, window: int = 0,
+                mode=None):
+    """The batch of `shape` as fake tensors, as the reference's
+    `input_specs`:
+
+    train:   {tokens, targets[, patches | frames]}
+    prefill: {tokens[, patches | frames]}
+    decode:  {token [B, 1]}; the caches come from `cache_specs`.
+
+    Token ids are int32, frames and patches in the compute dtype; a VLM's
+    text is the sequence less its `num_patches` prefix, which must leave
+    some text. `window` is unused, as in the reference."""
+    del window
+    b, s = shape.global_batch, shape.seq_len
+    i32, f = torch.int32, getattr(torch, cfg.compute_dtype)
+    with _fake(mode):
+        def ids(*dims):
+            return torch.empty(dims, dtype=i32)
+
+        if cfg.family in ("audio", "encdec"):
+            frames = torch.empty((b, cfg.encoder_seq, cfg.d_model), dtype=f)
+            if shape.kind == "train":
+                return {"frames": frames, "tokens": ids(b, s),
+                        "targets": ids(b, s)}
+            if shape.kind == "prefill":
+                return {"frames": frames, "tokens": ids(b, s)}
+            return {"token": ids(b, 1)}
+        if cfg.family == "vlm":
+            p = cfg.num_patches
+            s_text = s - p
+            if s_text <= 0:
+                raise ValueError(f"seq must exceed patch prefix: seq_len {s}"
+                                 f", {p} patches")
+            patches = torch.empty((b, p, cfg.d_model), dtype=f)
+            if shape.kind == "train":
+                return {"tokens": ids(b, s_text), "targets": ids(b, s_text),
+                        "patches": patches}
+            if shape.kind == "prefill":
+                return {"tokens": ids(b, s_text), "patches": patches}
+            return {"token": ids(b, 1)}
+        if shape.kind == "train":
+            return {"tokens": ids(b, s), "targets": ids(b, s)}
+        if shape.kind == "prefill":
+            return {"tokens": ids(b, s)}
+        return {"token": ids(b, 1)}
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeConfig, window: int = 0,
+                mode=None):
+    """The decode caches of `shape` (`init_cache` of global_batch rows at
+    a capacity of seq_len, or the window's) as fake tensors, in the
+    reference's layout (`convert.arena_from_jax` maps one to the other):
+    a list of per-segment dicts, or the encoder-decoder's one dict."""
+    model = build_model(cfg, window=window)
+    with _fake(mode):
+        return model.init_cache(shape.global_batch, shape.seq_len)

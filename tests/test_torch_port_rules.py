@@ -55,7 +55,13 @@ def test_port_files_cover_every_package():
             "src/repro_torch/core/graph.py",
             "src/repro_torch/data/synthetic.py",
             "src/repro_torch/examples/quickstart.py",
-            "src/repro_torch/examples/decentralized_lsq.py"} <= names
+            "src/repro_torch/examples/decentralized_lsq.py",
+            "src/repro_torch/examples/train_lm_apibcd.py",
+            "src/repro_torch/examples/serve_batched.py",
+            "src/repro_torch/kernels/costs.py",
+            "src/repro_torch/utils/roofline.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/roofline_table.py"} <= names
 
 
 def test_importing_every_port_module_loads_no_jax():
