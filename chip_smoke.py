@@ -32,8 +32,9 @@ non-zero before the last line:
   5. training reference: the smoke config in f32 for 2 supersteps on the
      card and on the CPU (plain versions) from one state, which must
      agree;
-  6. training profile: 2 more supersteps under torch.profiler, device
-     time by kernel and the device's busy share;
+  6. training profile: 1 more superstep under torch.profiler (2 until
+     phase 49 came; cut for time), device time by kernel and the device's
+     busy share;
   7. serving main path: `repro_torch.launch.serve` at full qwen2-0.5b
      width (16 requests, max_batch 8, prompts of 200, budgets 16/64) at
      the engine's default, overlapped admission (fused mixed steps ran,
@@ -73,7 +74,8 @@ non-zero before the last line:
      unpreempted run's tokens) and under "reserve" (never preempting);
  12. ring-paged serving: a full-width model with a 256-token window
      through `Engine(paged=True)` (overlapped), 12 prompts of 200 in 8
-     rows, budgets 160 and 320 alternating, so every ring wraps and the
+     rows, budgets 80 and 160 alternating (160 and 320 until phase 49
+     came; cut for time), so every ring wraps and the
      four later admissions ride decode steps of full rings (24 ring
      launches per step, no more blocks in use than once the first rings
      were full, every block returned);
@@ -169,7 +171,8 @@ non-zero before the last line:
      if an op the mixed step shares between its halves is not
      row-stable at some shape;
  27. dense serving: the three at full width and depth through
-     `repro_torch.launch.serve` on phase 7's workload, qwen3-8b also on
+     `repro_torch.launch.serve` on phase 7's workload with budgets 8/32
+     (DENSE_SERVE_ARGS; 16/64 until phase 49 came), qwen3-8b also on
      phase 11's pool, each overlapped and then serialized: one flash
      launch per layer an admission and one decode (paged) launch per
      layer a step (24, 36, 32), every budget served, every block
@@ -311,9 +314,10 @@ non-zero before the last line:
      tokens and objectives within 1e-9, equal digests on the card and in
      its repeat; then `python -m repro_torch.launch.train_async
      --processes 4` on the card for the arms of
-     benchmarks/bench_async_bcd.py (ASYNC_RUNS: lockstep and async+mid
-     over tcp and file, async, async+mid+measured twice), each run's 4
-     digests equal, tcp equal to file and repeats equal, staleness and
+     benchmarks/bench_async_bcd.py (ASYNC_RUNS: lockstep over tcp,
+     async+mid over tcp and file, async, async+mid+measured; its repeat
+     and lockstep's file run cut for time since phase 49 came), each
+     run's 4 digests equal, tcp equal to file, staleness and
      view lag within 4; wall s, updates/s, waits, each process's update
      EMA and peak, the time to lockstep's final objective and the
      speed-ups (printed, not gated); one logistic run (ijcnn1, N=50,
@@ -331,15 +335,39 @@ non-zero before the last line:
      roofline share (bound / device ms), mfu (model FLOPs / (wall s x
      peak)) and max_memory_allocated beside the dry run's argument bytes;
      the host cost of the count check with no count open; then
-     `repro_torch.examples.train_lm_apibcd --preset paper --steps 30`
-     (its 300 steps cut to 30), which must print "(improved)", and
+     `repro_torch.examples.train_lm_apibcd --preset paper --steps 20`
+     (its 300 steps cut to 20; 30 until phase 49 came), which must print
+     "(improved)", and
      `repro_torch.examples.serve_batched --arch qwen2-0.5b`, every request
      to its budget.
+ 49. the superstep across processes (`dist.trainer.make_mesh_train_step`
+     through `python -m repro_torch.launch.train --processes 4 --backend
+     gloo`, every rank on this one card): `ops.prox_update` at two R=2
+     shard shapes ([1, 75968, 896] of the embedding, [1, 24, 896, 2432]
+     of w_gate) against its plain version; then phase 4's run (full
+     qwen2-0.5b width, A=4, M=2, 2 x 256 tokens an agent, 3 supersteps)
+     as 4 ranks of R=1, each rank's per-part digests equal to its agent
+     slot of the one-process make_train_step run from the same init and
+     batches (made here first, then freed); then A=2, M=1 as 2 agents x
+     2 replicas at the config's bf16, each rank's digests equal to its
+     shard of the one-process run with each agent's gradient split over
+     the replicas' rows as the mesh splits it; that split run in f32,
+     made here, held to make_train_step in f32 at atol 1e-5; every
+     rank's bytes sent by kind equal to
+     `trainer.superstep_sends`, 14 prox launches a superstep; per rank
+     the superstep ms, the token hop's ms, the bytes sent and the peak
+     GB, with the card's name and power limit.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
+
+    python3 chip_smoke.py --mesh-only nccl
+
+runs phases 1, 2 (prox_update alone) and 49 with `--backend nccl`, one
+GPU a rank (four GPUs), and prints the `ok` line last.
 With no GPU, or without the rest of the repo beside it, it exits
 non-zero and prints no result.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -349,6 +377,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -370,6 +399,9 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.dist.async_schedule import WalkSequence  # noqa: E402
 from repro_torch.dist.async_trainer import (  # noqa: E402
     AsyncBCDConfig, run_threaded)
+from repro_torch.dist import trainer as dist_trainer  # noqa: E402
+from repro_torch.dist.sharding import (local_shard,  # noqa: E402
+                                       shard_shape, state_shardings)
 from repro_torch.dist.trainer import (  # noqa: E402
     init_train_state, make_dp_baseline_step, make_train_step)
 from repro_torch.examples import decentralized_lsq  # noqa: E402
@@ -424,6 +456,9 @@ DENSE_ARCHS = ("internlm2-1.8b", "qwen3-8b", "nemotron-4-15b")
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "16", "--max-batch", "8",
               "--prompt-len", "200", "--new-tokens", "64", "--mixed"]
+# phase 27's workload: phase 7's with its budgets halved to 8/32, cut for
+# time since phase 49 came (16 requests on 8 rows still admit mid-flight)
+DENSE_SERVE_ARGS = SERVE_ARGS[2:-3] + ["--new-tokens", "32", "--mixed"]
 
 
 def reset_counts():
@@ -725,13 +760,13 @@ def reference_check():
 
 
 def profile_supersteps():
-    """Device time by kernel over 2 supersteps of the main path (state
+    """Device time by kernel over 1 superstep of the main path (state
     init included), the device's busy share of the steps' wall time, and
     the host's op calls and self time (the profiler inflates the latter)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    args = train_cli.parse_args(main_args(steps=2, log_every=0))
+    args = train_cli.parse_args(main_args(steps=1, log_every=0))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = train_cli.train(args)
@@ -749,7 +784,7 @@ def profile_supersteps():
     host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key[:60])
                    for ev in events
                    if ev.device_type == DeviceType.CPU), reverse=True)
-    print(json.dumps({"profile_2_supersteps": {
+    print(json.dumps({"profile_1_superstep": {
         "steps_wall_ms": steps_ms, "device_ms_incl_init": device_ms,
         "device_busy_share": device_ms / steps_ms,
         "host_op_calls": sum(n for _, n, _ in host),
@@ -1139,7 +1174,7 @@ def assert_recurrent_launches(what, measured, name, per_admission,
 PAGED_SERVE_ARGS = SERVE_ARGS + ["--paged", "--block-size", "16"]
 SCARCE_BLOCKS = 112     # 8 prompts of 13 blocks + watermark fill it
 RING_WINDOW = 256
-RING_BUDGETS = (160, 320)   # alternating, every one past the window
+RING_BUDGETS = (80, 160)    # alternating, every one past the window
 
 
 def _pool_operands(b, max_len, bs, dtype, gen, h=14, kv=2, hd=64):
@@ -2570,7 +2605,7 @@ def profile_mixed_steps():
 
 def dense_serving(arch, paged=False, layers=0):
     """Phase 27: `arch` at full width and depth (`layers`: cut to that
-    many, through --layers) on phase 7's workload
+    many, through --layers) on phase 7's workload with its budgets halved
     (`paged`: phase 11's pool, 256 blocks of 16, chunks of 32) through
     `repro_torch.launch.serve` at the engine's default (overlapped), then
     through `overlap=False`: one flash launch per layer an admission and
@@ -2578,7 +2613,7 @@ def dense_serving(arch, paged=False, layers=0):
     served to its budget, the pool's blocks all returned, and every
     request's tokens equal between the schedulers. Returns (the
     overlapped run's launches, the serialized run's)."""
-    argv = ["--arch", arch] + SERVE_ARGS[2:]
+    argv = ["--arch", arch] + DENSE_SERVE_ARGS
     if paged:
         argv += ["--paged", "--block-size", "16"]
     if layers:
@@ -4279,9 +4314,13 @@ CONVEX_UPDATES = 50     # run_serial activations, card against CPU
 CONVEX_DGD_ROUNDS = 5
 # activations a Newton method (I-BCD, API-BCD: ~7,400 launches, ~0.1 s
 # an update) takes through the simulator in Figs. 5-6, cut from the
-# figures' 800 and 300 to hold the phase near 120 s; lsq and the gradient
-# methods run in full
-NEWTON_CUT = {"fig5_ijcnn1": 150, "fig6_usps": 60}
+# figures' 800 and 300 (to 150 and 60 until phase 49 came, then to 40
+# and 15 to keep the script inside its limit); lsq and the gradient
+# methods run in full. Their card-against-CPU walks are cut from
+# CONVEX_UPDATES to NEWTON_UPDATES the same way (the CPU's Newton prox
+# takes ~0.1-0.3 s an update)
+NEWTON_CUT = {"fig5_ijcnn1": 40, "fig6_usps": 15}
+NEWTON_UPDATES = 15
 NEWTON_METHODS = ("I-BCD", "API-BCD")
 
 
@@ -4364,10 +4403,12 @@ def convex_reference():
         gaps = {}
         threads = torch.get_num_threads()
         for method, cpu_method in zip(methods, cpu_methods):
-            card = run_serial(method, net, CONVEX_UPDATES)
+            walk = (NEWTON_UPDATES if method.name in NEWTON_METHODS
+                    and fig in NEWTON_CUT else CONVEX_UPDATES)
+            card = run_serial(method, net, walk)
             # tiny f64 ops: threads only slow the CPU's side down
             torch.set_num_threads(1)
-            cpu = run_serial(cpu_method, net, CONVEX_UPDATES)
+            cpu = run_serial(cpu_method, net, walk)
             torch.set_num_threads(threads)
             gaps[method.name] = max(convex_gap(card.xs, cpu.xs),
                                     convex_gap(card.tokens, cpu.tokens))
@@ -4463,14 +4504,15 @@ ASYNC_ARMS = {
     "async+mid+measured": ASYNC_ASYNC + [
         "--mid-round", "--measured-speeds", "--rate-rounds", "4"],
 }
-# (arm, transport), in order; the last repeats the measured arm. The
-# second tcp run of async+mid is cut for time (each launch starts four
-# processes that import torch; launch_s says how long): its file run
-# repeats it
-ASYNC_RUNS = (("lockstep", "tcp"), ("lockstep", "file"),
+# (arm, transport), in order. The second tcp run of async+mid is cut for
+# time (each launch starts four processes that import torch; launch_s
+# says how long): its file run repeats it. Lockstep's file run and the
+# measured arm's repeat are cut too (since phase 49 came): async+mid
+# holds tcp against file, and tests/test_torch_async.py the measured
+# arm's repeats
+ASYNC_RUNS = (("lockstep", "tcp"),
               ("async+mid", "tcp"), ("async+mid", "file"),
-              ("async", "tcp"), ("async+mid+measured", "tcp"),
-              ("async+mid+measured", "tcp"))
+              ("async", "tcp"), ("async+mid+measured", "tcp"))
 # the logistic run through the Newton prox, cut for time (Fig. 5 walks
 # 800 activations a method)
 ASYNC_LOGISTIC = ["--dataset", "ijcnn1", "--agents", "50", "--subsample",
@@ -4930,7 +4972,7 @@ def cost_accounting(smi):
         "card": smi}}), flush=True)
 
     t1 = time.perf_counter()
-    out = train_lm_apibcd.main(["--preset", "paper", "--steps", "30"])
+    out = train_lm_apibcd.main(["--preset", "paper", "--steps", "20"])
     train_s = time.perf_counter() - t1
     if not out["improved"] or not np.all(np.isfinite(out["losses"])):
         raise AssertionError(f"train_lm_apibcd --preset paper did not "
@@ -4944,7 +4986,7 @@ def cost_accounting(smi):
         raise AssertionError(f"serve_batched: outputs of {lengths} tokens "
                              f"for budgets {served['budgets']}")
     print(json.dumps({"examples": {
-        "train_lm_apibcd_paper_30_steps": {
+        "train_lm_apibcd_paper_20_steps": {
             "s": train_s, "first10": float(np.mean(out["losses"][:10])),
             "last10": float(np.mean(out["losses"][-10:])),
             "improved": out["improved"]},
@@ -4953,6 +4995,212 @@ def cost_accounting(smi):
         "card": smi}}), flush=True)
     print(f"phase 48: {time.perf_counter() - t0:.1f} s", flush=True)
     return steps
+
+
+# phase 49: the superstep across processes. The R = 1 arm is phase 4's
+# run (A=4, M=2, 2 x 256 tokens an agent, bf16 compute) as 4 ranks; the
+# R = 2 arm is A=2, M=1 as 2 agents x 2 replicas, also in bf16. Its
+# 1e-5 hold against make_train_step runs in f32 in this process (the
+# replicas' gradients round as 256-row products where the one-process
+# step's round as 512-row ones, which bf16 shows)
+MESH_ARGS = ["--arch", "qwen2-0.5b", "--batch-per-agent", "2", "--seq",
+             "256", "--steps", str(STEPS), "--log-every", "1", "--timeout",
+             "500"]
+MESH_ARMS = {"R1": (4, 2, 1), "R2": (2, 1, 2)}
+
+
+def mesh_flags(arm, backend):
+    agents, walks, replica = MESH_ARMS[arm]
+    return [*MESH_ARGS, "--backend", backend, "--agents", str(agents),
+            "--walks", str(walks), "--processes", str(agents * replica)]
+
+
+def replica_grad(replica):
+    """trainer._grad as the mesh step takes an agent's gradient at
+    `replica` replicas: each replica's rows apart, each gradient in f32
+    times its share of the rows, summed in the replicas' order (what the
+    reduce-scatter sums)."""
+    plain = dist_trainer._grad
+
+    def grad(model, params, batch):
+        rows = next(iter(batch.values())).shape[0]
+        per = rows // replica
+        total, first = {}, None
+        for j in range(replica):
+            g, aux = plain(model, params, {k: v[j * per:(j + 1) * per]
+                                           for k, v in batch.items()})
+            for k, gk in g.items():
+                gk = gk.float() * (per / rows)
+                if j:
+                    total[k] += gk
+                else:
+                    total[k] = gk
+            first = first or aux
+        return total, first
+
+    return grad
+
+
+def one_process_mesh_run(flags, grad=None, f32=False):
+    """The launcher's run of `flags` in this process, through
+    make_train_step on the card from the same seeded init and batches
+    (with `grad` in place of the trainer's gradient, where given; with
+    f32 products where `f32`): (model, TrainConfig, final state)."""
+    args = train_cli.parse_args(flags)
+    cfg = train_cli._config(args)
+    if f32:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(cfg)
+    tcfg = TrainConfig(num_agents=args.agents, num_walks=args.walks,
+                       tau=args.tau, rho=args.rho)
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=DEV).manual_seed(0))
+    step_fn = make_train_step(model, tcfg)
+    batches = agent_batches(cfg.vocab_size, args.agents,
+                            args.batch_per_agent, args.seq, seed=0)
+    with (mock.patch.object(dist_trainer, "_grad", grad) if grad
+          else contextlib.nullcontext()):
+        for step in range(args.steps):
+            toks, targs = next(batches)
+            state, _ = step_fn(state, {
+                "tokens": torch.from_numpy(toks).to(DEV),
+                "targets": torch.from_numpy(targs).to(DEV)}, step)
+    torch.cuda.synchronize()
+    return model, tcfg, state
+
+
+def shard_digests(state, specs, sizes):
+    """[{part: digest} of each rank's part of `state`], ranks row-major
+    over `sizes`, as each rank of the launcher prints them."""
+    from repro_torch.dist.sharding import mesh_coords
+
+    out = []
+    for rank in range(int(np.prod(list(sizes.values())))):
+        coords = mesh_coords(sizes, rank)
+        out.append({part: train_cli.part_digests({part: {
+            k: local_shard(v, specs[part][k], sizes, coords)
+            for k, v in leaves.items()}})[part]
+            for part, leaves in state.items()})
+    return out
+
+
+def mesh_launch(flags, processes):
+    """`python -m repro_torch.launch.train` with `flags` on the card: (each
+    rank's record in rank order, launch s). Fails unless it exits 0 with
+    a record from every rank."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *flags], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    launch_s = time.perf_counter() - t0
+    ranks = [json.loads(ln.split("MESH_RANK ", 1)[1])
+             for ln in res.stdout.splitlines() if "MESH_RANK " in ln]
+    if res.returncode != 0 or len(ranks) != processes:
+        print(res.stdout[-8000:], res.stderr[-8000:], flush=True)
+        raise AssertionError(f"launch.train {flags}: rc {res.returncode}, "
+                             f"{len(ranks)} rank records")
+    print("\n".join(ln for ln in res.stdout.splitlines()
+                    if "MESH_RANK " not in ln), flush=True)
+    return sorted(ranks, key=lambda r: r["rank"]), launch_s
+
+
+def mesh_arm(arm, smi, backend):
+    """One arm of phase 49: the one-process reference, its digests of each
+    rank's part, the launch, and the per-rank numbers."""
+    agents, walks, replica = MESH_ARMS[arm]
+    flags = mesh_flags(arm, backend)
+    sizes = {"agent": agents, "replica": replica, "model": 1}
+    t0 = time.perf_counter()
+    gap = None
+    if replica > 1:
+        # the replicas' arithmetic in one process, in f32, held to
+        # make_train_step in f32 at atol 1e-5
+        _, _, plain = one_process_mesh_run(flags, f32=True)
+        _, _, split = one_process_mesh_run(flags, replica_grad(replica),
+                                           f32=True)
+        gap = {part: max(float((split[part][k] - v).abs().max())
+                         for k, v in leaves.items())
+               for part, leaves in plain.items()}
+        del plain, split
+        torch.cuda.empty_cache()
+    # the ranks' digests: their parts of the one-process run at the
+    # config's dtype (the gradient split as the replicas split it)
+    model, tcfg, plain = one_process_mesh_run(
+        flags, replica_grad(replica) if replica > 1 else None)
+    shapes = dist_trainer._param_shapes(model)
+    specs = state_shardings(sizes, dist_trainer._state_shapes(shapes, tcfg))
+    want = shard_digests(plain, specs, sizes)
+    del plain
+    torch.cuda.empty_cache()
+    reference_s = time.perf_counter() - t0
+    print(json.dumps({"mesh_reference": arm, "seconds": reference_s,
+                      "replica_split_vs_one_process_max_abs": gap}),
+          flush=True)
+    if gap is not None and max(gap.values()) > 1e-5:
+        raise AssertionError(f"{arm}: the replicas' gradient split leaves "
+                             f"the one-process state by {gap} (> 1e-5)")
+    ranks, launch_s = mesh_launch(flags, agents * replica)
+    sends = dist_trainer.superstep_sends(shapes, sizes, 2)
+    rows = []
+    for rec in ranks:
+        r = rec["rank"]
+        assert rec["device"].startswith("cuda") and rec["backend"] == backend
+        if rec["digests"] != want[r]:
+            raise AssertionError(f"{arm} rank {r} {rec['coords']}: digests "
+                                 f"{rec['digests']}, the one-process "
+                                 f"run's {want[r]}")
+        if any(sent != sends[r] for sent in rec["sent"]):
+            raise AssertionError(f"{arm} rank {r} sent {rec['sent']}, the "
+                                 f"leaf arithmetic says {sends[r]}")
+        if rec["prox_update_launches"] != LEAVES * STEPS:
+            raise AssertionError(f"{arm} rank {r}: prox_update launched "
+                                 f"{rec['prox_update_launches']} times")
+        rows.append({"rank": r, "coords": rec["coords"],
+                     "superstep_ms": rec["step_ms"],
+                     "hop_ms": rec["hop_ms"], "sent_bytes": rec["sent"][-1],
+                     "peak_GB": rec["peak_bytes"] / 1e9,
+                     "setup_s": rec["setup_s"], "finish_s": rec["finish_s"],
+                     "prox_update_launches": rec["prox_update_launches"],
+                     "losses": rec["losses"]})
+    collective = dist_trainer.mesh_collective_bytes(shapes, sizes, 2)
+    bound = roofline.Roofline({}, 0, collective_bytes=collective,
+                              chips=agents * replica)
+    out = {"arm": arm, "flags": " ".join(flags), "card": smi,
+           "note": ("all ranks shared one card over gloo (host buffers); "
+                    "times measure this transport, not NVLink"
+                    if backend == "gloo" else
+                    "one GPU a rank over NCCL"),
+           "devices": [rec["device"] for rec in ranks],
+           "launch_s": launch_s, "reference_s": reference_s,
+           "digests_equal": True,
+           "replica_split_vs_one_process_max_abs": gap,
+           "collective_bytes_per_superstep": collective,
+           "collective_bound_ms_nvlink": bound.collective_s * 1e3,
+           "prox_update_launches": sum(r["prox_update_launches"]
+                                       for r in rows),
+           "ranks": rows}
+    print(json.dumps({"mesh_training": out}), flush=True)
+    return out
+
+
+def mesh_training(smi, gen, backend="gloo"):
+    """Phase 49 (see the module's docstring) over `backend`. Returns (the
+    prox cases at the R = 2 shard shapes, {arm: record})."""
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    shapes = dist_trainer._param_shapes(build_model(cfg))
+    sizes = {"agent": 2, "replica": 2, "model": 1}
+    specs = state_shardings(sizes, dist_trainer._state_shapes(
+        shapes, TrainConfig(num_agents=2, num_walks=1)))["params"]
+    cases = [check_prox_case(
+        f"{k} R=2 shard", shard_shape((2,) + tuple(shapes[k].shape),
+                                      specs[k], sizes), torch.float32, gen)
+        for k in ("embed.table", "segments.0.mlp.w_gate")]
+    torch.cuda.empty_cache()
+    arms = {arm: mesh_arm(arm, smi, backend) for arm in MESH_ARMS}
+    print(json.dumps({"phase49_s": time.perf_counter() - t0}), flush=True)
+    return cases, arms
 
 
 def main():
@@ -5305,14 +5553,20 @@ def main():
     convex_reference()
 
     phase("47 the async trainer: the threaded runtime card against CPU; "
-          "launch.train_async with 4 processes on the card, 4 arms over "
-          "tcp and file; a logistic run")
+          "launch.train_async with 4 processes on the card, 4 arms, "
+          "async+mid over tcp and file; a logistic run")
     async_runtime()
 
     phase("48 cost accounting: four steps counted on the card against the "
           "dry run's fake count, timed beside their roofline bounds; the "
           "two LM examples")
     cost_accounting(smi)
+
+    phase("49 the superstep across processes: launch.train --processes 4 "
+          "at full qwen2-0.5b width, R=1 (A=4, M=2) and R=2 (A=2, M=1), "
+          "digests against the one-process step")
+    mesh_cases, mesh_arms = mesh_training(smi, gen)
+    cases += mesh_cases
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
@@ -5356,7 +5610,11 @@ def main():
                       "whisper-small training": whisper_train["launches"][
                           "prox_update"],
                       "phi-3 training, 2 layers": phi3["training"][
-                          "launches"]["prox_update"]},
+                          "launches"]["prox_update"],
+                      "qwen2 mesh R=1, 4 processes": mesh_arms["R1"][
+                          "prox_update_launches"],
+                      "qwen2 mesh R=2 (f32), 4 processes": mesh_arms["R2"][
+                          "prox_update_launches"]},
                      cases, cases[1]),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5443,5 +5701,27 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def mesh_only(backend):
+    """`--mesh-only BACKEND`: the card line, the prox_update build and
+    phase 49 over BACKEND alone (nccl needs a GPU a rank: four)."""
+    phase("1 card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    phase("2 build: prox_update")
+    build.library_path("prox_update").unlink(missing_ok=True)
+    build.build("prox_update")
+    phase(f"49 the superstep across processes over {backend}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    mesh_training(smi.splitlines()[0], gen, backend)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-only"]:
+        mesh_only(sys.argv[2])
+    else:
+        main()

@@ -3,7 +3,14 @@
 
   trainer        — init_train_state / make_train_step (the API-BCD
                    superstep on a language model, one process) /
-                   make_dp_baseline_step.
+                   make_dp_baseline_step; make_mesh_train_step and
+                   make_mesh_dp_baseline_step, the same steps across
+                   processes (one agent a rank, FSDP over "replica").
+  sharding       — specs for the training and serving meshes, and the
+                   cuts of a tensor into its ranks' pieces.
+  collectives    — ring shift, all-gather, reduce-scatter, all-reduce
+                   and gather over a mesh's axes, as point-to-point
+                   sends, with bytes counted per kind.
   async_trainer  — the TRUE-async runtime: per-process event loops over
                    sharded agents, bounded-staleness token exchange,
                    adaptive update rates, straggler injection
@@ -18,4 +25,5 @@ The event-driven simulator of Algorithm 2's *cost model* lives in
 asynchrony runs on a real multi-process runtime.
 """
 from repro_torch.dist import (  # noqa: F401
-    async_comm, async_schedule, async_trainer, trainer)
+    async_comm, async_schedule, async_trainer, collectives, sharding,
+    trainer)

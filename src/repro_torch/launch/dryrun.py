@@ -28,8 +28,10 @@ hold that count equal to the whole step's.
 The JSON keeps the reference's keys where they apply (arch, shape, mode,
 window, params, active_params, model_flops, roofline, useful_flop_ratio)
 and adds memory_analysis (argument and output bytes; temporaries are not
-measured) and fits_one_card (the arguments within 80 GB). The mesh, the
-second pod and the collective columns come with the multi-device slice.
+measured) and fits_one_card (the arguments within 80 GB). The mesh and the second
+pod are still to come; a run across processes reckons its collective
+bytes from the leaf shapes (`dist.trainer.mesh_collective_bytes`, which
+`launch.train --processes` passes to `Roofline`).
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
 """Roofline terms of one NVIDIA H100 and the step counts behind them (the
 port of `repro/utils/roofline.py`).
 
-    compute term    = sum over units of FLOPs / that unit's peak
-    memory term     = HBM bytes / HBM rate
-    collective term = 0 on one card (links come with the multi-device
-                      slice)
+    compute term    = sum over units of FLOPs / (chips * that unit's peak)
+    memory term     = HBM bytes / (chips * HBM rate)
+    collective term = bytes the chips send / (chips * link rate)
 
 Peaks (NVIDIA's H100 SXM data sheet, dense, at its 700 W limit): 989
 TFLOP/s in bf16 on the tensor cores, 495 in TF32, 67 in f32 outside
-them; 3.35 TB/s and 80 GB of HBM.
+them; 3.35 TB/s and 80 GB of HBM; NVLink 900 GB/s a GPU in both
+directions together, so 450 GB/s for what one GPU sends. A step counted
+on one card has no collective term (`collective_bytes` 0, `chips` 1);
+the mesh superstep's caller sets both
+(`dist.trainer.mesh_collective_bytes`).
 
 `StepCost` counts a step: FLOPs of the aten products by
 `torch.utils.flop_counter`'s formulas (its `flop_registry`, what
@@ -36,6 +39,7 @@ CARD = "NVIDIA H100 SXM 80GB (data sheet, 700 W)"
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 HBM_BW = 3.35e12          # bytes/s
 HBM_BYTES = 80e9          # device memory
+LINK_BW = 450e9           # bytes/s one GPU sends over NVLink
 
 
 def product_unit(dtype) -> str:
@@ -68,29 +72,30 @@ def bound_seconds(cost) -> float:
 
 
 class Roofline:
-    """The reference's roofline record, on one card: flops, hbm_bytes,
-    collective_bytes (0) and chips (1), with the FLOPs split by unit."""
+    """The reference's roofline record: flops, hbm_bytes,
+    collective_bytes and chips, with the FLOPs split by unit. The FLOPs
+    and bytes are the whole step's, over all its chips."""
 
-    collective_bytes = 0.0      # no links on one card
-    chips = 1
-
-    def __init__(self, flops_by_unit, hbm_bytes):
+    def __init__(self, flops_by_unit, hbm_bytes, collective_bytes=0.0,
+                 chips=1):
         self.flops_by_unit = {u: int(n) for u, n in
                               dict(flops_by_unit).items() if n}
         self.flops = float(sum(self.flops_by_unit.values()))
         self.hbm_bytes = float(hbm_bytes)
+        self.collective_bytes = float(collective_bytes)
+        self.chips = int(chips)
 
     @property
     def compute_s(self):
-        return compute_seconds(self.flops_by_unit)
+        return compute_seconds(self.flops_by_unit) / self.chips
 
     @property
     def memory_s(self):
-        return self.hbm_bytes / HBM_BW
+        return self.hbm_bytes / (self.chips * HBM_BW)
 
     @property
     def collective_s(self):
-        return 0.0
+        return self.collective_bytes / (self.chips * LINK_BW)
 
     @property
     def bound_s(self):

@@ -61,7 +61,10 @@ def test_port_files_cover_every_package():
             "src/repro_torch/kernels/costs.py",
             "src/repro_torch/utils/roofline.py",
             "src/repro_torch/launch/dryrun.py",
-            "src/repro_torch/launch/roofline_table.py"} <= names
+            "src/repro_torch/launch/roofline_table.py",
+            "src/repro_torch/dist/sharding.py",
+            "src/repro_torch/dist/collectives.py",
+            "src/repro_torch/launch/mesh.py"} <= names
 
 
 def test_importing_every_port_module_loads_no_jax():
