@@ -33,8 +33,10 @@ non-zero before the last line:
      card and on the CPU (plain versions) from one state, which must
      agree;
   6. training profile: 1 more superstep under torch.profiler (2 until
-     phase 49 came; cut for time), device time by kernel and the device's
-     busy share;
+     phase 49 came; cut for time), device time by kernel, the device's
+     busy share and the host's op calls, read from the raw events (the
+     host's self time, which needs `key_averages()`'s grouping, went for
+     time when phase 50 came);
   7. serving main path: `repro_torch.launch.serve` at full qwen2-0.5b
      width (16 requests, max_batch 8, prompts of 200, budgets 16/64) at
      the engine's default, overlapped admission (fused mixed steps ran,
@@ -170,12 +172,15 @@ non-zero before the last line:
      (the whole report in build/row_stability_sweep.json), failing
      if an op the mixed step shares between its halves is not
      row-stable at some shape;
- 27. dense serving: the three at full width and depth through
+ 27. dense serving: the three at full width through
      `repro_torch.launch.serve` on phase 7's workload with budgets 8/32
-     (DENSE_SERVE_ARGS; 16/64 until phase 49 came), qwen3-8b also on
-     phase 11's pool, each overlapped and then serialized: one flash
-     launch per layer an admission and one decode (paged) launch per
-     layer a step (24, 36, 32), every budget served, every block
+     (DENSE_SERVE_ARGS; 16/64 until phase 49 came), internlm2-1.8b at
+     full depth, qwen3-8b and nemotron-4-15b cut to DENSE_CUT_LAYERS
+     (4, as dbrx and deepseek; full depth until phase 50 came, cut for
+     time), qwen3-8b also on phase 11's pool, each overlapped and then
+     serialized: one flash launch per layer an admission and one decode
+     (paged) launch per layer a step (24, 4, 4), every budget served,
+     every block
      returned, tokens equal between the schedulers request by request,
      peak memory;
  28. dense reference: phases 8 and 23 on the three smoke configs (card
@@ -357,13 +362,44 @@ non-zero before the last line:
      `trainer.superstep_sends`, 14 prox launches a superstep; per rank
      the superstep ms, the token hop's ms, the bytes sent and the peak
      GB, with the card's name and power limit.
+ 50. serving across processes (`Engine(mesh=...)`, `dist.serving`,
+     `dist.tensor_parallel`): flash, decode, paged and ring decode
+     against their plain versions at a rank's shard of qwen2-0.5b at
+     model parallel 2 (7 query heads over 1 kv head of 64) and of
+     internlm2-1.8b (8 over 4 of 128); then the checks' two ranks (this
+     script with `--serve-mesh-rank`, both on this one card over gloo,
+     full qwen2-0.5b width and depth) serve the first 4 of the workload's
+     requests at 16 new tokens in f32 on the arena and take the first
+     decode step's logits in bf16 and f32, while this process takes the
+     same on one process from the same init; then `python -m
+     repro_torch.launch.serve_mesh --processes 2 --model-parallel 2
+     --backend gloo`, both ranks on this one card, 8 requests of
+     64-token prompts, budgets 8/32, max_batch 4, arms arena and paged,
+     each overlapped and serialized, in bf16 (each arm a replayed
+     warm-up, then the timed pass): the ranks' digests equal in every
+     arm, overlapped equal to serialized on each backend, the f32 tokens
+     equal to the one-process f32 engine's, the first decode step's f32
+     logits on the mesh within 1e-4 of the largest |logit| of one
+     process's, its bf16 logits no farther from one process's bf16
+     logits, nor from its f32 ones, than one process's bf16 logits are
+     from its f32 ones (bf16's own error at this width, measured here:
+     0.0186 of the largest |logit| on the card), every rank's bytes by kind
+     equal to `dist.serving.serve_step_sends`, 24 flash launches an
+     admission (arena) and 24 decode or paged launches a decode step on
+     every rank; per rank the decode step and admission ms, tokens/s,
+     the model axis's ms a step, bytes a decode step and the peak GB,
+     with the card's name and power limit, and the phase's seconds.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 
     python3 chip_smoke.py --mesh-only nccl
 
-runs phases 1, 2 (prox_update alone) and 49 with `--backend nccl`, one
-GPU a rank (four GPUs), and prints the `ok` line last.
+runs phases 1, 2 (prox_update and the attention kernels), 49 with
+`--backend nccl`, one GPU a rank (four GPUs), and 50 over gloo and
+over nccl (its checks and its launch, one GPU a rank, two of them),
+whose digests must be equal, and prints the `ok` line last.
+(`--serve-mesh-rank R COORDINATOR BACKEND DIR` is one rank of phase
+50's checks, which the phase starts itself.)
 With no GPU, or without the rest of the repo beside it, it exits
 non-zero and prints no result.
 """
@@ -453,6 +489,8 @@ ATTENTION_LIBRARIES = ("flash_attention", "decode_attention",
 
 # the dense configs this script serves at full width besides qwen2-0.5b
 DENSE_ARCHS = ("internlm2-1.8b", "qwen3-8b", "nemotron-4-15b")
+# phase 27 serves the two largest at this depth (--layers), for time
+DENSE_CUT_LAYERS = {"qwen3-8b": 4, "nemotron-4-15b": 4}
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "16", "--max-batch", "8",
               "--prompt-len", "200", "--new-tokens", "64", "--mixed"]
@@ -762,7 +800,11 @@ def reference_check():
 def profile_supersteps():
     """Device time by kernel over 1 superstep of the main path (state
     init included), the device's busy share of the steps' wall time, and
-    the host's op calls and self time (the profiler inflates the latter)."""
+    the host's op calls by name, all read from the profiler's raw events
+    (`cuda_events`; `key_averages()` groups a Python event for each of
+    the superstep's ~10^5 host and device events first)."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -770,30 +812,24 @@ def profile_supersteps():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = train_cli.train(args)
-    events = prof.key_averages()
     # kernels and copies only: an aten op's row repeats its kernels' time
-    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key[:90])
-                   for ev in events
-                   if ev.device_type == DeviceType.CUDA
-                   and ev.self_device_time_total > 0), reverse=True)
+    rows = sorted(cuda_rows(prof), reverse=True)
     device_ms = sum(ms for ms, _, _ in rows)
     if not device_ms:
         print("profile: no device time recorded (not measured)")
         return
     steps_ms = sum(out["step_ms"])
-    host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key[:60])
-                   for ev in events
-                   if ev.device_type == DeviceType.CPU), reverse=True)
+    host = Counter(ev.name() for ev in prof.profiler.kineto_results.events()
+                   if ev.device_type() == DeviceType.CPU)
     print(json.dumps({"profile_1_superstep": {
         "steps_wall_ms": steps_ms, "device_ms_incl_init": device_ms,
         "device_busy_share": device_ms / steps_ms,
-        "host_op_calls": sum(n for _, n, _ in host),
-        "host_self_ms": sum(ms for ms, _, _ in host),
-        "host_top": [{"ms": ms, "count": n, "name": name}
-                     for ms, n, name in host[:8]],
+        "host_op_calls": sum(host.values()),
+        "host_top_calls": [{"count": n, "name": name[:60]}
+                           for name, n in host.most_common(8)],
         "prox_update_device_ms": sum(ms for ms, _, name in rows
                                      if "prox" in name),
-        "top": [{"ms": ms, "count": n, "name": name}
+        "top": [{"ms": ms, "count": n, "name": name[:90]}
                 for ms, n, name in rows[:15]]}}), flush=True)
 
 
@@ -5203,6 +5239,356 @@ def mesh_training(smi, gen, backend="gloo"):
     return cases, arms
 
 
+# phase 50: serving across processes. qwen2-0.5b at full width as 2 ranks
+# of model parallel 2 (phase 27's budgets 8/32 on 8 requests of 64-token
+# prompts in 4 rows), four bf16 arms in one launch of launch.serve_mesh;
+# the checks' ranks (this script with --serve-mesh-rank) serve the first
+# 4 requests at 16 new tokens in f32 and take the first decode step's
+# logits
+MESH_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--max-batch",
+                   "4", "--prompt-len", "64", "--new-tokens", "32", "--mixed",
+                   "--processes", "2", "--model-parallel", "2", "--timeout",
+                   "400"]
+MESH_F32_ARGS = ["--requests", "4", "--new-tokens", "16"]
+MESH_SERVE_ARMS = ("arena", "arena-serialized", "paged", "paged-serialized")
+MESH_MP = 2
+F32_LOGIT_GAP = 1e-4
+
+
+def mesh_kernel_cases(gen):
+    """Phase 50's kernel cases: flash, decode, paged and ring decode at the
+    rank's shard of qwen2-0.5b at model parallel 2 (7 query heads over 1
+    kv head of 64; the prompt bucket 64, 4 rows of 128) and flash, decode
+    and paged at internlm2-1.8b's (8 over 4 of 128). Returns (flash,
+    decode, paged, ring) cases."""
+    flash, decode, paged, ring = [], [], [], []
+    for arch in ("qwen2-0.5b", "internlm2-1.8b"):
+        cfg = get_config(arch)
+        heads = dict(h=cfg.num_heads // MESH_MP,
+                     kv=cfg.num_kv_heads // MESH_MP, hd=cfg.head_dim)
+        tag = (f"{arch} rank shard at mp={MESH_MP}, {heads['h']}:"
+               f"{heads['kv']} heads of {heads['hd']}")
+        flash.append(check_flash_case(f"{tag}, prefill Sp=64", 64, gen,
+                                      **heads))
+        decode.append(check_decode_case(f"{tag}, decode B=4 T=128", 4, 128,
+                                        gen, **heads))
+        paged.append(check_paged_case(f"{tag}, paged B=4 <=128 tokens bs=16",
+                                      4, 128, 16, torch.bfloat16, gen,
+                                      **heads))
+        if arch == "qwen2-0.5b":
+            ring.append(check_ring_case(f"{tag}, ring window 64 B=4 bs=16",
+                                        4, 64, 16, torch.bfloat16, gen,
+                                        **heads))
+        torch.cuda.empty_cache()
+    return flash, decode, paged, ring
+
+
+def serve_mesh_launch(backend, arms):
+    """`python -m repro_torch.launch.serve_mesh` with MESH_SERVE_ARGS over
+    `backend`: ({(arm, process): record}, launch s). Fails unless it
+    exits 0 with a record from every rank of every arm."""
+    flags = [*MESH_SERVE_ARGS, "--backend", backend, "--arms",
+             ",".join(arms)]
+    print("serve_mesh " + " ".join(flags), flush=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.serve_mesh", *flags], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=500)
+    launch_s = time.perf_counter() - t0
+    records = {}
+    for line in res.stdout.splitlines():
+        if "SERVE_MESH_ARM " in line:
+            rec = json.loads(line.split("SERVE_MESH_ARM ", 1)[1])
+            records[rec["arm"], rec["process"]] = rec
+    print("\n".join(ln for ln in res.stdout.splitlines()
+                    if "SERVE_MESH_ARM " not in ln), flush=True)
+    if res.returncode != 0 or len(records) != MESH_MP * len(arms):
+        print(res.stderr[-8000:], flush=True)
+        raise AssertionError(f"serve_mesh over {backend}: rc "
+                             f"{res.returncode}, {len(records)} records")
+    return records, launch_s
+
+
+def mesh_f32_workload(cfg):
+    """The f32 check's workload (serve_mesh's, MESH_F32_ARGS: its first 4
+    requests at 16 new tokens) and the arena's max_len of phase 50's
+    launch."""
+    from repro_torch.launch import serve_mesh
+    from repro_torch.serve import bucket_length
+
+    args = serve_mesh._build_parser().parse_args(MESH_SERVE_ARGS)
+    max_len = bucket_length(args.prompt_len + args.new_tokens)
+    args = serve_mesh._build_parser().parse_args(MESH_SERVE_ARGS
+                                                 + MESH_F32_ARGS)
+    return serve_mesh._workload(cfg, args), max_len
+
+
+def first_decode_logits(model, params, prompts, capacity, mesh=None,
+                        comm=None):
+    """The logits [B, 1, V] (the whole vocabulary) of the first decode
+    step of `prompts` (B token-id arrays) admitted into slots 0..B-1 of
+    an arena of `capacity` in the compute dtype, each padded to its
+    bucket as the engine pads it, and decoded from its greedy first
+    token: through `model` itself, or on `mesh` through this rank's
+    slice (`dist.serving.local_model`; the slices gathered). The
+    parameters are the engine's (`tensor_parallel.serving_params`)."""
+    from repro_torch.dist import serving
+    from repro_torch.dist.tensor_parallel import model_axis, serving_params
+    from repro_torch.serve import bucket_length
+
+    device = next(iter(params.values())).device
+    steps, axis = model, None
+    if mesh is not None:
+        steps = serving.local_model(model, mesh, comm)
+        axis = model_axis(mesh, comm)
+    params = serving_params(model.cfg, params, mesh)
+    arena = steps.init_arena(len(prompts), capacity,
+                             dtype=getattr(torch, model.cfg.compute_dtype),
+                             device=device)
+    firsts = []
+    for slot, p in enumerate(prompts):
+        toks = np.zeros((1, min(bucket_length(len(p), 8), capacity)),
+                        np.int32)
+        toks[0, :len(p)] = p
+        tok, arena = steps.prefill_into_slot_token(
+            params, torch.from_numpy(toks).to(device), len(p), slot, arena)
+        firsts.append(tok)
+    positions = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                             device=device)
+    logits, _ = steps.decode_rows(params, torch.stack(firsts)[:, None],
+                                  arena, positions)
+    return logits if axis is None else axis.gather_vocab(logits)
+
+
+def serve_f32(cfg, params, work, max_len, mesh=None):
+    """The tokens of `work` served in f32 by one engine (on `mesh`, this
+    rank's), by uid."""
+    eng = Engine(build_model(dataclasses.replace(cfg,
+                                                 compute_dtype="float32")),
+                 params, max_batch=len(work), max_len=max_len, mesh=mesh,
+                 cache_dtype=torch.float32)
+    for p, b in work:
+        eng.submit(p, max_new_tokens=b)
+    return [r.output.tolist() for r in sorted(eng.run(), key=lambda r: r.uid)]
+
+
+def one_rank_logits(cfg, params, prompts, max_len, mesh=None, comm=None):
+    """{dtype: first_decode_logits} in bf16 and f32, as f32 on the CPU."""
+    return {dtype: first_decode_logits(
+        build_model(dataclasses.replace(cfg, compute_dtype=dtype)), params,
+        prompts, max_len, mesh, comm).float().cpu()
+        for dtype in ("bfloat16", "float32")}
+
+
+def serve_mesh_rank(rank, coordinator, backend, out):
+    """`--serve-mesh-rank`: one rank of phase 50's checks on the ("data",
+    "model") = (1, 2) mesh over `backend`, from the launch's init: the
+    f32 workload through `Engine(mesh=...)` and the first decode step's
+    logits in bf16 and f32; writes OUT/rank<R>.json (its tokens) and, on
+    rank 0, OUT/logits.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import Collectives
+    from repro_torch.launch.mesh import (init_distributed, make_serving_mesh,
+                                         rank_device)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = rank_device(DEV, rank)
+    torch.cuda.set_device(device)
+    init_distributed(rank, MESH_MP, coordinator, backend, device,
+                     timeout_s=300)
+    mesh = make_serving_mesh(MESH_MP)
+    cfg = get_config("qwen2-0.5b")
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0))
+    work, max_len = mesh_f32_workload(cfg)
+    outputs = serve_f32(cfg, params, work, max_len, mesh)
+    logits = one_rank_logits(cfg, params, [p for p, _ in work], max_len,
+                             mesh, Collectives(mesh, device))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"outputs": outputs, "device": str(device)}, f)
+    if rank == 0:
+        torch.save(logits, os.path.join(out, "logits.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_checks(backend):
+    """Phase 50's checks: this script's ranks (`serve_mesh_rank`) over
+    `backend` while this process takes the one-process f32 tokens and
+    logits from the same init. Returns ({"float32": tokens, "one": and
+    "mesh": logits by dtype}, the ranks' seconds)."""
+    import socket
+
+    cfg = get_config("qwen2-0.5b")
+    out = tempfile.mkdtemp(prefix="serve_mesh_checks_")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"p{r}.log"), "w") for r in range(MESH_MP)]
+    ranks = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-mesh-rank",
+         str(r), f"localhost:{port}", backend, out], cwd=ROOT, env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MESH_MP)]
+    try:
+        params = build_model(cfg).init(
+            torch.Generator(device=DEV).manual_seed(0))
+        work, max_len = mesh_f32_workload(cfg)
+        want = {"float32": serve_f32(cfg, params, work, max_len),
+                "one": one_rank_logits(cfg, params, [p for p, _ in work],
+                                       max_len)}
+        del params
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + 400
+        while (None in [p.poll() for p in ranks]
+               and not any(p.poll() for p in ranks)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    for r in range(MESH_MP):
+        with open(os.path.join(out, f"p{r}.log")) as f:
+            print("\n".join(f"  p{r}| {ln}" for ln in f.read().splitlines()[
+                -40:]), flush=True)
+    if any(p.returncode for p in ranks):
+        raise AssertionError(f"phase 50's check ranks over {backend}: rcs "
+                             f"{[p.returncode for p in ranks]}")
+    got = []
+    for r in range(MESH_MP):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    if any(g["outputs"] != got[0]["outputs"] for g in got):
+        raise AssertionError("the check ranks' f32 tokens disagree")
+    if not all(g["device"].startswith("cuda") for g in got):
+        raise AssertionError(f"the check ranks ran on {got}")
+    want["mesh_float32"] = got[0]["outputs"]
+    want["mesh"] = torch.load(os.path.join(out, "logits.pt"))
+    return want, ranks_s
+
+
+def mesh_serving(smi, gen, backend="gloo", kernels=True):
+    """Phase 50 (see the module's docstring) over `backend` (its kernel
+    cases where `kernels`). Returns (the kernel cases, {arm: rank 0's
+    launches}, {arm: digest})."""
+    from repro_torch.dist.serving import serve_step_sends
+    from repro_torch.launch import serve_mesh
+    from repro_torch.serve import bucket_length
+
+    t0 = time.perf_counter()
+    cases = mesh_kernel_cases(gen) if kernels else None
+    checks, checks_s = mesh_checks(backend)
+    records, launch_s = serve_mesh_launch(backend, MESH_SERVE_ARMS)
+    cfg = get_config("qwen2-0.5b")
+    args = serve_mesh._build_parser().parse_args(MESH_SERVE_ARGS)
+
+    def gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    one, mesh_logits = checks["one"], checks["mesh"]
+    # the bf16 tolerance at this width is what bf16 costs one process:
+    # its logits' gap to its own f32 logits, measured here
+    bf16_error = gap(one["bfloat16"], one["float32"])
+    gaps = {"bfloat16": gap(mesh_logits["bfloat16"], one["bfloat16"]),
+            "float32": gap(mesh_logits["float32"], one["float32"]),
+            "one_process_bf16_vs_f32": bf16_error,
+            "mesh_bf16_vs_one_process_f32": gap(mesh_logits["bfloat16"],
+                                                one["float32"])}
+    print(json.dumps({"mesh_logit_gaps": gaps}), flush=True)
+    if not gaps["float32"] <= F32_LOGIT_GAP:
+        raise AssertionError(f"the mesh's f32 logits are {gaps['float32']} "
+                             f"of the largest |logit| from one process's "
+                             f"(> {F32_LOGIT_GAP})")
+    for what in ("bfloat16", "mesh_bf16_vs_one_process_f32"):
+        if not gaps[what] <= bf16_error:
+            raise AssertionError(
+                f"the mesh's bf16 logits ({what}) are {gaps[what]} of the "
+                f"largest |logit| off, beyond one process's own bf16 error "
+                f"{bf16_error}")
+    if checks["mesh_float32"] != checks["float32"]:
+        raise AssertionError("the mesh's f32 tokens leave the one-process "
+                             "f32 engine's")
+
+    digests, rows, launches = {}, [], {}
+    unit = bucket_length(args.prompt_len, 8)
+    for arm in MESH_SERVE_ARMS:
+        recs = [records[arm, p] for p in range(MESH_MP)]
+        digests[arm] = {r["digest"] for r in recs}
+        if len(digests[arm]) != 1 or any(r["outputs"] != recs[0]["outputs"]
+                                         for r in recs):
+            raise AssertionError(f"{arm}: the ranks disagree: "
+                                 f"{[r['digest'] for r in recs]}")
+        for r in recs:
+            st = r["engine_stats"]
+            if r["sent"] != r["sent_reckoned"] or not r["sent"]:
+                raise AssertionError(f"{arm} rank {r['process']} sent "
+                                     f"{r['sent']}, serve_step_sends "
+                                     f"reckons {r['sent_reckoned']}")
+            got = r["launches"]
+            per_step = N_LAYERS * st["decode_steps"]
+            want = {"flash_attention": 0, "decode_attention": 0,
+                    "decode_attention_paged": 0, "decode_attention_ring": 0}
+            if r["backend"] == "paged":
+                want["decode_attention_paged"] = per_step
+            else:
+                want["flash_attention"] = N_LAYERS * st["admissions"]
+                want["decode_attention"] = per_step
+            if got != want:
+                raise AssertionError(f"{arm} rank {r['process']}: launches "
+                                     f"{got}, one process's rule {want}")
+            if not r["device"].startswith("cuda"):
+                raise AssertionError(f"{arm} ran on {r['device']}")
+            decode_bytes = serve_step_sends(
+                cfg, {"data": 1, "model": MESH_MP}, args.max_batch,
+                unit)[r["process"]]["decode"]
+            rows.append({
+                "arm": arm, "rank": r["process"], "digest": r["digest"],
+                "decode_step_ms": r["derived"]["decode_step_ms"],
+                "admission_ms": r["derived"]["admission_ms_per_admission"],
+                "tokens_per_s": r["derived"]["throughput_tok_s"],
+                "axis_ms_per_decode_step": r["axis_ms_per_decode_step"],
+                "axis_ms": r["axis_ms"], "calls": r["calls"],
+                "bytes_per_decode_step": decode_bytes,
+                "sent": r["sent"], "peak_GB": r["peak_bytes"] / 1e9,
+                "decode_steps": st["decode_steps"],
+                "admissions": st["admissions"],
+                "mixed_steps": st["mixed_steps"], "launches": got,
+                "setup_s": r["setup_s"], "wall_s": r["wall_s"]})
+        launches[arm] = records[arm, 0]["launches"]
+    for overlapped in ("arena", "paged"):
+        if digests[overlapped] != digests[f"{overlapped}-serialized"]:
+            raise AssertionError(f"{overlapped}: overlapped "
+                                 f"{digests[overlapped]} != serialized "
+                                 f"{digests[overlapped + '-serialized']}")
+    arena, paged = (records[a, 0]["outputs"] for a in ("arena", "paged"))
+    out = {"card": smi, "backend": backend,
+           # not gated: the pool's chunk prefill is plain PyTorch, the
+           # arena's flash, so a bf16 token may differ, as in phase 11
+           "paged_requests_equal_to_arena": sum(
+               a == b for a, b in zip(arena, paged)),
+           "note": ("both ranks shared one card over gloo (host buffers); "
+                    "times measure this transport, not NVLink"
+                    if backend == "gloo" else "one GPU a rank over NCCL"),
+           "launch_s": launch_s, "checks_s": checks_s,
+           "logit_gap_of_max": gaps,
+           "f32_tokens_equal_one_process": True,
+           "overlapped_equals_serialized": True,
+           "digests": {a: sorted(d)[0] for a, d in digests.items()},
+           "ranks": rows, "phase50_s": time.perf_counter() - t0}
+    print(json.dumps({"mesh_serving": out}), flush=True)
+    return cases, launches, out["digests"]
+
+
 def main():
     phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5445,11 +5831,13 @@ def main():
     dense_row_stability(gen)
 
     phase("27 dense serving main paths: repro_torch.launch.serve, full "
-          "internlm2-1.8b, qwen3-8b (also --paged) and nemotron-4-15b")
+          "internlm2-1.8b, qwen3-8b (also --paged) and nemotron-4-15b at "
+          "full width, the last two cut to 4 layers")
     dense_launches = {}
     for arch, paged in [(a, False) for a in DENSE_ARCHS] + [("qwen3-8b",
                                                               True)]:
-        dense_launches[arch, paged] = dense_serving(arch, paged)
+        dense_launches[arch, paged] = dense_serving(
+            arch, paged, layers=DENSE_CUT_LAYERS.get(arch, 0))
 
     phase("28 dense reference: card against CPU at smoke size")
     for arch in DENSE_ARCHS:
@@ -5568,13 +5956,31 @@ def main():
     mesh_cases, mesh_arms = mesh_training(smi, gen)
     cases += mesh_cases
 
+    phase("50 serving across processes: f32 tokens and first-decode "
+          "logits on 2 ranks against one process, then launch.serve_mesh "
+          "--processes 2 --model-parallel 2 at full qwen2-0.5b width, "
+          "arena and pool, overlapped and serialized")
+    (tp_flash, tp_decode, tp_paged, tp_ring), tp_launches, _ = mesh_serving(
+        smi, gen)
+    flash_cases += tp_flash
+    decode_cases += tp_decode
+    paged_cases += tp_paged
+    ring_cases += tp_ring
+
+    def tp_paths(kernel):
+        """{path: launches} of rank 0 in phase 50's arms of `kernel`."""
+        return {f"qwen2 mp=2 rank 0, {arm}": got[kernel]
+                for arm, got in tp_launches.items() if got[kernel]}
+
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
         out = {}
         for (arch, pg), runs in dense_launches.items():
             if pg == paged:
+                cut = DENSE_CUT_LAYERS.get(arch)
+                name = f"{arch} {cut} layers" if cut else arch
                 for sched, got in zip(("overlapped", "serialized"), runs):
-                    out[f"{arch} {'paged' if paged else 'arena'}, "
+                    out[f"{name} {'paged' if paged else 'arena'}, "
                         f"{sched}"] = got[kernel]
         return out
 
@@ -5631,7 +6037,8 @@ def main():
                           whisper_launches["flash_attention"],
                       "phi-3 raw loop": phi3["raw_launches"][
                           "flash_attention"],
-                      **phi3_paths("flash_attention")},
+                      **phi3_paths("flash_attention"),
+                      **tp_paths("flash_attention")},
                      flash_cases, flash_cases[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -5648,7 +6055,8 @@ def main():
                           whisper_launches["decode_attention"],
                       "phi-3 raw loop": phi3["raw_launches"][
                           "decode_attention"],
-                      **phi3_paths("decode_attention")},
+                      **phi3_paths("decode_attention"),
+                      **tp_paths("decode_attention")},
                      decode_cases, decode_cases[0]),
         kernel_entry("decode_attention_paged",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
@@ -5658,7 +6066,8 @@ def main():
                       "qwen2 paged, serialized":
                           ser_launches["paged"]["decode_attention_paged"],
                       **dense_paths("decode_attention_paged", paged=True),
-                      **phi3_paths("decode_attention_paged", paged=True)},
+                      **phi3_paths("decode_attention_paged", paged=True),
+                      **tp_paths("decode_attention_paged")},
                      paged_cases, paged_cases[0]),
         kernel_entry("decode_attention_ring",
                      "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
@@ -5702,19 +6111,33 @@ def main():
 
 
 def mesh_only(backend):
-    """`--mesh-only BACKEND`: the card line, the prox_update build and
-    phase 49 over BACKEND alone (nccl needs a GPU a rank: four)."""
+    """`--mesh-only BACKEND`: the card line, the builds of prox_update and
+    the attention kernels, phase 49 over BACKEND, and phase 50 over gloo
+    and over BACKEND, whose digests must be equal (nccl needs a GPU a
+    rank: four for phase 49, two of them for phase 50)."""
     phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    phase("2 build: prox_update")
-    build.library_path("prox_update").unlink(missing_ok=True)
-    build.build("prox_update")
+    phase("2 build: prox_update and the attention kernels")
+    names = ("prox_update",) + ATTENTION_LIBRARIES
+    for name in names:
+        build.library_path(name).unlink(missing_ok=True)
+    build.build(*names)
     phase(f"49 the superstep across processes over {backend}")
     gen = torch.Generator(device=DEV).manual_seed(0)
     mesh_training(smi.splitlines()[0], gen, backend)
+    phase(f"50 serving across processes over gloo and {backend}")
+    _, _, want = mesh_serving(smi.splitlines()[0], gen)
+    if backend != "gloo":
+        _, _, got = mesh_serving(smi.splitlines()[0], gen, backend,
+                                 kernels=False)
+        if got != want:
+            raise AssertionError(f"serve_mesh over {backend} gave {got}, "
+                                 f"over gloo {want}")
+        print(json.dumps({"serve_mesh_digests_equal": [backend, "gloo"]}),
+              flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5723,5 +6146,7 @@ def mesh_only(backend):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-only"]:
         mesh_only(sys.argv[2])
+    elif sys.argv[1:2] == ["--serve-mesh-rank"]:
+        serve_mesh_rank(int(sys.argv[2]), *sys.argv[3:6])
     else:
         main()

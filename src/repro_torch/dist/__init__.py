@@ -11,6 +11,14 @@
   collectives    — ring shift, all-gather, reduce-scatter, all-reduce
                    and gather over a mesh's axes, as point-to-point
                    sends, with bytes counted per kind.
+  tensor_parallel — the "model" axis for the dense GQA family: a rank's
+                   config and parameter shard, and its collectives
+                   (the sums of the row-parallel products, the
+                   vocabulary-parallel embedding and argmax).
+  serving        — serving on a ("data", "model") mesh: the reference's
+                   specs, the rank's model (`local_model`) whose token
+                   steps `Engine(mesh=...)` serves with, and the bytes
+                   a step sends.
   async_trainer  — the TRUE-async runtime: per-process event loops over
                    sharded agents, bounded-staleness token exchange,
                    adaptive update rates, straggler injection
@@ -25,5 +33,5 @@ The event-driven simulator of Algorithm 2's *cost model* lives in
 asynchrony runs on a real multi-process runtime.
 """
 from repro_torch.dist import (  # noqa: F401
-    async_comm, async_schedule, async_trainer, collectives, sharding,
-    trainer)
+    async_comm, async_schedule, async_trainer, collectives, serving,
+    sharding, tensor_parallel, trainer)

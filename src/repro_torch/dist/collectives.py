@@ -10,7 +10,10 @@ that GSPMD inserts from the sharding specs).
                     in the same order and the result does not depend on
                     which rank computes it;
   all_reduce     -- a reduce_scatter of the flat tensor's pieces, then an
-                    all_gather (metrics and the DP baseline's gradients);
+                    all_gather; on a line of 2, one exchange of the whole
+                    tensor, summed in the line's order (the same bytes and
+                    sum at one host round trip; metrics, the DP baseline's
+                    gradients, the tensor-parallel serving step's sums);
   gather         -- every rank's piece to one rank (a checkpoint's leaves).
 
 Each is a batch of `torch.distributed` isend / irecv pairs, so the bytes a
@@ -211,11 +214,17 @@ class Collectives:
     def all_reduce(self, t, axis=None):
         """The sum of `t` over `axis`'s line (every rank for None), equal on
         every rank: a reduce_scatter of the flat tensor's pieces, then an
-        all_gather of the sums."""
+        all_gather of the sums. On a line of 2 each rank sends its whole
+        `t` in one exchange and sums the two in the line's order: the
+        same bytes and the same sum, at one host round trip where the
+        two steps make two."""
         ranks, i, group = self._line(axis)
         self.calls["all_reduce"] += 1
         if len(ranks) == 1:
             return t.clone()
+        if len(ranks) == 2:
+            pieces = self._all_gather(t, ranks, i, group, "all_reduce")
+            return pieces[0] + pieces[1]
         pieces = list(t.reshape(-1).tensor_split(len(ranks)))
         mine = self._reduce_scatter(pieces, ranks, i, group, "all_reduce")
         outs = [mine if j == i else torch.empty_like(pieces[j])

@@ -1,0 +1,254 @@
+"""Tensor parallelism over a mesh's "model" axis (the port's stand-in for
+what GSPMD does with the reference's `serve_param_shardings`: partition
+the model from its shardings).
+
+Each rank of the axis holds a contiguous slice of every head, hidden and
+vocabulary dimension and runs the model of `local_config`: q, k and v
+are column pieces (rank r holds kv heads r·KV/mp … with their G query
+heads each, as `attention._project_qkv` groups them), the MLP's gate and
+up projections column pieces of d_ff, `wo` and `w_down` row pieces whose
+partial products `ModelAxis.reduce` sums, the embedding table its rows of
+the vocabulary (and an untied `head` its columns), and every norm scale
+whole. The KV arena and pool then hold the rank's kv heads, which is
+`sharding.local_shard` of the whole cache under `cache_shardings` /
+`pool_shardings`, so the attention kernels run on the rank's shard.
+
+  local_config          -- the config a rank runs;
+  check_tensor_parallel -- refuse what this module does not split;
+  param_specs           -- the split of every leaf, as sharding spec
+                           tuples;
+  shard_params / gather_params -- a rank's piece of the whole params, and
+                           the whole params from every rank's piece;
+  serving_params        -- a rank's piece as it serves, in the compute
+                           dtype;
+  ModelAxis             -- the axis's operations: row_product, reduce,
+                           embed, argmax.
+
+Precision. One process rounds a row-parallel product once, from its f32
+accumulation to the activation dtype. A rank's partial product of `wo`
+or `w_down` (`ModelAxis.row_product`) comes out in SUM_DTYPE, unrounded;
+the sum over the axis runs in SUM_DTYPE and rounds once to the
+activation dtype (`transformer._reduce`), as one process's product does.
+
+The split differs from `dist.serving.serve_param_shardings` (the
+reference's greedy specs): greedy puts "model" on a leaf's largest
+dividing dimension (the d_model rows of `wk`, for one), which GSPMD
+reshards between operations; explicit tensor parallelism cannot, so each
+product splits on the axis that needs no reshard.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.dist.sharding import (axis_sizes, gather_shards,
+                                       local_shard)
+
+# the queue items of ROADMAP.md that the refusals name
+TP_TRAINING = "ROADMAP queue 1 item 6.1a (tensor-parallel training)"
+DATA_AXIS = "ROADMAP queue 1 item 6.1b (the data axis of the serving mesh)"
+OTHER_FAMILIES = ("ROADMAP queue 1 item 6.1c (MLA, MoE and the recurrent "
+                  "families on the model axis)")
+NON_DIVIDING = "ROADMAP queue 1 item 6.1d (kv counts the axis does not divide)"
+
+# the leaf's dim that "model" splits, by the leaf's name below its
+# segment (None: whole on every rank)
+_SPLIT = {
+    "attn.wq": 2, "attn.wk": 2, "attn.wv": 2,       # columns: heads
+    "attn.bq": 1, "attn.bk": 1, "attn.bv": 1,
+    "attn.wo": 1,                                   # rows: heads
+    "mlp.w_gate": 2, "mlp.w_up": 2,                 # columns: d_ff
+    "mlp.w_down": 1,                                # rows: d_ff
+    "attn.q_norm.scale": None, "attn.k_norm.scale": None,
+    "ln1.scale": None, "ln1.bias": None, "ln2.scale": None,
+    "ln2.bias": None,
+}
+_TOP = {"embed.table": 0, "head": 1, "final_norm.scale": None,
+        "final_norm.bias": None}
+# the dtype of a rank's partial products of `wo` and `w_down` and of
+# their sums over the axis (bytes: `dist.serving.serve_step_sends`)
+SUM_DTYPE = torch.float32
+
+
+def local_config(cfg, mp):
+    """The config a rank of a model axis of `mp` runs: num_heads / mp query
+    heads, num_kv_heads / mp kv heads and d_ff / mp, with d_model,
+    head_dim and vocab_size as they are (the unembedding's logits are the
+    rank's vocabulary slice). The config itself for mp = 1."""
+    if mp == 1:
+        return cfg
+    check_tensor_parallel(cfg, mp)
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // mp,
+                               num_kv_heads=cfg.num_kv_heads // mp,
+                               d_ff=cfg.d_ff // mp)
+
+
+def check_tensor_parallel(cfg, mp):
+    """Raise NotImplementedError for a config this module does not split
+    over `mp` ranks, naming the ROADMAP item that would."""
+    if cfg.family in ("audio", "encdec") or cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder serves through the raw loop, "
+            f"not on a model axis; {OTHER_FAMILIES}")
+    if cfg.moe is not None or cfg.mla is not None:
+        what = "MoE layers" if cfg.moe is not None else "MLA attention"
+        raise NotImplementedError(f"{cfg.name}: {what} on a model axis is "
+                                  f"{OTHER_FAMILIES}")
+    kinds = sorted(set(cfg.layer_types) - {"attn"})
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: {kinds} layers on a model "
+                                  f"axis are {OTHER_FAMILIES}")
+    if cfg.num_heads % mp or cfg.num_kv_heads % mp:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {mp} does not divide "
+            f"{cfg.num_heads} query and {cfg.num_kv_heads} kv heads (the "
+            f"reference's cache_shardings then replicates the cache); "
+            f"{NON_DIVIDING}")
+    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % mp:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis of {mp} does not divide {what} "
+                f"{n}; {NON_DIVIDING}")
+    if cfg.vocab_size >= 1 << 24:
+        raise NotImplementedError(
+            f"{cfg.name}: ModelAxis.argmax carries token ids in f32, exact "
+            f"below 2**24, not for a vocabulary of {cfg.vocab_size}")
+
+
+def param_specs(cfg, params):
+    """{leaf: spec} of the split: a tuple per dim with "model" on the split
+    dim and None elsewhere. Every leaf must be one this module knows: a
+    bias of a row-parallel product (`wo`, `w_down`; the ported configs
+    have none) would be added once on every rank, so it raises."""
+    specs = {}
+    for key, v in params.items():
+        if key in _TOP:
+            dim = _TOP[key]
+        else:
+            parts = key.split(".", 2)
+            if parts[0] != "segments" or parts[2] not in _SPLIT:
+                raise NotImplementedError(
+                    f"{cfg.name}: no tensor-parallel split for leaf {key!r}")
+            dim = _SPLIT[parts[2]]
+        spec = [None] * len(v.shape)
+        if dim is not None:
+            spec[dim] = "model"
+        specs[key] = tuple(spec)
+    return specs
+
+
+def shard_params(cfg, params, mesh, coords=None):
+    """The piece of the whole `params` that the rank at `coords` (default:
+    this rank's) holds on `mesh`'s model axis; `params` itself on an axis
+    of 1. Every rank draws the same init (or converts the same reference
+    params) and keeps its piece, as `init_mesh_train_state` does."""
+    mp = axis_sizes(mesh).get("model", 1)
+    if mp == 1:
+        return params
+    check_tensor_parallel(cfg, mp)
+    coords = mesh.coords if coords is None else coords
+    specs = param_specs(cfg, params)
+    return {k: local_shard(v, specs[k], mesh, coords)
+            for k, v in params.items()}
+
+
+def serving_params(cfg, params, mesh=None):
+    """This rank's piece of the whole `params` on `mesh` (`shard_params`;
+    the whole params without a mesh) with every float leaf in the
+    compute dtype, as the engine serves it."""
+    compute = getattr(torch, cfg.compute_dtype)
+    if mesh is not None:
+        params = shard_params(cfg, params, mesh)
+    return {k: v.to(compute) if v.is_floating_point() else v
+            for k, v in params.items()}
+
+
+def gather_params(cfg, pieces, mesh):
+    """The inverse of `shard_params`: `pieces[r]` is rank r's piece (ranks
+    row-major over the mesh's axes)."""
+    specs = param_specs(cfg, pieces[0])
+    return {k: gather_shards([p[k] for p in pieces], specs[k], mesh)
+            for k in pieces[0]}
+
+
+class ModelAxis:
+    """The collectives of one rank on a mesh's "model" axis, over `comm`
+    (a `dist.collectives.Collectives`). Every sum runs in the line's
+    order on every rank and on both transports, so every rank gets the
+    same bits."""
+
+    def __init__(self, comm, mesh):
+        self.comm = comm
+        self.mesh = mesh
+        self.size = axis_sizes(mesh)["model"]
+        self.index = mesh.coords["model"]
+
+    def reduce(self, x):
+        """The sum over the axis of each rank's x, in x's dtype: SUM_DTYPE
+        for the partial products of `row_product` (the caller rounds the
+        sum once to the activation dtype), the compute dtype for the
+        embedding's lookup (exact: one rank adds a non-zero row)."""
+        return self.comm.all_reduce(x, "model")
+
+    @staticmethod
+    def row_product(h, w):
+        """This rank's partial product h @ w of a row-parallel leaf (`wo`,
+        `w_down`: its rows of the whole leaf) in SUM_DTYPE, unrounded,
+        for `reduce` to sum."""
+        return h.to(SUM_DTYPE) @ w.to(SUM_DTYPE)
+
+    def embed_local(self, table, tokens):
+        """This rank's part of an embedding lookup: the rows of the tokens
+        in its vocabulary slice (table: its [V / mp, D] rows), zeros for
+        the others."""
+        rows = table.shape[0]
+        local = tokens - self.index * rows
+        hit = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), table)
+        return torch.where(hit[..., None], x, torch.zeros_like(x))
+
+    def embed(self, table, tokens):
+        """The vocabulary-parallel lookup: one rank adds a token's row, the
+        others zeros, so the sum is the one-process row bitwise."""
+        return self.reduce(self.embed_local(table, tokens))
+
+    def argmax(self, logits):
+        """The greedy token of the rank's vocabulary slices logits [..., V /
+        mp]: each rank's (largest value, its lowest global id), gathered,
+        the largest value winning with the lowest id on a tie, as the
+        reference's argmax over the sharded vocabulary breaks ties
+        (int32 [...], equal on every rank). Ids ride in f32 beside the
+        values (exact below 2**24; `check_tensor_parallel`)."""
+        logits = logits.float()
+        idx = torch.argmax(logits, -1)
+        val = torch.gather(logits, -1, idx[..., None])[..., 0]
+        ids = (idx + self.index * logits.shape[-1]).float()
+        pieces = self.comm.all_gather(torch.stack([val, ids], -1), "model")
+        best = pieces[0]
+        for p in pieces[1:]:
+            best = torch.where((p[..., 0] > best[..., 0])[..., None], p,
+                               best)
+        return best[..., 1].to(torch.int32)
+
+    def gather_vocab(self, logits):
+        """The whole vocabulary's logits from every rank's slice [..., V /
+        mp] (a check's view, not a serving step's: the steps fetch the
+        argmax)."""
+        return torch.cat(self.comm.all_gather(logits.contiguous(), "model"),
+                         dim=-1)
+
+
+def model_axis(mesh, comm):
+    """The `ModelAxis` of this rank on `mesh`, or None where the mesh has
+    no model axis above 1 (the one-process path). Refuses a data axis
+    above 1."""
+    sizes = axis_sizes(mesh)
+    if sizes.get("data", 1) * sizes.get("pod", 1) > 1:
+        raise NotImplementedError(
+            f"a serving mesh of {sizes}: the port serves with data = 1; "
+            f"{DATA_AXIS}")
+    if sizes.get("model", 1) == 1:
+        return None
+    return ModelAxis(comm, mesh)

@@ -239,9 +239,12 @@ def _check_mesh(model, tcfg, mesh):
         raise ValueError(f"the mesh's agent axis {sizes.get('agent')} must "
                          f"equal num_agents {tcfg.num_agents}")
     if sizes.get("model", 1) != 1:
+        from repro_torch.dist.tensor_parallel import TP_TRAINING
+
         raise NotImplementedError(
-            "a model axis above 1 (tensor parallelism) comes with the next "
-            "multi-device slice; run with model parallel 1")
+            "a model axis above 1 (tensor parallelism) in training is "
+            f"{TP_TRAINING}; train with model parallel 1 (serving runs "
+            "it: launch.serve_mesh)")
     cfg = getattr(model, "cfg", None)
     if sizes.get("replica", 1) > 1 and cfg is not None and cfg.moe is not None:
         raise NotImplementedError(

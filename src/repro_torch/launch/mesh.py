@@ -10,6 +10,8 @@ reference reshapes its devices into ("agent", "replica", "model").
 make_training_mesh: the API-BCD training mesh over the processes of the
     default group: A agents on the ring, R replicas of each (FSDP within
     an agent), model parallel width mp; A * R * mp must equal the world.
+make_serving_mesh: the ("data", "model") serving mesh over the default
+    group, data = world / mp (only data = 1 so far).
 make_production_mesh, training_mesh_shape: the reference's 256- and
     512-device shapes as shape-only meshes (no processes), for the dry
     run and the sharding specs.
@@ -29,6 +31,7 @@ import torch
 from repro_torch.dist.sharding import mesh_coords
 
 TRAINING_AXES = ("agent", "replica", "model")
+SERVING_AXES = ("data", "model")
 BACKENDS = ("nccl", "gloo")
 
 
@@ -159,6 +162,28 @@ def make_training_mesh(num_agents, replica=1, model_parallel=1):
     processes; num_agents * replica * model_parallel must equal the
     world, as the reference asserts."""
     return make_mesh(TRAINING_AXES, (num_agents, replica, model_parallel))
+
+
+def make_serving_mesh(model_parallel=1):
+    """The ("data", "model") mesh over the default group's processes, data
+    = world / model_parallel, as the reference reshapes its devices for
+    `serve_mesh`. The port serves with data = 1: a data axis above 1
+    (the reference splits the decode rows over it) raises."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.tensor_parallel import DATA_AXIS
+
+    world = dist.get_world_size()
+    if world % model_parallel:
+        raise ValueError(f"a model axis of {model_parallel} does not divide "
+                         f"{world} processes")
+    data = world // model_parallel
+    if data > 1:
+        raise NotImplementedError(
+            f"{world} processes at model parallel {model_parallel} make a "
+            f"data axis of {data}; the port serves with data = 1, and "
+            f"{DATA_AXIS}")
+    return make_mesh(SERVING_AXES, (data, model_parallel))
 
 
 def make_production_mesh(*, multi_pod=False):

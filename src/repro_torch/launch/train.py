@@ -85,7 +85,7 @@ def parse_args(argv=None):
                          "replicas of each agent")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="tensor parallel width (with --processes; only 1 "
-                         "so far)")
+                         "in training so far)")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
                     help="the transport between processes")
     ap.add_argument("--timeout", type=float, default=900.0,
@@ -232,9 +232,12 @@ def _replica(args):
     Refuses what a run across processes cannot do, before a process
     starts."""
     if args.model_parallel != 1:
+        from repro_torch.dist.tensor_parallel import TP_TRAINING
+
         raise NotImplementedError(
             "--model-parallel above 1 (tensor parallelism over the mesh's "
-            "\"model\" axis) comes with the next multi-device slice")
+            f"\"model\" axis) in training is {TP_TRAINING}; serving runs "
+            "it (launch.serve_mesh)")
     line = args.agents * args.model_parallel
     if args.processes % line:
         raise ValueError(f"--processes {args.processes} is not a multiple "

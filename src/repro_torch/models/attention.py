@@ -160,10 +160,13 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
     return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).to(v.dtype)
 
 
-def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0):
+def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0,
+                product=torch.matmul):
     """Full prefill/training attention. Returns ([B,S,D], (k, v)), k and v
     [B,S,KV,hd] for the cache. window: the sliding window (0: the
-    config's own, as in the reference).
+    config's own, as in the reference). product(heads, wo): the output
+    projection (a rank of a model axis passes `ModelAxis.row_product`),
+    as in every `gqa_*` function.
 
     kernel=False (training) computes the autograd-able `chunked_attention`;
     kernel=True (serving prefill) goes through `ops.flash_attention`,
@@ -178,7 +181,7 @@ def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0):
     else:
         out = chunked_attention(q, k, v, causal=True, window=win)
     out = out.reshape(b, s, h * hd)
-    return out @ params["wo"], (k, v)
+    return product(out, params["wo"]), (k, v)
 
 
 def bidir_attention(params, cfg, x, positions, *, kernel=False):
@@ -287,7 +290,7 @@ def prefill_cache_entries(seq_entries, capacity, s):
     return kept
 
 
-def gqa_decode(params, cfg, x, cache, position):
+def gqa_decode(params, cfg, x, cache, position, product=torch.matmul):
     """x: [B,1,D]; cache: {k, v: [B,T,KV,hd], ptr} (ptr = tokens written,
     0-dim or per row [B]); position: [B,1] absolute positions.
 
@@ -299,7 +302,7 @@ def gqa_decode(params, cfg, x, cache, position):
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(params, cfg, x, position)
     out = _decode_attend(cfg, q[:, 0], k_new[:, 0], v_new[:, 0], cache)
-    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+    return product(out.reshape(b, 1, -1).to(x.dtype), params["wo"]), cache
 
 
 def _decode_attend(cfg, q, k_new, v_new, cache):
@@ -425,7 +428,7 @@ def _paged_context_attention(q, k_ctx, v_ctx, k_new, v_new, ctx_len, scale,
 
 
 def gqa_prefill_paged(params, cfg, x, cache, table, ctx_len, window=0,
-                      valid=None):
+                      valid=None, product=torch.matmul):
     """One prefill chunk against a layer's paged pool (batch-1 admission).
 
     x [1,C,D]; cache {k, v: [NB, bs, KV, hd]}; table int [W]; ctx_len:
@@ -439,7 +442,7 @@ def gqa_prefill_paged(params, cfg, x, cache, table, ctx_len, window=0,
     q, k_new, v_new = _project_qkv(params, cfg, x, positions)
     out = _chunk_attend(cfg, q, k_new, v_new, cache, table, ctx_len,
                         window, valid)
-    return out.to(x.dtype) @ params["wo"], cache
+    return product(out.to(x.dtype), params["wo"]), cache
 
 
 def _chunk_attend(cfg, q, k_new, v_new, cache, table, ctx_len, window,
@@ -460,7 +463,8 @@ def _chunk_attend(cfg, q, k_new, v_new, cache, table, ctx_len, window,
     return out.reshape(1, c, h * hd)
 
 
-def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0):
+def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0,
+                     product=torch.matmul):
     """One decode token per row against a layer's paged pool.
 
     x [B,1,D]; cache {k, v: [NB, bs, KV, hd]} (the layer's slice of the
@@ -478,7 +482,7 @@ def gqa_decode_paged(params, cfg, x, cache, tables, lengths, window=0):
     q, k_new, v_new = _project_qkv(params, cfg, x, lengths.reshape(b, 1))
     out = _paged_decode_attend(cfg, q[:, 0], k_new[:, 0], v_new[:, 0], cache,
                                tables, lengths, window)
-    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+    return product(out.reshape(b, 1, -1).to(x.dtype), params["wo"]), cache
 
 
 def _paged_decode_attend(cfg, q, k_new, v_new, cache, tables, lengths,
@@ -792,9 +796,10 @@ def per_half(fn, x, nd, name):
     return torch.cat([fn(x[:, :nd]), fn(x[:, nd:])], dim=1)
 
 
-def mixed_product(x, w, nd, name):
-    """x [1, nd + S, K] @ w for the product `name`, through `per_half`."""
-    return per_half(lambda t: t @ w, x, nd, name)
+def mixed_product(x, w, nd, name, product=torch.matmul):
+    """product(x, w) (x [1, nd + S, K] @ w) for the product `name`, through
+    `per_half`."""
+    return per_half(lambda t: product(t, w), x, nd, name)
 
 
 def mixed_norm(params, x, nd, norm_type="rmsnorm"):
@@ -833,7 +838,7 @@ def _project_qkv_mixed(params, cfg, x, nd, pos_d, pos_p):
 
 
 def gqa_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot,
-              window=0):
+              window=0, product=torch.matmul):
     """Fused arena layer: decode rows [:nd] and a whole prompt [nd:].
 
     x [1, nd + Sp, D] (normed); pos_d [1, nd]: the decode rows' positions;
@@ -858,11 +863,12 @@ def gqa_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot,
     cache["ptr"][p_slot] = p_len
     out = torch.cat([out_d[None].to(x.dtype), out_p.reshape(1, sp, h * hd)],
                     dim=1)
-    return mixed_product(out, params["wo"], nd, "wo"), cache
+    return mixed_product(out, params["wo"], nd, "wo", product), cache
 
 
 def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
-                    ctx_len, c_table, window=0, c_valid=None):
+                    ctx_len, c_table, window=0, c_valid=None,
+                    product=torch.matmul):
     """Fused pool layer: decode rows [:nd] and one prefill chunk [nd:].
 
     cache: one pool layer {k, v: [NB, bs, KV, hd]}, written in place;
@@ -879,7 +885,7 @@ def gqa_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
     out_p = _chunk_attend(cfg, q[:, nd:], k[:, nd:], v[:, nd:], cache,
                           c_table, ctx_len, window, c_valid)
     out = torch.cat([out_d[None].to(x.dtype), out_p.to(x.dtype)], dim=1)
-    return mixed_product(out, params["wo"], nd, "wo"), cache
+    return mixed_product(out, params["wo"], nd, "wo", product), cache
 
 
 def _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p):

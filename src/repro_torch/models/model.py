@@ -113,9 +113,24 @@ def _check_ported(cfg: ArchConfig):
                                   f"{', '.join(bad)})")
 
 
-def build_model(cfg: ArchConfig, window: int = 0) -> Model:
-    """window: sliding-window override (0 = the config's own)."""
+def build_model(cfg: ArchConfig, window: int = 0, model_axis=None) -> Model:
+    """window: sliding-window override (0 = the config's own).
+
+    model_axis: a `dist.tensor_parallel.ModelAxis`: the model of this
+    rank's slice of a tensor-parallel model (`Model.cfg` is its
+    `local_config`), whose serving entry points take this rank's
+    parameters (`tensor_parallel.serving_params`) and caches and sum
+    over the axis where the whole model's products would; its
+    logits-returning entry points give this rank's vocabulary slice, and
+    its token steps the same ids on every rank. The dense attention
+    stack only (`tensor_parallel.check_tensor_parallel`); its
+    `train_loss` raises (no backward through the axis's collectives
+    yet)."""
     _check_ported(cfg)
+    axis = model_axis
+    if axis is not None:
+        from repro_torch.dist.tensor_parallel import TP_TRAINING, local_config
+        cfg = local_config(cfg, axis.size)
     if cfg.family in ("audio", "encdec"):
         return Model(
             cfg=cfg,
@@ -127,28 +142,36 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
             init_cache=lambda batch, seq, **kw: ED.init_cache(cfg, batch,
                                                               seq, **kw))
     window = cfg.attn_window or window
+
+    def train_loss(p, b, **kw):
+        if axis is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training on a model axis is {TP_TRAINING}")
+        return TF.train_loss(cfg, p, b, window=window, **kw)
+
     entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),
-        train_loss=lambda p, b, **kw: TF.train_loss(cfg, p, b,
-                                                     window=window, **kw),
+        train_loss=train_loss,
         prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, window=window,
-                                               **kw),
+                                               axis=axis, **kw),
         decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos,
-                                                        window=window),
+                                                        window=window,
+                                                        axis=axis),
         init_cache=lambda batch, seq, **kw: TF.init_cache(
             cfg, batch, seq, window=window, **kw),
         init_arena=lambda slots, capacity, **kw: TF.init_arena(
             cfg, slots, capacity, window=window, **kw),
         prefill_into_slot=lambda p, tokens, length, slot, caches:
             TF.prefill_into_slot(cfg, p, tokens, length, slot, caches,
-                                 window=window),
+                                 window=window, axis=axis),
         decode_rows=lambda p, t, c, pos: TF.decode_rows(cfg, p, t, c, pos,
-                                                        window=window),
+                                                        window=window,
+                                                        axis=axis),
         prefill_into_slot_token=lambda p, tokens, length, slot, caches:
             TF.prefill_into_slot_token(cfg, p, tokens, length, slot, caches,
-                                       window=window),
+                                       window=window, axis=axis),
         decode_rows_tokens=lambda p, t, c, pos: TF.decode_rows_tokens(
-            cfg, p, t, c, pos, window=window),
+            cfg, p, t, c, pos, window=window, axis=axis),
     )
     if set(cfg.layer_types) != {"attn"}:
         if window and not {"attn", "moe"} & set(cfg.layer_types):
@@ -163,23 +186,24 @@ def build_model(cfg: ArchConfig, window: int = 0) -> Model:
             cfg, num_blocks, block_size, window=window, **kw),
         prefill_chunk_into_blocks=lambda p, tokens, length, ctx, table, pool:
             TF.prefill_chunk_into_blocks(cfg, p, tokens, length, ctx, table,
-                                         pool, window=window),
+                                         pool, window=window, axis=axis),
         decode_rows_paged=lambda p, t, pool, tables, lengths:
             TF.decode_rows_paged(cfg, p, t, pool, tables, lengths,
-                                 window=window),
+                                 window=window, axis=axis),
         prefill_chunk_into_blocks_token=lambda p, tokens, length, ctx, table,
             pool: TF.prefill_chunk_into_blocks_token(
-                cfg, p, tokens, length, ctx, table, pool, window=window),
+                cfg, p, tokens, length, ctx, table, pool, window=window,
+                axis=axis),
         decode_rows_paged_tokens=lambda p, t, pool, tables, lengths:
             TF.decode_rows_paged_tokens(cfg, p, t, pool, tables, lengths,
-                                        window=window),
+                                        window=window, axis=axis),
         mixed_step_tokens=lambda p, t, arena, pos, p_tokens, p_len, p_slot:
             TF.mixed_step_tokens(cfg, p, t, arena, pos, p_tokens, p_len,
-                                 p_slot, window=window),
+                                 p_slot, window=window, axis=axis),
         mixed_step_paged_tokens=lambda p, t, pool, tables, lengths, c_tokens,
             c_len, ctx_len, c_table: TF.mixed_step_paged_tokens(
                 cfg, p, t, pool, tables, lengths, c_tokens, c_len, ctx_len,
-                c_table, window=window),
+                c_table, window=window, axis=axis),
     )
 
 

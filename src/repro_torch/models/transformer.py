@@ -160,7 +160,7 @@ def transformer_init(cfg, generator, dtype=None):
 
 
 def forward(cfg, params, x, *, positions, mode="train", caches=None,
-            paged=None, window=0, remat=False):
+            paged=None, window=0, remat=False, axis=None):
     """Run the stack on embeddings x [B,S,D]. Returns (the final-normed x,
     aux): aux sums the MoE layers' load-balance losses in "train" mode,
     and is None in the others or without MoE layers.
@@ -185,6 +185,12 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     "decode" {"tables": int32 [B, W], "lengths": int32 [B]}, through
     `gqa_decode_paged`. An MLA config (`cfg.mla`) takes the `mla_*`
     function of each mode, and its caches hold the latents.
+
+    axis: a `dist.tensor_parallel.ModelAxis` where this rank runs its
+    slice of the heads and of d_ff (`cfg` is then its `local_config`):
+    the partial products of `wo` and `w_down` (`ModelAxis.row_product`)
+    are summed over the axis before each residual add. None runs the
+    whole model.
     """
     aux = None
     for si, (kind, count) in enumerate(segments(cfg)):
@@ -197,7 +203,7 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
         for i, lp in enumerate(_layers(params, si, count)):
             if kind in ("attn", "moe"):
                 args = (_attn_block, cfg, lp, x, positions, mode, seg, i,
-                        paged, window)
+                        paged, window, axis)
             elif kind == "rwkv":
                 args = (_rwkv_block, cfg, lp, x, seg, i)
             else:
@@ -215,7 +221,8 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     return norm(subtree(params, "final_norm"), x), aux
 
 
-def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
+def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window,
+                axis=None):
     """norm -> attention -> norm -> MLP, as the reference's `block_apply`
     kind "attn" (the norm `cfg.norm_type`, as in every block kind and
     the final norm); layer i of the segment's cache `seg`. MLA
@@ -228,6 +235,7 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
     h = norm(lp["ln1"], x)
     mla = cfg.mla is not None
     names = tuple(_entry_shapes(cfg))
+    product = _product(axis)
     if paged is not None:
         layer = {name: seg[name][i] for name in names}
         if mode == "prefill" and mla:
@@ -236,38 +244,55 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window):
         elif mode == "prefill":
             attn_out, _ = A.gqa_prefill_paged(
                 lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"],
-                window=window, valid=paged["valid"])
+                window=window, valid=paged["valid"], product=product)
         elif mla:
             attn_out, _ = A.mla_decode_paged(
                 lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"])
         else:
             attn_out, _ = A.gqa_decode_paged(
                 lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"],
-                window=window)
+                window=window, product=product)
     elif mode == "decode":
         layer = {name: seg[name][i] for name in names + ("ptr",)}
-        decode = A.mla_decode if mla else A.gqa_decode
-        attn_out, _ = decode(lp["attn"], cfg, h, layer, positions)
+        if mla:
+            attn_out, _ = A.mla_decode(lp["attn"], cfg, h, layer, positions)
+        else:
+            attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions,
+                                       product=product)
     else:
         if mla:     # ignores the window, as the reference's mla_prefill
             attn_out, entries = A.mla_prefill(lp["attn"], cfg, h, positions)
         else:
             attn_out, entries = A.gqa_prefill(lp["attn"], cfg, h, positions,
                                               kernel=mode == "prefill",
-                                              window=window)
+                                              window=window, product=product)
         if mode == "prefill":
             s, t = x.shape[1], seg[names[0]].shape[2]
             for name, e in zip(names, entries):
                 seg[name][i].copy_(A.prefill_cache_entries(e, t, s))
             seg["ptr"][i].fill_(s)
-    x = x + attn_out
+    x = x + _reduce(axis, attn_out, x.dtype)
     h2 = norm(lp["ln2"], x)
     if "moe" in lp:
         moe_fn = (MOE.moe_apply_scatter if os.environ.get("REPRO_MOE_SCATTER")
                   else MOE.moe_apply)
         ff, aux = moe_fn(lp["moe"], cfg, h2, with_aux=mode == "train")
         return x + ff, aux
-    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
+    return x + _reduce(axis, product(mlp_hidden(lp["mlp"], h2, cfg.mlp_type),
+                                     lp["mlp"]["w_down"]), x.dtype)
+
+
+def _product(axis):
+    """The row-parallel products' function: `ModelAxis.row_product` on a
+    model axis, the plain product without one."""
+    return torch.matmul if axis is None else axis.row_product
+
+
+def _reduce(axis, x, dtype):
+    """A row-parallel product x summed over the model axis (`ModelAxis.
+    reduce`: the ranks' partial products, in f32) and rounded once to the
+    activation dtype `dtype`; x itself without an axis."""
+    return x if axis is None else axis.reduce(x).to(dtype)
 
 
 def _rwkv_block(cfg, lp, x, seg, i):
@@ -401,13 +426,28 @@ def _entry_shapes(cfg):
     return {"k": kv, "v": kv}
 
 
-def _embed_tokens(cfg, params, tokens):
-    return embed(subtree(params, "embed"), tokens).to(
-        getattr(torch, cfg.compute_dtype))
+def _embed_tokens(cfg, params, tokens, axis=None):
+    """The tokens' embeddings in the compute dtype; on a model axis the
+    vocabulary-parallel lookup of this rank's table rows
+    (`ModelAxis.embed`)."""
+    if axis is None:
+        x = embed(subtree(params, "embed"), tokens)
+    else:
+        x = axis.embed(params["embed.table"], tokens)
+    return x.to(getattr(torch, cfg.compute_dtype))
+
+
+def _greedy(axis, logits):
+    """The int32 argmax of logits [..., V] over their last dim; on a model
+    axis (logits: this rank's vocabulary slice) `ModelAxis.argmax`, the
+    same ids on every rank."""
+    if axis is None:
+        return torch.argmax(logits, -1).to(torch.int32)
+    return axis.argmax(logits)
 
 
 def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None,
-            window=0):
+            window=0, axis=None):
     """Build caches from a full prompt batch {"tokens": [B,S], "patches":
     [B,P,D] (optional: a VLM's prefix, in front of the text)}. Returns
     (logits of the last position [B,1,V] in f32, caches).
@@ -415,26 +455,26 @@ def prefill(cfg, params, batch, cache_dtype=torch.bfloat16, cache_len=None,
     cache_len: total cache capacity (>= P + prompt length) to leave room
     for later decode steps; defaults to P + the prompt length."""
     params = _cast(cfg, params)
-    x, _ = _prefix(_embed_tokens(cfg, params, batch["tokens"]), batch)
+    x, _ = _prefix(_embed_tokens(cfg, params, batch["tokens"], axis), batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = init_cache(cfg, b, max(cache_len or s, s), dtype=cache_dtype,
                         device=x.device, window=window)
     x, _ = forward(cfg, params, x, positions=positions, mode="prefill",
-                   caches=caches, window=window)
+                   caches=caches, window=window, axis=axis)
     return logits_fn(cfg, params, x[:, -1:]).float(), caches
 
 
-def decode_step(cfg, params, token, caches, position, window=0):
+def decode_step(cfg, params, token, caches, position, window=0, axis=None):
     """token: [B,1] int; position: the absolute position of every row
     (int or 0-dim tensor). Returns (logits [B,1,V] in f32, caches)."""
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, axis)
     b = x.shape[0]
     positions = torch.as_tensor(position, dtype=torch.int32,
                                 device=x.device).reshape(1, 1).expand(b, 1)
     x, _ = forward(cfg, params, x, positions=positions, mode="decode",
-                   caches=caches, window=window)
+                   caches=caches, window=window, axis=axis)
     return logits_fn(cfg, params, x).float(), caches
 
 
@@ -458,7 +498,8 @@ def init_arena(cfg, slots, capacity, dtype=torch.bfloat16, device=None,
     return arena
 
 
-def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0):
+def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0,
+                      axis=None):
     """Admit one request into arena slot `slot` between decode steps.
 
     tokens: [1, Sp] int, right-padded to a bucketed length Sp (causal
@@ -475,7 +516,7 @@ def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0):
     start from its slot's previous occupant. Returns (logits [1,1,V] in
     f32 at position length - 1, the arena, updated in place)."""
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, axis)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None]
     slot, length = int(slot), int(length)
@@ -490,7 +531,7 @@ def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0):
                 leaf.zero_()
         rows.append(row)
     x, _ = forward(cfg, params, x, positions=positions, mode="prefill",
-                   caches=rows, window=window)
+                   caches=rows, window=window, axis=axis)
     for row in rows:
         if "ptr" in row:
             row["ptr"].fill_(length)
@@ -498,7 +539,7 @@ def prefill_into_slot(cfg, params, tokens, length, slot, caches, window=0):
     return logits, caches
 
 
-def decode_rows(cfg, params, token, caches, positions, window=0):
+def decode_rows(cfg, params, token, caches, positions, window=0, axis=None):
     """One decode step over all arena slots.
 
     token: [B,1] int (one current token per slot); positions: int [B],
@@ -507,30 +548,34 @@ def decode_rows(cfg, params, token, caches, positions, window=0):
     overwritten whole at the next admission. Returns (logits [B,1,V] in
     f32, the arena, updated in place)."""
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, axis)
     b = x.shape[0]
     positions = torch.as_tensor(positions, dtype=torch.int32,
                                 device=x.device).reshape(b, 1)
     x, _ = forward(cfg, params, x, positions=positions, mode="decode",
-                   caches=caches, window=window)
+                   caches=caches, window=window, axis=axis)
     return logits_fn(cfg, params, x).float(), caches
 
 
 # Token-returning serving steps: the engine is greedy-only, so the argmax
 # runs on the device and the host fetches int32 ids ([] for admission,
 # [B] per decode step), never full-vocab logits. The decode variant also
-# returns the advanced positions, which feed the next step directly.
+# returns the advanced positions, which feed the next step directly. On a
+# model axis (`axis`, with `cfg` the rank's `local_config`), the
+# logits-returning entry points give this rank's vocabulary slice, and the
+# token steps the argmax over every rank's slice, the same ids on each.
 
 
 def prefill_into_slot_token(cfg, params, tokens, length, slot, caches,
-                            window=0):
+                            window=0, axis=None):
     """`prefill_into_slot` returning (0-dim int32 greedy token, arena)."""
     logits, caches = prefill_into_slot(cfg, params, tokens, length, slot,
-                                       caches, window=window)
-    return torch.argmax(logits[0, -1], -1).to(torch.int32), caches
+                                       caches, window=window, axis=axis)
+    return _greedy(axis, logits[0, -1]), caches
 
 
-def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0):
+def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0,
+                       axis=None):
     """`decode_rows` returning (next [B] int32, arena, positions + 1).
 
     tokens: [B] int (each slot's incoming token, i.e. the previous step's
@@ -540,9 +585,8 @@ def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0):
     positions = torch.as_tensor(positions, dtype=torch.int32,
                                 device=tokens.device)
     logits, caches = decode_rows(cfg, params, tokens[:, None], caches,
-                                 positions, window=window)
-    nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    return nxt, caches, positions + 1
+                                 positions, window=window, axis=axis)
+    return _greedy(axis, logits[:, -1]), caches, positions + 1
 
 
 # The paged pool (`repro_torch.serve`, paged=True): every slot's KV lives
@@ -584,7 +628,7 @@ def init_pool(cfg, num_blocks, block_size, dtype=torch.bfloat16,
 
 
 def prefill_chunk_into_blocks(cfg, params, tokens, length, ctx_len,
-                              block_table, pool, window=0):
+                              block_table, pool, window=0, axis=None):
     """Stream one prompt chunk into a slot's blocks (batch-1 admission).
 
     tokens: [1, C] int, the chunk right-padded to the fixed chunk size C;
@@ -594,20 +638,20 @@ def prefill_chunk_into_blocks(cfg, params, tokens, length, ctx_len,
     chunk position length - 1, meaningful for the prompt's last chunk
     only, and the pool)."""
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, axis)
     c = x.shape[1]
     length, ctx_len = int(length), int(ctx_len)
     positions = ctx_len + torch.arange(c, device=x.device)[None]
     x, _ = forward(cfg, params, x, positions=positions, mode="prefill",
                    caches=pool, window=window,
                    paged={"table": block_table, "ctx_len": ctx_len,
-                          "valid": length})
+                          "valid": length}, axis=axis)
     logits = logits_fn(cfg, params, x[:, length - 1:length]).float()
     return logits, pool
 
 
 def decode_rows_paged(cfg, params, token, pool, block_tables, lengths,
-                      window=0):
+                      window=0, axis=None):
     """One decode step over all slots against the shared pool.
 
     token: [B,1] int; block_tables: int32 [B, W]; lengths: int32 [B],
@@ -616,26 +660,27 @@ def decode_rows_paged(cfg, params, token, pool, block_tables, lengths,
     and the engine ignores their tokens. Returns (logits [B,1,V] in f32,
     the pool, written in place)."""
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, axis)
     b = x.shape[0]
     x, _ = forward(cfg, params, x, positions=lengths.reshape(b, 1),
                    mode="decode", caches=pool, window=window,
-                   paged={"tables": block_tables, "lengths": lengths})
+                   paged={"tables": block_tables, "lengths": lengths},
+                   axis=axis)
     return logits_fn(cfg, params, x).float(), pool
 
 
 def prefill_chunk_into_blocks_token(cfg, params, tokens, length, ctx_len,
-                                    block_table, pool, window=0):
+                                    block_table, pool, window=0, axis=None):
     """`prefill_chunk_into_blocks` returning (0-dim int32 greedy token,
     pool); the token is meaningful for the prompt's last chunk only."""
     logits, pool = prefill_chunk_into_blocks(cfg, params, tokens, length,
                                              ctx_len, block_table, pool,
-                                             window=window)
-    return torch.argmax(logits[0, -1], -1).to(torch.int32), pool
+                                             window=window, axis=axis)
+    return _greedy(axis, logits[0, -1]), pool
 
 
 def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
-                             lengths, window=0):
+                             lengths, window=0, axis=None):
     """`decode_rows_paged` returning (next [B] int32, pool, lengths + 1).
 
     Dead rows' lengths drift upward on the device, which is inert: their
@@ -644,9 +689,9 @@ def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
     table's width, and the engine re-uploads exact host values whenever
     admission, finish or preemption touches a row."""
     logits, pool = decode_rows_paged(cfg, params, tokens[:, None], pool,
-                                     block_tables, lengths, window=window)
-    nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    return nxt, pool, lengths + 1
+                                     block_tables, lengths, window=window,
+                                     axis=axis)
+    return _greedy(axis, logits[:, -1]), pool, lengths + 1
 
 
 # The fused mixed steps (overlapped admission, `repro_torch.serve` with
@@ -658,23 +703,26 @@ def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
 # computes wherever the shared ops are row-stable (`attention.
 # MIXED_PER_HALF` names the ops that are not, and run per half);
 # only all-attention stacks reach this path (`FamilyCaps.
-# supports_mixed_step`).
+# supports_mixed_step`). On a model axis the sums of the row-parallel
+# products run on the whole mixed batch: a sum over ranks is elementwise,
+# in the same order for every element, so each half's rows stay bitwise
+# what its standalone step's sums give.
 
 
-def _mixed_mlp(params, x, nd, mlp_type):
+def _mixed_mlp(params, x, nd, mlp_type, product=torch.matmul):
     """`mlp_apply` on the mixed batch: the gate and up products with their
     activation through `attention.per_half` (as "w_up"), the down
-    projection through `attention.mixed_product`."""
+    projection `product` through `attention.mixed_product`."""
     h = A.per_half(lambda t: mlp_hidden(params, t, mlp_type), x, nd, "w_up")
-    return A.mixed_product(h, params["w_down"], nd, "w_down")
+    return A.mixed_product(h, params["w_down"], nd, "w_down", product)
 
 
-def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves):
+def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves, axis=None):
     """The shared trunk of the mixed steps over x [1, nd + S, D]: each
     layer's norm -> `attn_fn(p_attn, h, layer_cache)` -> norm -> MLP,
     then the final norm (the norms, `cfg.norm_type`, through `attention.
     mixed_norm`). `leaves` names the cache leaves of a layer (written in
-    place by `attn_fn`)."""
+    place by `attn_fn`); `axis` as `forward`'s."""
     segs = segments(cfg)
     if segs != [("attn", cfg.num_layers)]:
         raise NotImplementedError(f"{cfg.name}: the mixed step needs one "
@@ -684,17 +732,24 @@ def _mixed_forward(cfg, params, x, caches, nd, attn_fn, leaves):
         h = A.mixed_norm(lp["ln1"], x, nd, cfg.norm_type)
         attn_out, _ = attn_fn(lp["attn"], h,
                               {name: seg[name][i] for name in leaves})
-        x = x + attn_out
+        x = x + _reduce(axis, attn_out, x.dtype)
         h2 = A.mixed_norm(lp["ln2"], x, nd, cfg.norm_type)
-        x = x + _mixed_mlp(lp["mlp"], h2, nd, cfg.mlp_type)
+        x = x + _reduce(axis, _mixed_mlp(lp["mlp"], h2, nd, cfg.mlp_type,
+                                         _product(axis)), x.dtype)
     return A.mixed_norm(subtree(params, "final_norm"), x, nd,
                         cfg.norm_type)
 
 
-def _mixed_embed(cfg, params, dec_tokens, adm_tokens):
+def _mixed_embed(cfg, params, dec_tokens, adm_tokens, axis=None):
     """Embed the decode tokens [B] as [B, 1] and the admission tokens
     [1, S] apart (the shapes of the standalone steps) and concatenate the
-    embeddings into the mixed batch [1, B + S, D]."""
+    embeddings into the mixed batch [1, B + S, D]. On a model axis the
+    rank's parts are concatenated first and summed over the axis once."""
+    if axis is not None:
+        table = params["embed.table"]
+        x = torch.cat([axis.embed_local(table, dec_tokens[None]),
+                       axis.embed_local(table, adm_tokens)], dim=1)
+        return axis.reduce(x).to(getattr(torch, cfg.compute_dtype))
     xd = _embed_tokens(cfg, params, dec_tokens[:, None])         # [B, 1, D]
     xa = _embed_tokens(cfg, params, adm_tokens)                  # [1, S, D]
     return torch.cat([xd.transpose(0, 1), xa], dim=1)
@@ -710,7 +765,7 @@ def _mixed_logits(cfg, params, x, b, last_idx):
 
 
 def mixed_step(cfg, params, tokens, caches, positions, p_tokens, p_len,
-               p_slot, window=0):
+               p_slot, window=0, axis=None):
     """One fused arena step: decode every slot and prefill one request.
 
     tokens, positions: the `decode_rows` operands ([B] int, int32 [B]);
@@ -723,7 +778,7 @@ def mixed_step(cfg, params, tokens, caches, positions, p_tokens, p_len,
     b, sp = tokens.shape[0], p_tokens.shape[1]
     p_len, p_slot = int(p_len), int(p_slot)
     dev = tokens.device
-    x = _mixed_embed(cfg, params, tokens, p_tokens)
+    x = _mixed_embed(cfg, params, tokens, p_tokens, axis)
     pos_d = torch.as_tensor(positions, dtype=torch.int32, device=dev)[None]
     pos_p = torch.arange(sp, device=dev)[None]
 
@@ -732,15 +787,15 @@ def mixed_step(cfg, params, tokens, caches, positions, p_tokens, p_len,
             return A.mla_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len,
                                p_slot)
         return A.gqa_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len, p_slot,
-                           window=window)
+                           window=window, product=_product(axis))
 
     x = _mixed_forward(cfg, params, x, caches, b, attn_fn,
-                       tuple(_entry_shapes(cfg)) + ("ptr",))
+                       tuple(_entry_shapes(cfg)) + ("ptr",), axis)
     return _mixed_logits(cfg, params, x, b, b + p_len - 1) + (caches,)
 
 
 def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
-                     c_tokens, c_len, ctx_len, c_table, window=0):
+                     c_tokens, c_len, ctx_len, c_table, window=0, axis=None):
     """One fused pool step: decode every slot and stream one prompt chunk.
 
     tokens, block_tables, lengths: the `decode_rows_paged` operands; the
@@ -752,7 +807,7 @@ def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
     params = _cast(cfg, params)
     b, c = tokens.shape[0], c_tokens.shape[1]
     c_len, ctx_len = int(c_len), int(ctx_len)
-    x = _mixed_embed(cfg, params, tokens, c_tokens)
+    x = _mixed_embed(cfg, params, tokens, c_tokens, axis)
     pos_d = lengths[None]
     pos_p = ctx_len + torch.arange(c, device=tokens.device)[None]
 
@@ -762,15 +817,27 @@ def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
                                      block_tables, lengths, ctx_len, c_table)
         return A.gqa_mixed_paged(p, cfg, h, b, pos_d, pos_p, layer,
                                  block_tables, lengths, ctx_len, c_table,
-                                 window=window, c_valid=c_len)
+                                 window=window, c_valid=c_len,
+                                 product=_product(axis))
 
     x = _mixed_forward(cfg, params, x, pool, b, attn_fn,
-                       tuple(_entry_shapes(cfg)))
+                       tuple(_entry_shapes(cfg)), axis)
     return _mixed_logits(cfg, params, x, b, b + c_len - 1) + (pool,)
 
 
+def _mixed_greedy(axis, logits_d, logits_p):
+    """The decode rows' [B] and the prefill unit's [] greedy tokens of the
+    mixed logits; on a model axis through one `ModelAxis.argmax` over the
+    B + 1 rows."""
+    if axis is None:
+        return (torch.argmax(logits_d[:, -1], -1).to(torch.int32),
+                torch.argmax(logits_p[0, -1], -1).to(torch.int32))
+    toks = axis.argmax(torch.cat([logits_d[:, -1], logits_p[0]]))
+    return toks[:-1], toks[-1]
+
+
 def mixed_step_tokens(cfg, params, tokens, caches, positions, p_tokens,
-                      p_len, p_slot, window=0):
+                      p_len, p_slot, window=0, axis=None):
     """`mixed_step` returning (next [B] int32, arena, positions + 1, the
     prompt's greedy token [] int32), the outputs of `decode_rows_tokens`
     and `prefill_into_slot_token` in one launch sequence."""
@@ -778,20 +845,19 @@ def mixed_step_tokens(cfg, params, tokens, caches, positions, p_tokens,
                                 device=tokens.device)
     logits_d, logits_p, caches = mixed_step(cfg, params, tokens, caches,
                                             positions, p_tokens, p_len,
-                                            p_slot, window=window)
-    nxt = torch.argmax(logits_d[:, -1], -1).to(torch.int32)
-    p_tok = torch.argmax(logits_p[0, -1], -1).to(torch.int32)
+                                            p_slot, window=window, axis=axis)
+    nxt, p_tok = _mixed_greedy(axis, logits_d, logits_p)
     return nxt, caches, positions + 1, p_tok
 
 
 def mixed_step_paged_tokens(cfg, params, tokens, pool, block_tables, lengths,
-                            c_tokens, c_len, ctx_len, c_table, window=0):
+                            c_tokens, c_len, ctx_len, c_table, window=0,
+                            axis=None):
     """`mixed_step_paged` returning (next [B] int32, pool, lengths + 1, the
     chunk's greedy token [] int32, meaningful for a prompt's last chunk
     only)."""
     logits_d, logits_c, pool = mixed_step_paged(
         cfg, params, tokens, pool, block_tables, lengths, c_tokens, c_len,
-        ctx_len, c_table, window=window)
-    nxt = torch.argmax(logits_d[:, -1], -1).to(torch.int32)
-    c_tok = torch.argmax(logits_c[0, -1], -1).to(torch.int32)
+        ctx_len, c_table, window=window, axis=axis)
+    nxt, c_tok = _mixed_greedy(axis, logits_d, logits_c)
     return nxt, pool, lengths + 1, c_tok

@@ -98,6 +98,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.tensor_parallel import SUM_DTYPE, serving_params
 from repro_torch.serve.bucketing import (bucket_length, chunks_needed,
                                          table_width)
 from repro_torch.serve.paging import BlockAllocator, blocks_needed
@@ -189,12 +190,24 @@ class Engine:
     family and backend allow it (`engine.overlap` tells); overlap_mode
     picks how: "fused" runs the mixed step, "async" the serialized step
     functions back to back without a fetch between them, and "auto" is
-    "fused" (the reference picks "async" only on a mesh with a data axis,
-    and the port runs on one device).
+    "fused", as the reference picks it on a mesh without a data axis (it
+    picks "async" where the data axis is above 1, which the port's mesh
+    refuses).
+
+    mesh (a `launch.mesh.Mesh` over processes, ("data", "model") with
+    data = 1; `launch.mesh.make_serving_mesh`): every rank of the model
+    axis runs this engine in lockstep on the same submissions. The
+    engine keeps this rank's shard of `params` (the whole model's,
+    `dist.tensor_parallel.shard_params`), an arena or pool of this rank's
+    kv heads, and the steps of `dist.serving.local_model`, which sum over
+    the axis (`engine.comm`, a `dist.collectives.Collectives`, counts
+    their bytes and milliseconds) and return the same `[B]` ids on every
+    rank; the scheduler reads nothing else from the device, and no clock
+    steers it. A mesh whose model axis is 1 serves as without a mesh.
     """
 
     def __init__(self, model, params, *, max_batch: int = 8,
-                 max_len: int = 256, cache_dtype=torch.bfloat16,
+                 max_len: int = 256, cache_dtype=torch.bfloat16, mesh=None,
                  paged: bool = False, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
                  preemption: str = "recompute", overlap: bool = True,
@@ -209,10 +222,18 @@ class Engine:
             raise NotImplementedError(
                 f"family {model.cfg.family!r} has no slot-arena entry points")
         self.model = model
-        compute = getattr(torch, model.cfg.compute_dtype)
-        self.params = {k: v.to(compute) if v.is_floating_point() else v
-                       for k, v in params.items()}
-        self.device = next(iter(self.params.values())).device
+        self.device = next(iter(params.values())).device
+        self.mesh = mesh
+        self.comm = None
+        steps = model       # the model whose entry points serve
+        if mesh is not None:
+            from repro_torch.dist import serving
+            from repro_torch.dist.collectives import Collectives
+
+            comm = Collectives(mesh, self.device)
+            steps = serving.local_model(model, mesh, comm)
+            self.comm = None if steps is model else comm
+        self.params = serving_params(model.cfg, params, mesh)
         self.max_batch = int(max_batch)
         self.capacity = bucket_length(max_len)
         self.caps = probe_family_caps(model, capacity=self.capacity)
@@ -249,21 +270,28 @@ class Engine:
             self._tables = np.zeros((self.max_batch, self.num_blocks),
                                     np.int32)
             self._slot_reserved = [0] * self.max_batch
-            self._prefill = model.prefill_chunk_into_blocks_token
-            self._decode = model.decode_rows_paged_tokens
+            self._prefill = steps.prefill_chunk_into_blocks_token
+            self._decode = steps.decode_rows_paged_tokens
             if self.overlap_mode == "fused":
-                self._mixed = model.mixed_step_paged_tokens
-            self._caches = model.init_pool(self.num_blocks, self.block_size,
+                self._mixed = steps.mixed_step_paged_tokens
+            self._caches = steps.init_pool(self.num_blocks, self.block_size,
                                            dtype=cache_dtype,
                                            device=self.device)
         else:
-            self._prefill = model.prefill_into_slot_token
-            self._decode = model.decode_rows_tokens
+            self._prefill = steps.prefill_into_slot_token
+            self._decode = steps.decode_rows_tokens
             if self.overlap_mode == "fused":
-                self._mixed = model.mixed_step_tokens
-            self._caches = model.init_arena(self.max_batch, self.capacity,
+                self._mixed = steps.mixed_step_tokens
+            self._caches = steps.init_arena(self.max_batch, self.capacity,
                                             dtype=cache_dtype,
                                             device=self.device)
+        if self.comm is not None:
+            # gloo's host buffers at the largest sum a step makes: the
+            # mixed batch of every row and the longest prefill unit, in
+            # the row-parallel products' SUM_DTYPE
+            unit = self.prefill_chunk if self.paged else self.capacity
+            self.comm.reserve((self.max_batch + unit) * model.cfg.d_model
+                              * SUM_DTYPE.itemsize)
 
         self._queue: Deque[Request] = deque()
         self._done: List[Request] = []

@@ -452,11 +452,11 @@ def test_moe_with_replicas_is_refused():
 def test_model_axis_and_bad_meshes_are_refused():
     model = build_model(get_smoke("qwen2-0.5b"))
     tcfg = TrainConfig(num_agents=2, num_walks=1)
-    with pytest.raises(NotImplementedError, match="next"):
+    with pytest.raises(NotImplementedError, match="item 6.1a"):
         T._check_mesh(model, tcfg, M.Mesh(M.TRAINING_AXES, (2, 1, 2)))
     with pytest.raises(ValueError, match="agent axis"):
         T._check_mesh(model, tcfg, M.Mesh(M.TRAINING_AXES, (4, 1, 1)))
-    with pytest.raises(NotImplementedError, match="next multi-device"):
+    with pytest.raises(NotImplementedError, match="item 6.1a"):
         train_cli.main(["--smoke", "--processes", "4", "--agents", "2",
                         "--model-parallel", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="not a multiple"):

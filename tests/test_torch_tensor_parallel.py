@@ -1,0 +1,491 @@
+"""The port's tensor parallelism over the "model" axis (`repro_torch.dist.
+tensor_parallel`, `dist.serving`) in one process, on the CPU.
+
+The ranks of a model line run as threads here, over `_Line`, an
+in-process stand-in for `dist.collectives.Collectives` that sums and
+gathers in the line's order as it does (tests/test_torch_serve_mesh.py
+runs the real transport across processes). Held:
+
+  * `local_config`, `shard_params` and `gather_params`: the pieces join
+    back bitwise, for every dense smoke config and for the reference's
+    parameters converted;
+  * each rank's arena and pool after a prefill and a decode step are
+    `local_shard` of the one-process ones under `cache_shardings` /
+    `pool_shardings` (f32, atol 1e-5), and the tokens are the
+    one-process tokens;
+  * `serve_param_shardings` equals the reference's for every
+    architecture at full width on the (1, 2) and (16, 16) meshes;
+  * the vocabulary-parallel lookup is the one-process lookup bitwise,
+    and `ModelAxis.argmax` breaks ties to the lowest global id;
+  * a model axis of 1 changes nothing, and what the module does not
+    split raises, naming its ROADMAP item.
+"""
+import dataclasses
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
+from repro.dist import serving as JDS  # noqa: E402
+from repro.models import build_model as jax_build_model  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
+from repro_torch.dist import serving as DS  # noqa: E402
+from repro_torch.dist import tensor_parallel as TP  # noqa: E402
+from repro_torch.dist.sharding import (cache_shardings,  # noqa: E402
+                                       local_shard, pool_shardings,
+                                       shard_shape)
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.model import param_specs  # noqa: E402
+from repro_torch.serve import Engine  # noqa: E402
+
+DENSE = ("qwen2-0.5b", "qwen3-8b", "internlm2-1.8b", "nemotron-4-15b",
+         "phi-3-vision-4.2b")
+MP = 2
+ATOL = 1e-5
+
+
+class _Line:
+    """One model line of `mp` ranks as threads: each exchange posts this
+    rank's tensor, waits for every rank, and reads all of them in the
+    line's order, as `Collectives` receives them."""
+
+    def __init__(self, mp):
+        self.mp = mp
+        self.slots = [None] * mp
+        self.barrier = threading.Barrier(mp, timeout=60)
+
+    def comm(self, rank):
+        line = self
+
+        class Comm:
+            def _exchange(self, t):
+                line.slots[rank] = t
+                line.barrier.wait()
+                got = list(line.slots)
+                line.barrier.wait()
+                return got
+
+            def all_gather(self, t, axis):
+                assert axis == "model"
+                return self._exchange(t)
+
+            def all_reduce(self, t, axis):
+                assert axis == "model"
+                got = self._exchange(t)
+                total = got[0].clone()
+                for g in got[1:]:
+                    total += g
+                return total
+
+        return Comm()
+
+
+def mesh_of(rank, mp=MP):
+    return Mesh(("data", "model"), (1, mp), rank=rank)
+
+
+def run_ranks(fn, mp=MP):
+    """[fn(rank, ModelAxis) for each rank], the ranks as threads."""
+    line = _Line(mp)
+    out, errors = [None] * mp, []
+
+    def one(rank):
+        try:
+            out[rank] = fn(rank, TP.ModelAxis(line.comm(rank),
+                                              mesh_of(rank, mp)))
+        except BaseException as e:      # re-raised in the test's thread
+            errors.append(e)
+            line.barrier.abort()
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in range(mp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the split
+# ---------------------------------------------------------------------------
+
+
+def _jax_params(cfg_name, **kw):
+    jcfg = dataclasses.replace(jax_get_smoke(cfg_name), **kw)
+    return params_from_jax(jax_build_model(jcfg).init(
+        jax.random.PRNGKey(0)))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_shards_join_back_bitwise(arch):
+    cfg = get_smoke(arch)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    local = TP.local_config(cfg, MP)
+    assert (local.num_heads, local.num_kv_heads, local.d_ff) == (
+        cfg.num_heads // MP, cfg.num_kv_heads // MP, cfg.d_ff // MP)
+    assert (local.d_model, local.head_dim, local.vocab_size) == (
+        cfg.d_model, cfg.head_dim, cfg.vocab_size)
+    pieces = [TP.shard_params(cfg, params, mesh_of(r)) for r in range(MP)]
+    # each piece has the shapes of the rank's model (its vocab rows aside)
+    want = build_model(local).init(torch.Generator().manual_seed(0))
+    for piece in pieces:
+        assert set(piece) == set(want)
+        for k, v in piece.items():
+            shape = tuple(want[k].shape)
+            if k in ("embed.table", "head"):
+                dim = TP.param_specs(cfg, params)[k].index("model")
+                shape = shape[:dim] + (shape[dim] // MP,) + shape[dim + 1:]
+            assert tuple(v.shape) == shape, k
+    joined = TP.gather_params(cfg, pieces, {"data": 1, "model": MP})
+    assert all(torch.equal(joined[k], params[k]) for k in params)
+
+
+def test_reference_params_shard_and_join_back():
+    params = _jax_params("qwen2-0.5b")
+    cfg = get_smoke("qwen2-0.5b")
+    pieces = [TP.shard_params(cfg, params, mesh_of(r)) for r in range(MP)]
+    joined = TP.gather_params(cfg, pieces, {"data": 1, "model": MP})
+    assert all(torch.equal(joined[k], params[k]) for k in params)
+    # rank 1 holds kv head 1 with its query heads 2 and 3 (G = 2)
+    hd = cfg.head_dim
+    wq = params["segments.0.attn.wq"]
+    assert torch.equal(pieces[1]["segments.0.attn.wq"],
+                       wq[..., 2 * hd:4 * hd])
+    assert torch.equal(pieces[1]["segments.0.attn.wk"],
+                       params["segments.0.attn.wk"][..., hd:2 * hd])
+
+
+def _tp_serve(cfg, params, prompts, paged, axis=None, mesh=None):
+    """Admit `prompts` into slots (one-process: axis None) and run one
+    decode step; returns (first tokens, decode logits, next tokens, the
+    arena or pool)."""
+    model = build_model(cfg) if axis is None else build_model(
+        cfg, model_axis=axis)
+    if mesh is not None:
+        params = TP.shard_params(cfg, params, mesh)
+    b = len(prompts)
+    if paged:
+        bs, nb = 4, 16
+        caches = model.init_pool(nb, bs, dtype=torch.float32)
+        tables = torch.zeros((b, 4), dtype=torch.int32)
+        for i in range(b):
+            tables[i] = torch.arange(1 + 4 * i, 5 + 4 * i)
+        firsts = []
+        for i, p in enumerate(prompts):
+            tok, caches = model.prefill_chunk_into_blocks_token(
+                params, torch.tensor(p[None]), len(p), 0, tables[i], caches)
+            firsts.append(tok)
+        lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+        tok_in = torch.stack(firsts)
+        logits, _ = model.decode_rows_paged(params, tok_in[:, None], caches,
+                                            tables, lengths)
+        nxt, caches, _ = model.decode_rows_paged_tokens(
+            params, tok_in, caches, tables, lengths)
+    else:
+        caches = model.init_arena(b, 16, dtype=torch.float32)
+        firsts = []
+        for i, p in enumerate(prompts):
+            tok, caches = model.prefill_into_slot_token(
+                params, torch.tensor(p[None]), len(p), i, caches)
+            firsts.append(tok)
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+        tok_in = torch.stack(firsts)
+        logits, _ = model.decode_rows(params, tok_in[:, None],
+                                      [{k: v.clone() for k, v in s.items()}
+                                       for s in caches], pos)
+        nxt, caches, _ = model.decode_rows_tokens(params, tok_in, caches, pos)
+    if axis is not None:
+        logits = axis.gather_vocab(logits)
+    return torch.stack(firsts), logits, nxt, caches
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["arena", "pool"])
+def test_rank_caches_are_local_shards_of_the_whole(paged):
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = _jax_params("qwen2-0.5b", compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 8, 3)]
+    first, logits, nxt, caches = _tp_serve(cfg, params, prompts, paged)
+    ranks = run_ranks(lambda r, axis: _tp_serve(cfg, params, prompts, paged,
+                                                axis, mesh_of(r)))
+    sizes = {"data": 1, "model": MP}
+    specs = (pool_shardings if paged else cache_shardings)(sizes, caches)
+    scale = float(logits.abs().max())
+    for r, (f_r, l_r, n_r, c_r) in enumerate(ranks):
+        assert torch.equal(f_r, first) and torch.equal(n_r, nxt)
+        assert float((l_r - logits).abs().max()) <= ATOL * scale
+        for seg, seg_r, spec in zip(caches, c_r, specs):
+            for name, leaf in seg.items():
+                want = local_shard(leaf, spec[name], sizes,
+                                   mesh_of(r).coords)
+                assert tuple(seg_r[name].shape) == shard_shape(
+                    tuple(leaf.shape), spec[name], sizes)
+                if name == "ptr":
+                    assert torch.equal(seg_r[name], want)
+                else:
+                    torch.testing.assert_close(seg_r[name], want, rtol=0,
+                                               atol=ATOL)
+
+
+def test_mixed_step_halves_equal_their_standalone_steps_on_the_axis():
+    """The overlapped engine's gate on the axis: the mixed step's decode
+    rows and prompt token are the standalone steps' (tokens equal,
+    decode logits bitwise through the per-half products)."""
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = _jax_params("qwen2-0.5b", compute_dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 8)]
+    new = rng.integers(0, cfg.vocab_size, (8,)).astype(np.int32)
+
+    def rank(r, axis):
+        model = build_model(cfg, model_axis=axis)
+        p = TP.shard_params(cfg, params, mesh_of(r))
+        arena = model.init_arena(3, 16, dtype=torch.float32)
+        toks = []
+        for i, pr in enumerate(prompts):
+            t, arena = model.prefill_into_slot_token(
+                p, torch.tensor(pr[None]), len(pr), i, arena)
+            toks.append(t)
+        toks.append(torch.tensor(0, dtype=torch.int32))
+        toks = torch.stack(toks)
+        pos = torch.tensor([5, 8, 0], dtype=torch.int32)
+        split = [{k: v.clone() for k, v in s.items()} for s in arena]
+        d_toks, split, _ = model.decode_rows_tokens(p, toks, split, pos)
+        p_tok, split = model.prefill_into_slot_token(
+            p, torch.tensor(new[None]), len(new), 2, split)
+        m_toks, arena, _, m_tok = model.mixed_step_tokens(
+            p, toks, arena, pos, torch.tensor(new[None]), len(new), 2)
+        return d_toks, p_tok, m_toks, m_tok, split, arena
+
+    for d_toks, p_tok, m_toks, m_tok, split, fused in run_ranks(rank):
+        assert torch.equal(d_toks[:2], m_toks[:2])
+        assert torch.equal(p_tok, m_tok)
+        for a, b in zip(split, fused):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+# ---------------------------------------------------------------------------
+# the reference's serving specs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_shapes():
+    return {}
+
+
+def _ref_flat(shardings, shapes):
+    flat_sh = jax.tree_util.tree_flatten_with_path(shardings)[0]
+    flat_shape = jax.tree_util.tree_leaves(shapes)
+    out = {}
+    for (path, sh), leaf in zip(flat_sh, flat_shape):
+        key = ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        spec = tuple(sh.spec)
+        out[key] = spec + (None,) * (len(leaf.shape) - len(spec))
+    return out
+
+
+@pytest.mark.parametrize("sizes", [(1, 2), (16, 16)], ids=["1x2", "16x16"])
+@pytest.mark.parametrize("arch", list(ARCH_IDS))
+def test_serve_param_shardings_equal_the_reference(arch, sizes, ref_shapes):
+    if arch not in ref_shapes:
+        ref_shapes[arch] = jax.eval_shape(
+            jax_build_model(jax_get_config(arch)).init,
+            jax.random.PRNGKey(0))
+    jshapes = ref_shapes[arch]
+    names = ("data", "model")
+    want = _ref_flat(JDS.serve_param_shardings(AbstractMesh(sizes, names),
+                                               jshapes), jshapes)
+    with FakeTensorMode() as mode:
+        shapes = param_specs(get_config(arch), mode)
+        got = DS.serve_param_shardings(Mesh(names, sizes), shapes)
+    assert got == want
+    assert DS.data_axes(Mesh(names, sizes)) == ("data",)
+
+
+# ---------------------------------------------------------------------------
+# the axis's collectives
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vocab_parallel_lookup_is_the_lookup_bitwise(dtype):
+    vocab, d = 64, 16
+    table = torch.randn((vocab, d), generator=torch.Generator().manual_seed(0)
+                        ).to(dtype)
+    tokens = torch.tensor([[0, 31, 32, 63, 5, 40, 32]])
+    want = torch.nn.functional.embedding(tokens, table)
+    got = run_ranks(lambda r, axis: axis.embed(
+        table[r * vocab // MP:(r + 1) * vocab // MP], tokens))
+    for g in got:
+        assert g.dtype == dtype and torch.equal(g, want)
+
+
+@pytest.mark.parametrize("case", ["across_ranks", "within_rank", "all_equal",
+                                  "random"])
+def test_argmax_breaks_ties_to_the_lowest_global_id(case):
+    vocab = 12
+    logits = torch.randn((4, vocab), generator=torch.Generator().manual_seed(1))
+    if case == "across_ranks":
+        logits[:, 8] = logits[:, 3] = 10.0      # rank 1's and rank 0's
+    elif case == "within_rank":
+        logits[:, 9] = logits[:, 7] = 10.0      # both on rank 1
+    elif case == "all_equal":
+        logits[:] = 1.0
+    want = torch.argmax(logits, -1).to(torch.int32)
+    per = vocab // MP
+    got = run_ranks(lambda r, axis: axis.argmax(
+        logits[:, r * per:(r + 1) * per]))
+    for g in got:
+        assert g.dtype == torch.int32 and torch.equal(g, want)
+
+
+def test_serve_step_sends_counts_every_sum_and_pick():
+    """Each step sums the embedding in bf16 and each layer's two products
+    in f32 (10 B an element here), then gathers a (value, id) f32 pair a
+    greedy row. On a line of 2 a rank sends its whole tensor; on a line
+    of 3 the other ranks' pieces of the flat tensor, then its own to
+    each of them (`Collectives.all_reduce`)."""
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), num_layers=1,
+                              layer_types=("attn",), d_model=5)
+    # elements a step (rows x d_model), and the line of 3's pieces
+    steps = {"decode": (10, (4, 3, 3), 2), "admission": (20, (7, 7, 6), 1),
+             "mixed": (30, (10, 10, 10), 3)}
+    for mp in (2, 3):
+        sends = DS.serve_step_sends(cfg, {"data": 1, "model": mp}, 2, 4)
+        assert len(sends) == mp
+        for i, rank in enumerate(sends):
+            for step, (n, pieces, picks) in steps.items():
+                elems = n if mp == 2 else n + pieces[i]
+                assert rank[step] == {"all_reduce": (2 + 2 * 4) * elems,
+                                      "all_gather": (mp - 1) * picks * 8}
+    assert DS.serve_step_sends(cfg, {"data": 1, "model": 1}, 2, 4) == [
+        {"decode": {}, "admission": {}, "mixed": {}}]
+
+
+# ---------------------------------------------------------------------------
+# a model axis of 1, and the refusals
+# ---------------------------------------------------------------------------
+
+
+def test_a_model_axis_of_one_changes_nothing():
+    cfg = get_smoke("qwen2-0.5b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    one = Mesh(("data", "model"), (1, 1), rank=0)
+    assert TP.local_config(cfg, 1) is cfg
+    assert TP.shard_params(cfg, params, one) is params
+    assert TP.model_axis(one, comm=None) is None
+    assert DS.local_model(model, one, comm=None) is model
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 9, 3)]
+
+    def serve(**kw):
+        eng = Engine(model, params, max_batch=2, max_len=32, **kw)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        return eng, {r.uid: r.output.tolist() for r in eng.run()}
+
+    eng, got = serve(mesh=one)
+    assert eng.comm is None
+    assert got == serve()[1]
+
+
+@pytest.mark.parametrize("arch,mp", [
+    ("qwen2-0.5b", 4),              # 2 kv heads over 4 ranks
+    ("dbrx-132b", 2), ("deepseek-v2-236b", 2), ("rwkv6-1.6b", 2),
+    ("recurrentgemma-2b", 2), ("whisper-small", 2)])
+def test_what_the_axis_does_not_split_raises(arch, mp):
+    cfg = get_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6.1"):
+        TP.local_config(cfg, mp)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6.1"):
+        build_model(cfg, model_axis=TP.ModelAxis(
+            None, Mesh(("data", "model"), (1, mp), rank=0)))
+
+
+def test_a_data_axis_and_training_raise():
+    for sizes in ((2, 1), (2, 2)):
+        mesh = Mesh(("data", "model"), sizes, rank=0)
+        with pytest.raises(NotImplementedError, match="item 6.1b"):
+            TP.model_axis(mesh, comm=None)
+    cfg = get_smoke("qwen2-0.5b")
+    model = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="item 6.1b"):
+        Engine(model, model.init(torch.Generator().manual_seed(0)),
+               max_batch=2, max_len=16,
+               mesh=Mesh(("data", "model"), (2, 1), rank=0))
+    axis = TP.ModelAxis(None, mesh_of(0))
+    with pytest.raises(NotImplementedError, match="item 6.1a"):
+        build_model(cfg, model_axis=axis).train_loss({}, {})
+    params = dict(model.init(torch.Generator().manual_seed(0)))
+    params["segments.0.attn.bo"] = torch.zeros((cfg.num_layers,
+                                                cfg.d_model))
+    with pytest.raises(NotImplementedError, match="attn.bo"):
+        TP.param_specs(cfg, params)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["arena", "pool"])
+def test_step_builders_serve_the_one_process_tokens(paged):
+    """The rank-local steps (the entry points of `dist.serving.
+    local_model`, which stand for the reference's step builders) over the
+    rank's shard (`serving_params`) and caches: an admission, a decode
+    step and a mixed step give the one-process tokens."""
+    cfg = dataclasses.replace(get_smoke("qwen2-0.5b"),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = _jax_params("qwen2-0.5b", compute_dtype="float32")
+    rng = np.random.default_rng(2)
+    a, b = (torch.tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                         dtype=torch.int32) for n in (8, 4))
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+
+    def serve(mesh=None, comm=None):
+        steps = model if mesh is None else DS.local_model(model, mesh, comm)
+        p = TP.serving_params(cfg, params, mesh)
+        if paged:
+            prefill = steps.prefill_chunk_into_blocks_token
+            decode = steps.decode_rows_paged_tokens
+            mixed = steps.mixed_step_paged_tokens
+            pool = steps.init_pool(4, 8, dtype=torch.float32)
+            first, pool = prefill(p, a, 8, 0, tables[0], pool)
+            toks = torch.stack([first, torch.tensor(0, dtype=torch.int32)])
+            live = tables * torch.tensor([[1], [0]], dtype=torch.int32)
+            lengths = torch.tensor([8, 0], dtype=torch.int32)
+            nxt, pool, lengths = decode(p, toks, pool, live, lengths)
+            m_toks, pool, _, c_tok = mixed(p, nxt, pool, live, lengths, b, 4,
+                                           0, tables[1])
+        else:
+            prefill = steps.prefill_into_slot_token
+            decode = steps.decode_rows_tokens
+            mixed = steps.mixed_step_tokens
+            arena = steps.init_arena(2, 16, dtype=torch.float32)
+            first, arena = prefill(p, a, 8, 0, arena)
+            toks = torch.stack([first, torch.tensor(0, dtype=torch.int32)])
+            pos = torch.tensor([8, 0], dtype=torch.int32)
+            nxt, arena, pos = decode(p, toks, arena, pos)
+            m_toks, arena, _, c_tok = mixed(p, nxt, arena, pos, b, 4, 1)
+        return first, nxt[0], m_toks[0], c_tok
+
+    want = serve()
+    for got in run_ranks(lambda r, axis: serve(mesh_of(r), axis.comm)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

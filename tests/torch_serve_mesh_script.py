@@ -1,0 +1,175 @@
+"""One rank of the port's serving checks across processes (run by
+tests/test_torch_serve_mesh.py as 2 gloo processes on the CPU).
+
+    python tests/torch_serve_mesh_script.py --rank R --world 2 \
+        --coordinator localhost:PORT --params params.npz --out DIR
+
+Every rank builds the ("data", "model") = (1, 2) serving mesh, loads the
+same parameters (the reference's init, flattened by the test), serves
+each scenario through `Engine(mesh=...)` in f32 and writes what it
+served to DIR/rank<R>.json: each scenario's outputs by uid, its
+preemptions, free blocks and the bytes it sent by kind, and whether
+`Collectives.all_reduce` equals the line-order sum of the gathered
+tensors bitwise. Rank 0 also saves `first_decode_logits` on the mesh to
+DIR/logits.pt.
+"""
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.dist import serving  # noqa: E402
+from repro_torch.dist.collectives import Collectives  # noqa: E402
+from repro_torch.dist.tensor_parallel import (model_axis,  # noqa: E402
+                                              serving_params)
+from repro_torch.launch.mesh import (init_distributed,  # noqa: E402
+                                     make_serving_mesh)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import Engine, bucket_length  # noqa: E402
+
+# the reference's mesh-engine test config, in f32
+CFG = ArchConfig(name="t", family="dense", source="test", num_layers=2,
+                 d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
+                 d_ff=256, vocab_size=512, tie_embeddings=True,
+                 compute_dtype="float32")
+WINDOW = 16
+
+
+def workloads():
+    """{name: (prompts, budgets)}: "mixed" lengths and budgets in 2 rows;
+    "ring": the reference's ring test (2 prompts, 24 tokens past a
+    16-token window); "scarce": "mixed"'s prompts at budget 12 in a
+    pool too small for two of them."""
+    rng = np.random.default_rng(0)
+    mixed = [rng.integers(0, CFG.vocab_size, (n,)) for n in (5, 7, 9, 12, 6)]
+    rng = np.random.default_rng(3)
+    ring = [rng.integers(0, CFG.vocab_size, (n,)) for n in (9, 12)]
+    return {"mixed": (mixed, [4, 8, 6, 10, 5]), "ring": (ring, [24, 24]),
+            "scarce": (mixed, [12] * len(mixed))}
+
+
+# scenario: (workload, window, engine keywords)
+SCENARIOS = {
+    "arena": ("mixed", 0, dict(max_len=32)),
+    "arena_serialized": ("mixed", 0, dict(max_len=32, overlap=False)),
+    "paged": ("mixed", 0, dict(max_len=32, paged=True, block_size=8,
+                               prefill_chunk=4)),
+    "paged_serialized": ("mixed", 0, dict(max_len=32, paged=True,
+                                          block_size=8, prefill_chunk=4,
+                                          overlap=False)),
+    "ring_arena": ("ring", WINDOW, dict(max_len=64)),
+    "ring_paged": ("ring", WINDOW, dict(max_len=64, paged=True,
+                                        block_size=4, num_blocks=7,
+                                        prefill_chunk=8)),
+    "ring_paged_serialized": ("ring", WINDOW, dict(
+        max_len=64, paged=True, block_size=4, num_blocks=7, prefill_chunk=8,
+        overlap=False)),
+    "scarce_paged": ("scarce", 0, dict(max_len=32, paged=True, block_size=4,
+                                       num_blocks=8, prefill_chunk=4)),
+    "scarce_paged_serialized": ("scarce", 0, dict(
+        max_len=32, paged=True, block_size=4, num_blocks=8, prefill_chunk=4,
+        overlap=False)),
+}
+
+
+def first_decode_logits(model, params, prompts, capacity, mesh=None,
+                        comm=None):
+    """The logits [B, 1, V] (the whole vocabulary) of the first decode
+    step of `prompts` (B token-id arrays) admitted into slots 0..B-1 of
+    an arena of `capacity` in the compute dtype, each padded to its
+    bucket as the engine pads it, and decoded from its greedy first
+    token: through `model` itself, or on `mesh` through this rank's
+    slice (`dist.serving.local_model`; the slices gathered). The
+    parameters are the engine's (`tensor_parallel.serving_params`)."""
+    device = next(iter(params.values())).device
+    steps, axis = model, None
+    if mesh is not None:
+        steps = serving.local_model(model, mesh, comm)
+        axis = model_axis(mesh, comm)
+    params = serving_params(model.cfg, params, mesh)
+    arena = steps.init_arena(len(prompts), capacity,
+                             dtype=getattr(torch, model.cfg.compute_dtype),
+                             device=device)
+    firsts = []
+    for slot, p in enumerate(prompts):
+        toks = np.zeros((1, min(bucket_length(len(p), 8), capacity)),
+                        np.int32)
+        toks[0, :len(p)] = p
+        tok, arena = steps.prefill_into_slot_token(
+            params, torch.from_numpy(toks).to(device), len(p), slot, arena)
+        firsts.append(tok)
+    positions = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                             device=device)
+    logits, _ = steps.decode_rows(params, torch.stack(firsts)[:, None],
+                                  arena, positions)
+    return logits if axis is None else axis.gather_vocab(logits)
+
+
+def serve(model, params, prompts, budgets, mesh=None, **kw):
+    """Serve every request through one engine; (engine, {uid: tokens},
+    total preemptions)."""
+    eng = Engine(model, params, max_batch=2, mesh=mesh,
+                 cache_dtype=torch.float32, **kw)
+    for p, b in zip(prompts, budgets):
+        eng.submit(p, max_new_tokens=b)
+    done = eng.run()
+    return (eng, {r.uid: r.output.tolist() for r in done},
+            sum(r.preemptions for r in done))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--params", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args()
+    device = torch.device("cpu")
+    init_distributed(args.rank, args.world, args.coordinator, "gloo", device,
+                     timeout_s=300)
+    mesh = make_serving_mesh(args.world)
+    with np.load(args.params) as f:
+        params = {k: torch.from_numpy(f[k]) for k in f.files}
+    loads = workloads()
+    out = {}
+    for name, (load, window, kw) in SCENARIOS.items():
+        prompts, budgets = loads[load]
+        eng, outputs, preemptions = serve(build_model(CFG, window=window),
+                                          params, prompts, budgets,
+                                          mesh=mesh, **kw)
+        out[name] = {"outputs": outputs, "preemptions": preemptions,
+                     "paged": eng.paged, "overlap": eng.overlap,
+                     "free_blocks": eng.free_blocks,
+                     "num_blocks": eng.num_blocks if eng.paged else None,
+                     "sent": dict(eng.comm.sent)}
+    prompts = loads["mixed"][0][:2]
+    comm = Collectives(mesh, device)
+    logits = first_decode_logits(build_model(CFG), params, prompts, 32,
+                                 mesh=mesh, comm=comm)
+    # all_reduce (the axis's sums: one exchange on a line of 2) against
+    # the gathered tensors summed in the line's order
+    x = torch.randn((7, 13), generator=torch.Generator().manual_seed(
+        args.rank))
+    pieces = comm.all_gather(x, "model")
+    out["all_reduce_is_the_line_order_sum"] = torch.equal(
+        comm.all_reduce(x, "model"), pieces[0] + pieces[1])
+    with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+        json.dump(out, f)
+    if args.rank == 0:
+        torch.save(logits, os.path.join(args.out, "logits.pt"))
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
