@@ -340,55 +340,75 @@ non-zero before the last line:
      roofline share (bound / device ms), mfu (model FLOPs / (wall s x
      peak)) and max_memory_allocated beside the dry run's argument bytes;
      the host cost of the count check with no count open; then
-     `repro_torch.examples.train_lm_apibcd --preset paper --steps 20`
-     (its 300 steps cut to 20; 30 until phase 49 came), which must print
+     `repro_torch.examples.train_lm_apibcd --preset paper --steps 12`
+     (its 300 steps cut to 12; 30 until phase 49 came, 20 until its TP
+     arm came), which must print
      "(improved)", and
      `repro_torch.examples.serve_batched --arch qwen2-0.5b`, every request
      to its budget.
  49. the superstep across processes (`dist.trainer.make_mesh_train_step`
-     through `python -m repro_torch.launch.train --processes 4 --backend
-     gloo`, every rank on this one card): `ops.prox_update` at two R=2
-     shard shapes ([1, 75968, 896] of the embedding, [1, 24, 896, 2432]
-     of w_gate) against its plain version; then phase 4's run (full
-     qwen2-0.5b width, A=4, M=2, 2 x 256 tokens an agent, 3 supersteps)
-     as 4 ranks of R=1, each rank's per-part digests equal to its agent
-     slot of the one-process make_train_step run from the same init and
-     batches (made here first, then freed); then A=2, M=1 as 2 agents x
-     2 replicas at the config's bf16, each rank's digests equal to its
-     shard of the one-process run with each agent's gradient split over
-     the replicas' rows as the mesh splits it; that split run in f32,
-     made here, held to make_train_step in f32 at atol 1e-5; every
-     rank's bytes sent by kind equal to
-     `trainer.superstep_sends`, 14 prox launches a superstep; per rank
-     the superstep ms, the token hop's ms, the bytes sent and the peak
-     GB, with the card's name and power limit.
+     through `repro_torch.launch.train --processes 4 --backend gloo`, its
+     parent run in this process through the module's `main` and its ranks
+     spawned as `python -m`, every rank on this one card):
+     `ops.prox_update` at the TP arm's two piece shapes ([1, 75968, 896]
+     of the embedding, [1, 24, 896, 2432] of w_gate; the R=2 shards at
+     full depth too) against its plain version; then phase 4's run (full
+     qwen2-0.5b width cut to 4 layers, A=4, M=2, 2 x 256 tokens an agent,
+     3 supersteps; full depth until the TP arm came) as 4 ranks of R=1,
+     each rank's per-part digests equal to its agent slot of the
+     one-process make_train_step run from the same init and batches (made
+     here first, then freed); then A=2, M=1 as 2 agents x 2 replicas at
+     the config's bf16 (4 layers; full depth until the TP arm came), each
+     rank's digests equal to its shard of the one-process run with each
+     agent's gradient split over the replicas' rows as the mesh splits it;
+     that split run in f32, made here, held to make_train_step in f32 at
+     atol 1e-5; then TP: A=2, M=1 as 2 agents x model parallel 2
+     (`--model-parallel 2`) at full width and depth in bf16, its checks
+     first (4 ranks of this script with `--train-mesh-rank`: the arm's
+     bf16 run, whose losses must equal the launch's bitwise and whose
+     gathered leaves are kept, then an f32 run at 4 layers, each rank's
+     piece within 1e-5 of its cut of the R2 arm's one-process f32
+     make_train_step (the same run), while this process makes the
+     one-process f32 and bf16 runs at full depth), then the launch: the
+     4 ranks' losses equal, the leaves the model axis does not split
+     bitwise equal across each model line, the
+     mesh's bf16 losses and gathered params no farther from one process's
+     f32 run than 1.25 x one process's own bf16 gap to it (both printed);
+     every rank's bytes sent by kind equal to `trainer.superstep_sends`
+     (on the TP arm with the model axis's sums: the forward's, remat's
+     replay, the backward's), 14 prox launches a superstep; per rank the
+     superstep ms, the token hop's ms, the model axis's ms, the bytes sent
+     and the peak GB, with the card's name and power limit, and the
+     phase's seconds.
  50. serving across processes (`Engine(mesh=...)`, `dist.serving`,
-     `dist.tensor_parallel`): flash, decode, paged and ring decode
-     against their plain versions at a rank's shard of qwen2-0.5b at
-     model parallel 2 (7 query heads over 1 kv head of 64) and of
-     internlm2-1.8b (8 over 4 of 128); then the checks' two ranks (this
-     script with `--serve-mesh-rank`, both on this one card over gloo,
-     full qwen2-0.5b width and depth) serve the first 4 of the workload's
-     requests at 16 new tokens in f32 on the arena and take the first
-     decode step's logits in bf16 and f32, while this process takes the
-     same on one process from the same init; then `python -m
-     repro_torch.launch.serve_mesh --processes 2 --model-parallel 2
-     --backend gloo`, both ranks on this one card, 8 requests of
-     64-token prompts, budgets 8/32, max_batch 4, arms arena and paged,
-     each overlapped and serialized, in bf16 (each arm a replayed
-     warm-up, then the timed pass): the ranks' digests equal in every
-     arm, overlapped equal to serialized on each backend, the f32 tokens
-     equal to the one-process f32 engine's, the first decode step's f32
-     logits on the mesh within 1e-4 of the largest |logit| of one
-     process's, its bf16 logits no farther from one process's bf16
-     logits, nor from its f32 ones, than one process's bf16 logits are
-     from its f32 ones (bf16's own error at this width, measured here:
-     0.0186 of the largest |logit| on the card), every rank's bytes by kind
-     equal to `dist.serving.serve_step_sends`, 24 flash launches an
-     admission (arena) and 24 decode or paged launches a decode step on
-     every rank; per rank the decode step and admission ms, tokens/s,
-     the model axis's ms a step, bytes a decode step and the peak GB,
-     with the card's name and power limit, and the phase's seconds.
+     `dist.tensor_parallel`): flash, decode, paged and ring decode against
+     their plain versions at a rank's shard of qwen2-0.5b at model
+     parallel 2 (7 query heads over 1 kv head of 64) and of internlm2-1.8b
+     (8 over 4 of 128); then the checks' two ranks (this script with
+     `--serve-mesh-rank`, both on this one card over gloo, full qwen2-0.5b
+     width and depth) serve the first 4 of the workload's requests at 16
+     new tokens in f32 on the arena and take the first decode step's
+     logits in bf16 and f32, while this process takes the same on one
+     process from the same init; then `repro_torch.launch.serve_mesh
+     --processes 2 --model-parallel 2 --backend gloo --layers 4` (its
+     parent in this process; full width, 4 of its 24 layers; full depth
+     until phase 49's TP arm came), both ranks on this one card, 8
+     requests of 64-token prompts, budgets 8/32, max_batch 4, arms arena
+     and paged, each overlapped and serialized, in bf16 (each arm a
+     replayed warm-up, then the timed pass): the ranks' digests equal in
+     every arm, overlapped equal to serialized on each backend, the f32
+     tokens equal to the one-process f32 engine's, the first decode step's
+     f32 logits on the mesh within 1e-4 of the largest |logit| of one
+     process's, its bf16 logits no farther from one process's f32 logits
+     than one process's own bf16 logits are (bf16's own error at this
+     width, measured here: 0.0186 of the largest |logit| on the card; the
+     gap to one process's bf16 logits is printed), every rank's bytes by
+     kind equal to `dist.serving.serve_step_sends`, a flash launch a layer
+     an admission (arena) and a decode or paged launch a layer a decode
+     step on every rank; per rank the decode step and admission ms,
+     tokens/s, the model axis's ms a step, bytes a decode step and the
+     peak GB, with the card's name and power limit, and the phase's
+     seconds.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 
@@ -398,8 +418,10 @@ runs phases 1, 2 (prox_update and the attention kernels), 49 with
 `--backend nccl`, one GPU a rank (four GPUs), and 50 over gloo and
 over nccl (its checks and its launch, one GPU a rank, two of them),
 whose digests must be equal, and prints the `ok` line last.
-(`--serve-mesh-rank R COORDINATOR BACKEND DIR` is one rank of phase
-50's checks, which the phase starts itself.)
+(`--serve-mesh-rank BACKEND DIR --rank R --coordinator HOST:PORT` is
+one rank of phase 50's checks, `--train-mesh-rank ...` one of phase
+49's TP checks; each phase starts its own through
+`launch.mesh.run_ranks`, as `python -m chip_smoke`.)
 With no GPU, or without the rest of the repo beside it, it exits
 non-zero and prints no result.
 """
@@ -2484,8 +2506,8 @@ def dense_row_stability(gen, configs=None, out="row_stability_sweep.json"):
 
 
 # steps each of phase 24's profiles counts and times (each holds some
-# 3,000-5,000 device launches a step)
-MIXED_PROFILE_CALLS = 5
+# 3,000-5,000 device launches a step; 5 until phase 49's TP arm came)
+MIXED_PROFILE_CALLS = 3
 
 
 def profile_mixed_steps():
@@ -4989,6 +5011,10 @@ def check_cost(reps):
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+# the paper preset's steps in phase 48 (its 300 cut for time)
+EXAMPLE_STEPS = 12
+
+
 def cost_accounting(smi):
     """Phase 48 (see the module's docstring). Returns its records."""
     t0 = time.perf_counter()
@@ -5008,7 +5034,8 @@ def cost_accounting(smi):
         "card": smi}}), flush=True)
 
     t1 = time.perf_counter()
-    out = train_lm_apibcd.main(["--preset", "paper", "--steps", "20"])
+    out = train_lm_apibcd.main(["--preset", "paper", "--steps",
+                                str(EXAMPLE_STEPS)])
     train_s = time.perf_counter() - t1
     if not out["improved"] or not np.all(np.isfinite(out["losses"])):
         raise AssertionError(f"train_lm_apibcd --preset paper did not "
@@ -5022,7 +5049,7 @@ def cost_accounting(smi):
         raise AssertionError(f"serve_batched: outputs of {lengths} tokens "
                              f"for budgets {served['budgets']}")
     print(json.dumps({"examples": {
-        "train_lm_apibcd_paper_20_steps": {
+        f"train_lm_apibcd_paper_{EXAMPLE_STEPS}_steps": {
             "s": train_s, "first10": float(np.mean(out["losses"][:10])),
             "last10": float(np.mean(out["losses"][-10:])),
             "improved": out["improved"]},
@@ -5038,17 +5065,48 @@ def cost_accounting(smi):
 # R = 2 arm is A=2, M=1 as 2 agents x 2 replicas, also in bf16. Its
 # 1e-5 hold against make_train_step runs in f32 in this process (the
 # replicas' gradients round as 256-row products where the one-process
-# step's round as 512-row ones, which bf16 shows)
+# step's round as 512-row ones, which bf16 shows). The TP arm is A=2,
+# M=1 as 2 agents x model parallel 2 (tensor parallelism), in bf16 at
+# full width and depth; its f32 hold (full width, TP_CHECK_LAYERS layers)
+# and the leaves its bf16 gate gathers come from ranks this script
+# starts itself (--train-mesh-rank), its one-process f32 and bf16 runs
+# from this process (the f32 one at TP_CHECK_LAYERS is the R2 arm's).
 MESH_ARGS = ["--arch", "qwen2-0.5b", "--batch-per-agent", "2", "--seq",
              "256", "--steps", str(STEPS), "--log-every", "1", "--timeout",
              "500"]
-MESH_ARMS = {"R1": (4, 2, 1), "R2": (2, 1, 2)}
+# arm: (agents, walks, replica, model parallel)
+MESH_ARMS = {"R1": (4, 2, 1, 1), "R2": (2, 1, 2, 1), "TP": (2, 1, 1, 2)}
+# the R1 and R2 arms test the mesh's mechanics (the hop, the replicas,
+# the digests), not depth: cut to this many layers for time when the TP
+# arm came
+MESH_LAYERS = {"R1": 4, "R2": 4}
+# the TP arm's f32 hold runs at the R2 arm's depth: the R2 arm's
+# one-process f32 run (A=2, M=1, same init and batches) is its reference
+TP_CHECK_LAYERS = MESH_LAYERS["R2"]
+# the leaves (params part) the TP arm's bf16 gate gathers from its ranks
+TP_GATHERED = ("embed.table", "segments.0.attn.wq", "segments.0.attn.wo",
+               "segments.0.ln1.scale", "final_norm.scale")
+# the bf16 gate: the mesh's gap to one process's f32 run, over one
+# process's own bf16 gap to it
+TP_BF16_RATIO = 1.25
+TP_F32_ATOL = 1e-5
 
 
 def mesh_flags(arm, backend):
-    agents, walks, replica = MESH_ARMS[arm]
-    return [*MESH_ARGS, "--backend", backend, "--agents", str(agents),
-            "--walks", str(walks), "--processes", str(agents * replica)]
+    agents, walks, replica, mp = MESH_ARMS[arm]
+    flags = [*MESH_ARGS, "--backend", backend, "--agents", str(agents),
+             "--walks", str(walks), "--processes",
+             str(agents * replica * mp)]
+    if mp > 1:
+        flags += ["--model-parallel", str(mp)]
+    if arm in MESH_LAYERS:
+        flags += ["--layers", str(MESH_LAYERS[arm])]
+    return flags
+
+
+def mesh_sizes(arm):
+    agents, _, replica, mp = MESH_ARMS[arm]
+    return {"agent": agents, "replica": replica, "model": mp}
 
 
 def replica_grad(replica):
@@ -5081,7 +5139,8 @@ def one_process_mesh_run(flags, grad=None, f32=False):
     """The launcher's run of `flags` in this process, through
     make_train_step on the card from the same seeded init and batches
     (with `grad` in place of the trainer's gradient, where given; with
-    f32 products where `f32`): (model, TrainConfig, final state)."""
+    f32 products where `f32`): (model, TrainConfig, final state,
+    losses)."""
     args = train_cli.parse_args(flags)
     cfg = train_cli._config(args)
     if f32:
@@ -5094,15 +5153,24 @@ def one_process_mesh_run(flags, grad=None, f32=False):
     step_fn = make_train_step(model, tcfg)
     batches = agent_batches(cfg.vocab_size, args.agents,
                             args.batch_per_agent, args.seq, seed=0)
+    losses = []
     with (mock.patch.object(dist_trainer, "_grad", grad) if grad
           else contextlib.nullcontext()):
         for step in range(args.steps):
             toks, targs = next(batches)
-            state, _ = step_fn(state, {
+            state, met = step_fn(state, {
                 "tokens": torch.from_numpy(toks).to(DEV),
                 "targets": torch.from_numpy(targs).to(DEV)}, step)
+            losses.append(float(met["loss"]))
     torch.cuda.synchronize()
-    return model, tcfg, state
+    return model, tcfg, state, losses
+
+
+def gap_reference(state, losses):
+    """What the TP arm's bf16 gate reads of a one-process run: its losses
+    and its TP_GATHERED params, on the host."""
+    return {"losses": losses, "leaves": {k: state["params"][k].cpu()
+                                         for k in TP_GATHERED}}
 
 
 def shard_digests(state, specs, sizes):
@@ -5121,48 +5189,93 @@ def shard_digests(state, specs, sizes):
 
 
 def mesh_launch(flags, processes):
-    """`python -m repro_torch.launch.train` with `flags` on the card: (each
-    rank's record in rank order, launch s). Fails unless it exits 0 with
-    a record from every rank."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    """`repro_torch.launch.train`'s CLI with `flags` on the card, its
+    parent in this process (`train_cli.main`, the module's entry point;
+    run as `python -m` it would import torch once more before it
+    spawns): (each rank's record in rank order, launch s). Fails unless
+    every rank exits 0 and the parent's checks pass."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          *flags], env=env, cwd=ROOT, capture_output=True,
-                         text=True, timeout=600)
+    out = train_cli.main(flags)
     launch_s = time.perf_counter() - t0
-    ranks = [json.loads(ln.split("MESH_RANK ", 1)[1])
-             for ln in res.stdout.splitlines() if "MESH_RANK " in ln]
-    if res.returncode != 0 or len(ranks) != processes:
-        print(res.stdout[-8000:], res.stderr[-8000:], flush=True)
-        raise AssertionError(f"launch.train {flags}: rc {res.returncode}, "
-                             f"{len(ranks)} rank records")
-    print("\n".join(ln for ln in res.stdout.splitlines()
-                    if "MESH_RANK " not in ln), flush=True)
-    return sorted(ranks, key=lambda r: r["rank"]), launch_s
+    if len(out["ranks"]) != processes:
+        raise AssertionError(f"launch.train {flags}: "
+                             f"{len(out['ranks'])} rank records")
+    return sorted(out["ranks"], key=lambda r: r["rank"]), launch_s
+
+
+def mesh_rows(arm, ranks, backend, sends):
+    """Phase 49's per-rank gates on one launch (every rank on the card
+    over `backend`, its bytes every superstep equal to `sends`, the
+    prox kernel LEAVES x STEPS times) and its per-rank record."""
+    rows = []
+    for rec in ranks:
+        r = rec["rank"]
+        assert rec["device"].startswith("cuda") and rec["backend"] == backend
+        if any(sent != sends[r] for sent in rec["sent"]):
+            raise AssertionError(f"{arm} rank {r} sent {rec['sent']}, the "
+                                 f"leaf arithmetic says {sends[r]}")
+        if rec["prox_update_launches"] != LEAVES * STEPS:
+            raise AssertionError(f"{arm} rank {r}: prox_update launched "
+                                 f"{rec['prox_update_launches']} times")
+        rows.append({"rank": r, "coords": rec["coords"],
+                     "superstep_ms": rec["step_ms"],
+                     "hop_ms": rec["hop_ms"], "axis_ms": rec["axis_ms"],
+                     "sent_bytes": rec["sent"][-1],
+                     "peak_GB": rec["peak_bytes"] / 1e9,
+                     "setup_s": rec["setup_s"], "finish_s": rec["finish_s"],
+                     "prox_update_launches": rec["prox_update_launches"],
+                     "losses": rec["losses"]})
+    return rows
+
+
+def mesh_record(arm, flags, smi, backend, ranks, rows, sends, **extra):
+    """Phase 49's `mesh_training` record of one arm, printed."""
+    out = {"arm": arm, "flags": " ".join(flags), "card": smi,
+           "note": ("all ranks shared one card over gloo (host buffers); "
+                    "times measure this transport, not NVLink"
+                    if backend == "gloo" else
+                    "one GPU a rank over NCCL"),
+           "devices": [rec["device"] for rec in ranks], **extra,
+           "collective_bytes_per_superstep": sum(sum(s.values())
+                                                 for s in sends),
+           "collective_bound_ms_nvlink": roofline.Roofline(
+               {}, 0, collective_bytes=sum(sum(s.values()) for s in sends),
+               chips=len(ranks)).collective_s * 1e3,
+           "prox_update_launches": sum(r["prox_update_launches"]
+                                       for r in rows),
+           "ranks": rows}
+    print(json.dumps({"mesh_training": out}), flush=True)
+    return out
 
 
 def mesh_arm(arm, smi, backend):
-    """One arm of phase 49: the one-process reference, its digests of each
-    rank's part, the launch, and the per-rank numbers."""
-    agents, walks, replica = MESH_ARMS[arm]
+    """One replica arm of phase 49 (R1, R2): the one-process reference,
+    its digests of each rank's part, the launch, and the per-rank
+    numbers. Returns (its record, the one-process f32 make_train_step
+    run of its flags, on the host, where the arm has replicas: (model,
+    TrainConfig, state, losses); else None)."""
+    agents, walks, replica, _ = MESH_ARMS[arm]
     flags = mesh_flags(arm, backend)
-    sizes = {"agent": agents, "replica": replica, "model": 1}
+    sizes = mesh_sizes(arm)
     t0 = time.perf_counter()
-    gap = None
+    gap = f32_run = None
     if replica > 1:
         # the replicas' arithmetic in one process, in f32, held to
         # make_train_step in f32 at atol 1e-5
-        _, _, plain = one_process_mesh_run(flags, f32=True)
-        _, _, split = one_process_mesh_run(flags, replica_grad(replica),
-                                           f32=True)
+        model, tcfg, plain, losses = one_process_mesh_run(flags, f32=True)
+        _, _, split, _ = one_process_mesh_run(flags, replica_grad(replica),
+                                              f32=True)
         gap = {part: max(float((split[part][k] - v).abs().max())
                          for k, v in leaves.items())
                for part, leaves in plain.items()}
+        f32_run = (model, tcfg, {part: {k: v.cpu() for k, v in
+                                        leaves.items()}
+                                 for part, leaves in plain.items()}, losses)
         del plain, split
         torch.cuda.empty_cache()
     # the ranks' digests: their parts of the one-process run at the
     # config's dtype (the gradient split as the replicas split it)
-    model, tcfg, plain = one_process_mesh_run(
+    model, tcfg, plain, _ = one_process_mesh_run(
         flags, replica_grad(replica) if replica > 1 else None)
     shapes = dist_trainer._param_shapes(model)
     specs = state_shardings(sizes, dist_trainer._state_shapes(shapes, tcfg))
@@ -5177,64 +5290,287 @@ def mesh_arm(arm, smi, backend):
         raise AssertionError(f"{arm}: the replicas' gradient split leaves "
                              f"the one-process state by {gap} (> 1e-5)")
     ranks, launch_s = mesh_launch(flags, agents * replica)
-    sends = dist_trainer.superstep_sends(shapes, sizes, 2)
-    rows = []
     for rec in ranks:
-        r = rec["rank"]
-        assert rec["device"].startswith("cuda") and rec["backend"] == backend
-        if rec["digests"] != want[r]:
-            raise AssertionError(f"{arm} rank {r} {rec['coords']}: digests "
-                                 f"{rec['digests']}, the one-process "
-                                 f"run's {want[r]}")
-        if any(sent != sends[r] for sent in rec["sent"]):
-            raise AssertionError(f"{arm} rank {r} sent {rec['sent']}, the "
-                                 f"leaf arithmetic says {sends[r]}")
-        if rec["prox_update_launches"] != LEAVES * STEPS:
-            raise AssertionError(f"{arm} rank {r}: prox_update launched "
-                                 f"{rec['prox_update_launches']} times")
-        rows.append({"rank": r, "coords": rec["coords"],
-                     "superstep_ms": rec["step_ms"],
-                     "hop_ms": rec["hop_ms"], "sent_bytes": rec["sent"][-1],
-                     "peak_GB": rec["peak_bytes"] / 1e9,
-                     "setup_s": rec["setup_s"], "finish_s": rec["finish_s"],
-                     "prox_update_launches": rec["prox_update_launches"],
-                     "losses": rec["losses"]})
-    collective = dist_trainer.mesh_collective_bytes(shapes, sizes, 2)
-    bound = roofline.Roofline({}, 0, collective_bytes=collective,
-                              chips=agents * replica)
-    out = {"arm": arm, "flags": " ".join(flags), "card": smi,
-           "note": ("all ranks shared one card over gloo (host buffers); "
-                    "times measure this transport, not NVLink"
-                    if backend == "gloo" else
-                    "one GPU a rank over NCCL"),
-           "devices": [rec["device"] for rec in ranks],
-           "launch_s": launch_s, "reference_s": reference_s,
-           "digests_equal": True,
-           "replica_split_vs_one_process_max_abs": gap,
-           "collective_bytes_per_superstep": collective,
-           "collective_bound_ms_nvlink": bound.collective_s * 1e3,
-           "prox_update_launches": sum(r["prox_update_launches"]
-                                       for r in rows),
-           "ranks": rows}
-    print(json.dumps({"mesh_training": out}), flush=True)
+        if rec["digests"] != want[rec["rank"]]:
+            raise AssertionError(f"{arm} rank {rec['rank']} {rec['coords']}: "
+                                 f"digests {rec['digests']}, the "
+                                 f"one-process run's {want[rec['rank']]}")
+    sends = dist_trainer.superstep_sends(shapes, sizes, 2)
+    rows = mesh_rows(arm, ranks, backend, sends)
+    return mesh_record(arm, flags, smi, backend, ranks, rows, sends,
+                       launch_s=launch_s, reference_s=reference_s,
+                       digests_equal=True,
+                       replica_split_vs_one_process_max_abs=gap), f32_run
+
+
+def _tp_rank_run(flags, device, mesh, comm, layers=0, f32=False):
+    """This rank's run of `flags` on `mesh` (cut to `layers`, in f32 where
+    `f32`): (model, TrainConfig, its state, losses)."""
+    from repro_torch.dist.trainer import (init_mesh_train_state,
+                                          make_mesh_train_step)
+
+    args = train_cli.parse_args(flags + (["--layers", str(layers)]
+                                         if layers else []))
+    cfg = train_cli._config(args)
+    if f32:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(cfg)
+    tcfg = TrainConfig(num_agents=args.agents, num_walks=args.walks,
+                       tau=args.tau, rho=args.rho)
+    state = init_mesh_train_state(
+        model, tcfg, mesh, torch.Generator(device=device).manual_seed(0))
+    step_fn = make_mesh_train_step(model, tcfg, mesh, comm)
+    batches = agent_batches(cfg.vocab_size, args.agents,
+                            args.batch_per_agent, args.seq, seed=0)
+    losses = []
+    for step in range(args.steps):
+        toks, targs = next(batches)
+        state, met = step_fn(state, {
+            "tokens": torch.from_numpy(toks).to(device),
+            "targets": torch.from_numpy(targs).to(device)}, step)
+        losses.append(float(met["loss"]))
+    torch.cuda.synchronize()
+    return model, tcfg, state, losses
+
+
+def train_mesh_rank(rank, coordinator, backend, out):
+    """`--train-mesh-rank`: one rank of the TP arm's checks on its
+    (agent, replica, model) = (2, 1, 2) mesh over `backend`: the arm's
+    bf16 run at full depth (its losses and its pieces of TP_GATHERED,
+    written to OUT/bf16.rank<R>.pt), then the f32 run at TP_CHECK_LAYERS
+    layers (its losses and its state's piece, OUT/f32.rank<R>.pt), which
+    `tp_checks` holds against the one-process f32 run."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import Collectives
+    from repro_torch.launch.mesh import (init_distributed,
+                                         make_training_mesh, rank_device)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    agents, _, replica, mp = MESH_ARMS["TP"]
+    device = rank_device(DEV, rank)
+    torch.cuda.set_device(device)
+    init_distributed(rank, agents * replica * mp, coordinator, backend,
+                     device, timeout_s=400)
+    mesh = make_training_mesh(agents, replica, mp)
+    comm = Collectives(mesh, device)
+    flags = mesh_flags("TP", backend)
+    for name, layers, f32 in (("bf16", 0, False),
+                              ("f32", TP_CHECK_LAYERS, True)):
+        _, _, state, losses = _tp_rank_run(flags, device, mesh, comm,
+                                           layers=layers, f32=f32)
+        kept = ({"leaves": {k: state["params"][k].cpu() for k in TP_GATHERED}}
+                if name == "bf16" else
+                {"state": {part: {k: v.cpu() for k, v in leaves.items()}
+                           for part, leaves in state.items()}})
+        torch.save({"losses": losses, "coords": mesh.coords,
+                    "device": str(device), **kept},
+                   os.path.join(out, f"{name}.rank{rank}.pt"))
+        del state, kept
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_ranks(flag, world, backend, out, timeout, while_running):
+    """`world` ranks of this script, `python -m chip_smoke FLAG BACKEND
+    OUT --rank R --coordinator HOST:PORT`, started and ended by
+    `launch.mesh.run_ranks` (the launchers' parent), with
+    `while_running()` in this process meanwhile; prints the end of each
+    rank's log and fails unless every rank exited 0. Returns
+    (`while_running`'s result, the ranks' seconds)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    path = os.pathsep.join([ROOT] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"PYTHONPATH": path}):
+        run = run_ranks("chip_smoke", [flag, backend, out], world, "--rank",
+                        timeout, while_running=while_running)
+    ranks_s = time.perf_counter() - t0
+    for r, log in enumerate(run.outs):
+        print("\n".join(f"  c{r}| {ln}" for ln in log.splitlines()[-30:]),
+              flush=True)
+    if any(run.rcs):
+        raise AssertionError(f"{flag} ranks over {backend}: rcs {run.rcs}"
+                             + (" (timed out)" if run.timed_out else ""))
+    return run.during, ranks_s
+
+
+def check_rank_args(argv):
+    """(rank, coordinator, backend, dir) of a check rank's arguments as
+    `check_ranks` starts it: BACKEND DIR --rank R --coordinator HOST:PORT."""
+    backend, out, _, rank, _, coordinator = argv
+    return int(rank), coordinator, backend, out
+
+
+def tp_checks(backend, f32_run):
+    """The TP arm's checks: this script's ranks (`train_mesh_rank`) over
+    `backend` while this process runs the one-process bf16 and f32 runs
+    of the arm's flags at full depth; then each rank's f32 piece against
+    its cut of `f32_run` (the one-process f32 run at TP_CHECK_LAYERS
+    layers, `mesh_arm`'s). Returns ({"f32": each rank's record,
+    "mesh_bf16": the ranks' losses and their TP_GATHERED params joined,
+    "one_bf16", "one_f32": the one-process runs' `gap_reference`s}, the
+    ranks' seconds)."""
+    from repro_torch.dist.sharding import gather_shards
+    from repro_torch.dist.trainer import state_specs
+
+    agents, _, replica, mp = MESH_ARMS["TP"]
+    world = agents * replica * mp
+    flags = mesh_flags("TP", backend)
+    sizes = mesh_sizes("TP")
+
+    def references():
+        refs = {}
+        for name, f32 in (("one_f32", True), ("one_bf16", False)):
+            model, tcfg, plain, losses = one_process_mesh_run(flags,
+                                                              f32=f32)
+            refs[name] = gap_reference(plain, losses)
+            del plain
+            torch.cuda.empty_cache()
+        return refs, state_specs(model, tcfg, sizes)["params"]
+
+    model32, tcfg32, plain32, plain_losses = f32_run
+    specs32 = state_specs(model32, tcfg32, sizes)
+    f32, pieces = [], []
+    with tempfile.TemporaryDirectory(prefix="train_mesh_checks_") as out:
+        (refs, specs), ranks_s = check_ranks(
+            "--train-mesh-rank", world, backend, out, 450, references)
+        for r in range(world):
+            got = torch.load(os.path.join(out, f"f32.rank{r}.pt"))
+            f32.append({
+                "f32_state_max_abs": {part: max(float((v - local_shard(
+                    plain32[part][k], specs32[part][k], sizes,
+                    got["coords"])).abs().max()) for k, v in leaves.items())
+                    for part, leaves in got["state"].items()},
+                "losses": got["losses"], "one_process_losses": plain_losses,
+                "device": got["device"]})
+            del got
+            pieces.append(torch.load(os.path.join(out, f"bf16.rank{r}.pt")))
+    if not all(g["device"].startswith("cuda") for g in f32):
+        raise AssertionError(f"the TP check ranks ran on {f32}")
+    mesh_bf16 = {"losses": pieces[0]["losses"],
+                 "rank_losses": [p["losses"] for p in pieces],
+                 "leaves": {k: gather_shards([p["leaves"][k] for p in pieces],
+                                             specs[k], sizes)
+                            for k in TP_GATHERED}}
+    del pieces
+    return {"f32": f32, "mesh_bf16": mesh_bf16, **refs}, ranks_s
+
+
+def bf16_gaps(got, f32_ref):
+    """The largest |difference| from the one-process f32 run `f32_ref`
+    (a `gap_reference`) of `got`'s losses, and of its TP_GATHERED params
+    over every gathered leaf (by leaf beside)."""
+    leaves = {k: float((got["leaves"][k] - v).abs().max())
+              for k, v in f32_ref["leaves"].items()}
+    return {"losses": max(abs(a - b) for a, b in zip(got["losses"],
+                                                     f32_ref["losses"])),
+            "leaves": max(leaves.values()), "by_leaf": leaves}
+
+
+def mesh_tp_arm(smi, backend, f32_run):
+    """Phase 49's TP arm: the launch at full qwen2-0.5b width and depth
+    as 4 ranks of (A=2, M=1, R=1, mp=2), gated for lockstep (equal losses
+    on every rank, the leaves the axis does not split bitwise equal
+    across each model line), the prox kernel's launches, the bytes
+    (`superstep_sends`, the model axis's sums included), and its checks
+    (`tp_checks`): f32 within TP_F32_ATOL of one process at
+    TP_CHECK_LAYERS layers (`f32_run`, the R2 arm's one-process f32
+    run), and bf16 within TP_BF16_RATIO of one process's own bf16 gap to
+    its f32 run."""
+    agents, _, replica, mp = MESH_ARMS["TP"]
+    flags = mesh_flags("TP", backend)
+    sizes = mesh_sizes("TP")
+    t0 = time.perf_counter()
+    checks, checks_s = tp_checks(backend, f32_run)
+    f32_ref = checks["one_f32"]
+    ranks, launch_s = mesh_launch(flags, agents * replica * mp)
+    cfg = train_cli._config(train_cli.parse_args(flags))
+    shapes = dist_trainer._param_shapes(build_model(cfg))
+    sends = dist_trainer.superstep_sends(shapes, sizes, 2, cfg=cfg,
+                                         seq=train_cli.parse_args(flags).seq)
+    # lockstep: the launch exits 0 only where its parent found the ranks'
+    # losses equal and the unsplit leaves bitwise equal across each line
+    rows = mesh_rows("TP", ranks, backend, sends)
+    f32_gaps = [g["f32_state_max_abs"] for g in checks["f32"]]
+    worst32 = max(max(g.values()) for g in f32_gaps)
+    mesh_bf16 = checks["mesh_bf16"]
+    if any(ls != ranks[0]["losses"] for ls in mesh_bf16["rank_losses"]):
+        raise AssertionError(f"TP: the check ranks' bf16 losses "
+                             f"{mesh_bf16['rank_losses']} are not the "
+                             f"launch's {ranks[0]['losses']}")
+    gaps = {"mesh_bf16_vs_one_process_f32": bf16_gaps(mesh_bf16, f32_ref),
+            "one_process_bf16_vs_f32": bf16_gaps(checks["one_bf16"],
+                                                 f32_ref)}
+    out = mesh_record(
+        "TP", flags, smi, backend, ranks, rows, sends, launch_s=launch_s,
+        checks_s=checks_s, lockstep=True,
+        f32_layers=TP_CHECK_LAYERS, f32_state_max_abs_by_rank=f32_gaps,
+        f32_losses=checks["f32"][0]["losses"],
+        f32_one_process_losses=checks["f32"][0]["one_process_losses"],
+        bf16_gaps=gaps, bf16_ratio_limit=TP_BF16_RATIO,
+        losses={"mesh_bf16": ranks[0]["losses"],
+                "one_process_bf16": checks["one_bf16"]["losses"],
+                "one_process_f32": f32_ref["losses"]},
+        arm_s=time.perf_counter() - t0)
+    if not worst32 <= TP_F32_ATOL:
+        raise AssertionError(f"TP: the f32 mesh state is {worst32} from one "
+                             f"process's at {TP_CHECK_LAYERS} layers "
+                             f"(> {TP_F32_ATOL})")
+    mesh_gap, one_gap = (gaps["mesh_bf16_vs_one_process_f32"],
+                         gaps["one_process_bf16_vs_f32"])
+    for what in ("losses", "leaves"):
+        if not mesh_gap[what] <= TP_BF16_RATIO * one_gap[what]:
+            raise AssertionError(
+                f"TP: the bf16 mesh's {what} are {mesh_gap[what]} from one "
+                f"process's f32 run, beyond {TP_BF16_RATIO} x one "
+                f"process's own bf16 gap {one_gap[what]}")
     return out
 
 
 def mesh_training(smi, gen, backend="gloo"):
     """Phase 49 (see the module's docstring) over `backend`. Returns (the
-    prox cases at the R = 2 shard shapes, {arm: record})."""
+    prox cases at the TP arm's piece shapes, which are the R = 2 shard
+    shapes at full depth, {arm: record})."""
     t0 = time.perf_counter()
     cfg = get_config("qwen2-0.5b")
-    shapes = dist_trainer._param_shapes(build_model(cfg))
-    sizes = {"agent": 2, "replica": 2, "model": 1}
-    specs = state_shardings(sizes, dist_trainer._state_shapes(
+    model = build_model(cfg)
+    shapes = dist_trainer._param_shapes(model)
+    r2 = state_shardings(mesh_sizes("R2"), dist_trainer._state_shapes(
         shapes, TrainConfig(num_agents=2, num_walks=1)))["params"]
-    cases = [check_prox_case(
-        f"{k} R=2 shard", shard_shape((2,) + tuple(shapes[k].shape),
-                                      specs[k], sizes), torch.float32, gen)
-        for k in ("embed.table", "segments.0.mlp.w_gate")]
+    tp = dist_trainer.state_specs(model, TrainConfig(num_agents=2,
+                                                     num_walks=1),
+                                  mesh_sizes("TP"), shapes)["params"]
+    cases = []
+    for k in ("embed.table", "segments.0.mlp.w_gate"):
+        stacked = (2,) + tuple(shapes[k].shape)
+        shape = shard_shape(stacked, r2[k], mesh_sizes("R2"))
+        if shape != shard_shape(stacked, tp[k], mesh_sizes("TP")):
+            raise AssertionError(f"{k}: the R=2 shard {shape} is not the TP "
+                                 f"piece")
+        cases.append(check_prox_case(
+            f"{k} TP mp=2 piece = R=2 shard at full depth", shape,
+            torch.float32, gen))
     torch.cuda.empty_cache()
-    arms = {arm: mesh_arm(arm, smi, backend) for arm in MESH_ARMS}
+    arms, f32_runs = {}, {}
+    for arm in ("R1", "R2"):
+        arms[arm], f32_runs[arm] = mesh_arm(arm, smi, backend)
+    # the R2 arm's one-process run is the TP arm's f32 reference: the
+    # same run of the same flags, cut to the same depth
+    r2, tp = ((train_cli._config(a), a.agents, a.walks, a.batch_per_agent,
+               a.seq, a.steps, a.tau, a.rho)
+              for a in (train_cli.parse_args(flags) for flags in (
+                  mesh_flags("R2", backend),
+                  mesh_flags("TP", backend)
+                  + ["--layers", str(TP_CHECK_LAYERS)])))
+    if r2 != tp:
+        raise AssertionError("the R2 arm's one-process run is not the TP "
+                             "arm's at TP_CHECK_LAYERS layers")
+    arms["TP"] = mesh_tp_arm(smi, backend, f32_runs.pop("R2"))
+    del f32_runs
     print(json.dumps({"phase49_s": time.perf_counter() - t0}), flush=True)
     return cases, arms
 
@@ -5251,6 +5587,10 @@ MESH_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--max-batch",
                    "400"]
 MESH_F32_ARGS = ["--requests", "4", "--new-tokens", "16"]
 MESH_SERVE_ARMS = ("arena", "arena-serialized", "paged", "paged-serialized")
+# the four arms' launch tests the lockstep scheduler, the bytes and the
+# launches, not depth: cut to this many layers for time when phase 49's
+# TP arm came (the checks' f32 tokens and logits stay at full depth)
+MESH_SERVE_LAYERS = 4
 MESH_MP = 2
 F32_LOGIT_GAP = 1e-4
 
@@ -5284,30 +5624,34 @@ def mesh_kernel_cases(gen):
 
 
 def serve_mesh_launch(backend, arms):
-    """`python -m repro_torch.launch.serve_mesh` with MESH_SERVE_ARGS over
-    `backend`: ({(arm, process): record}, launch s). Fails unless it
-    exits 0 with a record from every rank of every arm."""
-    flags = [*MESH_SERVE_ARGS, "--backend", backend, "--arms",
-             ",".join(arms)]
+    """`repro_torch.launch.serve_mesh`'s CLI with MESH_SERVE_ARGS over
+    `backend`, its parent in this process (`serve_mesh.run_parent`, what
+    its entry point runs; as `python -m` it would import torch once more
+    before it spawns): ({(arm, process): record}, launch s). Fails
+    unless it returns 0 with a record from every rank of every arm."""
+    import io
+
+    from repro_torch.launch import serve_mesh
+
+    flags = [*MESH_SERVE_ARGS, "--layers", str(MESH_SERVE_LAYERS),
+             "--backend", backend, "--arms", ",".join(arms)]
     print("serve_mesh " + " ".join(flags), flush=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m",
-                          "repro_torch.launch.serve_mesh", *flags], env=env,
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=500)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = serve_mesh.run_parent(serve_mesh._build_parser().parse_args(
+            flags), flags)
     launch_s = time.perf_counter() - t0
     records = {}
-    for line in res.stdout.splitlines():
+    for line in log.getvalue().splitlines():
         if "SERVE_MESH_ARM " in line:
             rec = json.loads(line.split("SERVE_MESH_ARM ", 1)[1])
             records[rec["arm"], rec["process"]] = rec
-    print("\n".join(ln for ln in res.stdout.splitlines()
+    print("\n".join(ln for ln in log.getvalue().splitlines()
                     if "SERVE_MESH_ARM " not in ln), flush=True)
-    if res.returncode != 0 or len(records) != MESH_MP * len(arms):
-        print(res.stderr[-8000:], flush=True)
-        raise AssertionError(f"serve_mesh over {backend}: rc "
-                             f"{res.returncode}, {len(records)} records")
+    if rc != 0 or len(records) != MESH_MP * len(arms):
+        raise AssertionError(f"serve_mesh over {backend}: rc {rc}, "
+                             f"{len(records)} records")
     return records, launch_s
 
 
@@ -5421,21 +5765,9 @@ def mesh_checks(backend):
     `backend` while this process takes the one-process f32 tokens and
     logits from the same init. Returns ({"float32": tokens, "one": and
     "mesh": logits by dtype}, the ranks' seconds)."""
-    import socket
-
     cfg = get_config("qwen2-0.5b")
-    out = tempfile.mkdtemp(prefix="serve_mesh_checks_")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
-    t0 = time.perf_counter()
-    logs = [open(os.path.join(out, f"p{r}.log"), "w") for r in range(MESH_MP)]
-    ranks = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--serve-mesh-rank",
-         str(r), f"localhost:{port}", backend, out], cwd=ROOT, env=env,
-        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MESH_MP)]
-    try:
+
+    def references():
         params = build_model(cfg).init(
             torch.Generator(device=DEV).manual_seed(0))
         work, max_len = mesh_f32_workload(cfg)
@@ -5444,36 +5776,21 @@ def mesh_checks(backend):
                                        max_len)}
         del params
         torch.cuda.empty_cache()
-        deadline = time.monotonic() + 400
-        while (None in [p.poll() for p in ranks]
-               and not any(p.poll() for p in ranks)
-               and time.monotonic() < deadline):
-            time.sleep(0.2)
-    finally:
-        for p in ranks:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for f in logs:
-            f.close()
-    ranks_s = time.perf_counter() - t0
-    for r in range(MESH_MP):
-        with open(os.path.join(out, f"p{r}.log")) as f:
-            print("\n".join(f"  p{r}| {ln}" for ln in f.read().splitlines()[
-                -40:]), flush=True)
-    if any(p.returncode for p in ranks):
-        raise AssertionError(f"phase 50's check ranks over {backend}: rcs "
-                             f"{[p.returncode for p in ranks]}")
+        return want
+
     got = []
-    for r in range(MESH_MP):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            got.append(json.load(f))
+    with tempfile.TemporaryDirectory(prefix="serve_mesh_checks_") as out:
+        want, ranks_s = check_ranks("--serve-mesh-rank", MESH_MP, backend,
+                                    out, 400, references)
+        for r in range(MESH_MP):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+        want["mesh"] = torch.load(os.path.join(out, "logits.pt"))
     if any(g["outputs"] != got[0]["outputs"] for g in got):
         raise AssertionError("the check ranks' f32 tokens disagree")
     if not all(g["device"].startswith("cuda") for g in got):
         raise AssertionError(f"the check ranks ran on {got}")
     want["mesh_float32"] = got[0]["outputs"]
-    want["mesh"] = torch.load(os.path.join(out, "logits.pt"))
     return want, ranks_s
 
 
@@ -5489,15 +5806,17 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
     cases = mesh_kernel_cases(gen) if kernels else None
     checks, checks_s = mesh_checks(backend)
     records, launch_s = serve_mesh_launch(backend, MESH_SERVE_ARMS)
-    cfg = get_config("qwen2-0.5b")
-    args = serve_mesh._build_parser().parse_args(MESH_SERVE_ARGS)
+    args = serve_mesh._build_parser().parse_args(
+        MESH_SERVE_ARGS + ["--layers", str(MESH_SERVE_LAYERS)])
+    cfg = serve_mesh._config(args)
 
     def gap(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
     one, mesh_logits = checks["one"], checks["mesh"]
-    # the bf16 tolerance at this width is what bf16 costs one process:
-    # its logits' gap to its own f32 logits, measured here
+    # the bf16 gate: the mesh's bf16 logits no farther from one process's
+    # f32 logits than one process's own bf16 logits are (the gap to one
+    # process's bf16 logits is printed, not gated)
     bf16_error = gap(one["bfloat16"], one["float32"])
     gaps = {"bfloat16": gap(mesh_logits["bfloat16"], one["bfloat16"]),
             "float32": gap(mesh_logits["float32"], one["float32"]),
@@ -5509,12 +5828,12 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
         raise AssertionError(f"the mesh's f32 logits are {gaps['float32']} "
                              f"of the largest |logit| from one process's "
                              f"(> {F32_LOGIT_GAP})")
-    for what in ("bfloat16", "mesh_bf16_vs_one_process_f32"):
-        if not gaps[what] <= bf16_error:
-            raise AssertionError(
-                f"the mesh's bf16 logits ({what}) are {gaps[what]} of the "
-                f"largest |logit| off, beyond one process's own bf16 error "
-                f"{bf16_error}")
+    if not gaps["mesh_bf16_vs_one_process_f32"] <= bf16_error:
+        raise AssertionError(
+            f"the mesh's bf16 logits are "
+            f"{gaps['mesh_bf16_vs_one_process_f32']} of the largest |logit| "
+            f"from one process's f32 logits, beyond one process's own bf16 "
+            f"gap {bf16_error}")
     if checks["mesh_float32"] != checks["float32"]:
         raise AssertionError("the mesh's f32 tokens leave the one-process "
                              "f32 engine's")
@@ -5535,13 +5854,13 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
                                      f"{r['sent']}, serve_step_sends "
                                      f"reckons {r['sent_reckoned']}")
             got = r["launches"]
-            per_step = N_LAYERS * st["decode_steps"]
+            per_step = MESH_SERVE_LAYERS * st["decode_steps"]
             want = {"flash_attention": 0, "decode_attention": 0,
                     "decode_attention_paged": 0, "decode_attention_ring": 0}
             if r["backend"] == "paged":
                 want["decode_attention_paged"] = per_step
             else:
-                want["flash_attention"] = N_LAYERS * st["admissions"]
+                want["flash_attention"] = MESH_SERVE_LAYERS * st["admissions"]
                 want["decode_attention"] = per_step
             if got != want:
                 raise AssertionError(f"{arm} rank {r['process']}: launches "
@@ -5951,8 +6270,10 @@ def main():
     cost_accounting(smi)
 
     phase("49 the superstep across processes: launch.train --processes 4 "
-          "at full qwen2-0.5b width, R=1 (A=4, M=2) and R=2 (A=2, M=1), "
-          "digests against the one-process step")
+          "at full qwen2-0.5b width, R=1 (A=4, M=2) and R=2 (A=2, M=1) "
+          f"at {MESH_LAYERS['R1']} layers, digests against the one-process "
+          "step; TP (A=2, M=1, --model-parallel 2) at full depth, lockstep, "
+          "bytes, f32 and bf16 against one process")
     mesh_cases, mesh_arms = mesh_training(smi, gen)
     cases += mesh_cases
 
@@ -6019,8 +6340,10 @@ def main():
                           "launches"]["prox_update"],
                       "qwen2 mesh R=1, 4 processes": mesh_arms["R1"][
                           "prox_update_launches"],
-                      "qwen2 mesh R=2 (f32), 4 processes": mesh_arms["R2"][
-                          "prox_update_launches"]},
+                      "qwen2 mesh R=2, 4 processes": mesh_arms["R2"][
+                          "prox_update_launches"],
+                      "qwen2 mesh TP (A=2, mp=2), 4 processes": mesh_arms[
+                          "TP"]["prox_update_launches"]},
                      cases, cases[1]),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -6147,6 +6470,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-only"]:
         mesh_only(sys.argv[2])
     elif sys.argv[1:2] == ["--serve-mesh-rank"]:
-        serve_mesh_rank(int(sys.argv[2]), *sys.argv[3:6])
+        serve_mesh_rank(*check_rank_args(sys.argv[2:]))
+    elif sys.argv[1:2] == ["--train-mesh-rank"]:
+        train_mesh_rank(*check_rank_args(sys.argv[2:]))
     else:
         main()

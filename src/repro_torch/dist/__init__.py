@@ -5,7 +5,8 @@
                    superstep on a language model, one process) /
                    make_dp_baseline_step; make_mesh_train_step and
                    make_mesh_dp_baseline_step, the same steps across
-                   processes (one agent a rank, FSDP over "replica").
+                   processes (one agent a rank line: tensor-parallel
+                   over "model", FSDP over "replica").
   sharding       — specs for the training and serving meshes, and the
                    cuts of a tensor into its ranks' pieces.
   collectives    — ring shift, all-gather, reduce-scatter, all-reduce
@@ -13,8 +14,9 @@
                    sends, with bytes counted per kind.
   tensor_parallel — the "model" axis for the dense GQA family: a rank's
                    config and parameter shard, and its collectives
-                   (the sums of the row-parallel products, the
-                   vocabulary-parallel embedding and argmax).
+                   (the sums of the row-parallel products and their
+                   conjugate for training, the vocabulary-parallel
+                   embedding, cross-entropy and argmax).
   serving        — serving on a ("data", "model") mesh: the reference's
                    specs, the rank's model (`local_model`) whose token
                    steps `Engine(mesh=...)` serves with, and the bytes

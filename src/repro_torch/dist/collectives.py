@@ -19,7 +19,9 @@ that GSPMD inserts from the sharding specs).
 Each is a batch of `torch.distributed` isend / irecv pairs, so the bytes a
 rank sends are known exactly: `sent[kind]` counts them per call kind
 (`ring_shift`, `all_gather`, `reduce_scatter`, `all_reduce`, `gather`),
-`calls[kind]` the calls and `ms[kind]` the milliseconds they took.
+`calls[kind]` the calls and `ms[kind]` the milliseconds they took;
+`axis_ms[axis]` splits the same milliseconds by the axis (or tuple of
+axes, or None for every rank) whose line a call ran on.
 
 Transports. On NCCL a CUDA tensor is sent as it is, on NCCL's stream,
 which the current stream waits for: nothing waits on the host, and `ms`
@@ -57,7 +59,8 @@ class Collectives:
         self.sent = defaultdict(int)
         self.calls = defaultdict(int)
         self._ms = defaultdict(float)
-        self._events = []           # (kind, start, end) not yet read
+        self._axis_ms = defaultdict(float)
+        self._events = []           # (kind, axis, start, end) not yet read
         self._host = {}
         if reserve_bytes:
             self.reserve(reserve_bytes)
@@ -69,21 +72,35 @@ class Collectives:
             for role in ("send", "recv"):
                 self._buffer(role, nbytes)
 
+    def _read_events(self):
+        for kind, axis, start, end in self._events:
+            end.synchronize()
+            self._count_ms(kind, axis, start.elapsed_time(end))
+        self._events.clear()
+
+    def _count_ms(self, kind, axis, ms):
+        self._ms[kind] += ms
+        self._axis_ms[axis] += ms
+
     @property
     def ms(self):
         """{kind: milliseconds} of the calls since `reset` (waits for the
         CUDA events of calls over NCCL still in flight)."""
-        for kind, start, end in self._events:
-            end.synchronize()
-            self._ms[kind] += start.elapsed_time(end)
-        self._events.clear()
+        self._read_events()
         return self._ms
+
+    @property
+    def axis_ms(self):
+        """{axis: milliseconds} of the calls since `reset`, as `ms`."""
+        self._read_events()
+        return self._axis_ms
 
     def reset(self):
         """Zero the counters (the buffers stay)."""
         self.sent.clear()
         self.calls.clear()
         self._ms.clear()
+        self._axis_ms.clear()
         self._events.clear()
 
     def _buffer(self, role, nbytes):
@@ -108,17 +125,19 @@ class Collectives:
         return views
 
     def _line(self, axis):
-        """(ranks, this rank's index among them, their group) of `axis`'s
-        line, or of every rank (the default group) for axis None."""
+        """(ranks, this rank's index among them, their group, axis) of
+        `axis`'s line (an axis or a tuple of axes), or of every rank (the
+        default group) for axis None."""
         if axis is None:
-            return list(range(self.mesh.size)), self.mesh.rank, None
-        return (self.mesh.line(axis), self.mesh.coords[axis],
-                self.mesh.group(axis))
+            return list(range(self.mesh.size)), self.mesh.rank, None, None
+        ranks = self.mesh.line(axis)
+        return ranks, ranks.index(self.mesh.rank), self.mesh.group(axis), axis
 
-    def _exchange(self, kind, sends, recvs, group=None):
+    def _exchange(self, kind, sends, recvs, group=None, axis=None):
         """Post every (peer, tensor) send and every (peer, out) receive
-        (peers by global rank) in `group` as one batch and wait for all of
-        them; an empty tensor is not sent (both sides know its size)."""
+        (peers by global rank) in `group` (`axis`'s line) as one batch
+        and wait for all of them; an empty tensor is not sent (both sides
+        know its size)."""
         import torch.distributed as dist
 
         sends = [(p, t.contiguous()) for p, t in sends if t.numel()]
@@ -153,23 +172,23 @@ class Collectives:
                 out.copy_(host)
         if events:
             end.record()
-            self._events.append((kind, start, end))
+            self._events.append((kind, axis, start, end))
         else:
-            self._ms[kind] += (time.perf_counter() - t0) * 1e3
+            self._count_ms(kind, axis, (time.perf_counter() - t0) * 1e3)
         self.sent[kind] += sum(_nbytes(t) for _, t in sends)
 
     def ring_shift(self, t, axis="agent"):
         """A new tensor holding the value of the previous slot on `axis`'s
         ring (slot i receives slot i-1's); every slot sends. An axis of
         size 1 returns `t` itself."""
-        ranks, i, group = self._line(axis)
+        ranks, i, group, axis = self._line(axis)
         n = len(ranks)
         self.calls["ring_shift"] += 1
         if n == 1:
             return t
         out = torch.empty_like(t)
         self._exchange("ring_shift", [(ranks[(i + 1) % n], t)],
-                       [(ranks[(i - 1) % n], out)], group)
+                       [(ranks[(i - 1) % n], out)], group, axis)
         return out
 
     def all_gather(self, t, axis="replica"):
@@ -178,12 +197,12 @@ class Collectives:
         self.calls["all_gather"] += 1
         return self._all_gather(t, *self._line(axis), "all_gather")
 
-    def _all_gather(self, t, ranks, i, group, kind):
+    def _all_gather(self, t, ranks, i, group, axis, kind):
         pieces = [t if j == i else torch.empty_like(t)
                   for j in range(len(ranks))]
         self._exchange(kind, [(r, t) for j, r in enumerate(ranks) if j != i],
                        [(r, pieces[j]) for j, r in enumerate(ranks)
-                        if j != i], group)
+                        if j != i], group, axis)
         return pieces
 
     def reduce_scatter(self, pieces, axis="replica"):
@@ -195,7 +214,7 @@ class Collectives:
         return self._reduce_scatter(pieces, *self._line(axis),
                                     "reduce_scatter")
 
-    def _reduce_scatter(self, pieces, ranks, i, group, kind):
+    def _reduce_scatter(self, pieces, ranks, i, group, axis, kind):
         if len(pieces) != len(ranks):
             raise ValueError(f"{len(pieces)} pieces for a line of "
                              f"{len(ranks)} ranks")
@@ -205,7 +224,7 @@ class Collectives:
         self._exchange(kind, [(r, pieces[j]) for j, r in enumerate(ranks)
                               if j != i],
                        [(r, got[j]) for j, r in enumerate(ranks) if j != i],
-                       group)
+                       group, axis)
         total = got[0].clone()
         for g in got[1:]:
             total += g
@@ -218,21 +237,22 @@ class Collectives:
         `t` in one exchange and sums the two in the line's order: the
         same bytes and the same sum, at one host round trip where the
         two steps make two."""
-        ranks, i, group = self._line(axis)
+        line = self._line(axis)
+        ranks, i, group, axis = line
         self.calls["all_reduce"] += 1
         if len(ranks) == 1:
             return t.clone()
         if len(ranks) == 2:
-            pieces = self._all_gather(t, ranks, i, group, "all_reduce")
+            pieces = self._all_gather(t, *line, "all_reduce")
             return pieces[0] + pieces[1]
         pieces = list(t.reshape(-1).tensor_split(len(ranks)))
-        mine = self._reduce_scatter(pieces, ranks, i, group, "all_reduce")
+        mine = self._reduce_scatter(pieces, *line, "all_reduce")
         outs = [mine if j == i else torch.empty_like(pieces[j])
                 for j in range(len(ranks))]
         self._exchange("all_reduce",
                        [(r, mine) for j, r in enumerate(ranks) if j != i],
                        [(r, outs[j]) for j, r in enumerate(ranks) if j != i],
-                       group)
+                       group, axis)
         return torch.cat(outs).reshape(t.shape)
 
     def gather(self, t, dst=0):

@@ -20,6 +20,7 @@ counts, biases, scalars), so no leaf needs a rule of its own.
                            "gacc"}.
   batch_shardings       -- the batch dim over the data-parallel axes.
   train_batch_shardings -- [A, B, ...] batches: ("agent", "replica").
+  DATA_LINE             -- the training mesh's data-parallel axes.
   cache_shardings       -- stacked decode caches: batch over the data
                            axes, kv-head / latent dims over "model".
   pool_shardings        -- paged block pools: blocks replicated, kv-head /
@@ -33,6 +34,10 @@ from __future__ import annotations
 import math
 
 import torch
+
+# the training mesh's data-parallel axes: a line of them is the ranks that
+# hold one model coordinate (the DP baseline sums its gradient over it)
+DATA_LINE = ("agent", "replica")
 
 
 def axis_sizes(mesh) -> dict:
@@ -64,16 +69,18 @@ def _leaf_name(path):
     return None
 
 
-def greedy_spec(shape, axes, skip_leading=0) -> tuple:
+def greedy_spec(shape, axes, skip_leading=0, entries=None) -> tuple:
     """Greedy divisible-dim assignment of mesh axes to array dims.
 
     Axes are taken largest size first (ties by name); each goes to the
     largest dimension (index >= skip_leading) that it divides exactly and
     that no other axis claimed. Size-1 axes are never assigned, and no
-    axis is assigned twice. A spec of len(shape) entries."""
-    entries = [None] * len(shape)
+    axis is assigned twice. `entries`: a spec whose named dims are
+    claimed already (its axes are not assigned again). A spec of
+    len(shape) entries."""
+    entries = [None] * len(shape) if entries is None else list(entries)
     for axis, size in sorted(axes.items(), key=lambda kv: (-kv[1], kv[0])):
-        if size <= 1:
+        if size <= 1 or axis in entries:
             continue
         best = None
         for i in range(skip_leading, len(shape)):
@@ -110,13 +117,21 @@ def param_shardings(mesh, shapes, leading_axis="agent", axes=None):
     return _map(one, shapes)
 
 
-def state_shardings(mesh, state_shapes):
+def state_shardings(mesh, state_shapes, model_dims=None):
     """Specs for the API-BCD train state.
 
     params / gacc: agent-stacked, FSDP over "replica" + TP over "model".
     token:         agent-stacked (one token slot per ring position).
-    zhat:          [A, M, ...]: the agent axis sharded, M replicated."""
+    zhat:          [A, M, ...]: the agent axis sharded, M replicated.
+
+    model_dims: {leaf: the dim of the unstacked leaf that "model" splits,
+    or None} (`tensor_parallel.model_dims`, the explicit tensor-parallel
+    split): "model" on that dim behind the leading dims and "replica"
+    greedy on the others. None: the reference's greedy specs over both
+    axes. The two agree where the model axis is 1."""
     axes = _mesh_axes(mesh, ("replica", "model"))
+    if model_dims is not None and axes.get("model", 1) > 1:
+        return _model_state_shardings(state_shapes, axes, model_dims)
 
     def zhat_spec(_, leaf):
         entries = list(greedy_spec(_shape(leaf), axes, skip_leading=2))
@@ -133,6 +148,26 @@ def state_shardings(mesh, state_shapes):
         "gacc": param_shardings(mesh, state_shapes["gacc"],
                                 leading_axis="agent", axes=axes),
     }
+
+
+def _model_state_shardings(state_shapes, axes, model_dims):
+    """`state_shardings` with "model" pinned to `model_dims` (flat
+    {leaf: shape} parts)."""
+    replica = {"replica": axes.get("replica", 1)}
+
+    def part(leaves, lead):
+        out = {}
+        for k, leaf in leaves.items():
+            entries = [None] * len(_shape(leaf))
+            entries[0] = "agent"
+            if model_dims[k] is not None:
+                entries[lead + model_dims[k]] = "model"
+            out[k] = greedy_spec(_shape(leaf), replica, skip_leading=lead,
+                                 entries=entries)
+        return out
+
+    return {name: part(leaves, 2 if name == "zhat" else 1)
+            for name, leaves in state_shapes.items()}
 
 
 def batch_shardings(mesh, shapes, batch_axes=None):

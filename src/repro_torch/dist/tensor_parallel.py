@@ -1,6 +1,6 @@
 """Tensor parallelism over a mesh's "model" axis (the port's stand-in for
-what GSPMD does with the reference's `serve_param_shardings`: partition
-the model from its shardings).
+what GSPMD does with the reference's `serve_param_shardings` and
+`state_shardings`: partition the model from its shardings).
 
 Each rank of the axis holds a contiguous slice of every head, hidden and
 vocabulary dimension and runs the model of `local_config`: q, k and v
@@ -13,22 +13,37 @@ whole. The KV arena and pool then hold the rank's kv heads, which is
 `sharding.local_shard` of the whole cache under `cache_shardings` /
 `pool_shardings`, so the attention kernels run on the rank's shard.
 
+The model trains on the axis too (`models.transformer.train_loss(axis=)`,
+`dist.trainer.make_mesh_train_step`): `reduce` and `copy` are each
+other's conjugates as autograd Functions. `reduce` (after `wo`, `w_down`
+and the embedding's lookup) sums in the forward and passes the gradient
+through on each rank; `copy` (the replicated input of each
+column-parallel product: after `ln1` into q/k/v, after `ln2` into gate
+and up, after the final norm into the head, and the qk-norm scales,
+which act on the rank's own heads) passes the value through and sums the
+ranks' partial gradients in the backward. `ModelAxis.nll` is the
+vocabulary-parallel cross-entropy. Identical graphs reach every sum in
+the same order on every rank, so the replicated leaves' gradients, and
+the leaves themselves, stay bitwise equal across a model line.
+
   local_config          -- the config a rank runs;
   check_tensor_parallel -- refuse what this module does not split;
   param_specs           -- the split of every leaf, as sharding spec
-                           tuples;
+                           tuples (`model_dims`: its dim a leaf);
   shard_params / gather_params -- a rank's piece of the whole params, and
                            the whole params from every rank's piece;
   serving_params        -- a rank's piece as it serves, in the compute
                            dtype;
   ModelAxis             -- the axis's operations: row_product, reduce,
-                           embed, argmax.
+                           copy, replicate, embed, nll, argmax.
 
 Precision. One process rounds a row-parallel product once, from its f32
 accumulation to the activation dtype. A rank's partial product of `wo`
 or `w_down` (`ModelAxis.row_product`) comes out in SUM_DTYPE, unrounded;
 the sum over the axis runs in SUM_DTYPE and rounds once to the
 activation dtype (`transformer._reduce`), as one process's product does.
+`copy`'s backward sums the partial gradients in SUM_DTYPE too and rounds
+them once to the gradient's dtype.
 
 The split differs from `dist.serving.serve_param_shardings` (the
 reference's greedy specs): greedy puts "model" on a leaf's largest
@@ -47,7 +62,6 @@ from repro_torch.dist.sharding import (axis_sizes, gather_shards,
                                        local_shard)
 
 # the queue items of ROADMAP.md that the refusals name
-TP_TRAINING = "ROADMAP queue 1 item 6.1a (tensor-parallel training)"
 DATA_AXIS = "ROADMAP queue 1 item 6.1b (the data axis of the serving mesh)"
 OTHER_FAMILIES = ("ROADMAP queue 1 item 6.1c (MLA, MoE and the recurrent "
                   "families on the model axis)")
@@ -67,6 +81,9 @@ _SPLIT = {
 }
 _TOP = {"embed.table": 0, "head": 1, "final_norm.scale": None,
         "final_norm.bias": None}
+# the whole leaves that act on the rank's own heads only, so each rank's
+# gradient is a part of the whole one (`ModelAxis.replicate`)
+PARTIAL = ("attn.q_norm.scale", "attn.k_norm.scale")
 # the dtype of a rank's partial products of `wo` and `w_down` and of
 # their sums over the axis (bytes: `dist.serving.serve_step_sends`)
 SUM_DTYPE = torch.float32
@@ -139,6 +156,13 @@ def param_specs(cfg, params):
     return specs
 
 
+def model_dims(cfg, params):
+    """{leaf: the dim of the unstacked leaf that "model" splits, or None}
+    (`param_specs`), for `sharding.state_shardings`."""
+    return {k: spec.index("model") if "model" in spec else None
+            for k, spec in param_specs(cfg, params).items()}
+
+
 def shard_params(cfg, params, mesh, coords=None):
     """The piece of the whole `params` that the rank at `coords` (default:
     this rank's) holds on `mesh`'s model axis; `params` itself on an axis
@@ -173,6 +197,35 @@ def gather_params(cfg, pieces, mesh):
             for k in pieces[0]}
 
 
+class _Reduce(torch.autograd.Function):
+    """The sum over the model axis; its backward is the identity on each
+    rank (each rank's x enters the sum once)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity; its backward is the sum over the model axis of each
+    rank's partial gradient, in SUM_DTYPE, rounded once to the
+    gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = ctx.comm.all_reduce(grad.to(SUM_DTYPE), "model")
+        return total.to(grad.dtype), None
+
+
 class ModelAxis:
     """The collectives of one rank on a mesh's "model" axis, over `comm`
     (a `dist.collectives.Collectives`). Every sum runs in the line's
@@ -189,8 +242,45 @@ class ModelAxis:
         """The sum over the axis of each rank's x, in x's dtype: SUM_DTYPE
         for the partial products of `row_product` (the caller rounds the
         sum once to the activation dtype), the compute dtype for the
-        embedding's lookup (exact: one rank adds a non-zero row)."""
-        return self.comm.all_reduce(x, "model")
+        embedding's lookup (exact: one rank adds a non-zero row). Its
+        gradient is the identity on each rank."""
+        return _Reduce.apply(x, self.comm)
+
+    def copy(self, x):
+        """x itself, whose gradient is summed over the axis (the
+        replicated input of a column-parallel product; a whole leaf that
+        acts on the rank's heads only). x as it is where it needs no
+        gradient (serving)."""
+        return _Copy.apply(x, self.comm) if x.requires_grad else x
+
+    def replicate(self, params):
+        """`params` with `copy` on the whole leaves whose every rank's
+        gradient is a part (qk-norm's scales: each rank normalizes its
+        own heads), so each leaf's gradient is the whole one on every
+        rank."""
+        return {k: self.copy(v) if k.split(".", 2)[-1] in PARTIAL else v
+                for k, v in params.items()}
+
+    def nll(self, logits, targets):
+        """The vocabulary-parallel cross-entropy: each token's negative
+        log-likelihood [...] in f32 from the rank's slice of the logits
+        [..., V / mp] (f32) and the global target ids, as `train_loss`
+        takes it from the whole logits: the max over the axis (detached:
+        it only shifts the exponents), the sum of exp(logits - max) over
+        the axis, and the target's logit from the rank whose slice holds
+        it (the others add a masked zero). One gather of the maxima, one
+        sum of the (sum, target logit) pairs."""
+        vocab = logits.shape[-1]
+        peaks = self.comm.all_gather(logits.detach().amax(-1).contiguous(),
+                                     "model")
+        m = torch.stack(peaks).amax(0)
+        local = targets.long() - self.index * vocab
+        hit = (local >= 0) & (local < vocab)
+        gold = torch.gather(logits, -1, local.clamp(0, vocab - 1)[..., None])
+        gold = torch.where(hit, gold[..., 0], torch.zeros_like(gold[..., 0]))
+        sums = self.reduce(torch.stack(
+            [torch.sum(torch.exp(logits - m[..., None]), dim=-1), gold]))
+        return m + torch.log(sums[0]) - sums[1]
 
     @staticmethod
     def row_product(h, w):

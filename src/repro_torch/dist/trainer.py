@@ -28,9 +28,14 @@ state alone is ~39.5 GB of the card's 80.
 
 Across processes (`make_mesh_train_step`, the reference's mesh program
 over ("agent", "replica", "model")), each rank holds one agent's slot of
-every leaf, cut to its "replica" shard (`dist.sharding`), and runs the
-same superstep on it; the token hop is `dist.collectives.ring_shift`,
-point-to-point sends where the reference has ppermute.
+every leaf, cut to its tensor-parallel piece on the "model" axis
+(`dist.tensor_parallel`: heads, d_ff and vocabulary rows) and to its
+"replica" shard (`state_specs`), and runs the same superstep on it: the
+model's loss and gradient through `build_model(model_axis=)`, whose sums
+over the axis are collectives, and the update on the piece; the token
+hop is `dist.collectives.ring_shift`, point-to-point sends where the
+reference has ppermute. `make_mesh_dp_baseline_step` splits the DP
+baseline the same way.
 """
 from __future__ import annotations
 
@@ -238,13 +243,7 @@ def _check_mesh(model, tcfg, mesh):
     if sizes.get("agent") != tcfg.num_agents:
         raise ValueError(f"the mesh's agent axis {sizes.get('agent')} must "
                          f"equal num_agents {tcfg.num_agents}")
-    if sizes.get("model", 1) != 1:
-        from repro_torch.dist.tensor_parallel import TP_TRAINING
-
-        raise NotImplementedError(
-            "a model axis above 1 (tensor parallelism) in training is "
-            f"{TP_TRAINING}; train with model parallel 1 (serving runs "
-            "it: launch.serve_mesh)")
+    _check_model_axis(model, sizes)
     cfg = getattr(model, "cfg", None)
     if sizes.get("replica", 1) > 1 and cfg is not None and cfg.moe is not None:
         raise NotImplementedError(
@@ -254,18 +253,67 @@ def _check_mesh(model, tcfg, mesh):
             "it with replica 1")
 
 
+def _check_model_axis(model, sizes):
+    """Refuse what a model axis of `sizes` cannot split
+    (`tensor_parallel.check_tensor_parallel`: the dense attention stack
+    only, naming the ROADMAP item that would split the rest)."""
+    mp = sizes.get("model", 1)
+    if mp == 1:
+        return
+    from repro_torch.dist.tensor_parallel import check_tensor_parallel
+
+    cfg = getattr(model, "cfg", None)
+    if cfg is None:
+        raise ValueError("a model axis above 1 needs the model's config "
+                         "(`model.cfg`) to split it")
+    check_tensor_parallel(cfg, mp)
+
+
+def _rank_model(model, mesh, comm):
+    """The model a rank runs: `model` itself, or on a model axis above 1
+    this rank's slice of it (`build_model(model_axis=)`)."""
+    from repro_torch.dist.sharding import axis_sizes
+
+    if axis_sizes(mesh).get("model", 1) == 1:
+        return model
+    from repro_torch.dist.tensor_parallel import ModelAxis
+    from repro_torch.models import build_model
+
+    return build_model(model.cfg, window=getattr(model, "window", 0),
+                       model_axis=ModelAxis(comm, mesh))
+
+
+def state_specs(model, tcfg, mesh, shapes=None):
+    """The specs of the API-BCD state on a training mesh: the agent on dim
+    0, "replica" greedy (`sharding.state_shardings`) and, on a model axis
+    above 1, "model" on the dim that `tensor_parallel.param_specs`
+    splits; the reference's `state_shardings` where the model axis is 1.
+    `shapes`: model.init's leaves (default: `_param_shapes(model)`)."""
+    from repro_torch.dist.sharding import axis_sizes, state_shardings
+
+    shapes = _param_shapes(model) if shapes is None else shapes
+    dims = None
+    if axis_sizes(mesh).get("model", 1) > 1:
+        from repro_torch.dist.tensor_parallel import model_dims
+
+        _check_model_axis(model, axis_sizes(mesh))
+        dims = model_dims(model.cfg, shapes)
+    return state_shardings(mesh, _state_shapes(shapes, tcfg), model_dims=dims)
+
+
 def init_mesh_train_state(model, tcfg, mesh, generator):
     """This rank's part of `init_train_state`: its agent slot of every
-    leaf, cut to its "replica" shard by `sharding.state_shardings`
-    (leaves [1, ...], zhat [1, M, ...]). Every rank draws the same
-    `model.init(generator)` and keeps its own piece, so the pieces of all
-    ranks make up the one-process state (tokens start at 0)."""
-    from repro_torch.dist.sharding import local_shard, state_shardings
+    leaf, cut to its piece by `state_specs` (its tensor-parallel piece,
+    then its "replica" shard; leaves [1, ...], zhat [1, M, ...]). Every
+    rank draws the same `model.init(generator)` and keeps its own piece,
+    so the pieces of all ranks make up the one-process state (tokens
+    start at 0)."""
+    from repro_torch.dist.sharding import local_shard
 
     _check_mesh(model, tcfg, mesh)
     a, m = tcfg.num_agents, tcfg.num_walks
     p0 = model.init(generator)
-    specs = state_shardings(mesh, _state_shapes(p0, tcfg))
+    specs = state_specs(model, tcfg, mesh, p0)
     coords = mesh.coords
     f32 = torch.float32
     state = {"params": {}, "token": {}, "zhat": {}, "gacc": {}}
@@ -292,24 +340,74 @@ def _row_weight(batch, local, agent, lead):
             / torch.clamp_min(mask[agent].float().sum(), 1.0))
 
 
-def superstep_sends(param_shapes, mesh, rows_per_agent, metrics=3):
+def _all_reduce_sends(numel, n, index):
+    """Elements the rank at `index` of a line of n sends in one
+    `Collectives.all_reduce` of `numel` elements: the whole tensor on a
+    line of 2; else the other ranks' pieces of the flat tensor, then its
+    own piece to each of them."""
+    piece = numel // n + (index < numel % n)
+    return numel + (n - 2) * piece
+
+
+def model_axis_sends(cfg, mp, index, rows, seq, partial_numel=0):
+    """{kind: bytes} the rank at `index` of a model axis of `mp` sends in
+    one loss and gradient of `train_loss(axis=)` (remat on, its default)
+    on `rows` rows of `seq` tokens: in "all_reduce", the lookup's sum in
+    the compute dtype; each layer's two row-parallel sums in the
+    forward, the attention's again where remat replays the layer in the
+    backward (the replay stops at the layer's last saved tensor, the
+    input of `w_down`'s product, before the MLP's sum), and the
+    backward's sums of `copy` (q/k/v's and gate/up's inputs, each layer,
+    and the head's) in `tensor_parallel.SUM_DTYPE`; the cross-entropy's
+    (sum, target logit) pairs in f32; and `partial_numel` elements of
+    whole leaves summed by `replicate`; in "all_gather", the
+    cross-entropy's maxima in f32."""
+    from repro_torch.dist.tensor_parallel import SUM_DTYPE
+
+    f32, wide = 4, SUM_DTYPE.itemsize
+    elem = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                       ).element_size()
+    tokens = rows * seq
+    sums = ([(tokens * cfg.d_model, elem), (2 * tokens, f32),
+             (tokens * cfg.d_model, wide), (partial_numel, wide)]
+            + [(tokens * cfg.d_model, wide)] * (5 * cfg.num_layers))
+    return {"all_reduce": sum(size * _all_reduce_sends(n, mp, index)
+                              for n, size in sums if n),
+            "all_gather": (mp - 1) * tokens * f32}
+
+
+def superstep_sends(param_shapes, mesh, rows_per_agent, metrics=3, *,
+                    cfg=None, seq=0):
     """[{kind: bytes} for each rank]: what `make_mesh_train_step`'s
     superstep makes each rank send, reckoned from the leaf shapes and the
     mesh's axes: per leaf, the all_gather of its params (R - 1 pieces of
     its shard, where "replica" splits it), the reduce_scatter of its f32
     gradient (R - 1 pieces, where the agent's rows split over "replica")
     and the ring_shift of its f32 token shard (where A > 1); and the
-    all_reduce of the `metrics` f32 means over every rank."""
+    all_reduce of the `metrics` f32 means over every rank. On a model
+    axis above 1 (`cfg`: the whole model's config, `seq` a row's tokens)
+    the shards are those of `state_specs`, and each rank also sends the
+    sums of the model axis (`model_axis_sends`)."""
     import math
 
     from repro_torch.dist.sharding import (axis_sizes, param_shardings,
-                                           shard_shape)
+                                           shard_shape, state_shardings)
 
     sizes = axis_sizes(mesh)
     a, r = sizes["agent"], sizes.get("replica", 1)
+    mp = sizes.get("model", 1)
     world = math.prod(sizes.values())
     stacked = {k: (a,) + tuple(v.shape) for k, v in param_shapes.items()}
-    specs = param_shardings(sizes, stacked)
+    if mp > 1:
+        from repro_torch.dist.tensor_parallel import PARTIAL, model_dims
+
+        if cfg is None:
+            raise ValueError("a model axis above 1: superstep_sends needs "
+                             "the model's config")
+        specs = state_shardings(sizes, {"params": stacked},
+                                model_dims(cfg, param_shapes))["params"]
+    else:
+        specs = param_shardings(sizes, stacked)
     per_rank = {"ring_shift": 0, "all_gather": 0, "reduce_scatter": 0}
     for k, v in param_shapes.items():
         n = math.prod(shard_shape(stacked[k], specs[k], sizes))
@@ -319,23 +417,35 @@ def superstep_sends(param_shapes, mesh, rows_per_agent, metrics=3):
             per_rank["all_gather"] += (r - 1) * n * v.element_size()
         if r > 1 and rows_per_agent % r == 0:
             per_rank["reduce_scatter"] += (r - 1) * 4 * n
+    axis = {}
+    if mp > 1:
+        rows = rows_per_agent // r if rows_per_agent % r == 0 else \
+            rows_per_agent
+        partial = sum(v.numel() for k, v in param_shapes.items()
+                      if k.split(".", 2)[-1] in PARTIAL)
+        axis = [model_axis_sends(cfg, mp, i, rows, seq, partial)
+                for i in range(mp)]
     out = []
     pieces = [int(p.numel()) for p in torch.empty(metrics).tensor_split(
         world)] if world > 1 else [0]
     for rank in range(world):
-        sends = {k: v for k, v in per_rank.items() if v}
+        sends = dict(per_rank)
         if world > 1:         # the reduce_scatter, then the all_gather
             sends["all_reduce"] = 4 * (metrics - pieces[rank]
                                        + (world - 1) * pieces[rank])
-        out.append(sends)
+        for kind, b in (axis[rank % mp].items() if axis else ()):
+            sends[kind] = sends.get(kind, 0) + b
+        out.append({k: v for k, v in sends.items() if v})
     return out
 
 
-def mesh_collective_bytes(param_shapes, mesh, rows_per_agent, metrics=3):
+def mesh_collective_bytes(param_shapes, mesh, rows_per_agent, metrics=3,
+                          **model_axis):
     """The bytes every rank of the mesh sends in one superstep, summed: the
-    `collective_bytes` of the superstep's `utils.roofline.Roofline`."""
+    `collective_bytes` of the superstep's `utils.roofline.Roofline`
+    (`model_axis`: `superstep_sends`'s keywords)."""
     return sum(sum(s.values()) for s in superstep_sends(
-        param_shapes, mesh, rows_per_agent, metrics))
+        param_shapes, mesh, rows_per_agent, metrics, **model_axis))
 
 
 def make_mesh_train_step(model, tcfg, mesh, comm):
@@ -345,19 +455,22 @@ def make_mesh_train_step(model, tcfg, mesh, comm):
     batch leaves are the global [A, B, ...] batch (every rank sees the
     same); the rank takes its agent's rows, split over "replica" where B
     divides (`sharding.train_batch_shardings`). With replica R > 1 the
-    agent's params are all-gathered, each replica takes the gradient on
-    its rows, weighted by its share of the agent's loss-mask tokens, and
-    the gradients are reduce-scattered back to the shards. The update
-    (`kernels.ops.prox_update`, with the global num_agents, since the
-    credit of eq. 12b is divided by A) runs on the local shard; the token
-    moves one hop on the agent ring (`comm.ring_shift`), leaf by leaf,
-    from a separate receive buffer. Metrics are means over the agents.
-    With R = 1 every rank runs its agent's slice of the one-process step
-    on the same shapes, so the state equals the one-process state's
-    slices bitwise on one device."""
+    agent's params (the rank's tensor-parallel piece) are all-gathered,
+    each replica takes the gradient on its rows, weighted by its share of
+    the agent's loss-mask tokens, and the gradients are reduce-scattered
+    back to the shards. On a model axis above 1 the loss and gradient are
+    the rank's slice of the model's (`_rank_model`), every rank of a
+    model line on the same rows. The update (`kernels.ops.prox_update`,
+    with the global num_agents, since the credit of eq. 12b is divided by
+    A) runs on the local shard; the token moves one hop on the agent ring
+    (`comm.ring_shift`, between the ranks of one replica and model
+    coordinate), leaf by leaf, from a separate receive buffer. Metrics
+    are means over the agents. With R = 1 and model parallel 1 every
+    rank runs its agent's slice of the one-process step on the same
+    shapes, so the state equals the one-process state's slices bitwise
+    on one device."""
     from repro_torch.dist.sharding import (gather_shards, local_shard,
-                                           restrict, state_shardings,
-                                           train_batch_shardings)
+                                           restrict, train_batch_shardings)
     from repro_torch.utils.hotpath import hot_loop
 
     _check_mesh(model, tcfg, mesh)
@@ -366,8 +479,10 @@ def make_mesh_train_step(model, tcfg, mesh, comm):
     tau, rho = float(tcfg.tau), float(tcfg.rho)
     accumulate = bool(tcfg.accumulate_between_visits)
     r = mesh.shape.get("replica", 1)
+    mp = mesh.shape.get("model", 1)
     shapes = _param_shapes(model)
-    specs = state_shardings(mesh, _state_shapes(shapes, tcfg))["params"]
+    specs = state_specs(model, tcfg, mesh, shapes)["params"]
+    model = _rank_model(model, mesh, comm)
     # the replica axis's part of each leaf's spec, on the agent's leaf
     rspecs = {k: restrict(s[1:], ("replica",)) for k, s in specs.items()}
     rmesh = {"replica": r}
@@ -425,52 +540,65 @@ def make_mesh_train_step(model, tcfg, mesh, comm):
             del g
 
         # each replica's share of its agent's loss (1/R of it where every
-        # replica saw every row), over the A agents
+        # replica saw every row), over the A agents and the mp ranks of a
+        # model line, which report the same loss
         share = weight if split_rows else 1.0 / r
         vals = torch.stack([loss, metr["nll"], metr["aux"]]).float()
-        vals = comm.all_reduce(vals * share / a)
+        vals = comm.all_reduce(vals * share / (a * mp))
         return state, {"loss": vals[0], "nll": vals[1], "aux": vals[2]}
 
     return step_fn
 
 
 def make_mesh_dp_baseline_step(model, opt, schedule, mesh, comm):
-    """The DP baseline across processes: every rank holds the whole params
-    and the optimizer state; the global batch [N, ...] (every rank sees
-    the same) splits over all ranks, each rank's gradient is weighted by
-    its share of the loss-mask tokens (else of the rows) and all-reduced,
-    and every rank applies the same optimizer step. Returns (params,
-    opt_state, batch, step) -> (params, opt_state, metrics)."""
-    from repro_torch.dist.sharding import batch_shardings, local_shard
+    """The DP baseline across processes: every rank holds the params and
+    the optimizer state of its tensor-parallel piece (`tensor_parallel.
+    shard_params`; the whole params on a model axis of 1); the global
+    batch [N, ...] (every rank sees the same) splits over the
+    data-parallel ranks (agent x replica; every rank of a model line
+    takes the same rows), each rank's gradient is weighted by its share
+    of the loss-mask tokens (else of the rows) and all-reduced over the
+    ranks of its model coordinate, and every rank applies the optimizer
+    step to its piece (`optim` is elementwise, so a piece's update is
+    the whole update's piece). Returns (params, opt_state, batch, step)
+    -> (params, opt_state, metrics)."""
+    from repro_torch.dist.sharding import (DATA_LINE, axis_sizes,
+                                           batch_shardings, local_shard)
 
-    world = mesh.size
-    axes = mesh.axis_names
+    sizes = axis_sizes(mesh)
+    _check_model_axis(model, sizes)
+    mp = sizes.get("model", 1)
+    dp = mesh.size // mp
+    # the ranks of this rank's model coordinate (every rank where mp = 1)
+    line = None if mp == 1 else DATA_LINE
     coords = mesh.coords
+    model = _rank_model(model, mesh, comm)
 
     def step_fn(params, opt_state, batch, step):
         rows = batch["tokens"].shape[0]
-        if rows % world:
+        if rows % dp:
             raise ValueError(f"a global batch of {rows} rows does not split "
-                             f"over {world} ranks")
-        specs = batch_shardings(mesh, batch, batch_axes=axes)
+                             f"over {dp} data-parallel ranks")
+        specs = batch_shardings(mesh, batch, batch_axes=DATA_LINE)
         local = {k: local_shard(v, specs[k], mesh, coords)
                  for k, v in batch.items()}
         mask = batch.get("loss_mask")
-        if world == 1:
+        if dp == 1:
             weight = 1.0
         elif mask is None:
-            weight = 1.0 / world
+            weight = 1.0 / dp
         else:
             weight = (local["loss_mask"].float().sum()
                       / torch.clamp_min(mask.float().sum(), 1.0))
         grads, (loss, metr) = _grad(model, params, local)
-        if world > 1:
-            grads = {k: comm.all_reduce(g.float() * weight).to(g.dtype)
+        if dp > 1:
+            grads = {k: comm.all_reduce(g.float() * weight, line).to(g.dtype)
                      for k, g in grads.items()}
         params, opt_state = _optimizer_step(opt, schedule, params,
                                             opt_state, grads, step)
+        # every rank of a model line reports the same loss
         vals = torch.stack([loss, metr["nll"], metr["aux"]]).float()
-        vals = comm.all_reduce(vals * weight)
+        vals = comm.all_reduce(vals * weight / mp)
         return params, opt_state, {"loss": vals[0], "nll": vals[1],
                                    "aux": vals[2]}
 

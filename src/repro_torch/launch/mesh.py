@@ -15,6 +15,9 @@ make_serving_mesh: the ("data", "model") serving mesh over the default
 make_production_mesh, training_mesh_shape: the reference's 256- and
     512-device shapes as shape-only meshes (no processes), for the dry
     run and the sharding specs.
+run_ranks: the parent of a run across processes (`launch.train
+    --processes`, `launch.serve_mesh`): spawn the ranks on this host,
+    wait for them, end them all when one fails or time runs out.
 
 The transport is chosen by name: `backend="nccl"` (CUDA tensors, one GPU
 a rank) or `"gloo"` (host tensors; a CUDA tensor goes through a host
@@ -23,12 +26,20 @@ buffer, `dist.collectives`). NCCL refuses two ranks on one device, so
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import itertools
 import math
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
 
 import torch
 
-from repro_torch.dist.sharding import mesh_coords
+from repro_torch.dist.sharding import DATA_LINE, mesh_coords
 
 TRAINING_AXES = ("agent", "replica", "model")
 SERVING_AXES = ("data", "model")
@@ -72,13 +83,16 @@ class Mesh:
 
     def line(self, axis):
         """The ranks that differ from this one only along `axis`, in the
-        order of that axis's coordinate."""
-        size = self.shape[axis]
-        return [self.rank_of({axis: i}) for i in range(size)]
+        order of that axis's coordinate; `axis` may be a tuple of axes,
+        whose coordinates then run row-major."""
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        return [self.rank_of(dict(zip(axes, index))) for index in
+                itertools.product(*(range(self.shape[a]) for a in axes))]
 
     def group(self, axis):
         """The `torch.distributed` group of this rank's line along `axis`
-        (None for an axis of size 1)."""
+        (an axis, or a tuple of axes that `make_mesh` made lines of; None
+        for a line of one rank)."""
         return self._groups.get(axis)
 
     def __repr__(self):
@@ -132,11 +146,11 @@ def init_distributed(rank, world_size, coordinator, backend, device,
                             world_size=world_size, timeout=timeout, **kwargs)
 
 
-def make_mesh(axis_names, sizes):
+def make_mesh(axis_names, sizes, lines=()):
     """A mesh of these axes over the processes of the default group, with
-    a group for every line of every axis of size > 1 (each process makes
-    every group, in the same order, as `torch.distributed.new_group`
-    requires)."""
+    a group for every line of every axis of size > 1 and of every tuple
+    of axes in `lines` (each process makes every group, in the same
+    order, as `torch.distributed.new_group` requires)."""
     import torch.distributed as dist
 
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -144,12 +158,16 @@ def make_mesh(axis_names, sizes):
         raise ValueError(f"a mesh of {dict(zip(axis_names, sizes))} needs "
                          f"{math.prod(sizes)} processes, not {world}")
     groups = {}
-    for axis, size in zip(axis_names, sizes):
+    shape = dict(zip(axis_names, sizes))
+    for axis in list(axis_names) + list(lines):
+        size = math.prod(shape[a] for a in (axis if isinstance(axis, tuple)
+                                            else (axis,)))
         if size == 1:
             continue
-        lines = dict.fromkeys(tuple(Mesh(axis_names, sizes, rank=r).line(axis))
-                              for r in range(world))
-        for line in lines:
+        members = dict.fromkeys(
+            tuple(Mesh(axis_names, sizes, rank=r).line(axis))
+            for r in range(world))
+        for line in members:
             group = dist.new_group(list(line))
             if rank in line:
                 groups[axis] = group
@@ -160,8 +178,11 @@ def make_mesh(axis_names, sizes):
 def make_training_mesh(num_agents, replica=1, model_parallel=1):
     """The ("agent", "replica", "model") mesh over the default group's
     processes; num_agents * replica * model_parallel must equal the
-    world, as the reference asserts."""
-    return make_mesh(TRAINING_AXES, (num_agents, replica, model_parallel))
+    world, as the reference asserts. With a model axis above 1 it also
+    has the group of the data-parallel line (`DATA_LINE`: the ranks of
+    one model coordinate, whose gradients the DP baseline sums)."""
+    return make_mesh(TRAINING_AXES, (num_agents, replica, model_parallel),
+                     lines=(DATA_LINE,) if model_parallel > 1 else ())
 
 
 def make_serving_mesh(model_parallel=1):
@@ -205,3 +226,78 @@ def training_mesh_shape(num_agents, model_parallel=16, *, multi_pod=False):
     return Mesh(TRAINING_AXES, (num_agents,
                                 total // (num_agents * model_parallel),
                                 model_parallel))
+
+
+@dataclasses.dataclass
+class RankRun:
+    """What `run_ranks` saw: each rank's output and exit code, whether the
+    timeout ended them, the host's `time.perf_counter()` at the spawn and
+    when each rank was seen to exit, and `while_running`'s result."""
+    outs: list
+    rcs: list
+    timed_out: bool
+    spawned: float
+    exited: dict
+    during: object = None
+
+
+def run_ranks(module, argv, processes, rank_flag, timeout,
+              while_running=None):
+    """Spawn `processes` ranks of `python -m module *argv rank_flag R
+    --coordinator localhost:PORT` on this host (a free port; this
+    package's `src` first on PYTHONPATH; gloo's links over the loopback
+    unless GLOO_SOCKET_IFNAME says otherwise), each writing its output to
+    a file of its own; run `while_running()` while they start; wait until
+    every rank has exited, one has failed (the others are ended at once)
+    or `timeout` seconds have passed (all are ended). Returns a
+    `RankRun`."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                 if p]))
+    # every rank runs on this host: gloo's links go over the loopback
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory(prefix="mesh_ranks_") as logs:
+        procs, files, exited = [], [], {}
+        timed_out, during = False, None
+        spawned = time.perf_counter()
+        for r in range(processes):
+            f = open(os.path.join(logs, f"rank{r}.log"), "w")
+            files.append(f)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", module, *argv, rank_flag, str(r),
+                 "--coordinator", f"localhost:{port}"],
+                stdout=f, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + timeout
+        try:
+            if while_running is not None:
+                during = while_running()
+            while True:
+                for r, p in enumerate(procs):
+                    if r not in exited and p.poll() is not None:
+                        exited[r] = time.perf_counter()
+                if (len(exited) == len(procs)
+                        or any(p.returncode not in (None, 0) for p in procs)):
+                    break
+                if time.monotonic() > deadline:
+                    timed_out = True
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in files:
+                f.close()
+        outs = []
+        for r in range(processes):
+            with open(os.path.join(logs, f"rank{r}.log")) as f:
+                outs.append(f.read())
+    return RankRun(outs=outs, rcs=[p.returncode for p in procs],
+                   timed_out=timed_out, spawned=spawned, exited=exited,
+                   during=during)

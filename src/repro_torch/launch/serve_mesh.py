@@ -45,11 +45,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import os
-import socket
-import subprocess
 import sys
-import tempfile
 import time
 
 from repro_torch.utils.device import resolve_device
@@ -393,62 +389,21 @@ def run_parent(args, argv) -> int:
     """Spawn the ranks, wait for them (a rank that fails ends the others;
     --timeout ends all), print their output and check that every arm's
     digests agree. Returns 0 when they do."""
-    from repro_torch.launch.mesh import check_backend
+    from repro_torch.launch.mesh import check_backend, run_ranks
 
     check_backend(args.backend, args.processes, resolve_device(args.device))
     arms = [name for name, *_ in arms_of(args)]
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
-                 if p]))
-    # every rank runs on this host: gloo's links go over the loopback
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    timed_out = False
-    with tempfile.TemporaryDirectory(prefix="serve_mesh_") as logs:
-        procs, files = [], []
-        for i in range(args.processes):
-            f = open(os.path.join(logs, f"p{i}.log"), "w")
-            files.append(f)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.serve_mesh",
-                 *argv, "--process-id", str(i), "--coordinator",
-                 f"localhost:{port}"],
-                stdout=f, stderr=subprocess.STDOUT, env=env))
-        deadline = time.monotonic() + args.timeout
-        try:
-            while True:
-                rcs = [p.poll() for p in procs]
-                if None not in rcs or any(rc not in (None, 0) for rc in rcs):
-                    break
-                if time.monotonic() > deadline:
-                    timed_out = True
-                    break
-                time.sleep(0.1)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            for f in files:
-                f.close()
-        outs = []
-        for i in range(args.processes):
-            with open(os.path.join(logs, f"p{i}.log")) as f:
-                outs.append(f.read())
+    run = run_ranks("repro_torch.launch.serve_mesh", argv, args.processes,
+                    "--process-id", args.timeout)
     digests = {arm: [] for arm in arms}
-    for i, out in enumerate(outs):
+    for i, out in enumerate(run.outs):
         for line in out.splitlines():
             print(f"  p{i}| {line}", flush=True)
             if line.startswith("SERVE_MESH_OK"):
                 fields = dict(kv.split("=", 1) for kv in line.split()[1:])
                 digests.setdefault(fields.get("arm"), []).append(
                     fields["digest"])
-    rcs = [p.returncode for p in procs]
-    ok = (not timed_out and all(rc == 0 for rc in rcs)
+    ok = (not run.timed_out and all(rc == 0 for rc in run.rcs)
           and all(len(d) == args.processes and len(set(d)) == 1
                   for d in digests.values()))
     if ok:
@@ -456,9 +411,9 @@ def run_parent(args, argv) -> int:
             print(f"[parent] {args.processes} processes agree on {arm} "
                   f"(digest {d[0]})", flush=True)
         return 0
-    print(f"[parent] FAILED: rcs={rcs} digests={digests}"
-          + (f" (timed out after {args.timeout} s)" if timed_out else ""),
-          flush=True)
+    print(f"[parent] FAILED: rcs={run.rcs} digests={digests}"
+          + (f" (timed out after {args.timeout} s)" if run.timed_out
+             else ""), flush=True)
     return 1
 
 

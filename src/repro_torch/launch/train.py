@@ -23,33 +23,40 @@ card's 80 GB.
 
 Across processes (the reference's mesh, `--devices`): `--processes N`
 spawns N ranks of the ("agent", "replica", "model") mesh, one agent a
-rank with its state FSDP-sharded over "replica"
+rank line with its state split over "model" (tensor parallelism over
+`--model-parallel` ranks: heads, d_ff and vocabulary, `dist.
+tensor_parallel`) and FSDP-sharded over "replica"
 (`dist.trainer.make_mesh_train_step`); as the reference, the replica
 count is N / (agents x --model-parallel):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --smoke --agents 4 --walks 2 --steps 4 --batch-per-agent 2 \
         --seq 64 --processes 4 --backend gloo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --smoke --agents 2 --walks 1 --steps 4 --batch-per-agent 2 \
+        --seq 64 --processes 4 --model-parallel 2 --device cpu
 
 The parent picks a port, spawns the ranks (each joins the default group
 through a TCPStore and builds the same init from the same seeded
-generator, keeping its own shard) and checks that every rank's metrics
-agree. `--backend` names the transport: gloo (host tensors; on the card a
-CUDA tensor goes through a pinned host buffer, so ranks may share one
-GPU) or nccl (one GPU a rank). Each rank prints, per superstep, the
-host ms, the token hop's ms and the bytes it sent, and at the end one
-digest per state part of its agent slot and its peak memory.
+generator, keeping its own piece) and checks that every rank's metrics
+agree and, on a model axis above 1, that the leaves it does not split
+are bitwise equal across each model line. `--backend` names the
+transport: gloo (host tensors; on the card a CUDA tensor goes through a
+pinned host buffer, so ranks may share one GPU) or nccl (one GPU a
+rank). Each rank prints, per superstep, the host ms, the token hop's ms,
+the model axis's ms and the bytes it sent, and at the end one digest per
+state part of its agent slot and its peak memory.
+
+`--layers N` keeps the config's first N layers at full width, as
+`launch.serve --layers` does: the same model, shallower, for a run
+whose depth one card (or a time limit) cannot take; 0 keeps them all.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
-import os
-import socket
-import subprocess
 import sys
-import tempfile
 import time
 
 from repro_torch.utils.device import resolve_device
@@ -60,6 +67,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-feasible)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers (0: all)")
     ap.add_argument("--agents", type=int, default=4)
     ap.add_argument("--walks", type=int, default=2)
     ap.add_argument("--steps", type=int, default=50)
@@ -84,8 +93,8 @@ def parse_args(argv=None):
                          "process), N / (agents x model parallel) FSDP "
                          "replicas of each agent")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor parallel width (with --processes; only 1 "
-                         "in training so far)")
+                    help="tensor parallel width (with --processes): the "
+                         "mesh's \"model\" axis")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
                     help="the transport between processes")
     ap.add_argument("--timeout", type=float, default=900.0,
@@ -136,9 +145,16 @@ def part_digests(state, slot=None):
 
 
 def _config(args):
+    """The config of --arch (--smoke: its smoke config), cut to --layers."""
+    import dataclasses
+
     from repro_torch.configs import get_config, get_smoke
 
-    return get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers,
+                                  layer_types=cfg.layer_types[:args.layers])
+    return cfg
 
 
 def train(args):
@@ -151,6 +167,9 @@ def train(args):
         return train_rank(args)
     if args.processes:
         return train_processes(args)
+    if args.model_parallel != 1:
+        raise ValueError("--model-parallel splits a model over the ranks of "
+                         "a run across processes: give --processes")
     import numpy as np
     import torch
 
@@ -230,14 +249,13 @@ def _replica(args):
     """The replica count of a run across processes: processes / (agents x
     model parallel), as the reference derives it from its devices.
     Refuses what a run across processes cannot do, before a process
-    starts."""
-    if args.model_parallel != 1:
-        from repro_torch.dist.tensor_parallel import TP_TRAINING
+    starts: a model axis above 1 splits the dense attention stack only
+    (`tensor_parallel.check_tensor_parallel` names the ROADMAP item that
+    would split the rest)."""
+    if args.model_parallel > 1:
+        from repro_torch.dist.tensor_parallel import check_tensor_parallel
 
-        raise NotImplementedError(
-            "--model-parallel above 1 (tensor parallelism over the mesh's "
-            f"\"model\" axis) in training is {TP_TRAINING}; serving runs "
-            "it (launch.serve_mesh)")
+        check_tensor_parallel(_config(args), args.model_parallel)
     line = args.agents * args.model_parallel
     if args.processes % line:
         raise ValueError(f"--processes {args.processes} is not a multiple "
@@ -248,89 +266,61 @@ def _replica(args):
 
 def train_processes(args):
     """The parent of a run across processes: spawn args.processes ranks of
-    this module, each logging to a file, wait for them (a rank that
+    this module (`launch.mesh.run_ranks`), wait for them (a rank that
     fails ends the others) and check that they agree. Returns {"ranks":
     [each rank's result], "losses", "step_ms" (the slowest rank's),
     "device", "backend"}; raises if a rank failed."""
-    from repro_torch.launch.mesh import check_backend
+    from repro_torch.launch.mesh import check_backend, run_ranks
     from repro_torch.utils.device import resolve_device
 
     replica = _replica(args)
     device = resolve_device(args.device)
     check_backend(args.backend, args.processes, device)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     print(f"mesh: agents={args.agents} replica={replica} "
           f"model={args.model_parallel} processes={args.processes} "
           f"backend={args.backend} device={device}", flush=True)
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
-                 if p]))
-    # every rank runs on this host: gloo's links go over the loopback
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    with tempfile.TemporaryDirectory(prefix="mesh_train_") as logs:
-        procs, files, exited = [], [], {}
-        t_spawn = time.perf_counter()
-        for r in range(args.processes):
-            f = open(os.path.join(logs, f"rank{r}.log"), "w")
-            files.append(f)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.train", *args.argv,
-                 "--rank", str(r), "--coordinator", f"localhost:{port}"],
-                stdout=f, stderr=subprocess.STDOUT, env=env))
-        deadline = time.monotonic() + args.timeout
-        try:
-            # reckoned while the ranks start
-            collective = None if args.baseline else _collective(args,
-                                                                replica)
-            while len(exited) < len(procs):
-                for r, p in enumerate(procs):
-                    if r not in exited and p.poll() is not None:
-                        exited[r] = time.perf_counter()
-                failed = any(p.returncode not in (None, 0) for p in procs)
-                if failed or time.monotonic() > deadline:
-                    break
-                time.sleep(0.1)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            for f in files:
-                f.close()
-        outs = []
-        for r in range(args.processes):
-            with open(os.path.join(logs, f"rank{r}.log")) as f:
-                outs.append(f.read())
+    # the collectives' roofline is reckoned while the ranks start
+    run = run_ranks("repro_torch.launch.train", args.argv, args.processes,
+                    "--rank", args.timeout,
+                    while_running=None if args.baseline else
+                    lambda: _collective(args, replica))
+    collective = run.during
     results = []
-    for r, out in enumerate(outs):
+    for r, out in enumerate(run.outs):
         for line in out.splitlines():
             print(f"  r{r}| {line}", flush=True)
             if line.startswith("MESH_RANK "):
                 results.append(json.loads(line[len("MESH_RANK "):]))
-    rcs = [p.returncode for p in procs]
-    if any(rcs) or len(results) != args.processes:
-        raise RuntimeError(f"a rank failed: exit codes {rcs}")
+    if any(run.rcs) or len(results) != args.processes:
+        raise RuntimeError(f"a rank failed: exit codes {run.rcs}")
     losses = [res["losses"] for res in results]
     if any(x != losses[0] for x in losses):
         raise RuntimeError(f"the ranks' metrics disagree: {losses}")
     print(f"[parent] {args.processes} ranks agree: losses {losses[0]}",
           flush=True)
+    if args.model_parallel > 1:
+        lines = {}
+        for res in results:
+            where = (res["coords"]["agent"], res["coords"]["replica"])
+            lines.setdefault(where, []).append(res["replicated"])
+        if any(d != got[0] for got in lines.values() for d in got):
+            raise RuntimeError(f"the leaves the model axis does not split "
+                               f"differ across a model line: {lines}")
+        print(f"[parent] the leaves the model axis does not split are "
+              f"bitwise equal across each of the {len(lines)} model lines",
+              flush=True)
     # a rank's clock readings are the host's monotonic clock, as the
     # parent's: where its launch time went
     for res in results:
         r = res["rank"]
-        res["start_s"] = res["clock"]["enter"] - t_spawn
-        res["exit_s"] = exited[r] - res["clock"]["line"]
+        res["start_s"] = res["clock"]["enter"] - run.spawned
+        res["exit_s"] = run.exited[r] - res["clock"]["line"]
         print(f"[parent] rank {r}: start {res['start_s']:.1f} s, setup "
               f"{res['setup_s']:.1f}, supersteps "
               f"{sum(res['step_ms']) / 1e3:.1f}, finish "
               f"{res['finish_s']:.1f}, exit {res['exit_s']:.1f}; all ranks "
-              f"done {max(exited.values()) - t_spawn:.1f} s after the "
-              f"spawn", flush=True)
+              f"done {max(run.exited.values()) - run.spawned:.1f} s after "
+              f"the spawn", flush=True)
     if collective is not None:
         print(f"[parent] a superstep's collective bytes (all ranks) "
               f"{collective.collective_bytes:.0f}: "
@@ -353,9 +343,10 @@ def _collective(args, replica):
 
     sizes = {"agent": args.agents, "replica": replica,
              "model": args.model_parallel}
+    cfg = _config(args)
     return Roofline({}, 0, collective_bytes=mesh_collective_bytes(
-        _param_shapes(build_model(_config(args))), sizes,
-        args.batch_per_agent), chips=args.processes)
+        _param_shapes(build_model(cfg)), sizes, args.batch_per_agent,
+        cfg=cfg, seq=args.seq), chips=args.processes)
 
 
 def train_rank(args):
@@ -376,10 +367,11 @@ def train_rank(args):
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.tokens import agent_batches
     from repro_torch.dist.collectives import Collectives
-    from repro_torch.dist.sharding import gather_shards, state_shardings
+    from repro_torch.dist.sharding import gather_shards
+    from repro_torch.dist.tensor_parallel import param_specs, shard_params
     from repro_torch.dist.trainer import (
-        _param_shapes, _state_shapes, init_mesh_train_state,
-        make_mesh_dp_baseline_step, make_mesh_train_step)
+        init_mesh_train_state, make_mesh_dp_baseline_step,
+        make_mesh_train_step, state_specs)
     from repro_torch.kernels.prox_update import prox_update_cuda
     from repro_torch.launch.mesh import (init_distributed,
                                          make_training_mesh, rank_device)
@@ -412,17 +404,22 @@ def train_rank(args):
         torch.cuda.reset_peak_memory_stats(device)
     if args.baseline:
         opt = adamw(weight_decay=0.0)
-        params = model.init(generator)
+        whole = model.init(generator)
+        # the leaves' split on the model axis (nothing split where it is 1)
+        specs = {"params": param_specs(cfg, whole)}
+        params = shard_params(cfg, whole, mesh)
+        del whole
         opt_state = opt.init(params)
         step_fn = make_mesh_dp_baseline_step(model, opt, constant(3e-4),
                                              mesh, comm)
     else:
         state = init_mesh_train_state(model, tcfg, mesh, generator)
+        specs = state_specs(model, tcfg, mesh)
         step_fn = make_mesh_train_step(model, tcfg, mesh, comm)
     batches = agent_batches(cfg.vocab_size, args.agents,
                             args.batch_per_agent, args.seq, seed=0)
     prox_update_cuda.launches = 0
-    losses, auxs, step_ms, hop_ms, sent = [], [], [], [], []
+    losses, auxs, step_ms, hop_ms, axis_ms, sent = [], [], [], [], [], []
     setup_s = time.perf_counter() - t_enter
     for step in range(args.steps):
         toks, targs = next(batches)
@@ -441,28 +438,35 @@ def train_rank(args):
             torch.cuda.synchronize(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         hop_ms.append(comm.ms["ring_shift"])
+        axis_ms.append(comm.axis_ms["model"])
         sent.append(dict(comm.sent))
         losses.append(float(metrics["loss"]))
         auxs.append(float(metrics["aux"]))
         if args.log_every and step % args.log_every == 0:
             print(f"step {step:4d}  loss {losses[-1]:.4f}  step_ms "
-                  f"{step_ms[-1]:.1f}  hop_ms {hop_ms[-1]:.1f}  sent "
-                  f"{sum(sent[-1].values())} B", flush=True)
+                  f"{step_ms[-1]:.1f}  hop_ms {hop_ms[-1]:.1f}  axis_ms "
+                  f"{axis_ms[-1]:.1f}  sent {sum(sent[-1].values())} B",
+                  flush=True)
     if not np.all(np.isfinite(losses)):
         raise FloatingPointError(f"non-finite loss: {losses}")
     t_steps = time.perf_counter()
     result = {"rank": rank, "coords": mesh.coords, "device": str(device),
               "backend": args.backend, "losses": losses, "auxs": auxs,
-              "step_ms": step_ms, "hop_ms": hop_ms, "sent": sent,
+              "step_ms": step_ms, "hop_ms": hop_ms, "axis_ms": axis_ms,
+              "sent": sent,
               "prox_update_launches": prox_update_cuda.launches,
               "peak_bytes": (torch.cuda.max_memory_allocated(device)
                              if cuda else None)}
-    result["digests"] = part_digests({"params": params} if args.baseline
-                                     else state)
+    parts = {"params": params} if args.baseline else state
+    result["digests"] = part_digests(parts)
+    if args.model_parallel > 1:
+        # the leaves the model axis does not split: equal across a line
+        result["replicated"] = part_digests({
+            part: {k: v for k, v in leaves.items()
+                   if "model" not in specs[part][k]}
+            for part, leaves in parts.items()})
     if args.checkpoint_dir and not args.baseline:
         # leaf by leaf to rank 0, which joins the pieces
-        specs = state_shardings(mesh, _state_shapes(_param_shapes(model),
-                                                    tcfg))
         whole = {}
         for part, leaves in state.items():
             whole[part] = {}

@@ -118,18 +118,18 @@ def build_model(cfg: ArchConfig, window: int = 0, model_axis=None) -> Model:
 
     model_axis: a `dist.tensor_parallel.ModelAxis`: the model of this
     rank's slice of a tensor-parallel model (`Model.cfg` is its
-    `local_config`), whose serving entry points take this rank's
-    parameters (`tensor_parallel.serving_params`) and caches and sum
-    over the axis where the whole model's products would; its
-    logits-returning entry points give this rank's vocabulary slice, and
-    its token steps the same ids on every rank. The dense attention
-    stack only (`tensor_parallel.check_tensor_parallel`); its
-    `train_loss` raises (no backward through the axis's collectives
-    yet)."""
+    `local_config`), whose entry points take this rank's parameters
+    (`tensor_parallel.shard_params`; `serving_params` to serve) and
+    caches and sum over the axis where the whole model's products would;
+    its logits-returning entry points give this rank's vocabulary slice,
+    and its token steps the same ids on every rank. Its `train_loss` is
+    the whole model's loss on every rank, with the gradient of the
+    rank's piece (`transformer.train_loss(axis=)`). The dense attention
+    stack only (`tensor_parallel.check_tensor_parallel`)."""
     _check_ported(cfg)
     axis = model_axis
     if axis is not None:
-        from repro_torch.dist.tensor_parallel import TP_TRAINING, local_config
+        from repro_torch.dist.tensor_parallel import local_config
         cfg = local_config(cfg, axis.size)
     if cfg.family in ("audio", "encdec"):
         return Model(
@@ -143,15 +143,10 @@ def build_model(cfg: ArchConfig, window: int = 0, model_axis=None) -> Model:
                                                               seq, **kw))
     window = cfg.attn_window or window
 
-    def train_loss(p, b, **kw):
-        if axis is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: training on a model axis is {TP_TRAINING}")
-        return TF.train_loss(cfg, p, b, window=window, **kw)
-
     entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),
-        train_loss=train_loss,
+        train_loss=lambda p, b, **kw: TF.train_loss(cfg, p, b, window=window,
+                                                    axis=axis, **kw),
         prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, window=window,
                                                axis=axis, **kw),
         decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos,

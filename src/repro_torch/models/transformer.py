@@ -189,8 +189,10 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     axis: a `dist.tensor_parallel.ModelAxis` where this rank runs its
     slice of the heads and of d_ff (`cfg` is then its `local_config`):
     the partial products of `wo` and `w_down` (`ModelAxis.row_product`)
-    are summed over the axis before each residual add. None runs the
-    whole model.
+    are summed over the axis before each residual add, and the normed
+    inputs of q/k/v and of gate/up pass through `ModelAxis.copy`, whose
+    backward sums their gradients over the axis. None runs the whole
+    model.
     """
     aux = None
     for si, (kind, count) in enumerate(segments(cfg)):
@@ -232,7 +234,7 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window,
     the reference reads it), and returns (x, aux), aux its load-balance
     loss in "train" mode and None otherwise."""
     _, norm = make_norm(cfg.norm_type)
-    h = norm(lp["ln1"], x)
+    h = _copy(axis, norm(lp["ln1"], x))
     mla = cfg.mla is not None
     names = tuple(_entry_shapes(cfg))
     product = _product(axis)
@@ -272,7 +274,7 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window,
                 seg[name][i].copy_(A.prefill_cache_entries(e, t, s))
             seg["ptr"][i].fill_(s)
     x = x + _reduce(axis, attn_out, x.dtype)
-    h2 = norm(lp["ln2"], x)
+    h2 = _copy(axis, norm(lp["ln2"], x))
     if "moe" in lp:
         moe_fn = (MOE.moe_apply_scatter if os.environ.get("REPRO_MOE_SCATTER")
                   else MOE.moe_apply)
@@ -293,6 +295,12 @@ def _reduce(axis, x, dtype):
     reduce`: the ranks' partial products, in f32) and rounded once to the
     activation dtype `dtype`; x itself without an axis."""
     return x if axis is None else axis.reduce(x).to(dtype)
+
+
+def _copy(axis, x):
+    """x as the replicated input of a column-parallel product: on a model
+    axis `ModelAxis.copy` (its gradient summed over the axis), else x."""
+    return x if axis is None else axis.copy(x)
 
 
 def _rwkv_block(cfg, lp, x, seg, i):
@@ -350,7 +358,7 @@ def _prefix(x, batch):
     return torch.cat([patches.to(x.dtype), x], dim=1), patches.shape[1]
 
 
-def train_loss(cfg, params, batch, window=0, remat=True):
+def train_loss(cfg, params, batch, window=0, remat=True, axis=None):
     """batch: {tokens [B,S], targets [B,S], loss_mask [B,S] (optional),
     patches [B,P,D] (optional: a VLM's prefix, which the loss skips)}.
 
@@ -360,19 +368,40 @@ def train_loss(cfg, params, batch, window=0, remat=True):
     window: the sliding window of every attention layer (0: the
     config's own); remat: checkpoint each layer's activations (see
     `forward`), the reference's default.
+
+    axis: a `dist.tensor_parallel.ModelAxis` where `params` are this
+    rank's piece (`tensor_parallel.shard_params`) and `cfg` its
+    `local_config`: the lookup is vocabulary-parallel, the stack sums
+    over the axis (`forward`), the head gives the rank's vocabulary
+    slice of the logits and `ModelAxis.nll` the cross-entropy over every
+    slice; the loss is the whole model's on every rank, and each leaf's
+    gradient the rank's piece of the whole one.
     """
+    if axis is not None:
+        params = axis.replicate(params)
     params = _cast(cfg, params)
     tokens = batch["tokens"]
-    x, n_prefix = _prefix(embed(subtree(params, "embed"), tokens), batch)
+    if axis is None:
+        x = embed(subtree(params, "embed"), tokens)
+    else:
+        x = axis.embed(params["embed.table"], tokens)
+    x, n_prefix = _prefix(x, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x, aux = forward(cfg, params, x, positions=positions, window=window,
-                     remat=remat)
-    logits = logits_fn(cfg, params, x[:, n_prefix:]).float()
-    m = logits.amax(dim=-1).detach()
-    logz = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
-    gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
-    nll = logz - gold
+                     remat=remat, axis=axis)
+    x = x[:, n_prefix:]
+    if axis is None:
+        logits = logits_fn(cfg, params, x).float()
+        m = logits.amax(dim=-1).detach()
+        logz = m + torch.log(torch.sum(torch.exp(logits - m[..., None]),
+                                       dim=-1))
+        gold = torch.gather(logits, -1,
+                            batch["targets"].long()[..., None])[..., 0]
+        nll = logz - gold
+    else:
+        nll = axis.nll(logits_fn(cfg, params, axis.copy(x)).float(),
+                       batch["targets"])
     mask = batch.get("loss_mask")
     if mask is None:
         loss = nll.mean()

@@ -3,7 +3,10 @@ the ranks' digests equal the one-process run's slices, a checkpoint
 gathered to rank 0 loads in both packages, replica 2 and the DP baseline
 over 2 processes, run at the config's bf16, equal the one-process steps
 with the gradient split as the ranks split it (bitwise), and in f32 those
-split steps stay within atol 1e-5 of the unsplit steps."""
+split steps stay within atol 1e-5 of the unsplit steps. At model parallel
+2 (API-BCD and the DP baseline) the ranks keep the unsplit leaves bitwise
+equal across each model line, and the checkpoint joins the pieces into
+the one-process state's format."""
 import dataclasses
 import os
 import subprocess
@@ -218,3 +221,81 @@ def test_dp_baseline_over_two_processes():
         assert rec["digests"] == digest
         assert rec["losses"] == split_losses
         assert all(s["all_reduce"] > 0 for s in rec["sent"])
+
+
+def test_model_parallel_two_through_the_launcher(tmp_path):
+    """--agents 2 over 4 processes at --model-parallel 2 (the config's
+    bf16): the ranks agree and the parent finds the leaves the model axis
+    does not split bitwise equal across each model line; each rank's
+    bytes are `superstep_sends`'s; --checkpoint-dir joins the pieces
+    (`trainer.state_specs`) into the whole state in the reference's
+    format, which loads into the one-process state of the same flags in
+    both packages, cuts back into each rank's digests, and stays near the
+    one-process run (bf16 sums in another order: losses within rtol
+    2e-4, params within atol 2e-3, ~1.6e-4 apart here)."""
+    rc, out, ranks = _launch("--agents", "2", "--walks", "1",
+                             "--processes", "4", "--model-parallel", "2",
+                             "--checkpoint-dir", str(tmp_path / "ck"))
+    assert rc == 0, out
+    assert "model=2" in out and "bitwise equal across each of the 2" in out
+    model, tcfg, want = _one_process(2, 1)
+    cfg = model.cfg
+    sizes = {"agent": 2, "replica": 1, "model": 2}
+    sends = T.superstep_sends(T._param_shapes(model), sizes, 2, cfg=cfg,
+                              seq=16)
+    got, step = ckpt.load_checkpoint(str(tmp_path / "ck"), want)
+    assert step == 3
+    specs = T.state_specs(model, tcfg, sizes)
+    for rec in ranks:
+        rank = rec["rank"]
+        assert all(s == sends[rank] for s in rec["sent"]), rec["sent"]
+        piece = {part: {k: local_shard(v, specs[part][k], sizes,
+                                       rec["coords"])
+                        for k, v in leaves.items()}
+                 for part, leaves in got.items()}
+        assert rec["digests"] == train_cli.part_digests(piece)
+    for part, leaves in want.items():
+        for k, v in leaves.items():
+            assert got[part][k].shape == v.shape, f"{part}/{k}"
+            assert got[part][k].dtype == v.dtype, f"{part}/{k}"
+    jcfg = jax_get_smoke("qwen2-0.5b")
+    like = jax_trainer.init_train_state(
+        jax_build_model(jcfg), JaxTrainConfig(num_agents=2, num_walks=1,
+                                              model_parallel=1))
+    jgot, _ = jax_ckpt.load_checkpoint(str(tmp_path / "ck"), like)
+    for part, leaves in got.items():
+        flat = flatten(jax.device_get(jgot[part]))
+        for k, v in leaves.items():
+            np.testing.assert_array_equal(flat[k], v.numpy(), err_msg=k)
+    losses = []
+    stream = agent_batches(cfg.vocab_size, 2, 2, 16, seed=0)
+    step_fn = T.make_train_step(model, tcfg)
+    state = T.init_train_state(model, tcfg, torch.Generator().manual_seed(0))
+    for i in range(3):
+        toks, targs = next(stream)
+        state, met = step_fn(state, {"tokens": torch.from_numpy(toks),
+                                     "targets": torch.from_numpy(targs)}, i)
+        losses.append(float(met["loss"]))
+    np.testing.assert_allclose(ranks[0]["losses"], losses, rtol=2e-4)
+    for k, v in want["params"].items():
+        np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
+                                   rtol=0, atol=2e-3, err_msg=k)
+
+
+def test_dp_baseline_on_the_model_axis_through_the_launcher():
+    """--baseline over 4 processes at --model-parallel 2: the global batch
+    splits over the 2 data-parallel ranks, each model line holds its
+    pieces; the ranks agree on the losses and the parent finds the leaves
+    the axis does not split bitwise equal across each model line; the
+    ranks of one model coordinate hold bitwise-equal pieces."""
+    rc, out, ranks = _launch("--agents", "2", "--processes", "4",
+                             "--model-parallel", "2", "--baseline")
+    assert rc == 0, out
+    assert "bitwise equal across each of the 2" in out
+    by_model = {}
+    for rec in ranks:
+        by_model.setdefault(rec["coords"]["model"], []).append(
+            rec["digests"])
+        assert all(s["all_reduce"] > 0 for s in rec["sent"])
+    assert all(d == same[0] for same in by_model.values() for d in same)
+    assert by_model[0][0] != by_model[1][0]

@@ -6,19 +6,23 @@ the JAX reference, on the CPU.
 scenarios in one launch (each on its own mesh over the one group): the
 smoke qwen2 in f32 on the (4, 1, 1) and (2, 2, 1) meshes ("agent",
 "replica", "model") with and without accumulation, an uneven loss mask at
-replica 2, the quadratic model of `test_mesh_equivalence.py`, and the DP
-baseline over the 4 ranks. Here, the ranks' parts are joined
-(`sharding.gather_shards`) and held:
+replica 2, tensor parallelism on the (2, 1, 2) mesh with and without
+accumulation and with replicas on (1, 2, 2), the quadratic model of
+`test_mesh_equivalence.py`, and the DP baseline over the 4 ranks on the
+(4, 1, 1) and (2, 1, 2) meshes. Here, the ranks' parts are joined
+(`sharding.gather_shards` under `trainer.state_specs`) and held:
 
   * against the reference's superstep on one device (its vmap over the
     agents, which `test_mesh_equivalence.py` ties to its mesh): all four
     state parts within atol 1e-5;
   * against the port's one-process `make_train_step` from the same init:
-    bitwise at replica 1, within atol 1e-5 at replica 2;
+    bitwise at replica 1 and model parallel 1, within atol 1e-5 with
+    replicas or a model axis; the leaves the model axis does not split
+    bitwise equal across each model line;
   * to `dist_check_script.py`'s invariants in paper-faithful mode, and
     to the quadratic's numpy reference;
-  * the bytes each rank sent, by kind, to the leaf arithmetic and to the
-    roofline's `collective_bytes`.
+  * the bytes each rank sent, by kind, to the leaf arithmetic, to
+    `trainer.superstep_sends` and to the roofline's `collective_bytes`.
 """
 import dataclasses
 import os
@@ -45,6 +49,7 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.tokens import agent_batches  # noqa: E402
+from repro_torch.dist import tensor_parallel as TP  # noqa: E402
 from repro_torch.dist import trainer as T  # noqa: E402
 from repro_torch.dist.sharding import (gather_shards,  # noqa: E402
                                        state_shardings)
@@ -180,7 +185,7 @@ def runs(launched, references):
     assert all("MESH_SCRIPT_OK" in log for log in logs)
     return {name: [torch.load(out / f"{name}.rank{r}.pt")
                    for r in range(WORLD)]
-            for name in [*S.SCENARIOS, "dp"]}
+            for name in [*S.SCENARIOS, *S.DP_MESHES]}
 
 
 def _tcfg(scenario):
@@ -195,15 +200,24 @@ def _tcfg(scenario):
 
 def _sizes(scenario):
     _, a, r, *_ = S.SCENARIOS[scenario]
-    return {"agent": a, "replica": r, "model": 1}
+    return {"agent": a, "replica": r,
+            "model": S.MODEL_PARALLEL.get(scenario, 1)}
+
+
+def _specs(scenario, p_shapes):
+    """The state's specs on the scenario's mesh: the tensor-parallel split
+    on a model axis above 1 (`tensor_parallel.model_dims`)."""
+    sizes = _sizes(scenario)
+    dims = TP.model_dims(_cfg(), p_shapes) if sizes["model"] > 1 else None
+    return state_shardings(sizes, T._state_shapes(p_shapes, _tcfg(
+        scenario)), model_dims=dims)
 
 
 def _joined(scenario, records, p_shapes, state=None):
     """The whole state from the ranks' parts (`state`: which recorded
     state, default the final one)."""
     sizes = _sizes(scenario)
-    specs = state_shardings(sizes, T._state_shapes(p_shapes, _tcfg(
-        scenario)))
+    specs = _specs(scenario, p_shapes)
     pick = (lambda rec: rec["state"]) if state is None else state
     parts = pick(records[0]).keys()
     return {part: {k: gather_shards([pick(rec)[part][k] for rec in records],
@@ -239,13 +253,16 @@ def test_mesh_superstep_against_the_one_process_step(scenario, runs,
     """Replica 1: each rank runs its agent's slice of the one-process step
     on the same shapes, so the joined state is bitwise the one-process
     state. Replica 2: the reduce-scatter sums the replicas' gradients in
-    another order than one backward over all rows: within atol 1e-5."""
+    another order than one backward over all rows; a model axis sums the
+    ranks' partial products and gradients in another order than one
+    process's products: within atol 1e-5."""
     want, losses = references[scenario]["port"]
     got = _joined(scenario, runs[scenario], p0)
+    sizes = _sizes(scenario)
     worst = 0.0
     for part in PARTS:
         for k, v in want[part].items():
-            if _sizes(scenario)["replica"] == 1:
+            if sizes["replica"] == 1 and sizes["model"] == 1:
                 assert torch.equal(got[part][k], v), f"{part}/{k}"
             else:
                 worst = max(worst, float((got[part][k] - v).abs().max()))
@@ -355,10 +372,9 @@ def test_uneven_loss_mask_weights_each_replica_by_its_tokens(runs,
                                    losses, rtol=1e-6)
 
 
-def test_dp_baseline_over_ranks_matches_one_process(runs, p0):
-    """The DP baseline over the 4 ranks (sgd with momentum, the uneven
-    mask on the global batch): every rank holds the same params, within
-    atol 1e-5 of the one-process DP step's; losses within rtol 1e-5."""
+def _dp_reference(p0):
+    """The one-process DP step (sgd with momentum, the uneven mask on the
+    global batch) from `p0`: (params, losses)."""
     model = S.lm_model(p0)
     opt = sgd(0.9)
     params = model.init(None)
@@ -377,6 +393,14 @@ def test_dp_baseline_over_ranks_matches_one_process(runs, p0):
              "targets": torch.from_numpy(targs.reshape(-1, S.SEQ)),
              "loss_mask": mask}, step)
         losses.append(float(met["loss"]))
+    return params, losses
+
+
+def test_dp_baseline_over_ranks_matches_one_process(runs, p0):
+    """The DP baseline over the 4 ranks (sgd with momentum, the uneven
+    mask on the global batch): every rank holds the same params, within
+    atol 1e-5 of the one-process DP step's; losses within rtol 1e-5."""
+    params, losses = _dp_reference(p0)
     recs = runs["dp"]
     for rec in recs:
         for k, v in params.items():
@@ -385,6 +409,41 @@ def test_dp_baseline_over_ranks_matches_one_process(runs, p0):
                                        rtol=0, atol=1e-5, err_msg=k)
         np.testing.assert_allclose([m["loss"] for m in rec["metrics"]],
                                    losses, rtol=1e-5)
+
+
+def test_dp_baseline_on_the_model_axis_matches_one_process(runs, p0):
+    """The DP baseline on the (2, 1, 2) mesh: the batch splits over the 2
+    data-parallel ranks only, each model line holds its pieces of the
+    params and optimizer state, and the gradient is summed over the
+    ranks of one model coordinate. The ranks of a model coordinate hold
+    bitwise-equal pieces, the leaves the axis does not split are bitwise
+    equal on all 4 ranks, the pieces join (`gather_params`) within atol
+    1e-5 of the one-process DP step's params, and every rank reports its
+    losses within rtol 1e-5."""
+    params, losses = _dp_reference(p0)
+    recs = runs["dp_2x1x2"]
+    cfg = _cfg()
+    specs = TP.param_specs(cfg, p0)
+    by_model = {}
+    for rec in recs:
+        by_model.setdefault(rec["coords"]["model"], []).append(rec)
+        np.testing.assert_allclose([m["loss"] for m in rec["metrics"]],
+                                   losses, rtol=1e-5)
+        assert rec["metrics"] == recs[0]["metrics"]
+        assert rec["sent"]["all_reduce"] > 0
+    for same in by_model.values():
+        for rec in same:
+            assert all(torch.equal(rec["params"][k], same[0]["params"][k])
+                       for k in params)
+    for k in params:
+        if "model" not in specs[k]:
+            assert all(torch.equal(rec["params"][k], recs[0]["params"][k])
+                       for rec in recs), k
+    joined = TP.gather_params(cfg, [by_model[i][0]["params"]
+                                    for i in range(2)], {"model": 2})
+    for k, v in params.items():
+        np.testing.assert_allclose(joined[k].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=k)
 
 
 def _leaf_arithmetic(shapes, a, r, world):
@@ -410,7 +469,8 @@ def _leaf_arithmetic(shapes, a, r, world):
     return out
 
 
-@pytest.mark.parametrize("scenario", list(S.SCENARIOS))
+@pytest.mark.parametrize("scenario", [n for n in S.SCENARIOS
+                                      if n not in S.MODEL_PARALLEL])
 def test_bytes_sent_equal_the_leaf_arithmetic(scenario, runs, p0):
     """Every rank's byte counters, every superstep, equal the arithmetic
     on the leaf shapes written out here and `trainer.superstep_sends`;
@@ -434,6 +494,85 @@ def test_bytes_sent_equal_the_leaf_arithmetic(scenario, runs, p0):
     assert rl.as_dict()["collective_bytes"] == total
 
 
+def _model_axis_arithmetic(shapes, a, r, mp, world):
+    """Bytes each rank sends in a superstep on a model axis of 2, written
+    out for the f32 smoke qwen2 (tied, no qk-norm): the f32 token shard
+    on the ring (a > 1) and, where r = 2, half of each param shard (the
+    replica's all_gather) and half of its f32 gradient back; on the axis,
+    in f32 over rows x SEQ tokens of d_model: the lookup's sum, per layer
+    two forward sums, the attention's again in remat's replay and two
+    gradient sums, the head's gradient sum, and the cross-entropy's
+    (sum, target) pairs; its maxima gathered; the 3 metric means'
+    all_reduce over the world."""
+    cfg = _cfg()
+    assert mp == 2 and cfg.tie_embeddings and not cfg.qk_norm
+    rows = S.ROWS // r
+    tokens = rows * S.SEQ
+    ring = ag = rs = 0
+    for k, spec in TP.param_specs(cfg, shapes).items():
+        v = shapes[k]
+        n = v.numel() // (2 if "model" in spec else 1)
+        # "replica" takes an even dim the model axis leaves
+        split = r == 2 and any(d % 2 == 0 for d, e in zip(v.shape, spec)
+                               if e is None)
+        shard = n // 2 if split else n
+        ring += 4 * shard if a > 1 else 0
+        ag += shard * v.element_size() if split else 0
+        rs += 4 * shard if r == 2 else 0
+    sums = (1 + 5 * cfg.num_layers + 1) * tokens * cfg.d_model + 2 * tokens
+    pieces = [1, 1, 1, 0]               # 3 floats over 4 ranks
+    out = []
+    for rank in range(world):
+        sends = {"ring_shift": ring, "all_gather": ag + 4 * tokens,
+                 "reduce_scatter": rs,
+                 "all_reduce": 4 * sums + 4 * (3 - pieces[rank]
+                                               + 3 * pieces[rank])}
+        out.append({k: v for k, v in sends.items() if v})
+    return out
+
+
+@pytest.mark.parametrize("scenario", list(S.MODEL_PARALLEL))
+def test_model_axis_bytes_equal_superstep_sends(scenario, runs, p0):
+    """On a model axis every rank's byte counters, every superstep, equal
+    the arithmetic written out here and `trainer.superstep_sends` (the
+    axis's sums, remat's replay included, beside the ring, the replicas
+    and the metrics)."""
+    sizes = _sizes(scenario)
+    want = _model_axis_arithmetic(p0, sizes["agent"], sizes["replica"],
+                                  sizes["model"], WORLD)
+    assert T.superstep_sends(p0, sizes, S.ROWS, cfg=_cfg(), seq=S.SEQ) == want
+    for rec in runs[scenario]:
+        rank = M.Mesh(M.TRAINING_AXES, list(sizes.values())).rank_of(
+            rec["coords"])
+        for sent in rec["sent"]:
+            assert sent == want[rank], (rank, sent)
+    assert T.mesh_collective_bytes(p0, sizes, S.ROWS, cfg=_cfg(),
+                                   seq=S.SEQ) == sum(sum(w.values())
+                                                     for w in want)
+
+
+@pytest.mark.parametrize("scenario", list(S.MODEL_PARALLEL))
+def test_unsplit_leaves_are_bitwise_equal_across_each_model_line(scenario,
+                                                                 runs, p0):
+    """Every rank of a model line computes the whole gradient of the
+    leaves the axis does not split (the norm scales), in the same order,
+    so their state parts stay bitwise equal across the line; the split
+    leaves' pieces differ."""
+    specs = _specs(scenario, p0)
+    lines = {}
+    for rec in runs[scenario]:
+        where = (rec["coords"]["agent"], rec["coords"]["replica"])
+        lines.setdefault(where, []).append(rec["state"])
+    for same in lines.values():
+        assert len(same) == 2
+        for part in PARTS:
+            for k, v in same[0][part].items():
+                if "model" not in specs[part][k]:
+                    assert torch.equal(v, same[1][part][k]), (part, k)
+        assert not torch.equal(same[0]["params"]["embed.table"],
+                               same[1]["params"]["embed.table"])
+
+
 # ---- refusals, in this process (no process group) ----
 
 
@@ -450,15 +589,30 @@ def test_moe_with_replicas_is_refused():
 
 
 def test_model_axis_and_bad_meshes_are_refused():
+    """A model axis trains the dense attention stack; the families it
+    does not split (MoE, MLA, recurrent, encoder-decoder) raise, naming
+    ROADMAP item 6.1c, in the mesh step and in the launcher before any
+    process starts; bad meshes raise."""
     model = build_model(get_smoke("qwen2-0.5b"))
     tcfg = TrainConfig(num_agents=2, num_walks=1)
-    with pytest.raises(NotImplementedError, match="item 6.1a"):
-        T._check_mesh(model, tcfg, M.Mesh(M.TRAINING_AXES, (2, 1, 2)))
+    model_axis = M.Mesh(M.TRAINING_AXES, (2, 1, 2))
+    T._check_mesh(model, tcfg, model_axis)
+    assert train_cli._replica(train_cli.parse_args(
+        ["--smoke", "--processes", "4", "--agents", "2",
+         "--model-parallel", "2", "--device", "cpu"])) == 1
+    for arch in ("dbrx-132b", "deepseek-v2-236b", "rwkv6-1.6b",
+                 "recurrentgemma-2b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="item 6.1c"):
+            T._check_mesh(build_model(get_smoke(arch)), tcfg, model_axis)
+        with pytest.raises(NotImplementedError, match="item 6.1c"):
+            train_cli.main(["--arch", arch, "--smoke", "--processes", "4",
+                            "--agents", "2", "--model-parallel", "2",
+                            "--device", "cpu"])
     with pytest.raises(ValueError, match="agent axis"):
         T._check_mesh(model, tcfg, M.Mesh(M.TRAINING_AXES, (4, 1, 1)))
-    with pytest.raises(NotImplementedError, match="item 6.1a"):
-        train_cli.main(["--smoke", "--processes", "4", "--agents", "2",
-                        "--model-parallel", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="give --processes"):
+        train_cli.main(["--smoke", "--model-parallel", "2", "--device",
+                        "cpu"])
     with pytest.raises(ValueError, match="not a multiple"):
         train_cli.main(["--smoke", "--processes", "3", "--agents", "2",
                         "--device", "cpu"])

@@ -280,3 +280,57 @@ def test_production_shapes_equal_the_reference(multi_pod):
                            "model": mp}
     with pytest.raises(ValueError, match="tile"):
         M.training_mesh_shape(3, 16)
+
+
+# the training meshes of the tensor-parallel state specs: (agent, replica,
+# model)
+TP_MESHES = [(4, 2, 1), (2, 1, 1), (2, 1, 2), (2, 2, 2), (1, 2, 2)]
+TP_ARCHS = ("qwen2-0.5b", "qwen3-8b", "internlm2-1.8b", "nemotron-4-15b",
+            "phi-3-vision-4.2b")
+
+
+@pytest.mark.parametrize("arch,sizes", [
+    pytest.param(arch, sizes, id=f"{arch}-{'x'.join(map(str, sizes))}")
+    for arch in ARCH_IDS for sizes in TP_MESHES
+    if sizes[2] == 1 or arch in TP_ARCHS])
+def test_tensor_parallel_state_specs(arch, sizes):
+    """`trainer.state_specs` at full width: where the model axis is 1 it
+    is `state_shardings` (the reference's, `test_specs_equal_the_
+    reference`) leaf by leaf, for every architecture; above 1 (the dense
+    attention stacks) "agent" holds dim 0, "model" the dim that
+    `tensor_parallel.param_specs` splits behind the leading dims (one
+    for params, token and gacc, two for zhat), and "replica" the largest
+    of the other dims that it divides, where one does."""
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.dist.trainer import state_specs
+    from repro_torch.models import build_model
+
+    names = ("agent", "replica", "model")
+    mesh = M.Mesh(names, sizes)
+    a, r, mp = sizes
+    cfg = get_config(arch)
+    tcfg = TrainConfig(num_agents=a, num_walks=_walks(a))
+    with FakeTensorMode() as mode:
+        params = param_specs(cfg, mode)
+        got = state_specs(build_model(cfg), tcfg, mesh, params)
+        if mp == 1:
+            assert got == S.state_shardings(mesh, _state_shapes(params,
+                                                                tcfg))
+            return
+        tp = TP.param_specs(cfg, params)
+        shapes = _state_shapes(params, tcfg)
+        for part, leaves in got.items():
+            lead = 2 if part == "zhat" else 1
+            for k, spec in leaves.items():
+                shape = shapes[part][k]
+                assert spec[0] == "agent" and set(spec[1:lead]) <= {None}
+                assert spec[lead:].count("model") == tp[k].count("model")
+                if "model" in tp[k]:
+                    assert spec[lead + tp[k].index("model")] == "model"
+                free = [d for d in range(lead, len(shape))
+                        if r > 1 and spec[d] != "model"
+                        and shape[d] % r == 0]
+                assert ("replica" in spec) == bool(free), (k, spec)
+                if free:
+                    d = spec.index("replica")
+                    assert shape[d] == max(shape[i] for i in free), (k, spec)

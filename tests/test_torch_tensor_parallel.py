@@ -17,6 +17,13 @@ runs the real transport across processes). Held:
     architecture at full width on the (1, 2) and (16, 16) meshes;
   * the vocabulary-parallel lookup is the one-process lookup bitwise,
     and `ModelAxis.argmax` breaks ties to the lowest global id;
+  * training on the axis: for every dense smoke config (phi-3-vision
+    with its patch prefix), with and without a loss mask, the loss and
+    every leaf's gradient of `train_loss(axis=)` on the ranks, joined by
+    `gather_params`, equal one process's (f32, atol 1e-5), and the
+    leaves the axis does not split get bitwise-equal gradients on every
+    rank; the vocabulary-parallel cross-entropy (`ModelAxis.nll`) and
+    its gradient equal one process's wherever the targets fall;
   * a model axis of 1 changes nothing, and what the module does not
     split raises, naming its ROADMAP item.
 """
@@ -383,6 +390,104 @@ def test_serve_step_sends_counts_every_sum_and_pick():
 
 
 # ---------------------------------------------------------------------------
+# training on the axis
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, mask, b=2, s=8):
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (b, s))),
+             "targets": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                  (b, s)))}
+    if mask:
+        keep = np.zeros((b, s), np.float32)
+        keep[0, :3] = keep[1:, :s - 2] = 1.0
+        batch["loss_mask"] = torch.from_numpy(keep)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _loss_and_grads(model, params, batch):
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, metrics = model.train_loss(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), metrics["nll"].detach(), dict(zip(leaves, grads))
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["all", "loss_mask"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_train_loss_gradients_on_the_axis_equal_one_process(arch, mask):
+    """The loss and every leaf's gradient on mp = 2 ranks: the ranks'
+    losses are bitwise equal, within atol 1e-5 of one process's, and the
+    gradients, joined by `gather_params`, within atol 1e-5 of one
+    process's gradient of the whole params (qwen3's qk-norm scales, which
+    act on each rank's heads, included); the leaves the axis does not
+    split get bitwise-equal gradients on both ranks."""
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32",
+                              param_dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    batch = _train_batch(cfg, mask)
+    loss, nll, grads = _loss_and_grads(build_model(cfg), params, batch)
+    ranks = run_ranks(lambda r, axis: _loss_and_grads(
+        build_model(cfg, model_axis=axis),
+        TP.shard_params(cfg, params, mesh_of(r)), batch))
+    for r_loss, r_nll, _ in ranks:
+        assert torch.equal(r_loss, ranks[0][0])
+        assert float((r_loss - loss).abs()) <= ATOL
+        assert float((r_nll - nll).abs()) <= ATOL
+    specs = TP.param_specs(cfg, params)
+    for k, spec in specs.items():
+        if "model" not in spec:
+            assert torch.equal(ranks[0][2][k], ranks[1][2][k]), k
+    joined = TP.gather_params(cfg, [g for *_, g in ranks],
+                              {"data": 1, "model": MP})
+    assert set(joined) == set(grads)
+    for k, g in grads.items():
+        torch.testing.assert_close(joined[k], g, rtol=0, atol=ATOL,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("where", ["rank0", "rank1", "both"])
+def test_vocab_parallel_nll_equals_the_cross_entropy(where):
+    """`ModelAxis.nll` on each rank's half of the vocabulary equals the
+    one-process cross-entropy (train_loss's max-shifted log-sum-exp less
+    the target's logit), and so does its gradient of the logits, with
+    every target on rank 0's half, on rank 1's, or on both."""
+    vocab = 16
+    gen = torch.Generator().manual_seed(2)
+    logits = torch.randn((3, 5, vocab), generator=gen) * 4
+    half = vocab // MP
+    lo, hi = {"rank0": (0, half), "rank1": (half, vocab),
+              "both": (0, vocab)}[where]
+    targets = torch.randint(lo, hi, (3, 5), generator=gen)
+    if where == "both":
+        targets[0, 0], targets[0, 1] = 0, vocab - 1
+
+    def one(x):
+        m = x.amax(dim=-1).detach()
+        logz = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
+        return logz - torch.gather(x, -1, targets[..., None])[..., 0]
+
+    x = logits.clone().requires_grad_()
+    want = one(x)
+    (want_grad,) = torch.autograd.grad(want.sum(), x)
+
+    def rank(r, axis):
+        piece = logits[..., r * half:(r + 1) * half].clone().requires_grad_()
+        nll = axis.nll(piece, targets)
+        (g,) = torch.autograd.grad(nll.sum(), piece)
+        return nll.detach(), g
+
+    got = run_ranks(rank)
+    for nll, _ in got:
+        torch.testing.assert_close(nll, want.detach(), rtol=0, atol=ATOL)
+    torch.testing.assert_close(torch.cat([g for _, g in got], dim=-1),
+                               want_grad, rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
 # a model axis of 1, and the refusals
 # ---------------------------------------------------------------------------
 
@@ -434,10 +539,22 @@ def test_a_data_axis_and_training_raise():
         Engine(model, model.init(torch.Generator().manual_seed(0)),
                max_batch=2, max_len=16,
                mesh=Mesh(("data", "model"), (2, 1), rank=0))
+    # training on the axis: the dense stack trains (both ranks report
+    # the one loss); the families the axis does not split raise, naming
+    # their ROADMAP item
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = _train_batch(cfg, mask=False)
+    losses = run_ranks(lambda r, axis: build_model(
+        cfg, model_axis=axis).train_loss(TP.shard_params(
+            cfg, params, mesh_of(r)), batch)[0])
+    assert torch.equal(losses[0], losses[1])
+    assert torch.isfinite(losses[0])
     axis = TP.ModelAxis(None, mesh_of(0))
-    with pytest.raises(NotImplementedError, match="item 6.1a"):
-        build_model(cfg, model_axis=axis).train_loss({}, {})
-    params = dict(model.init(torch.Generator().manual_seed(0)))
+    for arch in ("dbrx-132b", "deepseek-v2-236b", "rwkv6-1.6b",
+                 "recurrentgemma-2b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="item 6.1c"):
+            build_model(get_smoke(arch), model_axis=axis)
+    params = dict(params)
     params["segments.0.attn.bo"] = torch.zeros((cfg.num_layers,
                                                 cfg.d_model))
     with pytest.raises(NotImplementedError, match="attn.bo"):

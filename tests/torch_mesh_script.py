@@ -9,7 +9,8 @@ over the one process group, and writes what it holds to
 DIR/<scenario>.rank<R>.pt: its part of the final state, the state after
 every superstep where the scenario keeps it, each step's metrics and the
 bytes it sent by kind. The test process joins the parts and holds them
-against the reference.
+against the reference. A scenario's name gives its mesh: agents x
+replica, then x model parallel where the model axis is above 1.
 """
 import argparse
 import dataclasses
@@ -30,6 +31,7 @@ from repro_torch.data.tokens import agent_batches  # noqa: E402
 from repro_torch.dist.collectives import Collectives  # noqa: E402
 from repro_torch.dist.trainer import (  # noqa: E402
     init_mesh_train_state, make_mesh_dp_baseline_step, make_mesh_train_step)
+from repro_torch.dist.tensor_parallel import shard_params  # noqa: E402
 from repro_torch.launch.mesh import (init_distributed,  # noqa: E402
                                      make_training_mesh)
 from repro_torch.models import build_model  # noqa: E402
@@ -48,8 +50,17 @@ SCENARIOS = {
     "lm_2x2_mask": ("lm", 2, 2, 1, True, 2, False),
     "quad_4x1_paper": ("quad", 4, 1, 2, False, 12, False),
     "quad_2x2_acc": ("quad", 2, 2, 1, True, 6, False),
+    # tensor parallelism over "model" (MODEL_PARALLEL), alone and with
+    # replicas
+    "lm_2x1x2_acc": ("lm", 2, 1, 1, True, 4, False),
+    "lm_2x1x2_paper": ("lm", 2, 1, 1, False, 4, True),
+    "lm_1x2x2_acc": ("lm", 1, 2, 1, True, 3, False),
 }
+# the model axis of each scenario (1 where it is not named)
+MODEL_PARALLEL = {"lm_2x1x2_acc": 2, "lm_2x1x2_paper": 2, "lm_1x2x2_acc": 2}
 DP_STEPS = 3
+# the DP baseline's meshes: (agents, replica, model parallel)
+DP_MESHES = {"dp": (4, 1, 1), "dp_2x1x2": (2, 1, 2)}
 
 
 class QuadModel:
@@ -94,7 +105,7 @@ def lm_model(p0):
 
 def run_scenario(name, p0, out):
     kind, a, r, m, accumulate, steps, keep = SCENARIOS[name]
-    mesh = make_training_mesh(a, r, 1)
+    mesh = make_training_mesh(a, r, MODEL_PARALLEL.get(name, 1))
     comm = Collectives(mesh, "cpu")
     if kind == "lm":
         model = lm_model(p0)
@@ -133,14 +144,15 @@ def run_scenario(name, p0, out):
     torch.save(record, os.path.join(out, f"{name}.rank{mesh.rank}.pt"))
 
 
-def run_dp(p0, out):
-    """The DP baseline over the 4 ranks (sgd with momentum), on the global
-    batch [A * B, S] with an uneven loss mask."""
-    mesh = make_training_mesh(4, 1, 1)
+def run_dp(name, p0, out):
+    """The DP baseline over the 4 ranks of DP_MESHES[name] (sgd with
+    momentum), on the global batch [A * B, S] with an uneven loss mask;
+    each rank holds its tensor-parallel piece of the params."""
+    mesh = make_training_mesh(*DP_MESHES[name])
     comm = Collectives(mesh, "cpu")
     model = lm_model(p0)
     opt = sgd(0.9)
-    params = model.init(None)
+    params = shard_params(model.cfg, model.init(None), mesh)
     opt_state = opt.init(params)
     step_fn = make_mesh_dp_baseline_step(model, opt, constant(0.05), mesh,
                                          comm)
@@ -152,11 +164,13 @@ def run_dp(p0, out):
         batch = {"tokens": torch.from_numpy(toks.reshape(-1, SEQ)),
                  "targets": torch.from_numpy(targs.reshape(-1, SEQ)),
                  "loss_mask": mask}
+        comm.reset()
         params, opt_state, met = step_fn(params, opt_state, batch, step)
         metrics.append({k: float(v) for k, v in met.items()})
-    torch.save({"params": params, "opt_state": opt_state,
-                "metrics": metrics},
-               os.path.join(out, f"dp.rank{mesh.rank}.pt"))
+    torch.save({"coords": mesh.coords, "params": params,
+                "opt_state": opt_state, "metrics": metrics,
+                "sent": dict(comm.sent)},
+               os.path.join(out, f"{name}.rank{mesh.rank}.pt"))
 
 
 def main():
@@ -172,7 +186,8 @@ def main():
     p0 = torch.load(args.init)
     for name in SCENARIOS:
         run_scenario(name, p0, args.out)
-    run_dp(p0, args.out)
+    for name in DP_MESHES:
+        run_dp(name, p0, args.out)
     import torch.distributed as dist
 
     dist.barrier()
