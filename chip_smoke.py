@@ -380,35 +380,46 @@ non-zero before the last line:
      superstep ms, the token hop's ms, the model axis's ms, the bytes sent
      and the peak GB, with the card's name and power limit, and the
      phase's seconds.
- 50. serving across processes (`Engine(mesh=...)`, `dist.serving`,
-     `dist.tensor_parallel`): flash, decode, paged and ring decode against
-     their plain versions at a rank's shard of qwen2-0.5b at model
-     parallel 2 (7 query heads over 1 kv head of 64) and of internlm2-1.8b
-     (8 over 4 of 128); then the checks' two ranks (this script with
-     `--serve-mesh-rank`, both on this one card over gloo, full qwen2-0.5b
-     width and depth) serve the first 4 of the workload's requests at 16
-     new tokens in f32 on the arena and take the first decode step's
-     logits in bf16 and f32, while this process takes the same on one
-     process from the same init; then `repro_torch.launch.serve_mesh
-     --processes 2 --model-parallel 2 --backend gloo --layers 4` (its
-     parent in this process; full width, 4 of its 24 layers; full depth
-     until phase 49's TP arm came), both ranks on this one card, 8
-     requests of 64-token prompts, budgets 8/32, max_batch 4, arms arena
-     and paged, each overlapped and serialized, in bf16 (each arm a
-     replayed warm-up, then the timed pass): the ranks' digests equal in
-     every arm, overlapped equal to serialized on each backend, the f32
-     tokens equal to the one-process f32 engine's, the first decode step's
-     f32 logits on the mesh within 1e-4 of the largest |logit| of one
-     process's, its bf16 logits no farther from one process's f32 logits
-     than one process's own bf16 logits are (bf16's own error at this
-     width, measured here: 0.0186 of the largest |logit| on the card; the
-     gap to one process's bf16 logits is printed), every rank's bytes by
-     kind equal to `dist.serving.serve_step_sends`, a flash launch a layer
-     an admission (arena) and a decode or paged launch a layer a decode
-     step on every rank; per rank the decode step and admission ms,
-     tokens/s, the model axis's ms a step, bytes a decode step and the
-     peak GB, with the card's name and power limit, and the phase's
-     seconds.
+ 50. serving across processes, the data axis too (`Engine(mesh=...)`,
+     `dist.serving` with its `RowSplit`, `dist.tensor_parallel`): flash,
+     decode, paged and ring decode against their plain versions at a
+     rank's shard of qwen2-0.5b at model parallel 2 (7 query heads over 1
+     kv head of 64; decode, paged and ring also at a data line's 2 of the
+     4 rows) and of internlm2-1.8b (8 over 4 of 128); then the checks'
+     four ranks (this script with `--serve-mesh-rank`, all on this one
+     card over gloo, full qwen2-0.5b width and depth) serve the first 4
+     of the workload's requests at 16 new tokens in f32 on the arena and
+     take the first decode step's logits in bf16 and f32, first on the
+     ("data", "model") = (1, 2) mesh (each data line a mesh of its own,
+     side by side: the tokens on one; the logits, then the same requests
+     on the pool in 2 rows at 4 layers, on the other; both engines
+     through the fused mixed step that "auto" picks there), then on
+     (2, 2), while this process takes the same on one process from the
+     same init; then `repro_torch.launch.serve_mesh --processes 4
+     --model-parallel 2 --backend gloo --layers 4` on (2, 2) (its parent
+     in this process; full width, 4 of its 24 layers), all ranks on this
+     one card, 8 requests of 64-token prompts, budgets 4/16 (8/32 until
+     the data axis came), max_batch 4 (2 rows a data line), arms arena
+     and paged, each overlapped ("async", which "auto" picks on a data
+     axis) and serialized, in bf16 (each arm a replayed warm-up, then the
+     timed pass; the (1, 2) launch ran until the data axis came). Held: the
+     ranks' digests equal in every arm, overlapped equal to serialized on
+     each backend; each mesh's f32 tokens equal to the one-process f32
+     engine's (the (1, 2) pool's to its pool's), each (1, 2) engine with
+     mixed steps; its first decode step's f32 logits within 1e-4 of the
+     largest |logit| of one process's, its bf16 logits no farther from
+     one process's f32 logits than one process's own bf16 logits are
+     (bf16's own error at this width, measured here: 0.0186 of the
+     largest |logit| on the card; the gap to one process's bf16 logits is
+     printed); every launch rank's bytes by kind equal to
+     `dist.serving.serve_step_sends` (the model axis's sums and the data
+     axis's gathers of ids); on every rank of the launch and of the
+     (1, 2) lines a flash launch a layer an admission its data line
+     prefilled (arena), a decode or paged launch a layer a decode step
+     and no other. Printed: per rank the decode step and admission ms,
+     tokens/s, the axes' ms a step (model and data), bytes a decode step
+     and the peak GB, with the card's name and power limit, and the
+     seconds of the phase, its check ranks and its launch.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 
@@ -416,12 +427,12 @@ Each phase line prints the seconds since the start. Then it prints the `kernels`
 
 runs phases 1, 2 (prox_update and the attention kernels), 49 with
 `--backend nccl`, one GPU a rank (four GPUs), and 50 over gloo and
-over nccl (its checks and its launch, one GPU a rank, two of them),
+over nccl (its checks and its launch, one GPU a rank, four of them),
 whose digests must be equal, and prints the `ok` line last.
-(`--serve-mesh-rank BACKEND DIR --rank R --coordinator HOST:PORT` is
-one rank of phase 50's checks, `--train-mesh-rank ...` one of phase
-49's TP checks; each phase starts its own through
-`launch.mesh.run_ranks`, as `python -m chip_smoke`.)
+(`--serve-mesh-rank BACKEND DIR WORLD MP --rank R --coordinator
+HOST:PORT` is one rank of phase 50's checks, `--train-mesh-rank BACKEND
+DIR --rank R ...` one of phase 49's TP checks; each phase starts its own
+through `launch.mesh.run_ranks`, as `python -m chip_smoke`.)
 With no GPU, or without the rest of the repo beside it, it exits
 non-zero and prints no result.
 """
@@ -5373,9 +5384,10 @@ def train_mesh_rank(rank, coordinator, backend, out):
     dist.destroy_process_group()
 
 
-def check_ranks(flag, world, backend, out, timeout, while_running):
+def check_ranks(flag, world, backend, out, timeout, while_running,
+                extra=()):
     """`world` ranks of this script, `python -m chip_smoke FLAG BACKEND
-    OUT --rank R --coordinator HOST:PORT`, started and ended by
+    OUT *EXTRA --rank R --coordinator HOST:PORT`, started and ended by
     `launch.mesh.run_ranks` (the launchers' parent), with
     `while_running()` in this process meanwhile; prints the end of each
     rank's log and fails unless every rank exited 0. Returns
@@ -5386,8 +5398,8 @@ def check_ranks(flag, world, backend, out, timeout, while_running):
         p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, {"PYTHONPATH": path}):
-        run = run_ranks("chip_smoke", [flag, backend, out], world, "--rank",
-                        timeout, while_running=while_running)
+        run = run_ranks("chip_smoke", [flag, backend, out, *extra], world,
+                        "--rank", timeout, while_running=while_running)
     ranks_s = time.perf_counter() - t0
     for r, log in enumerate(run.outs):
         print("\n".join(f"  c{r}| {ln}" for ln in log.splitlines()[-30:]),
@@ -5399,10 +5411,12 @@ def check_ranks(flag, world, backend, out, timeout, while_running):
 
 
 def check_rank_args(argv):
-    """(rank, coordinator, backend, dir) of a check rank's arguments as
-    `check_ranks` starts it: BACKEND DIR --rank R --coordinator HOST:PORT."""
-    backend, out, _, rank, _, coordinator = argv
-    return int(rank), coordinator, backend, out
+    """(rank, coordinator, backend, dir, *extra) of a check rank's
+    arguments as `check_ranks` starts it: BACKEND DIR *EXTRA --rank R
+    --coordinator HOST:PORT."""
+    *head, _, rank, _, coordinator = argv
+    backend, out, *extra = head
+    return (int(rank), coordinator, backend, out, *extra)
 
 
 def tp_checks(backend, f32_run):
@@ -5575,31 +5589,55 @@ def mesh_training(smi, gen, backend="gloo"):
     return cases, arms
 
 
-# phase 50: serving across processes. qwen2-0.5b at full width as 2 ranks
-# of model parallel 2 (phase 27's budgets 8/32 on 8 requests of 64-token
-# prompts in 4 rows), four bf16 arms in one launch of launch.serve_mesh;
-# the checks' ranks (this script with --serve-mesh-rank) serve the first
-# 4 requests at 16 new tokens in f32 and take the first decode step's
-# logits
+# phase 50: serving across processes, on the ("data", "model") = (2, 2)
+# mesh of MESH_WORLD ranks: qwen2-0.5b at full width (budgets 4/16 on 8
+# requests of 64-token prompts in 4 rows: phase 27's 8/32 until the data
+# axis came, halved for time), four bf16 arms in one launch of
+# launch.serve_mesh; the checks' ranks (this script with
+# --serve-mesh-rank, MESH_WORLD of them) serve the first 4 requests at 16
+# new tokens in f32 and take the first decode step's logits, on (1, 2)
+# (each of the two data lines a mesh of its own, side by side: the arena's
+# tokens on one; the logits, then the pool's tokens on the other), then
+# on (2, 2)
 MESH_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--max-batch",
-                   "4", "--prompt-len", "64", "--new-tokens", "32", "--mixed",
-                   "--processes", "2", "--model-parallel", "2", "--timeout",
-                   "400"]
+                   "4", "--prompt-len", "64", "--new-tokens", "16", "--mixed",
+                   "--timeout", "400"]
 MESH_F32_ARGS = ["--requests", "4", "--new-tokens", "16"]
+# the (1, 2) check line's pool serves the f32 workload in this many rows:
+# in 4 rows the pool stages all 4 requests at its first step, and no
+# prefill rides a decode step; in 2 the later ones stream beside decoding
+# rows (the arena streams one admission a step in any number of rows). It
+# serves at the launch's MESH_SERVE_LAYERS layers, for time (the layers
+# add no path; the arena's line and the logits stay at full depth)
+MESH_POOL_ROWS = 2
 MESH_SERVE_ARMS = ("arena", "arena-serialized", "paged", "paged-serialized")
 # the four arms' launch tests the lockstep scheduler, the bytes and the
 # launches, not depth: cut to this many layers for time when phase 49's
 # TP arm came (the checks' f32 tokens and logits stay at full depth)
 MESH_SERVE_LAYERS = 4
 MESH_MP = 2
+# the launch's and the check ranks' processes, at model parallel MESH_MP:
+# (2, 2). The (1, 2) launch (2 processes) was cut for time when the data
+# axis came: the (2, 2) launch runs the same launcher, arms and model-axis
+# sums (and gave its digests bitwise), the check ranks keep the (1, 2)
+# mesh's f32 tokens and logits and its fused mixed steps (arena and pool),
+# and tests/test_torch_serve_mesh.py its launcher in bf16 on the CPU
+MESH_WORLD = 4
 F32_LOGIT_GAP = 1e-4
+
+
+def mesh_label(sizes):
+    """The "(data, model)" label of a mesh's {axis: size}."""
+    return f"({sizes['data']}, {sizes['model']})"
 
 
 def mesh_kernel_cases(gen):
     """Phase 50's kernel cases: flash, decode, paged and ring decode at the
     rank's shard of qwen2-0.5b at model parallel 2 (7 query heads over 1
-    kv head of 64; the prompt bucket 64, 4 rows of 128) and flash, decode
-    and paged at internlm2-1.8b's (8 over 4 of 128). Returns (flash,
+    kv head of 64; the prompt bucket 64, 4 rows of 128), decode, paged
+    and ring at a data line's 2 of those rows (the (2, 2) mesh; flash is
+    the same call, on the line that owns the slot), and flash, decode and
+    paged at internlm2-1.8b's shard (8 over 4 of 128). Returns (flash,
     decode, paged, ring) cases."""
     flash, decode, paged, ring = [], [], [], []
     for arch in ("qwen2-0.5b", "internlm2-1.8b"):
@@ -5610,31 +5648,37 @@ def mesh_kernel_cases(gen):
                f"{heads['kv']} heads of {heads['hd']}")
         flash.append(check_flash_case(f"{tag}, prefill Sp=64", 64, gen,
                                       **heads))
-        decode.append(check_decode_case(f"{tag}, decode B=4 T=128", 4, 128,
-                                        gen, **heads))
-        paged.append(check_paged_case(f"{tag}, paged B=4 <=128 tokens bs=16",
-                                      4, 128, 16, torch.bfloat16, gen,
-                                      **heads))
-        if arch == "qwen2-0.5b":
-            ring.append(check_ring_case(f"{tag}, ring window 64 B=4 bs=16",
-                                        4, 64, 16, torch.bfloat16, gen,
-                                        **heads))
+        rows = (4, 2) if arch == "qwen2-0.5b" else (4,)
+        for b in rows:
+            where = "" if b == 4 else f", a data line's {b} of 4 rows"
+            decode.append(check_decode_case(
+                f"{tag}{where}, decode B={b} T=128", b, 128, gen, **heads))
+            paged.append(check_paged_case(
+                f"{tag}{where}, paged B={b} <=128 tokens bs=16", b, 128, 16,
+                torch.bfloat16, gen, **heads))
+            if arch == "qwen2-0.5b":
+                ring.append(check_ring_case(
+                    f"{tag}{where}, ring window 64 B={b} bs=16", b, 64, 16,
+                    torch.bfloat16, gen, **heads))
         torch.cuda.empty_cache()
     return flash, decode, paged, ring
 
 
 def serve_mesh_launch(backend, arms):
     """`repro_torch.launch.serve_mesh`'s CLI with MESH_SERVE_ARGS over
-    `backend`, its parent in this process (`serve_mesh.run_parent`, what
-    its entry point runs; as `python -m` it would import torch once more
-    before it spawns): ({(arm, process): record}, launch s). Fails
-    unless it returns 0 with a record from every rank of every arm."""
+    `backend` on MESH_WORLD ranks at model parallel MESH_MP, its parent
+    in this process (`serve_mesh.run_parent`, what its entry point runs;
+    as `python -m` it would import torch once more before it spawns):
+    ({(arm, process): record}, launch s). Fails unless it returns 0 with
+    a record from every rank of every arm."""
     import io
 
     from repro_torch.launch import serve_mesh
 
-    flags = [*MESH_SERVE_ARGS, "--layers", str(MESH_SERVE_LAYERS),
-             "--backend", backend, "--arms", ",".join(arms)]
+    flags = [*MESH_SERVE_ARGS, "--processes", str(MESH_WORLD),
+             "--model-parallel", str(MESH_MP), "--layers",
+             str(MESH_SERVE_LAYERS), "--backend", backend, "--arms",
+             ",".join(arms)]
     print("serve_mesh " + " ".join(flags), flush=True)
     t0 = time.perf_counter()
     log = io.StringIO()
@@ -5649,16 +5693,16 @@ def serve_mesh_launch(backend, arms):
             records[rec["arm"], rec["process"]] = rec
     print("\n".join(ln for ln in log.getvalue().splitlines()
                     if "SERVE_MESH_ARM " not in ln), flush=True)
-    if rc != 0 or len(records) != MESH_MP * len(arms):
-        raise AssertionError(f"serve_mesh over {backend}: rc {rc}, "
-                             f"{len(records)} records")
+    if rc != 0 or len(records) != MESH_WORLD * len(arms):
+        raise AssertionError(f"serve_mesh over {backend} on {MESH_WORLD} "
+                             f"processes: rc {rc}, {len(records)} records")
     return records, launch_s
 
 
 def mesh_f32_workload(cfg):
     """The f32 check's workload (serve_mesh's, MESH_F32_ARGS: its first 4
     requests at 16 new tokens) and the arena's max_len of phase 50's
-    launch."""
+    launches."""
     from repro_torch.launch import serve_mesh
     from repro_torch.serve import bucket_length
 
@@ -5676,7 +5720,8 @@ def first_decode_logits(model, params, prompts, capacity, mesh=None,
     an arena of `capacity` in the compute dtype, each padded to its
     bucket as the engine pads it, and decoded from its greedy first
     token: through `model` itself, or on `mesh` through this rank's
-    slice (`dist.serving.local_model`; the slices gathered). The
+    slice (`dist.serving.local_model`) of its data line's rows
+    (`dist.serving.RowSplit`; the slices and rows gathered). The
     parameters are the engine's (`tensor_parallel.serving_params`)."""
     from repro_torch.dist import serving
     from repro_torch.dist.tensor_parallel import model_axis, serving_params
@@ -5687,35 +5732,43 @@ def first_decode_logits(model, params, prompts, capacity, mesh=None,
     if mesh is not None:
         steps = serving.local_model(model, mesh, comm)
         axis = model_axis(mesh, comm)
+    rows = serving.RowSplit(len(prompts), mesh, comm, device)
     params = serving_params(model.cfg, params, mesh)
-    arena = steps.init_arena(len(prompts), capacity,
+    arena = steps.init_arena(rows.rows, capacity,
                              dtype=getattr(torch, model.cfg.compute_dtype),
                              device=device)
+    mine = prompts[rows.lo:rows.hi]
     firsts = []
-    for slot, p in enumerate(prompts):
+    for row, p in enumerate(mine):
         toks = np.zeros((1, min(bucket_length(len(p), 8), capacity)),
                         np.int32)
         toks[0, :len(p)] = p
         tok, arena = steps.prefill_into_slot_token(
-            params, torch.from_numpy(toks).to(device), len(p), slot, arena)
+            params, torch.from_numpy(toks).to(device), len(p), row, arena)
         firsts.append(tok)
-    positions = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+    positions = torch.tensor([len(p) for p in mine], dtype=torch.int32,
                              device=device)
     logits, _ = steps.decode_rows(params, torch.stack(firsts)[:, None],
                                   arena, positions)
-    return logits if axis is None else axis.gather_vocab(logits)
+    if axis is not None:
+        logits = axis.gather_vocab(logits)
+    return rows.gather(logits)
 
 
-def serve_f32(cfg, params, work, max_len, mesh=None):
-    """The tokens of `work` served in f32 by one engine (on `mesh`, this
-    rank's), by uid."""
+def serve_f32(cfg, params, work, max_len, mesh=None, paged=False):
+    """`work` served in f32 by one engine (on `mesh`, this rank's; on the
+    pool in MESH_POOL_ROWS rows where `paged`, else on the arena in a row
+    a request) overlapped as "auto" picks: (its tokens by uid, its
+    stats)."""
     eng = Engine(build_model(dataclasses.replace(cfg,
                                                  compute_dtype="float32")),
-                 params, max_batch=len(work), max_len=max_len, mesh=mesh,
-                 cache_dtype=torch.float32)
+                 params, max_batch=MESH_POOL_ROWS if paged else len(work),
+                 max_len=max_len, mesh=mesh, cache_dtype=torch.float32,
+                 paged=paged)
     for p, b in work:
         eng.submit(p, max_new_tokens=b)
-    return [r.output.tolist() for r in sorted(eng.run(), key=lambda r: r.uid)]
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    return [r.output.tolist() for r in done], eng.stats
 
 
 def one_rank_logits(cfg, params, prompts, max_len, mesh=None, comm=None):
@@ -5726,34 +5779,85 @@ def one_rank_logits(cfg, params, prompts, max_len, mesh=None, comm=None):
         for dtype in ("bfloat16", "float32")}
 
 
-def serve_mesh_rank(rank, coordinator, backend, out):
-    """`--serve-mesh-rank`: one rank of phase 50's checks on the ("data",
-    "model") = (1, 2) mesh over `backend`, from the launch's init: the
-    f32 workload through `Engine(mesh=...)` and the first decode step's
-    logits in bf16 and f32; writes OUT/rank<R>.json (its tokens) and, on
-    rank 0, OUT/logits.pt."""
+def pool_check(device):
+    """The (1, 2) line's pool check model, qwen2-0.5b at full width cut to
+    MESH_SERVE_LAYERS layers, and its params from seed 0 on `device`."""
+    full = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(
+        full, num_layers=MESH_SERVE_LAYERS,
+        layer_types=full.layer_types[:MESH_SERVE_LAYERS])
+    return cfg, build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0))
+
+
+def line_engine(cfg, params, work, max_len, mesh, paged):
+    """`serve_f32` on the (1, mp) line `mesh`, the kernels' launches
+    counted from zero: {"outputs", "launches", "paged", "layers" and the
+    stats the launch rule and the fused gate read}."""
+    reset_counts()
+    outputs, st = serve_f32(cfg, params, work, max_len, mesh, paged)
+    return {"outputs": outputs, "launches": counts(), "paged": paged,
+            "layers": cfg.num_layers,
+            **{k: st[k] for k in ("overlap_mode", "decode_steps",
+                                  "mixed_steps", "admissions")}}
+
+
+def serve_mesh_rank(rank, coordinator, backend, out, world, mp):
+    """`--serve-mesh-rank`: one rank of phase 50's checks over `backend`,
+    `world` ranks at model parallel `mp`, from the launches' init: first
+    each data line as a ("data", "model") = (1, mp) mesh of its own (the
+    mesh's "side" axis sets the lines side by side), the first line
+    serving the f32 workload through `Engine(mesh=...)` on the arena, the
+    last taking the first decode step's logits in bf16 and f32, then
+    serving the workload on the pool at `pool_check`'s depth
+    (`line_engine`: both run the fused mixed step that "auto" picks on
+    one data line). Then the arena's
+    tokens and the logits on the (world / mp, mp) serving mesh. Writes
+    OUT/rank<R>.json (its tokens, its line's engine, its device), and
+    from the first rank of the last line and rank 0 the logits
+    (OUT/logits_line.pt, OUT/logits.pt)."""
     import torch.distributed as dist
 
     from repro_torch.dist.collectives import Collectives
-    from repro_torch.launch.mesh import (init_distributed, make_serving_mesh,
-                                         rank_device)
+    from repro_torch.launch.mesh import (init_distributed, make_mesh,
+                                         make_serving_mesh, rank_device)
 
+    world, mp = int(world), int(mp)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = rank_device(DEV, rank)
     torch.cuda.set_device(device)
-    init_distributed(rank, MESH_MP, coordinator, backend, device,
+    init_distributed(rank, world, coordinator, backend, device,
                      timeout_s=300)
-    mesh = make_serving_mesh(MESH_MP)
     cfg = get_config("qwen2-0.5b")
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(0))
     work, max_len = mesh_f32_workload(cfg)
-    outputs = serve_f32(cfg, params, work, max_len, mesh)
-    logits = one_rank_logits(cfg, params, [p for p, _ in work], max_len,
-                             mesh, Collectives(mesh, device))
+    prompts = [p for p, _ in work]
+    record = {"device": str(device)}
+    lines = world // mp
+    side = make_mesh(("side", "data", "model"), (lines, 1, mp))
+    line = side.coords["side"]
+    t0 = time.perf_counter()
+    if line == 0:
+        record["line"] = line_engine(cfg, params, work, max_len, side, False)
+    if line == lines - 1:
+        logits = one_rank_logits(cfg, params, prompts, max_len, side,
+                                 Collectives(side, device))
+        if side.coords["model"] == 0:
+            torch.save(logits, os.path.join(out, "logits_line.pt"))
+        record["line"] = line_engine(*pool_check(device), work, max_len,
+                                     side, True)
+    record["line_s"] = time.perf_counter() - t0
+    mesh = make_serving_mesh(mp)
+    t0 = time.perf_counter()
+    record["outputs"], _ = serve_f32(cfg, params, work, max_len, mesh)
+    logits = one_rank_logits(cfg, params, prompts, max_len, mesh,
+                             Collectives(mesh, device))
+    record["mesh_s"] = time.perf_counter() - t0
+    record["mesh"] = mesh.shape
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump({"outputs": outputs, "device": str(device)}, f)
+        json.dump(record, f)
     if rank == 0:
         torch.save(logits, os.path.join(out, "logits.pt"))
     dist.barrier()
@@ -5761,87 +5865,134 @@ def serve_mesh_rank(rank, coordinator, backend, out):
 
 
 def mesh_checks(backend):
-    """Phase 50's checks: this script's ranks (`serve_mesh_rank`) over
-    `backend` while this process takes the one-process f32 tokens and
-    logits from the same init. Returns ({"float32": tokens, "one": and
-    "mesh": logits by dtype}, the ranks' seconds)."""
+    """Phase 50's checks: MESH_WORLD ranks of this script
+    (`serve_mesh_rank`) over `backend` while this process takes the
+    one-process f32 tokens (arena and pool) and logits from the same
+    init (the pool at `pool_check`'s depth). Holds each (1, MESH_MP)
+    line's engine, rank by rank: mixed
+    steps of the fused step, a flash launch a layer an admission (arena)
+    and a decode or paged launch a layer a decode step, and no other
+    launch; the pool's tokens equal one process's pool's (the arena's
+    are held in `mesh_logit_gates`). Returns ({"float32": one process's
+    arena tokens, "one": its logits by dtype, "meshes": {label:
+    {"tokens", "logits"}} for the (1, MESH_MP) lines and the (data,
+    MESH_MP) mesh, "lines": each line's engine on each rank, tokens
+    left out}, the ranks' seconds)."""
     cfg = get_config("qwen2-0.5b")
 
     def references():
         params = build_model(cfg).init(
             torch.Generator(device=DEV).manual_seed(0))
         work, max_len = mesh_f32_workload(cfg)
-        want = {"float32": serve_f32(cfg, params, work, max_len),
+        want = {"float32": serve_f32(cfg, params, work, max_len)[0],
+                "paged_float32": serve_f32(*pool_check(DEV), work, max_len,
+                                           paged=True)[0],
                 "one": one_rank_logits(cfg, params, [p for p, _ in work],
                                        max_len)}
         del params
         torch.cuda.empty_cache()
         return want
 
+    world = MESH_WORLD
     got = []
     with tempfile.TemporaryDirectory(prefix="serve_mesh_checks_") as out:
-        want, ranks_s = check_ranks("--serve-mesh-rank", MESH_MP, backend,
-                                    out, 400, references)
-        for r in range(MESH_MP):
+        want, ranks_s = check_ranks(
+            "--serve-mesh-rank", world, backend, out, 400, references,
+            extra=(str(world), str(MESH_MP)))
+        for r in range(world):
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 got.append(json.load(f))
-        want["mesh"] = torch.load(os.path.join(out, "logits.pt"))
+        line_logits = torch.load(os.path.join(out, "logits_line.pt"))
+        mesh_logits = torch.load(os.path.join(out, "logits.pt"))
     if any(g["outputs"] != got[0]["outputs"] for g in got):
         raise AssertionError("the check ranks' f32 tokens disagree")
     if not all(g["device"].startswith("cuda") for g in got):
         raise AssertionError(f"the check ranks ran on {got}")
-    want["mesh_float32"] = got[0]["outputs"]
+    for r, g in enumerate(got):
+        e = g["line"]
+        if e["outputs"] != got[r // MESH_MP * MESH_MP]["line"]["outputs"]:
+            raise AssertionError(f"rank {r}: its line's f32 tokens disagree")
+        if e["paged"] and e["outputs"] != want["paged_float32"]:
+            raise AssertionError("the (1, 2) line's f32 pool leaves the "
+                                 "one-process f32 pool's tokens")
+        if e["overlap_mode"] != "fused" or not e["mixed_steps"]:
+            raise AssertionError(f"rank {r}: its line's engine ran no "
+                                 f"fused mixed step: {e}")
+        rule = dict.fromkeys(e["launches"], 0)
+        if e["paged"]:
+            rule["decode_attention_paged"] = e["layers"] * e["decode_steps"]
+        else:
+            rule["flash_attention"] = e["layers"] * e["admissions"]
+            rule["decode_attention"] = e["layers"] * e["decode_steps"]
+        if e["launches"] != rule:
+            raise AssertionError(f"rank {r}: its line's engine launched "
+                                 f"{e['launches']}, the rule {rule}")
+    want["lines"] = [{k: v for k, v in g["line"].items() if k != "outputs"}
+                     for g in got]
+    want["meshes"] = {
+        mesh_label({"data": 1, "model": MESH_MP}): {
+            "tokens": got[0]["line"]["outputs"], "logits": line_logits},
+        mesh_label(got[0]["mesh"]): {"tokens": got[0]["outputs"],
+                                     "logits": mesh_logits}}
+    want["rank_s"] = [{k: g[k] for k in ("line_s", "mesh_s")} for g in got]
     return want, ranks_s
 
 
-def mesh_serving(smi, gen, backend="gloo", kernels=True):
-    """Phase 50 (see the module's docstring) over `backend` (its kernel
-    cases where `kernels`). Returns (the kernel cases, {arm: rank 0's
-    launches}, {arm: digest})."""
-    from repro_torch.dist.serving import serve_step_sends
-    from repro_torch.launch import serve_mesh
-    from repro_torch.serve import bucket_length
-
-    t0 = time.perf_counter()
-    cases = mesh_kernel_cases(gen) if kernels else None
-    checks, checks_s = mesh_checks(backend)
-    records, launch_s = serve_mesh_launch(backend, MESH_SERVE_ARMS)
-    args = serve_mesh._build_parser().parse_args(
-        MESH_SERVE_ARGS + ["--layers", str(MESH_SERVE_LAYERS)])
-    cfg = serve_mesh._config(args)
-
+def mesh_logit_gates(checks):
+    """Each checked mesh's first-decode logit gaps ({mesh: gaps}), held:
+    its f32 tokens equal one process's, its f32 logits within
+    F32_LOGIT_GAP of the largest |logit| of one process's, and its bf16
+    logits no farther from one process's f32 logits than one process's
+    own bf16 logits are (the gap to one process's bf16 logits is
+    printed, not gated)."""
     def gap(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
-    one, mesh_logits = checks["one"], checks["mesh"]
-    # the bf16 gate: the mesh's bf16 logits no farther from one process's
-    # f32 logits than one process's own bf16 logits are (the gap to one
-    # process's bf16 logits is printed, not gated)
+    one = checks["one"]
     bf16_error = gap(one["bfloat16"], one["float32"])
-    gaps = {"bfloat16": gap(mesh_logits["bfloat16"], one["bfloat16"]),
-            "float32": gap(mesh_logits["float32"], one["float32"]),
+    out = {}
+    for label, got in checks["meshes"].items():
+        logits = got["logits"]
+        gaps = out[label] = {
+            "bfloat16": gap(logits["bfloat16"], one["bfloat16"]),
+            "float32": gap(logits["float32"], one["float32"]),
             "one_process_bf16_vs_f32": bf16_error,
-            "mesh_bf16_vs_one_process_f32": gap(mesh_logits["bfloat16"],
+            "mesh_bf16_vs_one_process_f32": gap(logits["bfloat16"],
                                                 one["float32"])}
-    print(json.dumps({"mesh_logit_gaps": gaps}), flush=True)
-    if not gaps["float32"] <= F32_LOGIT_GAP:
-        raise AssertionError(f"the mesh's f32 logits are {gaps['float32']} "
-                             f"of the largest |logit| from one process's "
-                             f"(> {F32_LOGIT_GAP})")
-    if not gaps["mesh_bf16_vs_one_process_f32"] <= bf16_error:
-        raise AssertionError(
-            f"the mesh's bf16 logits are "
-            f"{gaps['mesh_bf16_vs_one_process_f32']} of the largest |logit| "
-            f"from one process's f32 logits, beyond one process's own bf16 "
-            f"gap {bf16_error}")
-    if checks["mesh_float32"] != checks["float32"]:
-        raise AssertionError("the mesh's f32 tokens leave the one-process "
-                             "f32 engine's")
+        if not gaps["float32"] <= F32_LOGIT_GAP:
+            raise AssertionError(
+                f"{label}: the mesh's f32 logits are {gaps['float32']} of "
+                f"the largest |logit| from one process's (> "
+                f"{F32_LOGIT_GAP})")
+        if not gaps["mesh_bf16_vs_one_process_f32"] <= bf16_error:
+            raise AssertionError(
+                f"{label}: the mesh's bf16 logits are "
+                f"{gaps['mesh_bf16_vs_one_process_f32']} of the largest "
+                f"|logit| from one process's f32 logits, beyond one "
+                f"process's own bf16 gap {bf16_error}")
+        if got["tokens"] != checks["float32"]:
+            raise AssertionError(f"{label}: the mesh's f32 tokens leave the "
+                                 f"one-process f32 engine's")
+    print(json.dumps({"mesh_logit_gaps": out}), flush=True)
+    return out
+
+
+def mesh_launch_rows(records, cfg, args):
+    """Every rank's row of the launch's `records`, held: the ranks'
+    digests equal in every arm and overlapped equal to serialized (in the
+    overlap mode "auto" picks on a data axis, "async"), on the (MESH_WORLD
+    / MESH_MP, MESH_MP) mesh, bytes equal to `serve_step_sends`, a flash
+    launch a layer an admission its data line prefilled (arena) and a
+    decode or paged launch a layer a decode step, every rank on the card.
+    Returns (rows, {arm: digest}, {arm: rank 0's launches})."""
+    from repro_torch.dist.serving import serve_step_sends
+    from repro_torch.serve import bucket_length
 
     digests, rows, launches = {}, [], {}
     unit = bucket_length(args.prompt_len, 8)
+    mesh = {"data": MESH_WORLD // MESH_MP, "model": MESH_MP}
     for arm in MESH_SERVE_ARMS:
-        recs = [records[arm, p] for p in range(MESH_MP)]
+        recs = [records[arm, p] for p in range(MESH_WORLD)]
         digests[arm] = {r["digest"] for r in recs}
         if len(digests[arm]) != 1 or any(r["outputs"] != recs[0]["outputs"]
                                          for r in recs):
@@ -5849,6 +6000,11 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
                                  f"{[r['digest'] for r in recs]}")
         for r in recs:
             st = r["engine_stats"]
+            mode = "" if arm.endswith("-serialized") else "async"
+            if r["mesh"] != mesh or r["overlap_mode"] != mode:
+                raise AssertionError(f"{arm} rank {r['process']}: mesh "
+                                     f"{r['mesh']}, overlap mode "
+                                     f"{r['overlap_mode']!r} ({mode!r})")
             if r["sent"] != r["sent_reckoned"] or not r["sent"]:
                 raise AssertionError(f"{arm} rank {r['process']} sent "
                                      f"{r['sent']}, serve_step_sends "
@@ -5860,7 +6016,8 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
             if r["backend"] == "paged":
                 want["decode_attention_paged"] = per_step
             else:
-                want["flash_attention"] = MESH_SERVE_LAYERS * st["admissions"]
+                want["flash_attention"] = (MESH_SERVE_LAYERS
+                                           * st["line_admissions"])
                 want["decode_attention"] = per_step
             if got != want:
                 raise AssertionError(f"{arm} rank {r['process']}: launches "
@@ -5868,19 +6025,24 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
             if not r["device"].startswith("cuda"):
                 raise AssertionError(f"{arm} ran on {r['device']}")
             decode_bytes = serve_step_sends(
-                cfg, {"data": 1, "model": MESH_MP}, args.max_batch,
-                unit)[r["process"]]["decode"]
+                cfg, r["mesh"], args.max_batch, unit)[r["process"]]["decode"]
             rows.append({
-                "arm": arm, "rank": r["process"], "digest": r["digest"],
+                "mesh": mesh_label(r["mesh"]), "arm": arm,
+                "rank": r["process"], "data_line": r["data_index"],
+                "overlap_mode": r["overlap_mode"], "digest": r["digest"],
                 "decode_step_ms": r["derived"]["decode_step_ms"],
                 "admission_ms": r["derived"]["admission_ms_per_admission"],
                 "tokens_per_s": r["derived"]["throughput_tok_s"],
                 "axis_ms_per_decode_step": r["axis_ms_per_decode_step"],
+                "axis_ms_per_decode_step_by_axis": {
+                    a: ms / max(st["decode_steps"], 1)
+                    for a, ms in r["axis_ms_by_axis"].items()},
                 "axis_ms": r["axis_ms"], "calls": r["calls"],
                 "bytes_per_decode_step": decode_bytes,
                 "sent": r["sent"], "peak_GB": r["peak_bytes"] / 1e9,
                 "decode_steps": st["decode_steps"],
                 "admissions": st["admissions"],
+                "line_admissions": st["line_admissions"],
                 "mixed_steps": st["mixed_steps"], "launches": got,
                 "setup_s": r["setup_s"], "wall_s": r["wall_s"]})
         launches[arm] = records[arm, 0]["launches"]
@@ -5889,23 +6051,56 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
             raise AssertionError(f"{overlapped}: overlapped "
                                  f"{digests[overlapped]} != serialized "
                                  f"{digests[overlapped + '-serialized']}")
+    return rows, {a: sorted(d)[0] for a, d in digests.items()}, launches
+
+
+def mesh_serving(smi, gen, backend="gloo", kernels=True):
+    """Phase 50 (see the module's docstring) over `backend` (its kernel
+    cases where `kernels`). Returns (the kernel cases, {(mesh, path): its
+    launches}: rank 0's of each of the launch's arms and the (1, MESH_MP)
+    check line's pool's, {arm: the launch's digest})."""
+    from repro_torch.launch import serve_mesh
+
+    t0 = time.perf_counter()
+    cases = mesh_kernel_cases(gen) if kernels else None
+    checks, checks_s = mesh_checks(backend)
+    gaps = mesh_logit_gates(checks)
+    args = serve_mesh._build_parser().parse_args(
+        MESH_SERVE_ARGS + ["--layers", str(MESH_SERVE_LAYERS)])
+    cfg = serve_mesh._config(args)
+    records, launch_s = serve_mesh_launch(backend, MESH_SERVE_ARMS)
+    label = mesh_label({"data": MESH_WORLD // MESH_MP, "model": MESH_MP})
+    rows, digests, got = mesh_launch_rows(records, cfg, args)
+    launches = {(label, f"rank 0, {arm}"): got[arm]
+                for arm in MESH_SERVE_ARMS}
+    line = mesh_label({"data": 1, "model": MESH_MP})
+    for r in (0, MESH_WORLD - 1):
+        e = checks["lines"][r]
+        launches[line, f"check rank {r}, f32 "
+                 f"{'pool' if e['paged'] else 'arena'} (fused), "
+                 f"{e['layers']} layers"] = e["launches"]
     arena, paged = (records[a, 0]["outputs"] for a in ("arena", "paged"))
     out = {"card": smi, "backend": backend,
+           "note": ("every rank shared one card over gloo (host buffers); "
+                    "times measure this transport, not NVLink"
+                    if backend == "gloo" else "one GPU a rank over NCCL"),
+           "mesh": label, "launch_s": launch_s, "checks_s": checks_s,
+           "check_rank_s": checks["rank_s"],
+           "logit_gap_of_max": gaps,
+           "f32_tokens_equal_one_process": True,
+           "line_pool_f32_tokens_equal_one_process": True,
+           "lines": checks["lines"],
+           "overlapped_equals_serialized": True,
            # not gated: the pool's chunk prefill is plain PyTorch, the
            # arena's flash, so a bf16 token may differ, as in phase 11
            "paged_requests_equal_to_arena": sum(
                a == b for a, b in zip(arena, paged)),
-           "note": ("both ranks shared one card over gloo (host buffers); "
-                    "times measure this transport, not NVLink"
-                    if backend == "gloo" else "one GPU a rank over NCCL"),
-           "launch_s": launch_s, "checks_s": checks_s,
-           "logit_gap_of_max": gaps,
-           "f32_tokens_equal_one_process": True,
-           "overlapped_equals_serialized": True,
-           "digests": {a: sorted(d)[0] for a, d in digests.items()},
-           "ranks": rows, "phase50_s": time.perf_counter() - t0}
+           "digests": digests, "ranks": rows,
+           "phase50_s": time.perf_counter() - t0}
     print(json.dumps({"mesh_serving": out}), flush=True)
-    return cases, launches, out["digests"]
+    print(f"phase 50: {out['phase50_s']:.1f} s (check ranks {checks_s:.1f} "
+          f"s; launch {label} {launch_s:.1f} s)", flush=True)
+    return cases, launches, digests
 
 
 def main():
@@ -6277,10 +6472,13 @@ def main():
     mesh_cases, mesh_arms = mesh_training(smi, gen)
     cases += mesh_cases
 
-    phase("50 serving across processes: f32 tokens and first-decode "
-          "logits on 2 ranks against one process, then launch.serve_mesh "
-          "--processes 2 --model-parallel 2 at full qwen2-0.5b width, "
-          "arena and pool, overlapped and serialized")
+    phase("50 serving across processes, the data axis too: f32 tokens and "
+          "first-decode logits on 4 check ranks, (1, 2) on each data line "
+          "side by side (the arena and the pool through the fused mixed "
+          "step), then (2, 2), against one process; then "
+          "launch.serve_mesh --processes 4 --model-parallel 2 on (2, 2) at "
+          "full qwen2-0.5b width, arena and pool, overlapped (async) and "
+          "serialized")
     (tp_flash, tp_decode, tp_paged, tp_ring), tp_launches, _ = mesh_serving(
         smi, gen)
     flash_cases += tp_flash
@@ -6289,9 +6487,9 @@ def main():
     ring_cases += tp_ring
 
     def tp_paths(kernel):
-        """{path: launches} of rank 0 in phase 50's arms of `kernel`."""
-        return {f"qwen2 mp=2 rank 0, {arm}": got[kernel]
-                for arm, got in tp_launches.items() if got[kernel]}
+        """{path: launches} of `kernel` in phase 50's paths."""
+        return {f"qwen2 mesh {mesh} {path}": got[kernel]
+                for (mesh, path), got in tp_launches.items() if got[kernel]}
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""
@@ -6437,7 +6635,8 @@ def mesh_only(backend):
     """`--mesh-only BACKEND`: the card line, the builds of prox_update and
     the attention kernels, phase 49 over BACKEND, and phase 50 over gloo
     and over BACKEND, whose digests must be equal (nccl needs a GPU a
-    rank: four for phase 49, two of them for phase 50)."""
+    rank: four for phase 49 and for phase 50's check ranks and (2, 2)
+    launch)."""
     phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

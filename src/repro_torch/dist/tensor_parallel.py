@@ -62,7 +62,6 @@ from repro_torch.dist.sharding import (axis_sizes, gather_shards,
                                        local_shard)
 
 # the queue items of ROADMAP.md that the refusals name
-DATA_AXIS = "ROADMAP queue 1 item 6.1b (the data axis of the serving mesh)"
 OTHER_FAMILIES = ("ROADMAP queue 1 item 6.1c (MLA, MoE and the recurrent "
                   "families on the model axis)")
 NON_DIVIDING = "ROADMAP queue 1 item 6.1d (kv counts the axis does not divide)"
@@ -331,14 +330,10 @@ class ModelAxis:
 
 
 def model_axis(mesh, comm):
-    """The `ModelAxis` of this rank on `mesh`, or None where the mesh has
-    no model axis above 1 (the one-process path). Refuses a data axis
-    above 1."""
+    """The `ModelAxis` of this rank on `mesh` (its model line, whatever its
+    data coordinate), or None where the mesh has no model axis above 1
+    (the one-process path)."""
     sizes = axis_sizes(mesh)
-    if sizes.get("data", 1) * sizes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            f"a serving mesh of {sizes}: the port serves with data = 1; "
-            f"{DATA_AXIS}")
     if sizes.get("model", 1) == 1:
         return None
     return ModelAxis(comm, mesh)

@@ -11,7 +11,7 @@ make_training_mesh: the API-BCD training mesh over the processes of the
     default group: A agents on the ring, R replicas of each (FSDP within
     an agent), model parallel width mp; A * R * mp must equal the world.
 make_serving_mesh: the ("data", "model") serving mesh over the default
-    group, data = world / mp (only data = 1 so far).
+    group, data = world / mp.
 make_production_mesh, training_mesh_shape: the reference's 256- and
     512-device shapes as shape-only meshes (no processes), for the dry
     run and the sharding specs.
@@ -188,23 +188,15 @@ def make_training_mesh(num_agents, replica=1, model_parallel=1):
 def make_serving_mesh(model_parallel=1):
     """The ("data", "model") mesh over the default group's processes, data
     = world / model_parallel, as the reference reshapes its devices for
-    `serve_mesh`. The port serves with data = 1: a data axis above 1
-    (the reference splits the decode rows over it) raises."""
+    `serve_mesh`: the decode rows split over "data"
+    (`dist.serving.RowSplit`), the model over "model"."""
     import torch.distributed as dist
-
-    from repro_torch.dist.tensor_parallel import DATA_AXIS
 
     world = dist.get_world_size()
     if world % model_parallel:
         raise ValueError(f"a model axis of {model_parallel} does not divide "
                          f"{world} processes")
-    data = world // model_parallel
-    if data > 1:
-        raise NotImplementedError(
-            f"{world} processes at model parallel {model_parallel} make a "
-            f"data axis of {data}; the port serves with data = 1, and "
-            f"{DATA_AXIS}")
-    return make_mesh(SERVING_AXES, (data, model_parallel))
+    return make_mesh(SERVING_AXES, (world // model_parallel, model_parallel))
 
 
 def make_production_mesh(*, multi_pod=False):

@@ -2,25 +2,30 @@
 `repro/launch/serve_mesh.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_mesh \\
-        --processes 2 --model-parallel 2 --backend gloo --device cpu \\
+        --processes 4 --model-parallel 2 --backend gloo --device cpu \\
         --arch qwen2-0.5b --smoke --requests 8 --max-batch 4 [--paged] \\
         [--no-overlap] [--arrival-rate R] [--num-blocks N] [--out stats.json]
 
 Run with no `--process-id`, the script is the parent: it picks a free
 port, spawns `--processes` copies of itself (one rank each, on the
-("data", "model") mesh of `launch.mesh.make_serving_mesh`, data = 1),
-prints their output, and fails unless every rank exits 0 and every
-`SERVE_MESH_OK process=… digest=…` line of an arm carries the same digest.
-A rank that fails ends the others at once; `--timeout` ends them all.
+("data", "model") mesh of `launch.mesh.make_serving_mesh`, data =
+processes / model parallel), prints their output, and fails unless
+every rank exits 0 and every `SERVE_MESH_OK process=… digest=…` line of
+an arm carries the same digest. A rank that fails ends the others at
+once; `--timeout` ends them all.
 
 Every rank runs the same deterministic scheduler: the engine's host
 state moves only with the submitted workload (seeded) and the `[B]`
-token ids each step returns, which `ModelAxis.argmax` makes equal on
-every rank. No rank sends another a scheduling decision; lockstep
-follows from determinism, as in the reference. Each rank holds its slice
-of the model (`dist.tensor_parallel`): the heads of its kv heads, its
-slice of d_ff and of the vocabulary, and an arena or pool of its kv
-heads, so the attention kernels run on that shard.
+token ids each step returns, which `ModelAxis.argmax` and the gathers
+over "data" make equal on every rank. No rank sends another a
+scheduling decision; lockstep follows from determinism, as in the
+reference. Each rank holds its slice of the model
+(`dist.tensor_parallel`): the heads of its kv heads, its slice of d_ff
+and of the vocabulary, and the decode rows of its data line
+(`dist.serving.RowSplit`: `--max-batch` / data of them, an arena of
+those rows or the whole pool, of its kv heads), so the attention kernels
+run on that shard. On a data axis above 1 the overlapped arms resolve
+to the "async" overlap mode, as the reference's do.
 
 `--arrival-rate R` submits the workload on a seeded, step-indexed
 Poisson schedule (`_arrival_steps`), the same on every rank and in every
@@ -35,10 +40,10 @@ rank; gloo shares a card through host buffers), `--device cuda|cpu`
 and `--arms` (several arms on one process group, each `arena` or
 `paged`, with `-serialized` for `--no-overlap`; default: the one arm of
 `--paged` and `--no-overlap`). Each arm prints a `SERVE_MESH_ARM
-{json}` line a rank: its digest, stats,
-step and admission ms, the model axis's ms and bytes by kind (checked
-against `dist.serving.serve_step_sends`), kernel launches and peak
-memory.
+{json}` line a rank: its mesh, data line and overlap mode, its digest,
+stats, step and admission ms, the axes' ms (also by axis) and bytes by
+kind (checked against `dist.serving.serve_step_sends`), kernel launches
+and peak memory.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ import hashlib
 import json
 import sys
 import time
+from collections import Counter
 
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.hotpath import hot_loop
@@ -56,8 +62,7 @@ def _build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--processes", type=int, default=2)
     ap.add_argument("--model-parallel", type=int, default=2,
-                    help='"model" mesh axis; the rest becomes "data" (1 '
-                         "so far)")
+                    help='"model" mesh axis; the rest becomes "data"')
     ap.add_argument("--arch", default="tiny",
                     help='"tiny" (the reference\'s bench config) or an arch')
     ap.add_argument("--smoke", action="store_true",
@@ -171,25 +176,27 @@ def arms_of(args):
 def expected_sends(eng, st, cfg, mesh, rank, plen):
     """{kind: bytes} rank `rank` sends in the steps of `eng` that `st` (a
     pass's count of `Engine.stats`) counts, from `dist.serving.
-    serve_step_sends`: plain decode steps, mixed steps and the prefill
-    calls the mixed steps did not carry (every prompt of `plen` tokens:
-    one padded prompt on the arena, its chunks on the pool)."""
+    serve_step_sends`: plain decode steps, mixed steps (each carrying a
+    prefill unit of a `plen`-token prompt: its padded prompt on the
+    arena, a chunk on the pool), its data line's prefill launches outside
+    them (`line_prefill_units`) and the first tokens' gathers."""
     from repro_torch.dist.serving import serve_step_sends
-    from repro_torch.serve.bucketing import bucket_length, chunks_needed
+    from repro_torch.serve.bucketing import bucket_length
 
-    if eng.paged:
-        unit = eng.prefill_chunk
-        prefills = st["admissions"] * chunks_needed(plen, unit)
-    else:
-        unit = min(bucket_length(plen, 8), eng.capacity)
-        prefills = st["admissions"]
-    per = serve_step_sends(cfg, mesh, eng.max_batch, unit)[rank]
-    calls = {"decode": st["decode_steps"] - st["mixed_steps"],
-             "mixed": st["mixed_steps"],
-             "admission": prefills - st["mixed_steps"]}
+    def per(rows):
+        return serve_step_sends(cfg, mesh, eng.max_batch, rows)[rank]
+
+    calls = [(per(0)["decode"], st["decode_steps"] - st["mixed_steps"]),
+             (per(0)["first_token"], st["first_tokens"])]
+    if st["mixed_steps"]:
+        unit = (eng.prefill_chunk if eng.paged
+                else min(bucket_length(plen, 8), eng.capacity))
+        calls.append((per(unit)["mixed"], st["mixed_steps"]))
+    for rows, n in st["line_prefill_units"].items():
+        calls.append((per(int(rows))["admission"], n))
     total = {}
-    for step, n in calls.items():
-        for kind, b in per[step].items():
+    for sends, n in calls:
+        for kind, b in sends.items():
             total[kind] = total.get(kind, 0) + n * b
     return total
 
@@ -284,8 +291,8 @@ def run_child(args) -> int:
         wall_s = time.perf_counter() - t0
         stats = eng.stats
         delta = {k: (stats[k] - warm[k]
-                     if isinstance(stats[k], (int, float))
-                     and not isinstance(stats[k], str) else stats[k])
+                     if isinstance(stats[k], (int, float, Counter))
+                     else stats[k])
                  for k in stats}
         # gauges, not counters: the live values
         delta["decode_fetch_elems"] = stats["decode_fetch_elems"]
@@ -314,7 +321,8 @@ def run_child(args) -> int:
         axis_ms = dict(comm.ms) if comm is not None else {}
         record = {
             "arm": name, "process": pid, "backend": backend,
-            "overlap": eng.overlap,
+            "mesh": mesh.shape, "data_index": eng.rows.index,
+            "overlap": eng.overlap, "overlap_mode": eng.overlap_mode,
             "digest": digest, "outputs": [
                 r.output.tolist()
                 for r in sorted(done.values(), key=lambda r: r.uid)],
@@ -322,6 +330,9 @@ def run_child(args) -> int:
             "wall_s": wall_s, "engine_stats": delta, "derived": derived,
             "axis_ms": axis_ms,
             "axis_ms_per_decode_step": sum(axis_ms.values()) / dsteps,
+            # the same milliseconds by the axis each call ran on
+            "axis_ms_by_axis": ({str(a): v for a, v in comm.axis_ms.items()}
+                                if comm is not None else {}),
             "sent": sent, "sent_reckoned": want,
             "calls": dict(comm.calls) if comm is not None else {},
             "launches": {k: fn.launches for k, fn in counters.items()},
@@ -331,11 +342,12 @@ def run_child(args) -> int:
                            if cuda else None),
             "setup_s": setup_s, "device": str(device)}
         print(f"[proc {pid}] {name} {backend}"
-              f"[{'overlap' if eng.overlap else 'serialized'}]: "
+              f"[{eng.overlap_mode or 'serialized'}] data line "
+              f"{eng.rows.index}: "
               f"{len(done)}/{len(reqs)} requests, {toks} tokens in "
               f"{wall_s:.2f}s; admission "
               f"{derived['admission_ms_per_admission']:.2f} ms/req, decode "
-              f"step {derived['decode_step_ms']:.2f} ms (model axis "
+              f"step {derived['decode_step_ms']:.2f} ms (axes "
               f"{record['axis_ms_per_decode_step']:.2f}), fetch "
               f"[{delta['decode_fetch_elems']}] "
               f"{delta['decode_fetch_dtype']}, mixed_steps "

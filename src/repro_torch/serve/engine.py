@@ -92,12 +92,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.dist import serving
 from repro_torch.dist.tensor_parallel import SUM_DTYPE, serving_params
 from repro_torch.serve.bucketing import (bucket_length, chunks_needed,
                                          table_width)
@@ -190,20 +191,26 @@ class Engine:
     family and backend allow it (`engine.overlap` tells); overlap_mode
     picks how: "fused" runs the mixed step, "async" the serialized step
     functions back to back without a fetch between them, and "auto" is
-    "fused", as the reference picks it on a mesh without a data axis (it
-    picks "async" where the data axis is above 1, which the port's mesh
-    refuses).
+    "async" on a mesh whose data axes are above 1 and "fused" elsewhere,
+    as the reference picks it. "fused" on a data axis above 1 raises:
+    the mixed step's one token-concatenated batch has no rows to split,
+    and the reference, which replicates it there, reads it as slower
+    than serialized and not bitwise.
 
-    mesh (a `launch.mesh.Mesh` over processes, ("data", "model") with
-    data = 1; `launch.mesh.make_serving_mesh`): every rank of the model
-    axis runs this engine in lockstep on the same submissions. The
-    engine keeps this rank's shard of `params` (the whole model's,
-    `dist.tensor_parallel.shard_params`), an arena or pool of this rank's
-    kv heads, and the steps of `dist.serving.local_model`, which sum over
-    the axis (`engine.comm`, a `dist.collectives.Collectives`, counts
-    their bytes and milliseconds) and return the same `[B]` ids on every
-    rank; the scheduler reads nothing else from the device, and no clock
-    steers it. A mesh whose model axis is 1 serves as without a mesh.
+    mesh (a `launch.mesh.Mesh` over processes, ("data", "model");
+    `launch.mesh.make_serving_mesh`): every rank runs this engine in
+    lockstep on the same submissions. The engine keeps this rank's shard
+    of `params` (the whole model's, `dist.tensor_parallel.shard_params`),
+    the steps of `dist.serving.local_model`, which sum over the model
+    axis, and the decode rows of its data line (`engine.rows`, a
+    `dist.serving.RowSplit`; max_batch must be a multiple of the data
+    size): an arena of its rows, or the whole pool, each of this rank's
+    kv heads. Each line decodes its rows and prefills the admissions of
+    its slots; the gathers over the data axes give every rank the same
+    `[B]` ids and first tokens (`engine.comm`, a
+    `dist.collectives.Collectives`, counts the bytes and milliseconds of
+    both axes). The scheduler reads nothing else from the device, and no
+    clock steers it. A mesh of one rank serves as without a mesh.
     """
 
     def __init__(self, model, params, *, max_batch: int = 8,
@@ -224,17 +231,20 @@ class Engine:
         self.model = model
         self.device = next(iter(params.values())).device
         self.mesh = mesh
-        self.comm = None
+        self.max_batch = int(max_batch)
+        comm = None
         steps = model       # the model whose entry points serve
         if mesh is not None:
-            from repro_torch.dist import serving
             from repro_torch.dist.collectives import Collectives
 
             comm = Collectives(mesh, self.device)
             steps = serving.local_model(model, mesh, comm)
-            self.comm = None if steps is model else comm
+        # the decode rows this rank holds (all of them off a data axis)
+        self.rows = serving.RowSplit(self.max_batch, mesh, comm,
+                                      self.device)
+        self.comm = (comm if steps is not model or self.rows.size > 1
+                     else None)
         self.params = serving_params(model.cfg, params, mesh)
-        self.max_batch = int(max_batch)
         self.capacity = bucket_length(max_len)
         self.caps = probe_family_caps(model, capacity=self.capacity)
         self.paged = bool(paged and self.caps.supports_paging)
@@ -247,9 +257,15 @@ class Engine:
         # arena that pads prompts; a windowed arena stays serialized
         self.overlap = bool(overlap and self.caps.supports_mixed_step
                             and (self.paged or self.caps.pad_prompts))
+        if overlap_mode == "auto":
+            overlap_mode = "async" if self.rows.size > 1 else "fused"
+        elif overlap_mode == "fused" and self.rows.size > 1:
+            raise ValueError(
+                f"overlap_mode 'fused' on a data axis of {self.rows.size}: "
+                "the mixed step's one batch has no rows to split over it; "
+                "use 'async' (what 'auto' picks there)")
         # the resolved strategy ("" without overlap)
-        self.overlap_mode = ("fused" if overlap_mode == "auto"
-                             else overlap_mode) if self.overlap else ""
+        self.overlap_mode = overlap_mode if self.overlap else ""
         self._mixed = None
         self.prefill_shapes: set = set()    # admitted Sp / chunk sizes
         if self.paged:
@@ -282,13 +298,14 @@ class Engine:
             self._decode = steps.decode_rows_tokens
             if self.overlap_mode == "fused":
                 self._mixed = steps.mixed_step_tokens
-            self._caches = steps.init_arena(self.max_batch, self.capacity,
+            self._caches = steps.init_arena(self.rows.rows, self.capacity,
                                             dtype=cache_dtype,
                                             device=self.device)
         if self.comm is not None:
             # gloo's host buffers at the largest sum a step makes: the
             # mixed batch of every row and the longest prefill unit, in
-            # the row-parallel products' SUM_DTYPE
+            # the row-parallel products' SUM_DTYPE (the data axes' gathers
+            # of int32 ids are far smaller)
             unit = self.prefill_chunk if self.paged else self.capacity
             self.comm.reserve((self.max_batch + unit) * model.cfg.d_model
                               * SUM_DTYPE.itemsize)
@@ -340,6 +357,12 @@ class Engine:
             "h2d_uploads": 0,        # mirror re-syncs (stale -> upload)
             "decode_fetch_elems": 0,    # size of the per-step fetch ...
             "decode_fetch_dtype": "",   # ... proof it is [B] int32 ids
+            "line_admissions": 0,    # admissions prefilled on this data line
+            "line_preemptions": 0,   # preemptions of this data line's rows
+            # this data line's prefill launches outside a mixed step, by
+            # their token rows (the arena's padded prompt, the pool's chunk)
+            "line_prefill_units": Counter(),
+            "first_tokens": 0,       # admissions' first tokens resolved
         }
 
     @property
@@ -349,8 +372,14 @@ class Engine:
         mixed steps and overlapped admissions, replayed tokens, mirror
         uploads, the per-step fetch's size and dtype, preemptions, and
         the resolved overlap mode ("fused", "async", or "" for the
-        serialized scheduler)."""
-        return dict(self._stats, preemptions=self.num_preemptions,
+        serialized scheduler); beside them the admissions whose prefill
+        ran on this rank's data line (all of them off a data axis), the
+        preemptions of its rows, its prefill launches outside a mixed
+        step by their token rows, and the first tokens resolved (each one
+        a gather over the data axes)."""
+        units = Counter(self._stats["line_prefill_units"])
+        return dict(self._stats, line_prefill_units=units,
+                    preemptions=self.num_preemptions,
                     overlap_mode=self.overlap_mode)
 
     def _put(self, x):
@@ -474,13 +503,28 @@ class Engine:
         toks[0, :len(chunk)] = chunk
         return torch.from_numpy(toks).to(self.device), len(chunk)
 
+    def _prefill_slot(self, tokens: torch.Tensor, plen: int, slot: int):
+        """Launch the arena prefill of `tokens` into `slot` on the data line
+        that holds it; returns its device token (None on other lines)."""
+        if not self.rows.owns(slot):
+            return None
+        self._stats["line_prefill_units"][tokens.shape[1]] += 1
+        tok, self._caches = self._prefill(self.params, tokens, plen,
+                                          self.rows.local(slot),
+                                          self._caches)
+        return tok
+
     def _prefill_chunks(self, prompt: np.ndarray, table: torch.Tensor,
-                        first: int, stop: int):
+                        first: int, stop: int, slot: int):
         """Launch chunks [first, stop) of `prompt` into the blocks of
-        `table`; returns the last chunk's device token."""
+        `table` on the data line that holds `slot`; returns the last
+        chunk's device token (None on other lines)."""
+        if not self.rows.owns(slot):
+            return None
         tok = None
         for i in range(first, stop):
             toks, n = self._chunk(prompt, i)
+            self._stats["line_prefill_units"][toks.shape[1]] += 1
             tok, self._caches = self._prefill(
                 self.params, toks, n, i * self.prefill_chunk, table,
                 self._caches)
@@ -495,9 +539,8 @@ class Engine:
         and mark the slot live. Returns (req, slot, device token) for
         `_resolve_admission`: the first token is not fetched here, so the
         round's other prefills launch without waiting on this one."""
-        tok_dev, self._caches = self._prefill(
-            self.params, self._arena_prompt(req), len(req.prompt), slot,
-            self._caches)
+        tok_dev = self._prefill_slot(self._arena_prompt(req),
+                                     len(req.prompt), slot)
         self._slot_req[slot] = req
         self._gen[slot] = []
         self._lengths[slot] = len(req.prompt)
@@ -517,7 +560,7 @@ class Engine:
         self.prefill_shapes.add(self.prefill_chunk)
         tok_dev = self._prefill_chunks(
             req.prompt, self._prompt_table(self._tables[slot], plen), 0,
-            chunks_needed(plen, self.prefill_chunk))
+            chunks_needed(plen, self.prefill_chunk), slot)
         self._slot_req[slot] = req
         self._gen[slot] = []
         self._lengths[slot] = plen
@@ -534,6 +577,10 @@ class Engine:
         self._cur[slot] = req.gen_prefix[0]
         self._cur_dirty = True
         self._replay[slot] = deque(req.gen_prefix[1:])
+
+    def _count_admission(self, slot: int) -> None:
+        self._stats["admissions"] += 1
+        self._stats["line_admissions"] += self.rows.owns(slot)
 
     def _resolve_admission(self, req: Request, slot: int,
                            tok: int) -> Optional[Request]:
@@ -578,6 +625,7 @@ class Engine:
         req.gen_prefix.extend(self._gen[slot])
         req.preemptions += 1
         self.num_preemptions += 1
+        self._stats["line_preemptions"] += self.rows.owns(slot)
         self._slot_req[slot] = None
         self._gen[slot] = []
         self._replay[slot] = deque()  # rebuilt from gen_prefix on re-admission
@@ -637,7 +685,7 @@ class Engine:
             admit = self._admit_paged if self.paged else self._admit
             pend = admit(self._queue.popleft(), slot)
             admitted = True
-            self._stats["admissions"] += 1
+            self._count_admission(slot)
             if pend is not None:
                 pending.append(pend)
         self._stats["admit_host_s"] += time.perf_counter() - t0
@@ -646,7 +694,9 @@ class Engine:
             # repro-lint: disable=host-sync-in-hot-loop -- batched
             # first-token resolution: ONE wait per admission round after
             # every prefill is in flight
-            toks = np.asarray(torch.stack([t for _, _, t in pending]).cpu())
+            toks = np.asarray(self.rows.first_tokens(
+                [(slot, t) for _, slot, t in pending]).cpu())
+            self._stats["first_tokens"] += len(pending)
             self._stats["prefill_wait_s"] += time.perf_counter() - t1
             for (req, slot, _), tok in zip(pending, toks.tolist()):
                 f = self._resolve_admission(req, slot, tok)
@@ -667,27 +717,28 @@ class Engine:
         return self._step_serialized()
 
     def _sync_mirrors(self, active: List[int]) -> None:
-        """Re-upload the stale device mirrors of the decode operands; the
-        paged tables go up as the pow2 slice covering the live maximum
-        (+1: the step inserts each live row's incoming token first)."""
+        """Re-upload the stale device mirrors of the decode operands, this
+        data line's rows of each; the paged tables go up as the pow2
+        slice covering the live maximum (+1: the step inserts each live
+        row's incoming token first)."""
         if self.paged:
             w = self._table_width(max(int(self._lengths[s]) + 1
                                       for s in active))
             if self._tables_dirty or self._tables_dev_w != w:
                 self._tables_dev = self._put(
-                    np.ascontiguousarray(self._tables[:, :w]))
+                    self.rows.mine(self._tables[:, :w]))
                 self._tables_dev_w = w
                 self._tables_dirty = False
         if self._lengths_dirty or self._lengths_dev is None:
-            self._lengths_dev = self._put(self._lengths)
+            self._lengths_dev = self._put(self.rows.mine(self._lengths))
             self._lengths_dirty = False
         if self._cur_dirty or self._cur_dev is None:
-            self._cur_dev = self._put(self._cur)
+            self._cur_dev = self._put(self.rows.mine(self._cur))
             self._cur_dirty = False
 
     def _launch_decode(self) -> torch.Tensor:
-        """Launch the decode step over every row; returns its next tokens
-        (the advanced lengths stay in the device mirror)."""
+        """Launch the decode step over this data line's rows; returns their
+        next tokens (the advanced lengths stay in the device mirror)."""
         if self.paged:
             toks_dev, self._caches, self._lengths_dev = self._decode(
                 self.params, self._cur_dev, self._caches, self._tables_dev,
@@ -700,9 +751,10 @@ class Engine:
     @hot_loop
     def _emit(self, toks_dev: torch.Tensor, active: List[int], t0: float,
               finished: List[Request]) -> None:
-        """Fetch the decode step's `[B]` tokens (its launch began at t0)
-        and advance the rows of `active`, in that order: replay, emit, or
-        finish on budget or EOS."""
+        """Fetch the decode step's `[B]` tokens (this line's, gathered over
+        the data axes; its launch began at t0) and advance the rows of
+        `active`, in that order: replay, emit, or finish on budget or
+        EOS."""
         # the step's outputs are the next step's inputs: tokens and
         # advanced lengths stay on the device
         self._cur_dev = toks_dev
@@ -710,7 +762,7 @@ class Engine:
         self._stats["decode_dispatch_s"] += t1 - t0
         # repro-lint: disable=host-sync-in-hot-loop -- this [B] int32 token
         # fetch IS the per-step device->host contract (never logits)
-        nxt = np.asarray(toks_dev.cpu())
+        nxt = np.asarray(self.rows.gather(toks_dev).cpu())
         t2 = time.perf_counter()
         self._stats["decode_steps"] += 1
         self._stats["decode_fetch_s"] += t2 - t1
@@ -835,7 +887,8 @@ class Engine:
         table = self._alloc_prompt(req, slot)
         self.prefill_shapes.add(self.prefill_chunk)
         tok = self._prefill_chunks(req.prompt, self._prompt_table(table, plen),
-                                   0, chunks_needed(plen, self.prefill_chunk))
+                                   0, chunks_needed(plen, self.prefill_chunk),
+                                   slot)
         self._staged.append({"req": req, "slot": slot, "plen": plen,
                              "tok": tok, "table": table})
 
@@ -855,12 +908,14 @@ class Engine:
         stream_ok = not (self.paged and self._mixed is None)
         if (stream_ok and self._stream is None and self._queue and free
                 and self._can_admit(self._queue[0])):
-            self._start_stream(self._queue.popleft(), free.popleft())
-            self._stats["admissions"] += 1
+            slot = free.popleft()
+            self._start_stream(self._queue.popleft(), slot)
+            self._count_admission(slot)
         while (self.paged and self._queue and free
                and self._can_admit(self._queue[0])):
-            self._stage_admit(self._queue.popleft(), free.popleft())
-            self._stats["admissions"] += 1
+            slot = free.popleft()
+            self._stage_admit(self._queue.popleft(), slot)
+            self._count_admission(slot)
         self._stats["admit_host_s"] += time.perf_counter() - t0
 
     def _drain_stream(self) -> None:
@@ -873,11 +928,11 @@ class Engine:
         if self.paged:
             entry["table"] = st["table"]
             entry["tok"] = self._prefill_chunks(
-                st["req"].prompt, st["ctable"], st["i"], st["total"])
+                st["req"].prompt, st["ctable"], st["i"], st["total"],
+                st["slot"])
         else:
-            entry["tok"], self._caches = self._prefill(
-                self.params, st["tokens"], st["plen"], st["slot"],
-                self._caches)
+            entry["tok"] = self._prefill_slot(st["tokens"], st["plen"],
+                                              st["slot"])
         self._stats["admit_host_s"] += time.perf_counter() - t0
         self._staged.append(entry)
 
@@ -903,7 +958,9 @@ class Engine:
             # repro-lint: disable=host-sync-in-hot-loop -- deferred
             # first-token resolution: the prior step's [B] decode fetch
             # already synced past the launches that produced these tokens
-            got = np.asarray(torch.stack([e["tok"] for e in fresh]).cpu())
+            got = np.asarray(self.rows.first_tokens(
+                [(e["slot"], e["tok"]) for e in fresh]).cpu())
+            self._stats["first_tokens"] += len(fresh)
             toks = {e["slot"]: tok for e, tok in zip(fresh, got.tolist())}
         for e in entries:
             req, slot = e["req"], e["slot"]
@@ -981,9 +1038,8 @@ class Engine:
                 # the prefill overwrites its row and ptr, the mixed step's
                 # order), then the serialized prefill, no fetch between
                 toks_dev = self._launch_decode()
-                st["tok"], self._caches = self._prefill(
-                    self.params, st["tokens"], st["plen"], st["slot"],
-                    self._caches)
+                st["tok"] = self._prefill_slot(st["tokens"], st["plen"],
+                                               st["slot"])
             st["i"] = 1
         if st is not None and st["i"] == st["total"]:
             self._stream = None

@@ -169,7 +169,7 @@ def served(params, tmp_path_factory):
 def _one_process(params, load, window, **kw):
     model = build_model(script.CFG, window=window)
     prompts, budgets = script.workloads()[load]
-    _, outputs, _ = script.serve(model, params, prompts, budgets, **kw)
+    _, outputs = script.serve(model, params, prompts, budgets, **kw)
     return {str(u): t for u, t in outputs.items()}
 
 

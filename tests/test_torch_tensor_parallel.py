@@ -385,8 +385,10 @@ def test_serve_step_sends_counts_every_sum_and_pick():
                 elems = n if mp == 2 else n + pieces[i]
                 assert rank[step] == {"all_reduce": (2 + 2 * 4) * elems,
                                       "all_gather": (mp - 1) * picks * 8}
+            # a first token is gathered over the data axes only
+            assert rank["first_token"] == {}
     assert DS.serve_step_sends(cfg, {"data": 1, "model": 1}, 2, 4) == [
-        {"decode": {}, "admission": {}, "mixed": {}}]
+        {"decode": {}, "admission": {}, "mixed": {}, "first_token": {}}]
 
 
 # ---------------------------------------------------------------------------
@@ -529,16 +531,20 @@ def test_what_the_axis_does_not_split_raises(arch, mp):
 
 
 def test_a_data_axis_and_training_raise():
-    for sizes in ((2, 1), (2, 2)):
-        mesh = Mesh(("data", "model"), sizes, rank=0)
-        with pytest.raises(NotImplementedError, match="item 6.1b"):
-            TP.model_axis(mesh, comm=None)
+    # a data axis serves (tests/test_torch_serve_mesh_data.py): a rank's
+    # model axis is its model line, whatever its data coordinate, and a
+    # data-only mesh has none
+    axis = TP.model_axis(Mesh(("data", "model"), (2, 2), rank=3), comm=None)
+    assert isinstance(axis, TP.ModelAxis)
+    assert (axis.size, axis.index) == (2, 1)
+    assert TP.model_axis(Mesh(("data", "model"), (2, 1), rank=1),
+                         comm=None) is None
     cfg = get_smoke("qwen2-0.5b")
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 6.1b"):
-        Engine(model, model.init(torch.Generator().manual_seed(0)),
-               max_batch=2, max_len=16,
-               mesh=Mesh(("data", "model"), (2, 1), rank=0))
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
+                 max_batch=2, max_len=16,
+                 mesh=Mesh(("data", "model"), (2, 1), rank=0))
+    assert eng.rows.size == 2 and eng.comm is not None
     # training on the axis: the dense stack trains (both ranks report
     # the one loss); the families the axis does not split raise, naming
     # their ROADMAP item

@@ -1,14 +1,21 @@
 """One rank of the port's serving checks across processes (run by
-tests/test_torch_serve_mesh.py as 2 gloo processes on the CPU).
+tests/test_torch_serve_mesh.py as 2 gloo processes on the CPU on the
+("data", "model") = (1, 2) mesh, and by tests/test_torch_serve_mesh_data.py
+as 4 on (2, 2) and 2 on (2, 1)).
 
-    python tests/torch_serve_mesh_script.py --rank R --world 2 \
-        --coordinator localhost:PORT --params params.npz --out DIR
+    python tests/torch_serve_mesh_script.py --rank R --world 4 \
+        --model-parallel 2 --coordinator localhost:PORT \
+        --params params.npz --out DIR
 
-Every rank builds the ("data", "model") = (1, 2) serving mesh, loads the
-same parameters (the reference's init, flattened by the test), serves
-each scenario through `Engine(mesh=...)` in f32 and writes what it
-served to DIR/rank<R>.json: each scenario's outputs by uid, its
-preemptions, free blocks and the bytes it sent by kind, and whether
+Every rank builds the serving mesh of `--world` processes at
+`--model-parallel` (default: all of them on "model"), loads the same
+parameters (the reference's init, flattened by the test), serves each
+scenario through `Engine(mesh=...)` in f32 and writes what it served to
+DIR/rank<R>.json: each scenario's outputs by uid, its preemptions (and
+those of its data line's rows), free blocks, resolved overlap mode, the
+bytes it sent by kind and the bytes `dist.serving.serve_step_sends`
+reckons from the engine's stats for the steps it ran
+(`launch.serve_mesh.expected_sends`), and whether
 `Collectives.all_reduce` equals the line-order sum of the gathered
 tensors bitwise. Rank 0 also saves `first_decode_logits` on the mesh to
 DIR/logits.pt.
@@ -32,6 +39,7 @@ from repro_torch.dist.tensor_parallel import (model_axis,  # noqa: E402
                                               serving_params)
 from repro_torch.launch.mesh import (init_distributed,  # noqa: E402
                                      make_serving_mesh)
+from repro_torch.launch.serve_mesh import expected_sends  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import Engine, bucket_length  # noqa: E402
 
@@ -77,6 +85,9 @@ SCENARIOS = {
     "scarce_paged_serialized": ("scarce", 0, dict(
         max_len=32, paged=True, block_size=4, num_blocks=8, prefill_chunk=4,
         overlap=False)),
+    "scarce_paged_reserve": ("scarce", 0, dict(
+        max_len=32, paged=True, block_size=4, num_blocks=8, prefill_chunk=4,
+        preemption="reserve")),
 }
 
 
@@ -87,48 +98,54 @@ def first_decode_logits(model, params, prompts, capacity, mesh=None,
     an arena of `capacity` in the compute dtype, each padded to its
     bucket as the engine pads it, and decoded from its greedy first
     token: through `model` itself, or on `mesh` through this rank's
-    slice (`dist.serving.local_model`; the slices gathered). The
+    slice (`dist.serving.local_model`) of its data line's rows
+    (`dist.serving.RowSplit`; the slices and rows gathered). The
     parameters are the engine's (`tensor_parallel.serving_params`)."""
     device = next(iter(params.values())).device
     steps, axis = model, None
     if mesh is not None:
         steps = serving.local_model(model, mesh, comm)
         axis = model_axis(mesh, comm)
+    rows = serving.RowSplit(len(prompts), mesh, comm, device)
     params = serving_params(model.cfg, params, mesh)
-    arena = steps.init_arena(len(prompts), capacity,
+    arena = steps.init_arena(rows.rows, capacity,
                              dtype=getattr(torch, model.cfg.compute_dtype),
                              device=device)
+    mine = prompts[rows.lo:rows.hi]
     firsts = []
-    for slot, p in enumerate(prompts):
+    for row, p in enumerate(mine):
         toks = np.zeros((1, min(bucket_length(len(p), 8), capacity)),
                         np.int32)
         toks[0, :len(p)] = p
         tok, arena = steps.prefill_into_slot_token(
-            params, torch.from_numpy(toks).to(device), len(p), slot, arena)
+            params, torch.from_numpy(toks).to(device), len(p), row, arena)
         firsts.append(tok)
-    positions = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+    positions = torch.tensor([len(p) for p in mine], dtype=torch.int32,
                              device=device)
     logits, _ = steps.decode_rows(params, torch.stack(firsts)[:, None],
                                   arena, positions)
-    return logits if axis is None else axis.gather_vocab(logits)
+    if axis is not None:
+        logits = axis.gather_vocab(logits)
+    return rows.gather(logits)
 
 
 def serve(model, params, prompts, budgets, mesh=None, **kw):
-    """Serve every request through one engine; (engine, {uid: tokens},
-    total preemptions)."""
+    """Serve every request through one engine; (engine, {uid: tokens})."""
     eng = Engine(model, params, max_batch=2, mesh=mesh,
                  cache_dtype=torch.float32, **kw)
     for p, b in zip(prompts, budgets):
         eng.submit(p, max_new_tokens=b)
     done = eng.run()
-    return (eng, {r.uid: r.output.tolist() for r in done},
-            sum(r.preemptions for r in done))
+    assert eng.num_preemptions == sum(r.preemptions for r in done)
+    return eng, {r.uid: r.output.tolist() for r in done}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="the mesh's model axis (default: --world)")
     ap.add_argument("--coordinator", required=True)
     ap.add_argument("--params", required=True)
     ap.add_argument("--out", required=True)
@@ -136,21 +153,30 @@ def main():
     device = torch.device("cpu")
     init_distributed(args.rank, args.world, args.coordinator, "gloo", device,
                      timeout_s=300)
-    mesh = make_serving_mesh(args.world)
+    mesh = make_serving_mesh(args.model_parallel or args.world)
     with np.load(args.params) as f:
         params = {k: torch.from_numpy(f[k]) for k in f.files}
     loads = workloads()
     out = {}
     for name, (load, window, kw) in SCENARIOS.items():
         prompts, budgets = loads[load]
-        eng, outputs, preemptions = serve(build_model(CFG, window=window),
-                                          params, prompts, budgets,
-                                          mesh=mesh, **kw)
-        out[name] = {"outputs": outputs, "preemptions": preemptions,
+        eng, outputs = serve(build_model(CFG, window=window), params,
+                             prompts, budgets, mesh=mesh, **kw)
+        st = eng.stats
+        out[name] = {"outputs": outputs, "preemptions": st["preemptions"],
+                     "line_preemptions": st["line_preemptions"],
                      "paged": eng.paged, "overlap": eng.overlap,
+                     "overlap_mode": eng.overlap_mode,
                      "free_blocks": eng.free_blocks,
                      "num_blocks": eng.num_blocks if eng.paged else None,
-                     "sent": dict(eng.comm.sent)}
+                     "sent": dict(eng.comm.sent),
+                     "line_admissions": st["line_admissions"],
+                     "first_tokens": st["first_tokens"]}
+        # a mixed step's prefill unit is one prompt's: the prompts here
+        # differ, so only the steps without one are reckoned
+        if not st["mixed_steps"]:
+            out[name]["sent_reckoned"] = expected_sends(
+                eng, st, CFG, mesh, mesh.rank, None)
     prompts = loads["mixed"][0][:2]
     comm = Collectives(mesh, device)
     logits = first_decode_logits(build_model(CFG), params, prompts, 32,
@@ -160,8 +186,11 @@ def main():
     x = torch.randn((7, 13), generator=torch.Generator().manual_seed(
         args.rank))
     pieces = comm.all_gather(x, "model")
+    total = pieces[0]
+    for piece in pieces[1:]:
+        total = total + piece
     out["all_reduce_is_the_line_order_sum"] = torch.equal(
-        comm.all_reduce(x, "model"), pieces[0] + pieces[1])
+        comm.all_reduce(x, "model"), total)
     with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
         json.dump(out, f)
     if args.rank == 0:
