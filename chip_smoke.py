@@ -242,9 +242,10 @@ non-zero before the last line:
      admissions drop at capacity (the port's routing on each layer's
      input, apart from the run), each MoE layer's decode ms against its
      bound (its expert weights read once, 1.89 ms), `launch.serve --arch
-     dbrx-132b --smoke`; then 8 steady decode steps profiled as phase 9,
-     and flash at 48 query heads over 8 kv heads of 128, S = 200, against
-     its plain version and SDPA, timed as phase 25;
+     dbrx-132b --smoke`; then flash at 48 query heads over 8 kv heads of
+     128, S = 200, against its plain version and SDPA, timed as phase 25
+     (8 steady decode steps profiled as phase 9 until MoE and MLA came to
+     the model axis; cut for time);
  40. MLA in f32, card against CPU from one set of parameters: deepseek-
      v2-236b's smoke config (MLA over the MoE with a shared expert) as
      phase 38 holds dbrx's (exact-length prefill and 8 decode steps, a
@@ -260,15 +261,16 @@ non-zero before the last line:
      no attention kernel launched (MLA's cores are plain PyTorch, as the
      reference's are jnp), each MLA layer's decode ms against its bound
      (wq_a ... wo and the latent cache read once) beside each MoE
-     layer's (2.25 ms), 8 steady decode steps profiled; then the dense
+     layer's (2.25 ms); then the dense
      MLA stack at deepseek's widths (4 layers, its d_ff 1536 as a swiglu
      MLP; built here, not registered) from the arena and the pool (256
      blocks of 16, chunks of 32), overlapped and serialized, tokens equal
      between the schedulers, phase 26's row-stability sweep over its
      shared products and norms (build/row_stability_sweep_mla.json),
-     its MLA layers' decode ms, 8 profiled decode steps, and two bf16
-     supersteps at 2 layers, A=2, M=1, 2 x 256 tokens (one prox launch a
-     leaf each, ms, peak);
+     its MLA layers' decode ms, and two bf16 supersteps at 2 layers, A=2,
+     M=1, 2 x 256 tokens (one prox launch a leaf each, ms, peak); both
+     models' 8 profiled decode steps were cut for time when MoE and MLA
+     came to the model axis;
  42. the attention kernels at whisper-small's and phi-3-vision's shapes,
      bf16, against their plain versions and timed as phase 3 (SDPA with
      is_causal=False beside the non-causal cases): flash non-causal over
@@ -419,7 +421,27 @@ non-zero before the last line:
      and no other. Printed: per rank the decode step and admission ms,
      tokens/s, the axes' ms a step (model and data), bytes a decode step
      and the peak GB, with the card's name and power limit, and the
-     seconds of the phase, its check ranks and its launch.
+     seconds of the phase, its check ranks and its launch. MoE and MLA on
+     the model axis (in the check ranks, after the qwen2 meshes): flash
+     and decode at dbrx-132b's rank shard (24 query heads over 4 kv heads
+     of 128 at model parallel 2; the prompt length 64, 4 rows of 128)
+     against their plain versions; then each (1, 2) check line serves one
+     family at full width, cut to 1 layer: line 0 dbrx-132b (its 16
+     experts 8 to a rank, GQA on the rank's heads), line 1
+     deepseek-v2-236b (its 160 experts 80 to a rank, its shared experts'
+     columns, MLA's 128 heads 64 to a rank over the whole latent cache),
+     each rank drawing only its piece (`tensor_parallel.init_shard`, the
+     whole leaf freed before the next), the first decode step's bf16
+     logits, then in f32 the workload's tokens (`Engine(mesh=...)`, the
+     serialized arena at exact prompt lengths) and logits; once every
+     rank has freed its piece, each line's first rank takes one
+     process's whole model through the same. Held as the qwen2 lines:
+     the f32 tokens equal one process's, the f32 logits within 1e-4, the
+     bf16 logits no farther from one process's f32 than one process's
+     own bf16; on dbrx's line a flash launch a layer an admission and a
+     decode launch a layer a decode step, on deepseek's none, and no
+     other. Printed: each rank's init and serving seconds and peak GB,
+     and one process's.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 
@@ -1122,7 +1144,7 @@ def launches_by_kernel(prof):
     return out
 
 
-def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS, cfg=None):
+def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS):
     """Device time by kernel over `steps` steady decode steps at full
     width (8 live rows of 200-token prompts of `argv`'s model; arena or
     paged pool),
@@ -1136,12 +1158,11 @@ def profile_decode_steps(steps=8, paged=False, argv=SERVE_ARGS, cfg=None):
     pad_profile()'s sleeps, which no count or time includes. Returns the
     recurrent kernels' wrapper calls and device launches per admission
     and per step ({"per_admission": ..., "per_step": ...}), or None when
-    the profile recorded no device time. cfg: a config to build in place
-    of argv's --arch (`serve_cli.build`'s)."""
+    the profile recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     args = serve_cli.parse_args(argv)
-    _, cfg, model, params = serve_cli.build(args, cfg)
+    _, cfg, model, params = serve_cli.build(args)
     prompts, _ = serve_cli.workload(args, cfg.vocab_size)
     eng = Engine(model, params, max_batch=8, max_len=512, paged=paged)
     del params
@@ -3954,13 +3975,10 @@ def mla_full_width(gen):
     through `launch.serve --layers` (`moe_serving`, no attention kernel),
     the dense MLA stack at its widths served four ways with its shared
     ops' row stability (phase 26's sweep), each MLA layer's decode time
-    against its bound, two bf16 supersteps of the dense stack, and 8
-    steady decode steps of each model profiled as phase 9. Returns the
-    report."""
+    against its bound and two bf16 supersteps of the dense stack.
+    Returns the report."""
     report = {}
     _, report["deepseek"] = moe_serving(gen, MLA_ARCH, MLA_SERVE_ARGS)
-    torch.cuda.empty_cache()
-    profile_decode_steps(argv=MLA_SERVE_ARGS)
     torch.cuda.empty_cache()
     report["dense_serving"] = dense_mla_serving()
     dense_row_stability(gen, [dense_mla_config(1)],
@@ -3972,8 +3990,6 @@ def mla_full_width(gen):
     print(json.dumps({"dense_mla_decode_layers": report[
         "dense_mla_decode_layers"]}), flush=True)
     del params
-    torch.cuda.empty_cache()
-    profile_decode_steps(argv=SERVE_ARGS, cfg=cfg)
     torch.cuda.empty_cache()
     report["training"] = dense_mla_training()
     return report
@@ -5624,6 +5640,15 @@ MESH_MP = 2
 # and tests/test_torch_serve_mesh.py its launcher in bf16 on the CPU
 MESH_WORLD = 4
 F32_LOGIT_GAP = 1e-4
+# the families of the model axis, one to a (1, MESH_MP) check line (line
+# 0: dbrx-132b's experts over the axis, GQA at 24 of 48 heads; line 1:
+# deepseek-v2-236b's experts and MLA heads, the latents whole on each
+# rank), at full width cut to this many layers: a rank's f32 piece is
+# ~6.5 GB a layer beside 2.5 GB of embedding and head (dbrx), ~8.0 beside
+# 2.1 (deepseek), and one process's whole f32 model, taken on the line's
+# first rank after the line has freed its pieces, ~18 and ~20 GB
+MESH_FAMILIES = ("dbrx-132b", "deepseek-v2-236b")
+MESH_FAMILY_LAYERS = 1
 
 
 def mesh_label(sizes):
@@ -5636,10 +5661,21 @@ def mesh_kernel_cases(gen):
     rank's shard of qwen2-0.5b at model parallel 2 (7 query heads over 1
     kv head of 64; the prompt bucket 64, 4 rows of 128), decode, paged
     and ring at a data line's 2 of those rows (the (2, 2) mesh; flash is
-    the same call, on the line that owns the slot), and flash, decode and
-    paged at internlm2-1.8b's shard (8 over 4 of 128). Returns (flash,
-    decode, paged, ring) cases."""
+    the same call, on the line that owns the slot), flash, decode and
+    paged at internlm2-1.8b's shard (8 over 4 of 128), and flash and
+    decode at dbrx-132b's (24 over 4 of 128, G = 6: 10 of the decode
+    kernel's 16 MMA rows padding) at its check line's exact prompt length
+    and rows. Returns (flash, decode, paged, ring) cases."""
     flash, decode, paged, ring = [], [], [], []
+    cfg = get_config("dbrx-132b")
+    heads = dict(h=cfg.num_heads // MESH_MP, kv=cfg.num_kv_heads // MESH_MP,
+                 hd=cfg.head_dim)
+    tag = (f"dbrx-132b rank shard at mp={MESH_MP}, {heads['h']}:"
+           f"{heads['kv']} heads of {heads['hd']}")
+    flash.append(check_flash_case(f"{tag}, exact-length prefill S=64", 64,
+                                  gen, **heads))
+    decode.append(check_decode_case(f"{tag}, decode B=4 T=128", 4, 128, gen,
+                                    **heads))
     for arch in ("qwen2-0.5b", "internlm2-1.8b"):
         cfg = get_config(arch)
         heads = dict(h=cfg.num_heads // MESH_MP,
@@ -5718,15 +5754,19 @@ def first_decode_logits(model, params, prompts, capacity, mesh=None,
     """The logits [B, 1, V] (the whole vocabulary) of the first decode
     step of `prompts` (B token-id arrays) admitted into slots 0..B-1 of
     an arena of `capacity` in the compute dtype, each padded to its
-    bucket as the engine pads it, and decoded from its greedy first
-    token: through `model` itself, or on `mesh` through this rank's
-    slice (`dist.serving.local_model`) of its data line's rows
+    bucket as the engine pads it (at its exact length where the family
+    does not pad, as MoE), and decoded from its greedy first token:
+    through `model` itself, or on `mesh` through this rank's slice
+    (`dist.serving.local_model`) of its data line's rows
     (`dist.serving.RowSplit`; the slices and rows gathered). The
-    parameters are the engine's (`tensor_parallel.serving_params`)."""
+    parameters are the engine's (`tensor_parallel.serving_params`: the
+    whole model's or, on a mesh, the rank's piece)."""
     from repro_torch.dist import serving
     from repro_torch.dist.tensor_parallel import model_axis, serving_params
     from repro_torch.serve import bucket_length
+    from repro_torch.serve.engine import probe_family_caps
 
+    pad = probe_family_caps(model, capacity=capacity).pad_prompts
     device = next(iter(params.values())).device
     steps, axis = model, None
     if mesh is not None:
@@ -5740,8 +5780,8 @@ def first_decode_logits(model, params, prompts, capacity, mesh=None,
     mine = prompts[rows.lo:rows.hi]
     firsts = []
     for row, p in enumerate(mine):
-        toks = np.zeros((1, min(bucket_length(len(p), 8), capacity)),
-                        np.int32)
+        width = min(bucket_length(len(p), 8), capacity) if pad else len(p)
+        toks = np.zeros((1, width), np.int32)
         toks[0, :len(p)] = p
         tok, arena = steps.prefill_into_slot_token(
             params, torch.from_numpy(toks).to(device), len(p), row, arena)
@@ -5802,6 +5842,101 @@ def line_engine(cfg, params, work, max_len, mesh, paged):
                                   "mixed_steps", "admissions")}}
 
 
+def family_config(arch):
+    """A family's full-width config cut to MESH_FAMILY_LAYERS layers."""
+    full = get_config(arch)
+    return dataclasses.replace(
+        full, num_layers=MESH_FAMILY_LAYERS,
+        layer_types=full.layer_types[:MESH_FAMILY_LAYERS])
+
+
+def cast_leaves(params, dtype):
+    """`params` with every float leaf in `dtype`, cast in place leaf by
+    leaf (each old leaf freed as its cast takes its place), the cache
+    emptied after, so no process holds two copies of the model."""
+    for k, v in params.items():
+        if v.is_floating_point():
+            params[k] = v.to(dtype)
+    torch.cuda.empty_cache()
+    return params
+
+
+def family_serve(cfg, params, work, max_len, mesh=None, comm=None):
+    """A family served at both precisions from `params` (the whole
+    model's or, on `mesh`, the rank's piece, in the config's bf16), cast
+    in place: the first decode step's bf16 logits, then in f32 the
+    workload's tokens through one engine (`line_engine`'s record, its
+    launches counted) and the f32 logits. Returns (that record, {dtype:
+    logits on the host})."""
+    prompts = [p for p, _ in work]
+    logits = {}
+    for dtype in ("bfloat16", "float32"):
+        cast_leaves(params, getattr(torch, dtype))
+        if dtype == "float32":
+            engine = line_engine(cfg, params, work, max_len, mesh, False)
+        logits[dtype] = first_decode_logits(
+            build_model(dataclasses.replace(cfg, compute_dtype=dtype)),
+            params, prompts, max_len, mesh, comm).float().cpu()
+    return engine, logits
+
+
+def family_line(arch, mesh, device, out):
+    """`--serve-mesh-rank`'s family part on this rank's (1, mp) line
+    `mesh`: the rank's piece of `family_config(arch)` drawn without the
+    whole model (`tensor_parallel.init_shard`, seed 0, the config's
+    bf16), served by `family_serve` on the line; its first rank writes the
+    logits to OUT/family.<arch>.pt. Returns the rank's record (its
+    engine, the seconds of its init and of its serving, its peak)."""
+    from repro_torch.dist.collectives import Collectives
+    from repro_torch.dist.tensor_parallel import init_shard
+
+    cfg = family_config(arch)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = init_shard(cfg, torch.Generator(device=device).manual_seed(0),
+                        mesh)
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    work, max_len = mesh_f32_workload(cfg)
+    engine, logits = family_serve(cfg, params, work, max_len, mesh,
+                                  Collectives(mesh, device))
+    if mesh.coords["model"] == 0:
+        torch.save(logits, os.path.join(out, f"family.{arch}.pt"))
+    del params
+    torch.cuda.empty_cache()
+    record = {"arch": arch, "engine": engine, "init_s": init_s,
+              "serve_s": time.perf_counter() - t0 - init_s,
+              "peak_GB": torch.cuda.max_memory_allocated(device) / 1e9,
+              "peak_reserved_GB": torch.cuda.max_memory_reserved(device)
+              / 1e9}
+    print(json.dumps({"family_line": {k: v for k, v in record.items()
+                                      if k != "engine"}}), flush=True)
+    return record
+
+
+def family_reference(arch, device, out):
+    """One process's run of `family_line`'s family from the same init
+    (`family_serve` on the whole model, cast to f32 in place after the
+    bf16 logits); writes OUT/family_one.<arch>.pt ({"tokens", "logits",
+    "launches"}) and returns its seconds and peak."""
+    cfg = family_config(arch)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0))
+    work, max_len = mesh_f32_workload(cfg)
+    engine, logits = family_serve(cfg, params, work, max_len)
+    torch.save({"tokens": engine["outputs"], "logits": logits,
+                "launches": engine["launches"]},
+               os.path.join(out, f"family_one.{arch}.pt"))
+    del params
+    torch.cuda.empty_cache()
+    record = {"arch": arch, "s": time.perf_counter() - t0,
+              "peak_GB": torch.cuda.max_memory_allocated(device) / 1e9}
+    print(json.dumps({"family_one_process": record}), flush=True)
+    return record
+
+
 def serve_mesh_rank(rank, coordinator, backend, out, world, mp):
     """`--serve-mesh-rank`: one rank of phase 50's checks over `backend`,
     `world` ranks at model parallel `mp`, from the launches' init: first
@@ -5812,8 +5947,11 @@ def serve_mesh_rank(rank, coordinator, backend, out, world, mp):
     serving the workload on the pool at `pool_check`'s depth
     (`line_engine`: both run the fused mixed step that "auto" picks on
     one data line). Then the arena's
-    tokens and the logits on the (world / mp, mp) serving mesh. Writes
-    OUT/rank<R>.json (its tokens, its line's engine, its device), and
+    tokens and the logits on the (world / mp, mp) serving mesh. Then each
+    line serves its family of MESH_FAMILIES (`family_line`), and once
+    every rank has freed its piece the first rank of each line takes one
+    process's run of it (`family_reference`). Writes OUT/rank<R>.json
+    (its tokens, its line's engine, its family's record, its device), and
     from the first rank of the last line and rank 0 the logits
     (OUT/logits_line.pt, OUT/logits.pt)."""
     import torch.distributed as dist
@@ -5856,10 +5994,20 @@ def serve_mesh_rank(rank, coordinator, backend, out, world, mp):
                              Collectives(mesh, device))
     record["mesh_s"] = time.perf_counter() - t0
     record["mesh"] = mesh.shape
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump(record, f)
     if rank == 0:
         torch.save(logits, os.path.join(out, "logits.pt"))
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    arch = MESH_FAMILIES[line % len(MESH_FAMILIES)]
+    record["family"] = family_line(arch, side, device, out)
+    # every line's pieces are freed before one process's models are drawn
+    dist.barrier()
+    if side.coords["model"] == 0:
+        record["family_one"] = family_reference(arch, device, out)
+    record["family_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -5897,13 +6045,14 @@ def mesh_checks(backend):
     got = []
     with tempfile.TemporaryDirectory(prefix="serve_mesh_checks_") as out:
         want, ranks_s = check_ranks(
-            "--serve-mesh-rank", world, backend, out, 400, references,
+            "--serve-mesh-rank", world, backend, out, 500, references,
             extra=(str(world), str(MESH_MP)))
         for r in range(world):
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 got.append(json.load(f))
         line_logits = torch.load(os.path.join(out, "logits_line.pt"))
         mesh_logits = torch.load(os.path.join(out, "logits.pt"))
+        families = family_checks(got, out)
     if any(g["outputs"] != got[0]["outputs"] for g in got):
         raise AssertionError("the check ranks' f32 tokens disagree")
     if not all(g["device"].startswith("cuda") for g in got):
@@ -5929,13 +6078,64 @@ def mesh_checks(backend):
                                  f"{e['launches']}, the rule {rule}")
     want["lines"] = [{k: v for k, v in g["line"].items() if k != "outputs"}
                      for g in got]
+    want["families"] = families
     want["meshes"] = {
         mesh_label({"data": 1, "model": MESH_MP}): {
             "tokens": got[0]["line"]["outputs"], "logits": line_logits},
         mesh_label(got[0]["mesh"]): {"tokens": got[0]["outputs"],
                                      "logits": mesh_logits}}
-    want["rank_s"] = [{k: g[k] for k in ("line_s", "mesh_s")} for g in got]
+    want["rank_s"] = [{k: g[k] for k in ("line_s", "mesh_s", "family_s")}
+                      for g in got]
     return want, ranks_s
+
+
+def family_checks(got, out):
+    """Phase 50's family gates, each family of MESH_FAMILIES on its
+    (1, MESH_MP) check line (`family_line`) against one process's run
+    (`family_reference`, in OUT): the line's f32 tokens equal on its
+    ranks and to one process's, the logit gates of `mesh_logit_gates`,
+    and on every rank of the line a flash launch a layer an admission
+    and a decode launch a layer a decode step where the family's
+    attention is GQA, no launch where it is MLA, and no other. Returns
+    {arch: its gaps, its engine, each rank's seconds and peak and one
+    process's}."""
+    checked = {}
+    for line, arch in enumerate(MESH_FAMILIES):
+        ranks = got[line * MESH_MP:(line + 1) * MESH_MP]
+        recs = [g["family"] for g in ranks]
+        one = torch.load(os.path.join(out, f"family_one.{arch}.pt"))
+        logits = torch.load(os.path.join(out, f"family.{arch}.pt"))
+        cfg = family_config(arch)
+        engine = recs[0]["engine"]
+        for r, rec in enumerate(recs):
+            e = rec["engine"]
+            if e["outputs"] != engine["outputs"]:
+                raise AssertionError(f"{arch}: its line's ranks' f32 tokens "
+                                     "disagree")
+            rule = dict.fromkeys(e["launches"], 0)
+            if cfg.mla is None:
+                rule["flash_attention"] = e["layers"] * e["admissions"]
+                rule["decode_attention"] = e["layers"] * e["decode_steps"]
+            if e["launches"] != rule:
+                raise AssertionError(f"{arch} rank {r}: its line's engine "
+                                     f"launched {e['launches']}, the rule "
+                                     f"{rule}")
+        label = f"{mesh_label({'data': 1, 'model': MESH_MP})} {arch}"
+        gaps = mesh_logit_gates({
+            "one": one["logits"], "float32": one["tokens"],
+            "meshes": {label: {"tokens": engine["outputs"],
+                               "logits": logits}}})
+        checked[arch] = {
+            "layers": cfg.num_layers, "logit_gap_of_max": gaps[label],
+            "f32_tokens_equal_one_process": True,
+            "engine": {k: v for k, v in engine.items() if k != "outputs"},
+            "one_process_launches": one["launches"],
+            "tokens": engine["outputs"],
+            "ranks": [{k: rec[k] for k in ("init_s", "serve_s", "peak_GB",
+                                           "peak_reserved_GB")}
+                      for rec in recs],
+            "one_process": ranks[0]["family_one"]}
+    return checked
 
 
 def mesh_logit_gates(checks):
@@ -6071,14 +6271,19 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
     records, launch_s = serve_mesh_launch(backend, MESH_SERVE_ARMS)
     label = mesh_label({"data": MESH_WORLD // MESH_MP, "model": MESH_MP})
     rows, digests, got = mesh_launch_rows(records, cfg, args)
-    launches = {(label, f"rank 0, {arm}"): got[arm]
+    launches = {("qwen2", label, f"rank 0, {arm}"): got[arm]
                 for arm in MESH_SERVE_ARMS}
     line = mesh_label({"data": 1, "model": MESH_MP})
     for r in (0, MESH_WORLD - 1):
         e = checks["lines"][r]
-        launches[line, f"check rank {r}, f32 "
+        launches["qwen2", line, f"check rank {r}, f32 "
                  f"{'pool' if e['paged'] else 'arena'} (fused), "
                  f"{e['layers']} layers"] = e["launches"]
+    for i, (arch, fam) in enumerate(checks["families"].items()):
+        launches[arch, line, f"check rank {i * MESH_MP}, f32 arena "
+                 f"(serialized), {fam['layers']} layer"] = fam["engine"][
+                     "launches"]
+        digests[f"{arch} {line} f32 tokens"] = fam["tokens"]
     arena, paged = (records[a, 0]["outputs"] for a in ("arena", "paged"))
     out = {"card": smi, "backend": backend,
            "note": ("every rank shared one card over gloo (host buffers); "
@@ -6090,6 +6295,8 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
            "f32_tokens_equal_one_process": True,
            "line_pool_f32_tokens_equal_one_process": True,
            "lines": checks["lines"],
+           "families": {arch: {k: v for k, v in fam.items() if k != "tokens"}
+                        for arch, fam in checks["families"].items()},
            "overlapped_equals_serialized": True,
            # not gated: the pool's chunk prefill is plain PyTorch, the
            # arena's flash, so a bf16 token may differ, as in phase 11
@@ -6098,8 +6305,12 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
            "digests": digests, "ranks": rows,
            "phase50_s": time.perf_counter() - t0}
     print(json.dumps({"mesh_serving": out}), flush=True)
+    family_s = {arch: [max(r["init_s"] + r["serve_s"] for r in f["ranks"]),
+                       f["one_process"]["s"]]
+                for arch, f in checks["families"].items()}
     print(f"phase 50: {out['phase50_s']:.1f} s (check ranks {checks_s:.1f} "
-          f"s; launch {label} {launch_s:.1f} s)", flush=True)
+          f"s, of which each family's line and one process's run "
+          f"{family_s} s; launch {label} {launch_s:.1f} s)", flush=True)
     return cases, launches, digests
 
 
@@ -6406,10 +6617,8 @@ def main():
     torch.cuda.empty_cache()
 
     phase(f"39 dbrx-132b serving: full width, {MOE_LAYERS} layers, through "
-          "repro_torch.launch.serve; profile; flash at 48:8 heads of 128")
+          "repro_torch.launch.serve; flash at 48:8 heads of 128")
     moe_launches, _ = moe_serving(gen)
-    torch.cuda.empty_cache()
-    profile_decode_steps(argv=MOE_SERVE_ARGS)
     torch.cuda.empty_cache()
     flash_cases.append(check_flash_case(
         "dbrx-132b 48:8 heads of 128, exact-length prefill S=200", 200, gen,
@@ -6423,7 +6632,7 @@ def main():
 
     phase(f"41 MLA at full width: deepseek-v2-236b, {MLA_LAYERS} layers, "
           "through repro_torch.launch.serve; the dense MLA stack on the "
-          "arena and the pool, its row stability, its superstep; profiles")
+          "arena and the pool, its row stability, its superstep")
     mla_full = mla_full_width(gen)
     torch.cuda.empty_cache()
 
@@ -6472,13 +6681,16 @@ def main():
     mesh_cases, mesh_arms = mesh_training(smi, gen)
     cases += mesh_cases
 
-    phase("50 serving across processes, the data axis too: f32 tokens and "
-          "first-decode logits on 4 check ranks, (1, 2) on each data line "
-          "side by side (the arena and the pool through the fused mixed "
-          "step), then (2, 2), against one process; then "
-          "launch.serve_mesh --processes 4 --model-parallel 2 on (2, 2) at "
-          "full qwen2-0.5b width, arena and pool, overlapped (async) and "
-          "serialized")
+    phase("50 serving across processes, the data axis too, and MoE and MLA "
+          "on the model axis: f32 tokens and first-decode logits on 4 check "
+          "ranks, (1, 2) on each data line side by side (the arena and the "
+          "pool through the fused mixed step), then (2, 2), against one "
+          "process; then dbrx-132b and deepseek-v2-236b at full width, "
+          f"{MESH_FAMILY_LAYERS} layer, one on each (1, 2) check line "
+          "(experts split, MLA heads split over the whole latents), "
+          "against one process; then launch.serve_mesh --processes 4 "
+          "--model-parallel 2 on (2, 2) at full qwen2-0.5b width, arena "
+          "and pool, overlapped (async) and serialized")
     (tp_flash, tp_decode, tp_paged, tp_ring), tp_launches, _ = mesh_serving(
         smi, gen)
     flash_cases += tp_flash
@@ -6488,8 +6700,9 @@ def main():
 
     def tp_paths(kernel):
         """{path: launches} of `kernel` in phase 50's paths."""
-        return {f"qwen2 mesh {mesh} {path}": got[kernel]
-                for (mesh, path), got in tp_launches.items() if got[kernel]}
+        return {f"{model} mesh {mesh} {path}": got[kernel]
+                for (model, mesh, path), got in tp_launches.items()
+                if got[kernel]}
 
     def dense_paths(kernel, paged=False):
         """{path: launches} of phase 27's runs of `kernel`."""

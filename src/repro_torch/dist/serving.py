@@ -162,11 +162,13 @@ def serve_step_sends(cfg, mesh, batch_rows, prefill_rows):
     pool's chunk, on the line that owns its slot), one "mixed" step (both
     in one trunk) and one "first_token" (an admission's, resolved). Over
     the model axis a step sums ("all_reduce") the embedding, in the
-    compute dtype, and each layer's two row-parallel products, in
-    `tensor_parallel.SUM_DTYPE`, and gathers one (value, id) f32 pair a
-    greedy row ("all_gather"). Over the data axes a decode step gathers
-    its line's int32 ids and a first token its int32 id ("all_gather",
-    to each other line). Empty on a mesh of one rank."""
+    compute dtype, and each layer's two row-parallel products (its
+    attention's after `wo`, its MLP's after `w_down` or its MoE layer's
+    output: the routed combine and the shared experts' product as one
+    partial), in `tensor_parallel.SUM_DTYPE`, and gathers one (value,
+    id) f32 pair a greedy row ("all_gather"). Over the data axes a
+    decode step gathers its line's int32 ids and a first token its int32
+    id ("all_gather", to each other line). Empty on a mesh of one rank."""
     sizes = axis_sizes(mesh)
     mp = sizes.get("model", 1)
     data = math.prod(sizes[a] for a in data_axes(mesh))

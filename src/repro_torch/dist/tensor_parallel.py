@@ -13,6 +13,21 @@ whole. The KV arena and pool then hold the rank's kv heads, which is
 `sharding.local_shard` of the whole cache under `cache_shardings` /
 `pool_shardings`, so the attention kernels run on the rank's shard.
 
+MLA splits its heads: `wq_b`, `wk_b` and `wv_b` by columns (a head's
+contiguous block of each), `wo` by rows; `wq_a`, `wkv_a` and the q and
+kv norms stay whole, so every rank makes the same latents and holds the
+whole latent cache ({ckv, kpe} of `init_arena` / `init_pool` of its
+config, which keeps `kv_lora_rank`), where the reference's
+`cache_shardings` splits the latents' feature dim over "model". MoE
+splits its experts: rank r holds experts r·E/mp … of `w_gate`, `w_up`
+and `w_down` (the expert dim after the stacking dim, as the reference's
+`shard_hint` pins its expert buffers to "model"), the router whole, and
+the shared experts as the dense MLP (`shared.w_gate`, `shared.w_up` by
+columns, `shared.w_down` by rows). `local_config` keeps `cfg.moe` whole:
+the router has E outputs, top-k runs over all E and the capacity
+divides by E, so `models.moe` takes its expert offset from the axis and
+its counts from the leaves.
+
 The model trains on the axis too (`models.transformer.train_loss(axis=)`,
 `dist.trainer.make_mesh_train_step`): `reduce` and `copy` are each
 other's conjugates as autograd Functions. `reduce` (after `wo`, `w_down`
@@ -27,12 +42,16 @@ the same order on every rank, so the replicated leaves' gradients, and
 the leaves themselves, stay bitwise equal across a model line.
 
   local_config          -- the config a rank runs;
-  check_tensor_parallel -- refuse what this module does not split;
+  check_tensor_parallel -- refuse what this module does not split (and,
+                           to train, what it splits for serving only);
   param_specs           -- the split of every leaf, as sharding spec
                            tuples (`model_dims`: its dim a leaf);
   shard_params / gather_params -- a rank's piece of the whole params, and
                            the whole params from every rank's piece;
-  serving_params        -- a rank's piece as it serves, in the compute
+  init_shard            -- a rank's piece of the init, drawn leaf by
+                           leaf, without the whole model;
+  serving_params        -- a rank's piece (of the whole params, or the
+                           piece itself) as it serves, in the compute
                            dtype;
   ModelAxis             -- the axis's operations: row_product, reduce,
                            copy, replicate, embed, nll, argmax.
@@ -43,7 +62,11 @@ or `w_down` (`ModelAxis.row_product`) comes out in SUM_DTYPE, unrounded;
 the sum over the axis runs in SUM_DTYPE and rounds once to the
 activation dtype (`transformer._reduce`), as one process's product does.
 `copy`'s backward sums the partial gradients in SUM_DTYPE too and rounds
-them once to the gradient's dtype.
+them once to the gradient's dtype. An MoE layer's output is summed over
+the axis from each rank's f32 partial (its own experts' slots' combine
+plus the shared experts' partial product) and rounded once, where one
+process rounds the combine, the shared product and their sum
+(`models.moe`).
 
 The split differs from `dist.serving.serve_param_shardings` (the
 reference's greedy specs): greedy puts "model" on a leaf's largest
@@ -62,9 +85,12 @@ from repro_torch.dist.sharding import (axis_sizes, gather_shards,
                                        local_shard)
 
 # the queue items of ROADMAP.md that the refusals name
-OTHER_FAMILIES = ("ROADMAP queue 1 item 6.1c (MLA, MoE and the recurrent "
-                  "families on the model axis)")
-NON_DIVIDING = "ROADMAP queue 1 item 6.1d (kv counts the axis does not divide)"
+RECURRENT_ITEM = ("ROADMAP queue 1 item 6.1c (the recurrent families and "
+                  "the encoder-decoder on the model axis)")
+UNDIVIDED_ITEM = ("ROADMAP queue 1 item 6.1d (head, kv, expert and width "
+                  "counts the axis does not divide)")
+TRAINING_ITEM = ("ROADMAP queue 1 item 6.1e (training MoE and MLA on the "
+                 "model axis)")
 
 # the leaf's dim that "model" splits, by the leaf's name below its
 # segment (None: whole on every rank)
@@ -77,6 +103,14 @@ _SPLIT = {
     "attn.q_norm.scale": None, "attn.k_norm.scale": None,
     "ln1.scale": None, "ln1.bias": None, "ln2.scale": None,
     "ln2.bias": None,
+    # MLA: the latents' down projections and norms whole, the heads'
+    # up projections by columns (a head's block each)
+    "attn.wq_a": None, "attn.wkv_a": None, "attn.kv_norm.scale": None,
+    "attn.wq_b": 2, "attn.wk_b": 2, "attn.wv_b": 2,
+    # MoE: the router whole, the experts [count, E, ...] over E, the
+    # shared experts as the MLP
+    "moe.router": None, "moe.w_gate": 1, "moe.w_up": 1, "moe.w_down": 1,
+    "moe.shared.w_gate": 2, "moe.shared.w_up": 2, "moe.shared.w_down": 1,
 }
 _TOP = {"embed.table": 0, "head": 1, "final_norm.scale": None,
         "final_norm.bias": None}
@@ -91,8 +125,10 @@ SUM_DTYPE = torch.float32
 def local_config(cfg, mp):
     """The config a rank of a model axis of `mp` runs: num_heads / mp query
     heads, num_kv_heads / mp kv heads and d_ff / mp, with d_model,
-    head_dim and vocab_size as they are (the unembedding's logits are the
-    rank's vocabulary slice). The config itself for mp = 1."""
+    head_dim, vocab_size, `cfg.mla` (the rank holds the whole latents)
+    and `cfg.moe` (routing and capacity run over all E experts) as they
+    are; the unembedding's logits are the rank's vocabulary slice. The
+    config itself for mp = 1."""
     if mp == 1:
         return cfg
     check_tensor_parallel(cfg, mp)
@@ -101,32 +137,49 @@ def local_config(cfg, mp):
                                d_ff=cfg.d_ff // mp)
 
 
-def check_tensor_parallel(cfg, mp):
+def check_trainable(cfg):
+    """Raise NotImplementedError where training on a model axis is not
+    split for `cfg` (MoE: the router's gradient and the aux loss counted
+    once; MLA: the latents' gradients), naming the ROADMAP item."""
+    if cfg.moe is not None or cfg.mla is not None:
+        what = ("MoE layers" if cfg.mla is None else "MLA attention"
+                if cfg.moe is None else "MoE layers and MLA attention")
+        raise NotImplementedError(f"{cfg.name}: training {what} on a model "
+                                  f"axis is {TRAINING_ITEM}")
+
+
+def check_tensor_parallel(cfg, mp, training=False):
     """Raise NotImplementedError for a config this module does not split
-    over `mp` ranks, naming the ROADMAP item that would."""
+    over `mp` ranks (`training`: to train, `check_trainable` too),
+    naming the ROADMAP item that would."""
     if cfg.family in ("audio", "encdec") or cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder serves through the raw loop, "
-            f"not on a model axis; {OTHER_FAMILIES}")
-    if cfg.moe is not None or cfg.mla is not None:
-        what = "MoE layers" if cfg.moe is not None else "MLA attention"
-        raise NotImplementedError(f"{cfg.name}: {what} on a model axis is "
-                                  f"{OTHER_FAMILIES}")
-    kinds = sorted(set(cfg.layer_types) - {"attn"})
+            f"not on a model axis; {RECURRENT_ITEM}")
+    kinds = sorted(set(cfg.layer_types) - {"attn", "moe"})
     if kinds:
         raise NotImplementedError(f"{cfg.name}: {kinds} layers on a model "
-                                  f"axis are {OTHER_FAMILIES}")
+                                  f"axis are {RECURRENT_ITEM}")
+    if training:
+        check_trainable(cfg)
     if cfg.num_heads % mp or cfg.num_kv_heads % mp:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {mp} does not divide "
             f"{cfg.num_heads} query and {cfg.num_kv_heads} kv heads (the "
             f"reference's cache_shardings then replicates the cache); "
-            f"{NON_DIVIDING}")
-    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+            f"{UNDIVIDED_ITEM}")
+    counts = [("vocab_size", cfg.vocab_size)]
+    if "attn" in cfg.layer_types:
+        counts.append(("d_ff", cfg.d_ff))
+    if cfg.moe is not None:
+        counts.append(("num_experts", cfg.moe.num_experts))
+        counts.append(("the shared experts' width", cfg.moe.d_ff_expert
+                       * cfg.moe.num_shared_experts))
+    for what, n in counts:
         if n % mp:
             raise NotImplementedError(
                 f"{cfg.name}: a model axis of {mp} does not divide {what} "
-                f"{n}; {NON_DIVIDING}")
+                f"{n}; {UNDIVIDED_ITEM}")
     if cfg.vocab_size >= 1 << 24:
         raise NotImplementedError(
             f"{cfg.name}: ModelAxis.argmax carries token ids in f32, exact "
@@ -177,12 +230,74 @@ def shard_params(cfg, params, mesh, coords=None):
             for k, v in params.items()}
 
 
+def init_shard(cfg, generator, mesh):
+    """This rank's piece on `mesh`'s model axis of `build_model(cfg).init(
+    generator)`, bitwise `shard_params` of the whole init from the same
+    generator stream, without the whole model: a first init draws
+    nothing and takes the drawn leaves' shapes and order (meta tensors),
+    then each leaf is drawn whole, as the init draws it, and only its
+    piece is kept before the next is drawn (`layers.keeping`), so the
+    peak is the rank's pieces and one whole leaf. The whole init on an
+    axis of 1."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import keeping
+
+    model = build_model(cfg)
+    if axis_sizes(mesh).get("model", 1) == 1:
+        return model.init(generator)
+    check_tensor_parallel(cfg, axis_sizes(mesh)["model"])
+    drawn = []
+
+    def shape_only(draw, shape, dtype):
+        drawn.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return drawn[-1]
+
+    with keeping(shape_only):
+        shapes = model.init(generator)
+    name_of = {id(v): k for k, v in shapes.items()}
+    names = iter([name_of[id(t)] for t in drawn])
+    specs = param_specs(cfg, shapes)
+
+    def keep(draw, shape, dtype):
+        whole = draw()
+        piece = local_shard(whole, specs[next(names)], mesh, mesh.coords)
+        # a piece that is a view (a leading dim's slice) would hold the
+        # whole leaf's storage
+        return piece.clone() if piece._base is not None else piece
+
+    with keeping(keep):
+        params = model.init(generator)
+    drawn = {name_of[id(t)] for t in drawn}
+    return {k: v if k in drawn else local_shard(v, specs[k], mesh,
+                                                mesh.coords)
+            for k, v in params.items()}
+
+
+def is_piece(cfg, params, mesh):
+    """Whether `params` is this rank's piece on `mesh`'s model axis (from
+    `shard_params` or `init_shard`) rather than the whole params: a
+    piece's embedding table holds V / mp of the vocabulary's rows (the
+    axis splits only vocabularies it divides). Raises for another
+    count."""
+    mp = axis_sizes(mesh).get("model", 1)
+    if mp == 1:
+        return False
+    rows = params["embed.table"].shape[0]
+    if rows not in (cfg.vocab_size, cfg.vocab_size // mp):
+        raise ValueError(f"{cfg.name}: an embedding table of {rows} rows "
+                         f"is neither the whole vocabulary of "
+                         f"{cfg.vocab_size} nor a piece of it on a model "
+                         f"axis of {mp}")
+    return rows != cfg.vocab_size
+
+
 def serving_params(cfg, params, mesh=None):
-    """This rank's piece of the whole `params` on `mesh` (`shard_params`;
+    """This rank's piece of `params` on `mesh` (`shard_params` of the
+    whole params, or `params` itself where it is the piece: `is_piece`;
     the whole params without a mesh) with every float leaf in the
     compute dtype, as the engine serves it."""
     compute = getattr(torch, cfg.compute_dtype)
-    if mesh is not None:
+    if mesh is not None and not is_piece(cfg, params, mesh):
         params = shard_params(cfg, params, mesh)
     return {k: v.to(compute) if v.is_floating_point() else v
             for k, v in params.items()}
@@ -284,8 +399,8 @@ class ModelAxis:
     @staticmethod
     def row_product(h, w):
         """This rank's partial product h @ w of a row-parallel leaf (`wo`,
-        `w_down`: its rows of the whole leaf) in SUM_DTYPE, unrounded,
-        for `reduce` to sum."""
+        `w_down`, `shared.w_down`: its rows of the whole leaf) in
+        SUM_DTYPE, unrounded, for `reduce` to sum."""
         return h.to(SUM_DTYPE) @ w.to(SUM_DTYPE)
 
     def embed_local(self, table, tokens):

@@ -254,9 +254,10 @@ def _check_mesh(model, tcfg, mesh):
 
 
 def _check_model_axis(model, sizes):
-    """Refuse what a model axis of `sizes` cannot split
-    (`tensor_parallel.check_tensor_parallel`: the dense attention stack
-    only, naming the ROADMAP item that would split the rest)."""
+    """Refuse what a model axis of `sizes` cannot train
+    (`tensor_parallel.check_tensor_parallel(training=True)`: the dense
+    attention stack only, naming the ROADMAP item that would split the
+    rest)."""
     mp = sizes.get("model", 1)
     if mp == 1:
         return
@@ -266,7 +267,7 @@ def _check_model_axis(model, sizes):
     if cfg is None:
         raise ValueError("a model axis above 1 needs the model's config "
                          "(`model.cfg`) to split it")
-    check_tensor_parallel(cfg, mp)
+    check_tensor_parallel(cfg, mp, training=True)
 
 
 def _rank_model(model, mesh, comm):

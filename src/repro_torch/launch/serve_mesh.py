@@ -21,11 +21,15 @@ over "data" make equal on every rank. No rank sends another a
 scheduling decision; lockstep follows from determinism, as in the
 reference. Each rank holds its slice of the model
 (`dist.tensor_parallel`): the heads of its kv heads, its slice of d_ff
-and of the vocabulary, and the decode rows of its data line
+and of the vocabulary (an MoE model's: its experts; an MLA model's: its
+heads over the whole latents), drawn without the whole model
+(`tensor_parallel.init_shard`), and the decode rows of its data line
 (`dist.serving.RowSplit`: `--max-batch` / data of them, an arena of
 those rows or the whole pool, of its kv heads), so the attention kernels
 run on that shard. On a data axis above 1 the overlapped arms resolve
-to the "async" overlap mode, as the reference's do.
+to the "async" overlap mode, as the reference's do. An MoE model serves
+from the serialized arena (`--arms paged` says so in its record's
+backend), as in one process.
 
 `--arrival-rate R` submits the workload on a seeded, step-indexed
 Poisson schedule (`_arrival_steps`), the same on every rank and in every
@@ -210,6 +214,7 @@ def run_child(args) -> int:
     from repro_torch.kernels.decode_attention_paged import (
         decode_attention_paged_cuda, decode_attention_ring_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.dist.tensor_parallel import init_shard
     from repro_torch.launch.mesh import (init_distributed, make_serving_mesh,
                                          rank_device)
     from repro_torch.models import build_model
@@ -239,9 +244,10 @@ def run_child(args) -> int:
 
     cfg = _config(args)
     model = build_model(cfg)
-    # the same params on every rank (one seed, one device kind); each
-    # engine keeps its rank's shard
-    params = model.init(torch.Generator(device=device).manual_seed(0))
+    # the rank's piece of the one init (one seed, one device kind), drawn
+    # without the whole model; every engine serves it
+    params = init_shard(cfg, torch.Generator(device=device).manual_seed(0),
+                        mesh)
     max_len = bucket_length(args.prompt_len + args.new_tokens)
     setup_s = time.perf_counter() - t_enter
     payloads = []
@@ -320,7 +326,7 @@ def run_child(args) -> int:
                                args.prompt_len))
         axis_ms = dict(comm.ms) if comm is not None else {}
         record = {
-            "arm": name, "process": pid, "backend": backend,
+            "arm": name, "arch": cfg.name, "process": pid, "backend": backend,
             "mesh": mesh.shape, "data_index": eng.rows.index,
             "overlap": eng.overlap, "overlap_mode": eng.overlap_mode,
             "digest": digest, "outputs": [

@@ -249,13 +249,14 @@ def _replica(args):
     """The replica count of a run across processes: processes / (agents x
     model parallel), as the reference derives it from its devices.
     Refuses what a run across processes cannot do, before a process
-    starts: a model axis above 1 splits the dense attention stack only
-    (`tensor_parallel.check_tensor_parallel` names the ROADMAP item that
-    would split the rest)."""
+    starts: a model axis above 1 trains the dense attention stack only
+    (`tensor_parallel.check_tensor_parallel(training=True)` names the
+    ROADMAP item that would split the rest)."""
     if args.model_parallel > 1:
         from repro_torch.dist.tensor_parallel import check_tensor_parallel
 
-        check_tensor_parallel(_config(args), args.model_parallel)
+        check_tensor_parallel(_config(args), args.model_parallel,
+                              training=True)
     line = args.agents * args.model_parallel
     if args.processes % line:
         raise ValueError(f"--processes {args.processes} is not a multiple "

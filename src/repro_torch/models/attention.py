@@ -111,8 +111,10 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
 
     K/V run in chunks of `kv_chunk` (the last one cut short, where the
     reference pads and masks it), queries in blocks of `q_chunk`, each
-    block under non-reentrant `torch.utils.checkpoint`. K and V are never
-    repeated over the G query heads of their kv head.
+    block under non-reentrant `torch.utils.checkpoint` where q, k or v
+    needs a gradient (the checkpoint's first call imports torch._dynamo,
+    seconds a process, which serving's MLA prefill does not need). K and
+    V are never repeated over the G query heads of their kv head.
     """
     b, s, kvh, g, hd = q.shape
     t = k.shape[1]
@@ -154,8 +156,11 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
 
     # flash semantics: backward recomputes each block's chunk loop instead
     # of keeping per-chunk probabilities (otherwise it holds O(S^2))
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = [checkpoint(q_block, q0, qh[:, :, :, q0:q0 + q_chunk], kh, vh,
                        use_reentrant=False, preserve_rng_state=False)
+            if grad else q_block(q0, qh[:, :, :, q0:q0 + q_chunk], kh, vh)
             for q0 in range(0, s, q_chunk)]
     return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).to(v.dtype)
 
@@ -607,15 +612,18 @@ def _mla_prefill_core(params, cfg, q_nope, q_pe, c_kv, k_pe):
     return out.reshape(b, s, h * cfg.mla.v_head_dim)
 
 
-def mla_prefill(params, cfg, x, positions):
+def mla_prefill(params, cfg, x, positions, product=torch.matmul):
     """Non-absorbed MLA for training and the serving prefill (plain
     PyTorch: the reference has no kernel here). It ignores any sliding
-    window, as the reference's does. Returns ([B,S,D], (c_kv [B,S,r],
-    k_pe [B,S,rope])) for the cache."""
+    window, as the reference's does. `product` is the output
+    projection's (a rank's partial one on a model axis, where the
+    leaves hold the rank's heads and `cfg.num_heads` counts them, as in
+    every `mla_*` function). Returns ([B,S,D], (c_kv [B,S,r], k_pe
+    [B,S,rope])) for the cache."""
     q_nope, q_pe = _mla_q(params, cfg, x, positions)
     c_kv, k_pe = _mla_ckv(params, cfg, x, positions)
     out = _mla_prefill_core(params, cfg, q_nope, q_pe, c_kv, k_pe)
-    return out @ params["wo"], (c_kv, k_pe)
+    return product(out, params["wo"]), (c_kv, k_pe)
 
 
 def _mla_absorbed(params, cfg, q_nope, q_pe, ckv, kpe, num_valid):
@@ -659,18 +667,18 @@ def _mla_decode_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache):
     return out
 
 
-def mla_decode(params, cfg, x, cache, position):
+def mla_decode(params, cfg, x, cache, position, product=torch.matmul):
     """Absorbed MLA decode: x [B,1,D]; cache {ckv [B,T,r], kpe [B,T,rope],
     ptr} (ptr 0-dim or per row [B]); position [B,1]. Inserts the token's
     latents, then attends in the latent space, O(r) a position, never
     materialising K/V. Updates the cache in place and returns ([B,1,D],
-    cache)."""
+    cache); `product` as `mla_prefill`'s."""
     b = x.shape[0]
     q_nope, q_pe = _mla_q(params, cfg, x, position)
     c_kv, k_pe = _mla_ckv(params, cfg, x, position)
     out = _mla_decode_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
                              c_kv[:, 0], k_pe[:, 0], cache)
-    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+    return product(out.reshape(b, 1, -1).to(x.dtype), params["wo"]), cache
 
 
 def _mla_chunk_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache, table,
@@ -696,21 +704,23 @@ def _mla_chunk_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache, table,
     return out.reshape(1, c, h * cfg.mla.v_head_dim)
 
 
-def mla_prefill_paged(params, cfg, x, cache, table, ctx_len):
+def mla_prefill_paged(params, cfg, x, cache, table, ctx_len,
+                      product=torch.matmul):
     """One MLA prefill chunk against a layer's latent pool (batch-1).
 
     x [1,C,D]; cache {ckv [NB,bs,r], kpe [NB,bs,rope]} (kpe post-rope, as
     the arena keeps it); table int [W]; ctx_len: tokens already in the
     slot (an int). The chunk attends to its context, K/V reconstructed
     from the gathered latents, and to itself, then its latents are
-    scattered into the blocks in place. Returns ([1,C,D], cache)."""
+    scattered into the blocks in place. Returns ([1,C,D], cache);
+    `product` as `mla_prefill`'s."""
     b, c, _ = x.shape
     positions = ctx_len + torch.arange(c, device=x.device)[None].expand(b, c)
     q_nope, q_pe = _mla_q(params, cfg, x, positions)
     c_kv, k_pe = _mla_ckv(params, cfg, x, positions)
     out = _mla_chunk_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache,
                             table, ctx_len)
-    return out.to(x.dtype) @ params["wo"], cache
+    return product(out.to(x.dtype), params["wo"]), cache
 
 
 def _mla_paged_decode_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache,
@@ -724,12 +734,13 @@ def _mla_paged_decode_attend(params, cfg, q_nope, q_pe, c_kv, k_pe, cache,
                          gather_pages(cache["kpe"], tables), lengths + 1)
 
 
-def mla_decode_paged(params, cfg, x, cache, tables, lengths):
+def mla_decode_paged(params, cfg, x, cache, tables, lengths,
+                     product=torch.matmul):
     """Absorbed MLA decode against a layer's latent pool: `mla_decode`'s
     math over a block-table gather. x [B,1,D]; tables int32 [B, W];
     lengths int32 [B] (the incoming token's position). Inserts the token's
     latents at position lengths[b] first, in place. Returns ([B,1,D],
-    cache)."""
+    cache); `product` as `mla_prefill`'s."""
     b = x.shape[0]
     pos = lengths.reshape(b, 1)
     q_nope, q_pe = _mla_q(params, cfg, x, pos)
@@ -737,7 +748,7 @@ def mla_decode_paged(params, cfg, x, cache, tables, lengths):
     out = _mla_paged_decode_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
                                    c_kv[:, 0], k_pe[:, 0], cache, tables,
                                    lengths)
-    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"], cache
+    return product(out.reshape(b, 1, -1).to(x.dtype), params["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -907,13 +918,15 @@ def _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p):
         lambda t: _rope_mixed(t, nd, pos_d, pos_p, cfg.rope_theta))
 
 
-def mla_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot):
+def mla_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot,
+              product=torch.matmul):
     """Fused arena MLA layer: absorbed decode of rows [:nd] and the
     non-absorbed prefill of a whole prompt [nd:]. cache: one arena layer
     {ckv [nd,T,r], kpe [nd,T,rope], ptr [nd]}, written in place; the
     contract of `gqa_mixed` (slot `p_slot` dead to decode, its row
     overwritten whole after the decode half's insert, its ptr set to
-    `p_len`). Returns ([1, nd + Sp, D], cache)."""
+    `p_len`). Returns ([1, nd + Sp, D], cache); `product` as
+    `mla_prefill`'s."""
     sp = x.shape[1] - nd
     q_nope, q_pe = _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p)
     c_kv, k_pe = _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p)
@@ -926,17 +939,17 @@ def mla_mixed(params, cfg, x, nd, pos_d, pos_p, cache, p_len, p_slot):
     cache["kpe"][p_slot].copy_(prefill_cache_entries(k_pe[:, nd:], t, sp)[0])
     cache["ptr"][p_slot] = p_len
     out = torch.cat([out_d[None].to(x.dtype), out_p], dim=1)
-    return mixed_product(out, params["wo"], nd, "wo"), cache
+    return mixed_product(out, params["wo"], nd, "wo", product), cache
 
 
 def mla_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
-                    ctx_len, c_table):
+                    ctx_len, c_table, product=torch.matmul):
     """Fused pool MLA layer: absorbed decode of rows [:nd] and one chunk
     [nd:]. cache: one latent pool layer {ckv [NB,bs,r], kpe [NB,bs,rope]},
     written in place; the operands and op order of `gqa_mixed_paged` (the
     decode half scatters first, the chunk then gathers its context from
     the updated pool and scatters into its private blocks). Returns ([1,
-    nd + C, D], cache)."""
+    nd + C, D], cache); `product` as `mla_prefill`'s."""
     q_nope, q_pe = _mla_q_mixed(params, cfg, x, nd, pos_d, pos_p)
     c_kv, k_pe = _mla_ckv_mixed(params, cfg, x, nd, pos_d, pos_p)
     out_d = _mla_paged_decode_attend(params, cfg, q_nope[0, :nd],
@@ -946,4 +959,4 @@ def mla_mixed_paged(params, cfg, x, nd, pos_d, pos_p, cache, tables, lengths,
                               c_kv[:, nd:], k_pe[:, nd:], cache, c_table,
                               ctx_len)
     out = torch.cat([out_d[None].to(x.dtype), out_p.to(x.dtype)], dim=1)
-    return mixed_product(out, params["wo"], nd, "wo"), cache
+    return mixed_product(out, params["wo"], nd, "wo", product), cache

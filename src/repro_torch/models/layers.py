@@ -7,18 +7,45 @@ its device.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 
+# what draws each leaf the inits draw from a generator (`keeping`), or
+# None; a context variable, so each thread (a test's thread ranks) has
+# its own
+_KEEP = contextvars.ContextVar("keep", default=None)
+
+
+@contextlib.contextmanager
+def keeping(fn):
+    """Within the block, every leaf the inits draw from a generator (`_he`,
+    `embedding_init`) is fn(draw, shape, dtype) in place of draw(), in
+    the order of the draws: `dist.tensor_parallel.init_shard` takes the
+    leaves' shapes without drawing them, then keeps a rank's piece of
+    each draw, so the whole leaf is freed before the next is drawn."""
+    token = _KEEP.set(fn)
+    try:
+        yield
+    finally:
+        _KEEP.reset(token)
+
+
+def _drawn(draw, shape, dtype):
+    fn = _KEEP.get()
+    return draw() if fn is None else fn(draw, tuple(shape), dtype)
+
 
 def _he(generator, shape, dtype, fan_in):
     # scaled in place: a large leaf (dbrx's [L, 16, 6144, 10752] experts)
     # holds one f32 draw beside its cast, not two
-    return torch.randn(shape, generator=generator,
-                       device=generator.device).div_(
-                           math.sqrt(fan_in)).to(dtype)
+    return _drawn(lambda: torch.randn(shape, generator=generator,
+                                      device=generator.device).div_(
+                                          math.sqrt(fan_in)).to(dtype),
+                  shape, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +154,9 @@ def mlp_apply(params, x, mlp_type):
 
 
 def embedding_init(generator, vocab, d_model, dtype):
-    return {"table": (torch.randn((vocab, d_model), generator=generator,
-                                  device=generator.device) * 0.02).to(dtype)}
+    return {"table": _drawn(lambda: (torch.randn(
+        (vocab, d_model), generator=generator, device=generator.device)
+        * 0.02).to(dtype), (vocab, d_model), dtype)}
 
 
 def embed(params, tokens):

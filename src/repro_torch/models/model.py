@@ -124,8 +124,9 @@ def build_model(cfg: ArchConfig, window: int = 0, model_axis=None) -> Model:
     its logits-returning entry points give this rank's vocabulary slice,
     and its token steps the same ids on every rank. Its `train_loss` is
     the whole model's loss on every rank, with the gradient of the
-    rank's piece (`transformer.train_loss(axis=)`). The dense attention
-    stack only (`tensor_parallel.check_tensor_parallel`)."""
+    rank's piece (`transformer.train_loss(axis=)`). The attention stacks
+    (dense, MoE, MLA; `tensor_parallel.check_tensor_parallel`), whose
+    MoE and MLA layers serve only: their `train_loss` raises."""
     _check_ported(cfg)
     axis = model_axis
     if axis is not None:

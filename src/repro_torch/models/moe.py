@@ -21,6 +21,26 @@ same bits alone and batched and from one call to the next.
 `moe_apply_scatter` is the reference's sort/scatter variant (one
 capacity over all B S tokens of the batch), selected by
 REPRO_MOE_SCATTER where the block is applied, as in the reference.
+
+On a model axis (`axis`, a `dist.tensor_parallel.ModelAxis`) a rank
+holds experts first … first + E_l - 1 of the stacked leaves (first =
+the axis index times E_l, E_l the leaves' expert count) and the shared
+experts' columns of d_ff. Routing, the bucket places and the drops run
+over all E on every rank, as in one process, so every rank drops the
+same slots; each rank fills and runs only its own experts' buckets (a
+slot of another rank's expert is not sent and gives a zero output) and
+makes its partial combine in f32, unrounded, adds to it the shared
+experts' partial product in f32 (`ModelAxis.row_product`), and the
+layer's output is that f32 partial summed over the axis in one `reduce`
+and rounded once to x's dtype. One process rounds its f32 combine, its
+shared product and their sum, each once: the axis rounds the layer's
+output once, where one process rounds it three times (with shared
+experts; once without). In f32 only the association of the adds
+differs: one process adds a token's k weighted slot outputs in the
+order of its choices, then the shared output; the axis adds each rank's
+own slots in that order, its shared partial, then the ranks' partial
+sums in the line's order. The tokens are one process's (the logits
+within rounding).
 """
 from __future__ import annotations
 
@@ -94,27 +114,32 @@ def bucket_positions(gate_i, e):
     return (ranks.gather(-1, flat[..., None])[..., 0] - 1).reshape(g, n, k)
 
 
-def _experts(params, cfg, xr, gate_i, pos, send, groups, cap):
+def _experts(params, cfg, xr, gate_i, pos, send, groups, cap, axis=None):
     """Dispatch, experts, and each slot's output.
 
     xr [T, D]: T tokens in `groups` groups of T / groups; gate_i, pos,
     send [T, k]: each slot's expert, bucket place, and whether its token
     goes there (kept, and for the grouped dispatch a nonzero gate). The
-    buckets are one buffer [E, groups * cap, D] filled by a gather (an
-    empty slot reads a zero row); the experts run as batched products
-    over E. Returns y [T, k, D]: each slot's expert output, zero where
-    the slot was dropped (pos >= cap)."""
+    leaves hold E_l experts from the axis index times E_l on (all of them
+    without an axis). Their buckets are one buffer [E_l, groups * cap, D] filled
+    by a gather (an empty slot reads a zero row); the experts run as
+    batched products over E_l. Returns y [T, k, D]: each slot's expert
+    output, zero where the slot was dropped (pos >= cap) or its expert
+    is not among the leaves'."""
     t, d = xr.shape
     k = gate_i.shape[1]
-    e = cfg.moe.num_experts
+    e = params["w_gate"].shape[0]
+    first = 0 if axis is None else axis.index * e
     dev = xr.device
     rows = e * groups * cap
     group = torch.arange(t, device=dev) // (t // groups)
-    slot = gate_i * (groups * cap) + group[:, None] * cap + pos
-    slot = torch.where(pos < cap, slot, rows)               # dropped: spare
+    own = (gate_i >= first) & (gate_i < first + e)
+    slot = (gate_i - first) * (groups * cap) + group[:, None] * cap + pos
+    # dropped or another rank's: the spare row
+    slot = torch.where((pos < cap) & own, slot, rows)
     src = torch.full((rows + 1,), t, dtype=torch.long, device=dev)
     # every kept slot owns its bucket row; only the spare row repeats
-    src.scatter_(0, torch.where(send, slot, rows).reshape(-1),
+    src.scatter_(0, torch.where(send & own, slot, rows).reshape(-1),
                  torch.arange(t * k, device=dev) // k)
     buf = torch.cat([xr, xr.new_zeros(1, d)])[src[:rows]].view(
         e, groups * cap, d)
@@ -124,20 +149,39 @@ def _experts(params, cfg, xr, gate_i, pos, send, groups, cap):
     return torch.cat([y, y.new_zeros(1, d)])[slot]
 
 
-def _shared(params, cfg, xr):
+def _shared(params, cfg, xr, product=torch.matmul):
+    """The shared experts' output for xr [T, D] (`product` their down
+    projection: a rank's partial one on a model axis), or None."""
     if not cfg.moe.num_shared_experts:
         return None
     hs = (F.silu(xr @ params["shared.w_gate"])
           * (xr @ params["shared.w_up"]))
-    return hs @ params["shared.w_down"]
+    return product(hs, params["shared.w_down"])
 
 
-def moe_apply(params, cfg, x, with_aux=True):
+def _finish(params, cfg, xr, combine, dtype, axis):
+    """The layer's output [T, D] in `dtype` from the routed combine:
+    without an axis `combine` is the whole one (rounded or not), rounded
+    to `dtype`, plus the shared experts' output; on a model axis it is
+    the rank's f32 partial, plus the shared experts' f32 partial product,
+    summed over the axis in one `reduce` and rounded once."""
+    if axis is None:
+        out = combine.to(dtype)
+        shared = _shared(params, cfg, xr)
+        return out if shared is None else out + shared
+    shared = _shared(params, cfg, xr, axis.row_product)
+    partial = combine if shared is None else combine + shared
+    return axis.reduce(partial).to(dtype)
+
+
+def moe_apply(params, cfg, x, with_aux=True, axis=None):
     """x [B, S, D] -> (out [B, S, D], aux: the load-balance loss, or None
     without `with_aux`). Groups are sequences (capacity from S); a token's
     k slot outputs are summed in f32 in the order of its choices, each
     weighted by its gate cast to x's dtype, and rounded once to x's
-    dtype."""
+    dtype. axis: a model axis whose rank holds its experts' leaves (see
+    the module's docstring); the output is the whole layer's on every
+    rank."""
     b, s, d = x.shape
     m = cfg.moe
     k = m.top_k
@@ -148,25 +192,26 @@ def moe_apply(params, cfg, x, with_aux=True):
     gate_w, gate_i = gate_w.reshape(b * s, k), gate_i.reshape(b * s, k)
     send = (pos < cap) & (gate_w > 0)
     xr = x.reshape(b * s, d)
-    y = _experts(params, cfg, xr, gate_i, pos, send, b, cap)
+    y = _experts(params, cfg, xr, gate_i, pos, send, b, cap, axis)
     w = gate_w.to(x.dtype).float()
     out = y[:, 0].float() * w[:, :1]
     for j in range(1, k):
         out = out + y[:, j].float() * w[:, j:j + 1]
-    out = out.to(x.dtype)
-    shared = _shared(params, cfg, xr)
-    if shared is not None:
-        out = out + shared
+    out = _finish(params, cfg, xr, out, x.dtype, axis)
     return out.reshape(b, s, d), aux
 
 
-def moe_apply_scatter(params, cfg, x, with_aux=True):
+def moe_apply_scatter(params, cfg, x, with_aux=True, axis=None):
     """The reference's sort/scatter dispatch: x [B, S, D] -> (out, aux),
     one capacity over all T = B S tokens. Slots are sorted by expert
     (stably, as `jnp.argsort`), a slot's place is its rank in its
     expert's run, places past capacity are dropped; the scatter-add into
     out is k adds in x's dtype, in the order of each token's choices,
-    of the slot outputs times their gates in x's dtype."""
+    of the slot outputs times their gates in x's dtype. On a model axis
+    (`moe_apply`'s) a rank adds its own slots' products in f32 and the
+    sum over the axis is rounded once: one process's k roundings in x's
+    dtype are not repeated there (bitwise equal in f32 but for the
+    association)."""
     b, s, d = x.shape
     t = b * s
     m = cfg.moe
@@ -182,12 +227,12 @@ def moe_apply_scatter(params, cfg, x, with_aux=True):
     pos_sorted = torch.arange(t * k, device=x.device) - starts[e_flat[order]]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
     pos = pos.reshape(t, k)
-    y = _experts(params, cfg, xr, gate_i, pos, pos < cap, 1, cap)
+    y = _experts(params, cfg, xr, gate_i, pos, pos < cap, 1, cap, axis)
     yw = y * gate_w.to(x.dtype)[..., None]
+    if axis is not None:
+        yw = yw.float()
     out = yw[:, 0]
     for j in range(1, k):
         out = out + yw[:, j]
-    shared = _shared(params, cfg, xr)
-    if shared is not None:
-        out = out + shared
+    out = _finish(params, cfg, xr, out, x.dtype, axis)
     return out.reshape(b, s, d), aux

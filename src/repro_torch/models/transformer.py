@@ -191,8 +191,10 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     the partial products of `wo` and `w_down` (`ModelAxis.row_product`)
     are summed over the axis before each residual add, and the normed
     inputs of q/k/v and of gate/up pass through `ModelAxis.copy`, whose
-    backward sums their gradients over the axis. None runs the whole
-    model.
+    backward sums their gradients over the axis. An MLA layer runs the
+    rank's heads over the whole latents; an MoE layer the rank's experts
+    (`moe_apply(axis=)`, which sums its output over the axis). None runs
+    the whole model.
     """
     aux = None
     for si, (kind, count) in enumerate(segments(cfg)):
@@ -242,14 +244,16 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window,
         layer = {name: seg[name][i] for name in names}
         if mode == "prefill" and mla:
             attn_out, _ = A.mla_prefill_paged(
-                lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"])
+                lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"],
+                product=product)
         elif mode == "prefill":
             attn_out, _ = A.gqa_prefill_paged(
                 lp["attn"], cfg, h, layer, paged["table"], paged["ctx_len"],
                 window=window, valid=paged["valid"], product=product)
         elif mla:
             attn_out, _ = A.mla_decode_paged(
-                lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"])
+                lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"],
+                product=product)
         else:
             attn_out, _ = A.gqa_decode_paged(
                 lp["attn"], cfg, h, layer, paged["tables"], paged["lengths"],
@@ -257,13 +261,15 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window,
     elif mode == "decode":
         layer = {name: seg[name][i] for name in names + ("ptr",)}
         if mla:
-            attn_out, _ = A.mla_decode(lp["attn"], cfg, h, layer, positions)
+            attn_out, _ = A.mla_decode(lp["attn"], cfg, h, layer, positions,
+                                       product=product)
         else:
             attn_out, _ = A.gqa_decode(lp["attn"], cfg, h, layer, positions,
                                        product=product)
     else:
         if mla:     # ignores the window, as the reference's mla_prefill
-            attn_out, entries = A.mla_prefill(lp["attn"], cfg, h, positions)
+            attn_out, entries = A.mla_prefill(lp["attn"], cfg, h, positions,
+                                              product=product)
         else:
             attn_out, entries = A.gqa_prefill(lp["attn"], cfg, h, positions,
                                               kernel=mode == "prefill",
@@ -278,7 +284,8 @@ def _attn_block(cfg, lp, x, positions, mode, seg, i, paged, window,
     if "moe" in lp:
         moe_fn = (MOE.moe_apply_scatter if os.environ.get("REPRO_MOE_SCATTER")
                   else MOE.moe_apply)
-        ff, aux = moe_fn(lp["moe"], cfg, h2, with_aux=mode == "train")
+        ff, aux = moe_fn(lp["moe"], cfg, h2, with_aux=mode == "train",
+                         axis=axis)
         return x + ff, aux
     return x + _reduce(axis, product(mlp_hidden(lp["mlp"], h2, cfg.mlp_type),
                                      lp["mlp"]["w_down"]), x.dtype)
@@ -375,9 +382,13 @@ def train_loss(cfg, params, batch, window=0, remat=True, axis=None):
     over the axis (`forward`), the head gives the rank's vocabulary
     slice of the logits and `ModelAxis.nll` the cross-entropy over every
     slice; the loss is the whole model's on every rank, and each leaf's
-    gradient the rank's piece of the whole one.
+    gradient the rank's piece of the whole one. MoE and MLA layers on an
+    axis serve only: they raise here (`tensor_parallel.check_trainable`).
     """
     if axis is not None:
+        from repro_torch.dist.tensor_parallel import check_trainable
+
+        check_trainable(cfg)
         params = axis.replicate(params)
     params = _cast(cfg, params)
     tokens = batch["tokens"]
@@ -814,7 +825,7 @@ def mixed_step(cfg, params, tokens, caches, positions, p_tokens, p_len,
     def attn_fn(p, h, layer):
         if cfg.mla is not None:
             return A.mla_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len,
-                               p_slot)
+                               p_slot, product=_product(axis))
         return A.gqa_mixed(p, cfg, h, b, pos_d, pos_p, layer, p_len, p_slot,
                            window=window, product=_product(axis))
 
@@ -843,7 +854,8 @@ def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
     def attn_fn(p, h, layer):
         if cfg.mla is not None:
             return A.mla_mixed_paged(p, cfg, h, b, pos_d, pos_p, layer,
-                                     block_tables, lengths, ctx_len, c_table)
+                                     block_tables, lengths, ctx_len, c_table,
+                                     product=_product(axis))
         return A.gqa_mixed_paged(p, cfg, h, b, pos_d, pos_p, layer,
                                  block_tables, lengths, ctx_len, c_table,
                                  window=window, c_valid=c_len,

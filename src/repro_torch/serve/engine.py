@@ -200,7 +200,9 @@ class Engine:
     mesh (a `launch.mesh.Mesh` over processes, ("data", "model");
     `launch.mesh.make_serving_mesh`): every rank runs this engine in
     lockstep on the same submissions. The engine keeps this rank's shard
-    of `params` (the whole model's, `dist.tensor_parallel.shard_params`),
+    of `params` (the whole model's, `dist.tensor_parallel.shard_params`,
+    or the rank's piece itself, `tensor_parallel.init_shard`, told apart
+    by the leaves' shapes),
     the steps of `dist.serving.local_model`, which sum over the model
     axis, and the decode rows of its data line (`engine.rows`, a
     `dist.serving.RowSplit`; max_batch must be a multiple of the data

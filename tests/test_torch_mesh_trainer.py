@@ -590,9 +590,10 @@ def test_moe_with_replicas_is_refused():
 
 def test_model_axis_and_bad_meshes_are_refused():
     """A model axis trains the dense attention stack; the families it
-    does not split (MoE, MLA, recurrent, encoder-decoder) raise, naming
-    ROADMAP item 6.1c, in the mesh step and in the launcher before any
-    process starts; bad meshes raise."""
+    does not split (recurrent, encoder-decoder) raise, naming ROADMAP
+    item 6.1c, and those it splits only to serve (MoE, MLA) item 6.1e,
+    in the mesh step and in the launcher before any process starts; bad
+    meshes raise."""
     model = build_model(get_smoke("qwen2-0.5b"))
     tcfg = TrainConfig(num_agents=2, num_walks=1)
     model_axis = M.Mesh(M.TRAINING_AXES, (2, 1, 2))
@@ -600,11 +601,12 @@ def test_model_axis_and_bad_meshes_are_refused():
     assert train_cli._replica(train_cli.parse_args(
         ["--smoke", "--processes", "4", "--agents", "2",
          "--model-parallel", "2", "--device", "cpu"])) == 1
-    for arch in ("dbrx-132b", "deepseek-v2-236b", "rwkv6-1.6b",
-                 "recurrentgemma-2b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 6.1c"):
+    for arch, item in (("dbrx-132b", "6.1e"), ("deepseek-v2-236b", "6.1e"),
+                       ("rwkv6-1.6b", "6.1c"), ("recurrentgemma-2b", "6.1c"),
+                       ("whisper-small", "6.1c")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             T._check_mesh(build_model(get_smoke(arch)), tcfg, model_axis)
-        with pytest.raises(NotImplementedError, match="item 6.1c"):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             train_cli.main(["--arch", arch, "--smoke", "--processes", "4",
                             "--agents", "2", "--model-parallel", "2",
                             "--device", "cpu"])

@@ -25,7 +25,16 @@ runs the real transport across processes). Held:
     rank; the vocabulary-parallel cross-entropy (`ModelAxis.nll`) and
     its gradient equal one process's wherever the targets fall;
   * a model axis of 1 changes nothing, and what the module does not
-    split raises, naming its ROADMAP item.
+    split raises, naming its ROADMAP item;
+  * MoE and MLA (to serve): their leaves split as `param_specs` says
+    (experts over the axis, MLA heads with the latents whole) and join
+    back bitwise, `local_config` keeps `cfg.moe` and `cfg.mla` whole,
+    `init_shard` draws each rank's piece bitwise `shard_params` of the
+    whole init without holding it, counts the axis does not divide
+    raise naming item 6.1d, and `moe_apply(axis=)` (drops at capacity
+    included) and every `mla_*` function on the ranks, summed over the
+    axis, equal one process's (f32, atol 1e-5), the latent caches
+    whole on every rank.
 """
 import dataclasses
 import threading
@@ -45,14 +54,18 @@ from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
 from repro.dist import serving as JDS  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
+from repro_torch.configs.base import ArchConfig, MLAConfig  # noqa: E402
 from repro_torch.dist import serving as DS  # noqa: E402
 from repro_torch.dist import tensor_parallel as TP  # noqa: E402
 from repro_torch.dist.sharding import (cache_shardings,  # noqa: E402
                                        local_shard, pool_shardings,
                                        shard_shape)
 from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.transformer import stacked_layers  # noqa: E402
 from repro_torch.models.model import param_specs  # noqa: E402
 from repro_torch.serve import Engine  # noqa: E402
 
@@ -523,11 +536,19 @@ def test_a_model_axis_of_one_changes_nothing():
     ("recurrentgemma-2b", 2), ("whisper-small", 2)])
 def test_what_the_axis_does_not_split_raises(arch, mp):
     cfg = get_config(arch)
+    axis = TP.ModelAxis(None, Mesh(("data", "model"), (1, mp), rank=0))
+    if cfg.moe is not None:
+        # MoE and MLA serve on the axis at full width; training them
+        # there raises, naming its item
+        assert build_model(cfg, model_axis=axis).cfg == TP.local_config(
+            cfg, mp)
+        with pytest.raises(NotImplementedError, match="item 6.1e"):
+            TP.check_tensor_parallel(cfg, mp, training=True)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6.1"):
         TP.local_config(cfg, mp)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6.1"):
-        build_model(cfg, model_axis=TP.ModelAxis(
-            None, Mesh(("data", "model"), (1, mp), rank=0)))
+        build_model(cfg, model_axis=axis)
 
 
 def test_a_data_axis_and_training_raise():
@@ -556,10 +577,17 @@ def test_a_data_axis_and_training_raise():
     assert torch.equal(losses[0], losses[1])
     assert torch.isfinite(losses[0])
     axis = TP.ModelAxis(None, mesh_of(0))
-    for arch in ("dbrx-132b", "deepseek-v2-236b", "rwkv6-1.6b",
-                 "recurrentgemma-2b", "whisper-small"):
+    for arch in ("rwkv6-1.6b", "recurrentgemma-2b", "whisper-small"):
         with pytest.raises(NotImplementedError, match="item 6.1c"):
             build_model(get_smoke(arch), model_axis=axis)
+    # MoE and MLA build on the axis to serve; their training raises
+    for arch in ("dbrx-132b", "deepseek-v2-236b"):
+        moe_cfg = get_smoke(arch)
+        pieces = TP.init_shard(moe_cfg, torch.Generator().manual_seed(0),
+                               mesh_of(0))
+        with pytest.raises(NotImplementedError, match="item 6.1e"):
+            build_model(moe_cfg, model_axis=axis).train_loss(
+                pieces, _train_batch(moe_cfg, mask=False))
     params = dict(params)
     params["segments.0.attn.bo"] = torch.zeros((cfg.num_layers,
                                                 cfg.d_model))
@@ -612,3 +640,238 @@ def test_step_builders_serve_the_one_process_tokens(paged):
     want = serve()
     for got in run_ranks(lambda r, axis: serve(mesh_of(r), axis.comm)):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA on the axis (serving)
+# ---------------------------------------------------------------------------
+
+FAMILY_CFGS = {
+    "dbrx": get_smoke("dbrx-132b"),
+    "deepseek": get_smoke("deepseek-v2-236b"),
+    # tests/test_server.py's dense MLA stack
+    "mla": ArchConfig(name="mla-overlap-t", family="dense", source="test",
+                      num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                      d_ff=128, vocab_size=256, tie_embeddings=True,
+                      mla=MLAConfig(kv_lora_rank=16, q_lora_rank=32,
+                                    qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                    v_head_dim=16)),
+}
+# the split dim of each MoE and MLA leaf below its segment (None: whole)
+FAMILY_SPLIT = {
+    "attn.wq_a": None, "attn.q_norm.scale": None, "attn.wkv_a": None,
+    "attn.kv_norm.scale": None, "attn.wq_b": 2, "attn.wk_b": 2,
+    "attn.wv_b": 2, "attn.wo": 1, "moe.router": None, "moe.w_gate": 1,
+    "moe.w_up": 1, "moe.w_down": 1, "moe.shared.w_gate": 2,
+    "moe.shared.w_up": 2, "moe.shared.w_down": 1}
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+@pytest.mark.parametrize("family", list(FAMILY_CFGS))
+def test_moe_and_mla_leaves_split_and_join_back_bitwise(family):
+    cfg = FAMILY_CFGS[family]
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    specs = TP.param_specs(cfg, params)
+    seen = set()
+    for key, spec in specs.items():
+        leaf = key.split(".", 2)[-1]
+        if leaf in FAMILY_SPLIT:
+            dim = FAMILY_SPLIT[leaf]
+            assert spec == tuple("model" if d == dim else None
+                                 for d in range(params[key].dim())), key
+            seen.add(leaf)
+    want = {"attn.wq_b", "attn.wk_b", "attn.wv_b", "attn.wq_a",
+            "attn.wkv_a"} if cfg.mla is not None else set()
+    if cfg.moe is not None:
+        want |= {"moe.router", "moe.w_gate", "moe.w_up", "moe.w_down"}
+        if cfg.moe.num_shared_experts:
+            want |= {"moe.shared.w_gate", "moe.shared.w_up",
+                     "moe.shared.w_down"}
+    assert want <= seen
+    local = TP.local_config(cfg, MP)
+    # routing and capacity run over every expert; the latents stay whole
+    assert local.moe == cfg.moe and local.mla == cfg.mla
+    assert local.num_heads == cfg.num_heads // MP
+    pieces = [TP.shard_params(cfg, params, mesh_of(r)) for r in range(MP)]
+    for r, piece in enumerate(pieces):
+        if cfg.moe is not None:
+            e = cfg.moe.num_experts // MP
+            assert piece["segments.0.moe.w_gate"].shape[1] == e
+            assert torch.equal(piece["segments.0.moe.w_down"],
+                               params["segments.0.moe.w_down"][
+                                   :, r * e:(r + 1) * e])
+        if cfg.mla is not None:
+            m = cfg.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            h = local.num_heads
+            assert torch.equal(piece["segments.0.attn.wq_b"],
+                               params["segments.0.attn.wq_b"][
+                                   ..., r * h * qk:(r + 1) * h * qk])
+            assert torch.equal(piece["segments.0.attn.wkv_a"],
+                               params["segments.0.attn.wkv_a"])
+    joined = TP.gather_params(cfg, pieces, {"data": 1, "model": MP})
+    assert all(torch.equal(joined[k], params[k]) for k in params)
+
+
+@pytest.mark.parametrize("family", ["dbrx", "deepseek", "mla", "qwen2",
+                                    "dbrx-bf16"])
+def test_init_shard_is_shard_params_of_the_init_bitwise(family):
+    cfg = (get_smoke("qwen2-0.5b") if family == "qwen2" else
+           FAMILY_CFGS[family.split("-")[0]])
+    if family.endswith("bf16"):
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    whole = build_model(cfg).init(torch.Generator().manual_seed(0))
+    # a model line of a (2, 2) mesh: the data coordinate changes nothing
+    for mesh in [mesh_of(r) for r in range(MP)] + [
+            Mesh(("data", "model"), (2, MP), rank=3)]:
+        got = TP.init_shard(cfg, torch.Generator().manual_seed(0), mesh)
+        want = TP.shard_params(cfg, whole, mesh)
+        assert set(got) == set(want)
+        for k, v in got.items():
+            assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+            # a piece of its own, not a view of a whole leaf
+            assert v.untyped_storage().nbytes() == v.numel() * v.itemsize
+        assert TP.is_piece(cfg, got, mesh)
+        assert not TP.is_piece(cfg, whole, mesh)
+        served = TP.serving_params(cfg, got, mesh)
+        assert all(torch.equal(served[k], v) for k, v in
+                   TP.serving_params(cfg, whole, mesh).items())
+    with pytest.raises(ValueError, match="neither"):
+        TP.is_piece(cfg, {**whole, "embed.table": whole["embed.table"][1:]},
+                    mesh_of(0))
+
+
+@pytest.mark.parametrize("case", ["experts", "shared_width", "mla_heads"])
+def test_undivided_moe_and_mla_counts_raise(case):
+    if case == "experts":
+        base = get_smoke("dbrx-132b")
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, num_experts=3))
+        what = "num_experts 3"
+    elif case == "shared_width":
+        base = get_smoke("deepseek-v2-236b")
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, d_ff_expert=63))
+        what = "shared experts' width 63"
+    else:
+        cfg = dataclasses.replace(get_smoke("deepseek-v2-236b"),
+                                  num_heads=3, num_kv_heads=3)
+        what = "3 query and 3 kv heads"
+    with pytest.raises(NotImplementedError, match="item 6.1d") as err:
+        TP.local_config(cfg, MP)
+    assert what in str(err.value)
+
+
+def _moe_layer(params):
+    return stacked_layers(params, "segments.0", 2)[0]["moe"]
+
+
+@pytest.mark.parametrize("scatter", [False, True], ids=["grouped",
+                                                        "scatter"])
+@pytest.mark.parametrize("family", ["dbrx", "deepseek"])
+def test_moe_apply_on_the_axis_equals_one_process(family, scatter):
+    """Each rank runs its experts' buckets of a batch whose routing drops
+    slots at capacity; the sum over the axis is one process's output."""
+    cfg = _f32(FAMILY_CFGS[family])
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    # tokens near one common row, so the router sends most of them to
+    # the same experts
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn((cfg.d_model,), generator=g)
+         + 0.5 * torch.randn((2, 24, cfg.d_model), generator=g))
+    fn = MOE.moe_apply_scatter if scatter else MOE.moe_apply
+    layer = _moe_layer(params)
+    want, _ = fn(layer, cfg, x, with_aux=False)
+    # the batch drops slots at capacity
+    _, _, gate_i = MOE.route(layer, cfg, x)
+    if scatter:
+        counts = MOE._one_hot(gate_i.reshape(-1), cfg.moe.num_experts).sum(0)
+        cap = MOE.capacity(cfg, x.shape[0] * x.shape[1])
+        assert int((counts - cap).clamp_min(0).sum()) > 0
+    else:
+        pos = MOE.bucket_positions(gate_i, cfg.moe.num_experts)
+        assert int((pos >= MOE.capacity(cfg, x.shape[1])).sum()) > 0
+    local = TP.local_config(cfg, MP)
+    got = run_ranks(lambda r, axis: fn(
+        _moe_layer(TP.shard_params(cfg, params, mesh_of(r))), local, x,
+        with_aux=False, axis=axis)[0])
+    assert torch.equal(got[0], got[1])
+    scale = float(want.abs().max())
+    assert float((got[0] - want).abs().max()) <= ATOL * scale
+
+
+def _mla_case(fn, cfg, params, product=torch.matmul):
+    """`attention.mla_<fn>` of layer 0 on fixed inputs (seeded caches, a
+    pool with block 0 the null block): (its output, its cache)."""
+    m = cfg.mla
+    g = torch.Generator().manual_seed(4)
+    d, r, rope = cfg.d_model, m.kv_lora_rank, m.qk_rope_head_dim
+    lp = stacked_layers(params, "segments.0", cfg.num_layers)[0]["attn"]
+
+    def arena(b, t):
+        return {"ckv": torch.randn((b, t, r), generator=g),
+                "kpe": torch.randn((b, t, rope), generator=g),
+                "ptr": torch.tensor([5, 3], dtype=torch.int32)[:b]}
+
+    def pool(nb, bs):
+        return {"ckv": torch.randn((nb, bs, r), generator=g),
+                "kpe": torch.randn((nb, bs, rope), generator=g)}
+
+    def x(b, s):
+        return torch.randn((b, s, d), generator=g)
+
+    tables = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32)
+    lengths = torch.tensor([6, 9], dtype=torch.int32)
+    if fn == "prefill":
+        out, entries = A.mla_prefill(lp, cfg, x(2, 6),
+                                     torch.arange(6)[None].expand(2, 6),
+                                     product=product)
+        return out, dict(zip(("ckv", "kpe"), entries))
+    if fn == "decode":
+        cache = arena(2, 8)
+        return A.mla_decode(lp, cfg, x(2, 1), cache,
+                            cache["ptr"].reshape(2, 1).long(),
+                            product=product)
+    if fn == "prefill_paged":
+        return A.mla_prefill_paged(lp, cfg, x(1, 4), pool(8, 4),
+                                   torch.tensor([7, 1, 2], dtype=torch.int32),
+                                   5, product=product)
+    if fn == "decode_paged":
+        return A.mla_decode_paged(lp, cfg, x(2, 1), pool(8, 4), tables,
+                                  lengths, product=product)
+    pos_d = torch.tensor([[5, 3]])
+    pos_p = torch.arange(4)[None]
+    if fn == "mixed":
+        cache = arena(2, 8)
+        return A.mla_mixed(lp, cfg, x(1, 6), 2, pos_d, pos_p, cache, 4, 1,
+                           product=product)
+    return A.mla_mixed_paged(lp, cfg, x(1, 6), 2, pos_d, pos_p, pool(8, 4),
+                             tables, lengths, 2,
+                             torch.tensor([7, 0, 0], dtype=torch.int32),
+                             product=product)
+
+
+@pytest.mark.parametrize("fn", ["prefill", "decode", "prefill_paged",
+                                "decode_paged", "mixed", "mixed_paged"])
+@pytest.mark.parametrize("family", ["deepseek", "mla"])
+def test_mla_functions_on_the_axis_equal_one_process(family, fn):
+    """A rank's heads over the whole latents: the output summed over the
+    axis is one process's, and every rank's latent cache is one
+    process's whole cache."""
+    cfg = _f32(FAMILY_CFGS[family])
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    want, want_cache = _mla_case(fn, cfg, params)
+    local = TP.local_config(cfg, MP)
+    got = run_ranks(lambda r, axis: (lambda out, cache: (
+        axis.reduce(out), cache))(*_mla_case(
+            fn, local, TP.shard_params(cfg, params, mesh_of(r)),
+            axis.row_product)))
+    scale = float(want.abs().max())
+    for out, cache in got:
+        assert out.dtype == torch.float32
+        assert float((out - want).abs().max()) <= ATOL * scale
+        for name in ("ckv", "kpe"):
+            assert torch.equal(cache[name], want_cache[name]), name

@@ -1,11 +1,12 @@
 """One rank of the port's serving checks across processes (run by
 tests/test_torch_serve_mesh.py as 2 gloo processes on the CPU on the
-("data", "model") = (1, 2) mesh, and by tests/test_torch_serve_mesh_data.py
-as 4 on (2, 2) and 2 on (2, 1)).
+("data", "model") = (1, 2) mesh, by tests/test_torch_serve_mesh_data.py
+as 4 on (2, 2) and 2 on (2, 1), and with `--arch` by
+tests/test_torch_serve_mesh_moe.py as 2 on (1, 2) and 4 on (2, 2)).
 
     python tests/torch_serve_mesh_script.py --rank R --world 4 \
         --model-parallel 2 --coordinator localhost:PORT \
-        --params params.npz --out DIR
+        --params params.npz --out DIR [--arch dbrx,deepseek,mla]
 
 Every rank builds the serving mesh of `--world` processes at
 `--model-parallel` (default: all of them on "model"), loads the same
@@ -19,8 +20,18 @@ reckons from the engine's stats for the steps it ran
 `Collectives.all_reduce` equals the line-order sum of the gathered
 tensors bitwise. Rank 0 also saves `first_decode_logits` on the mesh to
 DIR/logits.pt.
+
+With `--arch` (a comma-separated list of FAMILIES: the MoE smoke configs
+and a dense MLA stack, each from `--params` DIR/<family>.npz) every rank
+serves each family's SCENARIOS instead and writes DIR/rank<R>.json as
+{family: {scenario: ..., "drops": ...}}: "drops" is a prefill of
+DROP_PROMPTS in which the MoE layers drop slots at capacity, each MoE
+call's dropped slots counted (`models.moe._experts`' pos >= cap) and
+its first decode step's logits (rank 0: DIR/drops.<family>.pt, and the
+scenarios' logits DIR/logits.<family>.pt).
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -32,7 +43,8 @@ import torch  # noqa: E402
 
 torch.set_num_threads(1)
 
-from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.configs.base import ArchConfig, MLAConfig  # noqa: E402
 from repro_torch.dist import serving  # noqa: E402
 from repro_torch.dist.collectives import Collectives  # noqa: E402
 from repro_torch.dist.tensor_parallel import (model_axis,  # noqa: E402
@@ -41,7 +53,9 @@ from repro_torch.launch.mesh import (init_distributed,  # noqa: E402
                                      make_serving_mesh)
 from repro_torch.launch.serve_mesh import expected_sends  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serve import Engine, bucket_length  # noqa: E402
+from repro_torch.serve.engine import probe_family_caps  # noqa: E402
 
 # the reference's mesh-engine test config, in f32
 CFG = ArchConfig(name="t", family="dense", source="test", num_layers=2,
@@ -91,16 +105,94 @@ SCENARIOS = {
 }
 
 
+# the families the checks serve with --arch, in f32: the MoE smoke
+# configs (dbrx-132b's GQA over 4 experts top-2; deepseek-v2-236b's MLA
+# over 4 experts top-2 and a shared one) and tests/test_server.py's
+# dense MLA stack
+FAMILIES = {
+    "dbrx": dataclasses.replace(get_smoke("dbrx-132b"),
+                                compute_dtype="float32"),
+    "deepseek": dataclasses.replace(get_smoke("deepseek-v2-236b"),
+                                    compute_dtype="float32"),
+    "mla": ArchConfig(name="mla-overlap-t", family="dense", source="test",
+                      num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                      d_ff=128, vocab_size=256, tie_embeddings=True,
+                      compute_dtype="float32",
+                      mla=MLAConfig(kv_lora_rank=16, q_lora_rank=32,
+                                    qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                    v_head_dim=16)),
+}
+# the dense MLA stack's scenarios: (workload, engine keywords); the MoE
+# families serve its arena one (an MoE model serves from the serialized
+# arena whatever it asks for)
+_DENSE_MLA = {
+    "arena": ("family", dict(max_len=32)),
+    "arena_serialized": ("family", dict(max_len=32, overlap=False)),
+    "paged": ("family", dict(max_len=32, paged=True, block_size=8,
+                             prefill_chunk=4)),
+    "paged_serialized": ("family", dict(max_len=32, paged=True,
+                                        block_size=8, prefill_chunk=4,
+                                        overlap=False)),
+    "scarce_paged": ("family_scarce", dict(max_len=32, paged=True,
+                                           block_size=4, num_blocks=8,
+                                           prefill_chunk=4)),
+}
+SCENARIOS_OF = {"dbrx": {"arena": _DENSE_MLA["arena"]},
+                "deepseek": {"arena": _DENSE_MLA["arena"]},
+                "mla": _DENSE_MLA}
+# the drops prefill: two prompts of 40 tokens, whose MoE layers drop
+# slots at capacity (20 a bucket for S = 40 at top-2 of 4, factor 1.25)
+DROP_PROMPTS = 40
+
+
+def family_workloads(vocab):
+    """{name: (prompts, budgets)} of the families: "family" (4 requests
+    of two prompt lengths, in 2 rows: the reference's MoE engine compiles
+    a prefill a length), "family_scarce" (its prompts at budget 12, a
+    pool too small for two of them) and "drops" (2 prompts of
+    DROP_PROMPTS)."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, vocab, (n,)) for n in (6, 9, 9, 6)]
+    drops = [rng.integers(0, vocab, (DROP_PROMPTS,)) for _ in range(2)]
+    return {"family": (prompts, [5, 8, 4, 6]),
+            "family_scarce": (prompts, [12] * len(prompts)),
+            "drops": (drops, [1, 1])}
+
+
+class DropCount:
+    """Within the block, each `models.moe._experts` call appends the
+    number of its slots dropped at capacity (pos >= cap, over every
+    expert, as routing counts them on every rank) to `calls`."""
+
+    def __enter__(self):
+        self.calls = []
+        self.real = MOE._experts
+
+        def counting(params, cfg, xr, gate_i, pos, send, groups, cap,
+                     axis=None):
+            self.calls.append(int((pos >= cap).sum()))
+            return self.real(params, cfg, xr, gate_i, pos, send, groups,
+                             cap, axis)
+
+        MOE._experts = counting
+        return self
+
+    def __exit__(self, *exc):
+        MOE._experts = self.real
+
+
 def first_decode_logits(model, params, prompts, capacity, mesh=None,
                         comm=None):
     """The logits [B, 1, V] (the whole vocabulary) of the first decode
     step of `prompts` (B token-id arrays) admitted into slots 0..B-1 of
     an arena of `capacity` in the compute dtype, each padded to its
-    bucket as the engine pads it, and decoded from its greedy first
-    token: through `model` itself, or on `mesh` through this rank's
-    slice (`dist.serving.local_model`) of its data line's rows
+    bucket as the engine pads it (at its exact length where the family
+    does not pad, as MoE), and decoded from its greedy first token:
+    through `model` itself, or on `mesh` through this rank's slice
+    (`dist.serving.local_model`) of its data line's rows
     (`dist.serving.RowSplit`; the slices and rows gathered). The
     parameters are the engine's (`tensor_parallel.serving_params`)."""
+    pad = probe_family_caps(model, capacity=capacity).pad_prompts
     device = next(iter(params.values())).device
     steps, axis = model, None
     if mesh is not None:
@@ -114,8 +206,8 @@ def first_decode_logits(model, params, prompts, capacity, mesh=None,
     mine = prompts[rows.lo:rows.hi]
     firsts = []
     for row, p in enumerate(mine):
-        toks = np.zeros((1, min(bucket_length(len(p), 8), capacity)),
-                        np.int32)
+        width = min(bucket_length(len(p), 8), capacity) if pad else len(p)
+        toks = np.zeros((1, width), np.int32)
         toks[0, :len(p)] = p
         tok, arena = steps.prefill_into_slot_token(
             params, torch.from_numpy(toks).to(device), len(p), row, arena)
@@ -140,6 +232,61 @@ def serve(model, params, prompts, budgets, mesh=None, **kw):
     return eng, {r.uid: r.output.tolist() for r in done}
 
 
+def record(eng, outputs, cfg, mesh):
+    """What a rank writes of a scenario's engine: its outputs, its
+    preemptions and blocks, its resolved overlap, the bytes it sent and
+    (where no mixed step ran: a mixed step's prefill unit is one
+    prompt's, and the prompts differ) the bytes `serve_step_sends`
+    reckons."""
+    st = eng.stats
+    out = {"outputs": outputs, "preemptions": st["preemptions"],
+           "line_preemptions": st["line_preemptions"],
+           "paged": eng.paged, "overlap": eng.overlap,
+           "overlap_mode": eng.overlap_mode,
+           "free_blocks": eng.free_blocks,
+           "num_blocks": eng.num_blocks if eng.paged else None,
+           "sent": dict(eng.comm.sent),
+           "line_admissions": st["line_admissions"],
+           "first_tokens": st["first_tokens"],
+           "mixed_steps": st["mixed_steps"]}
+    if not st["mixed_steps"]:
+        out["sent_reckoned"] = expected_sends(eng, st, cfg, mesh, mesh.rank,
+                                              None)
+    return out
+
+
+def serve_families(names, params_dir, mesh, out_dir, rank):
+    """Every family of `names` served on `mesh` (see the module's
+    docstring): {family: {scenario: record, "drops": ...}}."""
+    comm = Collectives(mesh, torch.device("cpu"))
+    out = {}
+    for name in names:
+        cfg = FAMILIES[name]
+        with np.load(os.path.join(params_dir, f"{name}.npz")) as f:
+            params = {k: torch.from_numpy(f[k]) for k in f.files}
+        loads = family_workloads(cfg.vocab_size)
+        model = build_model(cfg)
+        got = {}
+        for scenario, (load, kw) in SCENARIOS_OF[name].items():
+            prompts, budgets = loads[load]
+            eng, outputs = serve(model, params, prompts, budgets, mesh=mesh,
+                                 **kw)
+            got[scenario] = record(eng, outputs, cfg, mesh)
+        logits = first_decode_logits(model, params, loads["family"][0][:2],
+                                     32, mesh=mesh, comm=comm)
+        with DropCount() as drops:
+            drop_logits = first_decode_logits(model, params,
+                                              loads["drops"][0], 64,
+                                              mesh=mesh, comm=comm)
+        got["drops"] = drops.calls
+        out[name] = got
+        if rank == 0:
+            torch.save(logits, os.path.join(out_dir, f"logits.{name}.pt"))
+            torch.save(drop_logits, os.path.join(out_dir,
+                                                 f"drops.{name}.pt"))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
@@ -147,13 +294,26 @@ def main():
     ap.add_argument("--model-parallel", type=int, default=None,
                     help="the mesh's model axis (default: --world)")
     ap.add_argument("--coordinator", required=True)
-    ap.add_argument("--params", required=True)
+    ap.add_argument("--params", required=True,
+                    help="the .npz (with --arch: the directory of each "
+                         "family's <family>.npz)")
     ap.add_argument("--out", required=True)
+    ap.add_argument("--arch", default=None,
+                    help="serve these FAMILIES (comma-separated) instead")
     args = ap.parse_args()
     device = torch.device("cpu")
     init_distributed(args.rank, args.world, args.coordinator, "gloo", device,
                      timeout_s=300)
     mesh = make_serving_mesh(args.model_parallel or args.world)
+    if args.arch:
+        out = serve_families(args.arch.split(","), args.params, mesh,
+                             args.out, args.rank)
+        with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+            json.dump(out, f)
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     with np.load(args.params) as f:
         params = {k: torch.from_numpy(f[k]) for k in f.files}
     loads = workloads()
@@ -162,21 +322,7 @@ def main():
         prompts, budgets = loads[load]
         eng, outputs = serve(build_model(CFG, window=window), params,
                              prompts, budgets, mesh=mesh, **kw)
-        st = eng.stats
-        out[name] = {"outputs": outputs, "preemptions": st["preemptions"],
-                     "line_preemptions": st["line_preemptions"],
-                     "paged": eng.paged, "overlap": eng.overlap,
-                     "overlap_mode": eng.overlap_mode,
-                     "free_blocks": eng.free_blocks,
-                     "num_blocks": eng.num_blocks if eng.paged else None,
-                     "sent": dict(eng.comm.sent),
-                     "line_admissions": st["line_admissions"],
-                     "first_tokens": st["first_tokens"]}
-        # a mixed step's prefill unit is one prompt's: the prompts here
-        # differ, so only the steps without one are reckoned
-        if not st["mixed_steps"]:
-            out[name]["sent_reckoned"] = expected_sends(
-                eng, st, CFG, mesh, mesh.rank, None)
+        out[name] = record(eng, outputs, CFG, mesh)
     prompts = loads["mixed"][0][:2]
     comm = Collectives(mesh, device)
     logits = first_decode_logits(build_model(CFG), params, prompts, 32,
