@@ -441,16 +441,39 @@ non-zero before the last line:
      own bf16; on dbrx's line a flash launch a layer an admission and a
      decode launch a layer a decode step, on deepseek's none, and no
      other. Printed: each rank's init and serving seconds and peak GB,
-     and one process's.
+     and one process's. The recurrent families and the encoder-decoder
+     on the model axis (after the MoE cases, and in the check ranks after
+     each line's MoE family): the WKV scan on rwkv6-1.6b's 16 heads
+     (prefill S = 64 and 200, decode), the RG-LRU scan on
+     recurrentgemma-2b's 1280 channels (prefill, decode), flash and
+     decode on its MQA shard (5 query heads over the one kv head of 256,
+     its 2048 window) and on whisper-small's 6 heads (the encoder's
+     non-causal flash over 1500 frames, decode over the cross K/V)
+     against their plain versions; then line 0 serves recurrentgemma-2b
+     (3 layers: rglru, rglru, attn) and whisper-small (1 encoder and 1
+     decoder layer, 1500 frames), line 1 rwkv6-1.6b (1 layer) and
+     phi-3-vision-4.2b (1 layer, 1024 patches), the recurrent families
+     through `Engine(mesh=...)` on the arena as above, whisper and phi-3
+     through the ported wave steps (`dist.serving.make_prefill_step` /
+     `make_decode_step`: the raw loop's batch of 4 prompts of 64 tokens,
+     16 greedy steps), each against one process's whole model. Held:
+     the f32 tokens equal one process's, the f32 logits within 1e-5, the
+     bf16 logits no farther from one process's f32 than 1.25x one
+     process's own bf16 gap (phase 49's rule), and on every rank, as in
+     one process, a flash launch an attention layer an admission (three
+     a whisper prefill: encoder, self, cross), a decode launch one a
+     step (two a whisper step), a WKV or RG-LRU launch a recurrent layer
+     an admission and a step, and no other.
 
 Each phase line prints the seconds since the start. Then it prints the `kernels` JSON line and, last, the `ok` JSON line.
 
     python3 chip_smoke.py --mesh-only nccl
 
-runs phases 1, 2 (prox_update and the attention kernels), 49 with
-`--backend nccl`, one GPU a rank (four GPUs), and 50 over gloo and
-over nccl (its checks and its launch, one GPU a rank, four of them),
-whose digests must be equal, and prints the `ok` line last.
+runs phases 1, 2 (prox_update, the attention kernels and the forward
+scans), 49 with `--backend nccl`, one GPU a rank (four GPUs), and 50
+over gloo and over nccl (its checks and its launch, one GPU a rank, four
+of them), whose digests must be equal, and prints the `ok` line last;
+`--mesh-only gloo --serving` runs phases 1, 2 and 50 on one GPU.
 (`--serve-mesh-rank BACKEND DIR WORLD MP --rank R --coordinator
 HOST:PORT` is one rank of phase 50's checks, `--train-mesh-rank BACKEND
 DIR --rank R ...` one of phase 49's TP checks; each phase starts its own
@@ -1424,6 +1447,9 @@ def check_ring_case(label, b, window, bs, dtype, gen, **heads):
                                         dict(ring_starts=starts,
                                              window=window)))
     print(json.dumps({"ring_rotation_bitwise": label}), flush=True)
+    print(json.dumps({"gather_sdpa": {k: case[k] for k in (
+        "case", "dtype", "gather_sdpa_ms", "gather_sdpa_event_ms")}}),
+        flush=True)
     return case
 
 
@@ -1731,8 +1757,10 @@ def wkv_launches_per_call(s):
     return 2 if wkv.body(s) else 1
 
 
-def check_rwkv_case(label, b, s, dtype, gen, pieces=1, hd=64, w0=-2.0):
-    """The WKV recurrence of rwkv6-1.6b (32 heads of 64, or of hd) for b
+def check_rwkv_case(label, b, s, dtype, gen, pieces=1, hd=64, w0=-2.0,
+                    heads=None):
+    """The WKV recurrence of rwkv6-1.6b (32 heads of 64, or of hd; `heads`
+    of them: a rank's share on a model axis) for b
     rows of s steps from a random state, r/k/v in dtype and the model's
     [B, S, H, hd] layout viewed as [B, H, S, hd], decays exp(-exp(w0 + 0.5
     z)) (w0 = -2: the model's exp(-exp(-2)); 0 to +2: strong decays, held
@@ -1740,7 +1768,7 @@ def check_rwkv_case(label, b, s, dtype, gen, pieces=1, hd=64, w0=-2.0):
     also runs the steps in that many pieces (each on chunk edges and long
     enough for the chunked body), the state carried in place, and must
     equal its one pass bitwise."""
-    h = 2048 // hd
+    h = heads or 2048 // hd
     r, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEV)
                .to(dtype).transpose(1, 2) for _ in range(3))
     w = torch.exp(-torch.exp(w0 + 0.5 * torch.randn(
@@ -1935,16 +1963,17 @@ LONG_PROMPT, LONG_NEW, LONG_CAPACITY = 3000, 32, 4096
 RG_WINDOW = 2048
 
 
-def check_rglru_case(label, b, s, dtype, gen, pieces=1):
+def check_rglru_case(label, b, s, dtype, gen, pieces=1, width=None):
     """The fused RG-LRU (gate math and recurrence) at recurrentgemma-2b's
-    width for b rows of s steps from a random state: gate products, xa and
+    width (or `width` channels: a rank's share on a model axis) for b rows
+    of s steps from a random state: gate products, xa and
     the parameters in dtype at the model's scales (b_a, b_i near 0, lamb
     spread over (-1, 3) around the model's 1), out in dtype. Bitwise
     against the plain version (`ref.rglru_gated`: the block's former op
     sequence, then the scan), out and final state; with pieces > 1 the
     kernel also runs the steps in that many pieces, the state carried in
     place, and must equal its one pass bitwise."""
-    w = RG_WIDTH
+    w = width or RG_WIDTH
 
     def draw(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=DEV)).to(
@@ -5640,15 +5669,41 @@ MESH_MP = 2
 # and tests/test_torch_serve_mesh.py its launcher in bf16 on the CPU
 MESH_WORLD = 4
 F32_LOGIT_GAP = 1e-4
-# the families of the model axis, one to a (1, MESH_MP) check line (line
-# 0: dbrx-132b's experts over the axis, GQA at 24 of 48 heads; line 1:
-# deepseek-v2-236b's experts and MLA heads, the latents whole on each
-# rank), at full width cut to this many layers: a rank's f32 piece is
-# ~6.5 GB a layer beside 2.5 GB of embedding and head (dbrx), ~8.0 beside
-# 2.1 (deepseek), and one process's whole f32 model, taken on the line's
-# first rank after the line has freed its pieces, ~18 and ~20 GB
-MESH_FAMILIES = ("dbrx-132b", "deepseek-v2-236b")
-MESH_FAMILY_LAYERS = 1
+# the families of the model axis on the (1, MESH_MP) check lines, each
+# line's one after another (line 0: dbrx-132b's experts over the axis,
+# GQA at 24 of 48 heads; recurrentgemma-2b's RG-LRU channels, 1280 a
+# rank, and its MQA layer's 5 query heads over the one kv head whole;
+# whisper-small's 6 of 12 heads in the encoder, the decoder's self- and
+# cross-attention and its odd vocabulary whole. Line 1: deepseek-v2-236b's
+# experts and MLA heads, the latents whole on each rank; rwkv6-1.6b's 16
+# of 32 heads with their WKV state; phi-3-vision's 16 of 32 heads of 96
+# behind its 1024 patches), at full width cut to MESH_FAMILY_LAYERS
+# layers: a dbrx rank's f32 piece is ~6.5 GB a layer beside 2.5 GB of
+# embedding and head, deepseek's ~8.0 beside 2.1, and one process's whole
+# f32 model, taken on the line's first rank after every line has freed
+# its pieces, ~18 and ~20 GB; the other four families' whole models are
+# 0.3-6 GB
+MESH_LINE_FAMILIES = (("dbrx-132b", "recurrentgemma-2b", "whisper-small"),
+                      ("deepseek-v2-236b", "rwkv6-1.6b",
+                       "phi-3-vision-4.2b"))
+# each family's fewest layers that keep its shape: recurrentgemma's
+# (rglru, rglru, attn) runs its MQA layer; whisper's 1 encoder and 1
+# decoder layer over its 1500 frames
+MESH_FAMILY_LAYERS = {"dbrx-132b": 1, "deepseek-v2-236b": 1,
+                      "rwkv6-1.6b": 1, "recurrentgemma-2b": 3,
+                      "whisper-small": 1, "phi-3-vision-4.2b": 1}
+# the families the engine cannot take (frames, patches): served through
+# the ported wave steps (`dist.serving.make_prefill_step` /
+# `make_decode_step`) on the raw loop's batch (`launch.serve.raw_prompt`)
+# of WAVE_REQUESTS prompts of WAVE_PROMPT tokens and WAVE_NEW new ones
+WAVE_FAMILIES = ("whisper-small", "phi-3-vision-4.2b")
+WAVE_REQUESTS, WAVE_PROMPT, WAVE_NEW = 4, 64, 16
+# the gates of the families this slice put on the axis: f32 logits within
+# 1e-5 of the largest |logit| of one process's, and the bf16 gap to one
+# process's f32 logits at most 1.25x one process's own (phase 49's rule;
+# dbrx, deepseek and qwen2 keep F32_LOGIT_GAP and 1.0x)
+NEW_FAMILY_F32_GAP = 1e-5
+NEW_FAMILY_BF16_FACTOR = 1.25
 
 
 def mesh_label(sizes):
@@ -5665,7 +5720,9 @@ def mesh_kernel_cases(gen):
     paged at internlm2-1.8b's shard (8 over 4 of 128), and flash and
     decode at dbrx-132b's (24 over 4 of 128, G = 6: 10 of the decode
     kernel's 16 MMA rows padding) at its check line's exact prompt length
-    and rows. Returns (flash, decode, paged, ring) cases."""
+    and rows; then the shapes the recurrent families and the
+    encoder-decoder give a rank (`mesh_family_kernel_cases`). Returns
+    (flash, decode, paged, ring, rwkv6_scan, rglru_scan) cases."""
     flash, decode, paged, ring = [], [], [], []
     cfg = get_config("dbrx-132b")
     heads = dict(h=cfg.num_heads // MESH_MP, kv=cfg.num_kv_heads // MESH_MP,
@@ -5697,7 +5754,64 @@ def mesh_kernel_cases(gen):
                     f"{tag}{where}, ring window 64 B={b} bs=16", b, 64, 16,
                     torch.bfloat16, gen, **heads))
         torch.cuda.empty_cache()
-    return flash, decode, paged, ring
+    t0 = time.perf_counter()
+    more = mesh_family_kernel_cases(gen)
+    print(json.dumps({"mesh_family_kernel_cases_s":
+                      time.perf_counter() - t0}), flush=True)
+    return (flash + more[0], decode + more[1], paged, ring, more[2],
+            more[3])
+
+
+def mesh_family_kernel_cases(gen):
+    """The kernel cases at the shapes a rank of MESH_MP gets from the
+    families this slice put on the model axis, each against its plain
+    version: the WKV scan on rwkv6-1.6b's 16 heads (prefill S = 64, the
+    check line's exact prompt, and S = 200, the chunked body; decode of
+    4 rows), the RG-LRU scan on recurrentgemma-2b's 1280 channels
+    (prefill, decode), flash on recurrentgemma's MQA shard (5 query heads
+    over the one kv head of 256, its 2048 window, S = 64 and S = 3000
+    where the window binds) and on whisper-small's encoder shard (q and
+    k/v [1, 1500, 6, 64], non-causal), decode on recurrentgemma's G = 5
+    shard at hd 256 (11 of the 16 MMA rows padding) over the check line's
+    128-row arena and over whisper's cross K/V [4, 1500, 6, 64] (every
+    row valid). Returns (flash, decode, rwkv6_scan, rglru_scan) cases."""
+    rg = get_config("recurrentgemma-2b")
+    mqa = dict(h=rg.num_heads // MESH_MP, kv=1, hd=rg.head_dim)
+    tag = (f"recurrentgemma-2b rank shard at mp={MESH_MP}, {mqa['h']}:1 "
+           f"heads of {mqa['hd']} (the kv head whole)")
+    flash = [check_flash_case(f"{tag}, prefill S=64, window "
+                              f"{rg.attn_window}", 64, gen,
+                              window=rg.attn_window, **mqa),
+             check_flash_case(f"{tag}, prefill S=3000, window "
+                              f"{rg.attn_window}", 3000, gen,
+                              window=rg.attn_window, **mqa)]
+    decode = [check_decode_case(f"{tag}, decode B=4 T=128 (G=5)", 4, 128,
+                                gen, **mqa)]
+    wh = get_config("whisper-small")
+    heads = dict(h=wh.num_heads // MESH_MP, kv=wh.num_kv_heads // MESH_MP,
+                 hd=wh.head_dim)
+    tag = f"whisper-small rank shard at mp={MESH_MP}, {heads['h']} heads"
+    flash.append(check_flash_case(
+        f"{tag}, encoder T={wh.encoder_seq}, non-causal", wh.encoder_seq,
+        gen, causal=False, **heads))
+    decode.append(check_decode_case(
+        f"{tag}, cross K/V B={WAVE_REQUESTS} T={wh.encoder_seq}, all "
+        "valid", WAVE_REQUESTS, wh.encoder_seq, gen, full=True, **heads))
+    rw = get_config("rwkv6-1.6b")
+    h = rw.d_model // rw.rwkv_head_dim // MESH_MP
+    tag = f"rwkv6-1.6b rank shard at mp={MESH_MP}, {h} heads"
+    rwkv = [check_rwkv_case(f"{tag}, prefill S={n}", 1, n, torch.bfloat16,
+                            gen, heads=h) for n in (64, 200)]
+    rwkv.append(check_rwkv_case(f"{tag}, decode B=4", 4, 1, torch.bfloat16,
+                                gen, heads=h))
+    w = rg.rnn_width // MESH_MP
+    tag = f"recurrentgemma-2b rank shard at mp={MESH_MP}, {w} channels"
+    rglru = [check_rglru_case(f"{tag}, prefill S=64", 1, 64, torch.bfloat16,
+                              gen, width=w),
+             check_rglru_case(f"{tag}, decode B=4", 4, 1, torch.bfloat16,
+                              gen, width=w)]
+    torch.cuda.empty_cache()
+    return flash, decode, rwkv, rglru
 
 
 def serve_mesh_launch(backend, arms):
@@ -5843,11 +5957,13 @@ def line_engine(cfg, params, work, max_len, mesh, paged):
 
 
 def family_config(arch):
-    """A family's full-width config cut to MESH_FAMILY_LAYERS layers."""
+    """A family's full-width config cut to its MESH_FAMILY_LAYERS layers
+    (the encoder-decoder's encoder too)."""
     full = get_config(arch)
+    n = MESH_FAMILY_LAYERS[arch]
     return dataclasses.replace(
-        full, num_layers=MESH_FAMILY_LAYERS,
-        layer_types=full.layer_types[:MESH_FAMILY_LAYERS])
+        full, num_layers=n, layer_types=full.layer_types[:n],
+        encoder_layers=min(full.encoder_layers, n))
 
 
 def cast_leaves(params, dtype):
@@ -5880,13 +5996,71 @@ def family_serve(cfg, params, work, max_len, mesh=None, comm=None):
     return engine, logits
 
 
+def wave_steps(cfg, params, new_tokens, mesh=None, comm=None):
+    """The raw loop's batch of WAVE_REQUESTS prompts (`launch.serve.
+    raw_prompt`, seed 0: frames or patches with them) prefilled with a
+    cache of prompt + prefix + `new_tokens` rows in the compute dtype and
+    decoded greedily `new_tokens` steps: through the wave steps on `mesh`
+    (`dist.serving.make_prefill_step` / `make_decode_step`, `params` the
+    rank's piece or the whole model's), or through the whole model.
+    Returns (the tokens [B][new_tokens + 1], the last step's logits of
+    every row and the whole vocabulary)."""
+    from repro_torch.dist import serving
+    from repro_torch.dist.tensor_parallel import model_axis, serving_params
+    from repro_torch.launch.mesh import Mesh
+
+    model = build_model(cfg)
+    # one process: the steps on a mesh of one rank are the model's own
+    mesh = mesh or Mesh(("data", "model"), (1, 1), rank=0)
+    batch, prefix = serve_cli.raw_prompt(cfg, WAVE_REQUESTS, WAVE_PROMPT,
+                                         DEV)
+    p = WAVE_PROMPT
+    params = serving_params(cfg, params, mesh)
+    prefill, rows = serving.make_prefill_step(model, mesh, comm,
+                                              WAVE_REQUESTS, DEV)
+    decode, _ = serving.make_decode_step(model, mesh, comm, WAVE_REQUESTS,
+                                         DEV)
+    ids, logits, caches = prefill(params, batch,
+                                  cache_len=p + prefix + new_tokens,
+                                  cache_dtype=getattr(torch,
+                                                      cfg.compute_dtype))
+    tokens = [ids]
+    for i in range(new_tokens):
+        ids, logits, caches = decode(params, ids[:, None], caches,
+                                     p + prefix + i)
+        tokens.append(ids)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = model_axis(mesh, comm).gather_vocab(logits)
+    return torch.stack(tokens, 1).tolist(), rows.gather(logits)
+
+
+def wave_serve(cfg, params, mesh=None, comm=None):
+    """`family_serve` for the families the engine cannot take, through
+    `wave_steps`: the first decode step's bf16 logits, then in f32 the
+    tokens of WAVE_NEW steps (its launches counted) and the first decode
+    step's f32 logits."""
+    logits = {}
+    for dtype in ("bfloat16", "float32"):
+        cast_leaves(params, getattr(torch, dtype))
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        if dtype == "float32":
+            reset_counts()
+            tokens, _ = wave_steps(c, params, WAVE_NEW, mesh, comm)
+            engine = {"outputs": tokens, "launches": counts(),
+                      "prefills": 1, "decode_steps": WAVE_NEW,
+                      "layers": cfg.num_layers}
+        logits[dtype] = wave_steps(c, params, 1, mesh, comm)[1].float().cpu()
+    return engine, logits
+
+
 def family_line(arch, mesh, device, out):
     """`--serve-mesh-rank`'s family part on this rank's (1, mp) line
     `mesh`: the rank's piece of `family_config(arch)` drawn without the
     whole model (`tensor_parallel.init_shard`, seed 0, the config's
-    bf16), served by `family_serve` on the line; its first rank writes the
-    logits to OUT/family.<arch>.pt. Returns the rank's record (its
-    engine, the seconds of its init and of its serving, its peak)."""
+    parameter dtype), served by `family_serve` (`wave_serve` for
+    WAVE_FAMILIES) on the line; its first rank writes the logits to
+    OUT/family.<arch>.pt. Returns the rank's record (its engine, the
+    seconds of its init and of its serving, its peak)."""
     from repro_torch.dist.collectives import Collectives
     from repro_torch.dist.tensor_parallel import init_shard
 
@@ -5897,9 +6071,13 @@ def family_line(arch, mesh, device, out):
                         mesh)
     torch.cuda.empty_cache()
     init_s = time.perf_counter() - t0
-    work, max_len = mesh_f32_workload(cfg)
-    engine, logits = family_serve(cfg, params, work, max_len, mesh,
-                                  Collectives(mesh, device))
+    if arch in WAVE_FAMILIES:
+        engine, logits = wave_serve(cfg, params, mesh,
+                                    Collectives(mesh, device))
+    else:
+        work, max_len = mesh_f32_workload(cfg)
+        engine, logits = family_serve(cfg, params, work, max_len, mesh,
+                                      Collectives(mesh, device))
     if mesh.coords["model"] == 0:
         torch.save(logits, os.path.join(out, f"family.{arch}.pt"))
     del params
@@ -5924,8 +6102,11 @@ def family_reference(arch, device, out):
     t0 = time.perf_counter()
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(0))
-    work, max_len = mesh_f32_workload(cfg)
-    engine, logits = family_serve(cfg, params, work, max_len)
+    if arch in WAVE_FAMILIES:
+        engine, logits = wave_serve(cfg, params)
+    else:
+        work, max_len = mesh_f32_workload(cfg)
+        engine, logits = family_serve(cfg, params, work, max_len)
     torch.save({"tokens": engine["outputs"], "logits": logits,
                 "launches": engine["launches"]},
                os.path.join(out, f"family_one.{arch}.pt"))
@@ -5948,10 +6129,11 @@ def serve_mesh_rank(rank, coordinator, backend, out, world, mp):
     (`line_engine`: both run the fused mixed step that "auto" picks on
     one data line). Then the arena's
     tokens and the logits on the (world / mp, mp) serving mesh. Then each
-    line serves its family of MESH_FAMILIES (`family_line`), and once
-    every rank has freed its piece the first rank of each line takes one
-    process's run of it (`family_reference`). Writes OUT/rank<R>.json
-    (its tokens, its line's engine, its family's record, its device), and
+    line serves its families of MESH_LINE_FAMILIES one after another
+    (`family_line`), and once every rank has freed its pieces the first
+    rank of each line takes one process's run of each
+    (`family_reference`). Writes OUT/rank<R>.json (its tokens, its line's
+    engine, its families' records, its device), and
     from the first rank of the last line and rank 0 the logits
     (OUT/logits_line.pt, OUT/logits.pt)."""
     import torch.distributed as dist
@@ -5999,12 +6181,14 @@ def serve_mesh_rank(rank, coordinator, backend, out, world, mp):
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    arch = MESH_FAMILIES[line % len(MESH_FAMILIES)]
-    record["family"] = family_line(arch, side, device, out)
+    archs = MESH_LINE_FAMILIES[line % len(MESH_LINE_FAMILIES)]
+    record["families"] = {arch: family_line(arch, side, device, out)
+                          for arch in archs}
     # every line's pieces are freed before one process's models are drawn
     dist.barrier()
     if side.coords["model"] == 0:
-        record["family_one"] = family_reference(arch, device, out)
+        record["family_one"] = {arch: family_reference(arch, device, out)
+                                for arch in archs}
     record["family_s"] = time.perf_counter() - t0
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
@@ -6089,62 +6273,95 @@ def mesh_checks(backend):
     return want, ranks_s
 
 
+def family_launch_rule(arch, e):
+    """The launches of a family's f32 run `e` on a check line or in one
+    process (its kernels' counts, its admissions and decode steps, or its
+    wave prefill and steps): a flash launch an attention layer an
+    admission and a decode launch one a step (none where the attention is
+    MLA), a WKV or RG-LRU launch a recurrent layer an admission and a
+    step; for the wave families a flash launch an encoder layer and two a
+    decoder layer (self- and cross-attention) a prefill and two decode
+    launches a decoder layer a step, or one each a layer of the VLM."""
+    cfg = family_config(arch)
+    rule = dict.fromkeys(e["launches"], 0)
+    if arch in WAVE_FAMILIES:
+        per = 2 if cfg.encoder_layers else 1
+        rule["flash_attention"] = e["prefills"] * (
+            cfg.encoder_layers + per * cfg.num_layers)
+        rule["decode_attention"] = e["decode_steps"] * per * cfg.num_layers
+        return rule
+    kinds = cfg.layer_types
+    attn = 0 if cfg.mla is not None else sum(k in ("attn", "moe")
+                                             for k in kinds)
+    rule["flash_attention"] = attn * e["admissions"]
+    rule["decode_attention"] = attn * e["decode_steps"]
+    steps = e["admissions"] + e["decode_steps"]
+    rule["rwkv6_scan"] = kinds.count("rwkv") * steps
+    rule["rglru_scan"] = kinds.count("rglru") * steps
+    return rule
+
+
 def family_checks(got, out):
-    """Phase 50's family gates, each family of MESH_FAMILIES on its
+    """Phase 50's family gates, each family of MESH_LINE_FAMILIES on its
     (1, MESH_MP) check line (`family_line`) against one process's run
     (`family_reference`, in OUT): the line's f32 tokens equal on its
-    ranks and to one process's, the logit gates of `mesh_logit_gates`,
-    and on every rank of the line a flash launch a layer an admission
-    and a decode launch a layer a decode step where the family's
-    attention is GQA, no launch where it is MLA, and no other. Returns
-    {arch: its gaps, its engine, each rank's seconds and peak and one
-    process's}."""
+    ranks and to one process's, the logit gates of `mesh_logit_gates`
+    (the families this slice added at NEW_FAMILY_F32_GAP and
+    NEW_FAMILY_BF16_FACTOR), and on every rank of the line, as in one
+    process, the launches of `family_launch_rule` and no other. Returns
+    {arch: its line, its gaps, its engine, each rank's seconds and peak
+    and one process's}."""
     checked = {}
-    for line, arch in enumerate(MESH_FAMILIES):
+    for line, archs in enumerate(MESH_LINE_FAMILIES):
         ranks = got[line * MESH_MP:(line + 1) * MESH_MP]
-        recs = [g["family"] for g in ranks]
-        one = torch.load(os.path.join(out, f"family_one.{arch}.pt"))
-        logits = torch.load(os.path.join(out, f"family.{arch}.pt"))
-        cfg = family_config(arch)
-        engine = recs[0]["engine"]
-        for r, rec in enumerate(recs):
-            e = rec["engine"]
-            if e["outputs"] != engine["outputs"]:
-                raise AssertionError(f"{arch}: its line's ranks' f32 tokens "
-                                     "disagree")
-            rule = dict.fromkeys(e["launches"], 0)
-            if cfg.mla is None:
-                rule["flash_attention"] = e["layers"] * e["admissions"]
-                rule["decode_attention"] = e["layers"] * e["decode_steps"]
-            if e["launches"] != rule:
-                raise AssertionError(f"{arch} rank {r}: its line's engine "
-                                     f"launched {e['launches']}, the rule "
-                                     f"{rule}")
-        label = f"{mesh_label({'data': 1, 'model': MESH_MP})} {arch}"
-        gaps = mesh_logit_gates({
-            "one": one["logits"], "float32": one["tokens"],
-            "meshes": {label: {"tokens": engine["outputs"],
-                               "logits": logits}}})
-        checked[arch] = {
-            "layers": cfg.num_layers, "logit_gap_of_max": gaps[label],
-            "f32_tokens_equal_one_process": True,
-            "engine": {k: v for k, v in engine.items() if k != "outputs"},
-            "one_process_launches": one["launches"],
-            "tokens": engine["outputs"],
-            "ranks": [{k: rec[k] for k in ("init_s", "serve_s", "peak_GB",
-                                           "peak_reserved_GB")}
-                      for rec in recs],
-            "one_process": ranks[0]["family_one"]}
+        for arch in archs:
+            recs = [g["families"][arch] for g in ranks]
+            one = torch.load(os.path.join(out, f"family_one.{arch}.pt"))
+            logits = torch.load(os.path.join(out, f"family.{arch}.pt"))
+            cfg = family_config(arch)
+            engine = recs[0]["engine"]
+            for r, rec in enumerate(recs):
+                e = rec["engine"]
+                if e["outputs"] != engine["outputs"]:
+                    raise AssertionError(f"{arch}: its line's ranks' f32 "
+                                         "tokens disagree")
+                rule = family_launch_rule(arch, e)
+                if e["launches"] != rule or one["launches"] != rule:
+                    raise AssertionError(
+                        f"{arch} rank {r}: its line's engine launched "
+                        f"{e['launches']}, one process {one['launches']}, "
+                        f"the rule {rule}")
+            label = f"{mesh_label({'data': 1, 'model': MESH_MP})} {arch}"
+            new = arch not in ("dbrx-132b", "deepseek-v2-236b")
+            gaps = mesh_logit_gates({
+                "one": one["logits"], "float32": one["tokens"],
+                "meshes": {label: {"tokens": engine["outputs"],
+                                   "logits": logits}}},
+                **(dict(f32_gap=NEW_FAMILY_F32_GAP,
+                        bf16_factor=NEW_FAMILY_BF16_FACTOR) if new else {}))
+            checked[arch] = {
+                "line": line, "layers": cfg.num_layers,
+                "logit_gap_of_max": gaps[label],
+                "f32_tokens_equal_one_process": True,
+                "engine": {k: v for k, v in engine.items()
+                           if k != "outputs"},
+                "one_process_launches": one["launches"],
+                "tokens": engine["outputs"],
+                "ranks": [{k: rec[k] for k in ("init_s", "serve_s",
+                                               "peak_GB",
+                                               "peak_reserved_GB")}
+                          for rec in recs],
+                "one_process": ranks[0]["family_one"][arch]}
     return checked
 
 
-def mesh_logit_gates(checks):
+def mesh_logit_gates(checks, f32_gap=F32_LOGIT_GAP, bf16_factor=1.0):
     """Each checked mesh's first-decode logit gaps ({mesh: gaps}), held:
-    its f32 tokens equal one process's, its f32 logits within
-    F32_LOGIT_GAP of the largest |logit| of one process's, and its bf16
-    logits no farther from one process's f32 logits than one process's
-    own bf16 logits are (the gap to one process's bf16 logits is
-    printed, not gated)."""
+    its f32 tokens equal one process's, its f32 logits within `f32_gap`
+    of the largest |logit| of one process's, and its bf16 logits no
+    farther from one process's f32 logits than `bf16_factor` times one
+    process's own bf16 logits are (the gap to one process's bf16 logits
+    is printed, not gated)."""
     def gap(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
@@ -6159,17 +6376,17 @@ def mesh_logit_gates(checks):
             "one_process_bf16_vs_f32": bf16_error,
             "mesh_bf16_vs_one_process_f32": gap(logits["bfloat16"],
                                                 one["float32"])}
-        if not gaps["float32"] <= F32_LOGIT_GAP:
+        if not gaps["float32"] <= f32_gap:
             raise AssertionError(
                 f"{label}: the mesh's f32 logits are {gaps['float32']} of "
-                f"the largest |logit| from one process's (> "
-                f"{F32_LOGIT_GAP})")
-        if not gaps["mesh_bf16_vs_one_process_f32"] <= bf16_error:
+                f"the largest |logit| from one process's (> {f32_gap})")
+        if not gaps["mesh_bf16_vs_one_process_f32"] <= (bf16_factor
+                                                        * bf16_error):
             raise AssertionError(
                 f"{label}: the mesh's bf16 logits are "
                 f"{gaps['mesh_bf16_vs_one_process_f32']} of the largest "
-                f"|logit| from one process's f32 logits, beyond one "
-                f"process's own bf16 gap {bf16_error}")
+                f"|logit| from one process's f32 logits, beyond "
+                f"{bf16_factor} x one process's own bf16 gap {bf16_error}")
         if got["tokens"] != checks["float32"]:
             raise AssertionError(f"{label}: the mesh's f32 tokens leave the "
                                  f"one-process f32 engine's")
@@ -6212,7 +6429,8 @@ def mesh_launch_rows(records, cfg, args):
             got = r["launches"]
             per_step = MESH_SERVE_LAYERS * st["decode_steps"]
             want = {"flash_attention": 0, "decode_attention": 0,
-                    "decode_attention_paged": 0, "decode_attention_ring": 0}
+                    "decode_attention_paged": 0, "decode_attention_ring": 0,
+                    "rwkv6_scan": 0, "rglru_scan": 0}
             if r["backend"] == "paged":
                 want["decode_attention_paged"] = per_step
             else:
@@ -6279,9 +6497,11 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
         launches["qwen2", line, f"check rank {r}, f32 "
                  f"{'pool' if e['paged'] else 'arena'} (fused), "
                  f"{e['layers']} layers"] = e["launches"]
-    for i, (arch, fam) in enumerate(checks["families"].items()):
-        launches[arch, line, f"check rank {i * MESH_MP}, f32 arena "
-                 f"(serialized), {fam['layers']} layer"] = fam["engine"][
+    for arch, fam in checks["families"].items():
+        path = ("wave steps" if arch in WAVE_FAMILIES
+                else "arena (serialized)")
+        launches[arch, line, f"check rank {fam['line'] * MESH_MP}, f32 "
+                 f"{path}, {fam['layers']} layers"] = fam["engine"][
                      "launches"]
         digests[f"{arch} {line} f32 tokens"] = fam["tokens"]
     arena, paged = (records[a, 0]["outputs"] for a in ("arena", "paged"))
@@ -6305,8 +6525,9 @@ def mesh_serving(smi, gen, backend="gloo", kernels=True):
            "digests": digests, "ranks": rows,
            "phase50_s": time.perf_counter() - t0}
     print(json.dumps({"mesh_serving": out}), flush=True)
-    family_s = {arch: [max(r["init_s"] + r["serve_s"] for r in f["ranks"]),
-                       f["one_process"]["s"]]
+    family_s = {arch: [round(max(r["init_s"] + r["serve_s"]
+                                 for r in f["ranks"]), 2),
+                       round(f["one_process"]["s"], 2)]
                 for arch, f in checks["families"].items()}
     print(f"phase 50: {out['phase50_s']:.1f} s (check ranks {checks_s:.1f} "
           f"s, of which each family's line and one process's run "
@@ -6681,22 +6902,23 @@ def main():
     mesh_cases, mesh_arms = mesh_training(smi, gen)
     cases += mesh_cases
 
-    phase("50 serving across processes, the data axis too, and MoE and MLA "
+    phase("50 serving across processes, the data axis too, and every family "
           "on the model axis: f32 tokens and first-decode logits on 4 check "
           "ranks, (1, 2) on each data line side by side (the arena and the "
           "pool through the fused mixed step), then (2, 2), against one "
-          "process; then dbrx-132b and deepseek-v2-236b at full width, "
-          f"{MESH_FAMILY_LAYERS} layer, one on each (1, 2) check line "
-          "(experts split, MLA heads split over the whole latents), "
-          "against one process; then launch.serve_mesh --processes 4 "
-          "--model-parallel 2 on (2, 2) at full qwen2-0.5b width, arena "
-          "and pool, overlapped (async) and serialized")
-    (tp_flash, tp_decode, tp_paged, tp_ring), tp_launches, _ = mesh_serving(
-        smi, gen)
-    flash_cases += tp_flash
-    decode_cases += tp_decode
-    paged_cases += tp_paged
-    ring_cases += tp_ring
+          "process; then at full width on the (1, 2) check lines, against "
+          "one process: dbrx-132b, recurrentgemma-2b and whisper-small on "
+          "one, deepseek-v2-236b, rwkv6-1.6b and phi-3-vision-4.2b on the "
+          f"other ({MESH_FAMILY_LAYERS} layers; experts, MLA heads, RWKV "
+          "heads and RG-LRU channels split, the one MQA kv head whole; "
+          "whisper and phi-3 through the wave steps); then "
+          "launch.serve_mesh --processes 4 --model-parallel 2 on (2, 2) at "
+          "full qwen2-0.5b width, arena and pool, overlapped (async) and "
+          "serialized")
+    tp_cases, tp_launches, _ = mesh_serving(smi, gen)
+    for got, more in zip((flash_cases, decode_cases, paged_cases, ring_cases,
+                          rwkv_cases, rglru_cases), tp_cases):
+        got += more
 
     def tp_paths(kernel):
         """{path: launches} of `kernel` in phase 50's paths."""
@@ -6816,7 +7038,8 @@ def main():
                      "src/repro/kernels/rwkv6_scan.py:45",
                      {"rwkv6 arena": rwkv_launches["rwkv6_scan"],
                       "rwkv6 training": rwkv_train["launches"][
-                          "rwkv6_scan"]},
+                          "rwkv6_scan"],
+                      **tp_paths("rwkv6_scan")},
                      rwkv_cases, rwkv_cases[0]),
         kernel_entry("rwkv6_scan_bwd",
                      "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
@@ -6830,7 +7053,8 @@ def main():
                      "src/repro/kernels/rglru_scan.py:37",
                      {"recurrentgemma arena": rg_launches["rglru_scan"],
                       "recurrentgemma training": rg_train["launches"][
-                          "rglru_scan"]},
+                          "rglru_scan"],
+                      **tp_paths("rglru_scan")},
                      rglru_cases, rglru_cases[0]),
         kernel_entry("rglru_scan_bwd",
                      "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -6844,25 +7068,29 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def mesh_only(backend):
-    """`--mesh-only BACKEND`: the card line, the builds of prox_update and
-    the attention kernels, phase 49 over BACKEND, and phase 50 over gloo
-    and over BACKEND, whose digests must be equal (nccl needs a GPU a
-    rank: four for phase 49 and for phase 50's check ranks and (2, 2)
+def mesh_only(backend, train=True):
+    """`--mesh-only BACKEND [--serving]`: the card line, the builds of
+    prox_update, the attention kernels and the forward scans, phase 49
+    over BACKEND (not with `--serving`: `train` False), and phase 50 over
+    gloo and over BACKEND, whose digests must be equal (nccl needs a GPU
+    a rank: four for phase 49 and for phase 50's check ranks and (2, 2)
     launch)."""
     phase("1 card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    phase("2 build: prox_update and the attention kernels")
-    names = ("prox_update",) + ATTENTION_LIBRARIES
+    phase("2 build: prox_update, the attention kernels and the forward "
+          "scans")
+    names = ("prox_update",) + ATTENTION_LIBRARIES + ("rwkv6_scan",
+                                                      "rglru_scan")
     for name in names:
         build.library_path(name).unlink(missing_ok=True)
     build.build(*names)
-    phase(f"49 the superstep across processes over {backend}")
     gen = torch.Generator(device=DEV).manual_seed(0)
-    mesh_training(smi.splitlines()[0], gen, backend)
+    if train:
+        phase(f"49 the superstep across processes over {backend}")
+        mesh_training(smi.splitlines()[0], gen, backend)
     phase(f"50 serving across processes over gloo and {backend}")
     _, _, want = mesh_serving(smi.splitlines()[0], gen)
     if backend != "gloo":
@@ -6880,7 +7108,7 @@ def mesh_only(backend):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-only"]:
-        mesh_only(sys.argv[2])
+        mesh_only(sys.argv[2], train=sys.argv[3:4] != ["--serving"])
     elif sys.argv[1:2] == ["--serve-mesh-rank"]:
         serve_mesh_rank(*check_rank_args(sys.argv[2:]))
     elif sys.argv[1:2] == ["--train-mesh-rank"]:

@@ -46,10 +46,18 @@ block is on one process).
       `decode_rows_paged_tokens`, make_mixed_arena_token_step
       `mixed_step_tokens` and make_mixed_paged_token_step
       `mixed_step_paged_tokens`, which the engine takes from it;
+  make_prefill_step, make_decode_step -- the reference's wave path (one
+      batched prefill, then greedy decode steps, as `launch.serve.
+      serve_raw` runs them on one process) on this rank: its data line's
+      rows of the batch, the model over "model" through `local_model`,
+      the greedy ids gathered over the data axes. The encoder-decoder
+      and a VLM's patch prefix, which the engine cannot take, serve
+      through them;
   RowSplit -- the decode rows of this rank's data line, and the gathers
       of their ids over the data axes;
   serve_step_sends -- the bytes each rank sends, by kind, in a decode
-      step, an admission, a mixed step and a first token's gather.
+      step, an admission, a mixed step, a first token's gather and the
+      wave path's prefill and decode steps.
 
 A model axis of 1 is the one-process model itself; a data axis of 1
 keeps every row on every rank and gathers nothing.
@@ -62,7 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch.dist.sharding import _map, _shape, axis_sizes, greedy_spec
-from repro_torch.dist.tensor_parallel import SUM_DTYPE, model_axis
+from repro_torch.dist.tensor_parallel import (SUM_DTYPE, _encdec,
+                                              model_axis, splits_vocab)
+from repro_torch.models.transformer import _greedy
 
 
 def data_axes(mesh):
@@ -88,6 +98,62 @@ def local_model(model, mesh, comm):
     if axis is None:
         return model
     return build_model(model.cfg, window=model.window, model_axis=axis)
+
+
+def _wave_rows(batch_rows, mesh, comm, device):
+    """The `RowSplit` of a wave batch of `batch_rows` rows: over the data
+    axes where they divide it (the reference's `batch_shardings`), else
+    every row on every line, gathering nothing."""
+    sizes = axis_sizes(mesh)
+    data = math.prod(sizes[a] for a in data_axes(mesh))
+    return RowSplit(batch_rows, mesh if batch_rows % data == 0 else None,
+                    comm, device)
+
+
+def make_prefill_step(model, mesh, comm, batch_rows, device="cpu"):
+    """The reference's `make_prefill_step` on this rank of `mesh` (over
+    collectives `comm`): (prefill, rows). prefill(params, batch, **kw)
+    takes this rank's serving parameters (`tensor_parallel.
+    serving_params`) and the whole batch of `batch_rows` rows ({"tokens"
+    [B, S], and "frames" [B, T_enc, D] or "patches" [B, P, D]; keywords
+    as `model.prefill`'s), runs `model.prefill` of its line's rows (`rows`,
+    a `RowSplit`: B / data of them where B divides the data size, else
+    all) through `local_model`, and returns (the greedy ids [B] int32 of
+    every row, equal on every rank; its rows' logits [B_line, 1, V_rank]
+    in f32, the rank's vocabulary slice where the axis splits it; its
+    rows' caches, of the rank's heads)."""
+    steps = local_model(model, mesh, comm)
+    axis = model_axis(mesh, comm)
+    rows = _wave_rows(batch_rows, mesh, comm, device)
+
+    def prefill(params, batch, **kw):
+        mine = {k: v[rows.lo:rows.hi] for k, v in batch.items()}
+        logits, caches = steps.prefill(params, mine, **kw)
+        return (rows.gather(_greedy(axis, logits[:, -1], model.cfg)),
+                logits, caches)
+
+    return prefill, rows
+
+
+def make_decode_step(model, mesh, comm, batch_rows, device="cpu"):
+    """The reference's `make_decode_step` on this rank: (decode, rows).
+    decode(params, token, caches, position) takes the whole batch's
+    tokens [B, 1], the caches of its line's rows (`make_prefill_step`'s)
+    and the position of every row, runs `model.decode_step` of its
+    line's rows, and returns (the greedy ids [B] int32, equal on every
+    rank; its rows' logits [B_line, 1, V_rank] in f32; the caches,
+    updated in place)."""
+    steps = local_model(model, mesh, comm)
+    axis = model_axis(mesh, comm)
+    rows = _wave_rows(batch_rows, mesh, comm, device)
+
+    def decode(params, token, caches, position):
+        logits, caches = steps.decode_step(params, token[rows.lo:rows.hi],
+                                           caches, position)
+        return (rows.gather(_greedy(axis, logits[:, -1], model.cfg)),
+                logits, caches)
+
+    return decode, rows
 
 
 class RowSplit:
@@ -160,29 +226,62 @@ def serve_step_sends(cfg, mesh, batch_rows, prefill_rows):
     (batch_rows / data of them on the rank's line), one "admission" (a
     prefill unit of prefill_rows tokens: the arena's padded prompt or the
     pool's chunk, on the line that owns its slot), one "mixed" step (both
-    in one trunk) and one "first_token" (an admission's, resolved). Over
-    the model axis a step sums ("all_reduce") the embedding, in the
-    compute dtype, and each layer's two row-parallel products (its
-    attention's after `wo`, its MLP's after `w_down` or its MoE layer's
-    output: the routed combine and the shared experts' product as one
-    partial), in `tensor_parallel.SUM_DTYPE`, and gathers one (value,
-    id) f32 pair a greedy row ("all_gather"). Over the data axes a
-    decode step gathers its line's int32 ids and a first token its int32
-    id ("all_gather", to each other line). Empty on a mesh of one rank."""
+    in one trunk), one "first_token" (an admission's, resolved), and the
+    wave path's "wave_prefill" (`make_prefill_step` of a batch_rows batch
+    of prefill_rows-token prompts: its line's rows, all of them where
+    they do not divide over the data axes) and "wave_decode"
+    (`make_decode_step`'s). Over the model axis a step sums
+    ("all_reduce") the embedding of its tokens, in the compute dtype,
+    where the axis splits the vocabulary (a whole table looks up
+    locally), and each layer's row-parallel products, in
+    `tensor_parallel.SUM_DTYPE`: two a decoder-only layer (an attention
+    layer's after `wo` and its MLP's `w_down` or its MoE layer's output,
+    the routed combine and the shared experts' product as one partial;
+    an RWKV6 layer's `wo` and `cm_wv`; an RG-LRU layer's `w_out` and its
+    MLP's `w_down`), over the prompt and a VLM's `num_patches` patches,
+    three an encoder-decoder's decoder layer (self-attention,
+    cross-attention, MLP), and at the wave prefill two an encoder layer
+    over `encoder_seq` frames a row; it gathers one (value, id) f32 pair
+    a greedy row ("all_gather") where the axis splits the vocabulary.
+    Over the data axes a decode step gathers its line's int32 ids and a
+    first token its int32 id ("all_gather", to each other line). Empty
+    on a mesh of one rank."""
     sizes = axis_sizes(mesh)
     mp = sizes.get("model", 1)
     data = math.prod(sizes[a] for a in data_axes(mesh))
     rows = batch_rows // data
+    # the wave path's rows of a line and the lines its ids gather over
+    wave_data = data if batch_rows % data == 0 else 1
+    wave = batch_rows // wave_data
+    split = splits_vocab(cfg, mp)
     elem = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                        ).element_size()
-    # bytes an element of d_model a step: one embedding and 2 L row sums
-    per_elem = elem + 2 * cfg.num_layers * SUM_DTYPE.itemsize
-    # (rows summed over the model axis, greedy picks, ids gathered over
-    # the data axes)
-    shapes = {"decode": (rows, rows, rows),
-              "admission": (prefill_rows, 1, 0),
-              "mixed": (rows + prefill_rows, rows + 1, rows),
-              "first_token": (0, 0, 1)}
+    encdec = _encdec(cfg)
+    layer_sums = (3 if encdec else 2) * cfg.num_layers * SUM_DTYPE.itemsize
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+
+    def trunk(tokens, extra=0):
+        # [(rows a summed tensor, bytes an element over those tensors)]:
+        # the embedding of `tokens` rows and each layer's sums over them
+        # and `extra` rows more (a prefix in front of the text)
+        if not split:
+            return [(tokens + extra, layer_sums)]
+        if not extra:
+            return [(tokens, elem + layer_sums)]
+        return [(tokens, elem), (tokens + extra, layer_sums)]
+
+    encoder = ([(wave * cfg.encoder_seq,
+                 2 * cfg.encoder_layers * SUM_DTYPE.itemsize)]
+               if encdec else [])
+    # (sums over the model axis, greedy picks, ids gathered over the
+    # data axes, the data size they gather over)
+    shapes = {"decode": (trunk(rows), rows, rows, data),
+              "admission": (trunk(prefill_rows), 1, 0, data),
+              "mixed": (trunk(rows + prefill_rows), rows + 1, rows, data),
+              "first_token": ([], 0, 1, data),
+              "wave_prefill": (trunk(wave * prefill_rows, wave * prefix)
+                               + encoder, wave, wave, wave_data),
+              "wave_decode": (trunk(wave), wave, wave, wave_data)}
 
     def all_reduce(n, index):
         # Collectives.all_reduce: the whole tensor on a line of 2; else
@@ -195,13 +294,15 @@ def serve_step_sends(cfg, mesh, batch_rows, prefill_rows):
     for rank in range(math.prod(sizes.values())):
         index = rank % mp           # "model" is the mesh's last axis
         steps = {}
-        for step, (summed, picks, ids) in shapes.items():
+        for step, (sums, picks, ids, lines) in shapes.items():
             sent = {}
-            if mp > 1 and summed:
-                sent["all_reduce"] = per_elem * all_reduce(
-                    summed * cfg.d_model, index)
-            gathered = ((mp - 1) * picks * 2 * 4 if mp > 1 else 0) + (
-                (data - 1) * ids * 4)
+            if mp > 1:
+                summed = sum(per_elem * all_reduce(n * cfg.d_model, index)
+                             for n, per_elem in sums if n)
+                if summed:
+                    sent["all_reduce"] = summed
+            gathered = ((mp - 1) * picks * 2 * 4 if mp > 1 and split
+                        else 0) + (lines - 1) * ids * 4
             if gathered:
                 sent["all_gather"] = gathered
             steps[step] = sent

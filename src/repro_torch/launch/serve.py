@@ -265,7 +265,7 @@ def raw_prompt(cfg, requests, prompt_len, device):
             prefix)
 
 
-def serve_raw(args, cfg=None):
+def serve_raw(args, cfg=None, params=None):
     """The reference's raw loop (`repro/launch/serve.py: _serve_raw`), for
     the families the engine cannot serve: --requests prompts of
     --prompt-len random tokens (seed 0), with random frames [B, T_enc, D]
@@ -279,7 +279,8 @@ def serve_raw(args, cfg=None):
     step's), "prefill_s", "decode_s", "tokens_per_s" (decoded tokens a
     second), "prefix", "peak_bytes" (the run's peak after the init),
     "init_peak_bytes" (the init's and the cast's), each None on the CPU,
-    "device"}."""
+    "device"}. params: the parameters to serve (moved to the device), in
+    place of the init's."""
     import torch
 
     device = resolve_device(args.device)
@@ -288,7 +289,13 @@ def serve_raw(args, cfg=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats(device)
-    device, cfg, model, params = build(args, cfg)
+    if params is None:
+        device, cfg, model, params = build(args, cfg)
+    else:
+        from repro_torch.models import build_model
+
+        model, device = build_model(cfg), resolve_device(args.device)
+        params = {k: v.to(device) for k, v in params.items()}
     compute = getattr(torch, cfg.compute_dtype)
     params = {k: v.to(compute) if v.is_floating_point() else v
               for k, v in params.items()}

@@ -29,7 +29,9 @@ those rows or the whole pool, of its kv heads), so the attention kernels
 run on that shard. On a data axis above 1 the overlapped arms resolve
 to the "async" overlap mode, as the reference's do. An MoE model serves
 from the serialized arena (`--arms paged` says so in its record's
-backend), as in one process.
+backend), as in one process, and so do rwkv6-1.6b and recurrentgemma-2b
+(a rank: its RWKV heads or RG-LRU channels with their recurrent state,
+recurrentgemma's one kv head whole), every prompt at its exact length.
 
 `--arrival-rate R` submits the workload on a seeded, step-indexed
 Poisson schedule (`_arrival_steps`), the same on every rank and in every
@@ -214,6 +216,8 @@ def run_child(args) -> int:
     from repro_torch.kernels.decode_attention_paged import (
         decode_attention_paged_cuda, decode_attention_ring_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
     from repro_torch.dist.tensor_parallel import init_shard
     from repro_torch.launch.mesh import (init_distributed, make_serving_mesh,
                                          rank_device)
@@ -223,7 +227,8 @@ def run_child(args) -> int:
     counters = {"flash_attention": flash_attention_cuda,
                 "decode_attention": decode_attention_cuda,
                 "decode_attention_paged": decode_attention_paged_cuda,
-                "decode_attention_ring": decode_attention_ring_cuda}
+                "decode_attention_ring": decode_attention_ring_cuda,
+                "rwkv6_scan": rwkv6_scan_cuda, "rglru_scan": rglru_scan_cuda}
     pid = args.process_id
     device = rank_device(resolve_device(args.device), pid)
     cuda = device.type == "cuda"

@@ -189,11 +189,13 @@ def gqa_prefill(params, cfg, x, positions, *, kernel=False, window=0,
     return product(out, params["wo"]), (k, v)
 
 
-def bidir_attention(params, cfg, x, positions, *, kernel=False):
+def bidir_attention(params, cfg, x, positions, *, kernel=False,
+                    product=torch.matmul):
     """Encoder self-attention (no causal mask; rope on `positions`, as the
     reference's). x [B,T,D] -> [B,T,D]. kernel=False (training):
     `chunked_attention`; kernel=True (serving): `ops.flash_attention`
-    with causal=False."""
+    with causal=False. product(heads, wo): the output projection, as in
+    the `gqa_*` functions (and `cross_attention`, `cross_decode`)."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(params, cfg, x, positions)
@@ -201,7 +203,7 @@ def bidir_attention(params, cfg, x, positions, *, kernel=False):
         out = ops.flash_attention(q.reshape(b, s, h, hd), k, v, causal=False)
     else:
         out = chunked_attention(q, k, v, causal=False)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    return product(out.reshape(b, s, h * hd), params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +230,8 @@ def cross_kv(params, cfg, enc_out):
             (enc_out @ params["wv"]).reshape(b, t, h, hd))
 
 
-def cross_attention(params, cfg, x, enc_k, enc_v, *, kernel=False):
+def cross_attention(params, cfg, x, enc_k, enc_v, *, kernel=False,
+                    product=torch.matmul):
     """x [B,S,D] over the encoder's enc_k, enc_v [B,T,H,hd] (in x's dtype)
     -> [B,S,D]. kernel=False (training): `chunked_attention`; kernel=True
     (serving prefill): `ops.flash_attention` with causal=False."""
@@ -240,10 +243,10 @@ def cross_attention(params, cfg, x, enc_k, enc_v, *, kernel=False):
     else:
         out = chunked_attention(q.reshape(b, s, h, 1, hd), enc_k, enc_v,
                                 causal=False)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    return product(out.reshape(b, s, h * hd), params["wo"])
 
 
-def cross_decode(params, cfg, x, enc_k, enc_v):
+def cross_decode(params, cfg, x, enc_k, enc_v, product=torch.matmul):
     """One decode token a row x [B,1,D] over the cached enc_k, enc_v [B,T,
     H,hd], every row attending to all T rows, through `ops.decode_attention`
     (q cast to the cache's dtype, as `_decode_attend` does; the reference
@@ -254,7 +257,7 @@ def cross_decode(params, cfg, x, enc_k, enc_v):
     q = (x @ params["wq"]).reshape(b, h, hd).to(enc_k.dtype)
     lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q, enc_k, enc_v, lengths=lengths)
-    return out.reshape(b, 1, h * hd).to(x.dtype) @ params["wo"]
+    return product(out.reshape(b, 1, h * hd).to(x.dtype), params["wo"])
 
 
 # ---------------------------------------------------------------------------

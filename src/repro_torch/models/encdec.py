@@ -25,7 +25,18 @@ ring; the cross-attention's decode through `ops.decode_attention` over
 the cached K/V, all T_enc rows valid. Training attends with the
 autograd-able `chunked_attention`. The family has no slot arena (the
 engine refuses it, as the reference's does); `launch.serve` serves it
-through `serve_raw`.
+through `serve_raw`, and a mesh through `dist.serving.make_prefill_step`
+and `make_decode_step`.
+
+On a model axis (`axis`, a `dist.tensor_parallel.ModelAxis`, with `cfg`
+the rank's `local_config`) a rank serves its heads of every attention
+(the encoder's, the decoder's self- and cross-attention: q, k, v by
+columns, `wo` by rows, so its cache holds its heads' self K/V and cross
+K/V) and its columns of each MLP's d_ff; each of those row-parallel
+products is summed over the axis and rounded once (two sums an encoder
+layer, three a decoder layer). The embedding and the head are the
+rank's vocabulary slices, or whole where the axis does not divide the
+vocabulary (whisper-small's 51,865): then the lookup is local.
 """
 from __future__ import annotations
 
@@ -34,8 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (_he, embed, embedding_init, make_norm,
-                                       mlp_apply, mlp_init)
-from repro_torch.models.transformer import (_cast, _flat, stacked_layers,
+                                       mlp_apply, mlp_hidden, mlp_init)
+from repro_torch.models.transformer import (_cast, _flat, _product, _reduce,
+                                            _whole_vocab, stacked_layers,
                                             subtree)
 
 
@@ -80,10 +92,20 @@ def _run(layer_fn, args, remat):
     return layer_fn(*args)
 
 
-def encode(cfg, params, frames, *, kernel=False, remat=False):
+def _mlp(cfg, params, x, axis):
+    """The MLP of x; on a model axis its `w_down` partial products summed
+    over the axis and rounded once (`ModelAxis.row_sum`)."""
+    if axis is None:
+        return mlp_apply(params, x, cfg.mlp_type)
+    return axis.row_sum(mlp_hidden(params, x, cfg.mlp_type),
+                        params["w_down"])
+
+
+def encode(cfg, params, frames, *, kernel=False, remat=False, axis=None):
     """frames [B, T_enc, D] -> the normed encoder output [B, T_enc, D] in
     the compute dtype. kernel: attention through the flash kernel
-    (serving); remat: checkpoint each layer (training)."""
+    (serving); remat: checkpoint each layer (training); axis: a model
+    axis (the module's docstring)."""
     _, norm = make_norm(cfg.norm_type)
     x = frames.to(getattr(torch, cfg.compute_dtype))
     b, t, _ = x.shape
@@ -91,62 +113,68 @@ def encode(cfg, params, frames, *, kernel=False, remat=False):
 
     def layer(lp, xx):
         h = norm(lp["ln1"], xx)
-        xx = xx + A.bidir_attention(lp["attn"], cfg, h, positions,
-                                    kernel=kernel)
-        return xx + mlp_apply(lp["mlp"], norm(lp["ln2"], xx), cfg.mlp_type)
+        xx = xx + _reduce(axis, A.bidir_attention(
+            lp["attn"], cfg, h, positions, kernel=kernel,
+            product=_product(axis)), xx.dtype)
+        return xx + _mlp(cfg, lp["mlp"], norm(lp["ln2"], xx), axis)
 
     for lp in stacked_layers(params, "encoder", cfg.encoder_layers):
         x = _run(layer, (lp, x), remat)
     return norm(subtree(params, "enc_norm"), x)
 
 
-def _decoder_layer(cfg, lp, x, positions, mode, caches, i, enc_out):
+def _decoder_layer(cfg, lp, x, positions, mode, caches, i, enc_out,
+                   axis=None):
     """Layer i of the decoder: norm -> self-attention -> norm ->
     cross-attention -> norm -> MLP. "train": chunked attention, no cache;
     "prefill": flash, the self K/V and the cross K/V (cast to the cache's
     dtype) written into layer i of `caches`, ptr set to S; "decode": the
     decode kernel over the self ring (insert, attend, ptr + 1) and over
-    the cached cross K/V."""
+    the cached cross K/V. axis: a model axis (the module's docstring)."""
     _, norm = make_norm(cfg.norm_type)
+    product = _product(axis)
     h = norm(lp["ln1"], x)
     if mode == "decode":
         layer = {"k": caches["k"][i], "v": caches["v"][i],
                  "ptr": caches["ptr"][i]}
-        out, _ = A.gqa_decode(lp["self"], cfg, h, layer, positions)
+        out, _ = A.gqa_decode(lp["self"], cfg, h, layer, positions,
+                              product=product)
     else:
         out, (k, v) = A.gqa_prefill(lp["self"], cfg, h, positions,
-                                    kernel=mode == "prefill")
+                                    kernel=mode == "prefill",
+                                    product=product)
         if mode == "prefill":
             s, t = x.shape[1], caches["k"].shape[2]
             caches["k"][i].copy_(A.prefill_cache_entries(k, t, s))
             caches["v"][i].copy_(A.prefill_cache_entries(v, t, s))
             caches["ptr"][i].fill_(s)
-    x = x + out
+    x = x + _reduce(axis, out, x.dtype)
 
     hx = norm(lp["ln_x"], x)
     if mode == "decode":
         out = A.cross_decode(lp["cross"], cfg, hx, caches["ek"][i],
-                             caches["ev"][i])
+                             caches["ev"][i], product=product)
     else:
         ek, ev = A.cross_kv(lp["cross"], cfg, enc_out)
         if mode == "prefill":
             caches["ek"][i].copy_(ek)
             caches["ev"][i].copy_(ev)
         out = A.cross_attention(lp["cross"], cfg, hx, ek.to(x.dtype),
-                                ev.to(x.dtype), kernel=mode == "prefill")
-    x = x + out
-    return x + mlp_apply(lp["mlp"], norm(lp["ln2"], x), cfg.mlp_type)
+                                ev.to(x.dtype), kernel=mode == "prefill",
+                                product=product)
+    x = x + _reduce(axis, out, x.dtype)
+    return x + _mlp(cfg, lp["mlp"], norm(lp["ln2"], x), axis)
 
 
 def _decoder_stack(cfg, params, x, positions, mode, caches, enc_out,
-                   remat=False):
+                   remat=False, axis=None):
     """The decoder's layers, then the final norm; `caches` (prefill,
     decode) is written in place."""
     _, norm = make_norm(cfg.norm_type)
     for i, lp in enumerate(stacked_layers(params, "decoder",
                                           cfg.num_layers)):
         x = _run(_decoder_layer, (cfg, lp, x, positions, mode, caches, i,
-                                  enc_out), remat and mode == "train")
+                                  enc_out, axis), remat and mode == "train")
     return norm(subtree(params, "final_norm"), x)
 
 
@@ -166,9 +194,15 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
             "ev": zeros((cfg.encoder_seq, h, hd))}
 
 
-def _embed_tokens(cfg, params, tokens):
-    return embed(subtree(params, "embed"), tokens).to(
-        getattr(torch, cfg.compute_dtype))
+def _embed_tokens(cfg, params, tokens, axis=None):
+    """The tokens' embeddings in the compute dtype: the local lookup, or on
+    a model axis that splits the vocabulary the vocabulary-parallel one
+    (`ModelAxis.embed`)."""
+    if _whole_vocab(cfg, params, axis):
+        x = embed(subtree(params, "embed"), tokens)
+    else:
+        x = axis.embed(params["embed.table"], tokens)
+    return x.to(getattr(torch, cfg.compute_dtype))
 
 
 def train_loss(cfg, params, batch, window=0, remat=True):
@@ -193,32 +227,36 @@ def train_loss(cfg, params, batch, window=0, remat=True):
 
 
 def prefill(cfg, params, batch, window=0, cache_dtype=torch.bfloat16,
-            cache_len=None):
+            cache_len=None, axis=None):
     """batch: {frames [B,T_enc,D], tokens [B,S]}. Encodes the frames, runs
     the prompt through the decoder and fills fresh caches (a self ring of
     max(cache_len, S) rows). Returns (logits of the last position [B,1,V]
-    in f32, caches)."""
+    in f32, caches). On a model axis (`axis`) the logits are the rank's
+    vocabulary slice where the axis splits it, and the caches its
+    heads'."""
     del window
     params = _cast(cfg, params)
-    enc_out = encode(cfg, params, batch["frames"], kernel=True)
-    x = _embed_tokens(cfg, params, batch["tokens"])
+    enc_out = encode(cfg, params, batch["frames"], kernel=True, axis=axis)
+    x = _embed_tokens(cfg, params, batch["tokens"], axis)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = init_cache(cfg, b, max(cache_len or s, s), dtype=cache_dtype,
                         device=x.device)
-    x = _decoder_stack(cfg, params, x, positions, "prefill", caches, enc_out)
+    x = _decoder_stack(cfg, params, x, positions, "prefill", caches, enc_out,
+                       axis=axis)
     return (x[:, -1:] @ params["head"]).float(), caches
 
 
-def decode_step(cfg, params, token, caches, position, window=0):
+def decode_step(cfg, params, token, caches, position, window=0, axis=None):
     """token [B,1] int; position: every row's absolute position (int or
     0-dim tensor). Returns (logits [B,1,V] in f32, caches, updated in
-    place)."""
+    place); `axis` as `prefill`'s."""
     del window
     params = _cast(cfg, params)
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, axis)
     b = x.shape[0]
     positions = torch.as_tensor(position, dtype=torch.int32,
                                 device=x.device).reshape(1, 1).expand(b, 1)
-    x = _decoder_stack(cfg, params, x, positions, "decode", caches, None)
+    x = _decoder_stack(cfg, params, x, positions, "decode", caches, None,
+                       axis=axis)
     return (x @ params["head"]).float(), caches

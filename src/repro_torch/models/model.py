@@ -124,39 +124,60 @@ def build_model(cfg: ArchConfig, window: int = 0, model_axis=None) -> Model:
     its logits-returning entry points give this rank's vocabulary slice,
     and its token steps the same ids on every rank. Its `train_loss` is
     the whole model's loss on every rank, with the gradient of the
-    rank's piece (`transformer.train_loss(axis=)`). The attention stacks
-    (dense, MoE, MLA; `tensor_parallel.check_tensor_parallel`), whose
-    MoE and MLA layers serve only: their `train_loss` raises."""
+    rank's piece (`transformer.train_loss(axis=)`). Every family
+    (`tensor_parallel.check_tensor_parallel`): the dense, MoE and MLA
+    stacks, RWKV6 and the RG-LRU hybrid (a rank's recurrent state holds
+    its heads' or channels', `init_cache(parts=)`) and the
+    encoder-decoder; the dense stack alone trains there, so the others'
+    `train_loss` raises, and so does a stack whose kv head is shared by
+    ranks or whose vocabulary the axis does not divide."""
     _check_ported(cfg)
     axis = model_axis
+    parts = 1
+
+    def trainable():
+        """Nothing off a model axis; on one, what it cannot train raises."""
     if axis is not None:
-        from repro_torch.dist.tensor_parallel import local_config
-        cfg = local_config(cfg, axis.size)
+        from repro_torch.dist.tensor_parallel import (check_tensor_parallel,
+                                                      local_config)
+        whole, parts = cfg, axis.size
+        cfg = local_config(cfg, parts)
+
+        def trainable():
+            check_tensor_parallel(whole, parts, training=True)
     if cfg.family in ("audio", "encdec"):
+        def ed_loss(p, b, **kw):
+            trainable()
+            return ED.train_loss(cfg, p, b, **kw)
+
         return Model(
             cfg=cfg,
             init=lambda generator: ED.encdec_init(cfg, generator),
-            train_loss=lambda p, b, **kw: ED.train_loss(cfg, p, b, **kw),
-            prefill=lambda p, b, **kw: ED.prefill(cfg, p, b, **kw),
+            train_loss=ed_loss,
+            prefill=lambda p, b, **kw: ED.prefill(cfg, p, b, axis=axis,
+                                                   **kw),
             decode_step=lambda p, t, c, pos: ED.decode_step(cfg, p, t, c,
-                                                            pos),
+                                                            pos, axis=axis),
             init_cache=lambda batch, seq, **kw: ED.init_cache(cfg, batch,
                                                               seq, **kw))
     window = cfg.attn_window or window
 
+    def tf_loss(p, b, **kw):
+        trainable()
+        return TF.train_loss(cfg, p, b, window=window, axis=axis, **kw)
+
     entries = dict(
         init=lambda generator: TF.transformer_init(cfg, generator),
-        train_loss=lambda p, b, **kw: TF.train_loss(cfg, p, b, window=window,
-                                                    axis=axis, **kw),
+        train_loss=tf_loss,
         prefill=lambda p, b, **kw: TF.prefill(cfg, p, b, window=window,
                                                axis=axis, **kw),
         decode_step=lambda p, t, c, pos: TF.decode_step(cfg, p, t, c, pos,
                                                         window=window,
                                                         axis=axis),
         init_cache=lambda batch, seq, **kw: TF.init_cache(
-            cfg, batch, seq, window=window, **kw),
+            cfg, batch, seq, window=window, parts=parts, **kw),
         init_arena=lambda slots, capacity, **kw: TF.init_arena(
-            cfg, slots, capacity, window=window, **kw),
+            cfg, slots, capacity, window=window, parts=parts, **kw),
         prefill_into_slot=lambda p, tokens, length, slot, caches:
             TF.prefill_into_slot(cfg, p, tokens, length, slot, caches,
                                  window=window, axis=axis),

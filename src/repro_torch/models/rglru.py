@@ -58,14 +58,17 @@ def rglru_init(generator, lead, cfg, dtype):
     }
 
 
-def init_state(cfg, batch, lead=(), device=None):
+def init_state(cfg, batch, lead=(), device=None, parts=1):
     """Zero recurrent state in f32: {"conv": [*lead, B, cw - 1, W] (the
-    last inputs of the conv), "h": [*lead, B, W]}."""
+    last inputs of the conv), "h": [*lead, B, W / parts]} (parts: a model
+    axis's size, whose rank holds its channels of h and the whole conv
+    state)."""
     w = cfg.rnn_width or cfg.d_model
     f32 = torch.float32
     return {"conv": torch.zeros(lead + (batch, cfg.conv_width - 1, w),
                                 dtype=f32, device=device),
-            "h": torch.zeros(lead + (batch, w), dtype=f32, device=device)}
+            "h": torch.zeros(lead + (batch, w // parts), dtype=f32,
+                             device=device)}
 
 
 def _causal_conv(params, x, conv_state):
@@ -81,28 +84,41 @@ def _causal_conv(params, x, conv_state):
     return out + params["conv_bias"], full[:, -(cw - 1):]
 
 
-def rglru_block(params, cfg, x, state):
+def rglru_block(params, cfg, x, state, axis=None):
     """x: [B,S,D]; state: {"conv", "h"} of `init_state`'s leaves at batch B
     -> (out [B,S,D], state). `state["h"]` advances in place through the
     scan and the new conv inputs are copied into `state["conv"]`. state
     None (training): from zeros, through the differentiable
-    `ops.rglru_scan_train`, returning (out, None)."""
+    `ops.rglru_scan_train`, returning (out, None).
+
+    axis: a `dist.tensor_parallel.ModelAxis` whose rank holds its W_r
+    channels (`w_a` [W, W_r] gives their count): `w_x` and the conv run
+    whole, the gates are the rank's columns of the products of the
+    conv's whole output, the scan takes the rank's W_r channels of it
+    (from the axis index times W_r), and `w_out`'s partial products are
+    summed over the axis."""
     xa = x @ params["w_x"]
     conv_in = (xa.new_zeros((xa.shape[0], params["conv_kernel"].shape[0] - 1,
                              xa.shape[2]))
                if state is None else state["conv"])
     xa, conv_state = _causal_conv(params, xa, conv_in)
+    mine = xa
+    if axis is not None:
+        w_r = params["w_a"].shape[-1]
+        mine = xa[..., axis.index * w_r:(axis.index + 1) * w_r]
 
     # the gates, the decay and the recurrence: one kernel after the GEMMs
     gates = (xa @ params["w_a"], xa @ params["w_i"], params["b_a"],
-             params["b_i"], params["lamb"], xa)
+             params["b_i"], params["lamb"], mine)
     if state is None:
         h_seq = ops.rglru_scan_train(*gates)
     else:
         h_seq, _ = ops.rglru_scan(*gates, state["h"])
 
     yb = F.gelu(x @ params["w_y"], approximate="tanh")
-    out = (h_seq * yb) @ params["w_out"]
+    out = h_seq * yb
+    out = (out @ params["w_out"] if axis is None
+           else axis.row_sum(out, params["w_out"]))
     if state is None:
         return out, None
     state["conv"].copy_(conv_state)

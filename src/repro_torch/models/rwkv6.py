@@ -73,14 +73,15 @@ def rwkv_init(generator, lead, cfg, dtype):
     return params
 
 
-def init_state(cfg, batch, lead=(), device=None):
+def init_state(cfg, batch, lead=(), device=None, parts=1):
     """Zero recurrent state in f32: {"shift", "cm_shift": [*lead, B, D],
-    "wkv": [*lead, B, H, hd, hd]}."""
+    "wkv": [*lead, B, H / parts, hd, hd]} (parts: a model axis's size,
+    whose rank holds its heads' WKV state and the whole shifts)."""
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     f32 = torch.float32
     return {"shift": torch.zeros(lead + (batch, d), dtype=f32, device=device),
-            "wkv": torch.zeros(lead + (batch, d // hd, hd, hd), dtype=f32,
-                               device=device),
+            "wkv": torch.zeros(lead + (batch, d // hd // parts, hd, hd),
+                               dtype=f32, device=device),
             "cm_shift": torch.zeros(lead + (batch, d), dtype=f32,
                                     device=device)}
 
@@ -96,15 +97,28 @@ def _token_shift(x, prev, mu):
     return {n: x + diff * m for n, m in mu.items()}
 
 
-def time_mix(params, cfg, x, state):
+def _rows(axis, h, w):
+    """h @ w of a row-parallel leaf (`wo`, `cm_wv`): on a model axis the
+    sum of the ranks' partial products, rounded once (`ModelAxis.
+    row_sum`)."""
+    return h @ w if axis is None else axis.row_sum(h, w)
+
+
+def time_mix(params, cfg, x, state, axis=None):
     """x: [B,S,D]; state: {"shift", "wkv", ...} of `init_state`'s leaves
     at batch B -> (out [B,S,D], new state). The WKV state advances in
     place (`state["wkv"]` is overwritten and returned); the new "shift"
     is x's last position. state None (training): from zeros, through the
-    differentiable `ops.rwkv6_scan_train`, returning (out, None)."""
-    b, s, d = x.shape
+    differentiable `ops.rwkv6_scan_train`, returning (out, None).
+
+    axis: a `dist.tensor_parallel.ModelAxis` whose rank holds its heads
+    (`u` [H_r, hd] gives their count; r, k, v, g and the decay by
+    columns): the rank's heads run the WKV recurrence and the group
+    norm, and `wo`'s partial products are summed over the axis."""
+    b, s, _ = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    h = params["u"].shape[0]
+    d = h * hd
 
     train = state is None
     xs = _token_shift(x, None if train else state["shift"],
@@ -136,20 +150,24 @@ def time_mix(params, cfg, x, state):
     out = (out - mu_o) * torch.rsqrt(var_o + 1e-5)
     out = out.reshape(b, s, d) * params["ln_out_scale"].float()
 
-    out = (out.to(x.dtype) * g) @ params["wo"]
+    out = _rows(axis, out.to(x.dtype) * g, params["wo"])
     if train:
         return out, None
     return out, dict(state, shift=x[:, -1, :], wkv=wkv)
 
 
-def channel_mix(params, cfg, x, state):
+def channel_mix(params, cfg, x, state, axis=None):
     """x: [B,S,D] -> (out, new state with "cm_shift" x's last position);
-    state None (training): from a zero shift, returning (out, None)."""
+    state None (training): from a zero shift, returning (out, None).
+    axis: a model axis whose rank holds its columns of d_ff (`cm_wk`)
+    and their rows of `cm_wv`: the v product is summed over the axis and
+    rounded once before the whole gate `r` multiplies it, as one process
+    rounds `k @ cm_wv` before it."""
     xs = _token_shift(x, None if state is None else state["cm_shift"],
                       {n: params[f"cm_mu.{n}"] for n in CM_MIX})
     r = torch.sigmoid(xs["r"] @ params["cm_wr"])
     k = torch.square(torch.relu(xs["k"] @ params["cm_wk"]))
-    out = r * (k @ params["cm_wv"])
+    out = r * _rows(axis, k, params["cm_wv"])
     if state is None:
         return out, None
     return out, dict(state, cm_shift=x[:, -1, :])

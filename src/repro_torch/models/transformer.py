@@ -52,7 +52,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (
-    _he, embed, embedding_init, make_norm, mlp_apply, mlp_hidden, mlp_init,
+    _he, embed, embedding_init, make_norm, mlp_hidden, mlp_init,
     unembed,
 )
 
@@ -193,7 +193,10 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
     inputs of q/k/v and of gate/up pass through `ModelAxis.copy`, whose
     backward sums their gradients over the axis. An MLA layer runs the
     rank's heads over the whole latents; an MoE layer the rank's experts
-    (`moe_apply(axis=)`, which sums its output over the axis). None runs
+    (`moe_apply(axis=)`, which sums its output over the axis); an RWKV6
+    layer the rank's heads (`wo` and the channel mix's `cm_wv` summed)
+    and an RG-LRU layer the rank's channels (`w_out` and its MLP's
+    `w_down` summed), each over its rank's recurrent state. None runs
     the whole model.
     """
     aux = None
@@ -209,9 +212,9 @@ def forward(cfg, params, x, *, positions, mode="train", caches=None,
                 args = (_attn_block, cfg, lp, x, positions, mode, seg, i,
                         paged, window, axis)
             elif kind == "rwkv":
-                args = (_rwkv_block, cfg, lp, x, seg, i)
+                args = (_rwkv_block, cfg, lp, x, seg, i, axis)
             else:
-                args = (_rglru_block, cfg, lp, x, seg, i)
+                args = (_rglru_block, cfg, lp, x, seg, i, axis)
             if remat and mode == "train":
                 x = checkpoint(*args, use_reentrant=False,
                                preserve_rng_state=False)
@@ -310,38 +313,43 @@ def _copy(axis, x):
     return x if axis is None else axis.copy(x)
 
 
-def _rwkv_block(cfg, lp, x, seg, i):
+def _rwkv_block(cfg, lp, x, seg, i, axis=None):
     """norm -> time_mix -> norm -> channel_mix, as the reference's
     `block_apply` kind "rwkv". The WKV state advances in place in the
     cache; the shifts are copied in. With no cache (training) the layer
-    starts from zeros and keeps no state. Positions are unused."""
+    starts from zeros and keeps no state. Positions are unused. `axis`
+    as `forward`'s: both mixes sum their row-parallel products."""
     state = None if seg is None else {name: seg[name][i]
                                       for name in RW.LEAVES}
     _, norm = make_norm(cfg.norm_type)
     h = norm(lp["ln1"], x)
-    tm_out, state = RW.time_mix(lp["mix"], cfg, h, state)
+    tm_out, state = RW.time_mix(lp["mix"], cfg, h, state, axis)
     x = x + tm_out
     h2 = norm(lp["ln2"], x)
-    cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state)
+    cm_out, state = RW.channel_mix(lp["mix"], cfg, h2, state, axis)
     if seg is not None:
         for name in ("shift", "cm_shift"):
             seg[name][i].copy_(state[name])
     return x + cm_out
 
 
-def _rglru_block(cfg, lp, x, seg, i):
+def _rglru_block(cfg, lp, x, seg, i, axis=None):
     """norm -> RG-LRU block -> norm -> MLP, as the reference's
     `block_apply` kind "rglru". `h` advances in place in the cache and
     the conv's last inputs are copied in; with no cache (training) the
-    layer starts from zeros and keeps no state. Positions are unused."""
+    layer starts from zeros and keeps no state. Positions are unused.
+    `axis` as `forward`'s: `w_out` and the MLP's `w_down` are summed
+    over it, as the dense layer's `wo` and `w_down`."""
     state = None if seg is None else {name: seg[name][i]
                                       for name in RG.LEAVES}
     _, norm = make_norm(cfg.norm_type)
     h = norm(lp["ln1"], x)
-    rnn_out, _ = RG.rglru_block(lp["rnn"], cfg, h, state)
+    rnn_out, _ = RG.rglru_block(lp["rnn"], cfg, h, state, axis)
     x = x + rnn_out
     h2 = norm(lp["ln2"], x)
-    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_type)
+    return x + _reduce(axis, _product(axis)(
+        mlp_hidden(lp["mlp"], h2, cfg.mlp_type), lp["mlp"]["w_down"]),
+        x.dtype)
 
 
 def logits_fn(cfg, params, x):
@@ -430,21 +438,24 @@ def train_loss(cfg, params, batch, window=0, remat=True, axis=None):
 
 
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None,
-               window=0):
+               window=0, parts=1):
     """Zero per-segment caches for decode. Each attention segment's ring
     holds min(seq_len, window) rows, the config's sliding window first,
     else the `window` override; a recurrent segment's cache is its f32
-    state, whatever `seq_len` and `dtype` (as in the reference)."""
+    state, whatever `seq_len` and `dtype` (as in the reference). parts:
+    the model axis's size where `cfg` is a rank's `local_config` (its
+    recurrent state holds the rank's RWKV heads or RG-LRU channels; the
+    attention entries follow the config's kv heads)."""
     win = cfg.attn_window or window
     cap = max(min(seq_len, win) if win else seq_len, 1)
     caches = []
     for kind, count in segments(cfg):
         if kind == "rwkv":
             caches.append(RW.init_state(cfg, batch, lead=(count,),
-                                        device=device))
+                                        device=device, parts=parts))
         elif kind == "rglru":
             caches.append(RG.init_state(cfg, batch, lead=(count,),
-                                        device=device))
+                                        device=device, parts=parts))
         else:
             seg = {name: torch.zeros((count, batch, cap) + shape,
                                      dtype=dtype, device=device)
@@ -466,22 +477,31 @@ def _entry_shapes(cfg):
     return {"k": kv, "v": kv}
 
 
+def _whole_vocab(cfg, params, axis):
+    """Whether this rank's embedding table is the whole vocabulary: off a
+    model axis, or on one that does not divide it."""
+    return axis is None or params["embed.table"].shape[0] == cfg.vocab_size
+
+
 def _embed_tokens(cfg, params, tokens, axis=None):
     """The tokens' embeddings in the compute dtype; on a model axis the
     vocabulary-parallel lookup of this rank's table rows
-    (`ModelAxis.embed`)."""
-    if axis is None:
+    (`ModelAxis.embed`), or the local lookup where the axis keeps the
+    table whole."""
+    if _whole_vocab(cfg, params, axis):
         x = embed(subtree(params, "embed"), tokens)
     else:
         x = axis.embed(params["embed.table"], tokens)
     return x.to(getattr(torch, cfg.compute_dtype))
 
 
-def _greedy(axis, logits):
+def _greedy(axis, logits, cfg):
     """The int32 argmax of logits [..., V] over their last dim; on a model
     axis (logits: this rank's vocabulary slice) `ModelAxis.argmax`, the
-    same ids on every rank."""
-    if axis is None:
+    same ids on every rank. Whole logits (an axis that does not divide
+    the vocabulary) take the local argmax: every rank computes the same
+    ones."""
+    if axis is None or logits.shape[-1] == cfg.vocab_size:
         return torch.argmax(logits, -1).to(torch.int32)
     return axis.argmax(logits)
 
@@ -526,11 +546,11 @@ def decode_step(cfg, params, token, caches, position, window=0, axis=None):
 
 
 def init_arena(cfg, slots, capacity, dtype=torch.bfloat16, device=None,
-               window=0):
+               window=0, parts=1):
     """Slot-arena caches: `init_cache` with per-row ptr [count, slots] in
     every attention segment (a recurrent state has no ptr)."""
     arena = init_cache(cfg, slots, capacity, dtype=dtype, device=device,
-                       window=window)
+                       window=window, parts=parts)
     for seg in arena:
         if "ptr" in seg:
             seg["ptr"] = torch.zeros(seg["ptr"].shape + (slots,),
@@ -611,7 +631,7 @@ def prefill_into_slot_token(cfg, params, tokens, length, slot, caches,
     """`prefill_into_slot` returning (0-dim int32 greedy token, arena)."""
     logits, caches = prefill_into_slot(cfg, params, tokens, length, slot,
                                        caches, window=window, axis=axis)
-    return _greedy(axis, logits[0, -1]), caches
+    return _greedy(axis, logits[0, -1], cfg), caches
 
 
 def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0,
@@ -626,7 +646,7 @@ def decode_rows_tokens(cfg, params, tokens, caches, positions, window=0,
                                 device=tokens.device)
     logits, caches = decode_rows(cfg, params, tokens[:, None], caches,
                                  positions, window=window, axis=axis)
-    return _greedy(axis, logits[:, -1]), caches, positions + 1
+    return _greedy(axis, logits[:, -1], cfg), caches, positions + 1
 
 
 # The paged pool (`repro_torch.serve`, paged=True): every slot's KV lives
@@ -716,7 +736,7 @@ def prefill_chunk_into_blocks_token(cfg, params, tokens, length, ctx_len,
     logits, pool = prefill_chunk_into_blocks(cfg, params, tokens, length,
                                              ctx_len, block_table, pool,
                                              window=window, axis=axis)
-    return _greedy(axis, logits[0, -1]), pool
+    return _greedy(axis, logits[0, -1], cfg), pool
 
 
 def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
@@ -731,7 +751,7 @@ def decode_rows_paged_tokens(cfg, params, tokens, pool, block_tables,
     logits, pool = decode_rows_paged(cfg, params, tokens[:, None], pool,
                                      block_tables, lengths, window=window,
                                      axis=axis)
-    return _greedy(axis, logits[:, -1]), pool, lengths + 1
+    return _greedy(axis, logits[:, -1], cfg), pool, lengths + 1
 
 
 # The fused mixed steps (overlapped admission, `repro_torch.serve` with
@@ -785,7 +805,7 @@ def _mixed_embed(cfg, params, dec_tokens, adm_tokens, axis=None):
     [1, S] apart (the shapes of the standalone steps) and concatenate the
     embeddings into the mixed batch [1, B + S, D]. On a model axis the
     rank's parts are concatenated first and summed over the axis once."""
-    if axis is not None:
+    if not _whole_vocab(cfg, params, axis):
         table = params["embed.table"]
         x = torch.cat([axis.embed_local(table, dec_tokens[None]),
                        axis.embed_local(table, adm_tokens)], dim=1)
@@ -866,11 +886,11 @@ def mixed_step_paged(cfg, params, tokens, pool, block_tables, lengths,
     return _mixed_logits(cfg, params, x, b, b + c_len - 1) + (pool,)
 
 
-def _mixed_greedy(axis, logits_d, logits_p):
+def _mixed_greedy(axis, logits_d, logits_p, cfg):
     """The decode rows' [B] and the prefill unit's [] greedy tokens of the
     mixed logits; on a model axis through one `ModelAxis.argmax` over the
-    B + 1 rows."""
-    if axis is None:
+    B + 1 rows (the local argmax of whole logits, as `_greedy`)."""
+    if axis is None or logits_d.shape[-1] == cfg.vocab_size:
         return (torch.argmax(logits_d[:, -1], -1).to(torch.int32),
                 torch.argmax(logits_p[0, -1], -1).to(torch.int32))
     toks = axis.argmax(torch.cat([logits_d[:, -1], logits_p[0]]))
@@ -887,7 +907,7 @@ def mixed_step_tokens(cfg, params, tokens, caches, positions, p_tokens,
     logits_d, logits_p, caches = mixed_step(cfg, params, tokens, caches,
                                             positions, p_tokens, p_len,
                                             p_slot, window=window, axis=axis)
-    nxt, p_tok = _mixed_greedy(axis, logits_d, logits_p)
+    nxt, p_tok = _mixed_greedy(axis, logits_d, logits_p, cfg)
     return nxt, caches, positions + 1, p_tok
 
 
@@ -900,5 +920,5 @@ def mixed_step_paged_tokens(cfg, params, tokens, pool, block_tables, lengths,
     logits_d, logits_c, pool = mixed_step_paged(
         cfg, params, tokens, pool, block_tables, lengths, c_tokens, c_len,
         ctx_len, c_table, window=window, axis=axis)
-    nxt, c_tok = _mixed_greedy(axis, logits_d, logits_c)
+    nxt, c_tok = _mixed_greedy(axis, logits_d, logits_c, cfg)
     return nxt, pool, lengths + 1, c_tok

@@ -590,8 +590,8 @@ def test_moe_with_replicas_is_refused():
 
 def test_model_axis_and_bad_meshes_are_refused():
     """A model axis trains the dense attention stack; the families it
-    does not split (recurrent, encoder-decoder) raise, naming ROADMAP
-    item 6.1c, and those it splits only to serve (MoE, MLA) item 6.1e,
+    splits only to serve raise: the recurrent families and the
+    encoder-decoder naming ROADMAP item 6.1f, MoE and MLA item 6.1e,
     in the mesh step and in the launcher before any process starts; bad
     meshes raise."""
     model = build_model(get_smoke("qwen2-0.5b"))
@@ -602,8 +602,8 @@ def test_model_axis_and_bad_meshes_are_refused():
         ["--smoke", "--processes", "4", "--agents", "2",
          "--model-parallel", "2", "--device", "cpu"])) == 1
     for arch, item in (("dbrx-132b", "6.1e"), ("deepseek-v2-236b", "6.1e"),
-                       ("rwkv6-1.6b", "6.1c"), ("recurrentgemma-2b", "6.1c"),
-                       ("whisper-small", "6.1c")):
+                       ("rwkv6-1.6b", "6.1f"), ("recurrentgemma-2b", "6.1f"),
+                       ("whisper-small", "6.1f")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             T._check_mesh(build_model(get_smoke(arch)), tcfg, model_axis)
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -400,4 +400,5 @@ def test_serve_step_sends_counts_the_data_gathers(sizes):
     # a mesh of one rank sends nothing
     one = DS.serve_step_sends(cfg, {"data": 1, "model": 1}, batch, unit)
     assert one == [{"decode": {}, "admission": {}, "mixed": {},
-                    "first_token": {}}]
+                    "first_token": {}, "wave_prefill": {},
+                    "wave_decode": {}}]

@@ -34,7 +34,16 @@ runs the real transport across processes). Held:
     raise naming item 6.1d, and `moe_apply(axis=)` (drops at capacity
     included) and every `mla_*` function on the ranks, summed over the
     axis, equal one process's (f32, atol 1e-5), the latent caches
-    whole on every rank.
+    whole on every rank;
+  * the recurrent families and the encoder-decoder (to serve): every
+    leaf of rwkv6, recurrentgemma, whisper (also with a vocabulary of
+    515, which stays whole) and phi-3 splits as `param_specs` says and
+    joins back bitwise, `init_shard` is `shard_params` of the init
+    bitwise, an RWKV6 block, an RG-LRU block and recurrentgemma's MQA
+    block (its one kv head whole on both ranks) on the ranks equal one
+    process's, their caches the rank's piece, and so do the encoder
+    and the decoder's layers; training them on the axis, a shared kv
+    head or a whole vocabulary raise naming item 6.1f.
 """
 import dataclasses
 import threading
@@ -384,9 +393,12 @@ def test_serve_step_sends_counts_every_sum_and_pick():
     in f32 (10 B an element here), then gathers a (value, id) f32 pair a
     greedy row. On a line of 2 a rank sends its whole tensor; on a line
     of 3 the other ranks' pieces of the flat tensor, then its own to
-    each of them (`Collectives.all_reduce`)."""
+    each of them (`Collectives.all_reduce`). The vocabulary, 510, divides
+    over both lines (one the axis does not divide is whole: no embedding
+    sum, no pick)."""
     cfg = dataclasses.replace(get_smoke("qwen2-0.5b"), num_layers=1,
-                              layer_types=("attn",), d_model=5)
+                              layer_types=("attn",), d_model=5,
+                              vocab_size=510)
     # elements a step (rows x d_model), and the line of 3's pieces
     steps = {"decode": (10, (4, 3, 3), 2), "admission": (20, (7, 7, 6), 1),
              "mixed": (30, (10, 10, 10), 3)}
@@ -401,7 +413,8 @@ def test_serve_step_sends_counts_every_sum_and_pick():
             # a first token is gathered over the data axes only
             assert rank["first_token"] == {}
     assert DS.serve_step_sends(cfg, {"data": 1, "model": 1}, 2, 4) == [
-        {"decode": {}, "admission": {}, "mixed": {}, "first_token": {}}]
+        {"decode": {}, "admission": {}, "mixed": {}, "first_token": {},
+         "wave_prefill": {}, "wave_decode": {}}]
 
 
 # ---------------------------------------------------------------------------
@@ -537,14 +550,17 @@ def test_a_model_axis_of_one_changes_nothing():
 def test_what_the_axis_does_not_split_raises(arch, mp):
     cfg = get_config(arch)
     axis = TP.ModelAxis(None, Mesh(("data", "model"), (1, mp), rank=0))
-    if cfg.moe is not None:
-        # MoE and MLA serve on the axis at full width; training them
-        # there raises, naming its item
+    if arch != "qwen2-0.5b":
+        # MoE, MLA, the recurrent families and the encoder-decoder serve
+        # on the axis at full width; training them there raises, naming
+        # its item
         assert build_model(cfg, model_axis=axis).cfg == TP.local_config(
             cfg, mp)
-        with pytest.raises(NotImplementedError, match="item 6.1e"):
+        item = "6.1e" if cfg.moe is not None else "6.1f"
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             TP.check_tensor_parallel(cfg, mp, training=True)
         return
+    # 14 query heads over 4 ranks
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6.1"):
         TP.local_config(cfg, mp)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6.1"):
@@ -577,9 +593,15 @@ def test_a_data_axis_and_training_raise():
     assert torch.equal(losses[0], losses[1])
     assert torch.isfinite(losses[0])
     axis = TP.ModelAxis(None, mesh_of(0))
+    # the recurrent families and the encoder-decoder build on the axis to
+    # serve; their training raises
     for arch in ("rwkv6-1.6b", "recurrentgemma-2b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 6.1c"):
-            build_model(get_smoke(arch), model_axis=axis)
+        rec_cfg = get_smoke(arch)
+        pieces = TP.init_shard(rec_cfg, torch.Generator().manual_seed(0),
+                               mesh_of(0))
+        with pytest.raises(NotImplementedError, match="item 6.1f"):
+            build_model(rec_cfg, model_axis=axis).train_loss(
+                pieces, _train_batch(rec_cfg, mask=False))
     # MoE and MLA build on the axis to serve; their training raises
     for arch in ("dbrx-132b", "deepseek-v2-236b"):
         moe_cfg = get_smoke(arch)
@@ -875,3 +897,251 @@ def test_mla_functions_on_the_axis_equal_one_process(family, fn):
         assert float((out - want).abs().max()) <= ATOL * scale
         for name in ("ckv", "kpe"):
             assert torch.equal(cache[name], want_cache[name]), name
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families and the encoder-decoder on the axis (serving)
+# ---------------------------------------------------------------------------
+
+RECURRENT_CFGS = {
+    "rwkv6": get_smoke("rwkv6-1.6b"),
+    # MQA: its one kv head on both ranks, 1 query head each
+    "recurrentgemma": get_smoke("recurrentgemma-2b"),
+    "whisper": get_smoke("whisper-small"),
+    # a vocabulary the axis does not divide: the table and head whole
+    "whisper515": dataclasses.replace(get_smoke("whisper-small"),
+                                      vocab_size=515),
+    "phi3": get_smoke("phi-3-vision-4.2b"),
+}
+# the split dim of every leaf of these families by its name below its
+# segment or stack (None: whole on every rank)
+RECURRENT_SPLIT = {
+    **{f"mix.mu.{n}": None for n in "rkvgw"}, "mix.wr": 2, "mix.wk": 2,
+    "mix.wv": 2, "mix.wg": 2, "mix.w0": 1, "mix.w_lora_a": None,
+    "mix.w_lora_b": 2, "mix.u": 1, "mix.ln_out_scale": 1, "mix.wo": 1,
+    "mix.cm_mu.r": None, "mix.cm_mu.k": None, "mix.cm_wr": None,
+    "mix.cm_wk": 2, "mix.cm_wv": 1,
+    "rnn.w_x": None, "rnn.conv_kernel": None, "rnn.conv_bias": None,
+    "rnn.w_a": 2, "rnn.w_i": 2, "rnn.b_a": 1, "rnn.b_i": 1, "rnn.lamb": 1,
+    "rnn.w_y": 2, "rnn.w_out": 1,
+    "attn.wq": 2, "attn.wk": 2, "attn.wv": 2, "attn.wo": 1,
+    "self.wq": 2, "self.wk": 2, "self.wv": 2, "self.wo": 1,
+    "cross.wq": 2, "cross.wk": 2, "cross.wv": 2, "cross.wo": 1,
+    "mlp.w_gate": 2, "mlp.w_up": 2, "mlp.w_down": 1,
+    **{f"{n}.{leaf}": None for n in ("ln1", "ln2", "ln_x")
+       for leaf in ("scale", "bias")},
+    "final_norm.scale": None, "final_norm.bias": None,
+    "enc_norm.scale": None, "enc_norm.bias": None,
+    "embed.table": 0, "head": 1,
+}
+
+
+def _leaf_name(key):
+    parts = key.split(".")
+    if parts[0] == "segments":
+        return ".".join(parts[2:])
+    if parts[0] in ("encoder", "decoder"):
+        return ".".join(parts[1:])
+    return key
+
+
+@pytest.mark.parametrize("family", list(RECURRENT_CFGS))
+def test_recurrent_and_encdec_leaves_split_and_join_back_bitwise(family):
+    cfg = RECURRENT_CFGS[family]
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    specs = TP.param_specs(cfg, params, MP)
+    assert set(specs) == set(params)
+    for key, spec in specs.items():
+        dim = RECURRENT_SPLIT[_leaf_name(key)]
+        if key in ("embed.table", "head") and cfg.vocab_size % MP:
+            dim = None
+        assert spec == tuple("model" if d == dim else None
+                             for d in range(params[key].dim())), key
+    local = TP.local_config(cfg, MP)
+    assert (local.d_model, local.vocab_size, local.head_dim) == (
+        cfg.d_model, cfg.vocab_size, cfg.head_dim)
+    assert local.num_kv_heads == max(cfg.num_kv_heads // MP, 1)
+    pieces = [TP.shard_params(cfg, params, mesh_of(r)) for r in range(MP)]
+    for r, piece in enumerate(pieces):
+        if family == "rwkv6":
+            h = cfg.d_model // cfg.rwkv_head_dim // MP
+            assert torch.equal(piece["segments.0.mix.u"],
+                               params["segments.0.mix.u"][:, r * h:(r + 1) * h])
+        if family == "recurrentgemma":
+            # the one kv head whole on each rank, the RG-LRU's channels
+            # split, w_x and the conv whole
+            for leaf in ("segments.1.attn.wk", "segments.1.attn.wv",
+                         "segments.0.rnn.w_x", "segments.0.rnn.conv_kernel"):
+                assert torch.equal(piece[leaf], params[leaf]), leaf
+            w = cfg.rnn_width // MP
+            assert torch.equal(piece["segments.0.rnn.lamb"],
+                               params["segments.0.rnn.lamb"][
+                                   :, r * w:(r + 1) * w])
+        if family == "whisper515":
+            for leaf in ("embed.table", "head"):
+                assert torch.equal(piece[leaf], params[leaf])
+    joined = TP.gather_params(cfg, pieces, {"data": 1, "model": MP})
+    assert all(torch.equal(joined[k], params[k]) for k in params)
+
+
+@pytest.mark.parametrize("family", list(RECURRENT_CFGS))
+def test_recurrent_and_encdec_init_shard_is_shard_params_bitwise(family):
+    cfg = RECURRENT_CFGS[family]
+    whole = build_model(cfg).init(torch.Generator().manual_seed(0))
+    for mesh in [mesh_of(r) for r in range(MP)] + [
+            Mesh(("data", "model"), (2, MP), rank=3)]:
+        got = TP.init_shard(cfg, torch.Generator().manual_seed(0), mesh)
+        want = TP.shard_params(cfg, whole, mesh)
+        assert set(got) == set(want)
+        for k, v in got.items():
+            assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+            assert v.untyped_storage().nbytes() == v.numel() * v.itemsize
+        assert TP.is_piece(cfg, got, mesh)
+        assert not TP.is_piece(cfg, whole, mesh)
+    # a mix of whole leaves and pieces is neither
+    mixed = dict(got)
+    key = "segments.0.mlp.w_down" if family == "recurrentgemma" else next(
+        k for k, s in TP.param_specs(cfg, whole, MP).items()
+        if "model" in s)
+    mixed[key] = whole[key]
+    with pytest.raises(ValueError, match="some leaves are whole"):
+        TP.is_piece(cfg, mixed, mesh_of(0))
+
+
+def _on_ranks(fn, cfg, params):
+    """(one process's fn(cfg, params, None), each rank's fn(local config,
+    its piece, its ModelAxis))."""
+    want = fn(cfg, params, None)
+    got = run_ranks(lambda r, axis: fn(
+        TP.local_config(cfg, MP), TP.shard_params(cfg, params, mesh_of(r)),
+        axis))
+    return want, got
+
+
+def _close(got, want):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= ATOL * scale
+
+
+def _block_run(kind):
+    """A function (cfg, params, axis) -> (prefill out, decode out, cache
+    leaves) of layer 0 of a `kind` segment: a prefill of 6 tokens over 2
+    rows (recurrentgemma's MQA layer: 40, past its 32-token window), then
+    a decode step, from a zero cache of the rank's widths."""
+    from repro_torch.models import transformer as TF
+
+    def run(cfg, params, axis):
+        parts = 1 if axis is None else MP
+        si = [k for k, _ in TF.segments(cfg)].index(kind)
+        s = 40 if kind == "attn" else 6
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn((2, s, cfg.d_model), generator=g)
+        x1 = torch.randn((2, 1, cfg.d_model), generator=g)
+        caches = TF.init_cache(cfg, 2, 64, dtype=torch.float32, parts=parts)
+        seg = caches[si]
+        lp = stacked_layers(params, f"segments.{si}", 1 if kind == "attn"
+                            else 2)[0]
+        if kind == "rwkv":
+            out = TF._rwkv_block(cfg, lp, x, seg, 0, axis)
+            dec = TF._rwkv_block(cfg, lp, x1, seg, 0, axis)
+        elif kind == "rglru":
+            out = TF._rglru_block(cfg, lp, x, seg, 0, axis)
+            dec = TF._rglru_block(cfg, lp, x1, seg, 0, axis)
+        else:
+            pos = torch.arange(s)[None].expand(2, s)
+            out = TF._attn_block(cfg, lp, x, pos, "prefill", seg, 0, None,
+                                 cfg.attn_window, axis)
+            seg["ptr"] = seg["ptr"][:, None].expand(-1, 2).contiguous()
+            dec = TF._attn_block(cfg, lp, x1, torch.full((2, 1), s), "decode",
+                                 seg, 0, None, cfg.attn_window, axis)
+        return out, dec, {k: v[0] for k, v in seg.items() if k != "ptr"}
+
+    return run
+
+
+@pytest.mark.parametrize("kind,family", [("rwkv", "rwkv6"),
+                                         ("rglru", "recurrentgemma"),
+                                         ("attn", "recurrentgemma")])
+def test_recurrent_blocks_on_the_axis_equal_one_process(kind, family):
+    """A rank's RWKV6 heads, RG-LRU channels or MQA query heads (over the
+    one kv head it holds whole) in f32: the block's prefill and decode
+    outputs are one process's, and its cache is the rank's piece of one
+    process's (the WKV state's heads, h's channels; the shifts, the conv
+    state and the one kv head's K/V whole)."""
+    cfg = _f32(RECURRENT_CFGS[family])
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    want, got = _on_ranks(_block_run(kind), cfg, params)
+    split = {"wkv": 1, "h": 1}
+    for r, (out, dec, cache) in enumerate(got):
+        _close(out, want[0])
+        _close(dec, want[1])
+        for name, leaf in cache.items():
+            whole = want[2][name]
+            if name in split:
+                n = leaf.shape[split[name]]
+                whole = whole.narrow(split[name], r * n, n)
+            assert leaf.shape == whole.shape, name
+            torch.testing.assert_close(leaf, whole, rtol=0,
+                                       atol=ATOL * float(whole.abs().max()))
+
+
+@pytest.mark.parametrize("family", ["whisper", "whisper515"])
+def test_encoder_and_decoder_layers_on_the_axis_equal_one_process(family):
+    """The encoder (its heads' non-causal attention and MLP, two sums a
+    layer) and the decoder's layers (self-attention, cross-attention and
+    MLP, three sums a layer) on 2 ranks in f32: a prefill's and a decode
+    step's logits are one process's, and each rank's caches are its
+    heads' piece of one process's."""
+    from repro_torch.models import encdec as ED
+
+    cfg = _f32(RECURRENT_CFGS[family])
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(6)
+    batch = {"frames": torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                   generator=g),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 5), generator=g)}
+
+    def run(c, p, axis):
+        enc = ED.encode(c, p, batch["frames"], kernel=True, axis=axis)
+        logits, caches = ED.prefill(c, p, batch, cache_len=8,
+                                    cache_dtype=torch.float32, axis=axis)
+        step, caches = ED.decode_step(c, p, batch["tokens"][:, :1], caches,
+                                      5, axis=axis)
+        if axis is not None and logits.shape[-1] != cfg.vocab_size:
+            logits, step = axis.gather_vocab(logits), axis.gather_vocab(step)
+        return enc, logits, step, caches
+
+    want, got = _on_ranks(run, cfg, params)
+    h = cfg.num_heads // MP
+    for r, (enc, logits, step, caches) in enumerate(got):
+        for a, b in zip((enc, logits, step), want[:3]):
+            assert a.shape == b.shape
+            _close(a, b)
+        for name in ("k", "v", "ek", "ev"):
+            whole = want[3][name][..., r * h:(r + 1) * h, :]
+            torch.testing.assert_close(caches[name], whole, rtol=0,
+                                       atol=ATOL * float(whole.abs().max()))
+
+
+def test_whole_vocabulary_and_shared_kv_head_refuse_training():
+    """A kv head shared by ranks and a whole vocabulary serve but do not
+    train on the axis (item 6.1f), also in a dense stack; counts 6.1d
+    still lists raise."""
+    dense = get_smoke("qwen2-0.5b")
+    for cfg in (dataclasses.replace(dense, num_kv_heads=1),
+                dataclasses.replace(dense, vocab_size=511)):
+        TP.check_tensor_parallel(cfg, MP)
+        with pytest.raises(NotImplementedError, match="item 6.1f"):
+            TP.check_tensor_parallel(cfg, MP, training=True)
+    # 3 kv heads over 2 ranks, an RG-LRU width and RWKV heads the axis
+    # does not divide
+    for cfg, what in (
+            (dataclasses.replace(dense, num_heads=6, num_kv_heads=3),
+             "6 query and 3 kv heads"),
+            (dataclasses.replace(get_smoke("recurrentgemma-2b"),
+                                 rnn_width=127), "rnn_width 127"),
+            (dataclasses.replace(get_smoke("rwkv6-1.6b"), d_model=192),
+             "the RWKV heads 3")):
+        with pytest.raises(NotImplementedError, match="item 6.1d") as err:
+            TP.local_config(cfg, MP)
+        assert what in str(err.value)

@@ -28,7 +28,17 @@ serves each family's SCENARIOS instead and writes DIR/rank<R>.json as
 DROP_PROMPTS in which the MoE layers drop slots at capacity, each MoE
 call's dropped slots counted (`models.moe._experts`' pos >= cap) and
 its first decode step's logits (rank 0: DIR/drops.<family>.pt, and the
-scenarios' logits DIR/logits.<family>.pt).
+scenarios' logits DIR/logits.<family>.pt). The recurrent families
+(RECURRENT: rwkv6's and recurrentgemma's smoke configs, one kv head over
+the axis for the latter) serve the same way, without "drops".
+
+With `--wave` (a comma-separated list of WAVE: whisper-small's smoke
+config, a variant of it whose vocabulary the axis does not divide, and
+phi-3-vision's) every rank serves each family's raw-loop batch
+(`launch.serve.raw_prompt`) through `dist.serving.make_prefill_step`
+and `make_decode_step` and writes DIR/rank<R>.json as {family:
+{"tokens", "sent", "sent_reckoned"}}; rank 0 saves the first decode
+step's logits of an f32 cache to DIR/wave.<family>.pt.
 """
 import argparse
 import dataclasses
@@ -51,6 +61,7 @@ from repro_torch.dist.tensor_parallel import (model_axis,  # noqa: E402
                                               serving_params)
 from repro_torch.launch.mesh import (init_distributed,  # noqa: E402
                                      make_serving_mesh)
+from repro_torch.launch.serve import raw_prompt  # noqa: E402
 from repro_torch.launch.serve_mesh import expected_sends  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -122,6 +133,32 @@ FAMILIES = {
                                     qk_nope_head_dim=16, qk_rope_head_dim=8,
                                     v_head_dim=16)),
 }
+# the recurrent families the checks serve with --arch, in f32: rwkv6's
+# smoke config (2 heads of 64, 1 a rank) and recurrentgemma's (RG-LRU
+# channels over the axis, its MQA layer's one kv head on every rank)
+RECURRENT = {
+    "rwkv6": dataclasses.replace(get_smoke("rwkv6-1.6b"),
+                                 compute_dtype="float32"),
+    "recurrentgemma": dataclasses.replace(get_smoke("recurrentgemma-2b"),
+                                          compute_dtype="float32"),
+}
+# the wave path's families, in f32: whisper-small's smoke config, the same
+# with a vocabulary of 515 (odd: the axis keeps the table and the head
+# whole) and phi-3-vision's with its 8 patches
+_WHISPER = dataclasses.replace(get_smoke("whisper-small"),
+                               compute_dtype="float32")
+WAVE = {
+    "whisper": _WHISPER,
+    "whisper515": dataclasses.replace(_WHISPER, name="whisper-odd-vocab",
+                                      vocab_size=515),
+    "phi3": dataclasses.replace(get_smoke("phi-3-vision-4.2b"),
+                                compute_dtype="float32"),
+}
+# each wave family's raw-loop run: requests, prompt length, new tokens
+# (3 requests do not divide over a data axis of 2: every line serves
+# the whole batch, as the reference replicates it)
+WAVE_RUNS = {"whisper": (4, 8, 6), "whisper515": (3, 8, 6),
+             "phi3": (4, 8, 6)}
 # the dense MLA stack's scenarios: (workload, engine keywords); the MoE
 # families serve its arena one (an MoE model serves from the serialized
 # arena whatever it asks for)
@@ -139,7 +176,13 @@ _DENSE_MLA = {
 }
 SCENARIOS_OF = {"dbrx": {"arena": _DENSE_MLA["arena"]},
                 "deepseek": {"arena": _DENSE_MLA["arena"]},
-                "mla": _DENSE_MLA}
+                "mla": _DENSE_MLA,
+                # exact prompt lengths on the arena (the recurrent
+                # families' FamilyCaps), recurrentgemma's past its window
+                "rwkv6": {"arena": ("recurrent", dict(max_len=64))},
+                "recurrentgemma": {"arena": ("recurrent",
+                                             dict(max_len=64))}}
+ARCHS = {**FAMILIES, **RECURRENT}
 # the drops prefill: two prompts of 40 tokens, whose MoE layers drop
 # slots at capacity (20 a bucket for S = 40 at top-2 of 4, factor 1.25)
 DROP_PROMPTS = 40
@@ -154,9 +197,14 @@ def family_workloads(vocab):
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, vocab, (n,)) for n in (6, 9, 9, 6)]
     drops = [rng.integers(0, vocab, (DROP_PROMPTS,)) for _ in range(2)]
+    rng = np.random.default_rng(6)
+    recurrent = [rng.integers(0, vocab, (n,)) for n in (40, 9, 37, 6)]
     return {"family": (prompts, [5, 8, 4, 6]),
             "family_scarce": (prompts, [12] * len(prompts)),
-            "drops": (drops, [1, 1])}
+            "drops": (drops, [1, 1]),
+            # prompts past recurrentgemma's 32-token window, at their
+            # exact lengths
+            "recurrent": (recurrent, [6, 8, 5, 7])}
 
 
 class DropCount:
@@ -261,7 +309,7 @@ def serve_families(names, params_dir, mesh, out_dir, rank):
     comm = Collectives(mesh, torch.device("cpu"))
     out = {}
     for name in names:
-        cfg = FAMILIES[name]
+        cfg = ARCHS[name]
         with np.load(os.path.join(params_dir, f"{name}.npz")) as f:
             params = {k: torch.from_numpy(f[k]) for k in f.files}
         loads = family_workloads(cfg.vocab_size)
@@ -272,18 +320,109 @@ def serve_families(names, params_dir, mesh, out_dir, rank):
             eng, outputs = serve(model, params, prompts, budgets, mesh=mesh,
                                  **kw)
             got[scenario] = record(eng, outputs, cfg, mesh)
-        logits = first_decode_logits(model, params, loads["family"][0][:2],
-                                     32, mesh=mesh, comm=comm)
-        with DropCount() as drops:
-            drop_logits = first_decode_logits(model, params,
-                                              loads["drops"][0], 64,
-                                              mesh=mesh, comm=comm)
-        got["drops"] = drops.calls
-        out[name] = got
+        logits = first_decode_logits(model, params, *logit_prompts(name),
+                                     mesh=mesh, comm=comm)
         if rank == 0:
             torch.save(logits, os.path.join(out_dir, f"logits.{name}.pt"))
-            torch.save(drop_logits, os.path.join(out_dir,
-                                                 f"drops.{name}.pt"))
+        if name in FAMILIES:
+            with DropCount() as drops:
+                drop_logits = first_decode_logits(model, params,
+                                                  loads["drops"][0], 64,
+                                                  mesh=mesh, comm=comm)
+            got["drops"] = drops.calls
+            if rank == 0:
+                torch.save(drop_logits, os.path.join(out_dir,
+                                                     f"drops.{name}.pt"))
+        out[name] = got
+    return out
+
+
+def logit_prompts(name):
+    """(prompts, capacity) of a family's first-decode logits: the first two
+    of its scenarios' workload."""
+    load, kw = next(iter(SCENARIOS_OF[name].values()))
+    prompts = family_workloads(ARCHS[name].vocab_size)[load][0][:2]
+    return prompts, bucket_length(kw["max_len"])
+
+
+def wave_serve(model, params, batch, prefix, new_tokens, mesh=None,
+               comm=None, cache_dtype=torch.bfloat16):
+    """`launch.serve.serve_raw`'s loop on `batch` through the wave steps
+    (`dist.serving.make_prefill_step` / `make_decode_step`) on `mesh`, or
+    through `model` itself: a prefill with a cache of prompt + `prefix` +
+    `new_tokens` rows, then `new_tokens` greedy steps. Returns (the
+    tokens [B, new_tokens + 1], a function of no arguments that gives the
+    last step's logits of every row and the whole vocabulary: on a mesh
+    it gathers them, a check's view that the steps do not send)."""
+    b, p = batch["tokens"].shape
+    total = p + prefix + new_tokens
+    if mesh is None:
+        logits, caches = model.prefill(params, batch, cache_len=total,
+                                       cache_dtype=cache_dtype)
+        ids = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        tokens = [ids]
+        for i in range(new_tokens):
+            logits, caches = model.decode_step(params, ids[:, None], caches,
+                                               p + prefix + i)
+            ids = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            tokens.append(ids)
+        return torch.stack(tokens, 1), lambda: logits
+    prefill, rows = serving.make_prefill_step(model, mesh, comm, b)
+    decode, _ = serving.make_decode_step(model, mesh, comm, b)
+    ids, logits, caches = prefill(params, batch, cache_len=total,
+                                  cache_dtype=cache_dtype)
+    tokens = [ids]
+    for i in range(new_tokens):
+        ids, logits, caches = decode(params, ids[:, None], caches,
+                                     p + prefix + i)
+        tokens.append(ids)
+
+    def whole():
+        got = logits
+        if got.shape[-1] != model.cfg.vocab_size:
+            got = model_axis(mesh, comm).gather_vocab(got)
+        return rows.gather(got)
+
+    return torch.stack(tokens, 1), whole
+
+
+def wave_batch(name):
+    """A wave family's raw-loop batch on the CPU (`launch.serve.
+    raw_prompt`) and its prefix length."""
+    cfg = WAVE[name]
+    b, p, _ = WAVE_RUNS[name]
+    return raw_prompt(cfg, b, p, torch.device("cpu"))
+
+
+def wave_families(names, params_dir, mesh, out_dir, rank):
+    """Every wave family of `names` served on `mesh` (the module's
+    docstring): {family: {"tokens", "sent", "sent_reckoned"}}."""
+    comm = Collectives(mesh, torch.device("cpu"))
+    out = {}
+    for name in names:
+        cfg = WAVE[name]
+        with np.load(os.path.join(params_dir, f"{name}.npz")) as f:
+            params = {k: torch.from_numpy(f[k]) for k in f.files}
+        model = build_model(cfg)
+        params = serving_params(cfg, params, mesh)
+        batch, prefix = wave_batch(name)
+        b, p, new = WAVE_RUNS[name]
+        comm.reset()
+        tokens, _ = wave_serve(model, params, batch, prefix, new, mesh, comm)
+        sent = dict(comm.sent)
+        steps = serving.serve_step_sends(cfg, mesh, b, p)[mesh.rank]
+        want = {}
+        for step, n in (("wave_prefill", 1), ("wave_decode", new)):
+            for kind, nbytes in steps[step].items():
+                want[kind] = want.get(kind, 0) + n * nbytes
+        # the first decode step's logits of an f32 cache
+        _, logits = wave_serve(model, params, batch, prefix, 1, mesh, comm,
+                               cache_dtype=torch.float32)
+        logits = logits()
+        out[name] = {"tokens": tokens.tolist(), "sent": sent,
+                     "sent_reckoned": want}
+        if rank == 0:
+            torch.save(logits, os.path.join(out_dir, f"wave.{name}.pt"))
     return out
 
 
@@ -299,15 +438,21 @@ def main():
                          "family's <family>.npz)")
     ap.add_argument("--out", required=True)
     ap.add_argument("--arch", default=None,
-                    help="serve these FAMILIES (comma-separated) instead")
+                    help="serve these FAMILIES or RECURRENT families "
+                         "(comma-separated) instead")
+    ap.add_argument("--wave", default=None,
+                    help="serve these WAVE families (comma-separated) "
+                         "through the wave steps instead")
     args = ap.parse_args()
     device = torch.device("cpu")
     init_distributed(args.rank, args.world, args.coordinator, "gloo", device,
                      timeout_s=300)
     mesh = make_serving_mesh(args.model_parallel or args.world)
-    if args.arch:
-        out = serve_families(args.arch.split(","), args.params, mesh,
-                             args.out, args.rank)
+    if args.arch or args.wave:
+        out = (serve_families(args.arch.split(","), args.params, mesh,
+                              args.out, args.rank) if args.arch else
+               wave_families(args.wave.split(","), args.params, mesh,
+                             args.out, args.rank))
         with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
             json.dump(out, f)
         import torch.distributed as dist
